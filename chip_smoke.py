@@ -17,8 +17,10 @@ Phases (any failure exits non-zero before the result lines):
      kernels' launch counts reset just before and read just after; then the
      same requests on the plain versions (megakernel=False) for the share of
      greedy tokens that agree, one decode step's logits through the kernels
-     vs through the plain versions, and one decode chunk under
-     torch.profiler (device time by kernel, idle share);
+     vs through the plain versions, a rerun with every served logits
+     tensor checked finite, and two steady decode chunks: one timed
+     unprofiled, one under torch.profiler (device time by kernel; idle
+     share = 1 - device busy / unprofiled chunk wall);
   5. per-kernel device times (torch.profiler) beside the plain version, the
      PyTorch library call for the same function and the card's lower bound.
 
@@ -191,6 +193,31 @@ def phase_serving(torch, np, dev, seed, card):
     print(f"serving_mean_decode_chunk_ms={chunk_ms} (K=8, batch 8) "
           f"card={card}", flush=True)
 
+    # the same requests again with every logits tensor of the served path
+    # (prefill and each decode step) checked for non-finite values; off the
+    # timed run, since the check adds a reduction per call
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    module = ie.module
+    unchecked = module.logits
+
+    def checked_logits(hidden):
+        out = unchecked(hidden)
+        bad.logical_or_(~torch.isfinite(out).all())
+        return out
+
+    module.logits = checked_logits
+    try:
+        again = ServingEngine(engine=ie, megakernel=True, **kw).run(
+            [p.copy() for p in prompts], max_new_tokens=n_new)
+    finally:
+        del module.logits
+    if bool(bad):
+        fail("non-finite logits while serving through the kernels")
+    if [r.tokens for r in again] != [r.tokens for r in out]:
+        fail("a second megakernel run served different greedy tokens")
+    print("phase4 served logits all finite; rerun tokens identical",
+          flush=True)
+
     plain = ServingEngine(engine=ie, megakernel=False, **kw).run(
         [p.copy() for p in prompts], max_new_tokens=n_new)
     agree = sum(int(a == b) for r, s in zip(out, plain)
@@ -232,32 +259,36 @@ def phase_serving(torch, np, dev, seed, card):
 
 
 def phase_profile(torch, ie, prompts, kw, card):
-    """One steady decode chunk (8 live lanes, K=8 steps) under
-    torch.profiler: device kernel time by name and the device's idle share
-    of the chunk's wall time (profiler on, so wall time is inflated)."""
+    """Two steady decode chunks (8 live lanes, K=8 steps each): the first
+    timed without the profiler, the second under torch.profiler for device
+    kernel time by name. The device's idle share is one minus the profiled
+    chunk's device busy time over the unprofiled chunk's wall time (the
+    profiler inflates the wall time of the chunk it records)."""
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch import ServingEngine
     eng = ServingEngine(engine=ie, megakernel=True, **kw)
     for p in prompts:
-        eng.submit(p.copy(), max_new_tokens=1 + 2 * kw["decode_chunk"])
+        eng.submit(p.copy(), max_new_tokens=1 + 3 * kw["decode_chunk"])
     eng.step()                       # admission, prefill, first chunk
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()                       # one pure decode chunk, unprofiled
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()                   # one pure decode chunk
+        eng.step()                   # the next one, profiled
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(_device_us(e) / 1e3, e.count, e.key)
             for e in prof.key_averages() if _device_us(e) > 0]
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
-        print("phase6 profile: no device time recorded (not measured)",
-              flush=True)
-        return
-    print(f"phase6 profile decode chunk wall_ms={wall_ms} "
-          f"device_busy_ms={busy_ms} idle_share={1 - busy_ms / wall_ms} "
-          f"card={card}", flush=True)
+        fail("the profiler recorded no device time for a decode chunk")
+    print(f"phase6 profile decode chunk wall_ms={wall_ms} (unprofiled) "
+          f"profiled_wall_ms={profiled_wall_ms} device_busy_ms={busy_ms} "
+          f"idle_share={1 - busy_ms / wall_ms} card={card}", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         print(f"phase6 kernel ms={ms} count={count} {key[:90]}", flush=True)
 

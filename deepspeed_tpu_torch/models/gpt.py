@@ -14,8 +14,10 @@ Counterpart of ``deepspeed_tpu/models/gpt.py`` for serving. The flax
 
 Decode attention routes through ``ops/cuda/decode_attention.py`` when
 ``decode_impl == "auto"`` (the CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor) and through the masked einsum otherwise, as the TPU
-model's ``decode_impl`` does. The large projections stay ``F.linear``.
+version on a CPU tensor) and through the masked einsum otherwise. Unlike the
+TPU model, "auto" never gives way to the einsum: on the card a shape the
+kernel does not take (head dim, cache dtype, query width) raises. The large
+projections stay ``F.linear``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda.decode_attention import (decode_attention, decode_supported,
+from ..ops.cuda.decode_attention import (decode_attention,
                                          masked_cache_attention)
 
 
@@ -221,7 +223,7 @@ class SelfAttention(nn.Module):
     def _decode_attention(self, q, ck, cv, cur, impl):
         b, s, h, d = q.shape
         S = ck.shape[1]
-        if impl == "auto" and decode_supported(s, d, ck.dtype):
+        if impl == "auto":      # the kernel, which raises on a shape it lacks
             return decode_attention(q.contiguous(), ck, cv, cur + s,
                                     scale=self.scale)
         return masked_cache_attention(q, ck.view(b, S, h, d),

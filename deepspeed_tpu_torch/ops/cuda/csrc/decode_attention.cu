@@ -288,6 +288,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       decode_attention_kernel<T, 64><<<grid, block, 0, stream>>>(
           qt, kt, vt, cache_len, ot, s_q, h, S, scale);
       break;
+    case 96:
+      decode_attention_kernel<T, 96><<<grid, block, 0, stream>>>(
+          qt, kt, vt, cache_len, ot, s_q, h, S, scale);
+      break;
     case 128:
       decode_attention_kernel<T, 128><<<grid, block, 0, stream>>>(
           qt, kt, vt, cache_len, ot, s_q, h, S, scale);

@@ -25,14 +25,13 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 
 # Widest query width (speculative k+1 verify) the kernel takes.
 MAX_SPEC_S = 8
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_supported(s: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the kernel takes this query width, head dim and cache dtype.
-    The model routes other shapes to :func:`masked_cache_attention`, as the
-    TPU model routes shapes its kernel does not take to the einsum."""
+    :func:`decode_attention` raises on a CUDA tensor of any other shape."""
     return 1 <= s <= MAX_SPEC_S and d in _KERNEL_HEAD_DIMS \
         and dtype in _KERNEL_DTYPES
 

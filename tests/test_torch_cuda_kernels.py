@@ -30,7 +30,7 @@ ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s_q", [1, 3, 8])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_decode_attention_kernel_matches_plain(dev, dtype, s_q, d):
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
@@ -50,10 +50,14 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, s_q, d):
                                atol=ATOL[dtype])
 
 
-def test_sampling_kernel_matches_plain(dev):
+# 50304 (GPT-2) stages the row in shared memory; 131072 is past the staging
+# budget and reads the row from device memory on every pass
+@pytest.mark.parametrize("V", [50304, 131072])
+def test_sampling_kernel_matches_plain(dev, V):
     from deepspeed_tpu_torch.ops.cuda import sampling as sp
     g = torch.Generator(device=dev).manual_seed(0)
-    b, V = 6, 50304
+    b = 6
+    assert sp.sampling_supported(b, V)
     x = torch.randn(b, V, device=dev, generator=g) * 4
     x[0, 11] = x[0, 13] = x[0].max() + 1          # tie at the top
     gum = -torch.log(-torch.log(torch.rand(b, V, device=dev, generator=g)
@@ -90,3 +94,17 @@ def test_megakernel_engine_launches_both_kernels(dev):
     assert _build.LAUNCHES["decode_attention"] > 0
     assert _build.LAUNCHES["sampling"] > 0
     assert all(r.status == "done" and len(r.tokens) == 8 for r in mega)
+
+
+def test_megakernel_raises_on_a_head_dim_the_kernel_lacks(dev):
+    """megakernel=True on the card never serves through the plain einsum."""
+    from deepspeed_tpu_torch import ServingEngine
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(vocab_size=512, max_seq_len=64, num_layers=1,
+                    num_heads=2, d_model=96, d_ff=192)        # d = 48
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    eng = ServingEngine(model, max_batch=2, decode_chunk=2,
+                        max_prompt_len=16, megakernel=True)
+    with pytest.raises(ValueError, match="decode kernel takes"):
+        eng.run([np.arange(1, 6, dtype=np.int32)], max_new_tokens=4)

@@ -93,6 +93,27 @@ def test_kernel_shape_gate():
     assert not pda.decode_supported(9, 64, torch.bfloat16)
     assert not pda.decode_supported(1, 48, torch.bfloat16)
     assert not pda.decode_supported(1, 64, torch.float16)
+    assert pda.decode_supported(1, 96, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,dtype,s", [(48, torch.bfloat16, 1),
+                                       (64, torch.float16, 1),
+                                       (64, torch.bfloat16, 9)])
+def test_model_auto_raises_on_unsupported_non_cpu_shape(d, dtype, s):
+    """decode_impl="auto" never gives way to the einsum off the CPU: a shape
+    the kernel does not take raises. Meta tensors take the wrapper's card
+    path without a card; the shape check comes before any build."""
+    from deepspeed_tpu_torch.models.gpt import GPTConfig, SelfAttention
+    cfg = GPTConfig(vocab_size=64, max_seq_len=16, num_layers=1,
+                    num_heads=2, d_model=2 * d, d_ff=4 * d)
+    attn = SelfAttention(cfg, device="meta")
+    q = torch.empty(2, s, 2, d, dtype=dtype, device="meta")
+    cache = torch.empty(2, 16, 2 * d, dtype=dtype, device="meta")
+    cur = torch.zeros(2, dtype=torch.int64, device="meta")
+    before = _build.LAUNCHES["decode_attention"]
+    with pytest.raises(ValueError, match="decode kernel takes"):
+        attn._decode_attention(q, cache, cache, cur, "auto")
+    assert _build.LAUNCHES["decode_attention"] == before
 
 
 def test_int8_cache_scales_raise():
