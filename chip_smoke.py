@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero before the result lines):
-  1. the card's name and power limit; build both CUDA kernels from csrc/;
+  1. the card's name and power limit; build the CUDA kernels from csrc/;
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
      retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2;
@@ -17,12 +17,35 @@ Phases (any failure exits non-zero before the result lines):
      kernels' launch counts reset just before and read just after; then the
      same requests on the plain versions (megakernel=False) for the share of
      greedy tokens that agree, one decode step's logits through the kernels
-     vs through the plain versions, a rerun with every served logits
-     tensor checked finite, and two steady decode chunks: one timed
-     unprofiled, one under torch.profiler (device time by kernel; idle
-     share = 1 - device busy / unprofiled chunk wall);
+     vs through the plain versions, and a rerun with every served logits
+     tensor checked finite;
+  6. two steady decode chunks: one timed unprofiled, one under
+     torch.profiler (device time by kernel; idle share = 1 - device busy /
+     unprofiled chunk wall);
   5. per-kernel device times (torch.profiler) beside the plain version, the
-     PyTorch library call for the same function and the card's lower bound.
+     PyTorch library call for the same function and the card's lower bound;
+  7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
+     the training shape (B=8, S=1024, H=12, D=64, bf16, causal) and at a
+     non-causal shape whose S (1000) is not a multiple of the 64-row tile:
+     out, lse, and dq/dk/dv from one random dO;
+  8. the training path: initialize() + DeepSpeedEngine.train_batch on
+     GPT-2 125M at full width and depth (12 layers, d_model 768, 12 x 64
+     heads, vocab 50304, seq 1024, bf16 over fp32 masters, remat with the
+     default policy, random weights from --seed) with bench.py's
+     gpt2_125m_zero1 config (micro 8 x gas 16, AdamW lr 1e-4, ZeRO-1):
+     2 warm-up + 3 timed steps on one repeated batch, counts reset just
+     before and read just after; fails on a non-finite or non-falling loss,
+     a non-finite grad norm, or flash launch counts other than 12 layers x
+     16 micro-batches per step (x2 for the forward: remat recomputes it);
+  9. one micro-batch of the trained model forward+backward through the
+     kernels (attention_impl="auto") vs the masked einsum ("xla"): loss and
+     global grad norm;
+ 10. one training micro-step after a warm-up one, unprofiled (host issue
+     time and wall), then under torch.profiler (device time by kernel,
+     kernel count; idle share = 1 - device busy / unprofiled wall);
+ 11. the flash kernels' device times at the training shape beside their
+     plain versions, scaled_dot_product_attention forward / its autograd
+     backward (a yardstick, never called by the port) and their bounds.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -46,6 +69,21 @@ DECODE_ATOL = 2e-2       # bf16 cache: probabilities rounded differently
 TOP_P_MASS_TOL = 1e-5    # top-p: f32 mass sums in another order
 LOGITS_ATOL = 5e-2       # bf16 model, 12 layers of differently rounded
 #                          attention outputs
+FLASH_TOL = (2e-2, 2e-2)  # (atol, rtol) of bf16 out/dq/dk/dv: both round
+#                          their f32 result to bf16 (2^-8 relative), and the
+#                          kernels round p and ds to bf16 for the tensor cores
+LSE_ATOL = 1e-3          # f32 lse: summation order over <= 1024 keys
+LOSS_ATOL = 2e-2         # model check: the einsum rounds attention
+GRAD_NORM_RTOL = 5e-2    # probabilities to bf16, the kernels keep f32
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# bench.py's gpt2_125m_zero1 configuration (bench.py:156-160)
+TRAIN_MICRO, TRAIN_GAS, TRAIN_SEQ = 8, 16, 1024
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
+                "gradient_accumulation_steps": TRAIN_GAS,
+                "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 1},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                "steps_per_print": 100_000}
 
 
 def fail(msg: str) -> None:
@@ -352,6 +390,209 @@ def phase_timing(torch, da, sp, dev, gen, decode_inputs, logits, card):
          >= B * V / F32_FLOPS else "operations")
 
 
+def _close(got, ref, atol, rtol) -> float:
+    """max |got - ref| after checking |got - ref| <= atol + rtol |ref|."""
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        fail("non-finite kernel output")
+    diff = (got - ref).abs()
+    if not bool((diff <= atol + rtol * ref.abs()).all()):
+        fail(f"kernel disagrees with its plain version: max abs err "
+             f"{diff.max().item()}")
+    return diff.max().item()
+
+
+def _qkv(torch, dev, gen, B, S, H, D):
+    """bf16 q, k, v as views of one fused [B, S, 3*H*D] projection output
+    (the model's layout) and a random dO."""
+    qkv = torch.randn(B, S, 3 * H * D, device=dev, generator=gen).bfloat16()
+    q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, -1))
+    do = torch.randn(B, S, H, D, device=dev, generator=gen).bfloat16()
+    return q, k, v, do
+
+
+def phase_flash_parity(torch, fa, dev, gen):
+    errs, train_inputs = {}, None
+    for tag, (B, S, H, D, causal) in (("train", (8, 1024, 12, 64, True)),
+                                      ("tail", (2, 1000, 12, 64, False))):
+        q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+        scale = D ** -0.5
+        out, lse = fa.flash_attention_forward(q, k, v, causal, scale)
+        ro, rl = fa.flash_attention_forward_reference(q, k, v, causal, scale)
+        grads = fa.flash_attention_backward(q, k, v, ro, rl, do, causal,
+                                            scale)
+        refs = fa.flash_attention_backward_reference(q, k, v, ro, rl, do,
+                                                     causal, scale)
+        torch.cuda.synchronize()
+        e = {"flash_fwd": _close(out, ro, *FLASH_TOL),
+             "lse": _close(lse, rl, LSE_ATOL, 0.0),
+             "flash_bwd_dq": _close(grads[0], refs[0], *FLASH_TOL),
+             "flash_bwd_dkv": max(_close(grads[1], refs[1], *FLASH_TOL),
+                                  _close(grads[2], refs[2], *FLASH_TOL))}
+        print(f"phase7 flash {tag} B={B} S={S} H={H} D={D} causal={causal} "
+              f"bf16 max_abs_err out={e['flash_fwd']} lse={e['lse']} "
+              f"dq={e['flash_bwd_dq']} dk_dv={e['flash_bwd_dkv']} (tol "
+              f"atol {FLASH_TOL[0]} + rtol {FLASH_TOL[1]}, lse {LSE_ATOL})",
+              flush=True)
+        if tag == "train":
+            errs, train_inputs = e, (q, k, v, do, ro, rl)
+    return errs, train_inputs
+
+
+def phase_training(torch, np, dev, seed, card):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import (GPT, gpt2_125m,
+                                                gpt_flops_per_token,
+                                                lm_loss_fn)
+    from deepspeed_tpu_torch.ops.cuda import _build
+    cfg = gpt2_125m(max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=TRAIN_CONFIG)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)
+    losses, norms, secs = [], [], []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for _ in range(5):                 # 2 warm-up + 3 timed steps
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([{"input_ids": ids}] * TRAIN_GAS))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+    launches = {name: _build.LAUNCHES[name] for name in FLASH}
+    print(f"phase8 training gpt2_125m losses={losses} grad_norms={norms} "
+          f"step_s={secs} launches={launches}", flush=True)
+    if not all(np.isfinite(losses + norms)):
+        fail("non-finite loss or grad norm while training")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall over 5 steps: {losses}")
+    per_step = cfg.num_layers * TRAIN_GAS
+    want = {"flash_fwd": 5 * 2 * per_step, "flash_bwd_dq": 5 * per_step,
+            "flash_bwd_dkv": 5 * per_step}
+    if launches != want:
+        fail(f"flash launch counts {launches}, expected {want}")
+    step_s = sum(secs[2:]) / 3
+    tok_s = TRAIN_MICRO * TRAIN_SEQ * TRAIN_GAS / step_s
+    mfu = gpt_flops_per_token(cfg, TRAIN_SEQ) * tok_s / BF16_FLOPS
+    print(f"train_step_s={step_s} card={card}", flush=True)
+    print(f"train_tokens_per_s={tok_s} card={card}", flush=True)
+    print(f"train_mfu={mfu} (vs 989 TFLOP/s bf16) card={card}", flush=True)
+    return engine, cfg, torch.from_numpy(ids).long().to(dev), launches
+
+
+def phase_model_check(torch, dev, engine, cfg, ids):
+    """One micro-batch of the trained weights through the kernels and
+    through the masked einsum, both bf16."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.gpt import GPT, lm_loss_fn
+    result = {}
+    for impl in ("auto", "xla"):
+        m = GPT(dataclasses.replace(cfg, attention_impl=impl),
+                device=dev).to(torch.bfloat16)
+        m.load_state_dict(engine.module.state_dict())
+        loss = lm_loss_fn(m(ids), {"input_ids": ids})
+        loss.backward()
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.float().norm() for p in m.parameters()]))
+        result[impl] = (loss.item(), norm.item())
+        del m
+    (lk, nk), (lx, nx) = result["auto"], result["xla"]
+    print(f"phase9 model check loss kernels={lk} einsum={lx} (atol "
+          f"{LOSS_ATOL}); grad norm kernels={nk} einsum={nx} (rtol "
+          f"{GRAD_NORM_RTOL})", flush=True)
+    if not (abs(lk - lx) <= LOSS_ATOL and abs(nk - nx) <= GRAD_NORM_RTOL * nx):
+        fail("the model through the kernels disagrees with the einsum path")
+
+
+def phase_train_profile(torch, engine, ids, card):
+    """One micro-step (forward + backward of one micro-batch) after a
+    warm-up one, timed without the profiler (host issue time: until the
+    calls return; wall: until the device is done), then one under it; idle
+    share against the unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = {"input_ids": ids}
+    engine.backward(engine(batch))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.backward(engine(batch))
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.backward(engine(batch))
+        torch.cuda.synchronize()
+    rows = [(_device_us(e) / 1e3, e.count, e.key)
+            for e in prof.key_averages() if _device_us(e) > 0]
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        fail("the profiler recorded no device time for a training micro-step")
+    print(f"phase10 profile train micro-step wall_ms={wall_ms} (unprofiled) "
+          f"host_issue_ms={issue_ms} device_busy_ms={busy_ms} "
+          f"idle_share={1 - busy_ms / wall_ms} "
+          f"device_kernels={sum(r[1] for r in rows)} card={card}", flush=True)
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"phase10 kernel ms={ms} count={count} {key[:90]}", flush=True)
+
+
+def phase_flash_timing(torch, fa, inputs, card):
+    import torch.nn.functional as F
+    q, k, v, do, out, lse = inputs
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2).contiguous()
+
+    def backward(i):
+        fa.flash_attention_backward(q, k, v, out, lse, do, True, scale)
+
+    def plain_backward(i):
+        fa.flash_attention_backward_reference(q, k, v, out, lse, do, True,
+                                              scale)
+
+    def sdpa_backward(i):
+        torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t, retain_graph=True)
+
+    plain_bwd = device_ms(plain_backward, iters=10)
+    sdpa_bwd = device_ms(sdpa_backward)
+    t = {
+        "flash_fwd": {
+            "ms": device_ms(lambda i: fa.flash_attention_forward(
+                q, k, v, True, scale), kernel="flash_fwd"),
+            "plain_ms": device_ms(lambda i: fa.flash_attention_forward_reference(
+                q, k, v, True, scale), iters=10),
+            "library_ms": device_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))},
+        # the plain and library backward compute dq, dk and dv together:
+        # their times stand beside both kernels
+        "flash_bwd_dq": {"ms": device_ms(backward, kernel="flash_bwd_dq"),
+                         "plain_ms": plain_bwd, "library_ms": sdpa_bwd},
+        "flash_bwd_dkv": {"ms": device_ms(backward, kernel="flash_bwd_dkv"),
+                          "plain_ms": plain_bwd, "library_ms": sdpa_bwd},
+    }
+    # bytes: each input read once, each output written once; operations: 2
+    # per multiply-add over the causal (q, k) pairs, at the bf16 peak
+    item = q.element_size()
+    n = B * S * H * D * item                 # one [B, S, H, D] tensor
+    stat = B * H * S * 4                     # one f32 [B, H, S] vector
+    pairs = B * H * S * (S + 1) // 2
+    work = {"flash_fwd": (4 * n + stat, 4 * D * pairs),
+            "flash_bwd_dq": (5 * n + 2 * stat, 6 * D * pairs),
+            "flash_bwd_dkv": (6 * n + 2 * stat, 8 * D * pairs)}
+    for name, (nbytes, flops) in work.items():
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        t[name]["bound_ms"] = 1e3 * max(tb, tf)
+        t[name]["bound_by"] = "bytes" if tb >= tf else "operations"
+        for key, val in t[name].items():
+            print(f"{name}_{key}={val} card={card}", flush=True)
+    return t
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -364,6 +605,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import sampling as sp
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -379,9 +621,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
     logits, sp_err = phase_sampling(torch, sp, dev, gen)
+    flash_err, flash_inputs = phase_flash_parity(torch, fa, dev, gen)
     launches = phase_serving(torch, np, dev, args.seed, card)
     (da_t, da_bound, da_by), (sp_t, sp_bound, sp_by) = phase_timing(
         torch, da, sp, dev, gen, decode_inputs, logits, card)
+    engine, cfg, ids, launches_train = phase_training(torch, np, dev,
+                                                      args.seed, card)
+    phase_model_check(torch, dev, engine, cfg, ids)
+    phase_train_profile(torch, engine, ids, card)
+    del engine
+    flash_t = phase_flash_timing(torch, fa, flash_inputs, card)
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",
@@ -394,6 +643,17 @@ def main(argv=None) -> int:
          "replaces": "deepspeed_tpu/ops/pallas/sampling.py:132",
          "launches": launches["sampling"], "max_abs_err": sp_err,
          **sp_t, "bound_ms": sp_bound, "bound_by": sp_by},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+         "replaces": replaces, "launches": launches_train[name],
+         "max_abs_err": flash_err[name], **flash_t[name]}
+        for name, replaces in (
+            ("flash_fwd", "deepspeed_tpu/ops/pallas/flash_attention.py:52"),
+            ("flash_bwd_dq",
+             "deepspeed_tpu/ops/pallas/flash_attention.py:140"),
+            ("flash_bwd_dkv",
+             "deepspeed_tpu/ops/pallas/flash_attention.py:175"))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -7,10 +7,42 @@ kernel wrappers run their plain PyTorch versions.
 
 from .inference.engine import InferenceEngine
 from .models.gpt import GPT, GPTConfig
+from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from .serving.engine import ServingEngine
 
 __all__ = ["InferenceEngine", "ServingEngine", "GPT", "GPTConfig",
+           "DeepSpeedConfig", "DeepSpeedConfigError", "initialize",
            "init_inference"]
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, loss_fn=None, device="cuda"):
+    """Build the training engine (reference ``deepspeed.initialize``).
+    Returns ``(engine, optimizer, dataloader, lr_scheduler)``.
+
+    ``model`` is a ``torch.nn.Module`` whose parameters become the fp32
+    masters; ``model_parameters`` is None, ``model.parameters()`` or a
+    ``state_dict`` to load into it. ``device`` defaults to the card; a CUDA
+    device without CUDA raises. ``mpu`` (model parallelism) and
+    ``dist_init_required=True`` (more than one rank) are not ported yet."""
+    from .runtime.engine import DeepSpeedEngine, _not_ported
+    if mpu is not None:
+        raise _not_ported("mpu (model parallelism)", "A4.2")
+    if dist_init_required:
+        raise _not_ported("dist_init_required (dp > 1)", "A4.7")
+    config = config if config is not None else config_params
+    if args is not None and config is None:
+        config = getattr(args, "deepspeed_config", None)
+    engine = DeepSpeedEngine(model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler,
+                             collate_fn=collate_fn, config=config,
+                             loss_fn=loss_fn, device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
 
 
 def init_inference(model=None, **kwargs) -> InferenceEngine:

@@ -12,6 +12,12 @@ for ``deepspeed_tpu_torch.models.gpt.GPT`` with the same config:
     the port splits the same way;
   * LayerNorm ``scale`` becomes ``weight``; ``wte.embedding`` becomes
     ``wte.weight``; ``wpe`` stays; a tied head has no ``lm_head``.
+
+Any tree with the params' structure maps the same way: a JAX gradient tree
+(``jax.grad`` of the loss) or an Adam moment tree (``AdamState.mu`` /
+``.nu``) becomes a name -> tensor dict that lines up with the port model's
+``named_parameters()``; the training parity tests compare grads and moments
+through it.
 """
 
 from __future__ import annotations

@@ -1,12 +1,19 @@
 """GPT model family (GPT-2 / GPT-NeoX style) in PyTorch.
 
-Counterpart of ``deepspeed_tpu/models/gpt.py`` for serving. The flax
-``nn.scan`` over stacked ``[L, ...]`` block params becomes a layer loop over
-``blocks`` (``convert.py`` unstacks the TPU tree). Two forward modes:
+Counterpart of ``deepspeed_tpu/models/gpt.py``. The flax ``nn.scan`` over
+stacked ``[L, ...]`` block params becomes a layer loop over ``blocks``
+(``convert.py`` unstacks the TPU tree). Three forward modes:
 
-  * :meth:`GPT.prefill` -- cacheless causal forward over a prompt batch;
-    returns the final hidden states and every layer's K/V, which the serving
-    engine moves into its arena;
+  * :meth:`GPT.forward` -- the TPU ``GPT.__call__`` without a cache: the
+    training forward. Attention routes through ``cfg.attention_impl``
+    (:func:`causal_attention`): "auto"/"pallas" is the flash attention
+    autograd function of ``ops/cuda/flash_attention.py`` (the CUDA kernels
+    on a CUDA tensor, their plain versions on a CPU tensor), "xla" the
+    masked einsum. Under ``cfg.remat`` each block is checkpointed;
+  * :meth:`GPT.prefill` -- cacheless causal forward over a prompt batch on
+    the masked einsum (the TPU serving prefill's ``_cache_einsum``);
+    returns the final hidden states and every layer's K/V, which the
+    serving engine moves into its arena;
   * :meth:`GPT.decode` -- ``s`` new tokens per row against a per-slot KV
     arena ``[L, B, S, h*d]`` (stored flat, as the TPU kernel path stores it)
     with a per-row write cursor. A write at ``>= max_seq_len`` is dropped:
@@ -15,32 +22,50 @@ Counterpart of ``deepspeed_tpu/models/gpt.py`` for serving. The flax
 Decode attention routes through ``ops/cuda/decode_attention.py`` when
 ``decode_impl == "auto"`` (the CUDA kernel on a CUDA tensor, its plain
 version on a CPU tensor) and through the masked einsum otherwise. Unlike the
-TPU model, "auto" never gives way to the einsum: on the card a shape the
-kernel does not take (head dim, cache dtype, query width) raises. The large
-projections stay ``F.linear``.
+TPU model, "auto" never gives way to the einsum: on the card a shape a
+kernel does not take (head dim, dtype, query width) raises. The large
+projections, the loss and the LayerNorms stay torch ops.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..ops.cuda.decode_attention import (decode_attention,
                                          masked_cache_attention)
+from ..ops.cuda.flash_attention import flash_attention
+
+aten = torch.ops.aten
+
+# remat_policy -> the aten ops whose outputs a checkpointed block saves (the
+# rest is recomputed in the backward): the analogues of JAX's
+# dots_saveable and dots_with_no_batch_dims_saveable. F.linear reaches
+# mm/addmm, the batched einsums of the "xla" attention bmm.
+_REMAT_SAVE = {
+    "nothing": (),
+    "dots": (aten.mm.default, aten.addmm.default, aten.bmm.default,
+             aten.baddbmm.default),
+    "dots_no_batch": (aten.mm.default, aten.addmm.default),
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The TPU package's GPTConfig, field for field. Fields of features that
     later slices port (MoE, sparse attention, sequence parallelism, local
-    windows, the int8 cache, the tp overlap) must stay at their defaults;
-    the training-only knobs (dropout, scan, remat, activation partitioning,
-    cpu checkpointing) are accepted and have no effect on serving."""
+    windows, the int8 cache, the tp overlap, cpu checkpointing) must stay at
+    their defaults. ``remat``/``remat_policy`` checkpoint each block of the
+    training forward; ``dropout`` is unused, as in the TPU model; the scan
+    knobs and ``partition_activations`` (a tp sharding constraint) have no
+    effect on one device."""
     vocab_size: int = 50304
     max_seq_len: int = 1024
     num_layers: int = 12
@@ -61,7 +86,7 @@ class GPTConfig:
     remat_policy: str = "dots_no_batch"
     partition_activations: bool = False
     cpu_checkpointing: bool = False
-    attention_impl: str = "auto"     # auto | xla (both: the masked einsum)
+    attention_impl: str = "auto"     # auto | pallas (flash) | xla (einsum)
     sparse_attention: Any = None
     # "auto": the decode kernel wrapper (CUDA kernel on the card, its plain
     # version on the CPU); "einsum": the masked einsum (the TPU "xla" path)
@@ -85,16 +110,24 @@ class GPTConfig:
         if self.decode_impl not in ("auto", "einsum"):
             raise ValueError(f"unknown decode_impl {self.decode_impl!r}: "
                              f"use 'auto' or 'einsum'")
-        if self.attention_impl not in ("auto", "xla"):
+        if self.attention_impl == "sparse":
             raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r}: the flash and "
-                f"sparse attention kernels are not ported yet")
+                "attention_impl='sparse': the sparse attention kernels are "
+                "not ported yet (ROADMAP A4.5)")
+        if self.attention_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown attention_impl "
+                             f"{self.attention_impl!r}: use 'auto', 'pallas' "
+                             f"or 'xla'")
+        if self.remat_policy not in _REMAT_SAVE:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}: "
+                             f"use one of {sorted(_REMAT_SAVE)}")
         later = {"moe": self.moe, "sparse_attention":
                  self.sparse_attention is not None,
                  "sequence_parallel": self.sequence_parallel,
                  "attn_windows": self.attn_windows is not None,
                  "kv_cache_dtype='int8'": self.kv_cache_dtype != "auto",
-                 "tp_overlap": self.tp_overlap}
+                 "tp_overlap": self.tp_overlap,
+                 "cpu_checkpointing": self.cpu_checkpointing}
         on = [name for name, flag in later.items() if flag]
         if on:
             raise NotImplementedError(
@@ -181,6 +214,32 @@ def _kv_write(cache: torch.Tensor, kv: torch.Tensor,
                                        cache[rows, idx])
 
 
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     dtype, impl: str = "auto",
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q, k, v: [B, S, H, D]. Routes to the configured attention: "auto" or
+    "pallas" is the flash attention autograd function (the CUDA kernels on a
+    CUDA tensor, which raise on a shape they lack; their plain versions on a
+    CPU tensor), "xla" the TPU package's masked einsum (mask -1e10,
+    probabilities cast to ``dtype``). Unlike the TPU model, "auto" does not
+    turn into "xla" off the accelerator."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if impl in ("auto", "pallas"):
+        return flash_attention(q, k, v, causal=True, sm_scale=scale)
+    if impl == "sparse":
+        raise NotImplementedError("sparse attention is not ported yet "
+                                  "(ROADMAP A4.5)")
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = q.shape[1]
+    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(causal, logits, -1e10)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -192,11 +251,13 @@ class SelfAttention(nn.Module):
                       else 1.0 / math.sqrt(cfg.head_dim))
 
     def forward(self, x, positions, kv=None, cache_index=None,
-                decode_impl=None):
-        """x [b, s, D]. Without ``kv``: causal attention over x itself
-        (prefill). With ``kv = (ck, cv)`` [b, S, h*d] arena views: write this
-        step's k/v at ``cache_index`` [b] and attend over each row's filled
-        prefix. Returns (out [b, s, D], k, v [b, s, h*d])."""
+                decode_impl=None, attention_impl=None):
+        """x [b, s, D]. Without ``kv``: causal attention over x itself,
+        through :func:`causal_attention` with ``attention_impl`` (training)
+        or, when that is None, the masked einsum (prefill). With
+        ``kv = (ck, cv)`` [b, S, h*d] arena views: write this step's k/v at
+        ``cache_index`` [b] and attend over each row's filled prefix.
+        Returns (out [b, s, D], k, v [b, s, h*d])."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, d = cfg.num_heads, cfg.head_dim
@@ -206,6 +267,11 @@ class SelfAttention(nn.Module):
             rd = int(cfg.rotary_pct * d)
             q = rotary_embedding(q, positions, rd)
             k = rotary_embedding(k, positions, rd)
+        if kv is None and attention_impl is not None:
+            out = causal_attention(q, k, v, dtype=cfg.dtype,
+                                   impl=attention_impl, scale=self.scale)
+            return _linear(out.reshape(b, s, cfg.d_model), self.out_proj,
+                           cfg.dtype), k, v
         k, v = k.reshape(b, s, h * d), v.reshape(b, s, h * d)
         if kv is None:
             out = masked_cache_attention(q, k.view(b, s, h, d),
@@ -256,10 +322,10 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions, kv=None, cache_index=None,
-                decode_impl=None):
+                decode_impl=None, attention_impl=None):
         dt = self.cfg.dtype
         a, k, v = self.attn(_layer_norm(x, self.ln_1, dt), positions, kv,
-                            cache_index, decode_impl)
+                            cache_index, decode_impl, attention_impl)
         if self.cfg.parallel_residual:
             # NeoX: x + attn(ln1(x)) + ffn(ln2(x))
             out = x + a + self.mlp(_layer_norm(x, self.ln_2, dt))
@@ -335,8 +401,28 @@ class GPT(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        hidden, _, _ = self.prefill(input_ids, positions)
-        return self.logits(hidden)
+        """The TPU ``GPT.__call__`` without a cache: logits [B, S, V], with
+        attention through ``cfg.attention_impl``. Under ``cfg.remat`` (and
+        with grad enabled) each block runs under non-reentrant
+        ``torch.utils.checkpoint``, saving only what ``cfg.remat_policy``
+        names; the rest, flash attention included, is recomputed in the
+        backward."""
+        cfg = self.cfg
+        b, s = input_ids.shape
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device
+                                     )[None, :].expand(b, s)
+        x = self._embed(input_ids, positions)
+        run = functools.partial(_block_output, impl=cfg.attention_impl)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            if remat:
+                x = torch_checkpoint.checkpoint(
+                    run, blk, x, positions, use_reentrant=False,
+                    context_fn=_remat_context(cfg.remat_policy))
+            else:
+                x = run(blk, x, positions)
+        return self.logits(_layer_norm(x, self.ln_f, cfg.dtype))
 
     def decode(self, input_ids: torch.Tensor, positions: torch.Tensor,
                cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -352,3 +438,50 @@ class GPT(nn.Module):
             x, _, _ = blk(x, positions, (cache_k[layer], cache_v[layer]),
                           cache_index, decode_impl)
         return self.logits(_layer_norm(x, self.ln_f, self.cfg.dtype))
+
+
+def _block_output(blk: Block, x, positions, impl: str) -> torch.Tensor:
+    return blk(x, positions, attention_impl=impl)[0]
+
+
+def _remat_context(policy: str):
+    """``context_fn`` of ``torch.utils.checkpoint`` for a remat policy."""
+    saved = _REMAT_SAVE[policy]
+    if not saved:
+        return torch_checkpoint.noop_context_fn
+    return functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts, list(saved))
+
+
+def lm_loss_fn(logits: torch.Tensor,
+               batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross entropy. ``batch``: {input_ids, labels?,
+    loss_mask?}; labels default to the shifted input_ids. nll is the f32
+    logsumexp minus the gathered label logit (no [B, S, V] log-softmax), as
+    in the TPU package."""
+    labels = batch.get("labels")
+    if labels is None:
+        labels = batch["input_ids"][:, 1:]
+        logits = logits[:, :-1]
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll.float()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return nll.mean()
+    mask = mask[:, :nll.shape[1]].to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1)
+
+
+def count_params(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def gpt_flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None
+                        ) -> float:
+    """6N + attention flops per token (for MFU accounting): the training
+    step's forward and backward, as the TPU package counts them."""
+    s = seq_len or cfg.max_seq_len
+    n = (12 * cfg.d_model ** 2 + 2 * cfg.d_model * cfg.d_ff) \
+        * cfg.num_layers + 2 * cfg.vocab_size * cfg.d_model
+    return 6.0 * n + 12.0 * cfg.num_layers * cfg.d_model * s

@@ -23,7 +23,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build")
-SOURCES = ("decode_attention.cu", "sampling.cu")
+SOURCES = ("decode_attention.cu", "sampling.cu", "flash_attention.cu")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-lineinfo",
               "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -39,6 +39,14 @@ _SIGNATURES = {
                                  _int, _int, _float, _int, _vp],
     # logits, gumbel, out_logits, out_tokens, b, V, top_k, top_p, stream
     "dstorch_sampling": [_vp, _vp, _vp, _vp, _int, _int, _int, _float, _vp],
+    # q, k, v, out, lse, strides, B, S, H, d, causal, scale, dtype, stream
+    "dstorch_flash_fwd": [_vp] * 6 + [_int] * 5 + [_float, _int, _vp],
+    # q, k, v, dout, lse, delta, dq, strides, B, S, H, d, causal, scale,
+    # dtype, stream
+    "dstorch_flash_bwd_dq": [_vp] * 8 + [_int] * 5 + [_float, _int, _vp],
+    # q, k, v, dout, lse, delta, dk, dv, strides, B, S, H, d, causal, scale,
+    # dtype, stream
+    "dstorch_flash_bwd_dkv": [_vp] * 9 + [_int] * 5 + [_float, _int, _vp],
 }
 
 

@@ -62,8 +62,14 @@ def test_prefill_then_decode_matches_full_forward(decode_impl):
 def test_unported_features_raise():
     from deepspeed_tpu_torch.models.gpt import GPTConfig
     for kw in (dict(moe=True), dict(sequence_parallel=True),
-               dict(kv_cache_dtype="int8"), dict(attention_impl="pallas")):
+               dict(kv_cache_dtype="int8"), dict(attention_impl="sparse"),
+               dict(cpu_checkpointing=True)):
         with pytest.raises(NotImplementedError):
             GPTConfig(**kw)
     with pytest.raises(ValueError):
         GPTConfig(decode_impl="xla")
+    with pytest.raises(ValueError):
+        GPTConfig(attention_impl="flash")
+    with pytest.raises(ValueError):
+        GPTConfig(remat_policy="everything")
+    assert GPTConfig(attention_impl="pallas").attention_impl == "pallas"

@@ -108,3 +108,98 @@ def test_megakernel_raises_on_a_head_dim_the_kernel_lacks(dev):
                         max_prompt_len=16, megakernel=True)
     with pytest.raises(ValueError, match="decode kernel takes"):
         eng.run([np.arange(1, 6, dtype=np.int32)], max_new_tokens=4)
+
+
+# flash kernels vs plain versions: f32 differs only in summation order (the
+# f32 kernels use CUDA-core FMAs); the bf16 kernels round p and ds to bf16
+# for the tensor-core products and both sides round their outputs to bf16
+# (1 bf16 ulp is 2^-8 relative), so the bound is relative plus a floor
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _qkv_views(dev, B, S, H, d, dtype, seed):
+    """q, k, v as strided views of one fused [B, S, 3*H*d] tensor (the
+    model's qkv projection), and a random dO."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(B, S, 3 * H * d, device=dev, generator=g).to(dtype)
+    q, k, v = (t.view(B, S, H, d) for t in qkv.split(H * d, -1))
+    do = torch.randn(B, S, H, d, device=dev, generator=g).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("S", [1024, 1000, 77])
+def test_flash_kernels_match_plain(dev, dtype, causal, d, S):
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    B, H, scale = 2, 3, 1 / d ** 0.5
+    q, k, v, do = _qkv_views(dev, B, S, H, d, dtype, S + d)
+    before = dict(_build.LAUNCHES)
+    out, lse = fa.flash_attention_forward(q, k, v, causal, scale)
+    ref_out, ref_lse = fa.flash_attention_forward_reference(q, k, v, causal,
+                                                            scale)
+    grads = fa.flash_attention_backward(q, k, v, ref_out, ref_lse, do,
+                                        causal, scale)
+    refs = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse,
+                                                 do, causal, scale)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    torch.testing.assert_close(out.float(), ref_out.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FLASH_TOL[dtype])
+
+
+def test_flash_raises_on_a_head_dim_the_kernels_lack(dev):
+    """attention_impl="auto" on the card never gives way to the einsum."""
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    q = torch.randn(1, 16, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="flash kernels take"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="flash kernels take"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    cfg = GPTConfig(vocab_size=128, max_seq_len=32, num_layers=1,
+                    num_heads=2, d_model=96, d_ff=192,
+                    dtype=torch.float32)                 # d = 48
+    model = GPT(cfg, device=dev)
+    with pytest.raises(ValueError, match="flash kernels take"):
+        model(torch.zeros(1, 8, dtype=torch.long, device=dev))
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_no_batch"])
+def test_flash_under_checkpoint_matches_plain(dev, policy):
+    """A remat GPT through the kernels (FlashAttention under non-reentrant
+    torch.utils.checkpoint with the policy) against the same weights through
+    the masked einsum without remat: loss and every grad, f32. The forward
+    kernel runs twice per layer (forward, then the recompute)."""
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    kw = dict(vocab_size=256, max_seq_len=128, num_layers=2, num_heads=2,
+              d_model=128, d_ff=256, dtype=torch.float32)
+    flash = GPT(GPTConfig(remat=True, remat_policy=policy, **kw), device=dev)
+    flash.init_weights(torch.Generator(device=dev).manual_seed(0))
+    plain = GPT(GPTConfig(remat=False, attention_impl="xla", **kw),
+                device=dev)
+    plain.load_state_dict(flash.state_dict())
+    ids = torch.randint(0, 256, (2, 100), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    _build.reset_launch_counts()
+    loss = lm_loss_fn(flash(ids), {"input_ids": ids})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_fwd"] == 2 * 2
+    assert _build.LAUNCHES["flash_bwd_dq"] == 2
+    assert _build.LAUNCHES["flash_bwd_dkv"] == 2
+    ref = lm_loss_fn(plain(ids), {"input_ids": ids})
+    ref.backward()
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-5)
+    for (name, p), r in zip(flash.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(p.grad, r.grad, rtol=1e-4, atol=1e-5,
+                                   msg=name)

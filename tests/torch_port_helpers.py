@@ -21,9 +21,8 @@ def model_pair(seed=0, **overrides):
     from deepspeed_tpu.models.gpt import GPTConfig as JaxConfig
     from deepspeed_tpu_torch.convert import jax_params_to_state_dict
     from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
-    kw = {**TINY, **overrides}
-    jcfg = JaxConfig(dtype=jnp.float32, param_dtype=jnp.float32,
-                     remat=False, **kw)
+    kw = {"remat": False, **TINY, **overrides}
+    jcfg = JaxConfig(dtype=jnp.float32, param_dtype=jnp.float32, **kw)
     jmodel = JaxGPT(jcfg)
     params = jmodel.init(jax.random.PRNGKey(seed),
                          jnp.zeros((1, 4), jnp.int32))["params"]
