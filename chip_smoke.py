@@ -45,7 +45,42 @@ Phases (any failure exits non-zero before the result lines):
      kernel count; idle share = 1 - device busy / unprofiled wall);
  11. the flash kernels' device times at the training shape beside their
      plain versions, scaled_dot_product_attention forward / its autograd
-     backward (a yardstick, never called by the port) and their bounds.
+     backward (a yardstick, never called by the port) and their bounds;
+ 12. block-sparse kernels (forward, dq, dk/dv) vs their plain versions:
+     bf16 and f32 x layout blocks 16/32/64/128 x causal or not x with or
+     without a key-padding mask (BigBird, per-head layouts, B=2, H=4, D=64,
+     S=480 or 512, q/k/v views of a fused qkv), a layout with dead query
+     rows and key tiles no query reaches (zeros checked), and the training
+     shape B=1, S=32768, H=12, D=64 with bench.py's BigBird layout, causal,
+     where a second backward must give bitwise the same grads;
+ 13. the long-context training path: bench.py's long_context_sparse case
+     (bench.py:344-399): GPT-2 125M at seq 32768 (full width and depth,
+     bf16 over fp32 masters, remat with the default policy) through
+     attention_impl="sparse" (BigBird block 64, 3 random, 3 window,
+     1 global), micro 1 x gas 1, ZeRO-1, AdamW lr 1e-4: 1 warm-up + 3 timed
+     steps, counts reset just before and read after each step; fails on a
+     non-finite or non-falling loss, a non-finite grad norm, sparse launch
+     counts other than 24 / 12 / 12 per step or any flash launch; prints
+     step time, tokens/s and peak device memory;
+ 14. one step of the trained long-context model (seq 32768) through the
+     kernels vs through the plain versions: loss and global grad norm;
+ 15. one warmed long-context step unprofiled (wall), then under
+     torch.profiler (device time by kernel; idle share);
+ 16. the sparse kernels' device times at the training shape beside their
+     plain versions, scaled_dot_product_attention with the expanded boolean
+     mask (dense work; at the largest S that fits, stated) and their
+     bounds (live (q, k) pairs of the layout, causal);
+ 17. sparse BERT: BertForMaskedLM at bert_base width, max_seq_len 4096,
+     bf16, BigBird block 64 (bidirectional), batch 4 of real lengths 4096,
+     3000, 1500, 40 padded by pad_to_block_size with a batch-wide
+     key-padding mask: MLM loss and grads through the kernels vs the plain
+     versions (finite, within bounds, 12 launches of each kernel), and the
+     kernels at that shape vs their plain versions with dk/dv exactly zero
+     at padded keys. This one comparison scales the bf16 rtol by each
+     row's largest |ref| (the 40-token row's 4056 padded queries pour their
+     attention into 40 keys: sums of thousands of bf16-rounded terms that
+     cancel); it prints the elementwise reading beside it. Every other
+     sparse comparison is elementwise.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -54,6 +89,7 @@ Prints the kernel summary JSON, the card line and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -72,10 +108,21 @@ LOGITS_ATOL = 5e-2       # bf16 model, 12 layers of differently rounded
 FLASH_TOL = (2e-2, 2e-2)  # (atol, rtol) of bf16 out/dq/dk/dv: both round
 #                          their f32 result to bf16 (2^-8 relative), and the
 #                          kernels round p and ds to bf16 for the tensor cores
-LSE_ATOL = 1e-3          # f32 lse: summation order over <= 1024 keys
+LSE_ATOL = 1e-3          # f32 lse: summation order over the live keys
 LOSS_ATOL = 2e-2         # model check: the einsum rounds attention
 GRAD_NORM_RTOL = 5e-2    # probabilities to bf16, the kernels keep f32
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+SPARSE_F32_TOL = (1e-4, 1e-4)  # f32: CUDA-core FMAs, summation order only
+# bench.py's long_context_sparse configuration (bench.py:344-399)
+LONG_SEQ = 32768
+LONG_CONFIG = {"train_micro_batch_size_per_gpu": 1,
+               "gradient_accumulation_steps": 1,
+               "bf16": {"enabled": True},
+               "zero_optimization": {"stage": 1},
+               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+               "steps_per_print": 100_000}
+BERT_LENGTHS = (4096, 3000, 1500, 40)
 # bench.py's gpt2_125m_zero1 configuration (bench.py:156-160)
 TRAIN_MICRO, TRAIN_GAS, TRAIN_SEQ = 8, 16, 1024
 TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
@@ -390,15 +437,24 @@ def phase_timing(torch, da, sp, dev, gen, decode_inputs, logits, card):
          >= B * V / F32_FLOPS else "operations")
 
 
-def _close(got, ref, atol, rtol) -> float:
-    """max |got - ref| after checking |got - ref| <= atol + rtol |ref|."""
+def _close(got, ref, atol, rtol, rows=False) -> float:
+    """max |got - ref| after checking |got - ref| <= atol + rtol |ref|;
+    with ``rows``, rtol scales the largest |ref| of the element's row (the
+    last dim) instead: a sum over thousands of bf16-rounded terms errs with
+    the size of its terms, which a row's largest entry tracks and a
+    cancelled small entry does not (used only at sparse BERT's padded
+    shape, phase 17)."""
     got, ref = got.float(), ref.float()
     if not bool(got.isfinite().all()):
         fail("non-finite kernel output")
     diff = (got - ref).abs()
-    if not bool((diff <= atol + rtol * ref.abs()).all()):
+    scale = ref.abs().amax(-1, keepdim=True) if rows else ref.abs()
+    bad = diff > atol + rtol * scale
+    if bool(bad.any()):
+        at = tuple(bad.nonzero()[0].tolist())
         fail(f"kernel disagrees with its plain version: max abs err "
-             f"{diff.max().item()}")
+             f"{diff.max().item()}; first violation at {at}: "
+             f"{got[at].item()} vs {ref[at].item()}")
     return diff.max().item()
 
 
@@ -593,6 +649,443 @@ def phase_flash_timing(torch, fa, inputs, card):
     return t
 
 
+def bench_sparsity(heads: int = 12):
+    """bench.py's long-context layout (bench.py:365-371)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    return BigBirdSparsityConfig(num_heads=heads, block=64,
+                                 different_layout_per_head=False,
+                                 num_random_blocks=3,
+                                 num_sliding_window_blocks=3,
+                                 num_global_blocks=1)
+
+
+def live_causal_pairs(sparsity, S: int, batch: int) -> int:
+    """The (query, key) pairs a causal layout at S lets attend, over heads
+    and batch rows, counted from the fine layout: block^2 per live block
+    below the diagonal, block (block + 1) / 2 per diagonal block (the work
+    of one call, for the bounds)."""
+    import numpy as np
+    lay = np.asarray(sparsity.make_layout(S), bool)
+    b = sparsity.block
+    below = int(np.tril(lay, -1).sum())
+    diagonal = int(np.trace(lay, axis1=1, axis2=2).sum())
+    return batch * (below * b * b + diagonal * b * (b + 1) // 2)
+
+
+def _layout(cfg, S, causal, dev):
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import compiled_layout
+    return compiled_layout(cfg, S, causal).on(dev)
+
+
+@contextlib.contextmanager
+def plain_sparse(sa):
+    """Route the SparseAttention autograd function through the plain
+    versions (on the card they are reached only here, for comparison)."""
+    saved = sa.sparse_attention_forward, sa.sparse_attention_backward
+    sa.sparse_attention_forward = sa.sparse_attention_forward_reference
+    sa.sparse_attention_backward = sa.sparse_attention_backward_reference
+    try:
+        yield
+    finally:
+        sa.sparse_attention_forward, sa.sparse_attention_backward = saved
+
+
+def _over_bound(got, ref, atol, rtol):
+    """(largest |got - ref| / (atol + rtol |ref|), elements above 1): the
+    elementwise reading where the check uses the row-scaled bound."""
+    ratio = (got.float() - ref.float()).abs() / (atol + rtol
+                                                 * ref.float().abs())
+    return ratio.max().item(), int((ratio > 1).sum())
+
+
+def _sparse_pair(torch, sa, layout, q, k, v, do, kvm, tol, rows=False):
+    """Kernels vs plain versions on one input (elementwise bound; ``rows``:
+    the row-scaled one, and the elementwise reading printed beside it): max
+    abs errs, and the plain forward's out/lse and the kernels' grads."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = sa.sparse_attention_forward(q, k, v, layout, scale, kvm)
+    ro, rl = sa.sparse_attention_forward_reference(q, k, v, layout, scale,
+                                                   kvm)
+    grads = sa.sparse_attention_backward(q, k, v, ro, rl, do, layout, scale,
+                                         kvm)
+    refs = sa.sparse_attention_backward_reference(q, k, v, ro, rl, do,
+                                                  layout, scale, kvm)
+    torch.cuda.synchronize()
+    if rows:
+        print("phase17 elementwise reading (largest |err| / (atol + rtol "
+              "|ref|), elements above 1): " + " ".join(
+                  f"{name}={_over_bound(g, r, *tol)}" for name, g, r in
+                  zip(("out", "dq", "dk", "dv"), (out, *grads),
+                      (ro, *refs))), flush=True)
+    e = {"sparse_fwd": _close(out, ro, *tol, rows=rows),
+         "lse": _close(lse, rl, LSE_ATOL, 0.0),
+         "sparse_bwd_dq": _close(grads[0], refs[0], *tol, rows=rows),
+         "sparse_bwd_dkv": max(_close(grads[1], refs[1], *tol, rows=rows),
+                               _close(grads[2], refs[2], *tol, rows=rows))}
+    return e, (out, lse, ro, rl, grads)
+
+
+class _HoleyLayout:
+    """Windows of 2 blocks of 16, no global block; key blocks 8.. are seen
+    by no query (empty column LUTs) and query blocks 8.. see nothing."""
+    block, attention = 16, "bidirectional"
+
+    def __init__(self, heads):
+        self.heads = heads
+
+    def make_layout(self, seq_len):
+        import numpy as np
+        nb = seq_len // 16
+        lay = np.zeros((self.heads, nb, nb), np.int64)
+        for i in range(nb):
+            lay[:, i, (i // 2) * 2:(i // 2) * 2 + 2] = 1
+        lay[:, :, 8:] = 0
+        return lay
+
+
+def phase_sparse_parity(torch, sa, dev, gen):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    worst = {}
+    for dtype, tol in ((torch.bfloat16, FLASH_TOL),
+                       (torch.float32, SPARSE_F32_TOL)):
+        for block in (16, 32, 64, 128):
+            S = 480 if block == 16 else 512     # 480: a partial last tile
+            cfg = BigBirdSparsityConfig(num_heads=4, block=block,
+                                        different_layout_per_head=True,
+                                        num_random_blocks=2)
+            for causal in (True, False):
+                for masked in (False, True):
+                    q, k, v, do = _qkv(torch, dev, gen, 2, S, 4, 64)
+                    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+                    kvm = None
+                    if masked:
+                        kvm = torch.ones(2, S, device=dev)
+                        kvm[0, 300:] = 0
+                    e, (*_, grads) = _sparse_pair(
+                        torch, sa, _layout(cfg, S, causal, dev), q, k, v,
+                        do, kvm, tol)
+                    if masked and (grads[1][0, 300:].any()
+                                   or grads[2][0, 300:].any()):
+                        fail("non-zero dk/dv at masked keys")
+                    for key, val in e.items():
+                        worst[key] = max(worst.get(key, 0.0), val)
+                    print(f"phase12 sparse {str(dtype)[6:]} block={block} "
+                          f"S={S} causal={causal} masked={masked} "
+                          f"max_abs_err " + " ".join(
+                              f"{k_}={v_:.3g}" for k_, v_ in e.items()),
+                          flush=True)
+        # dead query rows and key tiles no query reaches
+        q, k, v, do = (t.to(dtype) for t in _qkv(torch, dev, gen, 2, 256,
+                                                  2, 64))
+        kvm = torch.ones(2, 256, device=dev)
+        kvm[1, 40:] = 0
+        _, (out, lse, *_, (dq, dk, dv)) = _sparse_pair(
+            torch, sa, _layout(_HoleyLayout(2), 256, False, dev), q, k, v,
+            do, kvm, tol)
+        if (out[:, 128:].any() or out[1, 64:].any() or dq[:, 128:].any()
+                or dk[:, 128:].any() or dv[:, 128:].any()
+                or not bool((lse[:, :, 128:] == -1e30).all())):
+            fail("dead rows / unreached key tiles are not zero")
+        print(f"phase12 sparse {str(dtype)[6:]} dead rows and unreached key "
+              f"tiles: zeros, lse -1e30", flush=True)
+    print(f"phase12 sparse grid worst max_abs_err {worst} (tol bf16 atol "
+          f"{FLASH_TOL[0]} + rtol {FLASH_TOL[1]} |ref|, f32 "
+          f"{SPARSE_F32_TOL})", flush=True)
+    # the training shape with the bench's layout; its global key tile is
+    # split over 32 dk/dv blocks, whose partials are summed in a fixed
+    # order: a second backward gives bitwise the same grads
+    layout = _layout(bench_sparsity(12), LONG_SEQ, True, dev)
+    q, k, v, do = _qkv(torch, dev, gen, 1, LONG_SEQ, 12, 64)
+    e, (_, _, ro, rl, grads) = _sparse_pair(torch, sa, layout, q, k, v, do,
+                                            None, FLASH_TOL)
+    again = sa.sparse_attention_backward(q, k, v, ro, rl, do, layout,
+                                         64 ** -0.5)
+    if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+        fail("a second sparse backward gave different grads")
+    print(f"phase12 sparse train B=1 S={LONG_SEQ} H=12 D=64 bf16 causal "
+          f"BigBird block 64 max_abs_err " + " ".join(
+              f"{k_}={v_}" for k_, v_ in e.items())
+          + "; a second backward bitwise equal", flush=True)
+    return e, (q, k, v, do, ro, rl, layout)
+
+
+def phase_long_training(torch, np, dev, seed, card):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_125m, lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    cfg = gpt2_125m(max_seq_len=LONG_SEQ, dtype=torch.bfloat16,
+                    attention_impl="sparse",
+                    sparse_attention=bench_sparsity(12))
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=LONG_CONFIG)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, LONG_SEQ)).astype(np.int32)
+    losses, norms, secs, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    for _ in range(4):                 # 1 warm-up + 3 timed steps
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([{"input_ids": ids}]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+        per_step.append({n: _build.LAUNCHES[n] - before.get(n, 0)
+                         for n in SPARSE + FLASH})
+    launches = {name: _build.LAUNCHES[name] for name in SPARSE}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase13 long-context training gpt2_125m seq={LONG_SEQ} "
+          f"losses={losses} grad_norms={norms} step_s={secs} "
+          f"launches_per_step={per_step}", flush=True)
+    if not all(np.isfinite(losses + norms)):
+        fail("non-finite loss or grad norm while training at seq 32768")
+    if not losses[-1] < losses[0]:
+        fail(f"the long-context loss did not fall: {losses}")
+    want = {"sparse_fwd": 2 * cfg.num_layers,
+            "sparse_bwd_dq": cfg.num_layers,
+            "sparse_bwd_dkv": cfg.num_layers,
+            **{n: 0 for n in FLASH}}
+    if any(step != want for step in per_step):
+        fail(f"launches per step {per_step}, expected {want}")
+    step_s = sum(secs[1:]) / 3
+    print(f"long_context_sparse_step_s={step_s} card={card}", flush=True)
+    print(f"long_context_sparse_seq32k_tokens_s={LONG_SEQ / step_s} "
+          f"card={card}", flush=True)
+    print(f"long_context_sparse_peak_memory_gib={peak_gb} card={card}",
+          flush=True)
+    return engine, cfg, torch.from_numpy(ids).long().to(dev), launches
+
+
+def phase_long_model_check(torch, sa, dev, engine, cfg, ids):
+    """One step's loss and global grad norm of the trained long-context
+    model through the kernels and through the plain versions, both bf16."""
+    from deepspeed_tpu_torch.models.gpt import GPT, lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    result = {}
+    for impl in ("kernels", "plain"):
+        m = GPT(cfg, device=dev).to(torch.bfloat16)
+        m.load_state_dict(engine.module.state_dict())
+        before = sum(_build.LAUNCHES[n] for n in SPARSE)
+        with (plain_sparse(sa) if impl == "plain"
+              else contextlib.nullcontext()):
+            loss = lm_loss_fn(m(ids), {"input_ids": ids})
+            loss.backward()
+        launched = sum(_build.LAUNCHES[n] for n in SPARSE) - before
+        if (impl == "plain") != (launched == 0):
+            fail(f"the {impl} model check launched {launched} kernels")
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.float().norm() for p in m.parameters()]))
+        result[impl] = (loss.item(), norm.item())
+        del m, loss
+        torch.cuda.empty_cache()
+    (lk, nk), (lp, np_) = result["kernels"], result["plain"]
+    print(f"phase14 long-context model check seq={LONG_SEQ} loss "
+          f"kernels={lk} plain={lp} (atol {LOSS_ATOL}); grad norm "
+          f"kernels={nk} plain={np_} (rtol {GRAD_NORM_RTOL})", flush=True)
+    if not (abs(lk - lp) <= LOSS_ATOL and abs(nk - np_) <= GRAD_NORM_RTOL
+            * np_):
+        fail("the long-context model through the kernels disagrees with "
+             "the plain versions")
+
+
+def phase_long_profile(torch, engine, ids, card):
+    """One warmed long-context step (micro 1 x gas 1) timed without the
+    profiler, then one under it; idle share against the unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = [{"input_ids": ids}]
+    engine.train_batch(iter(batch))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(iter(batch))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(iter(batch))
+        torch.cuda.synchronize()
+    rows = [(_device_us(e) / 1e3, e.count, e.key)
+            for e in prof.key_averages() if _device_us(e) > 0]
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        fail("the profiler recorded no device time for a sparse step")
+    print(f"phase15 profile long-context step wall_ms={wall_ms} "
+          f"(unprofiled) device_busy_ms={busy_ms} "
+          f"idle_share={1 - busy_ms / wall_ms} "
+          f"device_kernels={sum(r[1] for r in rows)} card={card}", flush=True)
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"phase15 kernel ms={ms} count={count} {key[:90]}", flush=True)
+
+
+def _sdpa_with_mask(torch, dev, gen, S):
+    """scaled_dot_product_attention at [1, 12, S, 64] bf16 with the bench
+    layout (causal) expanded to a boolean [S, S] mask: forward and backward
+    calls, or None when it does not fit on the card."""
+    import torch.nn.functional as F
+    lay = torch.from_numpy(bench_sparsity(12).make_layout(S)[0]).to(dev)
+    try:
+        mask = lay.bool().repeat_interleave(64, 0).repeat_interleave(64, 1)
+        mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        qt, kt, vt, do = (torch.randn(1, 12, S, 64, device=dev,
+                                      generator=gen).bfloat16()
+                          for _ in range(4))
+        qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(out, (qt, kt, vt), do, retain_graph=True)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+    return (lambda i: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=mask),
+            lambda i: torch.autograd.grad(out, (qt, kt, vt), do,
+                                          retain_graph=True))
+
+
+def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
+    q, k, v, do, out, lse, layout = inputs
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+
+    def backward(i):
+        sa.sparse_attention_backward(q, k, v, out, lse, do, layout, scale)
+
+    plain_bwd = device_ms(lambda i: sa.sparse_attention_backward_reference(
+        q, k, v, out, lse, do, layout, scale), iters=3, warmup=1)
+    lib_s = S
+    lib = _sdpa_with_mask(torch, dev, gen, lib_s)
+    while lib is None and lib_s > 1024:
+        lib_s //= 2
+        lib = _sdpa_with_mask(torch, dev, gen, lib_s)
+    lib_fwd = device_ms(lib[0], iters=5, warmup=1)
+    lib_bwd = device_ms(lib[1], iters=5, warmup=1)
+    del lib
+    torch.cuda.empty_cache()
+    print(f"phase16 library yardstick: scaled_dot_product_attention with "
+          f"the expanded boolean mask at S={lib_s} (dense work), fwd "
+          f"{lib_fwd} ms, bwd {lib_bwd} ms card={card}", flush=True)
+    t = {
+        "sparse_fwd": {
+            "ms": device_ms(lambda i: sa.sparse_attention_forward(
+                q, k, v, layout, scale), kernel="sparse_fwd", iters=20),
+            "plain_ms": device_ms(
+                lambda i: sa.sparse_attention_forward_reference(
+                    q, k, v, layout, scale), iters=3, warmup=1),
+            "library_ms": lib_fwd},
+        # the plain and library backward compute dq, dk and dv together:
+        # their times stand beside both kernels
+        "sparse_bwd_dq": {"ms": device_ms(backward, kernel="sparse_bwd_dq",
+                                          iters=20),
+                          "plain_ms": plain_bwd, "library_ms": lib_bwd},
+        "sparse_bwd_dkv": {"ms": device_ms(backward,
+                                           kernel="sparse_bwd_dkv",
+                                           iters=20),
+                           "plain_ms": plain_bwd, "library_ms": lib_bwd},
+    }
+    # bytes: each input read once, each output written once, of the LUTs
+    # the counts and the live entries (a tile index and a mask each; the
+    # rows' padding is never read); operations: 2 per multiply-add over the
+    # layout's live causal (q, k) pairs, at the bf16 peak
+    item = q.element_size()
+    n = B * S * H * D * item
+    stat = B * H * S * 4
+    lut_k = 4 * layout.cnt_k.numel() + 12 * int(layout.cnt_k.sum())
+    lut_q = (4 * layout.cnt_q.numel() + 12 * int(layout.cnt_q.sum())
+             + 4 * layout.dkv_items.numel())
+    pairs = live_causal_pairs(bench_sparsity(H), S, B)
+    print(f"phase16 live causal (q, k) pairs {pairs} of {B * H * S * S} "
+          f"({pairs / (B * H * S * S)}); LUT bytes read: row {lut_k}, "
+          f"column {lut_q}", flush=True)
+    work = {"sparse_fwd": (4 * n + stat + lut_k, 4 * D * pairs),
+            "sparse_bwd_dq": (5 * n + 2 * stat + lut_k, 6 * D * pairs),
+            "sparse_bwd_dkv": (6 * n + 2 * stat + lut_q, 8 * D * pairs)}
+    for name, (nbytes, flops) in work.items():
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        t[name]["bound_ms"] = 1e3 * max(tb, tf)
+        t[name]["bound_by"] = "bytes" if tb >= tf else "operations"
+        for key, val in t[name].items():
+            print(f"{name}_{key}={val} card={card}", flush=True)
+    return t
+
+
+def phase_sparse_bert(torch, np, sa, dev, gen, seed):
+    from deepspeed_tpu_torch.models.bert import BertForMaskedLM, bert_base
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, SparseAttentionUtils)
+    sparsity = BigBirdSparsityConfig(num_heads=12, block=64)
+    cfg = bert_base(max_seq_len=4096, dtype=torch.bfloat16,
+                    hidden_dropout=0.0, attention_impl="sparse",
+                    sparse_attention=sparsity)
+    model = BertForMaskedLM(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    b, S = len(BERT_LENGTHS), max(BERT_LENGTHS)
+    ids = np.zeros((b, S), np.int64)
+    mask = np.zeros((b, S), np.int64)
+    for i, n in enumerate(BERT_LENGTHS):
+        ids[i, :n] = rng.integers(1, cfg.vocab_size, n)
+        mask[i, :n] = 1
+    pad_len, ids_t, mask_t, _ = SparseAttentionUtils.pad_to_block_size(
+        sparsity.block, torch.from_numpy(ids).to(dev),
+        attention_mask=torch.from_numpy(mask).to(dev))
+    picked = torch.from_numpy((rng.random((b, S)) < 0.15) * mask).to(dev)
+    result = {}
+    for impl in ("kernels", "plain"):
+        model.zero_grad(set_to_none=True)
+        before = {n: _build.LAUNCHES[n] for n in SPARSE}
+        with (plain_sparse(sa) if impl == "plain"
+              else contextlib.nullcontext()):
+            logits = model(ids_t, attention_mask=mask_t).float()
+            nll = torch.logsumexp(logits, -1) - torch.gather(
+                logits, -1, ids_t[..., None])[..., 0]
+            loss = (nll * picked).sum() / picked.sum()
+            loss.backward()
+        torch.cuda.synchronize()
+        launched = {n: _build.LAUNCHES[n] - before[n] for n in SPARSE}
+        want = cfg.num_layers if impl == "kernels" else 0
+        if any(v != want for v in launched.values()):
+            fail(f"sparse BERT ({impl}) launches {launched}, expected "
+                 f"{want} each")
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if not (torch.isfinite(loss) and all(
+                bool(torch.isfinite(g).all()) for g in grads)):
+            fail(f"sparse BERT ({impl}): non-finite loss or grads")
+        norm = torch.linalg.vector_norm(torch.stack(
+            [g.float().norm() for g in grads]))
+        result[impl] = (loss.item(), norm.item())
+        del logits, nll, loss
+    (lk, nk), (lp, np_) = result["kernels"], result["plain"]
+    print(f"phase17 sparse BERT bert_base S={S} batch lengths "
+          f"{BERT_LENGTHS} pad_len={pad_len} MLM loss kernels={lk} "
+          f"plain={lp} (atol {LOSS_ATOL}); grad norm kernels={nk} "
+          f"plain={np_} (rtol {GRAD_NORM_RTOL})", flush=True)
+    if not (abs(lk - lp) <= LOSS_ATOL and abs(nk - np_) <= GRAD_NORM_RTOL
+            * np_):
+        fail("sparse BERT through the kernels disagrees with the plain "
+             "versions")
+    del model
+    torch.cuda.empty_cache()
+    # the kernels at BERT's shape with its key-padding mask
+    q, k, v, do = _qkv(torch, dev, gen, b, S, 12, 64)
+    kvm = mask_t.float().contiguous()
+    e, (*_, (dq, dk, dv)) = _sparse_pair(
+        torch, sa, _layout(sparsity, S, False, dev), q, k, v, do, kvm,
+        FLASH_TOL, rows=True)
+    padded = ~mask_t.bool()
+    if dk[padded].any() or dv[padded].any():
+        fail("sparse BERT: non-zero dk/dv at padded keys")
+    print(f"phase17 sparse kernels at B={b} S={S} H=12 D=64 bf16 "
+          f"bidirectional with key padding: dk/dv zero at padded keys, "
+          f"max_abs_err " + " ".join(f"{k_}={v_}" for k_, v_ in e.items())
+          + f" (tol atol {FLASH_TOL[0]} + rtol {FLASH_TOL[1]} x the row's "
+          f"largest |ref|)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -607,6 +1100,7 @@ def main(argv=None) -> int:
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import sampling as sp
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -631,6 +1125,20 @@ def main(argv=None) -> int:
     phase_train_profile(torch, engine, ids, card)
     del engine
     flash_t = phase_flash_timing(torch, fa, flash_inputs, card)
+    del flash_inputs
+    torch.cuda.empty_cache()
+
+    sparse_err, sparse_inputs = phase_sparse_parity(torch, sa, dev, gen)
+    engine, cfg, ids, launches_long = phase_long_training(torch, np, dev,
+                                                          args.seed, card)
+    phase_long_model_check(torch, sa, dev, engine, cfg, ids)
+    phase_long_profile(torch, engine, ids, card)
+    del engine
+    torch.cuda.empty_cache()
+    sparse_t = phase_sparse_timing(torch, sa, dev, gen, sparse_inputs, card)
+    del sparse_inputs
+    torch.cuda.empty_cache()
+    phase_sparse_bert(torch, np, sa, dev, gen, args.seed)
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",
@@ -654,6 +1162,15 @@ def main(argv=None) -> int:
              "deepspeed_tpu/ops/pallas/flash_attention.py:140"),
             ("flash_bwd_dkv",
              "deepspeed_tpu/ops/pallas/flash_attention.py:175"))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/sparse_attention.cu",
+         "replaces": "deepspeed_tpu/ops/sparse_attention/"
+                     f"sparse_self_attention.py:{line}",
+         "launches": launches_long[name], "max_abs_err": sparse_err[name],
+         **sparse_t[name]}
+        for name, line in (("sparse_fwd", 72), ("sparse_bwd_dq", 122),
+                           ("sparse_bwd_dkv", 166))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,8 +8,10 @@ stacked ``[L, ...]`` block params becomes a layer loop over ``blocks``
     training forward. Attention routes through ``cfg.attention_impl``
     (:func:`causal_attention`): "auto"/"pallas" is the flash attention
     autograd function of ``ops/cuda/flash_attention.py`` (the CUDA kernels
-    on a CUDA tensor, their plain versions on a CPU tensor), "xla" the
-    masked einsum. Under ``cfg.remat`` each block is checkpointed;
+    on a CUDA tensor, their plain versions on a CPU tensor), "sparse" the
+    block-sparse one of ``ops/sparse_attention`` over
+    ``cfg.sparse_attention``'s layout (always causal), "xla" the masked
+    einsum. Under ``cfg.remat`` each block is checkpointed;
   * :meth:`GPT.prefill` -- cacheless causal forward over a prompt batch on
     the masked einsum (the TPU serving prefill's ``_cache_einsum``);
     returns the final hidden states and every layer's K/V, which the
@@ -42,6 +44,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from ..ops.cuda.decode_attention import (decode_attention,
                                          masked_cache_attention)
 from ..ops.cuda.flash_attention import flash_attention
+from ..ops.sparse_attention.sparse_self_attention import sparse_attention
 
 aten = torch.ops.aten
 
@@ -59,10 +62,12 @@ _REMAT_SAVE = {
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """The TPU package's GPTConfig, field for field. Fields of features that
-    later slices port (MoE, sparse attention, sequence parallelism, local
-    windows, the int8 cache, the tp overlap, cpu checkpointing) must stay at
-    their defaults. ``remat``/``remat_policy`` checkpoint each block of the
+    """The TPU package's GPTConfig, field for field. Fields of features not
+    ported yet (MoE, sequence parallelism, local windows, the int8 cache,
+    the tp overlap, cpu checkpointing) must stay at their defaults.
+    ``attention_impl="sparse"`` needs a ``sparse_attention`` SparsityConfig
+    (the port's own, ``ops/sparse_attention``) and ``sparse_attention`` is
+    read only under it. ``remat``/``remat_policy`` checkpoint each block of the
     training forward; ``dropout`` is unused, as in the TPU model; the scan
     knobs and ``partition_activations`` (a tp sharding constraint) have no
     effect on one device."""
@@ -86,8 +91,8 @@ class GPTConfig:
     remat_policy: str = "dots_no_batch"
     partition_activations: bool = False
     cpu_checkpointing: bool = False
-    attention_impl: str = "auto"     # auto | pallas (flash) | xla (einsum)
-    sparse_attention: Any = None
+    attention_impl: str = "auto"     # auto | pallas (flash) | sparse | xla
+    sparse_attention: Any = None     # SparsityConfig when attention_impl=sparse
     # "auto": the decode kernel wrapper (CUDA kernel on the card, its plain
     # version on the CPU); "einsum": the masked einsum (the TPU "xla" path)
     decode_impl: str = "einsum"      # auto | einsum
@@ -110,19 +115,20 @@ class GPTConfig:
         if self.decode_impl not in ("auto", "einsum"):
             raise ValueError(f"unknown decode_impl {self.decode_impl!r}: "
                              f"use 'auto' or 'einsum'")
-        if self.attention_impl == "sparse":
-            raise NotImplementedError(
-                "attention_impl='sparse': the sparse attention kernels are "
-                "not ported yet (ROADMAP A4.5)")
-        if self.attention_impl not in ("auto", "xla", "pallas"):
+        if self.attention_impl not in ("auto", "xla", "pallas", "sparse"):
             raise ValueError(f"unknown attention_impl "
-                             f"{self.attention_impl!r}: use 'auto', 'pallas' "
-                             f"or 'xla'")
+                             f"{self.attention_impl!r}: use 'auto', 'pallas', "
+                             f"'sparse' or 'xla'")
+        # The TPU model computes dense attention when attention_impl="sparse"
+        # has no layout (its causal_attention falls through to the einsum);
+        # the port refuses rather than hide the kernel.
+        if self.attention_impl == "sparse" and self.sparse_attention is None:
+            raise ValueError("attention_impl='sparse' needs a "
+                             "sparse_attention SparsityConfig")
         if self.remat_policy not in _REMAT_SAVE:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}: "
                              f"use one of {sorted(_REMAT_SAVE)}")
-        later = {"moe": self.moe, "sparse_attention":
-                 self.sparse_attention is not None,
+        later = {"moe": self.moe,
                  "sequence_parallel": self.sequence_parallel,
                  "attn_windows": self.attn_windows is not None,
                  "kv_cache_dtype='int8'": self.kv_cache_dtype != "auto",
@@ -184,6 +190,21 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([rot.to(x.dtype), x_pass], dim=-1)
 
 
+@torch.no_grad()
+def init_weights(module: nn.Module,
+                 generator: Optional[torch.Generator] = None,
+                 std: float = 0.02) -> None:
+    """Random weights for the port's models, by parameter name: matrices
+    and embeddings ~ N(0, std), biases 0, LayerNorm (``ln_*``) scales 1."""
+    for name, p in module.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+        elif ".ln_" in name or name.startswith("ln_"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, std, generator=generator)
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: inputs and params cast to the compute
     dtype."""
@@ -216,20 +237,27 @@ def _kv_write(cache: torch.Tensor, kv: torch.Tensor,
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      dtype, impl: str = "auto",
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     sparse_config=None) -> torch.Tensor:
     """q, k, v: [B, S, H, D]. Routes to the configured attention: "auto" or
     "pallas" is the flash attention autograd function (the CUDA kernels on a
     CUDA tensor, which raise on a shape they lack; their plain versions on a
-    CPU tensor), "xla" the TPU package's masked einsum (mask -1e10,
+    CPU tensor), "sparse" the block-sparse one over ``sparse_config``'s
+    layout, "xla" the TPU package's masked einsum (mask -1e10,
     probabilities cast to ``dtype``). Unlike the TPU model, "auto" does not
-    turn into "xla" off the accelerator."""
+    turn into "xla" off the accelerator, and "sparse" without a layout
+    raises instead of computing dense attention."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if impl in ("auto", "pallas"):
         return flash_attention(q, k, v, causal=True, sm_scale=scale)
     if impl == "sparse":
-        raise NotImplementedError("sparse attention is not ported yet "
-                                  "(ROADMAP A4.5)")
+        if sparse_config is None:
+            raise ValueError("impl='sparse' needs a sparse_config")
+        # causal regardless of the layout's attention mode: a decoder LM
+        # never sees the future, even through a bidirectional layout
+        return sparse_attention(q, k, v, sparse_config, sm_scale=scale,
+                                causal=True)
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
@@ -269,7 +297,8 @@ class SelfAttention(nn.Module):
             k = rotary_embedding(k, positions, rd)
         if kv is None and attention_impl is not None:
             out = causal_attention(q, k, v, dtype=cfg.dtype,
-                                   impl=attention_impl, scale=self.scale)
+                                   impl=attention_impl, scale=self.scale,
+                                   sparse_config=cfg.sparse_attention)
             return _linear(out.reshape(b, s, cfg.d_model), self.out_proj,
                            cfg.dtype), k, v
         k, v = k.reshape(b, s, h * d), v.reshape(b, s, h * d)
@@ -354,18 +383,11 @@ class GPT(nn.Module):
                                      **kw)
         self.init_weights()
 
-    @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None,
                      std: float = 0.02) -> None:
         """Random weights: matrices and embeddings ~ N(0, std), biases 0,
         LayerNorm scales 1."""
-        for name, p in self.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            elif ".ln_" in name or name.startswith("ln_"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, std, generator=generator)
+        init_weights(self, generator, std)
 
     def _embed(self, input_ids, positions):
         dt = self.cfg.dtype
@@ -405,8 +427,8 @@ class GPT(nn.Module):
         attention through ``cfg.attention_impl``. Under ``cfg.remat`` (and
         with grad enabled) each block runs under non-reentrant
         ``torch.utils.checkpoint``, saving only what ``cfg.remat_policy``
-        names; the rest, flash attention included, is recomputed in the
-        backward."""
+        names; the rest, flash or sparse attention included, is recomputed
+        in the backward."""
         cfg = self.cfg
         b, s = input_ids.shape
         if positions is None:

@@ -23,7 +23,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build")
-SOURCES = ("decode_attention.cu", "sampling.cu", "flash_attention.cu")
+SOURCES = ("decode_attention.cu", "sampling.cu", "flash_attention.cu",
+           "sparse_attention.cu")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-lineinfo",
               "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -47,6 +48,16 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, strides, B, S, H, d, causal, scale,
     # dtype, stream
     "dstorch_flash_bwd_dkv": [_vp] * 9 + [_int] * 5 + [_float, _int, _vp],
+    # ... the flash arguments up to strides, then lut_idx, lut_cnt, lut_bits,
+    # lut_len, shift, kvm, B, S, H, d, causal, scale, dtype, stream
+    "dstorch_sparse_fwd": [_vp] * 9 + [_int] * 2 + [_vp] + [_int] * 5
+    + [_float, _int, _vp],
+    "dstorch_sparse_bwd_dq": [_vp] * 11 + [_int] * 2 + [_vp] + [_int] * 5
+    + [_float, _int, _vp],
+    # dk/dv: lut_len and shift are followed by items, n_items, parts, ws,
+    # tickets
+    "dstorch_sparse_bwd_dkv": [_vp] * 12 + [_int] * 2 + [_vp] + [_int] * 2
+    + [_vp] * 3 + [_int] * 5 + [_float, _int, _vp],
 }
 
 

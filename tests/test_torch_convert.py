@@ -1,8 +1,9 @@
 """TPU-package GPT weights through deepspeed_tpu_torch.convert: the port's
 logits must equal ``GPT.apply``'s within 1e-5 (f32, CPU; the matmul
-summation order differs), for a GPT-2-style config and a rotary +
-parallel-residual config with an untied head, from stacked (scanned) and
-per-layer param trees. The port's own prefill + decode path must agree with
+summation order differs), for a GPT-2-style config, a rotary +
+parallel-residual config with an untied head and a block-sparse config (the
+same tree as the dense one), from stacked (scanned) and per-layer param
+trees. The port's own prefill + decode path must agree with
 its full forward."""
 
 import jax.numpy as jnp
@@ -19,6 +20,9 @@ CONFIGS = {
     "neox_untied": dict(rotary=True, rotary_pct=0.5, parallel_residual=True,
                         tie_embeddings=False),
     "gpt2_unscanned": dict(scan_layers=False),
+    "gpt2_sparse": dict(sparse=("BSLongformerSparsityConfig", dict(
+        num_heads=TINY["num_heads"], block=8,
+        attention="unidirectional"))),
 }
 
 
@@ -62,10 +66,13 @@ def test_prefill_then_decode_matches_full_forward(decode_impl):
 def test_unported_features_raise():
     from deepspeed_tpu_torch.models.gpt import GPTConfig
     for kw in (dict(moe=True), dict(sequence_parallel=True),
-               dict(kv_cache_dtype="int8"), dict(attention_impl="sparse"),
-               dict(cpu_checkpointing=True)):
+               dict(kv_cache_dtype="int8"), dict(cpu_checkpointing=True)):
         with pytest.raises(NotImplementedError):
             GPTConfig(**kw)
+    # "sparse" is ported; without a layout it is refused (the TPU model
+    # would compute dense attention)
+    with pytest.raises(ValueError, match="SparsityConfig"):
+        GPTConfig(attention_impl="sparse")
     with pytest.raises(ValueError):
         GPTConfig(decode_impl="xla")
     with pytest.raises(ValueError):

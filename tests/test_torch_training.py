@@ -4,14 +4,17 @@ sizes (torch_port_helpers.TINY), inputs from numpy seeds:
   * model: loss and every parameter grad of ``GPT.forward`` +
     ``lm_loss_fn`` against the JAX model with ``attention_impl="pallas"``
     (the flash kernel in interpret mode; "auto" would be the einsum on the
-    CPU), with and without remat; ``lm_loss_fn`` with labels and a loss
-    mask; ``gpt_flops_per_token`` and ``count_params``;
+    CPU) and with ``attention_impl="sparse"`` (a BigBird layout, the sparse
+    kernels in interpret mode), with and without remat; the sparse model's
+    causality through a bidirectional layout; ``lm_loss_fn`` with labels
+    and a loss mask; ``gpt_flops_per_token`` and ``count_params``;
   * optimizer: ``fused_adam`` trajectories over 5 steps;
   * config, schedules and loss scaling: the same dicts give the same batch
     triple and the same errors, the same lr over 50 steps, the same scale
     trajectory;
   * engine: ``initialize`` + 3 x ``train_batch`` against the JAX engine
-    (losses, grad norms, Adam moments); the 3-call API against
+    (losses, grad norms, Adam moments; and a sparse model's losses and grad
+    norms); the 3-call API against
     ``train_batch``; every unported knob raises.
 
 Tolerances: 1e-5 (relative where stated) -- both sides are f32 and differ
@@ -96,17 +99,71 @@ def test_flops_and_param_count_match_jax():
 
 
 def test_attention_impls_agree_and_sparse_raises():
-    from deepspeed_tpu_torch.models.gpt import causal_attention
+    """flash, auto, the einsum and sparse attention over a dense layout (a
+    bidirectional one: causal is forced) agree; "sparse" without a layout
+    raises."""
+    from deepspeed_tpu_torch.models.gpt import GPTConfig, causal_attention
+    from deepspeed_tpu_torch.ops.sparse_attention import DenseSparsityConfig
     rng = np.random.default_rng(8)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, 20, 2, 64))
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 24, 2, 64))
                                 .astype(np.float32)) for _ in range(3))
     flash = causal_attention(q, k, v, dtype=torch.float32, impl="pallas")
     auto = causal_attention(q, k, v, dtype=torch.float32, impl="auto")
     xla = causal_attention(q, k, v, dtype=torch.float32, impl="xla")
+    sparse = causal_attention(
+        q, k, v, dtype=torch.float32, impl="sparse",
+        sparse_config=DenseSparsityConfig(num_heads=2, block=8))
     assert torch.equal(flash, auto)
     np.testing.assert_allclose(flash.numpy(), xla.numpy(), atol=1e-6)
-    with pytest.raises(NotImplementedError):
+    np.testing.assert_allclose(sparse.numpy(), xla.numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="sparse_config"):
         causal_attention(q, k, v, dtype=torch.float32, impl="sparse")
+    with pytest.raises(ValueError, match="SparsityConfig"):
+        GPTConfig(attention_impl="sparse")
+
+
+# the long-context case's layout family at the tiny size: BigBird, block 16,
+# bidirectional (the model forces causal)
+SPARSE = ("BigBirdSparsityConfig", dict(num_heads=TINY["num_heads"],
+                                        block=16, num_random_blocks=1))
+SPARSE_SEQ = TINY["max_seq_len"]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_sparse_logits_loss_and_grads_match_jax(remat):
+    from deepspeed_tpu.models.gpt import lm_loss_fn as jax_loss
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    jmodel, params, pmodel = model_pair(seed=21, sparse=SPARSE, remat=remat)
+    ids = _ids(22, rows=2, seq=SPARSE_SEQ)
+    jlogits = jmodel.apply({"params": params}, jnp.asarray(ids))
+    jl, jg = jax.value_and_grad(lambda p: jax_loss(
+        jmodel.apply({"params": p}, jnp.asarray(ids)),
+        {"input_ids": jnp.asarray(ids)}))(params)
+    t = torch.from_numpy(ids).long()
+    logits = pmodel(t)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=0, atol=1e-5)
+    loss = lm_loss_fn(logits, {"input_ids": t})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=RTOL)
+    want = _state_dict_np(jg, pmodel.cfg)
+    for name, p in pmodel.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_sparse_gpt_is_causal_even_with_bidirectional_layout():
+    """A future-token change leaves every earlier logit alone."""
+    _, _, pmodel = model_pair(seed=0, sparse=SPARSE)
+    ids = _ids(23, rows=1, seq=SPARSE_SEQ)
+    ids_b = ids.copy()
+    ids_b[0, -1] = (ids_b[0, -1] + 1) % TINY["vocab_size"]
+    with torch.no_grad():
+        a = pmodel(torch.from_numpy(ids).long())
+        b = pmodel(torch.from_numpy(ids_b).long())
+    np.testing.assert_allclose(a[0, :-1].numpy(), b[0, :-1].numpy(),
+                               rtol=0, atol=1e-6)
+    assert not torch.equal(a[0, -1], b[0, -1])
 
 
 def test_prefill_stays_on_the_masked_einsum(monkeypatch):
@@ -345,6 +402,28 @@ def test_engine_matches_jax_engine():
             scale = np.abs(want[name]).max()
             np.testing.assert_allclose(m.numpy(), want[name], rtol=1e-4,
                                        atol=1e-4 * scale, err_msg=name)
+
+
+def test_sparse_engine_matches_jax_engine():
+    """3 x train_batch of a sparse GPT (BigBird layout, remat on) against
+    the JAX engine: losses and grad norms."""
+    import deepspeed_tpu as ds
+    from deepspeed_tpu.models.gpt import lm_loss_fn as jax_loss
+    jmodel, params, pmodel = model_pair(seed=24, sparse=SPARSE, remat=True)
+    jeng, *_ = ds.initialize(
+        model=jmodel, model_parameters=params, loss_fn=jax_loss,
+        config=dict(ENGINE_CONFIG, train_micro_batch_size_per_gpu=1))
+    peng, *_ = _port_engine(pmodel)
+    micros = [{"input_ids": _ids(40 + i, rows=GLOBAL_MICRO, seq=SPARSE_SEQ)}
+              for i in range(6)]
+    for step in range(3):
+        batch = micros[2 * step:2 * step + 2]
+        jl = float(jeng.train_batch(iter(batch)))
+        pl = float(peng.train_batch(iter(batch)))
+        np.testing.assert_allclose(pl, jl, rtol=RTOL)
+        np.testing.assert_allclose(peng.get_global_grad_norm(),
+                                   float(jeng.get_global_grad_norm()),
+                                   rtol=1e-4)
 
 
 def test_three_call_api_equals_train_batch():
