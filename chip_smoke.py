@@ -80,7 +80,35 @@ Phases (any failure exits non-zero before the result lines):
      row's largest |ref| (the 40-token row's 4056 padded queries pour their
      attention into 40 keys: sums of thousands of bf16-rounded terms that
      cancel); it prints the elementwise reading beside it. Every other
-     sparse comparison is elementwise.
+     sparse comparison is elementwise;
+ 18. paged decode attention (B3) and the int8 branches of B2 and B3 vs their
+     plain versions at GPT-2 125M decode geometry (b=8, h=12, d=64,
+     S=1024, block 16, so T=64), bf16 and f32, s_q 1 and 4, fills 0, 1, 17,
+     512, 1024, 300, 777 and the retired-lane sentinel, over a random
+     permutation of the pool blocks with sentinel table entries past each
+     row's fill: max abs err <= 2e-2, the fill-0 row exactly zero, and B3
+     over the permuted table, the in-order table and the sentinel table
+     bitwise B2 (int8: B3-int8 bitwise B2-int8);
+ 19. the paged main path: ServingEngine(paged=True, megakernel=True,
+     kv_block_size=16) serving GPT-2 125M (full width and depth, random
+     weights from --seed) to 16 greedy requests of 64 new tokens, four of
+     them exact repeats of earlier prompts, with the counts reset just
+     before and read just after: fails on no B3 or sampling launch or any
+     B2 launch, on prefix-cache hits/misses other than 4/12, on prefill
+     prompt tokens other than the 12 distinct prompts' sum, on a hit whose
+     tokens differ from its twin's, or on tokens that differ from the dense
+     megakernel engine's on the same requests; prints tokens/s, the mean
+     chunk time and a steady chunk's idle share;
+ 20. int8 serving: the same 16 requests through kv_dtype="int8", dense and
+     paged, counts reset before and read after each run: fails on no int8
+     launch (or any other decode kernel's), on dense and paged int8 tokens
+     that differ, on a non-finite served logits tensor, or on an int8
+     payload above half the compute dtype's bytes (arena_report); prints
+     the share of tokens equal to the bf16 engine's;
+ 21. device times of B3, B2-int8 and B3-int8 at phase 2's inputs (B2's
+     fills, bf16, s_q 1) beside B2's, their plain versions', a gather +
+     scaled_dot_product_attention yardstick (a dequantize between them for
+     int8) and their byte bounds.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -102,6 +130,8 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 DECODE_ATOL = 2e-2       # bf16 cache: probabilities rounded differently
+DECODE_INT8_RTOL = 2e-2  # int8 cache in bf16: the plain version rounds the
+#                          dequantized cache to bf16, the kernels keep f32
 TOP_P_MASS_TOL = 1e-5    # top-p: f32 mass sums in another order
 LOGITS_ATOL = 5e-2       # bf16 model, 12 layers of differently rounded
 #                          attention outputs
@@ -343,7 +373,7 @@ def phase_serving(torch, np, dev, seed, card):
     return launches
 
 
-def phase_profile(torch, ie, prompts, kw, card):
+def phase_profile(torch, ie, prompts, kw, card, tag="phase6"):
     """Two steady decode chunks (8 live lanes, K=8 steps each): the first
     timed without the profiler, the second under torch.profiler for device
     kernel time by name. The device's idle share is one minus the profiled
@@ -351,7 +381,7 @@ def phase_profile(torch, ie, prompts, kw, card):
     profiler inflates the wall time of the chunk it records)."""
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch import ServingEngine
-    eng = ServingEngine(engine=ie, megakernel=True, **kw)
+    eng = ServingEngine(engine=ie, **{"megakernel": True, **kw})
     for p in prompts:
         eng.submit(p.copy(), max_new_tokens=1 + 3 * kw["decode_chunk"])
     eng.step()                       # admission, prefill, first chunk
@@ -371,11 +401,11 @@ def phase_profile(torch, ie, prompts, kw, card):
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         fail("the profiler recorded no device time for a decode chunk")
-    print(f"phase6 profile decode chunk wall_ms={wall_ms} (unprofiled) "
+    print(f"{tag} profile decode chunk wall_ms={wall_ms} (unprofiled) "
           f"profiled_wall_ms={profiled_wall_ms} device_busy_ms={busy_ms} "
           f"idle_share={1 - busy_ms / wall_ms} card={card}", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:10]:
-        print(f"phase6 kernel ms={ms} count={count} {key[:90]}", flush=True)
+        print(f"{tag} kernel ms={ms} count={count} {key[:90]}", flush=True)
 
 
 def phase_timing(torch, da, sp, dev, gen, decode_inputs, logits, card):
@@ -1086,6 +1116,363 @@ def phase_sparse_bert(torch, np, sa, dev, gen, seed):
           f"largest |ref|)", flush=True)
 
 
+PAGED_BS = 16
+INT8_KERNELS = ("decode_attention_int8", "paged_decode_attention_int8")
+DECODE_KERNELS = ("decode_attention", "paged_decode_attention") \
+    + INT8_KERNELS
+
+
+def _to_pool(x, perm, bs):
+    """A dense cache [b, S, ...] laid out as a block pool [b*T, bs, ...]
+    whose block perm[j] holds the cache's j-th block (rows in order): read
+    back through the tables perm.view(b, T)."""
+    b, S = x.shape[:2]
+    blocks = x.reshape(b * S // bs, bs, *x.shape[2:])
+    pool = blocks.new_empty(blocks.shape)
+    pool[perm] = blocks
+    return pool
+
+
+def _quantize(qz, x):
+    """quantize_kv over the last dim: (int8 payload, f32 scales [..])."""
+    q, s = qz.quantize_kv(x)
+    return q, s[..., 0].contiguous()
+
+
+def _decode_err(torch, got, ref, what, rtol=0.0) -> float:
+    """max |got - ref| after checking |got - ref| <= DECODE_ATOL + rtol
+    |ref| elementwise."""
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what}: non-finite output")
+    diff = (got.float() - ref.float()).abs()
+    if bool((diff > DECODE_ATOL + rtol * ref.float().abs()).any()):
+        fail(f"{what} disagrees with its plain version: {diff.max().item()}")
+    return diff.max().item()
+
+
+def phase_paged_parity(torch, da, qz, dev, gen):
+    b, S, h, d, bs = 8, 1024, 12, 64, PAGED_BS
+    T, hd = S // bs, h * d
+    errs = {name: 0.0 for name in ("paged_decode_attention",)
+            + INT8_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        for s_q in (1, 4):
+            clen = torch.tensor([0, 1, 17, 512, 1024, 300, 777, S + s_q],
+                                dtype=torch.int32, device=dev)
+            q = torch.randn(b, s_q, h, d, device=dev, generator=gen).to(dtype)
+            k = torch.randn(b, S, hd, device=dev, generator=gen).to(dtype)
+            v = torch.randn(b, S, hd, device=dev, generator=gen).to(dtype)
+            perm = torch.randperm(b * T, device=dev, generator=gen)
+            tables = perm.view(b, T).int().contiguous()
+            in_order = torch.arange(b * T, dtype=torch.int32,
+                                    device=dev).view(b, T)
+            live = (clen.clamp(max=S) + bs - 1) // bs
+            sentinel = torch.where(
+                torch.arange(T, device=dev)[None, :] >= live[:, None],
+                b * T, tables).int().contiguous()
+            kp, vp = _to_pool(k, perm, bs), _to_pool(v, perm, bs)
+            dense = da.decode_attention(q, k, v, clen)
+            outs = {"permuted": da.paged_decode_attention(q, kp, vp, tables,
+                                                          clen),
+                    "in-order": da.paged_decode_attention(
+                        q, k.view(b * T, bs, hd), v.view(b * T, bs, hd),
+                        in_order, clen),
+                    "sentinel": da.paged_decode_attention(q, kp, vp,
+                                                          sentinel, clen)}
+            torch.cuda.synchronize()
+            for name, out in outs.items():
+                if not torch.equal(out, dense):
+                    fail(f"B3 over the {name} table is not bitwise B2 "
+                         f"({dtype}, s_q={s_q})")
+            got = outs["sentinel"]
+            ref = da.paged_decode_attention_reference(q, kp, vp, sentinel,
+                                                      clen, 1 / 8)
+            e3 = _decode_err(torch, got, ref, "paged_decode_attention")
+            if got[0].any():
+                fail("paged_decode_attention: the fill-0 row is not zero")
+            (kq, ks), (vq, vs) = _quantize(qz, k), _quantize(qz, v)
+            d8 = da.decode_attention(q, kq, vq, clen, k_scale=ks, v_scale=vs)
+            p8 = da.paged_decode_attention(
+                q, _to_pool(kq, perm, bs), _to_pool(vq, perm, bs), sentinel,
+                clen, k_scale=_to_pool(ks, perm, bs),
+                v_scale=_to_pool(vs, perm, bs))
+            torch.cuda.synchronize()
+            rtol = DECODE_INT8_RTOL if dtype == torch.bfloat16 else 0.0
+            e2q = _decode_err(torch, d8, da.decode_attention_reference(
+                q, kq, vq, clen, 1 / 8, ks, vs), "decode_attention_int8",
+                rtol)
+            e3q = _decode_err(torch, p8, da.paged_decode_attention_reference(
+                q, _to_pool(kq, perm, bs), _to_pool(vq, perm, bs), sentinel,
+                clen, 1 / 8, _to_pool(ks, perm, bs), _to_pool(vs, perm, bs)),
+                "paged_decode_attention_int8", rtol)
+            if not torch.equal(p8, d8):
+                fail(f"B3-int8 is not bitwise B2-int8 ({dtype}, s_q={s_q})")
+            if d8[0].any() or p8[0].any():
+                fail("int8 decode: the fill-0 row is not zero")
+            for name, e in zip(errs, (e3, e2q, e3q)):
+                errs[name] = max(errs[name], e)
+            print(f"phase18 {str(dtype)[6:]} s_q={s_q} b={b} S={S} h={h} "
+                  f"d={d} block={bs}: B3 bitwise B2 over permuted, in-order "
+                  f"and sentinel tables; max_abs_err B3={e3} B2-int8={e2q} "
+                  f"B3-int8={e3q} (tol {DECODE_ATOL}, int8 in bf16 + "
+                  f"{DECODE_INT8_RTOL} |ref|); fill-0 row zeros; "
+                  f"B3-int8 bitwise B2-int8", flush=True)
+    return errs
+
+
+def _checked_logits(torch, module, dev):
+    """Wrap ``module.logits`` so every served logits tensor is checked
+    finite; returns the flag that turns True on a non-finite one."""
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    unchecked = module.logits
+
+    def checked(hidden):
+        out = unchecked(hidden)
+        bad.logical_or_(~torch.isfinite(out).all())
+        return out
+
+    module.logits = checked
+    return bad
+
+
+def _serve(torch, eng, prompts, n_new):
+    """One timed main-path run with the counts reset just before and read
+    just after: (requests, seconds, launches)."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run([p.copy() for p in prompts], max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    for r in out:
+        if r.status != "done" or len(r.tokens) != n_new:
+            fail(f"request {r.uid}: status {r.status}, {len(r.tokens)} "
+                 f"tokens")
+    return out, seconds, launches
+
+
+def _want_launches(launches, kernel, what):
+    if not launches.get(kernel) or not launches.get("sampling"):
+        fail(f"{what} never launched {kernel} and sampling: {launches}")
+    other = [k for k in DECODE_KERNELS if k != kernel and launches.get(k)]
+    if other:
+        fail(f"{what} launched {other}: {launches}")
+
+
+def phase_paged_serving(torch, np, dev, seed, card):
+    from deepspeed_tpu_torch import InferenceEngine, ServingEngine
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_125m
+    cfg = gpt2_125m(max_seq_len=1024, dtype=torch.bfloat16)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    ie = InferenceEngine(model, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    distinct = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+                for n in rng.integers(16, 129, 12)]
+    # the repeats follow the first round of 8 admissions, whose prompts
+    # are in the prefix cache by then
+    twins = {12: 0, 13: 2, 14: 5, 15: 7}
+    prompts = distinct + [distinct[j].copy() for j in twins.values()]
+    kw = dict(max_batch=8, decode_chunk=8, max_prompt_len=128,
+              megakernel=True)
+    paged_kw = dict(kw, paged=True, kv_block_size=PAGED_BS)
+    n_new = 64
+    ServingEngine(engine=ie, **paged_kw).run(
+        [p.copy() for p in prompts[:2]], max_new_tokens=4)    # warm-up
+    eng = ServingEngine(engine=ie, **paged_kw)
+    out, seconds, launches = _serve(torch, eng, prompts, n_new)
+    print(f"phase19 paged serving gpt2_125m requests=16 block={PAGED_BS} "
+          f"launches={launches}", flush=True)
+    _want_launches(launches, "paged_decode_attention", "the paged main path")
+    m = eng.metrics
+    distinct_tokens = sum(len(p) for p in distinct)
+    print(f"phase19 prefix cache hits={m.n_prefix_hits} "
+          f"misses={m.n_prefix_misses} cow_forks={m.n_cow_forks} "
+          f"prefill_prompt_tokens={m.prefill_prompt_tokens} (distinct "
+          f"prompts {distinct_tokens})", flush=True)
+    if (m.n_prefix_hits, m.n_prefix_misses) != (4, 12):
+        fail("prefix-cache hits/misses are not 4/12")
+    if m.prefill_prompt_tokens != distinct_tokens:
+        fail("prefill ran over other prompts than the 12 distinct ones")
+    for i, j in twins.items():
+        if out[i].tokens != out[j].tokens:
+            fail(f"prefix-cache hit {i} served other tokens than its twin "
+                 f"{j}")
+    n_tokens = sum(len(r.tokens) for r in out)
+    print(f"paged_serving_tokens_per_s={n_tokens / seconds} card={card}",
+          flush=True)
+    print(f"paged_serving_mean_decode_chunk_ms="
+          f"{m.mean_decode_chunk_s * 1e3} (K=8, batch 8) card={card}",
+          flush=True)
+    rep = eng.kv.arena_report()
+    print(f"phase19 arena blocks_total={rep['blocks_total']} "
+          f"blocks_peak_used={rep['blocks_peak_used']} "
+          f"prefix_cache_blocks={rep['prefix_cache_blocks']} "
+          f"kv_bytes={rep['kv_bytes']}", flush=True)
+    dense, dense_s, dense_launches = _serve(
+        torch, ServingEngine(engine=ie, **kw), prompts, n_new)
+    _want_launches(dense_launches, "decode_attention", "the dense engine")
+    print(f"dense_serving_tokens_per_s={n_tokens / dense_s} (the same 16 "
+          f"requests) card={card}", flush=True)
+    diff = [i for i, (r, s) in enumerate(zip(out, dense))
+            if r.tokens != s.tokens]
+    if diff:
+        i = diff[0]
+        at = next(t for t, (a, b) in enumerate(zip(out[i].tokens,
+                                                   dense[i].tokens)) if a != b)
+        fail(f"paged tokens differ from the dense engine's in requests "
+             f"{diff} (request {i} from token {at})")
+    print("phase19 paged tokens equal the dense megakernel engine's; hits "
+          "equal their twins", flush=True)
+    phase_profile(torch, ie, prompts[:8], paged_kw, card, tag="phase19")
+    return launches, ie, prompts, [r.tokens for r in dense]
+
+
+def phase_int8_serving(torch, np, dev, ie, prompts, bf16_tokens, card):
+    from deepspeed_tpu_torch import ServingEngine
+    kw = dict(max_batch=8, decode_chunk=8, max_prompt_len=128,
+              megakernel=True, kv_dtype="int8")
+    n_new = 64
+    tokens, launches = {}, {}
+    for name, extra, kernel in (
+            ("dense", {}, "decode_attention_int8"),
+            ("paged", dict(paged=True, kv_block_size=PAGED_BS),
+             "paged_decode_attention_int8")):
+        ServingEngine(engine=ie, **kw, **extra).run(
+            [p.copy() for p in prompts[:2]], max_new_tokens=4)   # warm-up
+        eng = ServingEngine(engine=ie, **kw, **extra)
+        bad = _checked_logits(torch, eng.module, dev)
+        out, seconds, launched = _serve(torch, eng, prompts, n_new)
+        print(f"phase20 int8 {name} serving launches={launched}", flush=True)
+        _want_launches(launched, kernel, f"int8 {name} serving")
+        if bool(bad):
+            fail(f"non-finite logits while serving int8 {name}")
+        rep = eng.kv.arena_report()
+        share = rep["int8_payload_bytes"] / rep["kv_bytes_fp_equiv"]
+        print(f"phase20 int8 {name} arena int8_payload_bytes="
+              f"{rep['int8_payload_bytes']} scale_bytes={rep['scale_bytes']} "
+              f"kv_bytes_fp_equiv={rep['kv_bytes_fp_equiv']} payload share "
+              f"{share} kv_bytes/fp {rep['kv_bytes'] / rep['kv_bytes_fp_equiv']}"
+              f" prefix hits={eng.metrics.n_prefix_hits}", flush=True)
+        if not share <= 0.5:
+            fail(f"int8 {name} payload is {share} of the fp bytes")
+        n_tokens = sum(len(r.tokens) for r in out)
+        print(f"int8_{name}_serving_tokens_per_s={n_tokens / seconds} (every "
+              f"served logits tensor checked finite) card={card}", flush=True)
+        tokens[name] = [r.tokens for r in out]
+        launches[kernel] = launched[kernel]
+    if tokens["dense"] != tokens["paged"]:
+        fail("dense and paged int8 serving gave different greedy tokens")
+    agree = sum(int(a == b) for r, s in zip(tokens["dense"], bf16_tokens)
+                for a, b in zip(r, s))
+    total = sum(len(r) for r in bf16_tokens)
+    print(f"phase20 dense and paged int8 tokens equal; tokens equal to the "
+          f"bf16 engine's: {agree}/{total} = {agree / total}", flush=True)
+    return launches
+
+
+def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
+    import torch.nn.functional as F
+    q, k, v, clen = decode_inputs              # bf16, s_q 1, B2's fills
+    b, s_q, h, d = q.shape
+    S, hd, bs = k.shape[1], h * d, PAGED_BS
+    T = S // bs
+    perm = torch.randperm(b * T, device=dev, generator=gen)
+    tables = perm.view(b, T).int().contiguous()
+    p = torch.arange(S, device=dev)
+    flat = (tables.long()[:, p // bs] * bs + p % bs).reshape(-1)
+    mask = (p[None, :] < clen.clamp(max=S)[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    # 8 copies of every cache so each call reads its K/V cold from HBM
+    copies = []
+    for _ in range(8):
+        (kq, ks), (vq, vs) = _quantize(qz, k), _quantize(qz, v)
+        copies.append({
+            "dense": (k.clone(), v.clone()),
+            "paged": (_to_pool(k, perm, bs), _to_pool(v, perm, bs)),
+            "dense8": (kq, vq, ks, vs),
+            "paged8": tuple(_to_pool(t, perm, bs) for t in (kq, vq, ks, vs))})
+
+    def sdpa(kk, vv):
+        return F.scaled_dot_product_attention(
+            qt, kk.view(b, S, h, d).transpose(1, 2),
+            vv.view(b, S, h, d).transpose(1, 2), attn_mask=mask, scale=1 / 8)
+
+    def gather(pool):
+        return pool.reshape(b * T * bs, -1).index_select(0, flat)
+
+    def dequant(x, s):
+        return (x.float() * s.reshape(*x.shape[:-1], 1)).bfloat16()
+
+    calls = {
+        "decode_attention": (
+            lambda c: da.decode_attention(q, *c["dense"], clen), None, None),
+        "paged_decode_attention": (
+            lambda c: da.paged_decode_attention(q, *c["paged"], tables,
+                                                clen),
+            lambda c: da.paged_decode_attention_reference(
+                q, *c["paged"], tables, clen, 1 / 8),
+            lambda c: sdpa(gather(c["paged"][0]), gather(c["paged"][1]))),
+        "decode_attention_int8": (
+            lambda c: da.decode_attention(q, *c["dense8"][:2], clen,
+                                          k_scale=c["dense8"][2],
+                                          v_scale=c["dense8"][3]),
+            lambda c: da.decode_attention_reference(q, *c["dense8"][:2],
+                                                    clen, 1 / 8,
+                                                    *c["dense8"][2:]),
+            lambda c: sdpa(dequant(c["dense8"][0], c["dense8"][2]),
+                           dequant(c["dense8"][1], c["dense8"][3]))),
+        "paged_decode_attention_int8": (
+            lambda c: da.paged_decode_attention(
+                q, *c["paged8"][:2], tables, clen, k_scale=c["paged8"][2],
+                v_scale=c["paged8"][3]),
+            lambda c: da.paged_decode_attention_reference(
+                q, *c["paged8"][:2], tables, clen, 1 / 8, *c["paged8"][2:]),
+            lambda c: sdpa(dequant(gather(c["paged8"][0]),
+                                   gather(c["paged8"][2])),
+                           dequant(gather(c["paged8"][1]),
+                                   gather(c["paged8"][3])))),
+    }
+    live = clen.clamp(max=S).sum().item()
+    blocks = ((clen.clamp(max=S) + bs - 1) // bs).sum().item()
+    item = q.element_size()
+    qo = 2 * q.numel() * item + 4 * b          # q, out, cache_len
+    nbytes = {"decode_attention": 2 * live * hd * item + qo,
+              "paged_decode_attention": 2 * live * hd * item + qo + 4 * blocks,
+              "decode_attention_int8": 2 * live * (hd + 4) + qo,
+              "paged_decode_attention_int8": 2 * live * (hd + 4) + qo
+              + 4 * blocks}
+    flops = 4 * live * hd * s_q
+    b2_ms = None
+    t = {}
+    for name, (kernel, plain, lib) in calls.items():
+        ms = device_ms(lambda i: kernel(copies[i]), 8,
+                       "decode_attention_kernel")
+        if name == "decode_attention":
+            b2_ms = ms
+            print(f"phase21 B2 at the same fills {ms} ms card={card}",
+                  flush=True)
+            continue
+        tb, tf = nbytes[name] / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        t[name] = {"ms": ms,
+                   "plain_ms": device_ms(lambda i: plain(copies[i]), 8),
+                   "library_ms": device_ms(lambda i: lib(copies[i]), 8),
+                   "bound_ms": 1e3 * max(tb, tf),
+                   "bound_by": "bytes" if tb >= tf else "operations"}
+        for key, val in t[name].items():
+            print(f"{name}_{key}={val} card={card}", flush=True)
+        print(f"phase21 {name}: {ms / b2_ms} x B2's time at the same fills",
+              flush=True)
+    print("phase21 library_ms of B3 is a yardstick of two calls: "
+          "index_select gathers of K and V through the table, then "
+          "scaled_dot_product_attention with a boolean mask; int8 adds a "
+          "dequantize (payload x scale, to bf16) between them (dense int8: "
+          "dequantize + SDPA)", flush=True)
+    return t
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1101,6 +1488,7 @@ def main(argv=None) -> int:
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import sampling as sp
     from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import quantizer as qz
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1139,6 +1527,17 @@ def main(argv=None) -> int:
     del sparse_inputs
     torch.cuda.empty_cache()
     phase_sparse_bert(torch, np, sa, dev, gen, args.seed)
+    torch.cuda.empty_cache()
+
+    paged_err = phase_paged_parity(torch, da, qz, dev, gen)
+    launches_paged, ie, prompts, bf16_tokens = phase_paged_serving(
+        torch, np, dev, args.seed, card)
+    launches_int8 = phase_int8_serving(torch, np, dev, ie, prompts,
+                                       bf16_tokens, card)
+    del ie
+    torch.cuda.empty_cache()
+    paged_t = phase_paged_timing(torch, da, qz, dev, gen, decode_inputs,
+                                 card)
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",
@@ -1171,6 +1570,19 @@ def main(argv=None) -> int:
          **sparse_t[name]}
         for name, line in (("sparse_fwd", 72), ("sparse_bwd_dq", 122),
                            ("sparse_bwd_dkv", 166))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cu",
+         "replaces": f"deepspeed_tpu/ops/pallas/decode_attention.py:{line}",
+         "launches": launches, "max_abs_err": paged_err[name],
+         **paged_t[name]}
+        for name, line, launches in (
+            ("paged_decode_attention", 351,
+             launches_paged["paged_decode_attention"]),
+            ("decode_attention_int8", 74,
+             launches_int8["decode_attention_int8"]),
+            ("paged_decode_attention_int8", 351,
+             launches_int8["paged_decode_attention_int8"]))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

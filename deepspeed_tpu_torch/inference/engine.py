@@ -77,12 +77,18 @@ class InferenceEngine:
             return torch.multinomial(torch.softmax(logits, dim=-1), 1,
                                      generator=generator)[:, 0]
 
-        hidden, keys, values = self.module.prefill(ids)
+        # (hidden, keys, values) or, under the int8 cache, also the scales
+        hidden, keys, values, *scales = self.module.prefill(ids)
         shape = (cfg.num_layers, b, cfg.max_seq_len, keys.shape[-1])
-        cache_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-        cache_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        cache_k = torch.zeros(shape, dtype=keys.dtype, device=self.device)
+        cache_v = torch.zeros(shape, dtype=keys.dtype, device=self.device)
         cache_k[:, :, :s] = keys
         cache_v[:, :, :s] = values
+        k_scale = v_scale = None
+        if scales:
+            k_scale = torch.zeros(shape[:3], device=self.device)
+            v_scale = torch.zeros(shape[:3], device=self.device)
+            k_scale[:, :, :s], v_scale[:, :, :s] = scales
         token = sample(self.module.logits(hidden[:, -1]))
         done = (torch.zeros_like(token, dtype=torch.bool)
                 if eos_token_id is None else token == eos_token_id)
@@ -90,7 +96,8 @@ class InferenceEngine:
         pos = torch.full((b,), s, dtype=torch.long, device=self.device)
         for _ in range(max_new_tokens - 1):
             logits = self.module.decode(token[:, None], pos[:, None],
-                                        cache_k, cache_v, pos)
+                                        cache_k, cache_v, pos,
+                                        k_scale=k_scale, v_scale=v_scale)
             nxt = sample(logits[:, -1])
             if eos_token_id is not None:
                 nxt = torch.where(done, eos_token_id, nxt)

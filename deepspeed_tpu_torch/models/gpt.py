@@ -15,18 +15,26 @@ stacked ``[L, ...]`` block params becomes a layer loop over ``blocks``
   * :meth:`GPT.prefill` -- cacheless causal forward over a prompt batch on
     the masked einsum (the TPU serving prefill's ``_cache_einsum``);
     returns the final hidden states and every layer's K/V, which the
-    serving engine moves into its arena;
-  * :meth:`GPT.decode` -- ``s`` new tokens per row against a per-slot KV
-    arena ``[L, B, S, h*d]`` (stored flat, as the TPU kernel path stores it)
-    with a per-row write cursor. A write at ``>= max_seq_len`` is dropped:
-    the serving engine pins retired lanes there (the masked-lane sentinel).
+    serving engine moves into its arena. Under ``kv_cache_dtype="int8"``
+    the K/V come back quantized with their scales, and the prompt's own
+    attention reads them dequantized, as the TPU prefill reads its int8
+    cache;
+  * :meth:`GPT.decode` -- ``s`` new tokens per row against a KV cache with
+    a per-row write cursor: a per-slot arena ``[L, B, S, h*d]`` (stored
+    flat, as the TPU kernel path stores it) or, with ``block_tables``, a
+    paged block pool ``[L, nb + 1, bs, h*d]`` whose last block is a sink.
+    A write at ``>= max_seq_len`` is dropped (the dense arena keeps the old
+    value, the paged pool sends it to the sink): the serving engine pins
+    retired lanes there (the masked-lane sentinel). An int8 cache is
+    written quantized, with its f32 per-position scales beside it.
 
 Decode attention routes through ``ops/cuda/decode_attention.py`` when
-``decode_impl == "auto"`` (the CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor) and through the masked einsum otherwise. Unlike the
-TPU model, "auto" never gives way to the einsum: on the card a shape a
-kernel does not take (head dim, dtype, query width) raises. The large
-projections, the loss and the LayerNorms stay torch ops.
+``decode_impl == "auto"`` (the dense or paged CUDA kernel, int8 or not, on a
+CUDA tensor; their plain versions on a CPU tensor) and through the masked
+einsum otherwise (over the pool gathered through the tables when paged).
+Unlike the TPU model, "auto" never gives way to the einsum: on the card a
+shape a kernel does not take (head dim, dtype, query width, block size)
+raises. The large projections, the loss and the LayerNorms stay torch ops.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, List, Mapping, Optional, Tuple
+from typing import Any, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,8 +50,11 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..ops.cuda.decode_attention import (decode_attention,
-                                         masked_cache_attention)
+                                         masked_cache_attention,
+                                         paged_decode_attention,
+                                         paged_gather_kv)
 from ..ops.cuda.flash_attention import flash_attention
+from ..ops.quantizer import dequantize_kv, quantize_kv
 from ..ops.sparse_attention.sparse_self_attention import sparse_attention
 
 aten = torch.ops.aten
@@ -63,8 +74,9 @@ _REMAT_SAVE = {
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The TPU package's GPTConfig, field for field. Fields of features not
-    ported yet (MoE, sequence parallelism, local windows, the int8 cache,
-    the tp overlap, cpu checkpointing) must stay at their defaults.
+    ported yet (MoE, sequence parallelism, local windows, the tp overlap,
+    cpu checkpointing) must stay at their defaults. ``kv_cache_dtype`` is
+    "auto" (the cache in ``dtype``) or "int8".
     ``attention_impl="sparse"`` needs a ``sparse_attention`` SparsityConfig
     (the port's own, ``ops/sparse_attention``) and ``sparse_attention`` is
     read only under it. ``remat``/``remat_policy`` checkpoint each block of the
@@ -125,13 +137,15 @@ class GPTConfig:
         if self.attention_impl == "sparse" and self.sparse_attention is None:
             raise ValueError("attention_impl='sparse' needs a "
                              "sparse_attention SparsityConfig")
+        if self.kv_cache_dtype not in ("auto", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', "
+                             f"got {self.kv_cache_dtype!r}")
         if self.remat_policy not in _REMAT_SAVE:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}: "
                              f"use one of {sorted(_REMAT_SAVE)}")
         later = {"moe": self.moe,
                  "sequence_parallel": self.sequence_parallel,
                  "attn_windows": self.attn_windows is not None,
-                 "kv_cache_dtype='int8'": self.kv_cache_dtype != "auto",
                  "tp_overlap": self.tp_overlap,
                  "cpu_checkpointing": self.cpu_checkpointing}
         on = [name for name, flag in later.items() if flag]
@@ -221,18 +235,57 @@ def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
 
 def _kv_write(cache: torch.Tensor, kv: torch.Tensor,
               cur: torch.Tensor) -> None:
-    """Write ``kv`` [b, s, h*d] into ``cache`` [b, S, h*d] at per-row offset
-    ``cur`` [b], in place. Positions ``>= S`` are dropped (the masked-lane
-    sentinel), one query column at a time so no position is written
-    twice."""
+    """Write ``kv`` [b, s, ...] into ``cache`` [b, S, ...] (a K/V arena
+    layer [b, S, h*d], or its int8 scales [b, S]) at per-row offset ``cur``
+    [b], in place. Positions ``>= S`` are dropped (the masked-lane
+    sentinel): the row keeps its old value there, one query column at a
+    time so no position is written twice. Rows are distinct, so no two
+    lanes race for one position."""
     b, S = cache.shape[0], cache.shape[1]
     rows = torch.arange(b, device=cache.device)
     for j in range(kv.shape[1]):
         idx = cur + j
-        keep = (idx < S)[:, None]
+        keep = (idx < S).view(b, *([1] * (cache.dim() - 2)))
         idx = idx.clamp(max=S - 1)
         cache[rows, idx] = torch.where(keep, kv[:, j].to(cache.dtype),
                                        cache[rows, idx])
+
+
+class PagedStep(NamedTuple):
+    """One decode step's view of a paged cache, shared by every layer: the
+    block tables [b, T] the attention reads through, and the flat pool
+    index [b*s] each new position is written to (:func:`paged_write_index`)."""
+    tables: torch.Tensor
+    write_index: torch.Tensor
+
+
+def paged_write_index(block_tables: torch.Tensor, cur: torch.Tensor, s: int,
+                      block_size: int, num_blocks: int) -> torch.Tensor:
+    """Where the paged write of ``s`` tokens per row at ``cur`` [b] lands:
+    flat position ``table[r, p // bs] * bs + p % bs`` of a pool
+    [num_blocks + 1, bs, ...] whose block ``num_blocks`` is the sink (the
+    TPU package's ``_kv_write_paged`` index). A position ``>= T*bs`` (the
+    masked-lane sentinel) or one whose table entry is the ``padded_table``
+    sentinel (past the row's reservation) goes to the sink instead of being
+    dropped by index range, which on a CUDA tensor would be a device-side
+    assert. Only sink positions can be named twice, and nothing reads them
+    unmasked. Returns [b*s] int64."""
+    nb, bs = num_blocks, block_size
+    T = block_tables.shape[1]
+    pos = cur.long()[:, None] + torch.arange(s, device=cur.device)  # [b, s]
+    blk = torch.gather(block_tables.long(), 1, (pos // bs).clamp(0, T - 1))
+    flat = torch.where(pos < T * bs, blk.clamp(max=nb) * bs + pos % bs,
+                       nb * bs)
+    return flat.reshape(-1)
+
+
+def _kv_write_paged(pool: torch.Tensor, kv: torch.Tensor,
+                    index: torch.Tensor) -> None:
+    """Paged counterpart of :func:`_kv_write`: ``kv`` [b, s, ...] into
+    ``pool`` [nb + 1, bs, ...] at the flat positions ``index`` [b*s] of
+    :func:`paged_write_index`, in place."""
+    pool.view(-1, *pool.shape[2:]).index_copy_(
+        0, index, kv.reshape(index.numel(), *pool.shape[2:]).to(pool.dtype))
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -279,13 +332,20 @@ class SelfAttention(nn.Module):
                       else 1.0 / math.sqrt(cfg.head_dim))
 
     def forward(self, x, positions, kv=None, cache_index=None,
-                decode_impl=None, attention_impl=None):
+                decode_impl=None, attention_impl=None,
+                paged: Optional[PagedStep] = None):
         """x [b, s, D]. Without ``kv``: causal attention over x itself,
         through :func:`causal_attention` with ``attention_impl`` (training)
-        or, when that is None, the masked einsum (prefill). With
-        ``kv = (ck, cv)`` [b, S, h*d] arena views: write this step's k/v at
-        ``cache_index`` [b] and attend over each row's filled prefix.
-        Returns (out [b, s, D], k, v [b, s, h*d])."""
+        or, when that is None, the masked einsum (prefill; under the int8
+        cache over the quantized K/V, dequantized). With
+        ``kv = (ck, cv, k_scale, v_scale)``: write this step's k/v at
+        ``cache_index`` [b] and attend over each row's filled prefix. ck/cv
+        are [b, S, h*d] arena views, or with ``paged`` (the step's tables
+        and write index) the paged pools [nb + 1, bs, h*d]; the scales are
+        None, or the int8 cache's f32 [b, S] / [nb + 1, bs] views.
+        Returns (out [b, s, D], k, v [b, s, h*d]); under the int8 cache's
+        prefill k and v are (int8 payload [b, s, h*d], f32 scale [b, s])
+        pairs."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, d = cfg.num_heads, cfg.head_dim
@@ -303,24 +363,56 @@ class SelfAttention(nn.Module):
                            cfg.dtype), k, v
         k, v = k.reshape(b, s, h * d), v.reshape(b, s, h * d)
         if kv is None:
-            out = masked_cache_attention(q, k.view(b, s, h, d),
-                                         v.view(b, s, h, d), 0, self.scale)
+            kr, vr = k, v
+            if cfg.kv_cache_dtype == "int8":
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                kr = dequantize_kv(kq, ks, cfg.dtype)
+                vr = dequantize_kv(vq, vs, cfg.dtype)
+                k, v = (kq, ks[..., 0]), (vq, vs[..., 0])
+            out = masked_cache_attention(q, kr.view(b, s, h, d),
+                                         vr.view(b, s, h, d), 0, self.scale)
         else:
-            ck, cv = kv
-            _kv_write(ck, k, cache_index)
-            _kv_write(cv, v, cache_index)
-            out = self._decode_attention(q, ck, cv, cache_index,
-                                         decode_impl or cfg.decode_impl)
+            ck, cv, ksc, vsc = kv
+            writes = [(ck, k), (cv, v)]
+            if ksc is not None:
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                writes = [(ck, kq), (cv, vq), (ksc, ks[..., 0]),
+                          (vsc, vs[..., 0])]
+            for cache, new in writes:
+                if paged is None:
+                    _kv_write(cache, new, cache_index)
+                else:
+                    _kv_write_paged(cache, new, paged.write_index)
+            out = self._decode_attention(
+                q, ck, cv, cache_index, decode_impl or cfg.decode_impl,
+                None if paged is None else paged.tables, ksc, vsc)
         out = _linear(out.reshape(b, s, cfg.d_model), self.out_proj,
                       cfg.dtype)
         return out, k, v
 
-    def _decode_attention(self, q, ck, cv, cur, impl):
+    def _decode_attention(self, q, ck, cv, cur, impl, block_tables=None,
+                          k_scale=None, v_scale=None):
         b, s, h, d = q.shape
-        S = ck.shape[1]
         if impl == "auto":      # the kernel, which raises on a shape it lacks
-            return decode_attention(q.contiguous(), ck, cv, cur + s,
-                                    scale=self.scale)
+            if block_tables is None:
+                return decode_attention(q.contiguous(), ck, cv, cur + s,
+                                        scale=self.scale, k_scale=k_scale,
+                                        v_scale=v_scale)
+            return paged_decode_attention(q.contiguous(), ck, cv,
+                                          block_tables, cur + s,
+                                          scale=self.scale, k_scale=k_scale,
+                                          v_scale=v_scale)
+        if block_tables is not None:    # the TPU package's gather path
+            ck = paged_gather_kv(ck, block_tables)
+            cv = paged_gather_kv(cv, block_tables)
+            if k_scale is not None:
+                k_scale = paged_gather_kv(k_scale, block_tables)
+                v_scale = paged_gather_kv(v_scale, block_tables)
+            cur = cur.clamp(max=ck.shape[1] - s)
+        if k_scale is not None:
+            ck = dequantize_kv(ck, k_scale[..., None], self.cfg.dtype)
+            cv = dequantize_kv(cv, v_scale[..., None], self.cfg.dtype)
+        S = ck.shape[1]
         return masked_cache_attention(q, ck.view(b, S, h, d),
                                       cv.view(b, S, h, d), cur, self.scale)
 
@@ -351,10 +443,10 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions, kv=None, cache_index=None,
-                decode_impl=None, attention_impl=None):
+                decode_impl=None, attention_impl=None, paged=None):
         dt = self.cfg.dtype
         a, k, v = self.attn(_layer_norm(x, self.ln_1, dt), positions, kv,
-                            cache_index, decode_impl, attention_impl)
+                            cache_index, decode_impl, attention_impl, paged)
         if self.cfg.parallel_residual:
             # NeoX: x + attn(ln1(x)) + ffn(ln2(x))
             out = x + a + self.mlp(_layer_norm(x, self.ln_2, dt))
@@ -404,21 +496,29 @@ class GPT(nn.Module):
 
     def prefill(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, ...]:
         """Cacheless causal forward. Returns (hidden [B, P, D] after ln_f,
-        keys and values [L, B, P, h*d])."""
+        keys and values [L, B, P, h*d]); under ``kv_cache_dtype="int8"``
+        (hidden, int8 keys, int8 values, f32 key scales, f32 value scales
+        [L, B, P]), the prompt having attended over the dequantized int8
+        K/V."""
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device
                                      )[None, :].expand(b, s)
         x = self._embed(input_ids, positions)
-        ks: List[torch.Tensor] = []
-        vs: List[torch.Tensor] = []
+        ks: List = []
+        vs: List = []
         for blk in self.blocks:
             x, k, v = blk(x, positions)
             ks.append(k)
             vs.append(v)
         x = _layer_norm(x, self.ln_f, self.cfg.dtype)
+        if self.cfg.kv_cache_dtype == "int8":
+            return (x, torch.stack([k for k, _ in ks]),
+                    torch.stack([v for v, _ in vs]),
+                    torch.stack([sc for _, sc in ks]),
+                    torch.stack([sc for _, sc in vs]))
         return x, torch.stack(ks), torch.stack(vs)
 
     def forward(self, input_ids: torch.Tensor,
@@ -449,16 +549,36 @@ class GPT(nn.Module):
     def decode(self, input_ids: torch.Tensor, positions: torch.Tensor,
                cache_k: torch.Tensor, cache_v: torch.Tensor,
                cache_index: torch.Tensor,
-               decode_impl: Optional[str] = None) -> torch.Tensor:
-        """``s`` tokens per row against the arena. input_ids/positions
-        [B, s]; cache_k/cache_v [L, B, S, h*d], written in place at
-        ``cache_index`` [B] (>= S drops the write). ``decode_impl``
-        overrides ``cfg.decode_impl`` (the serving engine's megakernel
-        switch). Returns logits [B, s, V]."""
+               decode_impl: Optional[str] = None,
+               block_tables: Optional[torch.Tensor] = None,
+               k_scale: Optional[torch.Tensor] = None,
+               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``s`` tokens per row against the cache. input_ids/positions
+        [B, s]; cache_k/cache_v the dense arena [L, B, S, h*d] or, with
+        ``block_tables`` [B, T] int32, the paged pools [L, nb + 1, bs,
+        h*d] (block nb the sink, T*bs = S); written in place at
+        ``cache_index`` [B] (>= S drops the write). Under
+        ``kv_cache_dtype="int8"`` the caches are int8 and ``k_scale`` /
+        ``v_scale`` their f32 scales, [L, B, S] or [L, nb + 1, bs].
+        ``decode_impl`` overrides ``cfg.decode_impl`` (the serving engine's
+        megakernel switch). Returns logits [B, s, V]."""
+        if (k_scale is not None) != (self.cfg.kv_cache_dtype == "int8"):
+            raise ValueError(
+                f"kv_cache_dtype={self.cfg.kv_cache_dtype!r} with "
+                f"k_scale={'given' if k_scale is not None else None}: the "
+                f"int8 cache needs its scales, and only it takes them")
+        paged = None
+        if block_tables is not None:       # one write index for all layers
+            paged = PagedStep(block_tables, paged_write_index(
+                block_tables, cache_index, input_ids.shape[1],
+                cache_k.shape[2], cache_k.shape[1] - 1))
         x = self._embed(input_ids, positions)
         for layer, blk in enumerate(self.blocks):
-            x, _, _ = blk(x, positions, (cache_k[layer], cache_v[layer]),
-                          cache_index, decode_impl)
+            kv = (cache_k[layer], cache_v[layer],
+                  None if k_scale is None else k_scale[layer],
+                  None if v_scale is None else v_scale[layer])
+            x, _, _ = blk(x, positions, kv, cache_index, decode_impl,
+                          paged=paged)
         return self.logits(_layer_norm(x, self.ln_f, self.cfg.dtype))
 
 

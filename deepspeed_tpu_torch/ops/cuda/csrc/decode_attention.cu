@@ -1,11 +1,30 @@
-// Dense KV-cache decode attention for Hopper (sm_90a).
+// KV-cache decode attention for Hopper (sm_90a): dense (B2) and paged (B3),
+// each over a bf16/f32 cache or an int8 cache with per-position scales.
 //
-// Replaces the Pallas kernel `_decode_kernel` in
-// deepspeed_tpu/ops/pallas/decode_attention.py (wrapper `decode_attention`).
-// Computes, for every (row, head) and each of s_q <= 8 query positions, the
-// softmax attention over the row's own live cache prefix: query i of a row
-// with fill f sees key positions p < f - (s_q - 1) + i. A query that sees no
-// key returns zeros.
+// Replaces the Pallas kernels `_decode_kernel` (dense, wrapper
+// `decode_attention`) and `_paged_decode_kernel` (paged, wrapper
+// `paged_decode_attention`) in deepspeed_tpu/ops/pallas/decode_attention.py,
+// both with their `quantized` branch. Computes, for every (row, head) and
+// each of s_q <= 8 query positions, the softmax attention over the row's own
+// live cache prefix: query i of a row with fill f sees key positions
+// p < f - (s_q - 1) + i. A query that sees no key returns zeros.
+//
+// Where key position p of row r lives is the one thing the two layouts
+// differ in, so the kernel is templated on it (`Rows`):
+//   * dense: cache row r * S + p of a [b, S, h*d] cache;
+//   * paged: row table[r][p / bs] * bs + p % bs of a [nb, bs, h*d] block
+//     pool, the table entry clamped into [0, nb - 1] as the TPU kernel
+//     clamps it (sentinel entries past a row's reservation lie past its
+//     fill and are masked).
+// Every line of the softmax and the value loop is shared, so over a table
+// that lays a dense cache out in order the paged kernel's output is bitwise
+// the dense kernel's.
+//
+// int8 cache (`TC = int8_t`): one f32 dequant multiplier per cache row
+// ([b, S] dense, [nb, bs] paged). The kernel loads int8 (a 16-byte load
+// carries 16 elements) and multiplies each element by its position's scale
+// in f32 before the dot and before the value sum, as the TPU kernel does in
+// VMEM; no dequantized cache is ever written. q and out stay bf16/f32.
 //
 // Bound: device-memory bytes. A decode step reads each live K and V row once
 // and does 4*d flops per (query, key) pair, far below the card's
@@ -13,17 +32,24 @@
 // row (dead positions and other rows' prefixes are never fetched), once:
 //   * one thread block per (row, head), kWarps warps; warp w walks key tiles
 //     w, w + kWarps, ... of 32 positions each;
-//   * scores: lane = key; each lane reads its key's d contiguous elements
-//     with 16-byte loads and dots them with the queries held in shared memory;
+//   * scores: lane = key; each lane resolves its key's cache row once per
+//     tile (a table read for paged), reads the key's d contiguous elements
+//     with 16-byte loads and dots them with the queries held in shared
+//     memory;
 //   * online softmax in f32 per warp (max / sum by warp shuffles);
 //   * values: lane = channel; each key's d values are read coalesced and
-//     weighted by that key's probability, broadcast from its score lane.
-//     A tile's value rows are loaded kValBatch at a time, all in flight
-//     before the first is used: one dependent load per key made the first
-//     version of this kernel latency-bound (one HBM round trip per key);
+//     weighted by that key's probability (and int8 scale), both broadcast
+//     from the key's score lane by a shuffle, as is its cache row when that
+//     came from a table read (the dense row is recomputed: broadcasting it
+//     made the dense kernel 30% slower on the H100). A tile's value rows
+//     are loaded kValBatch at a time, all in flight before the first is used:
+//     one dependent load per key made the first version of this kernel
+//     latency-bound (one HBM round trip per key);
 //   * the warps' partial (max, sum, acc) merge in shared memory at the end.
-// The TPU kernel's block-diagonal query matrix existed only to feed the MXU
-// and has no counterpart here. Split-KV, TMA and wgmma are later work.
+// The TPU kernels' block-diagonal query matrix existed only to feed the MXU
+// and has no counterpart here; nor has their double-buffered DMA of one
+// block per row (the hardware keeps many loads in flight per warp).
+// Split-KV, TMA and wgmma are later work.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes by
 // deepspeed_tpu_torch/ops/cuda/decode_attention.py.
@@ -32,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,6 +71,9 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -78,6 +109,16 @@ struct Vec16<__nv_bfloat16> {
       out[2 * j] = f.x;
       out[2 * j + 1] = f.y;
     }
+  }
+};
+template <>
+struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* out) {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) out[j] = static_cast<float>(c[j]);
   }
 };
 
@@ -122,6 +163,21 @@ struct VecN<__nv_bfloat16, 4> {
     out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
   }
 };
+template <>
+struct VecN<int8_t, 2> {
+  __device__ __forceinline__ static void load(const int8_t* p, float* out) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    out[0] = static_cast<float>(c.x); out[1] = static_cast<float>(c.y);
+  }
+};
+template <>
+struct VecN<int8_t, 4> {
+  __device__ __forceinline__ static void load(const int8_t* p, float* out) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    out[0] = static_cast<float>(c.x); out[1] = static_cast<float>(c.y);
+    out[2] = static_cast<float>(c.z); out[3] = static_cast<float>(c.w);
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -135,16 +191,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+// Cache row (in units of h*d elements) of key position `pos` of row `row`.
+// kTable: the row comes from a table read, so the value loop takes it from
+// the key's score lane (a shuffle) instead of recomputing it.
+struct DenseRows {
+  static constexpr bool kTable = false;
+  int S;
+  __device__ __forceinline__ int operator()(int row, int pos) const {
+    return row * S + pos;
+  }
+};
+
+struct PagedRows {
+  static constexpr bool kTable = true;
+  const int* tables;   // [b, T]
+  int T, bs, nb;
+  __device__ __forceinline__ int operator()(int row, int pos) const {
+    const int e = min(max(tables[row * T + pos / bs], 0), nb - 1);
+    return e * bs + pos % bs;
+  }
+};
+
+template <typename T, typename TC, int D, typename Rows>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
-                        const T* __restrict__ k,       // [b, S, h*D]
-                        const T* __restrict__ v,       // [b, S, h*D]
+                        const TC* __restrict__ k,      // cache rows [*, h*D]
+                        const TC* __restrict__ v,
+                        const float* __restrict__ k_scale,  // [*] (int8)
+                        const float* __restrict__ v_scale,
                         const int* __restrict__ cache_len,  // [b]
                         T* __restrict__ out,           // [b, s_q, h, D]
-                        int s_q, int h, int S, float scale) {
+                        int s_q, int h, int S, float scale, Rows rows) {
+  constexpr bool kInt8 = std::is_same<TC, int8_t>::value;
   constexpr int DPL = D / 32;                 // channels per lane (values)
-  constexpr int VN = Vec16<T>::N;             // elements per 16-byte load
+  constexpr int VN = Vec16<TC>::N;            // elements per 16-byte load
   __shared__ float q_s[kMaxSQ][D];
   __shared__ float m_s[kWarps][kMaxSQ];
   __shared__ float l_s[kWarps][kMaxSQ];
@@ -164,8 +244,8 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
 
   const int fill = min(max(cache_len[row], 0), S);
   const int lim0 = fill - (s_q - 1);          // query i sees p < lim0 + i
-  const T* kbase = k + (size_t)row * S * hd + (size_t)head * D;
-  const T* vbase = v + (size_t)row * S * hd + (size_t)head * D;
+  const TC* kbase = k + (size_t)head * D;
+  const TC* vbase = v + (size_t)head * D;
 
   float m[kMaxSQ], l[kMaxSQ], acc[kMaxSQ][DPL];
 #pragma unroll
@@ -178,15 +258,26 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
 
   for (int t0 = warp * 32; t0 < fill; t0 += kWarps * 32) {
     const int pos = t0 + lane;
+    const int crow = pos < fill ? rows(row, pos) : 0;   // this lane's key
+    float vsc = 1.f;
     float p[kMaxSQ];
 #pragma unroll
     for (int i = 0; i < kMaxSQ; ++i) p[i] = 0.f;
     if (pos < fill) {                         // scores: lane = key
-      const T* kr = kbase + (size_t)pos * hd;
+      const TC* kr = kbase + (size_t)crow * hd;
+      float ksc = 1.f;
+      if (kInt8) {
+        ksc = k_scale[crow];
+        vsc = v_scale[crow];
+      }
 #pragma unroll
       for (int e = 0; e < D; e += VN) {
         float kv[VN];
-        Vec16<T>::load(kr + e, kv);
+        Vec16<TC>::load(kr + e, kv);
+        if (kInt8) {
+#pragma unroll
+          for (int u = 0; u < VN; ++u) kv[u] *= ksc;
+        }
 #pragma unroll
         for (int i = 0; i < kMaxSQ; ++i) {
           if (i < s_q) {
@@ -216,12 +307,25 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
       float vv[kValBatch][DPL];
 #pragma unroll
       for (int u = 0; u < kValBatch; ++u) {   // all loads first
+        int cr;
+        if constexpr (Rows::kTable) {
+          cr = __shfl_sync(kFull, crow, (k0 + u) & 31);
+        } else {
+          cr = rows(row, t0 + k0 + u);
+        }
         if (k0 + u < nk) {
-          VecN<T, DPL>::load(vbase + (size_t)(t0 + k0 + u) * hd + lane * DPL,
-                             vv[u]);
+          VecN<TC, DPL>::load(vbase + (size_t)cr * hd + lane * DPL, vv[u]);
         } else {
 #pragma unroll
           for (int c = 0; c < DPL; ++c) vv[u][c] = 0.f;
+        }
+      }
+      if (kInt8) {
+#pragma unroll
+        for (int u = 0; u < kValBatch; ++u) {
+          const float s = __shfl_sync(kFull, vsc, (k0 + u) & 31);
+#pragma unroll
+          for (int c = 0; c < DPL; ++c) vv[u][c] *= s;
         }
       }
 #pragma unroll
@@ -229,7 +333,7 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
 #pragma unroll
         for (int i = 0; i < kMaxSQ; ++i) {
           if (i < s_q) {
-            const float pk = __shfl_sync(kFull, p[i], k0 + u);
+            const float pk = __shfl_sync(kFull, p[i], (k0 + u) & 31);
 #pragma unroll
             for (int c = 0; c < DPL; ++c)
               acc[i][c] = fmaf(pk, vv[u][c], acc[i][c]);
@@ -269,55 +373,88 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
   }
 }
 
-template <typename T>
+template <typename T, typename TC, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale,
                    const int* cache_len, void* out, int b, int s_q, int h,
-                   int d, int S, float scale, cudaStream_t stream) {
+                   int d, int S, float scale, Rows rows,
+                   cudaStream_t stream) {
   const dim3 grid(h, b);
   const dim3 block(kWarps * 32);
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
+  const TC* kt = static_cast<const TC*>(k);
+  const TC* vt = static_cast<const TC*>(v);
   T* ot = static_cast<T*>(out);
   switch (d) {
-    case 32:
-      decode_attention_kernel<T, 32><<<grid, block, 0, stream>>>(
-          qt, kt, vt, cache_len, ot, s_q, h, S, scale);
-      break;
-    case 64:
-      decode_attention_kernel<T, 64><<<grid, block, 0, stream>>>(
-          qt, kt, vt, cache_len, ot, s_q, h, S, scale);
-      break;
-    case 96:
-      decode_attention_kernel<T, 96><<<grid, block, 0, stream>>>(
-          qt, kt, vt, cache_len, ot, s_q, h, S, scale);
-      break;
-    case 128:
-      decode_attention_kernel<T, 128><<<grid, block, 0, stream>>>(
-          qt, kt, vt, cache_len, ot, s_q, h, S, scale);
-      break;
+#define DSTORCH_DECODE_CASE(D_)                                             \
+  case D_:                                                                  \
+    decode_attention_kernel<T, TC, D_, Rows><<<grid, block, 0, stream>>>(   \
+        qt, kt, vt, k_scale, v_scale, cache_len, ot, s_q, h, S, scale,      \
+        rows);                                                              \
+    break;
+    DSTORCH_DECODE_CASE(32)
+    DSTORCH_DECODE_CASE(64)
+    DSTORCH_DECODE_CASE(96)
+    DSTORCH_DECODE_CASE(128)
+#undef DSTORCH_DECODE_CASE
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
-extern "C" int dstorch_decode_attention(const void* q, const void* k,
-                                        const void* v, const int* cache_len,
-                                        void* out, int b, int s_q, int h,
-                                        int d, int S, float scale, int dtype,
-                                        void* stream) {
+template <typename Rows>
+int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
+             const void* v_scale, const int* cache_len, void* out, int b,
+             int s_q, int h, int d, int S, float scale, int dtype, int int8,
+             Rows rows, void* stream) {
   if (s_q < 1 || s_q > kMaxSQ || b < 1 || h < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
+  if (int8 && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if (dtype == 0 && !int8)
+    return (int)launch<float, float>(q, k, v, ks, vs, cache_len, out, b, s_q,
+                                     h, d, S, scale, rows, st);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, cache_len, out, b, s_q, h, d, S, scale,
-                              st);
+    return (int)launch<float, int8_t>(q, k, v, ks, vs, cache_len, out, b, s_q,
+                                      h, d, S, scale, rows, st);
+  if (dtype == 1 && !int8)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, ks, vs, cache_len, out, b, s_q, h, d, S, scale, rows, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, cache_len, out, b, s_q, h, d, S,
-                                      scale, st);
+    return (int)launch<__nv_bfloat16, int8_t>(
+        q, k, v, ks, vs, cache_len, out, b, s_q, h, d, S, scale, rows, st);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype (of q and out): 0 = float32, 1 = bfloat16. int8: the cache is int8
+// with f32 scales k_scale / v_scale (else they are unused and may be null).
+// Returns a cudaError_t (0 on success).
+extern "C" int dstorch_decode_attention(const void* q, const void* k,
+                                        const void* v, const void* k_scale,
+                                        const void* v_scale,
+                                        const int* cache_len, void* out, int b,
+                                        int s_q, int h, int d, int S,
+                                        float scale, int dtype, int int8,
+                                        void* stream) {
+  return dispatch(q, k, v, k_scale, v_scale, cache_len, out, b, s_q, h, d, S,
+                  scale, dtype, int8, DenseRows{S}, stream);
+}
+
+// The paged layout: k/v pools [nb, bs, h*d] (scales [nb, bs]), tables
+// [b, T] int32; S = T * bs.
+extern "C" int dstorch_paged_decode_attention(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const int* tables,
+    const int* cache_len, void* out, int b, int s_q, int h, int d, int nb,
+    int bs, int T, float scale, int dtype, int int8, void* stream) {
+  if (nb < 1 || bs < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k_pool, v_pool, k_scale, v_scale, cache_len, out, b, s_q,
+                  h, d, T * bs, scale, dtype, int8, PagedRows{tables, T, bs, nb},
+                  stream);
 }

@@ -1,15 +1,23 @@
-"""Dense KV-cache decode attention: read only each row's live prefix.
+"""KV-cache decode attention, dense and paged: read only each row's live
+prefix.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/decode_attention.py``. The Pallas
-kernel ``_decode_kernel`` becomes the CUDA kernel in
-``csrc/decode_attention.cu`` (one thread block per (row, head), online
-softmax over the row's own live prefix; see the source for its design).
+kernels ``_decode_kernel`` (dense) and ``_paged_decode_kernel`` (paged), with
+their int8 branches, become one CUDA kernel in ``csrc/decode_attention.cu``
+templated on where a key position lives (one thread block per (row, head),
+online softmax over the row's own live prefix; see the source for its
+design).
 
-The cache is stored flat, ``[b, S, h*d]``, as the TPU path stores it.
-``decode_attention`` launches the kernel for a CUDA tensor and runs the plain
-PyTorch version (:func:`decode_attention_reference`) for a CPU tensor; it
-never falls back from one to the other. ``masked_cache_attention`` is the
-masked-einsum attention the model's prefill uses, the TPU package's XLA path.
+The dense cache is stored flat, ``[b, S, h*d]``, as the TPU path stores it;
+the paged cache is a block pool ``[nb, bs, h*d]`` read through block tables
+``[b, T]``. An int8 cache carries one f32 dequant multiplier per position
+(``k_scale``/``v_scale``: ``[b, S]`` dense, ``[nb, bs]`` paged).
+:func:`decode_attention` and :func:`paged_decode_attention` launch the
+kernel for a CUDA tensor and run the plain PyTorch version
+(:func:`decode_attention_reference`, :func:`paged_decode_attention_reference`)
+for a CPU tensor; they never fall back from one to the other.
+``masked_cache_attention`` is the masked-einsum attention the model's
+prefill uses, the TPU package's XLA path.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..quantizer import dequantize_kv
 from . import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -30,10 +39,21 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_supported(s: int, d: int, dtype: torch.dtype) -> bool:
-    """Whether the kernel takes this query width, head dim and cache dtype.
+    """Whether the kernel takes this query width, head dim and compute dtype
+    (q's; the cache is the same dtype or int8 with scales).
     :func:`decode_attention` raises on a CUDA tensor of any other shape."""
     return 1 <= s <= MAX_SPEC_S and d in _KERNEL_HEAD_DIMS \
         and dtype in _KERNEL_DTYPES
+
+
+def paged_decode_supported(s: int, d: int, dtype: torch.dtype,
+                           block_size: int) -> bool:
+    """:func:`decode_supported` plus the pool's block size, a multiple of 8
+    (it divides S = T * block_size by construction).
+    :func:`paged_decode_attention` raises on a CUDA tensor of any other
+    shape."""
+    return decode_supported(s, d, dtype) and block_size >= 8 \
+        and block_size % 8 == 0
 
 
 def masked_cache_attention(q, ck, cv, first_q_pos, scale):
@@ -62,20 +82,83 @@ def _as_cache_len(cache_len, b: int, S: int, device) -> torch.Tensor:
 
 
 def decode_attention_reference(q, cached_key, cached_value, cache_len,
-                               scale: float):
+                               scale: float, k_scale=None, v_scale=None):
     """The plain version: the masked einsum over the whole cache, with a
     query that sees no key returning zeros, as the kernel does. Caches are
-    flat [b, S, h*d] (or [b, S, h, d])."""
+    flat [b, S, h*d] (or [b, S, h, d]); an int8 cache is dequantized to q's
+    dtype first with its [b, S] scales (the TPU fallback's order)."""
     b, s_q, h, d = q.shape
     S = cached_key.shape[1]
     clen = _as_cache_len(cache_len, b, S, q.device)
-    ck = cached_key.reshape(b, S, h, d)
-    cv = cached_value.reshape(b, S, h, d)
+    ck = cached_key.reshape(b, S, h * d)
+    cv = cached_value.reshape(b, S, h * d)
+    if k_scale is not None:
+        ck = dequantize_kv(ck, k_scale.reshape(b, S, 1), q.dtype)
+        cv = dequantize_kv(cv, v_scale.reshape(b, S, 1), q.dtype)
     first_q = clen - s_q
-    out = masked_cache_attention(q, ck, cv, first_q, scale)
+    out = masked_cache_attention(q, ck.view(b, S, h, d), cv.view(b, S, h, d),
+                                 first_q, scale)
     # query i sees p < first_q + i + 1: none when that bound is <= 0
     sees = (first_q[:, None] + torch.arange(1, s_q + 1, device=q.device)) > 0
     return torch.where(sees[:, :, None, None], out, torch.zeros_like(out))
+
+
+def paged_gather_kv(pool: torch.Tensor,
+                    block_tables: torch.Tensor) -> torch.Tensor:
+    """The gather of the plain version: pool [nb, bs, ...] through
+    block_tables [b, T] -> [b, T*bs, ...]. Position p of row i reads flat
+    pool index ``block_tables[i, p // bs] * bs + p % bs``, clipped into the
+    pool (``mode="clip"``): sentinel entries past a row's reservation read
+    the pool's last position, which lies past the row's fill and is masked
+    by the caller."""
+    nb, bs = pool.shape[:2]
+    b, T = block_tables.shape
+    p = torch.arange(T * bs, device=pool.device)
+    blk = block_tables.long()[:, p // bs]                         # [b, S]
+    flat = (blk * bs + p % bs).clamp(0, nb * bs - 1)
+    return pool.reshape(nb * bs, *pool.shape[2:])[flat]
+
+
+def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
+                                     cache_len, scale: float, k_scale=None,
+                                     v_scale=None):
+    """The plain version of the paged kernel: gather the pools (and an int8
+    pool's [nb, bs] scales) through the tables, then
+    :func:`decode_attention_reference` over the gathered [b, T*bs, h*d]
+    cache."""
+    kf = paged_gather_kv(k_pool, block_tables)
+    vf = paged_gather_kv(v_pool, block_tables)
+    ks = vs = None
+    if k_scale is not None:
+        ks = paged_gather_kv(k_scale, block_tables)
+        vs = paged_gather_kv(v_scale, block_tables)
+    return decode_attention_reference(q, kf, vf, cache_len, scale, ks, vs)
+
+
+def _check_kernel_args(q, k, v, k_scale, v_scale, scale_shape, d, s_q):
+    if not decode_supported(s_q, d, q.dtype):
+        raise ValueError(
+            f"decode kernel takes s_q in 1..{MAX_SPEC_S}, d in "
+            f"{_KERNEL_HEAD_DIMS}, f32/bf16; got s_q={s_q} d={d} {q.dtype}")
+    int8 = k_scale is not None
+    want = torch.int8 if int8 else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise ValueError(f"cache dtypes {k.dtype} {v.dtype}: expected {want} "
+                         f"for q {q.dtype}"
+                         + (" with scales" if int8 else ""))
+    tensors = [("q", q), ("cached_key", k), ("cached_value", v)]
+    if int8:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != scale_shape:
+                raise ValueError(f"{name} must be f32 {scale_shape}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in tensors:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return int8
 
 
 def decode_attention(q: torch.Tensor, cached_key: torch.Tensor,
@@ -84,47 +167,97 @@ def decode_attention(q: torch.Tensor, cached_key: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: [b, s_q, h, d], 1 <= s_q <= 8. cached_key/value: the flat
-    [b, S, h*d] cache (a rank-4 [b, S, h, d] cache is viewed flat).
-    cache_len: valid positions per row including this call's s_q tokens, a
-    scalar or [b]; entries past S (the serving engine's retired-lane
-    sentinel) are clamped to S. Query i of a row with fill f attends to
-    positions < f - (s_q - 1) + i. Returns [b, s_q, h, d] in q's dtype.
+    [b, S, h*d] cache (a rank-4 [b, S, h, d] cache is viewed flat), in q's
+    dtype, or int8 with ``k_scale``/``v_scale`` [b, S] f32 dequant
+    multipliers. cache_len: valid positions per row including this call's
+    s_q tokens, a scalar or [b]; entries past S (the serving engine's
+    retired-lane sentinel) are clamped to S. Query i of a row with fill f
+    attends to positions < f - (s_q - 1) + i. Returns [b, s_q, h, d] in q's
+    dtype.
 
     A CUDA tensor launches the kernel; a CPU tensor runs
-    :func:`decode_attention_reference`. ``k_scale``/``v_scale`` (the int8
-    cache's per-position scales) are not ported yet and raise."""
+    :func:`decode_attention_reference`."""
     b, s_q, h, d = q.shape
     S = cached_key.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
     if q.device.type == "cpu":
         return decode_attention_reference(q, cached_key, cached_value,
-                                          cache_len, scale)
-    if not decode_supported(s_q, d, cached_key.dtype):
-        raise ValueError(
-            f"decode kernel takes s_q in 1..{MAX_SPEC_S}, d in "
-            f"{_KERNEL_HEAD_DIMS}, f32/bf16; got s_q={s_q} d={d} "
-            f"{cached_key.dtype}")
-    if q.dtype != cached_key.dtype or cached_value.dtype != cached_key.dtype:
-        raise ValueError(f"q/k/v dtypes differ: {q.dtype} {cached_key.dtype} "
-                         f"{cached_value.dtype}")
+                                          cache_len, scale, k_scale, v_scale)
     kf = cached_key.reshape(b, S, h * d)
     vf = cached_value.reshape(b, S, h * d)
-    for name, t in (("q", q), ("cached_key", kf), ("cached_value", vf)):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {q.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    int8 = _check_kernel_args(q, kf, vf, k_scale, v_scale, (b, S), d, s_q)
     clen = _as_cache_len(cache_len, b, S, q.device).contiguous()
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.dstorch_decode_attention(
-            q.data_ptr(), kf.data_ptr(), vf.data_ptr(), clen.data_ptr(),
+            q.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, clen.data_ptr(),
             out.data_ptr(), b, s_q, h, d, S, float(scale),
-            _KERNEL_DTYPES[q.dtype], _build.stream_of(q))
-    _build.check(err, "decode_attention")
-    _build.LAUNCHES["decode_attention"] += 1
+            _KERNEL_DTYPES[q.dtype], int(int8), _build.stream_of(q))
+    name = "decode_attention_int8" if int8 else "decode_attention"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           cache_len, scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Decode attention over a paged cache. q: [b, s_q, h, d], 1 <= s_q <=
+    8; k_pool/v_pool: [nb, bs, h*d] block pools in q's dtype, or int8 with
+    ``k_scale``/``v_scale`` [nb, bs] f32; block_tables: [b, T] (S = T*bs);
+    cache_len: valid positions per row including this call's tokens, a
+    scalar or [b], clamped to S. Table entries past nb - 1 (the
+    ``padded_table`` sentinel) are read clamped into the pool; they lie past
+    their row's fill and are masked. Returns [b, s_q, h, d].
+
+    A CUDA tensor launches the paged kernel; a CPU tensor runs
+    :func:`paged_decode_attention_reference`."""
+    b, s_q, h, d = q.shape
+    nb, bs = k_pool.shape[:2]
+    T = block_tables.shape[1]
+    S = T * bs
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_tables, cache_len, scale, k_scale,
+            v_scale)
+    if not paged_decode_supported(s_q, d, q.dtype, bs):
+        raise ValueError(
+            f"decode kernel takes s_q in 1..{MAX_SPEC_S}, d in "
+            f"{_KERNEL_HEAD_DIMS}, f32/bf16, block_size a multiple of 8; got "
+            f"s_q={s_q} d={d} {q.dtype} block_size={bs}")
+    kf = k_pool.reshape(nb, bs, h * d)
+    vf = v_pool.reshape(nb, bs, h * d)
+    int8 = _check_kernel_args(q, kf, vf, k_scale, v_scale, (nb, bs), d, s_q)
+    if (block_tables.dtype != torch.int32 or block_tables.shape[0] != b
+            or block_tables.device != q.device
+            or not block_tables.is_contiguous()):
+        raise ValueError(f"block_tables must be contiguous int32 [{b}, T] on "
+                         f"{q.device}")
+    clen = _as_cache_len(cache_len, b, S, q.device).contiguous()
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.dstorch_paged_decode_attention(
+            q.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, block_tables.data_ptr(),
+            clen.data_ptr(), out.data_ptr(), b, s_q, h, d, nb, bs, T,
+            float(scale), _KERNEL_DTYPES[q.dtype], int(int8),
+            _build.stream_of(q))
+    name = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return out

@@ -1,11 +1,14 @@
 """ServingEngine: continuous-batching server over the inference stack.
 
-Counterpart of ``deepspeed_tpu/serving/engine.py`` (dense arena subset). It
-composes
+Counterpart of ``deepspeed_tpu/serving/engine.py`` (dense and paged arenas,
+bf16/f32 or int8 KV). It composes
 
   * an :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`
     (device placement and dtype),
-  * a slotted KV arena with per-slot fills (serving/kv_cache.py),
+  * a KV arena: the slotted one with per-slot fills
+    (serving/kv_cache.py), or with ``paged=True`` a block pool with block
+    tables, a prefix cache and copy-on-write forks (serving/paged_kv.py);
+    ``kv_dtype="int8"`` stores either as int8 with per-position scales,
   * an iteration-level scheduler (serving/scheduler.py),
   * serving counters (serving/metrics.py),
 
@@ -22,18 +25,27 @@ into a chunked serve loop:
            host syncs once per chunk and hands the token buffer to the
            scheduler.
 
-``megakernel=True`` routes every decode step's attention through the
-hand-written decode kernel (``decode_impl="auto"``) and every sampling call
-through the sort-free sampling kernel (``fused_sample_tokens``). On a CPU
-device both wrappers run their plain PyTorch versions.
+Paged admission: a prefix-cache hit (an exact repeat of a cached prompt,
+greedy only) skips prefill: its full prompt blocks are shared, its partial
+tail block is copied, and the cached first token seeds decode. Hit forks are
+enqueued before the misses' prefill inserts (one stream: enqueue order is
+write order), and each miss publishes its prompt blocks after its first
+token, before the request can retire.
 
-Not in this slice (see ROADMAP.md): paged KV, the prefix cache, tiered KV,
-speculative decoding, fused prefill, the int8 cache, tp, disaggregation,
-migration, telemetry spans and the double-buffered ``pump`` loop.
+``megakernel=True`` routes every decode step's attention through the
+hand-written decode kernels (``decode_impl="auto"``: dense or paged, int8 or
+not) and every sampling call through the sort-free sampling kernel
+(``fused_sample_tokens``). On a CPU device the wrappers run their plain
+PyTorch versions.
+
+Not in this slice (see ROADMAP.md): tiered KV, speculative decoding, fused
+prefill, tp, disaggregation, migration, telemetry spans and the
+double-buffered ``pump`` loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
@@ -43,6 +55,7 @@ import torch
 from ..utils.logging import log_dist
 from .kv_cache import SlotKVCacheManager
 from .metrics import ServingMetrics
+from .paged_kv import PagedAdmitPlan, PagedKVCacheManager
 from .sampling import fused_sample_tokens, sample_tokens
 from .scheduler import ContinuousBatchScheduler, Request
 
@@ -71,7 +84,14 @@ class ServingEngine:
     an optional ``model_parameters`` state_dict and the ``InferenceEngine``
     keywords ``dtype`` / ``device``) to build one. ``decode_chunk`` is the
     number of decode steps per host sync; greedy outputs are identical for
-    every value."""
+    every value.
+
+    ``paged=True`` serves from a block pool of ``kv_pool_blocks`` blocks of
+    ``kv_block_size`` positions (default: as many positions as the dense
+    arena), with the prefix cache (``prefix_cache_capacity`` entries) on
+    when ``prefix_cache`` and greedy sampling (temperature 0). Greedy
+    outputs equal the dense arena's. ``kv_dtype="int8"`` quantizes the KV
+    cache (either layout) to int8 with per-position f32 scales."""
 
     def __init__(self, model=None, model_parameters=None, *,
                  engine=None,
@@ -85,6 +105,12 @@ class ServingEngine:
                  top_p: Optional[float] = None,
                  megakernel: bool = False,
                  seed: int = 0,
+                 paged: bool = False,
+                 kv_block_size: int = 16,
+                 kv_pool_blocks: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 prefix_cache_capacity: int = 64,
+                 kv_dtype: str = "auto",
                  **inference_kwargs):
         if engine is None:
             from ..inference.engine import InferenceEngine
@@ -94,6 +120,17 @@ class ServingEngine:
         self.device = engine.device
         self.module = engine.module
         cfg = self.module.cfg
+        self.kv_dtype = str(kv_dtype)
+        if self.kv_dtype not in ("auto", "int8"):
+            raise ValueError(f"kv_dtype must be 'auto' or 'int8', "
+                             f"got {kv_dtype!r}")
+        if self.kv_dtype == "int8" and cfg.kv_cache_dtype != "int8":
+            # the module rebuilt with the int8 cache config over the same
+            # parameter tensors (no copy), as the TPU engine rebuilds it
+            cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+            module = type(self.module)(cfg, device="meta")
+            module.load_state_dict(self.module.state_dict(), assign=True)
+            self.module = module
         self.megakernel = bool(megakernel)
         # the megakernel switch: decode attention through the kernel wrapper
         # and sampling through the fused epilogue
@@ -120,7 +157,17 @@ class ServingEngine:
         self.temperature = float(temperature)
         self.top_k = top_k
         self.top_p = top_p
-        self.kv = SlotKVCacheManager(cfg, self.max_batch, self.device)
+        self.paged = bool(paged)
+        if self.paged:
+            # prefix reuse replays a stored first token, which is faithful
+            # only when sampling is deterministic: greedy only
+            self.kv = PagedKVCacheManager(
+                cfg, self.max_batch, self.device, block_size=kv_block_size,
+                num_blocks=kv_pool_blocks,
+                prefix_cache_capacity=prefix_cache_capacity,
+                prefix_caching=prefix_cache and self.temperature == 0.0)
+        else:
+            self.kv = SlotKVCacheManager(cfg, self.max_batch, self.device)
         self.scheduler = ContinuousBatchScheduler(
             self.kv.allocator, max_queue=max_queue,
             max_prompt_len=self.max_prompt_len)
@@ -134,6 +181,7 @@ class ServingEngine:
                  f"prefill_buckets={self._buckets} "
                  f"decode_chunk={self.decode_chunk} "
                  f"max_seq={self.max_seq_len} megakernel={self.megakernel} "
+                 f"paged={self.paged} kv_dtype={self.kv_dtype} "
                  f"device={self.device}", ranks=[0])
 
     # --------------------------------------------------------------- API
@@ -181,17 +229,45 @@ class ServingEngine:
 
     def _admit(self) -> None:
         """Admit every currently-runnable request: group by prefill bucket,
-        one batched prefill and one arena insert per group."""
+        one batched prefill and one arena insert per group. Paged:
+        prefix-cache hits skip prefill (a fork and the cached first token)
+        and are enqueued before the misses' prefills, so a fork's copy
+        precedes anything that could recycle its source block."""
         admitted = self.scheduler.admit()
+        plans: Dict[int, PagedAdmitPlan] = {}
+        if self.paged:
+            misses = []
+            for req in admitted:
+                plan = self.kv.take_plan(req.slot)
+                if plan.hit:
+                    self._admit_prefix_hit(req, plan)
+                else:
+                    plans[req.slot] = plan
+                    misses.append(req)
+            admitted = misses
         groups: Dict[int, List[Request]] = {}
         for req in admitted:
             groups.setdefault(self._bucket_for(req.prompt_len),
                               []).append(req)
         for bucket, reqs in sorted(groups.items()):
-            self._prefill(bucket, reqs)
+            self._prefill(bucket, reqs, plans)
 
     @torch.inference_mode()
-    def _prefill(self, bucket: int, reqs: List[Request]) -> None:
+    def _admit_prefix_hit(self, req: Request, plan: PagedAdmitPlan) -> None:
+        """A cached prompt: share its full blocks, copy its tail, replay the
+        stored first token. No prefill runs."""
+        self.kv.apply_fork(plan)
+        self.metrics.on_prefix(True)
+        if plan.cow is not None:
+            self.metrics.on_cow()
+        first = int(plan.first_token)
+        self._last_token[req.slot] = first
+        self.metrics.on_tokens(1)
+        self.scheduler.record_first_token(req, first)
+
+    @torch.inference_mode()
+    def _prefill(self, bucket: int, reqs: List[Request],
+                 plans: Dict[int, PagedAdmitPlan]) -> None:
         n = len(reqs)
         ids = np.zeros((n, bucket), np.int64)
         lens = np.empty(n, np.int64)
@@ -200,13 +276,13 @@ class ServingEngine:
             lens[i] = r.prompt_len
         self._prefill_shapes.add((n, bucket))
         dev = self.device
-        hidden, keys, values = self.module.prefill(
-            torch.from_numpy(ids).to(dev))
+        # (hidden, keys, values) or, under the int8 cache, also the scales
+        hidden, *kv = self.module.prefill(torch.from_numpy(ids).to(dev))
         last = hidden[torch.arange(n, device=dev),
                       torch.from_numpy(lens - 1).to(dev)]
         toks = self._sample(self.module.logits(last), self._generator,
                             self.temperature, self.top_k, self.top_p)
-        self.kv.insert_batch(keys, values, [r.slot for r in reqs])
+        self.kv.insert_batch(*kv[:2], [r.slot for r in reqs], *kv[2:])
         toks_host = toks.cpu().numpy()
         self.metrics.on_prefill(n, bucket, int(lens.sum()),
                                 len(self._prefill_shapes))
@@ -214,6 +290,16 @@ class ServingEngine:
         for i, r in enumerate(reqs):
             first = int(toks_host[i])
             self._last_token[r.slot] = first
+            plan = plans.get(r.slot)
+            if plan is not None:
+                # publish the prompt blocks before the request can retire
+                # (retiring drops its refs; the cache holds its own); may
+                # enqueue the tail's copy
+                cow = self.kv.commit_prefix(plan, first)
+                if self.kv.prefix_enabled:
+                    self.metrics.on_prefix(False)
+                if cow is not None:
+                    self.metrics.on_cow()
             # may retire the request at once (max_new_tokens == 1 or an
             # immediate EOS): its slot frees before any decode
             self.scheduler.record_first_token(r, first)
@@ -252,7 +338,9 @@ class ServingEngine:
             logits = self.module.decode(
                 tok[:, None], pos.clamp(max=S - 1)[:, None],
                 self.kv.cache_k, self.kv.cache_v, write_pos,
-                decode_impl=self._decode_impl)
+                decode_impl=self._decode_impl,
+                block_tables=self.kv.block_tables, k_scale=self.kv.k_scale,
+                v_scale=self.kv.v_scale)
             nxt = self._sample(logits[:, -1], self._generator,
                                self.temperature, self.top_k,
                                self.top_p).to(tok.dtype)

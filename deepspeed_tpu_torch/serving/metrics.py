@@ -72,6 +72,9 @@ class ServingMetrics:
         self.prefill_prompt_tokens = 0
         self.prefill_padded_tokens = 0
         self.prefill_programs = 0
+        self.n_prefix_hits = 0
+        self.n_prefix_misses = 0
+        self.n_cow_forks = 0
 
     # ----------------------------------------------------------- recording
     def start(self) -> None:
@@ -107,6 +110,17 @@ class ServingMetrics:
         self.prefill_padded_tokens += int(n_prompts) * int(bucket_len)
         self.prefill_programs = int(n_programs)
 
+    def on_prefix(self, hit: bool) -> None:
+        """One paged admission resolved against the prefix cache."""
+        if hit:
+            self.n_prefix_hits += 1
+        else:
+            self.n_prefix_misses += 1
+
+    def on_cow(self) -> None:
+        """One copy-on-write block fork (a shared tail privatized)."""
+        self.n_cow_forks += 1
+
     # ------------------------------------------------------------ reading
     @property
     def padding_waste(self) -> float:
@@ -124,6 +138,11 @@ class ServingMetrics:
     def mean_decode_chunk_s(self) -> float:
         return (self.decode_seconds / self.decode_steps
                 if self.decode_steps else 0.0)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        n = self.n_prefix_hits + self.n_prefix_misses
+        return self.n_prefix_hits / n if n else 0.0
 
     def tokens_per_s(self) -> float:
         if self.t0 is None:
@@ -146,4 +165,8 @@ class ServingMetrics:
             "serving/rejected_total": float(self.rejected),
             "serving/prefill_padding_waste": float(self.padding_waste),
             "serving/prefill_programs": float(self.prefill_programs),
+            "serving/prefix_cache_hits": float(self.n_prefix_hits),
+            "serving/prefix_cache_misses": float(self.n_prefix_misses),
+            "serving/prefix_hit_rate": float(self.prefix_hit_rate),
+            "serving/cow_forks": float(self.n_cow_forks),
         }

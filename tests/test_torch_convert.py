@@ -66,7 +66,7 @@ def test_prefill_then_decode_matches_full_forward(decode_impl):
 def test_unported_features_raise():
     from deepspeed_tpu_torch.models.gpt import GPTConfig
     for kw in (dict(moe=True), dict(sequence_parallel=True),
-               dict(kv_cache_dtype="int8"), dict(cpu_checkpointing=True)):
+               dict(cpu_checkpointing=True)):
         with pytest.raises(NotImplementedError):
             GPTConfig(**kw)
     # "sparse" is ported; without a layout it is refused (the TPU model

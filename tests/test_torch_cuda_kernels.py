@@ -50,6 +50,182 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, s_q, d):
                                atol=ATOL[dtype])
 
 
+def _pools(dev, dtype, b, T, bs, hd, g, extra=3):
+    """A pool of b*T + extra blocks in a random order: (k_pool, v_pool,
+    tables [b, T] int32 naming distinct blocks)."""
+    nb = b * T + extra
+    k = torch.randn(nb, bs, hd, device=dev, generator=g).to(dtype)
+    v = torch.randn(nb, bs, hd, device=dev, generator=g).to(dtype)
+    perm = torch.randperm(nb, device=dev, generator=g)[:b * T]
+    return k, v, perm.view(b, T).int().contiguous()
+
+
+def _quantized(t):
+    from deepspeed_tpu_torch.ops.quantizer import quantize_kv
+    q, s = quantize_kv(t)
+    return q, s[..., 0].contiguous()
+
+
+# paged kernel (B3) and the int8 branches of B2 and B3 vs their plain
+# versions: bf16 and f32 x d x block size x s_q, permuted tables with
+# sentinel entries past each row's fill, a row with fill 0 (zeros), and the
+# retired-lane sentinel fill past S. B3 within B2's bound; int8 in bf16 adds
+# a relative term: the plain versions round the dequantized cache to bf16
+# (2^-9 relative per element) before the einsum, the kernels keep it f32
+INT8_RTOL = {torch.float32: 0.0, torch.bfloat16: 2e-2}
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("s_q", list(range(1, 9)))
+def test_paged_and_int8_decode_kernels_match_plain(dev, dtype, bs, d, s_q):
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    g = torch.Generator(device=dev).manual_seed(s_q * 1000 + d * 10 + bs)
+    b, h, S = 5, 4, 320
+    T = S // bs
+    kp, vp, tables = _pools(dev, dtype, b, T, bs, h * d, g)
+    nb = kp.shape[0]
+    fills = torch.tensor([0, s_q, 33, S, S + 1], dtype=torch.int32,
+                         device=dev)
+    live_blocks = (fills.clamp(max=S) + bs - 1) // bs
+    past = torch.arange(T, device=dev)[None, :] >= live_blocks[:, None]
+    tables = torch.where(past, nb, tables).int().contiguous()  # sentinels
+    q = torch.randn(b, s_q, h, d, device=dev, generator=g).to(dtype)
+    before = dict(_build.LAUNCHES)
+    out = da.paged_decode_attention(q, kp, vp, tables, fills, scale=0.1)
+    (kq, ks), (vq, vs) = _quantized(kp), _quantized(vp)
+    out8 = da.paged_decode_attention(q, kq, vq, tables, fills, scale=0.1,
+                                     k_scale=ks, v_scale=vs)
+    dense_k = torch.randn(b, S, h * d, device=dev, generator=g).to(dtype)
+    dense_v = torch.randn(b, S, h * d, device=dev, generator=g).to(dtype)
+    (dkq, dks), (dvq, dvs) = _quantized(dense_k), _quantized(dense_v)
+    dense8 = da.decode_attention(q, dkq, dvq, fills, scale=0.1, k_scale=dks,
+                                 v_scale=dvs)
+    torch.cuda.synchronize()
+    for name in ("paged_decode_attention", "paged_decode_attention_int8",
+                 "decode_attention_int8"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    refs = (da.paged_decode_attention_reference(q, kp, vp, tables, fills,
+                                                0.1),
+            da.paged_decode_attention_reference(q, kq, vq, tables, fills,
+                                                0.1, ks, vs),
+            da.decode_attention_reference(q, dkq, dvq, fills, 0.1, dks, dvs))
+    for name, got, ref, rtol in (
+            ("B3", out, refs[0], 0.0),
+            ("B3-int8", out8, refs[1], INT8_RTOL[dtype]),
+            ("B2-int8", dense8, refs[2], INT8_RTOL[dtype])):
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                   atol=ATOL[dtype], msg=lambda m: name + m)
+        assert not got[0].any()                  # fill 0: no key, zeros
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q", [1, 4])
+def test_paged_kernel_over_a_dense_layout_is_bitwise_dense(dev, int8, dtype,
+                                                           s_q):
+    """The paged kernel shares every line of arithmetic with the dense one:
+    over tables that lay a dense cache out (in order, or permuted with the
+    blocks moved to match), its output is bitwise the dense kernel's."""
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    g = torch.Generator(device=dev).manual_seed(7 + s_q)
+    b, h, d, S, bs = 4, 12, 64, 1024, 16
+    T = S // bs
+    k = torch.randn(b, S, h * d, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, S, h * d, device=dev, generator=g).to(dtype)
+    ks = vs = kps = vps = None
+    if int8:
+        (k, ks), (v, vs) = _quantized(k), _quantized(v)
+    q = torch.randn(b, s_q, h, d, device=dev, generator=g).to(dtype)
+    fills = torch.tensor([1, 500, S, S + s_q], dtype=torch.int32, device=dev)
+    dense = da.decode_attention(q, k, v, fills, k_scale=ks, v_scale=vs)
+    in_order = torch.arange(b * T, device=dev, dtype=torch.int32).view(b, T)
+    perm = torch.randperm(b * T, device=dev, generator=g).int().view(b, T)
+    for tables in (in_order, perm):
+        kp = torch.empty(b * T, bs, h * d, device=dev, dtype=k.dtype)
+        vp = torch.empty_like(kp)
+        kp[tables.flatten().long()] = k.view(b * T, bs, h * d)
+        vp[tables.flatten().long()] = v.view(b * T, bs, h * d)
+        if int8:
+            kps = torch.empty(b * T, bs, device=dev)
+            vps = torch.empty_like(kps)
+            kps[tables.flatten().long()] = ks.view(b * T, bs)
+            vps[tables.flatten().long()] = vs.view(b * T, bs)
+        paged = da.paged_decode_attention(q, kp, vp, tables.contiguous(),
+                                          fills, k_scale=kps, v_scale=vps)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, dense)
+
+
+def test_paged_and_int8_kernels_raise_on_what_they_lack(dev):
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    kp = torch.randn(8, 16, 128, device=dev)
+    tables = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    q = torch.randn(2, 1, 2, 64, device=dev)
+    before = dict(_build.LAUNCHES)
+    for bad in (dict(q=torch.randn(2, 1, 4, 32, device=dev).half()),
+                dict(q=torch.randn(2, 9, 2, 64, device=dev)),
+                dict(q=torch.randn(2, 1, 8, 16, device=dev)),
+                dict(pool=torch.randn(8, 12, 128, device=dev))):
+        pool = bad.get("pool", kp)
+        with pytest.raises(ValueError, match="decode kernel takes"):
+            da.paged_decode_attention(bad.get("q", q), pool, pool, tables, 3)
+    k8 = torch.zeros(8, 16, 128, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="k_scale must be f32"):
+        da.paged_decode_attention(q, k8, k8, tables, 3,
+                                  k_scale=torch.ones(8, 8, device=dev),
+                                  v_scale=torch.ones(8, 8, device=dev))
+    with pytest.raises(ValueError, match="cache dtypes"):
+        da.paged_decode_attention(q, k8, k8, tables, 3)
+    with pytest.raises(ValueError, match="cache dtypes"):
+        da.decode_attention(q, kp.view(2, 64, 128), kp.view(2, 64, 128), 3,
+                            k_scale=torch.ones(2, 64, device=dev),
+                            v_scale=torch.ones(2, 64, device=dev))
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("kw", [dict(paged=True),
+                                dict(kv_dtype="int8"),
+                                dict(paged=True, kv_dtype="int8")])
+def test_paged_and_int8_engines_launch_their_kernels(dev, kw):
+    """The serving engine on the card goes through the paged / int8 kernels
+    (and no other decode kernel), and its greedy tokens equal the same
+    engine's on the CPU for the first tokens of each request (f32)."""
+    from deepspeed_tpu_torch import InferenceEngine, ServingEngine
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+    from deepspeed_tpu_torch.ops.cuda import _build
+    cfg = GPTConfig(vocab_size=512, max_seq_len=128, num_layers=2,
+                    num_heads=2, d_model=128, d_ff=256, dtype=torch.float32)
+    model = GPT(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ps = [rng.integers(1, 512, int(n)).astype(np.int32)
+          for n in (5, 20, 9, 20)]
+    ps[3] = ps[1].copy()                           # a prefix-cache hit
+    args = dict(max_batch=2, decode_chunk=4, max_prompt_len=32,
+                megakernel=True, kv_block_size=16, **kw)
+    cpu = ServingEngine(engine=InferenceEngine(
+        GPT(cfg), dtype=torch.float32, device="cpu",
+        model_parameters=model.state_dict()), **args).run(
+        [p.copy() for p in ps], max_new_tokens=8)
+    _build.reset_launch_counts()
+    card = ServingEngine(engine=InferenceEngine(
+        model, dtype=torch.float32, device=dev), **args).run(
+        [p.copy() for p in ps], max_new_tokens=8)
+    name = ("paged_decode_attention" if kw.get("paged")
+            else "decode_attention")
+    if kw.get("kv_dtype") == "int8":
+        name += "_int8"
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert set(launched) == {name, "sampling"}, launched
+    assert all(r.status == "done" and len(r.tokens) == 8 for r in card)
+    assert [r.tokens[:2] for r in card] == [r.tokens[:2] for r in cpu]
+    if kw.get("paged"):
+        assert card[3].tokens == card[1].tokens
+
+
 # 50304 (GPT-2) stages the row in shared memory; 131072 is past the staging
 # budget and reads the row from device memory on every pass
 @pytest.mark.parametrize("V", [50304, 131072])

@@ -115,11 +115,3 @@ def test_model_auto_raises_on_unsupported_non_cpu_shape(d, dtype, s):
         attn._decode_attention(q, cache, cache, cur, "auto")
     assert _build.LAUNCHES["decode_attention"] == before
 
-
-def test_int8_cache_scales_raise():
-    q, k, v, fills = _inputs(1, seed=6)
-    scales = torch.ones(B, S)
-    with pytest.raises(NotImplementedError):
-        pda.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
-                             torch.from_numpy(v), torch.from_numpy(fills),
-                             k_scale=scales, v_scale=scales)
