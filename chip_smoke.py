@@ -108,7 +108,33 @@ Phases (any failure exits non-zero before the result lines):
  21. device times of B3, B2-int8 and B3-int8 at phase 2's inputs (B2's
      fills, bf16, s_q 1) beside B2's, their plain versions', a gather +
      scaled_dot_product_attention yardstick (a dequantize between them for
-     int8) and their byte bounds.
+     int8) and their byte bounds;
+ 22. the row-wise kernels vs their plain versions, bf16 and f32: LayerNorm
+     (B6) forward and dx at [8*512, 1024] (gamma/beta in the element type
+     and in f32) and [37, 1000]; bias-GELU (B7) forward and backward at
+     [8*512, 4096] and [37, 1001]; softmax (B8) forward and backward at
+     [8, 16, 512, 512] and [2, 3, 77, 4099] (a block per row), causal and
+     not, and masked_softmax with a scale and an additive key mask; then
+     B7's op entry (ops.transformer.bias_gelu + gelu, forward and backward
+     at [8, 512, 4096] bf16, counts reset just before and read just after:
+     two launches of each kernel);
+ 23. the layer path: 24 DeepSpeedTransformerLayers at bert_large width
+     (hidden 1024, 16 heads, intermediate 4096, pre-LN, eps 1e-12, no
+     dropout, random weights from --seed) with a fixed key-padding mask
+     (lengths 512 .. 64) trained through initialize() + train_batch (bf16
+     over fp32 masters, AdamW lr 1e-4, ZeRO-1, micro 8 x seq 512 x gas 1,
+     the mean squared output as the loss): 1 warm-up + 3 timed steps,
+     counts reset just before and read after each step; fails on a
+     non-finite or non-falling loss or on launches per step other than
+     48 / 48 LayerNorm, 24 / 24 softmax and no flash; prints step s,
+     tokens/s, peak memory and a warmed step's idle share; then one
+     forward+backward without the mask (flash 24 / 24 / 24, no softmax),
+     and the trained weights through the kernels vs the plain versions
+     (loss and grad norm);
+ 24. the six row-wise kernels' device times at phase 22's shapes (bf16;
+     softmax also f32, the layer's logits) beside their plain versions,
+     F.layer_norm / F.gelu(x + b, approximate="tanh") / torch.softmax and
+     their autograd backwards (yardsticks) and their bounds.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -119,6 +145,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1472,6 +1499,430 @@ def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
           "dequantize + SDPA)", flush=True)
     return t
 
+# ---------------------------------------------------------------------------
+# Slice 5: the fused transformer ops (B6, B7, B8) and DeepSpeedTransformerLayer
+# ---------------------------------------------------------------------------
+
+ROWWISE = ("layer_norm_fwd", "layer_norm_dx", "bias_gelu_fwd",
+           "bias_gelu_bwd", "softmax_fwd", "softmax_bwd")
+# (atol, rtol) of a row-wise kernel vs its plain version: both compute in
+# f32 and round once to the element type, so bf16 agrees within one ulp
+# (2^-7 relative) and f32 within summation order and the rsqrtf / tanhf /
+# expf roundings; gradients sum rows of products (1e-4 absolute)
+ROW_FWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
+ROW_GRAD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2 ** -7)}
+# bert_large widths (deepspeed_tpu/models/bert.py:69-71), pre-LN, BERT's eps
+LAYER_KW = dict(hidden_size=1024, heads=16, intermediate_size=4096,
+                num_hidden_layers=24, pre_layer_norm=True,
+                layer_norm_eps=1e-12)
+LAYER_MICRO, LAYER_SEQ = 8, 512
+LAYER_LENGTHS = (512, 448, 384, 320, 256, 192, 128, 64)
+LAYER_CONFIG = {"train_micro_batch_size_per_gpu": LAYER_MICRO,
+                "gradient_accumulation_steps": 1,
+                "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 1},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                "steps_per_print": 100_000}
+# model check, bf16 body through 24 layers: the kernels and the plain
+# versions round the same f32 values, apart by one ulp where summation
+# order moves a value across a rounding boundary
+LAYER_LOSS_RTOL = 1e-2
+LAYER_GRAD_NORM_RTOL = 5e-2
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _row_close(got, ref, grad=False) -> float:
+    atol, rtol = (ROW_GRAD_TOL if grad else ROW_FWD_TOL)[_dtype_name(ref)]
+    return _close(got, ref, atol, rtol)
+
+
+def phase_rowwise_parity(torch, ln, gl, sm, dev, gen):
+    """Each row-wise kernel vs its plain version at the layer's shapes
+    (BERT-large width, micro 8 x seq 512), bf16 and f32, and one odd
+    shape each. Returns the max abs err per kernel and the bf16 / f32
+    inputs that phase 24 times."""
+    errs = {name: 0.0 for name in ROWWISE}
+    inputs = {}
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    N = LAYER_MICRO * LAYER_SEQ
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, (n, d) in (("layer", (N, 1024)), ("odd", (37, 1000))):
+            x = (torch.randn(n, d, device=dev, generator=gen) * 2 + 1
+                 ).to(dtype)
+            dy = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+            for pdt in (dtype, torch.float32):
+                g = (1 + 0.3 * torch.randn(d, device=dev, generator=gen)
+                     ).to(pdt)
+                b = (0.3 * torch.randn(d, device=dev, generator=gen)).to(pdt)
+                y, mean, rstd = ln.layer_norm_forward(x, g, b, 1e-12)
+                ry, rm, rr = ln.layer_norm_forward_reference(x, g, b, 1e-12)
+                dx = ln.layer_norm_dx(x, g, rm, rr, dy)
+                rdx = ln.layer_norm_backward_reference(x, g, rm, rr, dy)
+                torch.cuda.synchronize()
+                note("layer_norm_fwd", max(_row_close(y, ry),
+                                           _close(mean, rm, 1e-5, 1e-5),
+                                           _close(rstd, rr, 1e-5, 1e-5)))
+                note("layer_norm_dx", _row_close(dx, rdx, grad=True))
+                if tag == "layer" and pdt == dtype:
+                    inputs[("ln", _dtype_name(x))] = (x, g, b, rm, rr, dy)
+        for tag, (n, d) in (("ffn", (N, 4096)), ("odd", (37, 1001))):
+            x = (2 * torch.randn(n, d, device=dev, generator=gen)).to(dtype)
+            b = (0.5 * torch.randn(d, device=dev, generator=gen)).to(dtype)
+            dy = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+            y = gl.bias_gelu_forward(x, b)
+            dx = gl.bias_gelu_backward(x, b, dy)
+            torch.cuda.synchronize()
+            note("bias_gelu_fwd",
+                 _row_close(y, gl.bias_gelu_forward_reference(x, b)))
+            note("bias_gelu_bwd", _row_close(
+                dx, gl.bias_gelu_backward_reference(x, b, dy), grad=True))
+            if tag == "ffn":
+                inputs[("gelu", _dtype_name(x))] = (x, b, dy)
+        for tag, shape in (("scores", (LAYER_MICRO, 16, LAYER_SEQ,
+                                       LAYER_SEQ)),
+                           ("odd", (2, 3, 77, 4099))):
+            x = (3 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+            dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            sq, S = shape[-2:]
+            x2, dy2 = x.view(-1, S), dy.view(-1, S)
+            for causal in (False, True):
+                y = sm.softmax_forward(x2, sq, causal)
+                ry = sm.softmax_forward_reference(x2, sq, causal)
+                dx = sm.softmax_backward(ry, dy2)
+                rdx = sm.softmax_backward_reference(ry, dy2)
+                torch.cuda.synchronize()
+                note("softmax_fwd", _row_close(y, ry))
+                note("softmax_bwd", _row_close(dx, rdx, grad=True))
+            if tag == "scores":
+                inputs[("softmax", _dtype_name(x))] = (x2, ry, dy2)
+                if dtype == torch.float32:
+                    mask = torch.where(torch.rand(
+                        LAYER_MICRO, 1, 1, LAYER_SEQ, device=dev,
+                        generator=gen) < 0.25, -10000.0, 0.0)
+                    got = sm.masked_softmax(x, mask, scale=0.125)
+                    ref = sm.softmax_forward_reference(
+                        (x * 0.125 + mask).view(-1, S), sq, False)
+                    torch.cuda.synchronize()
+                    note("softmax_fwd", _row_close(got.view(-1, S), ref))
+        print(f"phase22 row-wise kernels vs plain {_dtype_name(x)}: "
+              f"LayerNorm [{N}, 1024] and [37, 1000] (gamma in the element "
+              f"type and f32), bias-GELU [{N}, 4096] and [37, 1001], "
+              f"softmax [{LAYER_MICRO}, 16, {LAYER_SEQ}, {LAYER_SEQ}] and "
+              f"[2, 3, 77, 4099] causal and not, masked_softmax; "
+              f"max_abs_err so far {errs}", flush=True)
+    return errs, inputs
+
+
+def phase_gelu_entry(torch, dev, gen):
+    """The op entry of B7 (the layer's GELU is the erf GELU, so B7 is on no
+    layer path): ``ops.transformer.bias_gelu`` and ``gelu`` forward and
+    backward through autograd at the FFN activation of BERT-large width
+    (micro 8 x seq 512 x 4096, bf16), counts reset just before and read
+    just after."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.transformer import bias_gelu, gelu
+    x = torch.randn(LAYER_MICRO, LAYER_SEQ, 4096, device=dev,
+                    generator=gen).bfloat16().requires_grad_()
+    b = torch.randn(4096, device=dev, generator=gen).bfloat16() \
+        .requires_grad_()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    y = bias_gelu(x, b) + gelu(x)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    launches = {n: _build.LAUNCHES[n] for n in ("bias_gelu_fwd",
+                                                 "bias_gelu_bwd")}
+    print(f"phase22 op entry bias_gelu + gelu fwd/bwd launches={launches}",
+          flush=True)
+    if launches != {"bias_gelu_fwd": 2, "bias_gelu_bwd": 2}:
+        fail(f"the bias-GELU op entry launched {launches}, expected 2 / 2")
+    if not (bool(x.grad.isfinite().all()) and bool(b.grad.isfinite().all())):
+        fail("non-finite bias-GELU gradients")
+    return launches
+
+
+def _layer_stack(torch, dev, gen):
+    """24 DeepSpeedTransformerLayers at bert_large width and the fixed
+    key-padding mask of the phase as an integer buffer (the engine hands
+    the module only the batch's inputs)."""
+    from torch import nn
+    import deepspeed_tpu_torch as dst
+    cfg = dst.DeepSpeedTransformerConfig(**LAYER_KW)
+
+    class LayerStack(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = nn.ModuleList(
+                dst.DeepSpeedTransformerLayer(cfg, device=dev, generator=gen)
+                for _ in range(cfg.num_hidden_layers))
+            lengths = torch.tensor(LAYER_LENGTHS, device=dev)
+            self.register_buffer("mask", (torch.arange(
+                LAYER_SEQ, device=dev)[None, :] < lengths[:, None]).int())
+            self.use_mask = True
+
+        def forward(self, x):
+            mask = self.mask if self.use_mask else None
+            for layer in self.layers:
+                x = layer(x, mask, deterministic=True)
+            return x
+    return cfg, LayerStack()
+
+
+def l2_loss(out, batch):
+    """The TPU layer test's objective: the mean of the squared output."""
+    return out.float().square().mean()
+
+
+def phase_layer_training(torch, np, dev, gen, card):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.ops.cuda import _build
+    cfg, stack = _layer_stack(torch, dev, gen)
+    n_params = sum(p.numel() for p in stack.parameters())
+    engine, *_ = dst.initialize(model=stack, loss_fn=l2_loss,
+                                config=LAYER_CONFIG)
+    x = torch.randn(LAYER_MICRO, LAYER_SEQ, cfg.hidden_size, device=dev,
+                    generator=gen)
+    batch = {"inputs": x}
+    losses, norms, secs, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    for _ in range(4):                 # 1 warm-up + 3 timed steps
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([batch]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+        per_step.append({n: _build.LAUNCHES[n] - before.get(n, 0)
+                         for n in ROWWISE + FLASH})
+    launches = {name: _build.LAUNCHES[name] for name in ROWWISE}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase23 layer training {cfg.num_hidden_layers} x "
+          f"DeepSpeedTransformerLayer(hidden {cfg.hidden_size}, heads "
+          f"{cfg.heads}, intermediate {cfg.intermediate_size}, pre-LN) "
+          f"params={n_params} micro={LAYER_MICRO} seq={LAYER_SEQ} "
+          f"lengths={LAYER_LENGTHS} losses={losses} grad_norms={norms} "
+          f"step_s={secs} launches_per_step={per_step}", flush=True)
+    if not all(np.isfinite(losses + norms)):
+        fail("non-finite loss or grad norm while training the layer stack")
+    if not losses[-1] < losses[0]:
+        fail(f"the layer stack's loss did not fall: {losses}")
+    L = cfg.num_hidden_layers
+    want = {"layer_norm_fwd": 2 * L, "layer_norm_dx": 2 * L,
+            "softmax_fwd": L, "softmax_bwd": L, "bias_gelu_fwd": 0,
+            "bias_gelu_bwd": 0, **{n: 0 for n in FLASH}}
+    if any(step != want for step in per_step):
+        fail(f"launches per step {per_step}, expected {want}")
+    step_s = sum(secs[1:]) / 3
+    print(f"layer_stack_step_s={step_s} card={card}", flush=True)
+    print(f"layer_stack_tokens_per_s={LAYER_MICRO * LAYER_SEQ / step_s} "
+          f"card={card}", flush=True)
+    print(f"layer_stack_peak_memory_gib={peak_gib} card={card}", flush=True)
+    return engine, batch, launches
+
+
+def phase_layer_profile(torch, engine, batch, card):
+    """One warmed step unprofiled (wall), then one under torch.profiler
+    (device time by kernel; idle share against the unprofiled wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(iter([batch]))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(iter([batch]))
+        torch.cuda.synchronize()
+    rows = [(_device_us(e) / 1e3, e.count, e.key)
+            for e in prof.key_averages() if _device_us(e) > 0]
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        fail("the profiler recorded no device time for a layer-stack step")
+    print(f"phase23 profile layer-stack step wall_ms={wall_ms} (unprofiled) "
+          f"device_busy_ms={busy_ms} idle_share={1 - busy_ms / wall_ms} "
+          f"device_kernels={sum(r[1] for r in rows)} card={card}", flush=True)
+    for ms, count, key in sorted(rows, reverse=True)[:14]:
+        print(f"phase23 kernel ms={ms} count={count} {key[:90]}", flush=True)
+
+
+def phase_layer_unmasked(torch, engine, batch):
+    """One forward and backward of the stack without the mask: attention
+    takes the flash kernels (B1, B1b), the softmax kernel is not launched."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    stack = engine.compute_module
+    stack.use_mask = False
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        loss = engine(batch)
+        engine.backward(loss)
+        torch.cuda.synchronize()
+    finally:
+        stack.use_mask = True
+    L = len(stack.layers)
+    got = {n: _build.LAUNCHES[n] for n in ROWWISE + FLASH}
+    loss = float(loss.detach())
+    print(f"phase23 unmasked forward+backward loss={loss} launches={got}",
+          flush=True)
+    want = {"layer_norm_fwd": 2 * L, "layer_norm_dx": 2 * L,
+            "softmax_fwd": 0, "softmax_bwd": 0, "bias_gelu_fwd": 0,
+            "bias_gelu_bwd": 0, **{n: L for n in FLASH}}
+    if got != want or not math.isfinite(loss):
+        fail(f"the unmasked stack launched {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def plain_rowwise(ln, sm):
+    """Route the LayerNorm and softmax autograd functions through their
+    plain versions (on the card they are reached only here, for
+    comparison)."""
+    saved = (ln.layer_norm_forward, ln.layer_norm_dx, sm.softmax_forward,
+             sm.softmax_backward)
+    ln.layer_norm_forward = ln.layer_norm_forward_reference
+    ln.layer_norm_dx = ln.layer_norm_backward_reference
+    sm.softmax_forward = sm.softmax_forward_reference
+    sm.softmax_backward = sm.softmax_backward_reference
+    try:
+        yield
+    finally:
+        (ln.layer_norm_forward, ln.layer_norm_dx, sm.softmax_forward,
+         sm.softmax_backward) = saved
+
+
+def phase_layer_model_check(torch, ln, sm, engine, batch):
+    """The trained stack's bf16 weights and the batch through the kernels
+    and through the plain versions: loss and global grad norm."""
+    import copy
+    from deepspeed_tpu_torch.ops.cuda import _build
+    result = {}
+    for impl in ("kernels", "plain"):
+        m = copy.deepcopy(engine.module).to(torch.bfloat16)
+        before = sum(_build.LAUNCHES[n] for n in ROWWISE)
+        with (plain_rowwise(ln, sm) if impl == "plain"
+              else contextlib.nullcontext()):
+            loss = l2_loss(m(batch["inputs"]), batch)
+            loss.backward()
+        launched = sum(_build.LAUNCHES[n] for n in ROWWISE) - before
+        if (impl == "plain") != (launched == 0):
+            fail(f"the {impl} layer model check launched {launched} kernels")
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.float().norm() for p in m.parameters()]))
+        result[impl] = (loss.item(), norm.item())
+        del m, loss
+        torch.cuda.empty_cache()
+    (lk, nk), (lp, np_) = result["kernels"], result["plain"]
+    print(f"phase23 layer model check loss kernels={lk} plain={lp} (rtol "
+          f"{LAYER_LOSS_RTOL}); grad norm kernels={nk} plain={np_} (rtol "
+          f"{LAYER_GRAD_NORM_RTOL})", flush=True)
+    if not (abs(lk - lp) <= LAYER_LOSS_RTOL * abs(lp)
+            and abs(nk - np_) <= LAYER_GRAD_NORM_RTOL * np_):
+        fail("the layer stack through the kernels disagrees with the plain "
+             "versions")
+
+
+# operations per element of each kernel's f32 arithmetic (CUDA cores,
+# F32_FLOPS): the statistics, normalise and affine of LayerNorm; the
+# derivative's products and row sums; tanh-GELU with its tanh counted as
+# 20 operations; softmax's max, exp, sum and divide
+ROW_OPS_PER_ELEMENT = {"layer_norm_fwd": 8, "layer_norm_dx": 12,
+                       "bias_gelu_fwd": 30, "bias_gelu_bwd": 40,
+                       "softmax_fwd": 8, "softmax_bwd": 4}
+
+
+def phase_rowwise_timing(torch, ln, gl, sm, inputs, card):
+    """Device ms of the six row-wise kernels at the layer's shapes (bf16;
+    softmax also f32, the dtype of the layer's logits) beside their plain
+    versions, one PyTorch library call each (a yardstick the port never
+    calls) and their bounds. Returns the kernels-line numbers: LayerNorm
+    and GELU at bf16, softmax at f32."""
+    import torch.nn.functional as F
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        x, g, b, mean, rstd, dy = inputs[("ln", dt)]
+        xl = x.detach().requires_grad_()
+        gl_ = g.detach().requires_grad_()
+        bl = b.detach().requires_grad_()
+        yl = F.layer_norm(xl, (x.shape[-1],), gl_, bl, 1e-12)
+        xg, bg, dyg = inputs[("gelu", dt)]
+        xq = xg.detach().requires_grad_()
+        bq = bg.detach().requires_grad_()
+        yq = F.gelu(xq + bq, approximate="tanh")
+        xs, ys, dys = inputs[("softmax", dt)]
+        xt = xs.detach().requires_grad_()
+        yt = torch.softmax(xt, -1)
+        calls = {
+            "layer_norm_fwd": (
+                lambda i: ln.layer_norm_forward(x, g, b, 1e-12),
+                lambda i: ln.layer_norm_forward_reference(x, g, b, 1e-12),
+                lambda i: F.layer_norm(x, (x.shape[-1],), g, b, 1e-12),
+                x.numel(), 2 * x.numel() * x.element_size()
+                + 2 * g.numel() * g.element_size() + 8 * x.shape[0]),
+            "layer_norm_dx": (
+                lambda i: ln.layer_norm_dx(x, g, mean, rstd, dy),
+                lambda i: ln.layer_norm_backward_reference(x, g, mean, rstd,
+                                                           dy),
+                lambda i: torch.autograd.grad(yl, (xl, gl_, bl), dy,
+                                              retain_graph=True),
+                x.numel(), 3 * x.numel() * x.element_size()
+                + g.numel() * g.element_size() + 8 * x.shape[0]),
+            "bias_gelu_fwd": (
+                lambda i: gl.bias_gelu_forward(xg, bg),
+                lambda i: gl.bias_gelu_forward_reference(xg, bg),
+                lambda i: F.gelu(xg + bg, approximate="tanh"),
+                xg.numel(), 2 * xg.numel() * xg.element_size()
+                + bg.numel() * bg.element_size()),
+            "bias_gelu_bwd": (
+                lambda i: gl.bias_gelu_backward(xg, bg, dyg),
+                lambda i: gl.bias_gelu_backward_reference(xg, bg, dyg),
+                lambda i: torch.autograd.grad(yq, (xq, bq), dyg,
+                                              retain_graph=True),
+                xg.numel(), 3 * xg.numel() * xg.element_size()
+                + bg.numel() * bg.element_size()),
+            "softmax_fwd": (
+                lambda i: sm.softmax_forward(xs, LAYER_SEQ, False),
+                lambda i: sm.softmax_forward_reference(xs, LAYER_SEQ, False),
+                lambda i: torch.softmax(xs, -1),
+                xs.numel(), 2 * xs.numel() * xs.element_size()),
+            "softmax_bwd": (
+                lambda i: sm.softmax_backward(ys, dys),
+                lambda i: sm.softmax_backward_reference(ys, dys),
+                lambda i: torch.autograd.grad(yt, xt, dys,
+                                              retain_graph=True),
+                xs.numel(), 3 * xs.numel() * xs.element_size()),
+        }
+        for name, (kernel, plain, lib, n_el, nbytes) in calls.items():
+            if dt == "float32" and not name.startswith("softmax"):
+                continue
+            tb = nbytes / HBM_BYTES_PER_S
+            tf = ROW_OPS_PER_ELEMENT[name] * n_el / F32_FLOPS
+            t = {"ms": device_ms(kernel, kernel=name + "_"),
+                 "plain_ms": device_ms(plain, iters=10),
+                 "library_ms": device_ms(lib),
+                 "bound_ms": 1e3 * max(tb, tf),
+                 "bound_by": "bytes" if tb >= tf else "operations"}
+            for key, val in t.items():
+                print(f"{name}_{dt}_{key}={val} card={card}", flush=True)
+            print(f"phase24 {name} {dt}: {t['ms'] / t['bound_ms']} x its "
+                  f"bound, {t['ms'] / t['library_ms']} x the library call",
+                  flush=True)
+            if (dt == "float32") == name.startswith("softmax"):
+                out[name] = t
+    print("phase24 library calls (yardsticks, never called by the port): "
+          "F.layer_norm and its autograd backward (dx, dgamma and dbeta "
+          "together); F.gelu(x + b, approximate='tanh') (two kernels: the "
+          "add, then the GELU) and its autograd backward (dx and dbias); "
+          "torch.softmax and its autograd backward", flush=True)
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1486,7 +1937,10 @@ def main(argv=None) -> int:
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import gelu as gl
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
     from deepspeed_tpu_torch.ops.cuda import sampling as sp
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
     from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
     from deepspeed_tpu_torch.ops import quantizer as qz
 
@@ -1538,6 +1992,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paged_t = phase_paged_timing(torch, da, qz, dev, gen, decode_inputs,
                                  card)
+    del decode_inputs
+    torch.cuda.empty_cache()
+
+    row_err, row_inputs = phase_rowwise_parity(torch, ln, gl, sm, dev, gen)
+    launches_gelu = phase_gelu_entry(torch, dev, gen)
+    torch.cuda.empty_cache()
+    engine, batch, launches_layer = phase_layer_training(torch, np, dev, gen,
+                                                         card)
+    phase_layer_profile(torch, engine, batch, card)
+    phase_layer_unmasked(torch, engine, batch)
+    phase_layer_model_check(torch, ln, sm, engine, batch)
+    del engine, batch
+    torch.cuda.empty_cache()
+    row_t = phase_rowwise_timing(torch, ln, gl, sm, row_inputs, card)
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",
@@ -1583,6 +2051,20 @@ def main(argv=None) -> int:
              launches_int8["decode_attention_int8"]),
             ("paged_decode_attention_int8", 351,
              launches_int8["paged_decode_attention_int8"]))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"deepspeed_tpu_torch/ops/cuda/csrc/{source}",
+         "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+         "launches": (launches_gelu if name.startswith("bias_gelu")
+                      else launches_layer)[name],
+         "max_abs_err": row_err[name], **row_t[name]}
+        for name, source, replaces in (
+            ("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:22"),
+            ("layer_norm_dx", "layer_norm.cu", "layer_norm.py:34"),
+            ("bias_gelu_fwd", "gelu.cu", "gelu.py:34"),
+            ("bias_gelu_bwd", "gelu.cu", "gelu.py:39"),
+            ("softmax_fwd", "softmax.cu", "softmax.py:23"),
+            ("softmax_bwd", "softmax.cu", "softmax.py:38"))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

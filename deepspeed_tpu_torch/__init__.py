@@ -7,12 +7,15 @@ kernel wrappers run their plain PyTorch versions.
 
 from .inference.engine import InferenceEngine
 from .models.gpt import GPT, GPTConfig
+from .ops.transformer import (DeepSpeedTransformerConfig,
+                              DeepSpeedTransformerLayer)
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from .serving.engine import ServingEngine
 
 __all__ = ["InferenceEngine", "ServingEngine", "GPT", "GPTConfig",
-           "DeepSpeedConfig", "DeepSpeedConfigError", "initialize",
-           "init_inference"]
+           "DeepSpeedConfig", "DeepSpeedConfigError",
+           "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
+           "initialize", "init_inference"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

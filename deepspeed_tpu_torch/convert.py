@@ -16,7 +16,10 @@ for ``deepspeed_tpu_torch.models.gpt.GPT`` with the same config:
 ``jax_params_to_state_dict`` serves every ``attention_impl`` ("sparse"
 adds no parameter). ``bert_params_to_state_dict`` maps the trees of
 ``deepspeed_tpu.models.bert.BertModel`` and ``BertForMaskedLM`` the same
-way onto ``deepspeed_tpu_torch.models.bert``.
+way onto ``deepspeed_tpu_torch.models.bert``, and
+``transformer_layer_params_to_state_dict`` the tree of one
+``deepspeed_tpu.ops.transformer.DeepSpeedTransformerLayer`` onto the port's
+layer of the same name.
 
 Any tree with the params' structure maps the same way: a JAX gradient tree
 (``jax.grad`` of the loss) or an Adam moment tree (``AdamState.mu`` /
@@ -118,4 +121,18 @@ def bert_params_to_state_dict(params_np: Mapping[str, Any],
         _dense("decoder", params_np["decoder"], out)
     else:
         _bert_encoder("", params_np, cfg, out)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def transformer_layer_params_to_state_dict(
+        params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """One ``DeepSpeedTransformerLayer`` params tree (numpy leaves:
+    ``attn_ln``/``out_ln`` ``{scale, bias}``, ``attn_qkv``/``attn_out``/
+    ``inter``/``output`` ``{kernel, bias}``) -> the port layer's
+    state_dict."""
+    out: Dict[str, Any] = {}
+    for name in ("attn_ln", "out_ln"):
+        _norm(name, params_np[name], out)
+    for name in ("attn_qkv", "attn_out", "inter", "output"):
+        _dense(name, params_np[name], out)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}

@@ -1,8 +1,12 @@
 """Build and bind the package's hand-written CUDA kernels.
 
 The ``.cu`` sources under ``csrc/`` expose plain C functions (no PyTorch
-headers, so ``nvcc`` takes seconds, not minutes). At first use they are
-compiled for Hopper (``sm_90a``) by ``torch.utils.cpp_extension.load`` into
+headers, so ``nvcc`` takes seconds, not minutes): decode attention and its
+paged / int8 forms (B2, B3), sampling (B4), flash attention (B1, B1b),
+block-sparse attention (B5, B5b), LayerNorm (B6), bias-GELU (B7) and
+softmax (B8). The attention sources share ``attention_tiles.cuh``, the
+row-wise ones ``rowwise.cuh``. At first use they are compiled for Hopper
+(``sm_90a``) by ``torch.utils.cpp_extension.load`` into one library in
 ``deepspeed_tpu_torch/_build/`` (listed in ``.gitignore``) and bound with
 ``ctypes``. A build error raises; nothing here catches it.
 
@@ -24,7 +28,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build")
 SOURCES = ("decode_attention.cu", "sampling.cu", "flash_attention.cu",
-           "sparse_attention.cu")
+           "sparse_attention.cu", "layer_norm.cu", "gelu.cu", "softmax.cu")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-lineinfo",
               "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -34,6 +38,7 @@ _lib = None
 _lock = threading.Lock()
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ll = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, k_scale, v_scale, cache_len, out, b, s_q, h, d, S, scale,
     # dtype, int8, stream
@@ -63,6 +68,19 @@ _SIGNATURES = {
     # tickets
     "dstorch_sparse_bwd_dkv": [_vp] * 12 + [_int] * 2 + [_vp] + [_int] * 2
     + [_vp] * 3 + [_int] * 5 + [_float, _int, _vp],
+    # x, gamma, beta, y, mean, rstd, n, d, eps, dtype, param_f32, stream
+    "dstorch_layer_norm_fwd": [_vp] * 6 + [_int] * 2 + [_float]
+    + [_int] * 2 + [_vp],
+    # x, gamma, mean, rstd, dy, dx, n, d, dtype, param_f32, stream
+    "dstorch_layer_norm_dx": [_vp] * 6 + [_int] * 4 + [_vp],
+    # x, bias, y, total, d, dtype, bias_f32, stream
+    "dstorch_bias_gelu_fwd": [_vp] * 3 + [_ll] + [_int] * 3 + [_vp],
+    # x, bias, dy, dx, total, d, dtype, bias_f32, stream
+    "dstorch_bias_gelu_bwd": [_vp] * 4 + [_ll] + [_int] * 3 + [_vp],
+    # x, y, n, s, sq, causal, dtype, stream
+    "dstorch_softmax_fwd": [_vp] * 2 + [_int] * 5 + [_vp],
+    # y, dy, dx, n, s, dtype, stream
+    "dstorch_softmax_bwd": [_vp] * 3 + [_int] * 3 + [_vp],
 }
 
 

@@ -1,5 +1,6 @@
-"""int8 KV-cache quantization: the port's copy of ``quantize_kv`` and
-``dequantize_kv`` from ``deepspeed_tpu/ops/quantizer.py``.
+"""int8 KV-cache quantization and stochastic bf16 rounding: the port's copy
+of ``quantize_kv``, ``dequantize_kv`` and ``stochastic_round_bf16`` from
+``deepspeed_tpu/ops/quantizer.py``.
 
 One symmetric scale group per token vector (the last axis: one position's
 concatenated heads, the unit in which cache rows are written and read),
@@ -11,7 +12,7 @@ group's extreme does not wrap. The stored scale is the dequant multiplier
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,3 +31,25 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     """Inverse of :func:`quantize_kv`: ``(q * scale)`` in f32, cast to
     ``dtype``; ``scale`` broadcasts against ``q``."""
     return (q.float() * scale).to(dtype)
+
+
+def stochastic_round_bf16(x: torch.Tensor,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """fp32 -> bf16 with stochastic rounding: add 16 uniform random bits
+    below the bf16 truncation point, then truncate the mantissa. Unbiased
+    in expectation (the training-mode rounding of the reference's
+    StochasticTransformerBuilder kernels, ds_transformer_cuda.cpp:
+    1031-1046). Non-finite values take the deterministic cast. The bits come
+    from ``generator`` (the default generator when None), so they are not
+    the TPU package's bits from the same seed. The uint32 arithmetic runs on
+    int64 (torch has few uint32 ops); like the TPU package's bitcast, the
+    result carries no gradient."""
+    x32 = x.detach().float()
+    bits = x32.view(torch.int32).long() & 0xFFFFFFFF
+    noise = torch.randint(0, 1 << 16, x32.shape, generator=generator,
+                          device=x32.device, dtype=torch.int64)
+    kept = (bits + noise) & 0xFFFF0000
+    kept = torch.where(kept >= 1 << 31, kept - (1 << 32), kept)
+    sr = kept.to(torch.int32).view(torch.float32)
+    return torch.where(torch.isfinite(x32), sr, x32).to(torch.bfloat16)

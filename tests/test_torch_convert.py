@@ -80,3 +80,40 @@ def test_unported_features_raise():
     with pytest.raises(ValueError):
         GPTConfig(remat_policy="everything")
     assert GPTConfig(attention_impl="pallas").attention_impl == "pallas"
+
+
+@pytest.mark.parametrize("pre_ln", [True, False])
+def test_transformer_layer_conversion(pre_ln):
+    """A DeepSpeedTransformerLayer tree maps onto every parameter of the
+    port's layer (Dense kernels transposed, LayerNorm scale -> weight), and
+    the converted layer computes the TPU layer's output within 1e-5."""
+    import jax
+    from deepspeed_tpu.ops.transformer import DeepSpeedTransformerConfig \
+        as JaxConfig
+    from deepspeed_tpu.ops.transformer import DeepSpeedTransformerLayer \
+        as JaxLayer
+    from deepspeed_tpu_torch.convert import \
+        transformer_layer_params_to_state_dict
+    from deepspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+    kw = dict(hidden_size=32, heads=2, intermediate_size=96, bf16=False,
+              pre_layer_norm=pre_ln)
+    x = np.random.default_rng(5).normal(size=(2, 8, 32)).astype(np.float32)
+    jlayer = JaxLayer(JaxConfig(**kw))
+    params = jlayer.init({"params": jax.random.PRNGKey(3)}, jnp.asarray(x),
+                         deterministic=True)["params"]
+    params_np = jax.tree.map(np.asarray, params)
+    sd = transformer_layer_params_to_state_dict(params_np)
+    layer = DeepSpeedTransformerLayer(DeepSpeedTransformerConfig(**kw))
+    assert sorted(sd) == sorted(layer.state_dict())
+    layer.load_state_dict(sd)
+    np.testing.assert_array_equal(sd["inter.weight"].numpy(),
+                                  params_np["inter"]["kernel"].T)
+    np.testing.assert_array_equal(sd["out_ln.weight"].numpy(),
+                                  params_np["out_ln"]["scale"])
+    assert sd["attn_qkv.weight"].shape == (96, 32)
+    ref = np.asarray(jlayer.apply({"params": params}, jnp.asarray(x),
+                                  deterministic=True))
+    with torch.no_grad():
+        out = layer(torch.from_numpy(x), deterministic=True).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)

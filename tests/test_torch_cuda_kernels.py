@@ -546,3 +546,195 @@ def test_sparse_gpt_under_checkpoint_matches_plain(dev):
     for (name, p), r in zip(model.named_parameters(), plain.parameters()):
         torch.testing.assert_close(p.grad.cpu(), r.grad, rtol=1e-4,
                                    atol=1e-5, msg=name)
+
+
+# --------------------------------------------------------------------------
+# Row-wise kernels: LayerNorm (B6), bias-GELU (B7), softmax (B8)
+# --------------------------------------------------------------------------
+
+# (atol, rtol) of kernel vs plain version. Both compute in f32 and round
+# once to the element type: bf16 / fp16 within one ulp (2^-7 / 2^-10
+# relative); f32 forwards within summation order and the rsqrtf / tanhf /
+# expf roundings; gradients sum rows of products, so 1e-4 absolute.
+ROW_FWD_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+               torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7),
+               torch.float16: dict(atol=1e-5, rtol=2 ** -10)}
+ROW_GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+                torch.bfloat16: dict(atol=1e-4, rtol=2 ** -7),
+                torch.float16: dict(atol=1e-4, rtol=2 ** -10)}
+ROW_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _launched(names, before):
+    from deepspeed_tpu_torch.ops.cuda import _build
+    for name in names:
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1, name
+
+
+@pytest.mark.parametrize("param_f32", [True, False])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("d", [96, 1000, 1024, 4096, 8192])
+@pytest.mark.parametrize("n", [1, 12, 4096])
+def test_layer_norm_kernels_match_plain(dev, n, d, dtype, param_f32):
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    x = (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+    pd = torch.float32 if param_f32 else dtype
+    gamma = (1 + 0.3 * torch.randn(d, device=dev, generator=g)).to(pd)
+    beta = (0.3 * torch.randn(d, device=dev, generator=g)).to(pd)
+    dy = torch.randn(n, d, device=dev, generator=g).to(dtype)
+    before = dict(_build.LAUNCHES)
+    y, mean, rstd = ln.layer_norm_forward(x, gamma, beta, 1e-5)
+    ry, rmean, rrstd = ln.layer_norm_forward_reference(x, gamma, beta, 1e-5)
+    dx = ln.layer_norm_dx(x, gamma, rmean, rrstd, dy)
+    rdx = ln.layer_norm_backward_reference(x, gamma, rmean, rrstd, dy)
+    torch.cuda.synchronize()
+    _launched(("layer_norm_fwd", "layer_norm_dx"), before)
+    assert y.dtype == dx.dtype == dtype and mean.dtype == torch.float32
+    torch.testing.assert_close(y.float(), ry.float(), **ROW_FWD_TOL[dtype])
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dx.float(), rdx.float(), **ROW_GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("bias_f32", [True, False])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("d", [96, 1000, 1001, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 12, 4096])
+def test_bias_gelu_kernels_match_plain(dev, n, d, dtype, bias_f32):
+    """d 1001 is no whole number of 16-byte vectors: the scalar loop."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import gelu as gl
+    g = torch.Generator(device=dev).manual_seed(n * 7 + d)
+    x = (2 * torch.randn(n, d, device=dev, generator=g)).to(dtype)
+    bias = (0.5 * torch.randn(d, device=dev, generator=g)).to(
+        torch.float32 if bias_f32 else dtype)
+    dy = torch.randn(n, d, device=dev, generator=g).to(dtype)
+    before = dict(_build.LAUNCHES)
+    y = gl.bias_gelu_forward(x, bias)
+    dx = gl.bias_gelu_backward(x, bias, dy)
+    torch.cuda.synchronize()
+    _launched(("bias_gelu_fwd", "bias_gelu_bwd"), before)
+    assert y.dtype == dx.dtype == dtype
+    torch.testing.assert_close(y.float(), gl.bias_gelu_forward_reference(
+        x, bias).float(), **ROW_FWD_TOL[dtype])
+    torch.testing.assert_close(dx.float(), gl.bias_gelu_backward_reference(
+        x, bias, dy).float(), **ROW_GRAD_TOL[dtype])
+
+
+def test_bias_gelu_kernel_on_a_misaligned_view(dev):
+    """A contiguous tensor that starts 2 bytes past a 16-byte boundary
+    takes the scalar loop."""
+    from deepspeed_tpu_torch.ops.cuda import gelu as gl
+    flat = torch.randn(12 * 1024 + 1, device=dev).bfloat16()
+    x = flat[1:].view(12, 1024)
+    assert x.data_ptr() % 16
+    bias = torch.randn(1024, device=dev).bfloat16()
+    torch.testing.assert_close(
+        gl.bias_gelu_forward(x, bias).float(),
+        gl.bias_gelu_forward_reference(x, bias).float(),
+        **ROW_FWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("S", [1, 77, 512, 1025, 4096])
+def test_softmax_kernels_match_plain(dev, S, square, causal, dtype):
+    """Rows of up to 1024 take a warp, wider rows a block; a non-square
+    [.., 5, S] score matrix is masked top-left."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
+    sq = S if square else 5
+    g = torch.Generator(device=dev).manual_seed(S * 3 + sq)
+    x = (3 * torch.randn(1, 2, sq, S, device=dev, generator=g)).to(dtype)
+    dy = torch.randn(x.shape, device=dev, generator=g).to(dtype)
+    x2, dy2 = x.view(-1, S), dy.view(-1, S)
+    before = dict(_build.LAUNCHES)
+    y = sm.softmax_forward(x2, sq, causal)
+    ry = sm.softmax_forward_reference(x2, sq, causal)
+    dx = sm.softmax_backward(ry, dy2)
+    rdx = sm.softmax_backward_reference(ry, dy2)
+    torch.cuda.synchronize()
+    _launched(("softmax_fwd", "softmax_bwd"), before)
+    assert y.dtype == dx.dtype == dtype
+    torch.testing.assert_close(y.float(), ry.float(), **ROW_FWD_TOL[dtype])
+    torch.testing.assert_close(dx.float(), rdx.float(), **ROW_GRAD_TOL[dtype])
+    if causal:
+        rows = torch.arange(y.shape[0], device=dev)[:, None] % sq
+        above = torch.arange(S, device=dev)[None, :] > rows
+        assert float((y.float() * above).abs().max()) == 0.0
+
+
+def test_masked_softmax_kernel_matches_plain(dev):
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 4, 64, 64, device=dev, generator=g)
+    mask = torch.where(torch.rand(2, 1, 1, 64, device=dev, generator=g)
+                       < 0.25, -10000.0, 0.0)
+    y = sm.masked_softmax(x, mask, scale=0.125)
+    ref = sm.softmax_forward_reference((x * 0.125 + mask).view(-1, 64), 64,
+                                       False).view(x.shape)
+    torch.testing.assert_close(y, ref, **ROW_FWD_TOL[torch.float32])
+
+
+def test_row_kernels_raise_on_what_they_lack(dev):
+    from deepspeed_tpu_torch.ops.cuda import gelu as gl
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
+    x = torch.randn(4, 32, device=dev).bfloat16()
+    f32 = torch.ones(32, device=dev)
+    with pytest.raises(ValueError, match="layer_norm kernels take"):
+        ln.layer_norm(x.double(), f32.double(), f32.double())
+    with pytest.raises(ValueError, match="layer_norm kernels take"):
+        ln.layer_norm(x, f32.half(), f32.half())        # fp16 under bf16
+    with pytest.raises(ValueError, match="layer_norm kernels take"):
+        ln.layer_norm(x, f32, f32.bfloat16())           # mixed param types
+    with pytest.raises(ValueError, match="bias_gelu kernels take"):
+        gl.bias_gelu(x, torch.ones(16, device=dev))
+    with pytest.raises(ValueError, match="bias_gelu kernels take"):
+        gl.gelu(x.double())
+    with pytest.raises(ValueError, match="softmax kernels take"):
+        sm.fused_softmax(x.double())
+    with pytest.raises(ValueError, match="must match"):
+        sm.softmax_backward(x, x.float())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("pre_ln", [True, False])
+def test_transformer_layer_on_the_card_matches_the_cpu(dev, pre_ln, masked):
+    """The layer in f32 on the card (B6, B8 or B1/B1b kernels) against the
+    same weights on the CPU (their plain versions): output and every grad
+    of the L2 objective, and the kernels' launch counts."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+    cfg = DeepSpeedTransformerConfig(hidden_size=256, heads=4, bf16=False,
+                                     pre_layer_norm=pre_ln)
+    cpu = DeepSpeedTransformerLayer(cfg, generator=torch.Generator()
+                                    .manual_seed(0))
+    card = DeepSpeedTransformerLayer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 128, 256, generator=torch.Generator().manual_seed(1))
+    mask = (torch.arange(128)[None, :] < torch.tensor([[128], [77]])).int()
+    results = []
+    before = dict(_build.LAUNCHES)
+    for layer, device in ((cpu, "cpu"), (card, dev)):
+        xt = x.to(device, copy=True).requires_grad_()
+        out = layer(xt, mask.to(device) if masked else None,
+                    deterministic=True)
+        out.square().mean().backward()
+        results.append([out.detach().cpu(), xt.grad.cpu()]
+                       + [p.grad.cpu() for p in layer.parameters()])
+    torch.cuda.synchronize()
+    want = {"layer_norm_fwd": 2, "layer_norm_dx": 2}
+    want.update({"softmax_fwd": 1, "softmax_bwd": 1} if masked else
+                {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1})
+    for name in ("layer_norm_fwd", "layer_norm_dx", "softmax_fwd",
+                 "softmax_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        assert _build.LAUNCHES[name] - before.get(name, 0) \
+            == want.get(name, 0), name
+    for got, ref in zip(results[1], results[0]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
