@@ -5,6 +5,8 @@
 
 Phases (any failure exits non-zero before the result lines):
   1. the card's name and power limit; build the CUDA kernels from csrc/;
+     count the wgmma (SASS HGMMA) instructions of each 16-bit flash kernel
+     in the built library (cuobjdump; fails if one has none);
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
      retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2;
@@ -26,8 +28,11 @@ Phases (any failure exits non-zero before the result lines):
      PyTorch library call for the same function and the card's lower bound;
   7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
      the training shape (B=8, S=1024, H=12, D=64, bf16, causal) and at a
-     non-causal shape whose S (1000) is not a multiple of the 64-row tile:
-     out, lse, and dq/dk/dv from one random dO;
+     non-causal shape whose S (1000) is not a multiple of the 128-row
+     block: out, lse, and dq/dk/dv from one random dO; then over bf16 and
+     fp16 x D 32/64/96/128 x causal or not x S 1024/1000/77 (B=2, H=3);
+     a second backward at the training shape must give bitwise the same
+     grads;
   8. the training path: initialize() + DeepSpeedEngine.train_batch on
      GPT-2 125M at full width and depth (12 layers, d_model 768, 12 x 64
      heads, vocab 50304, seq 1024, bf16 over fp32 masters, remat with the
@@ -46,11 +51,15 @@ Phases (any failure exits non-zero before the result lines):
  11. the flash kernels' device times at the training shape beside their
      plain versions, scaled_dot_product_attention forward / its autograd
      backward (a yardstick, never called by the port) and their bounds;
+     the same at the transformer layer's unmasked shape (B=8, S=512, H=16,
+     D=64, not causal) and at the training shape in fp16 and at D=96
+     (H=8); the host time to issue one forward and one backward call;
  12. block-sparse kernels (forward, dq, dk/dv) vs their plain versions:
-     bf16 and f32 x layout blocks 16/32/64/128 x causal or not x with or
-     without a key-padding mask (BigBird, per-head layouts, B=2, H=4, D=64,
-     S=480 or 512, q/k/v views of a fused qkv), a layout with dead query
-     rows and key tiles no query reaches (zeros checked), and the training
+     bf16, fp16 and f32 x layout blocks 16/32/64/128 x causal or not x with
+     or without a key-padding mask (BigBird, per-head layouts, B=2, H=4,
+     D=64, S=480 or 512, q/k/v views of a fused qkv), D=96 (block 32,
+     S=480, causal or not), a layout with dead query rows and key tiles no
+     query reaches (zeros checked), and the training
      shape B=1, S=32768, H=12, D=64 with bench.py's BigBird layout, causal,
      where a second backward must give bitwise the same grads;
  13. the long-context training path: bench.py's long_context_sparse case
@@ -83,8 +92,8 @@ Phases (any failure exits non-zero before the result lines):
      sparse comparison is elementwise;
  18. paged decode attention (B3) and the int8 branches of B2 and B3 vs their
      plain versions at GPT-2 125M decode geometry (b=8, h=12, d=64,
-     S=1024, block 16, so T=64), bf16 and f32, s_q 1 and 4, fills 0, 1, 17,
-     512, 1024, 300, 777 and the retired-lane sentinel, over a random
+     S=1024, block 16, so T=64), bf16, fp16 and f32, s_q 1 and 4, fills 0,
+     1, 17, 512, 1024, 300, 777 and the retired-lane sentinel, over a random
      permutation of the pool blocks with sentinel table entries past each
      row's fill: max abs err <= 2e-2, the fill-0 row exactly zero, and B3
      over the permuted table, the in-order table and the sentinel table
@@ -169,6 +178,7 @@ LSE_ATOL = 1e-3          # f32 lse: summation order over the live keys
 LOSS_ATOL = 2e-2         # model check: the einsum rounds attention
 GRAD_NORM_RTOL = 5e-2    # probabilities to bf16, the kernels keep f32
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_HEAD_DIMS = (32, 64, 96, 128)
 SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 SPARSE_F32_TOL = (1e-4, 1e-4)  # f32: CUDA-core FMAs, summation order only
 # bench.py's long_context_sparse configuration (bench.py:344-399)
@@ -215,15 +225,21 @@ def device_ms(fn, n_inputs: int = 1, kernel: str = "", iters: int = 50,
     for i in range(warmup):
         fn(i % n_inputs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_inputs)
-        torch.cuda.synchronize()
-    total_us = sum(_device_us(e) for e in prof.key_averages()
-                   if kernel in e.key)
-    if total_us <= 0:
-        fail(f"no device time recorded for {kernel or 'the call'}")
-    return total_us / 1e3 / iters
+    # a profiler session late in a long process can come back without
+    # kernel records (CUPTI); the window is measured once more before the
+    # run fails
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_inputs)
+            torch.cuda.synchronize()
+        total_us = sum(_device_us(e) for e in prof.key_averages()
+                       if kernel in e.key)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        print(f"device_ms: no device time recorded for "
+              f"{kernel or 'the call'} (attempt {attempt + 1})", flush=True)
+    fail(f"no device time recorded for {kernel or 'the call'}")
 
 
 def _device_us(event) -> float:
@@ -524,24 +540,32 @@ def _qkv(torch, dev, gen, B, S, H, D):
     return q, k, v, do
 
 
+def _flash_pair(torch, fa, q, k, v, do, causal):
+    """The three flash kernels once each against the plain versions:
+    (max abs errs, (plain out, plain lse))."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_attention_forward(q, k, v, causal, scale)
+    ro, rl = fa.flash_attention_forward_reference(q, k, v, causal, scale)
+    grads = fa.flash_attention_backward(q, k, v, ro, rl, do, causal, scale)
+    refs = fa.flash_attention_backward_reference(q, k, v, ro, rl, do, causal,
+                                                 scale)
+    torch.cuda.synchronize()
+    if out.dtype != q.dtype or any(g.dtype != q.dtype for g in grads):
+        fail("a flash kernel returned another dtype than its inputs'")
+    e = {"flash_fwd": _close(out, ro, *FLASH_TOL),
+         "lse": _close(lse, rl, LSE_ATOL, 0.0),
+         "flash_bwd_dq": _close(grads[0], refs[0], *FLASH_TOL),
+         "flash_bwd_dkv": max(_close(grads[1], refs[1], *FLASH_TOL),
+                              _close(grads[2], refs[2], *FLASH_TOL))}
+    return e, (ro, rl)
+
+
 def phase_flash_parity(torch, fa, dev, gen):
     errs, train_inputs = {}, None
     for tag, (B, S, H, D, causal) in (("train", (8, 1024, 12, 64, True)),
                                       ("tail", (2, 1000, 12, 64, False))):
         q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
-        scale = D ** -0.5
-        out, lse = fa.flash_attention_forward(q, k, v, causal, scale)
-        ro, rl = fa.flash_attention_forward_reference(q, k, v, causal, scale)
-        grads = fa.flash_attention_backward(q, k, v, ro, rl, do, causal,
-                                            scale)
-        refs = fa.flash_attention_backward_reference(q, k, v, ro, rl, do,
-                                                     causal, scale)
-        torch.cuda.synchronize()
-        e = {"flash_fwd": _close(out, ro, *FLASH_TOL),
-             "lse": _close(lse, rl, LSE_ATOL, 0.0),
-             "flash_bwd_dq": _close(grads[0], refs[0], *FLASH_TOL),
-             "flash_bwd_dkv": max(_close(grads[1], refs[1], *FLASH_TOL),
-                                  _close(grads[2], refs[2], *FLASH_TOL))}
+        e, (ro, rl) = _flash_pair(torch, fa, q, k, v, do, causal)
         print(f"phase7 flash {tag} B={B} S={S} H={H} D={D} causal={causal} "
               f"bf16 max_abs_err out={e['flash_fwd']} lse={e['lse']} "
               f"dq={e['flash_bwd_dq']} dk_dv={e['flash_bwd_dkv']} (tol "
@@ -549,6 +573,35 @@ def phase_flash_parity(torch, fa, dev, gen):
               flush=True)
         if tag == "train":
             errs, train_inputs = e, (q, k, v, do, ro, rl)
+    # the Hopper kernels over their dtypes and head dims, S a multiple of
+    # the 128-row block, a ragged tail, and shorter than one block
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        for D in FLASH_HEAD_DIMS:
+            for causal in (True, False):
+                for S in (1024, 1000, 77):
+                    q, k, v, do = (t.to(dtype) for t in _qkv(
+                        torch, dev, gen, 2, S, 3, D))
+                    e, _ = _flash_pair(torch, fa, q, k, v, do, causal)
+                    for key, val in e.items():
+                        worst[key] = max(worst.get(key, 0.0), val)
+                    print(f"phase7 flash {str(dtype)[6:]} B=2 S={S} H=3 "
+                          f"D={D} causal={causal} max_abs_err " + " ".join(
+                              f"{k_}={v_:.3g}" for k_, v_ in e.items()),
+                          flush=True)
+    print(f"phase7 flash grid (bf16/fp16 x D {FLASH_HEAD_DIMS} x causal x "
+          f"S 1024/1000/77) worst max_abs_err {worst} (tol atol "
+          f"{FLASH_TOL[0]} + rtol {FLASH_TOL[1]} |ref|, lse {LSE_ATOL})",
+          flush=True)
+    # no atomics: a second backward gives bitwise the same grads
+    q, k, v, do, ro, rl = train_inputs
+    first, again = (fa.flash_attention_backward(q, k, v, ro, rl, do, True,
+                                                64 ** -0.5)
+                    for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("a second flash backward gave different grads")
+    print("phase7 flash train: a second backward bitwise equal", flush=True)
     return errs, train_inputs
 
 
@@ -651,21 +704,23 @@ def phase_train_profile(torch, engine, ids, card):
         print(f"phase10 kernel ms={ms} count={count} {key[:90]}", flush=True)
 
 
-def phase_flash_timing(torch, fa, inputs, card):
+def _flash_times(torch, fa, q, k, v, do, out, lse, causal):
+    """Device ms per call of the three kernels, their plain versions and
+    scaled_dot_product_attention (forward, and its autograd backward: a
+    yardstick, never called by the port), with each kernel's bound."""
     import torch.nn.functional as F
-    q, k, v, do, out, lse = inputs
     B, S, H, D = q.shape
     scale = D ** -0.5
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     do_t = do.transpose(1, 2).contiguous()
 
     def backward(i):
-        fa.flash_attention_backward(q, k, v, out, lse, do, True, scale)
+        fa.flash_attention_backward(q, k, v, out, lse, do, causal, scale)
 
     def plain_backward(i):
-        fa.flash_attention_backward_reference(q, k, v, out, lse, do, True,
+        fa.flash_attention_backward_reference(q, k, v, out, lse, do, causal,
                                               scale)
 
     def sdpa_backward(i):
@@ -676,11 +731,12 @@ def phase_flash_timing(torch, fa, inputs, card):
     t = {
         "flash_fwd": {
             "ms": device_ms(lambda i: fa.flash_attention_forward(
-                q, k, v, True, scale), kernel="flash_fwd"),
-            "plain_ms": device_ms(lambda i: fa.flash_attention_forward_reference(
-                q, k, v, True, scale), iters=10),
+                q, k, v, causal, scale), kernel="flash_fwd"),
+            "plain_ms": device_ms(
+                lambda i: fa.flash_attention_forward_reference(
+                    q, k, v, causal, scale), iters=10),
             "library_ms": device_ms(lambda i: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))},
+                qt, kt, vt, is_causal=causal))},
         # the plain and library backward compute dq, dk and dv together:
         # their times stand beside both kernels
         "flash_bwd_dq": {"ms": device_ms(backward, kernel="flash_bwd_dq"),
@@ -689,11 +745,11 @@ def phase_flash_timing(torch, fa, inputs, card):
                           "plain_ms": plain_bwd, "library_ms": sdpa_bwd},
     }
     # bytes: each input read once, each output written once; operations: 2
-    # per multiply-add over the causal (q, k) pairs, at the bf16 peak
+    # per multiply-add over the visible (q, k) pairs, at the 16-bit peak
     item = q.element_size()
     n = B * S * H * D * item                 # one [B, S, H, D] tensor
     stat = B * H * S * 4                     # one f32 [B, H, S] vector
-    pairs = B * H * S * (S + 1) // 2
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     work = {"flash_fwd": (4 * n + stat, 4 * D * pairs),
             "flash_bwd_dq": (5 * n + 2 * stat, 6 * D * pairs),
             "flash_bwd_dkv": (6 * n + 2 * stat, 8 * D * pairs)}
@@ -701,8 +757,51 @@ def phase_flash_timing(torch, fa, inputs, card):
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         t[name]["bound_ms"] = 1e3 * max(tb, tf)
         t[name]["bound_by"] = "bytes" if tb >= tf else "operations"
-        for key, val in t[name].items():
+    return t
+
+
+def _issue_us(torch, fn, n: int = 100) -> float:
+    """Host time to issue one call (until it returns), over n calls in a
+    row after a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_flash_timing(torch, fa, dev, gen, inputs, card):
+    """The training shape (its entries feed the kernels line), then the
+    layer's unmasked shape and the training shape in fp16 and at d = 96;
+    the host issue time of one forward and one backward call."""
+    q, k, v, do, out, lse = inputs
+    t = _flash_times(torch, fa, q, k, v, do, out, lse, True)
+    for name, vals in t.items():
+        for key, val in vals.items():
             print(f"{name}_{key}={val} card={card}", flush=True)
+    for tag, (B, S, H, D, causal, dtype) in (
+            ("layer", (8, 512, 16, 64, False, torch.bfloat16)),
+            ("train_fp16", (8, 1024, 12, 64, True, torch.float16)),
+            ("train_d96", (8, 1024, 8, 96, True, torch.bfloat16))):
+        xs = [x.to(dtype) for x in _qkv(torch, dev, gen, B, S, H, D)]
+        o, l = fa.flash_attention_forward(*xs[:3], causal, D ** -0.5)
+        extra = _flash_times(torch, fa, *xs, o, l, causal)
+        for name, vals in extra.items():
+            print(f"phase11 {tag} B={B} S={S} H={H} D={D} causal={causal} "
+                  f"{str(dtype)[6:]} {name} " + " ".join(
+                      f"{key}={val}" for key, val in vals.items())
+                  + f" card={card}", flush=True)
+        del xs, o, l, extra
+    scale = q.shape[-1] ** -0.5
+    fwd_us = _issue_us(torch, lambda: fa.flash_attention_forward(
+        q, k, v, True, scale))
+    bwd_us = _issue_us(torch, lambda: fa.flash_attention_backward(
+        q, k, v, out, lse, do, True, scale))
+    print(f"phase11 host issue us per call: forward={fwd_us} "
+          f"backward (delta, dq, dk/dv)={bwd_us} card={card}", flush=True)
     return t
 
 
@@ -805,7 +904,20 @@ def phase_sparse_parity(torch, sa, dev, gen):
     from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
     worst = {}
     for dtype, tol in ((torch.bfloat16, FLASH_TOL),
+                       (torch.float16, FLASH_TOL),
                        (torch.float32, SPARSE_F32_TOL)):
+        # d = 96 (gpt_neox_20b's head dim), block 32, S a partial tile
+        cfg = BigBirdSparsityConfig(num_heads=4, block=32,
+                                    different_layout_per_head=True,
+                                    num_random_blocks=2)
+        for causal in (True, False):
+            q, k, v, do = (t.to(dtype) for t in _qkv(torch, dev, gen, 2, 480,
+                                                      4, 96))
+            e, _ = _sparse_pair(torch, sa, _layout(cfg, 480, causal, dev),
+                                q, k, v, do, None, tol)
+            print(f"phase12 sparse {str(dtype)[6:]} D=96 block=32 S=480 "
+                  f"causal={causal} max_abs_err " + " ".join(
+                      f"{k_}={v_:.3g}" for k_, v_ in e.items()), flush=True)
         for block in (16, 32, 64, 128):
             S = 480 if block == 16 else 512     # 480: a partial last tile
             cfg = BigBirdSparsityConfig(num_heads=4, block=block,
@@ -846,8 +958,8 @@ def phase_sparse_parity(torch, sa, dev, gen):
             fail("dead rows / unreached key tiles are not zero")
         print(f"phase12 sparse {str(dtype)[6:]} dead rows and unreached key "
               f"tiles: zeros, lse -1e30", flush=True)
-    print(f"phase12 sparse grid worst max_abs_err {worst} (tol bf16 atol "
-          f"{FLASH_TOL[0]} + rtol {FLASH_TOL[1]} |ref|, f32 "
+    print(f"phase12 sparse grid worst max_abs_err {worst} (tol bf16 and "
+          f"fp16 atol {FLASH_TOL[0]} + rtol {FLASH_TOL[1]} |ref|, f32 "
           f"{SPARSE_F32_TOL})", flush=True)
     # the training shape with the bench's layout; its global key tile is
     # split over 32 dk/dv blocks, whose partials are summed in a fixed
@@ -1182,7 +1294,7 @@ def phase_paged_parity(torch, da, qz, dev, gen):
     T, hd = S // bs, h * d
     errs = {name: 0.0 for name in ("paged_decode_attention",)
             + INT8_KERNELS}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for s_q in (1, 4):
             clen = torch.tensor([0, 1, 17, 512, 1024, 300, 777, S + s_q],
                                 dtype=torch.int32, device=dev)
@@ -1224,7 +1336,7 @@ def phase_paged_parity(torch, da, qz, dev, gen):
                 clen, k_scale=_to_pool(ks, perm, bs),
                 v_scale=_to_pool(vs, perm, bs))
             torch.cuda.synchronize()
-            rtol = DECODE_INT8_RTOL if dtype == torch.bfloat16 else 0.0
+            rtol = DECODE_INT8_RTOL if dtype != torch.float32 else 0.0
             e2q = _decode_err(torch, d8, da.decode_attention_reference(
                 q, kq, vq, clen, 1 / 8, ks, vs), "decode_attention_int8",
                 rtol)
@@ -1241,7 +1353,7 @@ def phase_paged_parity(torch, da, qz, dev, gen):
             print(f"phase18 {str(dtype)[6:]} s_q={s_q} b={b} S={S} h={h} "
                   f"d={d} block={bs}: B3 bitwise B2 over permuted, in-order "
                   f"and sentinel tables; max_abs_err B3={e3} B2-int8={e2q} "
-                  f"B3-int8={e3q} (tol {DECODE_ATOL}, int8 in bf16 + "
+                  f"B3-int8={e3q} (tol {DECODE_ATOL}, int8 in 16 bits + "
                   f"{DECODE_INT8_RTOL} |ref|); fill-0 row zeros; "
                   f"B3-int8 bitwise B2-int8", flush=True)
     return errs
@@ -1924,6 +2036,38 @@ def phase_rowwise_timing(torch, ln, gl, sm, inputs, card):
     return out
 
 
+def phase_flash_sass(_build):
+    """HGMMA (wgmma) instructions per 16-bit flash kernel in the built
+    library's SASS, from cuobjdump (the toolkit's, or on PATH)."""
+    import glob
+    import re
+    import shutil
+    tool = (shutil.which("cuobjdump")
+            or next(iter(glob.glob("/usr/local/cuda/bin/cuobjdump")), None))
+    if tool is None:
+        print("phase1 flash SASS: no cuobjdump, HGMMA count not measured",
+              flush=True)
+        return
+    lib = glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))[0]
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "flash" in m.group(1) else None
+            if name and "wgmma" in name:
+                counts[name] = 0
+        elif name in counts and "HGMMA" in line:
+            counts[name] += 1
+    if not counts or min(counts.values()) == 0:
+        fail(f"16-bit flash kernels without wgmma in the SASS: {counts}")
+    print(f"phase1 flash SASS: {len(counts)} wgmma kernels, "
+          f"{sum(counts.values())} HGMMA instructions "
+          f"({min(counts.values())}-{max(counts.values())} each)",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1953,6 +2097,7 @@ def main(argv=None) -> int:
     _build.library()
     print(f"phase1 kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    phase_flash_sass(_build)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
@@ -1966,7 +2111,7 @@ def main(argv=None) -> int:
     phase_model_check(torch, dev, engine, cfg, ids)
     phase_train_profile(torch, engine, ids, card)
     del engine
-    flash_t = phase_flash_timing(torch, fa, flash_inputs, card)
+    flash_t = phase_flash_timing(torch, fa, dev, gen, flash_inputs, card)
     del flash_inputs
     torch.cuda.empty_cache()
 

@@ -1,5 +1,6 @@
 // KV-cache decode attention for Hopper (sm_90a): dense (B2) and paged (B3),
-// each over a bf16/f32 cache or an int8 cache with per-position scales.
+// each over a bf16/fp16/f32 cache or an int8 cache with per-position
+// scales.
 //
 // Replaces the Pallas kernels `_decode_kernel` (dense, wrapper
 // `decode_attention`) and `_paged_decode_kernel` (paged, wrapper
@@ -24,7 +25,8 @@
 // ([b, S] dense, [nb, bs] paged). The kernel loads int8 (a 16-byte load
 // carries 16 elements) and multiplies each element by its position's scale
 // in f32 before the dot and before the value sum, as the TPU kernel does in
-// VMEM; no dequantized cache is ever written. q and out stay bf16/f32.
+// VMEM; no dequantized cache is ever written. q and out stay
+// bf16/fp16/f32.
 //
 // Bound: device-memory bytes. A decode step reads each live K and V row once
 // and does 4*d flops per (query, key) pair, far below the card's
@@ -55,6 +57,7 @@
 // deepspeed_tpu_torch/ops/cuda/decode_attention.py.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -72,6 +75,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
 }
@@ -83,6 +87,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
 }
 
 // 16 bytes -> 16 / sizeof(T) floats
@@ -106,6 +114,20 @@ struct Vec16<__nv_bfloat16> {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float2 f = __bfloat1622float2(h2[j]);
+      out[2 * j] = f.x;
+      out[2 * j + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Vec16<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __half* p, float* out) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float2 f = __half22float2(h2[j]);
       out[2 * j] = f.x;
       out[2 * j + 1] = f.y;
     }
@@ -160,6 +182,23 @@ struct VecN<__nv_bfloat16, 4> {
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
     const float2 a = __bfloat1622float2(h2[0]);
     const float2 b = __bfloat1622float2(h2[1]);
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  }
+};
+template <>
+struct VecN<__half, 2> {
+  __device__ __forceinline__ static void load(const __half* p, float* out) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(p));
+    out[0] = f.x; out[1] = f.y;
+  }
+};
+template <>
+struct VecN<__half, 4> {
+  __device__ __forceinline__ static void load(const __half* p, float* out) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+    const float2 a = __half22float2(h2[0]);
+    const float2 b = __half22float2(h2[1]);
     out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
   }
 };
@@ -427,13 +466,20 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
   if (dtype == 1)
     return (int)launch<__nv_bfloat16, int8_t>(
         q, k, v, ks, vs, cache_len, out, b, s_q, h, d, S, scale, rows, st);
+  if (dtype == 2 && !int8)
+    return (int)launch<__half, __half>(q, k, v, ks, vs, cache_len, out, b,
+                                       s_q, h, d, S, scale, rows, st);
+  if (dtype == 2)
+    return (int)launch<__half, int8_t>(q, k, v, ks, vs, cache_len, out, b,
+                                       s_q, h, d, S, scale, rows, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16. int8: the cache is int8
-// with f32 scales k_scale / v_scale (else they are unused and may be null).
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. int8: the
+// cache is int8 with f32 scales k_scale / v_scale (else they are unused and
+// may be null).
 // Returns a cudaError_t (0 on success).
 extern "C" int dstorch_decode_attention(const void* q, const void* k,
                                         const void* v, const void* k_scale,

@@ -12,254 +12,960 @@
 // q/k/v/dO are read as [B, S, H, D] with the strides the caller gives
 // (channels contiguous), so the fused qkv projection's views need no copy;
 // out/dq/dk/dv are written contiguous [B, S, H, D], lse and delta are
-// [B, H, S] f32. Any S >= 1: tail tiles are zero-filled and masked.
+// [B, H, S] f32. Any S >= 1.
 //
 // Bound: at the training shape (S=1024, D=64, causal, bf16) attention does
 // 250-340 flops per byte it must move, around the card's bf16 balance
 // (~295): bytes bound the forward, the products the two backward kernels.
-// Only the tensor cores come near either bound. The TPU kernels' 1024x1024
-// VMEM tiles have no counterpart here. Two families:
-//   * bf16 (the training path): tensor cores through mma.sync m16n8k16
-//     (bf16 in, f32 accumulate). One block of 4 warps per (64-row tile,
-//     head, batch row); the tiles are staged in shared memory as bf16 with
-//     rows padded by 16 bytes (conflict-free fragment loads). Each warp owns
-//     16 rows of the tile: the forward and dq kernels 16 query rows against
-//     a 64-key tile, the dk/dv kernel 16 key rows against a 64-query tile.
-//     Score tiles stay in registers as mma accumulators; p and ds are
-//     rounded to bf16 to feed the next product (the accumulator layout of
-//     two 8-column tiles is the A operand layout of a 16-deep product).
-//     The TPU kernels keep p.v in f32; the tests bound the difference.
+// Only wgmma reaches the tensor cores' rate, and only if the tiles arrive
+// without the threads' help. Two families:
+//
+//   * bf16 / fp16 (the training path), d in {32, 64, 96, 128): wgmma
+//     kernels fed by TMA. A block has two consumer warpgroups of 64 rows
+//     each (wgmma's m64) and a producer warpgroup, one warp of which
+//     works; setmaxnreg moves its registers to the consumers (240 a
+//     thread). The producer loads the block's resident tiles once and
+//     keeps a 3-stage ring of the walked tiles in flight, each stage
+//     guarded by a full and an empty mbarrier; the consumers never stage
+//     anything themselves. Each consumer warpgroup is software pipelined:
+//     the products of tile i run on the tensor cores with the last
+//     products of tile i - 1, and the exponentials of tile i run while
+//     the latter do.
+//       - forward: 128 query rows per block (Q resident), walking key tiles
+//         of kN keys (128 for d <= 64, else 64: registers) through the
+//         ring of K and V. S = Q K^T (both operands in shared memory,
+//         K-major), the online softmax on the accumulators in registers
+//         with exp2 and scale * log2(e) folded into the scores, P rounded
+//         to the input type in registers as the A operand of O += P V (V
+//         read MN-major, the transpose flag: the m64 accumulator layout is
+//         the A fragment layout). Tile i's S runs with tile i - 1's P V.
+//         Only tiles that cross the diagonal or S are masked.
+//       - dq: 128 query rows (Q, dO resident), key tiles of 64: S = Q K^T
+//         and dP = dO V^T from shared memory, dS / scale = P (dP - delta)
+//         in registers, dQ += dS K (the scale applied once, at the store).
+//       - dk/dv: 128 keys (K, V resident), query tiles of 64 (32 for
+//         d >= 96: registers) through a ring of Q, dO and the tile's lse and
+//         delta (which a producer warp copies, lse pre-scaled by log2(e),
+//         +inf past S so those queries get p = 0 unmasked). S^T = K Q^T and
+//         dP^T = V dO^T from shared memory, P^T and dS^T / scale in
+//         registers as the A operands of dV += P^T dO and dK += dS^T Q.
+//     Tiles live in shared memory as 32-column panels of 64-byte rows with
+//     the 64-byte swizzle, which TMA writes and the wgmma descriptors read,
+//     so every d is a whole number of panels (one TMA box per panel; a
+//     128-byte swizzle would split d = 96 into unequal boxes). The tensor
+//     maps are 4-D over (d, H, S, B) with the caller's strides: the rows
+//     of a ragged tail past S arrive as zeros, never from the next batch
+//     row. They are encoded per call on the host (cuTensorMapEncodeTiled,
+//     fetched with cudaGetDriverEntryPoint: no -lcuda) and passed as
+//     __grid_constant__ parameters. The backward keeps the reference's two
+//     passes: no atomics, so the gradients are bitwise reproducible. p and
+//     ds are rounded to the input type for the products (the TPU kernels
+//     keep them f32; the tests bound the difference).
 //   * f32: CUDA-core FMAs (exact f32 products, so they agree with the plain
-//     version to summation order). A row is owned by D/32 neighbouring
-//     threads (the backward: D/16 up to D = 64), each holding 32 (16) of
-//     its channels in registers in interleaved 4-channel chunks; K/V (or
-//     Q/dO) tiles are staged as f32; partial dots are summed with shuffles.
-// Both: online softmax in f32, causal tiles above the diagonal skipped by
-// all three kernels at the same absolute positions, dk/dv accumulated in
-// f32 until the final store, the longest causal tiles launched first.
-// cp.async / TMA staging and wgmma tiles are later work. The tile building
-// blocks (fragments, staging, row splits, launch helpers) are in
-// attention_tiles.cuh, shared with the block-sparse kernels.
+//     version to summation order). A row is owned by neighbouring threads
+//     (attention_tiles.cuh's row splits), each holding a share of its
+//     channels in registers; K/V (or Q/dO) tiles of 64 rows are staged as
+//     f32; partial dots are summed with shuffles. f32 is on no main path.
+// All kernels skip causal tiles above the diagonal and launch the longest
+// causal tiles first.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes by
 // deepspeed_tpu_torch/ops/cuda/flash_attention.py.
 
+#include <cuda.h>   // CUtensorMap and its enums (header only: no -lcuda)
+
+#include <algorithm>
+#include <type_traits>
+
 #include "attention_tiles.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, Strides sq, Strides sk,
-                    Strides sv, bf16* __restrict__ out,
-                    float* __restrict__ lse, int S, int H, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kRows * LD;
-  bf16* vs = ks + kRows * LD;
-  const int nt = (S + kRows - 1) / kRows;
-  const int qt = nt - 1 - blockIdx.x;         // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
-  const int q0 = qt * kRows;
-  const int qrow[2] = {q0 + row0 + (lane >> 2), q0 + row0 + (lane >> 2) + 8};
+// ===========================================================================
+// Hopper primitives: mbarriers, TMA, wgmma descriptors and fences
+// ===========================================================================
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kPanel = 32;                 // columns of a 64-byte panel row
+constexpr int kConsumerWarps = 8;          // two warpgroups
+// + the producer warpgroup: one of its warps works, but setmaxnreg moves
+// registers between whole warpgroups of the block
+constexpr int kHopperThreads = 32 * (kConsumerWarps + 4);
 
-  stage_bf16<D>(qs, q, sq, b, h, q0, S);
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+// Registers a thread after the roles split: the launch gives each of the
+// 12 warps 168 (65536 / 384); the producer warpgroup hands back all but 24
+// to the block's pool and the consumers take 240 from it (4 x 32 x 144 =
+// 8 x 32 x 72 registers move).
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
-  const int kt_last = kCausal ? qt : nt - 1;
-#pragma unroll 1
-  for (int kt = 0; kt <= kt_last; ++kt) {
-    const int k0 = kt * kRows;
-    __syncthreads();
-    stage_bf16<D>(ks, k, sk, b, h, k0, S);
-    stage_bf16<D>(vs, v, sv, b, h, k0, S);
-    __syncthreads();
-    float s[kRows / 8][4];
-    tile_qkt<D, kRows / 8>(s, qs, ks, row0, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
-        const bool seen = key < S && (!kCausal || key <= qrow[e >> 1]);
-        s[n][e] = seen ? s[n][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);  // masked: exp(-inf) = 0
-        l[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-    tile_pv<D>(o, s, vs, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = quad_sum(l[i]);
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    inv[i] = 1.f / l_safe;
-    if ((lane & 3) == 0 && qrow[i] < S)
-      lse[((long long)b * H + h) * S + qrow[i]] = m[i] + logf(l_safe);
-  }
-  store_rows<D>(out, o, b, q0 + row0, h, S, H, inv, lane);
+template <int N>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout, Strides sq, Strides sk,
-                       Strides sv, Strides sdo, const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dq,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// until the barrier's phase of this parity has completed; a phase that
+// never completes (a bug) traps after 10 s instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && (polls & 1023) == 1023) {
+      if (t0 == 0) t0 = now_ns();
+      else if (now_ns() - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// one box (32 channels from c, one head, `rows` rows from s, one batch row)
+// of a (d, H, S, B) tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c, int h, int s,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c), "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+
+// `rows` rows of all D channels: D / 32 boxes into consecutive panels
+template <int D, int kRowsIn>
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int h, int s, int b) {
+#pragma unroll
+  for (int c = 0; c < D / kPanel; ++c)
+    tma_load(static_cast<char*>(dst) + c * kRowsIn * kPanel * 2, map, bar,
+             c * kPanel, h, s, b);
+}
+
+// wgmma matrix descriptor of a 64-byte-swizzled operand: start address,
+// leading byte offset (MN-major: from one 32-column panel to the next),
+// stride byte offset (from 8 rows to the next 8: 512 bytes), layout 64B
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// K-major operand: rows from `row` of a tile of kRowsIn rows, depth slice kk
+// (16 channels) of its panels
+template <int kRowsIn, typename T>
+__device__ __forceinline__ uint64_t desc_k(const T* tile, int row, int kk) {
+  return desc(tile + (kk >> 1) * kRowsIn * kPanel + row * kPanel
+              + (kk & 1) * 16, 16);
+}
+
+// MN-major operand: depth slice j (rows 16 j ..) of a tile of kRowsIn rows,
+// its columns across the panels
+template <int kRowsIn, typename T>
+__device__ __forceinline__ uint64_t desc_mn(const T* tile, int j) {
+  return desc(tile + j * 16 * kPanel, kRowsIn * kPanel * 2);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup are still running
+// (groups complete in order)
+template <int N = 0>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x on the special-function unit (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma (issue .. wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// The work tile of this block's round j in a persistent kernel: rounds
+// alternate direction over the blocks, so a list sorted longest first
+// spreads evenly over them (each block's j-th tile is the same in its
+// producer and its consumers).
+__device__ __forceinline__ int snake(int j) {
+  return j * gridDim.x + ((j & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+// column of accumulator value i (its row is g + 8 * ((i >> 1) & 1))
+__device__ __forceinline__ int acc_col(int lane, int i) {
+  return (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+}
+
+// the A fragments of a 64 x N accumulator (k16 slices), rounded to T
+template <typename T, int N>
+__device__ __forceinline__ void to_a(uint32_t (*a)[4], const float* d) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[j][r] = pack<T>(d[8 * j + 2 * r], d[8 * j + 2 * r + 1]);
+}
+
+// the thread's two rows of a 64 x D accumulator into a contiguous
+// [B, S, H, D] tensor, times inv[row]
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* base, const float* d, int b,
+                                          const int* row, int h, int S, int H,
+                                          const float* inv, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= S) continue;
+    T* p = base + (((long long)b * S + row[i]) * H + h) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack<T>(d[4 * j + 2 * i] * inv[i], d[4 * j + 2 * i + 1] * inv[i]);
+  }
+}
+
+// Shared memory of a Hopper kernel: two buffers of its `resident` tiles
+// (the next work tile's load during this one's end), `stages` ring stages
+// of `stage` bytes, the barriers (full and empty per stage and per
+// resident buffer), and slack to align the tiles to 1024 bytes (the
+// swizzle repeats every 512).
+constexpr size_t hopper_smem(int resident, int stage, int stages) {
+  return 1024 + 2 * resident + stages * stage + 8 * (2 * stages + 4);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// ===========================================================================
+// bf16 / fp16: wgmma kernels
+// ===========================================================================
+template <int D>
+struct FwdTile {
+  static constexpr int kM = 128;                   // query rows per block
+  static constexpr int kN = D <= 64 ? 128 : 64;    // keys per tile
+  static constexpr int kStages = 3;
+  static constexpr int kQ = kM * D * 2;            // bytes of the Q tile
+  static constexpr int kKV = kN * D * 2;           // bytes of a K (V) tile
+  static constexpr size_t kSmem = hopper_smem(kQ, 2 * kKV, kStages);
+};
+
+// The online softmax of one key tile's scores s (this thread's values of
+// its two rows), in place: s becomes p = 2^(s c2 - m) in f32, m (log2
+// units) and the thread's partial l are updated, corr is the factor the
+// running output takes. One FFMA and one exp2 a score: the row max is
+// taken over the raw scores (over -s when c2 < 0, kPos false) and scaled
+// once. kEdge: the tile crosses S or (causal) the diagonal, and keys past
+// S or after the row are masked; the other tiles take a path without the
+// mask's instructions.
+template <int kN, bool kCausal, bool kEdge, bool kPos>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
+                                             float* corr, float c2, int k0,
+                                             const int* row, int S,
+                                             int lane) {
+  const auto masked = [&](int e) {
+    const int key = k0 + acc_col(lane, e);
+    return key >= S || (kCausal && key > row[(e >> 1) & 1]);
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) {
+    const float x = kEdge && masked(e) ? -INFINITY : kPos ? s[e] : -s[e];
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // a row masked in the whole tile: -inf * |c2| (NaN at c2 = 0) loses
+    // to m in fmaxf
+    const float m_new = fmaxf(m[r], quad_max(mx[r]) * (kPos ? c2 : -c2));
+    corr[r] = exp2_fast(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) {
+    float p = exp2_fast(fmaf(s[e], c2, -m[(e >> 1) & 1]));
+    if (kEdge && masked(e)) p = 0.f;
+    s[e] = p;
+    l[(e >> 1) & 1] += p;
+  }
+}
+
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       T* __restrict__ out, float* __restrict__ lse, int B,
                        int S, int H, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kRows * LD;
-  bf16* ks = dos + kRows * LD;
-  bf16* vs = ks + kRows * LD;
-  const int nt = (S + kRows - 1) / kRows;
-  const int qt = nt - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
-  const int q0 = qt * kRows;
-  const int qrow[2] = {q0 + row0 + (lane >> 2), q0 + row0 + (lane >> 2) + 8};
-  float L[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long at = ((long long)b * H + h) * S + qrow[i];
-    L[i] = qrow[i] < S ? lse[at] : 0.f;
-    dl[i] = qrow[i] < S ? delta[at] : 0.f;
-  }
+  using C = FwdTile<D>;
+  constexpr int kM = C::kM, kN = C::kN, kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  T* qbuf = reinterpret_cast<T*>(base);                // [2][kM rows]
+  unsigned char* ring = base + 2 * C::kQ;             // stage: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * C::kKV);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;                  // [2]
+  uint64_t* qempty = qfull + 2;                       // [2]
+  // Persistent: each block takes one work tile a round (snake) from the
+  // (128-row tile, head, batch row) list, whose longest causal tiles come
+  // first. The ring's slot counter runs on across work tiles.
+  const int nt = (S + kM - 1) / kM;
+  const int n_items = nt * H * B;
+  const auto item = [&](int w, int& q0, int& h, int& b) {
+    const int hb = w % (H * B);
+    q0 = (nt - 1 - w / (H * B)) * kM;
+    h = hb % H;
+    b = hb / H;
+    return ((kCausal ? min(S, q0 + kM) : S) + kN - 1) / kN;   // key tiles
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stage_bf16<D>(qs, q, sq, b, h, q0, S);
-  stage_bf16<D>(dos, dout, sdo, b, h, q0, S);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int kt_last = kCausal ? qt : nt - 1;
-#pragma unroll 1
-  for (int kt = 0; kt <= kt_last; ++kt) {
-    const int k0 = kt * kRows;
-    __syncthreads();
-    stage_bf16<D>(ks, k, sk, b, h, k0, S);
-    stage_bf16<D>(vs, v, sv, b, h, k0, S);
-    __syncthreads();
-    float s[kRows / 8][4], dp[kRows / 8][4];
-    tile_qkt<D, kRows / 8>(s, qs, ks, row0, lane);
-    tile_qkt<D, kRows / 8>(dp, dos, vs, row0, lane);
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
-        const bool seen = key < S && (!kCausal || key <= qrow[e >> 1]);
-        const float p = seen ? expf(s[n][e] * scale - L[e >> 1]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;     // ds
-      }
-    tile_pv<D>(acc, s, ks, lane);
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(dq, acc, b, q0 + row0, h, S, H, one, lane);
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout, Strides sq,
-                        Strides sk, Strides sv, Strides sdo,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                        int H, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kRows * LD;
-  bf16* qs = vs + kRows * LD;
-  bf16* dos = qs + kRows * LD;
-  float* lses = reinterpret_cast<float*>(dos + kRows * LD);   // [kRows]
-  float* dels = lses + kRows;                                  // [kRows]
-  const int nt = (S + kRows - 1) / kRows;
-  const int kt = blockIdx.x;                  // the longest (causal) first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
-  const int k0 = kt * kRows;
-  const int krow[2] = {k0 + row0 + (lane >> 2), k0 + row0 + (lane >> 2) + 8};
-  const long long stat0 = ((long long)b * H + h) * S;
-
-  stage_bf16<D>(ks, k, sk, b, h, k0, S);
-  stage_bf16<D>(vs, v, sv, b, h, k0, S);
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-#pragma unroll 1
-  for (int qt = kCausal ? kt : 0; qt < nt; ++qt) {   // tiles below the diagonal
-    const int q0 = qt * kRows;
-    __syncthreads();
-    stage_bf16<D>(qs, q, sq, b, h, q0, S);
-    stage_bf16<D>(dos, dout, sdo, b, h, q0, S);
-    for (int i = threadIdx.x; i < kRows; i += blockDim.x) {
-      const bool in = q0 + i < S;
-      lses[i] = in ? lse[stat0 + q0 + i] : 0.f;
-      dels[i] = in ? delta[stat0 + q0 + i] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], kConsumerWarps);
     }
-    __syncthreads();
-    // transposed scores: rows are this warp's keys, columns the tile's
-    // queries
-    float p[kRows / 8][4], ds[kRows / 8][4];
-    tile_qkt<D, kRows / 8>(p, ks, qs, row0, lane);
-    tile_qkt<D, kRows / 8>(ds, vs, dos, row0, lane);
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * (lane & 3) + (e & 1);
-        const bool seen = q0 + col < S
-                          && (!kCausal || q0 + col >= krow[e >> 1]);
-        p[n][e] = seen ? expf(p[n][e] * scale - lses[col]) : 0.f;
-        ds[n][e] = p[n][e] * (ds[n][e] - dels[col]) * scale;
-      }
-    tile_pv<D>(dva, p, dos, lane);
-    tile_pv<D>(dka, ds, qs, lane);
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&qfull[i], 1);
+      bar_init(&qempty[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(dk, dka, b, k0 + row0, h, S, H, one, lane);
-  store_rows<D>(dv, dva, b, k0 + row0, h, S, H, one, lane);
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {                       // the producer
+    regs_down<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      int g = 0;                                      // ring slot counter
+      for (int j = 0; j * (int)gridDim.x < n_items; ++j) {
+        const int w = snake(j);
+        if (w >= n_items) break;                // a short last round
+        int q0, h, b;
+        const int n_kt = item(w, q0, h, b);
+        if (j >= 2) bar_wait(&qempty[j & 1], ((j >> 1) & 1) ^ 1);
+        bar_expect(&qfull[j & 1], C::kQ);
+        tma_tile<D, kM>(qbuf + (j & 1) * kM * D, &tq, &qfull[j & 1], h, q0,
+                        b);
+        for (int i = 0; i < n_kt; ++i, ++g) {
+          const int st = g % kStages;
+          if (g >= kStages) bar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+          unsigned char* kv = ring + st * 2 * C::kKV;
+          bar_expect(&full[st], 2 * C::kKV);
+          tma_tile<D, kN>(kv, &tk, &full[st], h, i * kN, b);
+          tma_tile<D, kN>(kv + C::kKV, &tv, &full[st], h, i * kN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Each warpgroup walks the key tiles it sees, [0, n_wg), software
+  // pipelined: while the tensor cores run tile i's S = Q K^T and tile
+  // i - 1's O += P V, the warpgroup's threads wait only for S and then run
+  // tile i's softmax; tiles of the work tile past n_wg are only released.
+  regs_up<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const float c2 = scale * kLog2e;
+  const auto slot_wait = [&](int g) {
+    bar_wait(&full[g % kStages], (g / kStages) & 1);
+  };
+  const auto release = [&](int g) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[g % kStages]);
+  };
+  const auto k_tile = [&](int g) {
+    return reinterpret_cast<const T*>(ring + (g % kStages) * 2 * C::kKV);
+  };
+  const auto v_tile = [&](int g) { return k_tile(g) + kN * D; };
+  float o[D / 2], s[kN / 2], corr[2], m[2], l[2];
+  uint32_t pa[kN / 16][4];
+  int g = 0;
+#pragma unroll 1
+  for (int j = 0; j * (int)gridDim.x < n_items; ++j) {
+    const int w = snake(j);
+    if (w >= n_items) break;                // a short last round
+    int q0, h, b;
+    const int n_kt = item(w, q0, h, b);
+    const int r0 = q0 + wg * 64;                      // the warpgroup's rows
+    const int w16 = r0 + (warp & 3) * 16;
+    const int row[2] = {w16 + (lane >> 2), w16 + (lane >> 2) + 8};
+    const int n_wg = kCausal ? min(n_kt, (r0 + 63) / kN + 1) : n_kt;
+    const T* qs = qbuf + (j & 1) * kM * D;
+    const auto softmax = [&](int i) {
+      const int k0 = i * kN;
+      const bool edge = k0 + kN > S || (kCausal && k0 + kN - 1 > r0);
+      const auto go = [&](auto e, auto pos) {
+        softmax_tile<kN, kCausal, decltype(e)::value, decltype(pos)::value>(
+            s, m, l, corr, c2, k0, row, S, lane);
+      };
+      if (c2 >= 0.f) {
+        if (edge) go(std::true_type{}, std::true_type{});
+        else go(std::false_type{}, std::true_type{});
+      } else {
+        if (edge) go(std::true_type{}, std::false_type{});
+        else go(std::false_type{}, std::false_type{});
+      }
+    };
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    m[0] = m[1] = kNegInf;                            // log2 units
+    l[0] = l[1] = 0.f;
+    bar_wait(&qfull[j & 1], (j >> 1) & 1);
+
+    slot_wait(g);
+    fence_regs<D / 2>(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<T, kN>::ss(s, desc_k<kM>(qs, wg * 64, kk),
+                       desc_k<kN>(k_tile(g), 0, kk), kk);
+    wg_commit();
+    wg_wait();
+    fence_regs<kN / 2>(s);
+    softmax(0);
+    to_a<T, kN>(pa, s);
+#pragma unroll 1
+    for (int i = 1; i < n_wg; ++i) {
+      slot_wait(g + i);
+      fence_regs<D / 2>(o);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, kN>::ss(s, desc_k<kM>(qs, wg * 64, kk),
+                         desc_k<kN>(k_tile(g + i), 0, kk), kk);
+      wg_commit();
+#pragma unroll
+      for (int jj = 0; jj < kN / 16; ++jj)
+        Wgmma<T, D>::rs(o, pa[jj], desc_mn<kN>(v_tile(g + i - 1), jj), 1);
+      wg_commit();
+      wg_wait<1>();                                   // S of tile i
+      fence_regs<kN / 2>(s);
+      softmax(i);
+      wg_wait<0>();                                   // P V of tile i - 1
+      fence_regs<D / 2>(o);
+      release(g + i - 1);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+      to_a<T, kN>(pa, s);
+    }
+    fence_regs<D / 2>(o);
+    wg_fence();
+#pragma unroll
+    for (int jj = 0; jj < kN / 16; ++jj)
+      Wgmma<T, D>::rs(o, pa[jj], desc_mn<kN>(v_tile(g + n_wg - 1), jj), 1);
+    wg_commit();
+    wg_wait();
+    fence_regs<D / 2>(o);
+    release(g + n_wg - 1);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&qempty[j & 1]);   // the last read of Q
+    for (int i = n_wg; i < n_kt; ++i) {      // tiles after all its rows
+      slot_wait(g + i);
+      release(g + i);
+    }
+    g += n_kt;
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      const float l_safe = lr == 0.f ? 1.f : lr;
+      inv[r] = 1.f / l_safe;
+      if ((lane & 3) == 0 && row[r] < S)
+        lse[((long long)b * H + h) * S + row[r]] = m[r] * kLn2 + logf(l_safe);
+    }
+    store_acc<T, D>(out, o, b, row, h, S, H, inv, lane);
+  }
 }
 
+template <int D>
+struct DqTile {
+  static constexpr int kM = 128;                   // query rows per block
+  static constexpr int kN = 64;                    // keys per tile
+  static constexpr int kQ = kM * D * 2;            // bytes of Q (and dO)
+  static constexpr int kKV = kN * D * 2;           // bytes of a K (V) tile
+  static constexpr int kStages = 3;
+  static constexpr size_t kSmem = hopper_smem(2 * kQ, 2 * kKV, kStages);
+};
+
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dq, int B, int S, int H,
+                          float scale) {
+  using C = DqTile<D>;
+  constexpr int kM = C::kM, kN = C::kN, kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  T* qbuf = reinterpret_cast<T*>(base);        // [2][Q, dO] of kM rows
+  unsigned char* ring = base + 4 * C::kQ;             // stage: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * C::kKV);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;                  // [2]
+  uint64_t* qempty = qfull + 2;                       // [2]
+  // persistent over (128-row tile, head, batch row), as the forward
+  const int nt = (S + kM - 1) / kM;
+  const int n_items = nt * H * B;
+  const auto item = [&](int w, int& q0, int& h, int& b) {
+    const int hb = w % (H * B);
+    q0 = (nt - 1 - w / (H * B)) * kM;
+    h = hb % H;
+    b = hb / H;
+    return ((kCausal ? min(S, q0 + kM) : S) + kN - 1) / kN;   // key tiles
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&qfull[i], 1);
+      bar_init(&qempty[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {                       // the producer
+    regs_down<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      int g = 0;
+      for (int j = 0; j * (int)gridDim.x < n_items; ++j) {
+        const int w = snake(j);
+        if (w >= n_items) break;                // a short last round
+        int q0, h, b;
+        const int n_kt = item(w, q0, h, b);
+        T* qs = qbuf + (j & 1) * 2 * kM * D;
+        if (j >= 2) bar_wait(&qempty[j & 1], ((j >> 1) & 1) ^ 1);
+        bar_expect(&qfull[j & 1], 2 * C::kQ);
+        tma_tile<D, kM>(qs, &tq, &qfull[j & 1], h, q0, b);
+        tma_tile<D, kM>(qs + kM * D, &tdo, &qfull[j & 1], h, q0, b);
+        for (int i = 0; i < n_kt; ++i, ++g) {
+          const int st = g % kStages;
+          if (g >= kStages) bar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+          unsigned char* kv = ring + st * 2 * C::kKV;
+          bar_expect(&full[st], 2 * C::kKV);
+          tma_tile<D, kN>(kv, &tk, &full[st], h, i * kN, b);
+          tma_tile<D, kN>(kv + C::kKV, &tv, &full[st], h, i * kN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Pipelined as the forward: tile i's S and dP run with tile i - 1's
+  // dQ += dS K, and tile i's dS is computed while dQ runs.
+  regs_up<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const float c2 = scale * kLog2e;
+  const auto slot_wait = [&](int g) {
+    bar_wait(&full[g % kStages], (g / kStages) & 1);
+  };
+  const auto release = [&](int g) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[g % kStages]);
+  };
+  const auto k_tile = [&](int g) {
+    return reinterpret_cast<const T*>(ring + (g % kStages) * 2 * C::kKV);
+  };
+  float s[kN / 2], dp[kN / 2], acc[D / 2];
+  uint32_t da[kN / 16][4];
+  int g = 0;
+#pragma unroll 1
+  for (int j = 0; j * (int)gridDim.x < n_items; ++j) {
+    const int w = snake(j);
+    if (w >= n_items) break;                // a short last round
+    int q0, h, b;
+    const int n_kt = item(w, q0, h, b);
+    const int r0 = q0 + wg * 64;
+    const int w16 = r0 + (warp & 3) * 16;
+    const int row[2] = {w16 + (lane >> 2), w16 + (lane >> 2) + 8};
+    const int n_wg = kCausal ? min(n_kt, (r0 + 63) / kN + 1) : n_kt;
+    const T* qs = qbuf + (j & 1) * 2 * kM * D;
+    const T* dos = qs + kM * D;
+    float L[2], dl[2];    // lse in log2 units (+inf past S: p = 0), delta
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long at = ((long long)b * H + h) * S + row[r];
+      L[r] = row[r] < S ? lse[at] * kLog2e : INFINITY;
+      dl[r] = row[r] < S ? delta[at] : 0.f;
+    }
+    // S and dP of a ring slot (one commit group)
+    const auto scores = [&](int slot) {
+      const T* ks = k_tile(slot);
+      const T* vs = ks + kN * D;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, kN>::ss(s, desc_k<kM>(qs, wg * 64, kk),
+                         desc_k<kN>(ks, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, kN>::ss(dp, desc_k<kM>(dos, wg * 64, kk),
+                         desc_k<kN>(vs, 0, kk), kk);
+      wg_commit();
+    };
+    // dS of key tile i into s; keys past S need no mask: their K rows
+    // arrive as zeros, so their dS times K adds nothing. Only a tile across
+    // the diagonal takes the causal mask's instructions.
+    const auto grad_scores = [&](int i) {
+      const int k0 = i * kN;
+      const auto body = [&](auto diag) {
+#pragma unroll
+        for (int e = 0; e < kN / 2; ++e) {
+          const int r = (e >> 1) & 1;
+          float p = exp2_fast(fmaf(s[e], c2, -L[r]));
+          if constexpr (decltype(diag)::value)
+            if (k0 + acc_col(lane, e) > row[r]) p = 0.f;
+          s[e] = p * (dp[e] - dl[r]);            // dS / scale
+        }
+      };
+      if (kCausal && k0 + kN - 1 > r0) body(std::true_type{});
+      else body(std::false_type{});
+    };
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    bar_wait(&qfull[j & 1], (j >> 1) & 1);
+
+    slot_wait(g);
+    fence_regs<D / 2>(acc);
+    wg_fence();
+    scores(g);
+    wg_wait();
+    fence_regs<kN / 2>(s);
+    fence_regs<kN / 2>(dp);
+    grad_scores(0);
+    to_a<T, kN>(da, s);
+#pragma unroll 1
+    for (int i = 1; i < n_wg; ++i) {
+      slot_wait(g + i);
+      fence_regs<D / 2>(acc);
+      wg_fence();
+      scores(g + i);
+#pragma unroll
+      for (int jj = 0; jj < kN / 16; ++jj)
+        Wgmma<T, D>::rs(acc, da[jj], desc_mn<kN>(k_tile(g + i - 1), jj), 1);
+      wg_commit();
+      wg_wait<1>();
+      fence_regs<kN / 2>(s);
+      fence_regs<kN / 2>(dp);
+      grad_scores(i);
+      wg_wait<0>();
+      fence_regs<D / 2>(acc);
+      release(g + i - 1);
+      to_a<T, kN>(da, s);
+    }
+    fence_regs<D / 2>(acc);
+    wg_fence();
+#pragma unroll
+    for (int jj = 0; jj < kN / 16; ++jj)
+      Wgmma<T, D>::rs(acc, da[jj], desc_mn<kN>(k_tile(g + n_wg - 1), jj), 1);
+    wg_commit();
+    wg_wait();
+    fence_regs<D / 2>(acc);
+    release(g + n_wg - 1);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&qempty[j & 1]);   // the last read of Q, dO
+    for (int i = n_wg; i < n_kt; ++i) {    // tiles after all its rows
+      slot_wait(g + i);
+      release(g + i);
+    }
+    g += n_kt;
+    const float sc[2] = {scale, scale};   // dS carried the scale out
+    store_acc<T, D>(dq, acc, b, row, h, S, H, sc, lane);
+  }
+}
+
+template <int D>
+struct DkvTile {
+  static constexpr int kN = 128;                   // keys per block
+  static constexpr int kM = D <= 64 ? 64 : 32;     // queries per tile
+  static constexpr int kKV = kN * D * 2;           // bytes of K (and V)
+  static constexpr int kQ = kM * D * 2;            // bytes of a Q (dO) tile
+  // a stage: Q, dO, then the tile's lse (log2 units) and delta, rounded
+  // up so that every stage's tiles start 1024-aligned
+  static constexpr int kStage = (2 * kQ + 2 * kM * 4 + 1023) / 1024 * 1024;
+  static constexpr int kStages = 3;
+  static constexpr size_t kSmem = hopper_smem(2 * kKV, kStage, kStages);
+};
+
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int B,
+                           int S, int H, float scale) {
+  using C = DkvTile<D>;
+  constexpr int kM = C::kM, kN = C::kN, kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  T* kvbuf = reinterpret_cast<T*>(base);       // [2][K, V] of kN rows
+  unsigned char* ring = base + 4 * C::kKV;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * C::kStage);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvfull = empty + kStages;                 // [2]
+  uint64_t* kvempty = kvfull + 2;                     // [2]
+  // persistent over (128-key tile, head, batch row), the key tiles with
+  // the most causal query tiles first
+  const int n_kt = (S + kN - 1) / kN;
+  const int n_items = n_kt * H * B;
+  const int nq = (S + kM - 1) / kM;
+  const auto item = [&](int w, int& k0, int& qt0, int& h, int& b) {
+    const int hb = w % (H * B);
+    k0 = w / (H * B) * kN;
+    qt0 = kCausal ? k0 / kM : 0;              // tiles below the diagonal
+    h = hb % H;
+    b = hb / H;
+    return nq - qt0;                          // query tiles
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      bar_init(&full[i], 32);                 // every producer lane
+      bar_init(&empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&kvfull[i], 1);
+      bar_init(&kvempty[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {                       // the producer
+    regs_down<kProducerRegs>();
+    if (warp > kConsumerWarps) return;
+    int g = 0;
+    for (int j = 0; j * (int)gridDim.x < n_items; ++j) {
+      const int w = snake(j);
+      if (w >= n_items) break;                // a short last round
+      int k0, qt0, h, b;
+      const int n_qt = item(w, k0, qt0, h, b);
+      const long long stat0 = ((long long)b * H + h) * S;
+      if (lane == 0) {
+        T* ks = kvbuf + (j & 1) * 2 * kN * D;
+        if (j >= 2) bar_wait(&kvempty[j & 1], ((j >> 1) & 1) ^ 1);
+        bar_expect(&kvfull[j & 1], 2 * C::kKV);
+        tma_tile<D, kN>(ks, &tk, &kvfull[j & 1], h, k0, b);
+        tma_tile<D, kN>(ks + kN * D, &tv, &kvfull[j & 1], h, k0, b);
+      }
+      for (int i = 0; i < n_qt; ++i, ++g) {
+        const int st = g % kStages, q0 = (qt0 + i) * kM;
+        if (g >= kStages) bar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+        unsigned char* stage = ring + st * C::kStage;
+        float* ls = reinterpret_cast<float*>(stage + 2 * C::kQ);
+        for (int r = lane; r < kM; r += 32) {
+          const bool in = q0 + r < S;
+          ls[r] = in ? lse[stat0 + q0 + r] * kLog2e : INFINITY;
+          ls[kM + r] = in ? delta[stat0 + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          bar_expect(&full[st], 2 * C::kQ);
+          tma_tile<D, kM>(stage, &tq, &full[st], h, q0, b);
+          tma_tile<D, kM>(stage + C::kQ, &tdo, &full[st], h, q0, b);
+        } else {
+          bar_arrive(&full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // Each warpgroup walks the query tiles that see its keys, [first, n_qt)
+  // (causal: the tiles before are only released), pipelined as the
+  // forward: tile i's S^T and dP^T run with tile i - 1's dV += P^T dO and
+  // dK += dS^T Q, and tile i's P and dS are computed meanwhile.
+  regs_up<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const float c2 = scale * kLog2e;
+  const auto stage_of = [&](int g) { return ring + (g % kStages) * C::kStage; };
+  const auto slot_wait = [&](int g) {
+    bar_wait(&full[g % kStages], (g / kStages) & 1);
+  };
+  const auto release = [&](int g) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[g % kStages]);
+  };
+  float p[kM / 2], ds[kM / 2], dka[D / 2], dva[D / 2];
+  uint32_t pa[kM / 16][4], da[kM / 16][4];
+  int g = 0;
+#pragma unroll 1
+  for (int j = 0; j * (int)gridDim.x < n_items; ++j) {
+    const int w = snake(j);
+    if (w >= n_items) break;                // a short last round
+    int k0, qt0, h, b;
+    const int n_qt = item(w, k0, qt0, h, b);
+    const int r0 = k0 + wg * 64;                      // the warpgroup's keys
+    const int w16 = r0 + (warp & 3) * 16;
+    const int krow[2] = {w16 + (lane >> 2), w16 + (lane >> 2) + 8};
+    const int first = kCausal ? min(n_qt, r0 / kM - qt0) : 0;
+    const T* ks = kvbuf + (j & 1) * 2 * kN * D;
+    const T* vs = ks + kN * D;
+    // transposed scores of a ring slot: rows are the warpgroup's keys,
+    // columns the tile's queries (one commit group)
+    const auto scores = [&](int slot) {
+      const T* qs = reinterpret_cast<const T*>(stage_of(slot));
+      const T* dos = qs + kM * D;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, kM>::ss(p, desc_k<kN>(ks, wg * 64, kk),
+                         desc_k<kM>(qs, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, kM>::ss(ds, desc_k<kN>(vs, wg * 64, kk),
+                         desc_k<kM>(dos, 0, kk), kk);
+      wg_commit();
+    };
+    // P and dS / scale of query tile i (ring slot `slot`)
+    const auto grad_scores = [&](int i, int slot) {
+      const int q0 = (qt0 + i) * kM;
+      const float* ls =
+          reinterpret_cast<const float*>(stage_of(slot) + 2 * C::kQ);
+      const auto body = [&](auto diag) {
+#pragma unroll
+        for (int e = 0; e < kM / 2; ++e) {
+          const int c = acc_col(lane, e);
+          float x = exp2_fast(fmaf(p[e], c2, -ls[c]));  // +inf past S: 0
+          if constexpr (decltype(diag)::value)
+            if (q0 + c < krow[(e >> 1) & 1]) x = 0.f;
+          p[e] = x;
+          ds[e] = x * (ds[e] - ls[kM + c]);     // dS / scale
+        }
+      };
+      if (kCausal && q0 < r0 + 63) body(std::true_type{});
+      else body(std::false_type{});
+    };
+    // dV += P^T dO and dK += dS^T Q of a ring slot (one commit group)
+    const auto grads = [&](int slot) {
+      const T* qs = reinterpret_cast<const T*>(stage_of(slot));
+      const T* dos = qs + kM * D;
+#pragma unroll
+      for (int jj = 0; jj < kM / 16; ++jj)
+        Wgmma<T, D>::rs(dva, pa[jj], desc_mn<kM>(dos, jj), 1);
+#pragma unroll
+      for (int jj = 0; jj < kM / 16; ++jj)
+        Wgmma<T, D>::rs(dka, da[jj], desc_mn<kM>(qs, jj), 1);
+      wg_commit();
+    };
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.f;
+    bar_wait(&kvfull[j & 1], (j >> 1) & 1);
+
+    for (int i = 0; i < first; ++i) {      // tiles before all its keys
+      slot_wait(g + i);
+      release(g + i);
+    }
+    if (first < n_qt) {
+      slot_wait(g + first);
+      fence_regs<D / 2>(dva);
+      fence_regs<D / 2>(dka);
+      wg_fence();
+      scores(g + first);
+      wg_wait();
+      fence_regs<kM / 2>(p);
+      fence_regs<kM / 2>(ds);
+      grad_scores(first, g + first);
+      to_a<T, kM>(pa, p);
+      to_a<T, kM>(da, ds);
+#pragma unroll 1
+      for (int i = first + 1; i < n_qt; ++i) {
+        slot_wait(g + i);
+        fence_regs<D / 2>(dva);
+        fence_regs<D / 2>(dka);
+        wg_fence();
+        scores(g + i);
+        grads(g + i - 1);
+        wg_wait<1>();
+        fence_regs<kM / 2>(p);
+        fence_regs<kM / 2>(ds);
+        grad_scores(i, g + i);
+        wg_wait<0>();
+        fence_regs<D / 2>(dva);
+        fence_regs<D / 2>(dka);
+        release(g + i - 1);
+        to_a<T, kM>(pa, p);
+        to_a<T, kM>(da, ds);
+      }
+      fence_regs<D / 2>(dva);
+      fence_regs<D / 2>(dka);
+      wg_fence();
+      grads(g + n_qt - 1);
+      wg_wait();
+      fence_regs<D / 2>(dva);
+      fence_regs<D / 2>(dka);
+      release(g + n_qt - 1);
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&kvempty[j & 1]);  // the last read of K, V
+    g += n_qt;
+    const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
+    store_acc<T, D>(dk, dka, b, krow, h, S, H, sc, lane);   // dS / scale
+    store_acc<T, D>(dv, dva, b, krow, h, S, H, one, lane);
+  }
+}
+
+// ===========================================================================
+// f32: CUDA-core FMAs
+// ===========================================================================
 // Forward: one block per (query tile, head, batch row); thread = (row, part)
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(FwdSplit<D>::kThreads)
@@ -479,22 +1185,109 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 // ===========================================================================
 // Launch and dispatch
 // ===========================================================================
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API (null if it lacks it)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a [B, S, H, D] 16-bit tensor read through its element
+// strides, as 4-D (D, H, S, B) boxes of 32 channels x 1 head x `rows` rows
+// x 1 batch row, 64-byte swizzled; rows past S (and any coordinate out of
+// range) arrive as zeros. A dimension of extent 1 gets a packed stride (its
+// own may be anything). False if the map is refused.
+bool tile_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S,
+              int H, int D, int rows, CUtensorMapDataType type) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const long long sh = H > 1 ? st.h : D;
+  const long long ss = S > 1 ? st.s : sh * H;
+  const long long sb = B > 1 ? st.b : ss * S;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, f16>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// maps of q, k, v (, dO): `rows` of each from the kernel's tile sizes
+template <typename T>
+bool tile_maps(CUtensorMap* maps, const void* const* ptrs, const int* rows,
+               int n, const long long* st, int B, int S, int H, int D) {
+  for (int i = 0; i < n; ++i)
+    if (!tile_map(&maps[i], ptrs[i], strides_at(st, i), B, S, H, D, rows[i],
+                  map_type<T>()))
+      return false;
+  return true;
+}
+
+// the current device's SMs: one persistent block each
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return cached[dev] > 0 ? cached[dev] : 1;
+}
+
 template <typename T, int D, bool C>
 struct Fwd {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          void* out, float* lse, const long long* st, int B,
                          int S, int H, float scale, cudaStream_t stream) {
-    const dim3 grid = grid_of(B, S, H);
-    const auto go = [&](auto kernel, int threads, size_t smem) {
-      return launch(kernel, grid, threads, smem, stream, as<T>(q), as<T>(k),
-                    as<T>(v), strides_at(st, 0), strides_at(st, 1),
-                    strides_at(st, 2), as<T>(out), lse, S, H, scale);
-    };
-    if constexpr (sizeof(T) == 2)
-      return go(flash_fwd_tc_kernel<D, C>, kTcThreads, tc_smem<D>(3, 0));
-    else
-      return go(flash_fwd_f32_kernel<D, C>, FwdSplit<D>::kThreads,
-                  f32_smem<D>(2, 0));
+    if constexpr (sizeof(T) == 2) {
+      using Tile = FwdTile<D>;
+      CUtensorMap m[3];
+      const void* ptrs[3] = {q, k, v};
+      const int rows[3] = {Tile::kM, Tile::kN, Tile::kN};
+      if (!tile_maps<T>(m, ptrs, rows, 3, st, B, S, H, D))
+        return cudaErrorInvalidValue;
+      const int items = (S + Tile::kM - 1) / Tile::kM * H * B;
+      return launch(flash_fwd_wgmma_kernel<T, D, C>,
+                    dim3(std::min(items, sm_count())), kHopperThreads,
+                    Tile::kSmem, stream, m[0], m[1], m[2], as<T>(out), lse,
+                    B, S, H, scale);
+    } else {
+      return launch(flash_fwd_f32_kernel<D, C>, grid_of(B, S, H),
+                    FwdSplit<D>::kThreads, f32_smem<D>(2, 0), stream,
+                    as<T>(q), as<T>(k), as<T>(v), strides_at(st, 0),
+                    strides_at(st, 1), strides_at(st, 2), as<T>(out), lse, S,
+                    H, scale);
+    }
   }
 };
 
@@ -505,19 +1298,25 @@ struct Dq {
                          const float* delta, void* dq, const long long* st,
                          int B, int S, int H, float scale,
                          cudaStream_t stream) {
-    const dim3 grid = grid_of(B, S, H);
-    const auto go = [&](auto kernel, int threads, size_t smem) {
-      return launch(kernel, grid, threads, smem, stream, as<T>(q), as<T>(k),
-                    as<T>(v), as<T>(dout), strides_at(st, 0),
-                    strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-                    lse, delta, as<T>(dq), S, H, scale);
-    };
-    if constexpr (sizeof(T) == 2)
-      return go(flash_bwd_dq_tc_kernel<D, C>, kTcThreads,
-                  tc_smem<D>(4, 0));
-    else
-      return go(flash_bwd_dq_f32_kernel<D, C>, BwdSplit<D>::kThreads,
-                  f32_smem<D>(2, 0));
+    if constexpr (sizeof(T) == 2) {
+      using Tile = DqTile<D>;
+      CUtensorMap m[4];
+      const void* ptrs[4] = {q, k, v, dout};
+      const int rows[4] = {Tile::kM, Tile::kN, Tile::kN, Tile::kM};
+      if (!tile_maps<T>(m, ptrs, rows, 4, st, B, S, H, D))
+        return cudaErrorInvalidValue;
+      const int items = (S + Tile::kM - 1) / Tile::kM * H * B;
+      return launch(flash_bwd_dq_wgmma_kernel<T, D, C>,
+                    dim3(std::min(items, sm_count())), kHopperThreads,
+                    Tile::kSmem, stream, m[0], m[1], m[2], m[3], lse, delta,
+                    as<T>(dq), B, S, H, scale);
+    } else {
+      return launch(flash_bwd_dq_f32_kernel<D, C>, grid_of(B, S, H),
+                    BwdSplit<D>::kThreads, f32_smem<D>(2, 0), stream,
+                    as<T>(q), as<T>(k), as<T>(v), as<T>(dout),
+                    strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+                    strides_at(st, 3), lse, delta, as<T>(dq), S, H, scale);
+    }
   }
 };
 
@@ -528,27 +1327,37 @@ struct Dkv {
                          const float* delta, void* dk, void* dv,
                          const long long* st, int B, int S, int H,
                          float scale, cudaStream_t stream) {
-    const dim3 grid = grid_of(B, S, H);
-    const auto go = [&](auto kernel, int threads, size_t smem) {
-      return launch(kernel, grid, threads, smem, stream, as<T>(q), as<T>(k),
-                    as<T>(v), as<T>(dout), strides_at(st, 0),
-                    strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-                    lse, delta, as<T>(dk), as<T>(dv), S, H, scale);
-    };
-    if constexpr (sizeof(T) == 2)
-      return go(flash_bwd_dkv_tc_kernel<D, C>, kTcThreads,
-                  tc_smem<D>(4, 2));
-    else
-      return go(flash_bwd_dkv_f32_kernel<D, C>, BwdSplit<D>::kThreads,
-                  f32_smem<D>(2, 2));
+    if constexpr (sizeof(T) == 2) {
+      using Tile = DkvTile<D>;
+      CUtensorMap m[4];
+      const void* ptrs[4] = {q, k, v, dout};
+      const int rows[4] = {Tile::kM, Tile::kN, Tile::kN, Tile::kM};
+      if (!tile_maps<T>(m, ptrs, rows, 4, st, B, S, H, D))
+        return cudaErrorInvalidValue;
+      const int items = (S + Tile::kN - 1) / Tile::kN * H * B;
+      return launch(flash_bwd_dkv_wgmma_kernel<T, D, C>,
+                    dim3(std::min(items, sm_count())), kHopperThreads,
+                    Tile::kSmem, stream, m[0], m[1], m[2], m[3], lse, delta,
+                    as<T>(dk), as<T>(dv), B, S, H, scale);
+    } else {
+      return launch(flash_bwd_dkv_f32_kernel<D, C>, grid_of(B, S, H),
+                    BwdSplit<D>::kThreads, f32_smem<D>(2, 2), stream,
+                    as<T>(q), as<T>(k), as<T>(v), as<T>(dout),
+                    strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+                    strides_at(st, 3), lse, delta, as<T>(dk), as<T>(dv), S,
+                    H, scale);
+    }
   }
 };
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}. `strides` is a host
-// array of (batch, seq, head) element strides: q, k, v for the forward;
-// q, k, v, dO for the backward. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d in {32, 64, 96, 128}.
+// `strides` is a host array of (batch, seq, head) element strides: q, k, v
+// for the forward; q, k, v, dO for the backward (16-bit: each a multiple of
+// 8 elements, the pointers 16-byte aligned). Returns a cudaError_t (0 on
+// success; cudaErrorInvalidValue for a shape the kernels lack or a tensor
+// map that cannot be encoded).
 extern "C" int dstorch_flash_fwd(const void* q, const void* k, const void* v,
                                  void* out, float* lse,
                                  const long long* strides, int B, int S,

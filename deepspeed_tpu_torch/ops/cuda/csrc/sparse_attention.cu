@@ -43,9 +43,9 @@
 // under the card's bf16 balance (~295), but the staging mostly hits L2 (a
 // key tile is reused by the neighbouring query tiles of its window). Counted
 // once, the bytes (q, k, v, out, dO, grads) bound all three kernels at the
-// training shape (S = 32768, D = 64, BigBird block 64). Same two families as
-// flash_attention.cu, on its tile code (attention_tiles.cuh): bf16 through
-// mma.sync m16n8k16 with p and ds rounded to bf16 for the next product;
+// training shape (S = 32768, D = 64, BigBird block 64). Two families, on the
+// tile code of attention_tiles.cuh: bf16 and fp16 through mma.sync
+// m16n8k16 with p and ds rounded to the input type for the next product;
 // f32 through exact CUDA-core FMAs. The mask costs a shared-memory read and
 // a bit test per score. The forward and dq kernels do not split long LUT
 // rows (a bidirectional layout's global query tile walks every key tile;
@@ -153,20 +153,20 @@ __device__ __forceinline__ void stage_stats(float* lses, float* dels,
 }
 
 // ===========================================================================
-// bf16: tensor cores
+// bf16 / fp16: tensor cores (T is the element type)
 // ===========================================================================
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kTcThreads)
-sparse_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, Strides sq, Strides sk,
+sparse_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, Strides sq, Strides sk,
                      Strides sv, Lut lut, const float* __restrict__ kvm,
-                     bf16* __restrict__ out, float* __restrict__ lse, int S,
+                     T* __restrict__ out, float* __restrict__ lse, int S,
                      int H, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kRows * LD;
-  bf16* vs = ks + kRows * LD;
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + kRows * LD;
+  T* vs = ks + kRows * LD;
   float* kok = reinterpret_cast<float*>(vs + kRows * LD);     // [kRows]
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
@@ -175,7 +175,7 @@ sparse_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long at = (long long)h * gridDim.x + qt;
   const int cnt = lut.cnt[at];
 
-  stage_bf16<D>(qs, q, sq, b, h, q0, S);
+  stage16<D>(qs, q, sq, b, h, q0, S);
   float o[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -188,12 +188,12 @@ sparse_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = lut.idx[at * lut.len + t] * kRows;
     const unsigned long long bits = lut.bits[at * lut.len + t];
     __syncthreads();
-    stage_bf16<D>(ks, k, sk, b, h, k0, S);
-    stage_bf16<D>(vs, v, sv, b, h, k0, S);
+    stage16<D>(ks, k, sk, b, h, k0, S);
+    stage16<D>(vs, v, sv, b, h, k0, S);
     stage_keys(kok, kvm, b, k0, S);
     __syncthreads();
     float s[kRows / 8][4];
-    tile_qkt<D, kRows / 8>(s, qs, ks, row0, lane);
+    tile_qkt<T, D, kRows / 8>(s, qs, ks, row0, lane);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < kRows / 8; ++n)
@@ -224,7 +224,7 @@ sparse_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-    tile_pv<D>(o, s, vs, lane);
+    tile_pv<T, D>(o, s, vs, lane);
   }
 
   float inv[2];
@@ -237,26 +237,26 @@ sparse_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[((long long)b * H + h) * S + q0 + r[i]] =
           m[i] <= kNegInf / 2 ? kNegInf : m[i] + logf(l_safe);
   }
-  store_rows<D>(out, o, b, q0 + row0, h, S, H, inv, lane);
+  store_rows<T, D>(out, o, b, q0 + row0, h, S, H, inv, lane);
 }
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kTcThreads)
-sparse_bwd_dq_tc_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout, Strides sq,
+sparse_bwd_dq_tc_kernel(const T* __restrict__ q,
+                        const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const T* __restrict__ dout, Strides sq,
                         Strides sk, Strides sv, Strides sdo, Lut lut,
                         const float* __restrict__ kvm,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int S, int H, float scale) {
+                        T* __restrict__ dq, int S, int H, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kRows * LD;
-  bf16* ks = dos + kRows * LD;
-  bf16* vs = ks + kRows * LD;
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* dos = qs + kRows * LD;
+  T* ks = dos + kRows * LD;
+  T* vs = ks + kRows * LD;
   float* kok = reinterpret_cast<float*>(vs + kRows * LD);     // [kRows]
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
@@ -275,8 +275,8 @@ sparse_bwd_dq_tc_kernel(const bf16* __restrict__ q,
     alive[i] = L[i] > kNegInf / 2;
   }
 
-  stage_bf16<D>(qs, q, sq, b, h, q0, S);
-  stage_bf16<D>(dos, dout, sdo, b, h, q0, S);
+  stage16<D>(qs, q, sq, b, h, q0, S);
+  stage16<D>(dos, dout, sdo, b, h, q0, S);
   float acc[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -288,13 +288,13 @@ sparse_bwd_dq_tc_kernel(const bf16* __restrict__ q,
     const int k0 = lut.idx[at * lut.len + t] * kRows;
     const unsigned long long bits = lut.bits[at * lut.len + t];
     __syncthreads();
-    stage_bf16<D>(ks, k, sk, b, h, k0, S);
-    stage_bf16<D>(vs, v, sv, b, h, k0, S);
+    stage16<D>(ks, k, sk, b, h, k0, S);
+    stage16<D>(vs, v, sv, b, h, k0, S);
     stage_keys(kok, kvm, b, k0, S);
     __syncthreads();
     float s[kRows / 8][4], dp[kRows / 8][4];
-    tile_qkt<D, kRows / 8>(s, qs, ks, row0, lane);
-    tile_qkt<D, kRows / 8>(dp, dos, vs, row0, lane);
+    tile_qkt<T, D, kRows / 8>(s, qs, ks, row0, lane);
+    tile_qkt<T, D, kRows / 8>(dp, dos, vs, row0, lane);
 #pragma unroll
     for (int n = 0; n < kRows / 8; ++n)
 #pragma unroll
@@ -306,30 +306,30 @@ sparse_bwd_dq_tc_kernel(const bf16* __restrict__ q,
         const float p = seen ? expf(s[n][e] * scale - L[i]) : 0.f;
         s[n][e] = p * (dp[n][e] - dl[i]) * scale;              // ds
       }
-    tile_pv<D>(acc, s, ks, lane);
+    tile_pv<T, D>(acc, s, ks, lane);
   }
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(dq, acc, b, q0 + row0, h, S, H, one, lane);
+  store_rows<T, D>(dq, acc, b, q0 + row0, h, S, H, one, lane);
 }
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kTcThreads)
-sparse_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout, Strides sq,
+sparse_bwd_dkv_tc_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const T* __restrict__ dout, Strides sq,
                          Strides sk, Strides sv, Strides sdo, Lut lut,
                          Work work, const float* __restrict__ kvm,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                         T* __restrict__ dk, T* __restrict__ dv, int S,
                          int H, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kRows * LD;
-  bf16* qs = vs + kRows * LD;
-  bf16* dos = qs + kRows * LD;
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + kRows * LD;
+  T* qs = vs + kRows * LD;
+  T* dos = qs + kRows * LD;
   float* lses = reinterpret_cast<float*>(dos + kRows * LD);   // [kRows]
   float* dels = lses + kRows;                                  // [kRows]
   const int* item = work.items + 7 * blockIdx.x;
@@ -343,8 +343,8 @@ sparse_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   const long long at = (long long)h * ((S + kRows - 1) / kRows) + kt;
   const long long stat0 = ((long long)b * H + h) * S;
 
-  stage_bf16<D>(ks, k, sk, b, h, k0, S);
-  stage_bf16<D>(vs, v, sv, b, h, k0, S);
+  stage16<D>(ks, k, sk, b, h, k0, S);
+  stage16<D>(vs, v, sv, b, h, k0, S);
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -356,15 +356,15 @@ sparse_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     const int q0 = lut.idx[at * lut.len + t] * kRows;
     const unsigned long long bits = lut.bits[at * lut.len + t];
     __syncthreads();
-    stage_bf16<D>(qs, q, sq, b, h, q0, S);
-    stage_bf16<D>(dos, dout, sdo, b, h, q0, S);
+    stage16<D>(qs, q, sq, b, h, q0, S);
+    stage16<D>(dos, dout, sdo, b, h, q0, S);
     stage_stats(lses, dels, lse, delta, stat0, q0, S);
     __syncthreads();
     // transposed scores: rows are this warp's keys, columns the tile's
     // queries
     float p[kRows / 8][4], ds[kRows / 8][4];
-    tile_qkt<D, kRows / 8>(p, ks, qs, row0, lane);
-    tile_qkt<D, kRows / 8>(ds, vs, dos, row0, lane);
+    tile_qkt<T, D, kRows / 8>(p, ks, qs, row0, lane);
+    tile_qkt<T, D, kRows / 8>(ds, vs, dos, row0, lane);
 #pragma unroll
     for (int n = 0; n < kRows / 8; ++n)
 #pragma unroll
@@ -376,8 +376,8 @@ sparse_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
         p[n][e] = seen ? expf(p[n][e] * scale - lses[c]) : 0.f;
         ds[n][e] = p[n][e] * (ds[n][e] - dels[c]) * scale;
       }
-    tile_pv<D>(dva, p, dos, lane);
-    tile_pv<D>(dka, ds, qs, lane);
+    tile_pv<T, D>(dva, p, dos, lane);
+    tile_pv<T, D>(dka, ds, qs, lane);
   }
   if (first >= 0) {
     // value i = 4 n + e of the accumulators: row r[e >> 1], column
@@ -392,8 +392,8 @@ sparse_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
       return;
   }
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(dk, dka, b, k0 + row0, h, S, H, one, lane);
-  store_rows<D>(dv, dva, b, k0 + row0, h, S, H, one, lane);
+  store_rows<T, D>(dk, dka, b, k0 + row0, h, S, H, one, lane);
+  store_rows<T, D>(dv, dva, b, k0 + row0, h, S, H, one, lane);
 }
 
 // ===========================================================================
@@ -652,7 +652,7 @@ struct Fwd {
                     scale);
     };
     if constexpr (sizeof(T) == 2)
-      return go(sparse_fwd_tc_kernel<D, C>, kTcThreads, tc_smem<D>(3, 1));
+      return go(sparse_fwd_tc_kernel<T, D, C>, kTcThreads, tc_smem<D>(3, 1));
     else
       return go(sparse_fwd_f32_kernel<D, C>, FwdSplit<D>::kThreads,
                 f32_smem<D>(2, 1));
@@ -674,7 +674,7 @@ struct Dq {
                     lut, kvm, lse, delta, as<T>(dq), S, H, scale);
     };
     if constexpr (sizeof(T) == 2)
-      return go(sparse_bwd_dq_tc_kernel<D, C>, kTcThreads, tc_smem<D>(4, 1));
+      return go(sparse_bwd_dq_tc_kernel<T, D, C>, kTcThreads, tc_smem<D>(4, 1));
     else
       return go(sparse_bwd_dq_f32_kernel<D, C>, BwdSplit<D>::kThreads,
                 f32_smem<D>(2, 1));
@@ -698,7 +698,7 @@ struct Dkv {
                     scale);
     };
     if constexpr (sizeof(T) == 2)
-      return go(sparse_bwd_dkv_tc_kernel<D, C>, kTcThreads,
+      return go(sparse_bwd_dkv_tc_kernel<T, D, C>, kTcThreads,
                 tc_smem<D>(4, 2));
     else
       return go(sparse_bwd_dkv_f32_kernel<D, C>, BwdSplit<D>::kThreads,
@@ -711,7 +711,7 @@ bool bad_lut(int len, int shift) { return len < 1 || shift < 3 || shift > 6; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}. `strides` is a host
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d in {32, 64, 96, 128}. `strides` is a host
 // array of (batch, seq, head) element strides: q, k, v for the forward;
 // q, k, v, dO for the backward. lut_idx / lut_cnt / lut_bits are device
 // arrays [H, tiles, lut_len] / [H, tiles] / [H, tiles, lut_len]: the row LUT

@@ -35,7 +35,7 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 # Widest query width (speculative k+1 verify) the kernel takes.
 MAX_SPEC_S = 8
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def decode_supported(s: int, d: int, dtype: torch.dtype) -> bool:
@@ -139,7 +139,8 @@ def _check_kernel_args(q, k, v, k_scale, v_scale, scale_shape, d, s_q):
     if not decode_supported(s_q, d, q.dtype):
         raise ValueError(
             f"decode kernel takes s_q in 1..{MAX_SPEC_S}, d in "
-            f"{_KERNEL_HEAD_DIMS}, f32/bf16; got s_q={s_q} d={d} {q.dtype}")
+            f"{_KERNEL_HEAD_DIMS}, f32/bf16/fp16; got s_q={s_q} d={d} "
+            f"{q.dtype}")
     int8 = k_scale is not None
     want = torch.int8 if int8 else q.dtype
     if k.dtype != want or v.dtype != want:
@@ -236,8 +237,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if not paged_decode_supported(s_q, d, q.dtype, bs):
         raise ValueError(
             f"decode kernel takes s_q in 1..{MAX_SPEC_S}, d in "
-            f"{_KERNEL_HEAD_DIMS}, f32/bf16, block_size a multiple of 8; got "
-            f"s_q={s_q} d={d} {q.dtype} block_size={bs}")
+            f"{_KERNEL_HEAD_DIMS}, f32/bf16/fp16, block_size a multiple of 8; "
+            f"got s_q={s_q} d={d} {q.dtype} block_size={bs}")
     kf = k_pool.reshape(nb, bs, h * d)
     vf = v_pool.reshape(nb, bs, h * d)
     int8 = _check_kernel_args(q, kf, vf, k_scale, v_scale, (nb, bs), d, s_q)

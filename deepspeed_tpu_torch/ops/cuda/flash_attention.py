@@ -2,10 +2,11 @@
 
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. The Pallas
 kernels ``_fwd_kernel`` (B1), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-(B1b) become the CUDA kernels in ``csrc/flash_attention.cu``: 64-row tiles
-staged in shared memory, f32 online softmax; bf16 inputs take tensor-core
-(mma.sync) products with p and ds rounded to bf16 in between, f32 inputs
-exact CUDA-core FMAs (see the source for the design).
+(B1b) become the CUDA kernels in ``csrc/flash_attention.cu``, f32 online
+softmax in each: bf16 and fp16 inputs take Hopper kernels (wgmma products
+on tiles that a producer warp streams in with TMA through a shared-memory
+ring; p and ds rounded to the input type in between), f32 inputs exact
+CUDA-core FMAs (see the source for the design). Head dims 32, 64, 96, 128.
 
 Layout is the TPU package's, ``[B, S, H, D]``; the kernels read q/k/v/dO
 through their strides, so the views of a fused qkv projection need no copy.
@@ -37,8 +38,8 @@ from . import _build
 
 NEG_INF = -1e30        # the TPU kernels' mask value
 
-_KERNEL_HEAD_DIMS = (32, 64, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def flash_supported(d: int, dtype: torch.dtype) -> bool:
@@ -97,8 +98,8 @@ def _check(q, *others) -> None:
     b, s, h, d = q.shape
     if not flash_supported(d, q.dtype):
         raise ValueError(
-            f"flash kernels take d in {_KERNEL_HEAD_DIMS} and f32/bf16; got "
-            f"d={d} {q.dtype}")
+            f"flash kernels take d in {_KERNEL_HEAD_DIMS} and f32/bf16/fp16; "
+            f"got d={d} {q.dtype}")
     for t in others:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(
@@ -109,10 +110,13 @@ def _check(q, *others) -> None:
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can read it through its strides
-    (channels contiguous, 16-byte aligned rows), else a contiguous copy."""
+    (channels contiguous, 16-byte aligned rows, no stride 0 across a
+    dimension longer than 1, as the TMA tensor maps need), else a
+    contiguous copy."""
     vec = 16 // t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % vec == 0 for st in t.stride()[:3])):
+            and all(st % vec == 0 and (st > 0 or n == 1)
+                    for st, n in zip(t.stride()[:3], t.shape[:3]))):
         return t
     return t.contiguous()
 

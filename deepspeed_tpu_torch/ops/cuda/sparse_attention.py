@@ -3,8 +3,9 @@
 Counterpart of the kernels of
 ``deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py``: the Pallas
 ``_fwd_kernel`` (B5), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (B5b) become
-the CUDA kernels in ``csrc/sparse_attention.cu``, on the tile code of the
-flash kernels (bf16 on tensor cores, f32 on CUDA cores).
+the CUDA kernels in ``csrc/sparse_attention.cu``, on the tile code of
+``csrc/attention_tiles.cuh`` (bf16 and fp16 on tensor cores,
+f32 on CUDA cores; head dims 32, 64, 96, 128).
 
 The layout arrives as a :class:`TileLayout`: the fine layout compiled at the
 kernels' 64-row tile (``ops/sparse_attention/sparse_self_attention.py``
@@ -42,11 +43,18 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .flash_attention import (_KERNEL_DTYPES, _stride_array, _strided,
-                              attention_delta, flash_supported)
+from .flash_attention import _stride_array, _strided, attention_delta
 
 NEG_INF = -1e30        # the TPU kernels' mask value
 TILE = 64              # rows of the kernels' tiles (kRows in the sources)
+
+_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def sparse_supported(d: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take this head dim and dtype."""
+    return d in _KERNEL_HEAD_DIMS and dtype in _KERNEL_DTYPES
 
 
 class TileLayout(NamedTuple):
@@ -210,10 +218,10 @@ def sparse_attention_backward_reference(q, k, v, out, lse, dout,
 
 def _check(q, layout: TileLayout, kvm, *others) -> None:
     b, s, h, d = q.shape
-    if not flash_supported(d, q.dtype):      # the same tile code
+    if not sparse_supported(d, q.dtype):
         raise ValueError(
-            f"sparse kernels take d in (32, 64, 128) and f32/bf16; got "
-            f"d={d} {q.dtype}")
+            f"sparse kernels take d in {_KERNEL_HEAD_DIMS} and "
+            f"f32/bf16/fp16; got d={d} {q.dtype}")
     for t in others:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(

@@ -40,7 +40,10 @@ PyTorch versions.
 
 Not in this slice (see ROADMAP.md): tiered KV, speculative decoding, fused
 prefill, tp, disaggregation, migration, telemetry spans and the
-double-buffered ``pump`` loop.
+double-buffered ``pump`` loop. Each keyword of the TPU package's
+``ServingEngine`` that selects one of them raises ``NotImplementedError``
+naming its ROADMAP item when set away from its default
+(:data:`NOT_PORTED_KNOBS`); nothing is silently dropped.
 """
 
 from __future__ import annotations
@@ -52,12 +55,47 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
+from ..runtime.engine import _not_ported
 from ..utils.logging import log_dist
 from .kv_cache import SlotKVCacheManager
 from .metrics import ServingMetrics
 from .paged_kv import PagedAdmitPlan, PagedKVCacheManager
 from .sampling import fused_sample_tokens, sample_tokens
 from .scheduler import ContinuousBatchScheduler, Request
+
+
+# The TPU package's ServingEngine keywords this port does not have yet:
+# name -> (the TPU engine's default, the ROADMAP item that ports it).
+NOT_PORTED_KNOBS = {
+    "speculative": (False, "A1"),
+    "spec_k": (4, "A1"),
+    "spec_ngram": (2, "A1"),
+    "drafter": (None, "A1"),
+    "fused_prefill": (False, "A7"),
+    "prefill_chunk": (16, "A7"),
+    "chunk_token_budget": (None, "A7"),
+    "sp_prefill_threshold": (None, "A9"),
+    "monitor": (None, "A11"),
+    "emit_every_steps": (16, "A11"),
+    "tp": (1, "A11"),
+    "disaggregate_prefill": (False, "A11"),
+    "tiered_kv": (False, "A11"),
+    "tier_dram_bytes": (256 << 20, "A11"),
+    "tier_nvme_bytes": (None, "A11"),
+    "tier_spill_dir": (None, "A11"),
+    "tuned_config": (None, "A11"),
+}
+
+
+def _reject_not_ported(kwargs: dict) -> None:
+    """Pop the not-ported knobs from ``kwargs``; raise on one set away from
+    its default."""
+    for name, (default, item) in NOT_PORTED_KNOBS.items():
+        if name not in kwargs:
+            continue
+        value = kwargs.pop(name)
+        if value is not default and value != default:
+            raise _not_ported(f"ServingEngine({name}={value!r})", item)
 
 
 def default_prefill_buckets(max_prompt_len: int) -> List[int]:
@@ -91,7 +129,11 @@ class ServingEngine:
     arena), with the prefix cache (``prefix_cache_capacity`` entries) on
     when ``prefix_cache`` and greedy sampling (temperature 0). Greedy
     outputs equal the dense arena's. ``kv_dtype="int8"`` quantizes the KV
-    cache (either layout) to int8 with per-position f32 scales."""
+    cache (either layout) to int8 with per-position f32 scales.
+
+    The TPU engine's other keywords (:data:`NOT_PORTED_KNOBS`) raise
+    ``NotImplementedError`` when set away from their defaults; with
+    ``engine=``, any other leftover keyword raises ``TypeError``."""
 
     def __init__(self, model=None, model_parameters=None, *,
                  engine=None,
@@ -112,6 +154,12 @@ class ServingEngine:
                  prefix_cache_capacity: int = 64,
                  kv_dtype: str = "auto",
                  **inference_kwargs):
+        _reject_not_ported(inference_kwargs)
+        if engine is not None and inference_kwargs:
+            raise TypeError(
+                f"ServingEngine(engine=...) got keywords it does not take: "
+                f"{sorted(inference_kwargs)} (the InferenceEngine keywords "
+                f"apply only when it builds the engine)")
         if engine is None:
             from ..inference.engine import InferenceEngine
             engine = InferenceEngine(model, model_parameters=model_parameters,

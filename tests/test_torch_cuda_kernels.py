@@ -23,12 +23,14 @@ def dev():
     return torch.device("cuda")
 
 
-# bf16 inputs: the plain version rounds its probabilities to bf16, the
-# kernel keeps them in f32; f32 inputs differ only in summation order
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# bf16 / fp16 inputs: the plain version rounds its probabilities to the
+# input type, the kernel keeps them in f32; f32 inputs differ only in
+# summation order
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+DECODE_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("s_q", [1, 3, 8])
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_decode_attention_kernel_matches_plain(dev, dtype, s_q, d):
@@ -67,13 +69,14 @@ def _quantized(t):
 
 
 # paged kernel (B3) and the int8 branches of B2 and B3 vs their plain
-# versions: bf16 and f32 x d x block size x s_q, permuted tables with
+# versions: f32, bf16 and fp16 x d x block size x s_q, permuted tables with
 # sentinel entries past each row's fill, a row with fill 0 (zeros), and the
-# retired-lane sentinel fill past S. B3 within B2's bound; int8 in bf16 adds
-# a relative term: the plain versions round the dequantized cache to bf16
-# (2^-9 relative per element) before the einsum, the kernels keep it f32
-INT8_RTOL = {torch.float32: 0.0, torch.bfloat16: 2e-2}
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# retired-lane sentinel fill past S. B3 within B2's bound; int8 in bf16 or
+# fp16 adds a relative term: the plain versions round the dequantized cache
+# to the compute type (bf16: 2^-9 relative per element) before the einsum,
+# the kernels keep it f32
+INT8_RTOL = {torch.float32: 0.0, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("bs", [8, 16, 32])
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("s_q", list(range(1, 9)))
@@ -121,7 +124,7 @@ def test_paged_and_int8_decode_kernels_match_plain(dev, dtype, bs, d, s_q):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("s_q", [1, 4])
 def test_paged_kernel_over_a_dense_layout_is_bitwise_dense(dev, int8, dtype,
                                                            s_q):
@@ -165,7 +168,7 @@ def test_paged_and_int8_kernels_raise_on_what_they_lack(dev):
     tables = torch.zeros(2, 4, dtype=torch.int32, device=dev)
     q = torch.randn(2, 1, 2, 64, device=dev)
     before = dict(_build.LAUNCHES)
-    for bad in (dict(q=torch.randn(2, 1, 4, 32, device=dev).half()),
+    for bad in (dict(q=torch.randn(2, 1, 4, 32, device=dev).double()),
                 dict(q=torch.randn(2, 9, 2, 64, device=dev)),
                 dict(q=torch.randn(2, 1, 8, 16, device=dev)),
                 dict(pool=torch.randn(8, 12, 128, device=dev))):
@@ -287,11 +290,14 @@ def test_megakernel_raises_on_a_head_dim_the_kernel_lacks(dev):
 
 
 # flash kernels vs plain versions: f32 differs only in summation order (the
-# f32 kernels use CUDA-core FMAs); the bf16 kernels round p and ds to bf16
-# for the tensor-core products and both sides round their outputs to bf16
-# (1 bf16 ulp is 2^-8 relative), so the bound is relative plus a floor
+# f32 kernels use CUDA-core FMAs); the bf16 / fp16 kernels round p and ds to
+# the input type for the tensor-core products and both sides round their
+# outputs to it (1 bf16 ulp is 2^-8 relative, fp16 2^-11), so the bound is
+# relative plus a floor
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+             torch.float16: dict(rtol=2e-2, atol=2e-2)}
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _qkv_views(dev, B, S, H, d, dtype, seed):
@@ -304,15 +310,11 @@ def _qkv_views(dev, B, S, H, d, dtype, seed):
     return q, k, v, do
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("S", [1024, 1000, 77])
-def test_flash_kernels_match_plain(dev, dtype, causal, d, S):
+def _flash_check(q, k, v, do, causal):
+    """The three kernels once each against the plain versions."""
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    B, H, scale = 2, 3, 1 / d ** 0.5
-    q, k, v, do = _qkv_views(dev, B, S, H, d, dtype, S + d)
+    dtype, scale = q.dtype, 1 / q.shape[-1] ** 0.5
     before = dict(_build.LAUNCHES)
     out, lse = fa.flash_attention_forward(q, k, v, causal, scale)
     ref_out, ref_lse = fa.flash_attention_forward_reference(q, k, v, causal,
@@ -322,25 +324,61 @@ def test_flash_kernels_match_plain(dev, dtype, causal, d, S):
     refs = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse,
                                                  do, causal, scale)
     torch.cuda.synchronize()
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in FLASH_KERNELS:
         assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref_out.float(), **FLASH_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
     for got, ref in zip(grads, refs):
         assert got.dtype == dtype and got.shape == q.shape
+        assert torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), ref.float(),
                                    **FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("S", [1024, 1000, 77, 1])
+def test_flash_kernels_match_plain(dev, dtype, causal, d, S):
+    B, H = 2, 3
+    _flash_check(*_qkv_views(dev, B, S, H, d, dtype, S + d), causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernels_at_the_layer_shape(dev, dtype):
+    """DeepSpeedTransformerLayer's unmasked shape at BERT-large width:
+    B=8, S=512, H=16, D=64, not causal."""
+    _flash_check(*_qkv_views(dev, 8, 512, 16, 64, dtype, 7), False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 96])
+def test_flash_backward_is_bitwise_reproducible(dev, dtype, d):
+    """No atomics: two backward calls give bitwise the same dq, dk, dv."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    q, k, v, do = _qkv_views(dev, 2, 1000, 4, d, dtype, 11)
+    out, lse = fa.flash_attention_forward(q, k, v, True, 0.125)
+    first = fa.flash_attention_backward(q, k, v, out, lse, do, True, 0.125)
+    again = fa.flash_attention_backward(q, k, v, out, lse, do, True, 0.125)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def test_flash_raises_on_a_head_dim_the_kernels_lack(dev):
-    """attention_impl="auto" on the card never gives way to the einsum."""
+    """attention_impl="auto" on the card never gives way to the einsum: a
+    head dim the kernels lack (48, 256) raises in every dtype; fp16 at a
+    head dim they take runs."""
     from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    q = torch.randn(1, 16, 2, 48, device=dev)
-    with pytest.raises(ValueError, match="flash kernels take"):
-        fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="flash kernels take"):
-        fa.flash_attention(q.half(), q.half(), q.half())
+    for d in (48, 256):
+        q = torch.randn(1, 16, 2, d, device=dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            with pytest.raises(ValueError, match="flash kernels take"):
+                fa.flash_attention(q.to(dtype), q.to(dtype), q.to(dtype))
+    q = torch.randn(1, 16, 2, 64, device=dev).half()
+    assert fa.flash_attention(q, q, q).dtype == torch.float16
     cfg = GPTConfig(vocab_size=128, max_seq_len=32, num_layers=1,
                     num_heads=2, d_model=96, d_ff=192,
                     dtype=torch.float32)                 # d = 48
@@ -382,9 +420,9 @@ def test_flash_under_checkpoint_matches_plain(dev, policy):
 
 
 # block-sparse kernels vs plain versions over chip_smoke.py's parity grid:
-# f32 and bf16, layout blocks 16-128, causal and not, with and without a
-# key-padding mask, S a multiple of the 64-row tile or not, q/k/v as views
-# of a fused qkv. Tolerances as for flash (same arithmetic in each family)
+# f32, bf16 and fp16, layout blocks 16-128, causal and not, with and
+# without a key-padding mask, S a multiple of the 64-row tile or not, q/k/v
+# as views of a fused qkv. Tolerances as for flash (the same rounding)
 SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 
 
@@ -417,7 +455,10 @@ def _sparse_check(dev, cfg, q, k, v, do, causal, kvm, dtype):
     return out, lse, grads
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+SPARSE_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", SPARSE_DTYPES)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("block,S", [(16, 480), (32, 512), (64, 512),
@@ -439,7 +480,7 @@ def test_sparse_kernels_match_plain(dev, dtype, causal, masked, block, S):
         assert not dk[0, 300:].any() and not dv[0, 300:].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", SPARSE_DTYPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("block,S", [(32, 1536), (64, 2048)])
 def test_sparse_dkv_split_rows_match_plain(dev, dtype, causal, block, S):
@@ -467,6 +508,28 @@ def test_sparse_dkv_split_rows_match_plain(dev, dtype, causal, block, S):
             assert all(torch.equal(a, g) for a, g in zip(again, grads[0]))
 
 
+@pytest.mark.parametrize("dtype", SPARSE_DTYPES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_kernels_at_d96_match_plain(dev, dtype, causal, masked):
+    """gpt_neox_20b's head dim (6144 / 64 = 96): BigBird, per-head
+    layouts, S not a multiple of the 64-row tile."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    B, H, d, S = 2, 3, 96, 480
+    cfg = BigBirdSparsityConfig(num_heads=H, block=32,
+                                different_layout_per_head=True,
+                                num_random_blocks=2)
+    q, k, v, do = _qkv_views(dev, B, S, H, d, dtype, 96)
+    kvm = None
+    if masked:
+        kvm = torch.ones(B, S, device=dev)
+        kvm[1, 200:] = 0
+    _, _, (dq, dk, dv) = _sparse_check(dev, cfg, q, k, v, do, causal, kvm,
+                                       dtype)
+    if masked:
+        assert not dk[1, 200:].any() and not dv[1, 200:].any()
+
+
 class _HoleyLayout:
     """Local windows of 2 blocks without global blocks; key blocks 8-15 are
     seen by no query (their key tiles' column LUTs are empty) and query
@@ -482,8 +545,8 @@ class _HoleyLayout:
         return lay
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("dtype", SPARSE_DTYPES)
+@pytest.mark.parametrize("d", [32, 96, 128])
 def test_sparse_dead_rows_and_empty_key_tiles(dev, dtype, d):
     B, S, H = 2, 256, 2
     q, k, v, do = _qkv_views(dev, B, S, H, d, dtype, d)
@@ -504,12 +567,12 @@ def test_sparse_raises_on_what_the_kernels_lack(dev):
     from deepspeed_tpu_torch.ops.sparse_attention import (DenseSparsityConfig,
                                                           sparse_attention)
     cfg = DenseSparsityConfig(num_heads=2, block=16)
-    q = torch.randn(1, 64, 2, 48, device=dev)
-    with pytest.raises(ValueError, match="sparse kernels take"):
-        sparse_attention(q, q, q, cfg)
+    for d in (48, 256):
+        q = torch.randn(1, 64, 2, d, device=dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            with pytest.raises(ValueError, match="sparse kernels take"):
+                sparse_attention(q.to(dtype), q.to(dtype), q.to(dtype), cfg)
     q = torch.randn(1, 64, 2, 64, device=dev)
-    with pytest.raises(ValueError, match="sparse kernels take"):
-        sparse_attention(q.half(), q.half(), q.half(), cfg)
     with pytest.raises(ValueError, match="power of two"):
         sparse_attention(q[:, :48], q[:, :48], q[:, :48],
                          DenseSparsityConfig(num_heads=2, block=24))

@@ -92,12 +92,13 @@ def test_kernel_shape_gate():
     assert pda.decode_supported(8, 128, torch.float32)
     assert not pda.decode_supported(9, 64, torch.bfloat16)
     assert not pda.decode_supported(1, 48, torch.bfloat16)
-    assert not pda.decode_supported(1, 64, torch.float16)
+    assert pda.decode_supported(1, 64, torch.float16)
+    assert not pda.decode_supported(1, 64, torch.float64)
     assert pda.decode_supported(1, 96, torch.bfloat16)
 
 
 @pytest.mark.parametrize("d,dtype,s", [(48, torch.bfloat16, 1),
-                                       (64, torch.float16, 1),
+                                       (64, torch.float64, 1),
                                        (64, torch.bfloat16, 9)])
 def test_model_auto_raises_on_unsupported_non_cpu_shape(d, dtype, s):
     """decode_impl="auto" never gives way to the einsum off the CPU: a shape

@@ -100,5 +100,7 @@ def test_cpu_tensors_never_reach_the_kernels():
     pfa.flash_attention_backward(q, k, v, out, lse, g, True, SCALE)
     assert dict(_build.LAUNCHES) == before
     assert pfa.flash_supported(64, torch.bfloat16)
+    assert pfa.flash_supported(64, torch.float16)
+    assert pfa.flash_supported(96, torch.bfloat16)
     assert not pfa.flash_supported(48, torch.float32)
-    assert not pfa.flash_supported(64, torch.float16)
+    assert not pfa.flash_supported(48, torch.float16)

@@ -1,0 +1,85 @@
+"""The port's ServingEngine against the TPU package's keyword list: every
+keyword of the TPU ``ServingEngine`` is either taken by the port or named in
+``NOT_PORTED_KNOBS``; a not-ported knob set away from its default raises
+``NotImplementedError`` naming its ROADMAP item (with or without
+``engine=``), never a silent no-op; with ``engine=`` any other leftover
+keyword raises ``TypeError``; the defaults, passed explicitly, still build
+and serve. On the CPU, f32, a tiny GPT."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch import ServingEngine
+from deepspeed_tpu_torch.inference.engine import InferenceEngine
+from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+from deepspeed_tpu_torch.serving.engine import NOT_PORTED_KNOBS
+
+# a value away from each knob's default
+NON_DEFAULT = {
+    "speculative": True, "spec_k": 2, "spec_ngram": 3, "drafter": object(),
+    "fused_prefill": True, "prefill_chunk": 32, "chunk_token_budget": 64,
+    "sp_prefill_threshold": 128, "monitor": object(), "emit_every_steps": 4,
+    "tp": 2, "disaggregate_prefill": True, "tiered_kv": True,
+    "tier_dram_bytes": 1 << 20, "tier_nvme_bytes": 1 << 30,
+    "tier_spill_dir": "spill", "tuned_config": {"max_batch": 4},
+}
+
+
+def _model():
+    cfg = GPTConfig(vocab_size=128, max_seq_len=32, num_layers=1,
+                    num_heads=2, d_model=64, d_ff=128, dtype=torch.float32)
+    model = GPT(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model
+
+
+def test_every_tpu_keyword_is_taken_or_named():
+    from deepspeed_tpu.serving.engine import ServingEngine as JaxServing
+    jax_kw = set(inspect.signature(JaxServing.__init__).parameters)
+    port_kw = set(inspect.signature(ServingEngine.__init__).parameters)
+    assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS)
+    assert not set(NOT_PORTED_KNOBS) & port_kw
+    assert jax_kw - port_kw == set(NOT_PORTED_KNOBS)
+    params = inspect.signature(JaxServing.__init__).parameters
+    for name, (default, _) in NOT_PORTED_KNOBS.items():
+        assert params[name].default == default, name
+
+
+@pytest.mark.parametrize("via_engine", [False, True])
+@pytest.mark.parametrize("name", sorted(NOT_PORTED_KNOBS))
+def test_a_knob_set_away_from_its_default_raises(name, via_engine):
+    item = NOT_PORTED_KNOBS[name][1]
+    kw = dict(device="cpu", dtype=torch.float32)
+    if via_engine:
+        kw = dict(engine=InferenceEngine(_model(), **kw))
+        model = None
+    else:
+        model = _model()
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):
+        ServingEngine(model, max_batch=2, **{name: NON_DEFAULT[name]}, **kw)
+
+
+def test_a_leftover_keyword_with_engine_raises_type_error():
+    eng = InferenceEngine(_model(), device="cpu", dtype=torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        ServingEngine(engine=eng, dtype=torch.float32)
+    with pytest.raises(TypeError, match="no_such_knob"):
+        ServingEngine(engine=eng, no_such_knob=1)
+
+
+@pytest.mark.parametrize("via_engine", [False, True])
+def test_the_defaults_still_build_and_serve(via_engine):
+    defaults = {n: d for n, (d, _) in NOT_PORTED_KNOBS.items()}
+    kw = dict(device="cpu", dtype=torch.float32)
+    if via_engine:
+        eng = ServingEngine(engine=InferenceEngine(_model(), **kw),
+                            max_batch=2, megakernel=True, **defaults)
+    else:
+        eng = ServingEngine(_model(), max_batch=2, megakernel=True,
+                            **defaults, **kw)
+    out = eng.run([np.arange(1, 6), np.arange(3, 12)], max_new_tokens=4)
+    assert [r.status for r in out] == ["done", "done"]
+    assert [len(r.tokens) for r in out] == [4, 4]
