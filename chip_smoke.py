@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero before the result lines):
   1. the card's name and power limit; build the CUDA kernels from csrc/;
      count the wgmma (SASS HGMMA) instructions of each 16-bit flash kernel
-     in the built library (cuobjdump; fails if one has none);
+     and the TMA (UTMALDG, or UBLKCP for a plain bulk copy) instructions of
+     each decode kernel in the built library (cuobjdump; fails if one has
+     none);
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
      retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2;
@@ -26,6 +28,7 @@ Phases (any failure exits non-zero before the result lines):
      unprofiled chunk wall);
   5. per-kernel device times (torch.profiler) beside the plain version, the
      PyTorch library call for the same function and the card's lower bound;
+     B2 also at phase 2's fills with s_q = 4 and with every row full;
   7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
      the training shape (B=8, S=1024, H=12, D=64, bf16, causal) and at a
      non-causal shape whose S (1000) is not a multiple of the 128-row
@@ -117,7 +120,8 @@ Phases (any failure exits non-zero before the result lines):
  21. device times of B3, B2-int8 and B3-int8 at phase 2's inputs (B2's
      fills, bf16, s_q 1) beside B2's, their plain versions', a gather +
      scaled_dot_product_attention yardstick (a dequantize between them for
-     int8) and their byte bounds;
+     int8) and their byte bounds; the three also at s_q = 4 and with every
+     row full;
  22. the row-wise kernels vs their plain versions, bf16 and f32: LayerNorm
      (B6) forward and dx at [8*512, 1024] (gamma/beta in the element type
      and in f32) and [37, 1000]; bias-GELU (B7) forward and backward at
@@ -249,16 +253,10 @@ def _device_us(event) -> float:
 
 
 def phase_decode_attention(torch, da, dev, gen):
-    b, S, h, d = 8, 1024, 12, 64
-    fills = [1, 17, 512, 1024, 300, 64, 777]
     errs = {}
     inputs = {}
     for s_q in (1, 4):
-        clen = torch.tensor(fills + [S + s_q], dtype=torch.int32,
-                            device=dev)        # last row: the sentinel
-        q = torch.randn(b, s_q, h, d, device=dev, generator=gen).bfloat16()
-        k = torch.randn(b, S, h * d, device=dev, generator=gen).bfloat16()
-        v = torch.randn(b, S, h * d, device=dev, generator=gen).bfloat16()
+        q, k, v, clen = decode_case_inputs(torch, dev, gen, s_q, full=False)
         out = da.decode_attention(q, k, v, clen)
         torch.cuda.synchronize()
         ref = da.decode_attention_reference(q, k, v, clen, 1 / 8)
@@ -451,7 +449,8 @@ def phase_profile(torch, ie, prompts, kw, card, tag="phase6"):
         print(f"{tag} kernel ms={ms} count={count} {key[:90]}", flush=True)
 
 
-def phase_timing(torch, da, sp, dev, gen, decode_inputs, logits, card):
+def phase_timing(torch, da, qz, sp, dev, gen, decode_inputs, logits,
+                 card):
     import torch.nn.functional as F
     q, k, v, clen = decode_inputs
     b, s_q, h, d = q.shape
@@ -504,6 +503,8 @@ def phase_timing(torch, da, sp, dev, gen, decode_inputs, logits, card):
         print(f"{name}_bound_ms={bound} card={card}", flush=True)
     print(f"sampling_top_k50_top_p0.9_filter_ms={filt_ms} card={card}",
           flush=True)
+    print_decode_cases(torch, da, qz, dev, gen, ("decode_attention",),
+                       "phase5", card)
     return (da_t, da_bound, "bytes" if da_bytes / HBM_BYTES_PER_S
             >= da_flops / BF16_FLOPS else "operations"), \
         (sp_t, sp_bound, "bytes" if sp_bytes / HBM_BYTES_PER_S
@@ -1512,19 +1513,37 @@ def phase_int8_serving(torch, np, dev, ie, prompts, bf16_tokens, card):
     return launches
 
 
-def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
-    import torch.nn.functional as F
-    q, k, v, clen = decode_inputs              # bf16, s_q 1, B2's fills
-    b, s_q, h, d = q.shape
-    S, hd, bs = k.shape[1], h * d, PAGED_BS
+# tools/time_decode.py's cases at phase 2's geometry (bf16): phase 2's mixed
+# fills (and the sentinel row) with s_q 1 and 4, and every row full
+DECODE_FILLS = (1, 17, 512, 1024, 300, 64, 777)
+DECODE_TIME_CASES = {"mixed_sq1": (1, False), "mixed_sq4": (4, False),
+                     "full_sq1": (1, True)}
+
+
+def decode_case_inputs(torch, dev, gen, s_q, full):
+    """(q, k, v, cache_len) at GPT-2 125M decode geometry (b 8, S 1024,
+    h 12, d 64, bf16): phase 2's fills plus the retired-lane sentinel row,
+    or every row at S."""
+    b, S, h, d = 8, 1024, 12, 64
+    fills = [S] * b if full else list(DECODE_FILLS) + [S + s_q]
+    clen = torch.tensor(fills, dtype=torch.int32, device=dev)
+    q = torch.randn(b, s_q, h, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, S, h * d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, S, h * d, device=dev, generator=gen).bfloat16()
+    return q, k, v, clen
+
+
+def decode_copies(torch, da, qz, dev, gen, inputs):
+    """8 copies of the cache in each layout (dense; paged over a random
+    block order, block PAGED_BS; int8 dense and paged) so each call reads
+    its K/V cold from HBM, as a layer's call does in the model; the block
+    tables; and a call of each decode kernel on one copy."""
+    q, k, v, clen = inputs
+    b, S = k.shape[:2]
+    bs = PAGED_BS
     T = S // bs
     perm = torch.randperm(b * T, device=dev, generator=gen)
     tables = perm.view(b, T).int().contiguous()
-    p = torch.arange(S, device=dev)
-    flat = (tables.long()[:, p // bs] * bs + p % bs).reshape(-1)
-    mask = (p[None, :] < clen.clamp(max=S)[:, None])[:, None, None, :]
-    qt = q.transpose(1, 2)
-    # 8 copies of every cache so each call reads its K/V cold from HBM
     copies = []
     for _ in range(8):
         (kq, ks), (vq, vs) = _quantize(qz, k), _quantize(qz, v)
@@ -1533,6 +1552,48 @@ def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
             "paged": (_to_pool(k, perm, bs), _to_pool(v, perm, bs)),
             "dense8": (kq, vq, ks, vs),
             "paged8": tuple(_to_pool(t, perm, bs) for t in (kq, vq, ks, vs))})
+    calls = {
+        "decode_attention":
+            lambda c: da.decode_attention(q, *c["dense"], clen),
+        "paged_decode_attention":
+            lambda c: da.paged_decode_attention(q, *c["paged"], tables, clen),
+        "decode_attention_int8":
+            lambda c: da.decode_attention(q, *c["dense8"][:2], clen,
+                                          k_scale=c["dense8"][2],
+                                          v_scale=c["dense8"][3]),
+        "paged_decode_attention_int8":
+            lambda c: da.paged_decode_attention(
+                q, *c["paged8"][:2], tables, clen, k_scale=c["paged8"][2],
+                v_scale=c["paged8"][3]),
+    }
+    return copies, tables, calls
+
+
+def print_decode_cases(torch, da, qz, dev, gen, names, tag, card):
+    """The named kernels' device ms at the s_q = 4 and full-fill cases."""
+    for case in ("mixed_sq4", "full_sq1"):
+        s_q, full = DECODE_TIME_CASES[case]
+        copies, _, calls = decode_copies(
+            torch, da, qz, dev, gen,
+            decode_case_inputs(torch, dev, gen, s_q, full))
+        for name in names:
+            ms = device_ms(lambda i: calls[name](copies[i]), 8,
+                           "decode_attention_kernel")
+            print(f"{tag} {name} {case} ms={ms} card={card}", flush=True)
+
+
+def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
+    import torch.nn.functional as F
+    q, k, v, clen = decode_inputs              # bf16, s_q 1, B2's fills
+    b, s_q, h, d = q.shape
+    S, hd, bs = k.shape[1], h * d, PAGED_BS
+    T = S // bs
+    copies, tables, kernels = decode_copies(torch, da, qz, dev, gen,
+                                            decode_inputs)
+    p = torch.arange(S, device=dev)
+    flat = (tables.long()[:, p // bs] * bs + p % bs).reshape(-1)
+    mask = (p[None, :] < clen.clamp(max=S)[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
 
     def sdpa(kk, vv):
         return F.scaled_dot_product_attention(
@@ -1546,27 +1607,21 @@ def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
         return (x.float() * s.reshape(*x.shape[:-1], 1)).bfloat16()
 
     calls = {
-        "decode_attention": (
-            lambda c: da.decode_attention(q, *c["dense"], clen), None, None),
+        "decode_attention": (kernels["decode_attention"], None, None),
         "paged_decode_attention": (
-            lambda c: da.paged_decode_attention(q, *c["paged"], tables,
-                                                clen),
+            kernels["paged_decode_attention"],
             lambda c: da.paged_decode_attention_reference(
                 q, *c["paged"], tables, clen, 1 / 8),
             lambda c: sdpa(gather(c["paged"][0]), gather(c["paged"][1]))),
         "decode_attention_int8": (
-            lambda c: da.decode_attention(q, *c["dense8"][:2], clen,
-                                          k_scale=c["dense8"][2],
-                                          v_scale=c["dense8"][3]),
+            kernels["decode_attention_int8"],
             lambda c: da.decode_attention_reference(q, *c["dense8"][:2],
                                                     clen, 1 / 8,
                                                     *c["dense8"][2:]),
             lambda c: sdpa(dequant(c["dense8"][0], c["dense8"][2]),
                            dequant(c["dense8"][1], c["dense8"][3]))),
         "paged_decode_attention_int8": (
-            lambda c: da.paged_decode_attention(
-                q, *c["paged8"][:2], tables, clen, k_scale=c["paged8"][2],
-                v_scale=c["paged8"][3]),
+            kernels["paged_decode_attention_int8"],
             lambda c: da.paged_decode_attention_reference(
                 q, *c["paged8"][:2], tables, clen, 1 / 8, *c["paged8"][2:]),
             lambda c: sdpa(dequant(gather(c["paged8"][0]),
@@ -1609,6 +1664,8 @@ def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
           "scaled_dot_product_attention with a boolean mask; int8 adds a "
           "dequantize (payload x scale, to bf16) between them (dense int8: "
           "dequantize + SDPA)", flush=True)
+    print_decode_cases(torch, da, qz, dev, gen, DECODE_KERNELS[1:],
+                       "phase21", card)
     return t
 
 # ---------------------------------------------------------------------------
@@ -2036,36 +2093,44 @@ def phase_rowwise_timing(torch, ln, gl, sm, inputs, card):
     return out
 
 
-def phase_flash_sass(_build):
-    """HGMMA (wgmma) instructions per 16-bit flash kernel in the built
-    library's SASS, from cuobjdump (the toolkit's, or on PATH)."""
+def phase_sass(_build):
+    """From the built library's SASS (cuobjdump, the toolkit's or on PATH):
+    the HGMMA (wgmma) instructions of each 16-bit flash kernel, and the
+    bulk-copy instructions (UBLKCP for cp.async.bulk, UTMALDG for a
+    tensor-map load) of each decode kernel. Fails if one has none."""
     import glob
     import re
     import shutil
     tool = (shutil.which("cuobjdump")
             or next(iter(glob.glob("/usr/local/cuda/bin/cuobjdump")), None))
     if tool is None:
-        print("phase1 flash SASS: no cuobjdump, HGMMA count not measured",
-              flush=True)
+        print("phase1 SASS: no cuobjdump, HGMMA and UTMALDG counts not "
+              "measured", flush=True)
         return
     lib = glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))[0]
     sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, name = {}, None
+    flash, decode, name = {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "flash" in m.group(1) else None
-            if name and "wgmma" in name:
-                counts[name] = 0
-        elif name in counts and "HGMMA" in line:
-            counts[name] += 1
-    if not counts or min(counts.values()) == 0:
-        fail(f"16-bit flash kernels without wgmma in the SASS: {counts}")
-    print(f"phase1 flash SASS: {len(counts)} wgmma kernels, "
-          f"{sum(counts.values())} HGMMA instructions "
-          f"({min(counts.values())}-{max(counts.values())} each)",
-          flush=True)
+            name = m.group(1)
+            if "flash" in name and "wgmma" in name:
+                flash[name] = 0
+            elif "decode_attention_kernel" in name:
+                decode[name] = 0
+        elif name in flash and "HGMMA" in line:
+            flash[name] += 1
+        elif name in decode and ("UBLKCP" in line or "UTMALDG" in line):
+            decode[name] += 1
+    for what, counts, insn in (("16-bit flash", flash, "HGMMA"),
+                               ("decode", decode, "UTMALDG")):
+        if not counts or min(counts.values()) == 0:
+            fail(f"{what} kernels without {insn} in the SASS: {counts}")
+        print(f"phase1 {what} SASS: {len(counts)} kernels, "
+              f"{sum(counts.values())} {insn} instructions "
+              f"({min(counts.values())}-{max(counts.values())} each)",
+              flush=True)
 
 
 def main(argv=None) -> int:
@@ -2097,7 +2162,7 @@ def main(argv=None) -> int:
     _build.library()
     print(f"phase1 kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    phase_flash_sass(_build)
+    phase_sass(_build)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
@@ -2105,7 +2170,7 @@ def main(argv=None) -> int:
     flash_err, flash_inputs = phase_flash_parity(torch, fa, dev, gen)
     launches = phase_serving(torch, np, dev, args.seed, card)
     (da_t, da_bound, da_by), (sp_t, sp_bound, sp_by) = phase_timing(
-        torch, da, sp, dev, gen, decode_inputs, logits, card)
+        torch, da, qz, sp, dev, gen, decode_inputs, logits, card)
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
     phase_model_check(torch, dev, engine, cfg, ids)
@@ -2154,7 +2219,7 @@ def main(argv=None) -> int:
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",
-         "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cu",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cuh",
          "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:74",
          "launches": launches["decode_attention"], "max_abs_err": da_err,
          **da_t, "bound_ms": da_bound, "bound_by": da_by},
@@ -2185,7 +2250,7 @@ def main(argv=None) -> int:
                            ("sparse_bwd_dkv", 166))
     ] + [
         {"name": name, "route": "cuda",
-         "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cu",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cuh",
          "replaces": f"deepspeed_tpu/ops/pallas/decode_attention.py:{line}",
          "launches": launches, "max_abs_err": paged_err[name],
          **paged_t[name]}

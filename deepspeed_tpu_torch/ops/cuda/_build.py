@@ -4,7 +4,8 @@ The ``.cu`` sources under ``csrc/`` expose plain C functions (no PyTorch
 headers, so ``nvcc`` takes seconds, not minutes): decode attention and its
 paged / int8 forms (B2, B3), sampling (B4), flash attention (B1, B1b),
 block-sparse attention (B5, B5b), LayerNorm (B6), bias-GELU (B7) and
-softmax (B8). The attention sources share ``attention_tiles.cuh``, the
+softmax (B8). The sparse and flash sources share ``attention_tiles.cuh``,
+the two decode sources (dense, paged) ``decode_attention.cuh``, the
 row-wise ones ``rowwise.cuh``. At first use they are compiled for Hopper
 (``sm_90a``) by ``torch.utils.cpp_extension.load`` into one library in
 ``deepspeed_tpu_torch/_build/`` (listed in ``.gitignore``) and bound with
@@ -27,8 +28,9 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build")
-SOURCES = ("decode_attention.cu", "sampling.cu", "flash_attention.cu",
-           "sparse_attention.cu", "layer_norm.cu", "gelu.cu", "softmax.cu")
+SOURCES = ("decode_attention.cu", "paged_decode_attention.cu", "sampling.cu",
+           "flash_attention.cu", "sparse_attention.cu", "layer_norm.cu",
+           "gelu.cu", "softmax.cu")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-lineinfo",
               "-gencode=arch=compute_90a,code=sm_90a"]
 

@@ -3,10 +3,15 @@ prefix.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/decode_attention.py``. The Pallas
 kernels ``_decode_kernel`` (dense) and ``_paged_decode_kernel`` (paged), with
-their int8 branches, become one CUDA kernel in ``csrc/decode_attention.cu``
-templated on where a key position lives (one thread block per (row, head),
-online softmax over the row's own live prefix; see the source for its
-design).
+their int8 branches, become one CUDA kernel template in
+``csrc/decode_attention.cuh`` (bound by ``decode_attention.cu`` and
+``paged_decode_attention.cu``), templated on where a key position lives:
+split-KV over a thread-block cluster (one cluster per (row, head), its
+ranks splitting the row's live tiles), TMA copies into a shared-memory
+ring, an online softmax per warp and a merge in a fixed order; see the
+source for its design.
+:func:`decode_attention_split_reference` is that split algebra in plain
+PyTorch, for the tests; nothing on the main path calls it.
 
 The dense cache is stored flat, ``[b, S, h*d]``, as the TPU path stores it;
 the paged cache is a block pool ``[nb, bs, h*d]`` read through block tables
@@ -36,6 +41,29 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 MAX_SPEC_S = 8
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The kernel's split (csrc/decode_attention.cuh: kTile, kMaxSplit): key
+# tiles of SPLIT_TILE positions, at most MAX_SPLIT blocks a (row, head).
+SPLIT_TILE = 32
+MAX_SPLIT = 8
+
+
+def split_count(S: int, tile: int = SPLIT_TILE) -> int:
+    """The blocks (cluster ranks) the kernel gives each (row, head) of a
+    cache of S positions: chosen from S only, never from the fills."""
+    return min(MAX_SPLIT, -(-S // tile))
+
+
+def split_ranges(fill: int, n_split: int, tile: int = SPLIT_TILE):
+    """The kernel's plan for a row of ``fill`` live positions: rank r
+    owns the whole tiles [r*n // n_split, (r+1)*n // n_split) of the row's
+    n = ceil(fill / tile) live tiles, as ``[start, stop)`` position ranges
+    (the last cut at the fill). Together they cover [0, fill) once."""
+    n = -(-fill // tile)
+    out = []
+    for r in range(n_split):
+        t0, t1 = r * n // n_split, (r + 1) * n // n_split
+        out.append((t0 * tile, min(t1 * tile, fill)))
+    return out
 
 
 def decode_supported(s: int, d: int, dtype: torch.dtype) -> bool:
@@ -101,6 +129,62 @@ def decode_attention_reference(q, cached_key, cached_value, cache_len,
     # query i sees p < first_q + i + 1: none when that bound is <= 0
     sees = (first_q[:, None] + torch.arange(1, s_q + 1, device=q.device)) > 0
     return torch.where(sees[:, :, None, None], out, torch.zeros_like(out))
+
+
+def _finite(m: torch.Tensor) -> torch.Tensor:
+    """m with -inf (a state that saw no key) replaced by 0, so exp(x - m)
+    never computes -inf - -inf."""
+    return torch.where(torch.isneginf(m), 0.0, m)
+
+
+def decode_attention_split_reference(q, k, v, cache_len, scale: float,
+                                     n_split: int, tile: int = SPLIT_TILE,
+                                     k_scale=None, v_scale=None):
+    """The kernel's split algebra in plain PyTorch (for the tests; nothing
+    on the main path calls it). Each row's live positions are cut by
+    :func:`split_ranges` into ``n_split`` ranks; each rank keeps an f32
+    partial state (m, l, acc) per (head, query) over the keys it owns that
+    the query sees (m = -inf, l = 0 where it sees none), and the states
+    merge in rank order with every factor of an m = -inf state taken as 0,
+    so a query that sees no key returns exact zeros, never NaN. q:
+    [b, s_q, h, d]; k/v: [b, S, h*d] (or [b, S, h, d]) in q's dtype, or
+    int8 with [b, S] f32 ``k_scale``/``v_scale`` multiplied in f32, as the
+    kernel does. Returns [b, s_q, h, d] in q's dtype."""
+    b, s_q, h, d = q.shape
+    S = k.shape[1]
+    clen = _as_cache_len(cache_len, b, S, q.device)
+    kf = k.reshape(b, S, h, d).float()
+    vf = v.reshape(b, S, h, d).float()
+    if k_scale is not None:
+        kf = kf * k_scale.reshape(b, S, 1, 1).float()
+        vf = vf * v_scale.reshape(b, S, 1, 1).float()
+    qf = q.float()
+    out = torch.zeros(b, s_q, h, d, dtype=torch.float32, device=q.device)
+    neg_inf = torch.tensor(float("-inf"), device=q.device)
+    for row in range(b):
+        fill = int(clen[row])
+        lim = fill - (s_q - 1) + torch.arange(s_q, device=q.device)
+        states = []                                 # per rank: m, l, acc
+        for p0, p1 in split_ranges(fill, n_split, tile):
+            pos = torch.arange(p0, p1, device=q.device)
+            s = torch.einsum("qhd,khd->qhk", qf[row], kf[row, p0:p1]) * scale
+            vis = (pos[None, :] < lim[:, None])[:, None, :]     # [s_q, 1, n]
+            s = torch.where(vis, s, neg_inf)
+            m = s.amax(dim=-1) if p1 > p0 else torch.full(
+                (s_q, h), float("-inf"), device=q.device)
+            e = torch.where(vis, torch.exp(s - _finite(m)[..., None]), 0.0)
+            states.append((m, e.sum(dim=-1),
+                           torch.einsum("qhk,khd->qhd", e, vf[row, p0:p1])))
+        M = torch.stack([m for m, _, _ in states]).amax(dim=0)
+        L = torch.zeros(s_q, h, device=q.device)
+        O = torch.zeros(s_q, h, d, device=q.device)
+        for m, l, acc in states:                    # rank order
+            f = torch.where(m == neg_inf, 0.0, torch.exp(m - _finite(M)))
+            L = L + l * f
+            O = O + acc * f[..., None]
+        out[row] = torch.where(L[..., None] > 0,
+                               O / torch.where(L > 0, L, 1.0)[..., None], 0.0)
+    return out.to(q.dtype)
 
 
 def paged_gather_kv(pool: torch.Tensor,

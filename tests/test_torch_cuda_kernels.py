@@ -161,6 +161,70 @@ def test_paged_kernel_over_a_dense_layout_is_bitwise_dense(dev, int8, dtype,
         assert torch.equal(paged, dense)
 
 
+# Split-KV cases of the decode kernels (a cluster of split_count(S) blocks
+# a (row, head), each owning a contiguous range of the row's 32-key tiles):
+# (S, s_q, fills). Full rows; fills on and one past each rank boundary of a
+# full row's 8-way split (128 r); S not a multiple of the tile; s_q = 8 with
+# fills under 8 (ranks, and whole rows, in which a query sees nothing).
+SPLIT_CASES = {
+    "uniform_full": (1024, 1, [1024] * 4),
+    "split_boundaries": (1024, 1, [f for r in range(1, 8)
+                                   for f in (128 * r, 128 * r + 1)]),
+    "split_boundaries_sq4": (1024, 4, [f for r in range(1, 8)
+                                       for f in (128 * r, 128 * r + 1)]),
+    "S1000": (1000, 4, [1000, 999, 968, 969, 33, 500]),
+    "S77": (77, 2, [77, 64, 65, 32, 33, 1]),
+    "sq8_short": (256, 8, [0, 1, 3, 7, 8, 9]),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_kv_decode_cases(dev, case, dtype, int8):
+    """B2 against its plain version; B3 over an in-order table bitwise B2
+    (a dense S that is no whole number of blocks is padded to one, which
+    keeps the split count: it depends on S only through ceil(S / 32));
+    a second call of each bitwise the first; exact zeros for a query that
+    sees no key."""
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    S, s_q, fill_list = SPLIT_CASES[case]
+    b, h, d, bs = len(fill_list), 4, 64, 8
+    g = torch.Generator(device=dev).manual_seed(len(case) * 10 + s_q)
+    T = -(-S // bs)
+    assert da.split_count(S) == da.split_count(T * bs)
+    q = torch.randn(b, s_q, h, d, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, T * bs, h * d, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, T * bs, h * d, device=dev, generator=g).to(dtype)
+    fills = torch.tensor(fill_list, dtype=torch.int32, device=dev)
+    ks = vs = kps = vps = None
+    if int8:
+        (k, ks), (v, vs) = _quantized(k), _quantized(v)
+        kps, vps = ks.view(b * T, bs), vs.view(b * T, bs)
+    kd, vd = k[:, :S].contiguous(), v[:, :S].contiguous()
+    ksd = None if ks is None else ks[:, :S].contiguous()
+    vsd = None if vs is None else vs[:, :S].contiguous()
+    tables = torch.arange(b * T, dtype=torch.int32, device=dev).view(b, T)
+    kp, vp = k.view(b * T, bs, h * d), v.view(b * T, bs, h * d)
+    dense = [da.decode_attention(q, kd, vd, fills, scale=0.1, k_scale=ksd,
+                                 v_scale=vsd) for _ in range(2)]
+    paged = [da.paged_decode_attention(q, kp, vp, tables, fills, scale=0.1,
+                                       k_scale=kps, v_scale=vps)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dense[0], dense[1])
+    assert torch.equal(paged[0], paged[1])
+    assert torch.equal(paged[0], dense[0])
+    ref = da.decode_attention_reference(q, kd, vd, fills, 0.1, ksd, vsd)
+    rtol = INT8_RTOL[dtype] if int8 else 0.0
+    torch.testing.assert_close(dense[0].float(), ref.float(), rtol=rtol,
+                               atol=ATOL[dtype])
+    assert torch.isfinite(dense[0]).all()
+    seen = (fills.clamp(max=S)[:, None] - (s_q - 1)
+            + torch.arange(s_q, device=dev)) > 0
+    assert not dense[0][~seen].any()
+
+
 def test_paged_and_int8_kernels_raise_on_what_they_lack(dev):
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
