@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result lines):
      count the wgmma (SASS HGMMA) instructions of each 16-bit flash kernel
      and the TMA (UTMALDG, or UBLKCP for a plain bulk copy) instructions of
      each decode kernel in the built library (cuobjdump; fails if one has
-     none);
+     none); the registers a thread of each LayerNorm and softmax forward
+     kernel (cuobjdump --dump-resource-usage);
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
      retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2;
@@ -124,9 +125,12 @@ Phases (any failure exits non-zero before the result lines):
      row full;
  22. the row-wise kernels vs their plain versions, bf16 and f32: LayerNorm
      (B6) forward and dx at [8*512, 1024] (gamma/beta in the element type
-     and in f32) and [37, 1000]; bias-GELU (B7) forward and backward at
-     [8*512, 4096] and [37, 1001]; softmax (B8) forward and backward at
-     [8, 16, 512, 512] and [2, 3, 77, 4099] (a block per row), causal and
+     and in f32), [37, 1000], the forward's path edges [37, 1016 / 1032 /
+     2048] and [37, 1024] one element off a 16-byte boundary; bias-GELU
+     (B7) forward and backward at [8*512, 4096] and [37, 1001]; softmax
+     (B8) forward and backward at [8, 16, 512, 512], [2, 3, 77, 4099] (a
+     block per row), the path edges [1, 2, 5, 1023 / 1024 / 1025 / 2048]
+     and [2, 3, 77, 1024] one element off a 16-byte boundary, causal and
      not, and masked_softmax with a scale and an additive key mask; then
      B7's op entry (ops.transformer.bias_gelu + gelu, forward and backward
      at [8, 512, 4096] bf16, counts reset just before and read just after:
@@ -147,7 +151,9 @@ Phases (any failure exits non-zero before the result lines):
  24. the six row-wise kernels' device times at phase 22's shapes (bf16;
      softmax also f32, the layer's logits) beside their plain versions,
      F.layer_norm / F.gelu(x + b, approximate="tanh") / torch.softmax and
-     their autograd backwards (yardsticks) and their bounds.
+     their autograd backwards (yardsticks) and their bounds; warm (the same
+     inputs each call: the kernels line) and cold (input copies of at least
+     64 MiB read in turn, past L2), the kernel and its yardstick each.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -1699,6 +1705,22 @@ LAYER_LOSS_RTOL = 1e-2
 LAYER_GRAD_NORM_RTOL = 5e-2
 
 
+# the forwards' path edges (csrc/layer_norm.cu, csrc/softmax.cu): the widest
+# rows a warp holds (1016 and 1024 elements; 1023 takes one element a pack),
+# the narrowest a block holds (1025, 1032) and a block of two warps (2048)
+ROW_EDGE_WIDTHS = (1016, 1032, 2048)
+ROW_EDGE_SEQS = (1023, 1024, 1025, 2048)
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of t that starts one element past a 16-byte
+    boundary (the row-wise forwards then take one element a pack)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def _dtype_name(t) -> str:
     return str(t.dtype).replace("torch.", "")
 
@@ -1721,14 +1743,20 @@ def phase_rowwise_parity(torch, ln, gl, sm, dev, gen):
 
     N = LAYER_MICRO * LAYER_SEQ
     for dtype in (torch.bfloat16, torch.float32):
-        for tag, (n, d) in (("layer", (N, 1024)), ("odd", (37, 1000))):
+        for tag, (n, d) in (("layer", (N, 1024)), ("odd", (37, 1000)),
+                            *(("edge", (37, d)) for d in ROW_EDGE_WIDTHS),
+                            ("misaligned", (37, 1024))):
             x = (torch.randn(n, d, device=dev, generator=gen) * 2 + 1
                  ).to(dtype)
             dy = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+            if tag == "misaligned":
+                x = _misaligned(torch, x)
             for pdt in (dtype, torch.float32):
                 g = (1 + 0.3 * torch.randn(d, device=dev, generator=gen)
                      ).to(pdt)
                 b = (0.3 * torch.randn(d, device=dev, generator=gen)).to(pdt)
+                if tag == "misaligned":
+                    g, b = _misaligned(torch, g), _misaligned(torch, b)
                 y, mean, rstd = ln.layer_norm_forward(x, g, b, 1e-12)
                 ry, rm, rr = ln.layer_norm_forward_reference(x, g, b, 1e-12)
                 dx = ln.layer_norm_dx(x, g, rm, rr, dy)
@@ -1755,9 +1783,13 @@ def phase_rowwise_parity(torch, ln, gl, sm, dev, gen):
                 inputs[("gelu", _dtype_name(x))] = (x, b, dy)
         for tag, shape in (("scores", (LAYER_MICRO, 16, LAYER_SEQ,
                                        LAYER_SEQ)),
-                           ("odd", (2, 3, 77, 4099))):
+                           ("odd", (2, 3, 77, 4099)),
+                           *(("edge", (1, 2, 5, S)) for S in ROW_EDGE_SEQS),
+                           ("misaligned", (2, 3, 77, 1024))):
             x = (3 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
             dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            if tag == "misaligned":
+                x, dy = _misaligned(torch, x), _misaligned(torch, dy)
             sq, S = shape[-2:]
             x2, dy2 = x.view(-1, S), dy.view(-1, S)
             for causal in (False, True):
@@ -1780,10 +1812,12 @@ def phase_rowwise_parity(torch, ln, gl, sm, dev, gen):
                     torch.cuda.synchronize()
                     note("softmax_fwd", _row_close(got.view(-1, S), ref))
         print(f"phase22 row-wise kernels vs plain {_dtype_name(x)}: "
-              f"LayerNorm [{N}, 1024] and [37, 1000] (gamma in the element "
-              f"type and f32), bias-GELU [{N}, 4096] and [37, 1001], "
-              f"softmax [{LAYER_MICRO}, 16, {LAYER_SEQ}, {LAYER_SEQ}] and "
-              f"[2, 3, 77, 4099] causal and not, masked_softmax; "
+              f"LayerNorm [{N}, 1024], [37, 1000], [37, d] for d in "
+              f"{ROW_EDGE_WIDTHS} and [37, 1024] misaligned (gamma in the "
+              f"element type and f32), bias-GELU [{N}, 4096] and [37, 1001], "
+              f"softmax [{LAYER_MICRO}, 16, {LAYER_SEQ}, {LAYER_SEQ}], "
+              f"[2, 3, 77, 4099], [1, 2, 5, S] for S in {ROW_EDGE_SEQS} and "
+              f"[2, 3, 77, 1024] misaligned, causal and not, masked_softmax; "
               f"max_abs_err so far {errs}", flush=True)
     return errs, inputs
 
@@ -2007,90 +2041,215 @@ ROW_OPS_PER_ELEMENT = {"layer_norm_fwd": 8, "layer_norm_dx": 12,
                        "softmax_fwd": 8, "softmax_bwd": 4}
 
 
+# input copies a cold timing reads in turn: past the H100's 50 MB L2
+COLD_BYTES = 64 * 2 ** 20
+
+
+def rowwise_time_inputs(torch, ln, sm, dev, gen, dt):
+    """The LayerNorm and softmax inputs of phase 22 at the layer's shapes
+    (x [8 * 512, 1024] with gamma and beta in x's type; the scores [8 * 16 *
+    512, 512], the plain forward's y and a cotangent), keyed as phase 22
+    keys them."""
+    dtype = getattr(torch, dt)
+    n, d = LAYER_MICRO * LAYER_SEQ, LAYER_KW["hidden_size"]
+    x = (torch.randn(n, d, device=dev, generator=gen) * 2 + 1).to(dtype)
+    g = (1 + 0.3 * torch.randn(d, device=dev, generator=gen)).to(dtype)
+    b = (0.3 * torch.randn(d, device=dev, generator=gen)).to(dtype)
+    dy = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+    _, mean, rstd = ln.layer_norm_forward_reference(x, g, b, 1e-12)
+    shape = (LAYER_MICRO * LAYER_KW["heads"] * LAYER_SEQ, LAYER_SEQ)
+    xs = (3 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+    dys = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    ys = sm.softmax_forward_reference(xs, LAYER_SEQ, False)
+    return {("ln", dt): (x, g, b, mean, rstd, dy),
+            ("softmax", dt): (xs, ys, dys)}
+
+
+def _grad_state(torch, fn, *leaves):
+    """(fn's output, its leaves) of a fresh graph over leaf copies."""
+    leaves = tuple(t.detach().requires_grad_() for t in leaves)
+    return fn(*leaves), leaves
+
+
+def rowwise_time_cases(torch, ln, gl, sm, inputs, dt):
+    """The row-wise kernels timed at inputs[(op, dt)]: name -> (args,
+    kernel(args), plain(args), library state(args), library(state),
+    elements, bytes moved, bytes read). The library call is one PyTorch
+    call of the same function (a yardstick the port never calls); a
+    backward's state is its autograd graph."""
+    import torch.nn.functional as F
+    cases = {}
+    if ("ln", dt) in inputs:
+        x, g, b, mean, rstd, dy = args = inputs[("ln", dt)]
+        d, par = x.shape[-1], g.numel() * g.element_size()
+        cases["layer_norm_fwd"] = (
+            args, lambda a: ln.layer_norm_forward(*a[:3], 1e-12),
+            lambda a: ln.layer_norm_forward_reference(*a[:3], 1e-12),
+            lambda a: a, lambda a: F.layer_norm(a[0], (d,), a[1], a[2],
+                                                1e-12),
+            x.numel(), 2 * x.numel() * x.element_size() + 2 * par
+            + 8 * x.shape[0], x.numel() * x.element_size() + 2 * par)
+        cases["layer_norm_dx"] = (
+            args, lambda a: ln.layer_norm_dx(a[0], a[1], a[3], a[4], a[5]),
+            lambda a: ln.layer_norm_backward_reference(a[0], a[1], a[3],
+                                                       a[4], a[5]),
+            lambda a: (*_grad_state(torch, lambda x_, g_, b_: F.layer_norm(
+                x_, (d,), g_, b_, 1e-12), *a[:3]), a[5]),
+            lambda st: torch.autograd.grad(st[0], st[1], st[2],
+                                           retain_graph=True),
+            x.numel(), 3 * x.numel() * x.element_size() + par
+            + 8 * x.shape[0], 2 * x.numel() * x.element_size() + par)
+    if ("gelu", dt) in inputs:
+        xg, bg, dyg = args = inputs[("gelu", dt)]
+        nb = xg.numel() * xg.element_size()
+        bb = bg.numel() * bg.element_size()
+        cases["bias_gelu_fwd"] = (
+            args, lambda a: gl.bias_gelu_forward(a[0], a[1]),
+            lambda a: gl.bias_gelu_forward_reference(a[0], a[1]),
+            lambda a: a, lambda a: F.gelu(a[0] + a[1], approximate="tanh"),
+            xg.numel(), 2 * nb + bb, nb + bb)
+        cases["bias_gelu_bwd"] = (
+            args, lambda a: gl.bias_gelu_backward(*a),
+            lambda a: gl.bias_gelu_backward_reference(*a),
+            lambda a: (*_grad_state(torch, lambda x_, b_: F.gelu(
+                x_ + b_, approximate="tanh"), a[0], a[1]), a[2]),
+            lambda st: torch.autograd.grad(st[0], st[1], st[2],
+                                           retain_graph=True),
+            xg.numel(), 3 * nb + bb, 2 * nb + bb)
+    if ("softmax", dt) in inputs:
+        xs, ys, dys = args = inputs[("softmax", dt)]
+        nb = xs.numel() * xs.element_size()
+        cases["softmax_fwd"] = (
+            args, lambda a: sm.softmax_forward(a[0], LAYER_SEQ, False),
+            lambda a: sm.softmax_forward_reference(a[0], LAYER_SEQ, False),
+            lambda a: a, lambda a: torch.softmax(a[0], -1),
+            xs.numel(), 2 * nb, nb)
+        cases["softmax_bwd"] = (
+            args, lambda a: sm.softmax_backward(a[1], a[2]),
+            lambda a: sm.softmax_backward_reference(a[1], a[2]),
+            lambda a: (*_grad_state(torch, lambda x_: torch.softmax(x_, -1),
+                                    a[0]), a[2]),
+            lambda st: torch.autograd.grad(st[0], st[1], st[2],
+                                           retain_graph=True),
+            xs.numel(), 3 * nb, 2 * nb)
+    return cases
+
+
+def time_row_case(torch, name, case, cold):
+    """(kernel ms, library ms) of one case: warm (the same inputs each
+    call, as the layer stack's working set may sit in L2) or cold (input
+    copies of at least COLD_BYTES together, read in turn)."""
+    args, kernel, _, state, library, _, _, in_bytes = case
+    copies = [args]
+    if cold:
+        copies = [tuple(t.clone() for t in args)
+                  for _ in range(max(2, math.ceil(COLD_BYTES / in_bytes)))]
+    states = [state(c) for c in copies]
+    ms = device_ms(lambda i: kernel(copies[i]), len(copies),
+                   kernel=name + "_")
+    lib_ms = device_ms(lambda i: library(states[i]), len(copies))
+    del copies, states
+    torch.cuda.empty_cache()
+    return ms, lib_ms
+
+
 def phase_rowwise_timing(torch, ln, gl, sm, inputs, card):
     """Device ms of the six row-wise kernels at the layer's shapes (bf16;
     softmax also f32, the dtype of the layer's logits) beside their plain
     versions, one PyTorch library call each (a yardstick the port never
-    calls) and their bounds. Returns the kernels-line numbers: LayerNorm
-    and GELU at bf16, softmax at f32."""
-    import torch.nn.functional as F
+    calls) and their bounds; warm (the same inputs each call, the kernels
+    line's numbers) and cold (input copies past L2, read in turn).
+    Returns the kernels-line numbers: LayerNorm and GELU at bf16, softmax
+    at f32."""
     out = {}
     for dt in ("bfloat16", "float32"):
-        x, g, b, mean, rstd, dy = inputs[("ln", dt)]
-        xl = x.detach().requires_grad_()
-        gl_ = g.detach().requires_grad_()
-        bl = b.detach().requires_grad_()
-        yl = F.layer_norm(xl, (x.shape[-1],), gl_, bl, 1e-12)
-        xg, bg, dyg = inputs[("gelu", dt)]
-        xq = xg.detach().requires_grad_()
-        bq = bg.detach().requires_grad_()
-        yq = F.gelu(xq + bq, approximate="tanh")
-        xs, ys, dys = inputs[("softmax", dt)]
-        xt = xs.detach().requires_grad_()
-        yt = torch.softmax(xt, -1)
-        calls = {
-            "layer_norm_fwd": (
-                lambda i: ln.layer_norm_forward(x, g, b, 1e-12),
-                lambda i: ln.layer_norm_forward_reference(x, g, b, 1e-12),
-                lambda i: F.layer_norm(x, (x.shape[-1],), g, b, 1e-12),
-                x.numel(), 2 * x.numel() * x.element_size()
-                + 2 * g.numel() * g.element_size() + 8 * x.shape[0]),
-            "layer_norm_dx": (
-                lambda i: ln.layer_norm_dx(x, g, mean, rstd, dy),
-                lambda i: ln.layer_norm_backward_reference(x, g, mean, rstd,
-                                                           dy),
-                lambda i: torch.autograd.grad(yl, (xl, gl_, bl), dy,
-                                              retain_graph=True),
-                x.numel(), 3 * x.numel() * x.element_size()
-                + g.numel() * g.element_size() + 8 * x.shape[0]),
-            "bias_gelu_fwd": (
-                lambda i: gl.bias_gelu_forward(xg, bg),
-                lambda i: gl.bias_gelu_forward_reference(xg, bg),
-                lambda i: F.gelu(xg + bg, approximate="tanh"),
-                xg.numel(), 2 * xg.numel() * xg.element_size()
-                + bg.numel() * bg.element_size()),
-            "bias_gelu_bwd": (
-                lambda i: gl.bias_gelu_backward(xg, bg, dyg),
-                lambda i: gl.bias_gelu_backward_reference(xg, bg, dyg),
-                lambda i: torch.autograd.grad(yq, (xq, bq), dyg,
-                                              retain_graph=True),
-                xg.numel(), 3 * xg.numel() * xg.element_size()
-                + bg.numel() * bg.element_size()),
-            "softmax_fwd": (
-                lambda i: sm.softmax_forward(xs, LAYER_SEQ, False),
-                lambda i: sm.softmax_forward_reference(xs, LAYER_SEQ, False),
-                lambda i: torch.softmax(xs, -1),
-                xs.numel(), 2 * xs.numel() * xs.element_size()),
-            "softmax_bwd": (
-                lambda i: sm.softmax_backward(ys, dys),
-                lambda i: sm.softmax_backward_reference(ys, dys),
-                lambda i: torch.autograd.grad(yt, xt, dys,
-                                              retain_graph=True),
-                xs.numel(), 3 * xs.numel() * xs.element_size()),
-        }
-        for name, (kernel, plain, lib, n_el, nbytes) in calls.items():
+        for name, case in rowwise_time_cases(torch, ln, gl, sm, inputs,
+                                             dt).items():
             if dt == "float32" and not name.startswith("softmax"):
                 continue
+            args, _, plain, _, _, n_el, nbytes, _ = case
             tb = nbytes / HBM_BYTES_PER_S
             tf = ROW_OPS_PER_ELEMENT[name] * n_el / F32_FLOPS
-            t = {"ms": device_ms(kernel, kernel=name + "_"),
-                 "plain_ms": device_ms(plain, iters=10),
-                 "library_ms": device_ms(lib),
-                 "bound_ms": 1e3 * max(tb, tf),
+            ms, lib_ms = time_row_case(torch, name, case, cold=False)
+            cold_ms, lib_cold_ms = time_row_case(torch, name, case,
+                                                 cold=True)
+            t = {"ms": ms, "plain_ms": device_ms(lambda i: plain(args),
+                                                 iters=10),
+                 "library_ms": lib_ms, "bound_ms": 1e3 * max(tb, tf),
                  "bound_by": "bytes" if tb >= tf else "operations"}
-            for key, val in t.items():
+            for key, val in {**t, "cold_ms": cold_ms,
+                             "library_cold_ms": lib_cold_ms}.items():
                 print(f"{name}_{dt}_{key}={val} card={card}", flush=True)
-            print(f"phase24 {name} {dt}: {t['ms'] / t['bound_ms']} x its "
-                  f"bound, {t['ms'] / t['library_ms']} x the library call",
-                  flush=True)
+            print(f"phase24 {name} {dt}: warm {t['ms'] / t['bound_ms']} x "
+                  f"its bound, {t['ms'] / t['library_ms']} x the library "
+                  f"call; cold {cold_ms / t['bound_ms']} x its bound, "
+                  f"{cold_ms / lib_cold_ms} x the library call", flush=True)
             if (dt == "float32") == name.startswith("softmax"):
                 out[name] = t
     print("phase24 library calls (yardsticks, never called by the port): "
           "F.layer_norm and its autograd backward (dx, dgamma and dbeta "
           "together); F.gelu(x + b, approximate='tanh') (two kernels: the "
           "add, then the GELU) and its autograd backward (dx and dbias); "
-          "torch.softmax and its autograd backward", flush=True)
+          "torch.softmax and its autograd backward; cold: input copies of "
+          f"at least {COLD_BYTES} bytes read in turn", flush=True)
     return out
+
+
+def _cuobjdump():
+    import glob
+    import shutil
+    return (shutil.which("cuobjdump")
+            or next(iter(glob.glob("/usr/local/cuda/bin/cuobjdump")), None))
+
+
+def row_registers(_build):
+    """{kernel: (registers a thread, local bytes)} of the LayerNorm and
+    softmax forward kernels in the built library (cuobjdump
+    --dump-resource-usage), names demangled where c++filt is on PATH; None
+    without cuobjdump."""
+    import glob
+    import re
+    import shutil
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    lib = glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))[0]
+    usage = subprocess.run([tool, "--dump-resource-usage", lib],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout
+    found = {}
+    for m in re.finditer(r"Function (\S+):\s*REG:(\d+).*?LOCAL:(\d+)",
+                         usage):
+        if "layer_norm_fwd" in m.group(1) or "softmax_fwd" in m.group(1):
+            found[m.group(1)] = (int(m.group(2)), int(m.group(3)))
+    if shutil.which("c++filt") and found:
+        names = subprocess.run(["c++filt"], input="\n".join(found),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.split("\n")
+        found = dict(zip(names, found.values()))
+    return found
+
+
+def phase_row_registers(_build):
+    """Registers a thread (and spilled local bytes) of each LayerNorm and
+    softmax forward kernel, and the warps an SM those registers allow
+    (65536 registers, allocated 256 a warp, at most 64 warps)."""
+    regs = row_registers(_build)
+    if regs is None:
+        print("phase1 row-wise registers: no cuobjdump, not measured",
+              flush=True)
+        return
+    if not regs:
+        fail("no LayerNorm or softmax forward kernel in the resource usage")
+    short = {}
+    for name, (reg, local) in sorted(regs.items()):
+        per_warp = -(-reg * 32 // 256) * 256
+        warps = min(64, 65536 // max(per_warp, 1))
+        name = name.split("(anonymous namespace)::")[-1].split("(")[0]
+        short[name.replace("__nv_bfloat16", "bf16")] = [reg, local, warps]
+    print("phase1 row-wise forward kernels [registers a thread, local "
+          f"bytes, warps an SM those registers allow]: {json.dumps(short)}",
+          flush=True)
 
 
 def phase_sass(_build):
@@ -2100,9 +2259,7 @@ def phase_sass(_build):
     tensor-map load) of each decode kernel. Fails if one has none."""
     import glob
     import re
-    import shutil
-    tool = (shutil.which("cuobjdump")
-            or next(iter(glob.glob("/usr/local/cuda/bin/cuobjdump")), None))
+    tool = _cuobjdump()
     if tool is None:
         print("phase1 SASS: no cuobjdump, HGMMA and UTMALDG counts not "
               "measured", flush=True)
@@ -2163,6 +2320,7 @@ def main(argv=None) -> int:
     print(f"phase1 kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     phase_sass(_build)
+    phase_row_registers(_build)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)

@@ -1,7 +1,7 @@
 // Row LayerNorm, forward and input gradient, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of deepspeed_tpu/ops/pallas/layer_norm.py:
-//   * layer_norm_fwd_kernel <- `_fwd_kernel` (B6), through `_ln_fwd`
+//   * layer_norm_fwd_*kernel <- `_fwd_kernel` (B6), through `_ln_fwd`
 //   * layer_norm_dx_kernel  <- `_dx_kernel`  (B6), through `_ln_bwd`
 // They compute what the TPU kernels compute, in f32 whatever the element
 // type, over rows of x [n, d]:
@@ -16,12 +16,27 @@
 // wrapper, as they are XLA reductions outside Pallas in the TPU package.
 //
 // Bound: device-memory bytes (x, gamma, beta read once, y written once;
-// the dx kernel reads x and dy and writes dx). One block per row, about
-// four elements a thread (32-1024 threads), so any n and any d: a row
-// wider than 4096 elements loops. The passes after the first re-read the
-// row from L1/L2, not from device memory. f32 sums reduced with warp
-// shuffles and one shared slot per warp. Vector loads and several rows per
-// block for narrow rows are later work.
+// the dx kernel reads x and dy and writes dx).
+//
+// The forward holds each row in registers (rowwise.cuh's packs): it reads
+// the row from device memory once, takes the mean and then the variance of
+// (x - mean) from those registers with shuffle sums, reads gamma and beta
+// as packs and writes y once. Which shapes take which path:
+//   * d <= 1024: layer_norm_fwd_kernel, one warp a row, 4 rows (warps) a
+//     block, no shared memory; 8, 16 or 32 elements a lane for d <= 256,
+//     <= 512, <= 1024;
+//   * 1024 < d <= 16384: layer_norm_fwd_block_kernel, one block a row of
+//     ceil(d / 1024) warps (<= 16), 32 elements a thread, one shared slot a
+//     warp for each of the two sums;
+//   * d > 16384: layer_norm_fwd_loop_kernel, one block a row looping over
+//     it in three passes (the passes after the first re-read the row from
+//     L1/L2).
+// The first two read and write 16-byte packs (8 bf16 / fp16 or 4 f32
+// elements a lane) when d is a multiple of the pack and x, y, gamma and
+// beta are 16-byte aligned, else the same kernel at one element a pack
+// (predicated scalar accesses). The dx kernel takes one block a row (about
+// four elements a thread, 32-1024 threads), three passes like the loop
+// kernel, f32 sums reduced with warp shuffles and one shared slot per warp.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes by
 // deepspeed_tpu_torch/ops/cuda/layer_norm.py.
@@ -30,12 +45,97 @@
 
 namespace {
 
-template <typename T, typename G>
-__global__ void __launch_bounds__(1024)
+// The register forward of one row, held by a row group (one warp, or the
+// block with `slots`: 64 floats) as E / V packs of V elements a thread.
+template <typename T, typename G, int V, int E, bool kBlock>
+__device__ __forceinline__ void layer_norm_regs_row(
+    const T* __restrict__ xr, const G* __restrict__ gamma,
+    const G* __restrict__ beta, T* __restrict__ yr,
+    float* __restrict__ mean_out, float* __restrict__ rstd_out, int d,
+    float eps, int rank, int size, float* slots) {
+  constexpr int NV = E / V;
+  Pack<T, V> a[NV];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = pack_col<V>(j, rank, size);
+    if (c < d) {
+      a[j] = load_pack<T, V>(xr + c);
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += to_f32(a[j].v[e]);
+    }
+  }
+  const float mean = row_sum<kBlock>(s, slots) / (float)d;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (pack_col<V>(j, rank, size) < d) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float c = to_f32(a[j].v[e]) - mean;
+        q += c * c;
+      }
+    }
+  }
+  const float var =
+      row_sum<kBlock>(q, kBlock ? slots + 32 : nullptr) / (float)d;
+  const float rstd = rsqrtf(var + eps);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = pack_col<V>(j, rank, size);
+    if (c < d) {
+      const Pack<G, V> g = load_pack<G, V>(gamma + c);
+      const Pack<G, V> b = load_pack<G, V>(beta + c);
+      Pack<T, V> o;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float xhat = (to_f32(a[j].v[e]) - mean) * rstd;
+        o.v[e] = from_f32<T>(xhat * to_f32(g.v[e]) + to_f32(b.v[e]));
+      }
+      store_pack<T, V>(yr + c, o);
+    }
+  }
+  if (rank == 0) {
+    *mean_out = mean;
+    *rstd_out = rstd;
+  }
+}
+
+template <typename T, typename G, int V, int E>
+__global__ void __launch_bounds__(32 * kWarpRows, kWarpRowMinBlocks)
 layer_norm_fwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
                       const G* __restrict__ beta, T* __restrict__ y,
-                      float* __restrict__ mean_out,
-                      float* __restrict__ rstd_out, int d, float eps) {
+                      float* __restrict__ mean, float* __restrict__ rstd,
+                      int n, int d, float eps) {
+  const long long row = (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (row >= n) return;                 // whole warps leave together
+  layer_norm_regs_row<T, G, V, E, false>(
+      x + row * d, gamma, beta, y + row * d, mean + row, rstd + row, d, eps,
+      threadIdx.x & 31, 32, nullptr);
+}
+
+template <typename T, typename G, int V>
+__global__ void __launch_bounds__(32 * kBlockRowWarps, kBlockRowMinBlocks)
+layer_norm_fwd_block_kernel(const T* __restrict__ x,
+                            const G* __restrict__ gamma,
+                            const G* __restrict__ beta, T* __restrict__ y,
+                            float* __restrict__ mean,
+                            float* __restrict__ rstd, int d, float eps) {
+  __shared__ float slots[64];
+  const long long row = blockIdx.x;
+  layer_norm_regs_row<T, G, V, kRowElems, true>(
+      x + row * d, gamma, beta, y + row * d, mean + row, rstd + row, d, eps,
+      threadIdx.x, blockDim.x, slots);
+}
+
+// Rows wider than kBlockRowMax: one block a row, looping over it.
+template <typename T, typename G>
+__global__ void __launch_bounds__(1024)
+layer_norm_fwd_loop_kernel(const T* __restrict__ x,
+                           const G* __restrict__ gamma,
+                           const G* __restrict__ beta, T* __restrict__ y,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ rstd_out, int d, float eps) {
   __shared__ float red[32];
   const size_t row = blockIdx.x;
   const T* xr = x + row * d;
@@ -88,13 +188,56 @@ layer_norm_dx_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
   }
 }
 
+struct FwdArgs {
+  const void* x;
+  const void* gamma;
+  const void* beta;
+  void* y;
+  float* mean;
+  float* rstd;
+  int n, d;
+  float eps;
+};
+
+template <typename T, typename G, int V, int E>
+void fwd_warp(const FwdArgs& a, cudaStream_t stream) {
+  layer_norm_fwd_kernel<T, G, V, E>
+      <<<(a.n + kWarpRows - 1) / kWarpRows, 32 * kWarpRows, 0, stream>>>(
+          static_cast<const T*>(a.x), static_cast<const G*>(a.gamma),
+          static_cast<const G*>(a.beta), static_cast<T*>(a.y), a.mean,
+          a.rstd, a.n, a.d, a.eps);
+}
+
+// The register kernels at packs of V elements (d <= kBlockRowMax).
+template <typename T, typename G, int V>
+void fwd_packs(const FwdArgs& a, cudaStream_t stream) {
+  if (a.d > kWarpRowMax) {
+    layer_norm_fwd_block_kernel<T, G, V>
+        <<<a.n, block_row_threads(a.d), 0, stream>>>(
+            static_cast<const T*>(a.x), static_cast<const G*>(a.gamma),
+            static_cast<const G*>(a.beta), static_cast<T*>(a.y), a.mean,
+            a.rstd, a.d, a.eps);
+    return;
+  }
+  switch (warp_row_elems(a.d)) {
+    case 8: fwd_warp<T, G, V, 8>(a, stream); break;
+    case 16: fwd_warp<T, G, V, 16>(a, stream); break;
+    default: fwd_warp<T, G, V, 32>(a, stream); break;
+  }
+}
+
 template <typename T, typename G>
-int launch_fwd(const void* x, const void* gamma, const void* beta, void* y,
-               float* mean, float* rstd, int n, int d, float eps,
-               cudaStream_t stream) {
-  layer_norm_fwd_kernel<T, G><<<n, row_threads(d), 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const G*>(gamma),
-      static_cast<const G*>(beta), static_cast<T*>(y), mean, rstd, d, eps);
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  if (a.d > kBlockRowMax)
+    layer_norm_fwd_loop_kernel<T, G><<<a.n, row_threads(a.d), 0, stream>>>(
+        static_cast<const T*>(a.x), static_cast<const G*>(a.gamma),
+        static_cast<const G*>(a.beta), static_cast<T*>(a.y), a.mean, a.rstd,
+        a.d, a.eps);
+  else if (a.d % kVec16<T> == 0 && aligned16(a.x) && aligned16(a.y) &&
+           aligned16(a.gamma) && aligned16(a.beta))
+    fwd_packs<T, G, kVec16<T>>(a, stream);
+  else
+    fwd_packs<T, G, 1>(a, stream);
   return (int)cudaGetLastError();
 }
 
@@ -118,22 +261,16 @@ extern "C" int dstorch_layer_norm_fwd(const void* x, const void* gamma,
                                       int dtype, int param_f32, void* stream) {
   if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FwdArgs a{x, gamma, beta, y, mean, rstd, n, d, eps};
   switch (dtype) {
     case kF32:
-      return launch_fwd<float, float>(x, gamma, beta, y, mean, rstd, n, d,
-                                      eps, s);
+      return launch_fwd<float, float>(a, s);
     case kBF16:
-      return param_f32
-          ? launch_fwd<__nv_bfloat16, float>(x, gamma, beta, y, mean, rstd,
-                                             n, d, eps, s)
-          : launch_fwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mean,
-                                                     rstd, n, d, eps, s);
+      return param_f32 ? launch_fwd<__nv_bfloat16, float>(a, s)
+                       : launch_fwd<__nv_bfloat16, __nv_bfloat16>(a, s);
     case kF16:
-      return param_f32
-          ? launch_fwd<__half, float>(x, gamma, beta, y, mean, rstd, n, d,
-                                      eps, s)
-          : launch_fwd<__half, __half>(x, gamma, beta, y, mean, rstd, n, d,
-                                       eps, s);
+      return param_f32 ? launch_fwd<__half, float>(a, s)
+                       : launch_fwd<__half, __half>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,7 +3,9 @@
 Counterpart of ``deepspeed_tpu/ops/pallas/softmax.py``. The Pallas kernels
 ``_fwd_kernel`` and ``_bwd_kernel`` (B8) become the CUDA kernels in
 ``csrc/softmax.cu``: one warp per row up to 1024 columns, one block per
-wider row, max and sum in f32.
+wider row, max and sum in f32. The forward holds each row in registers (up
+to 16384 columns) and reads and writes it in 16-byte packs when the width
+and the pointers allow.
 
 :func:`fused_softmax` is the entry (a :class:`FusedSoftmax`
 ``autograd.Function``): softmax over the last dim of ``x [..., Sq, S]``,

@@ -700,9 +700,12 @@ def _launched(names, before):
 
 @pytest.mark.parametrize("param_f32", [True, False])
 @pytest.mark.parametrize("dtype", ROW_DTYPES)
-@pytest.mark.parametrize("d", [96, 1000, 1024, 4096, 8192])
-@pytest.mark.parametrize("n", [1, 12, 4096])
+@pytest.mark.parametrize("d", [96, 1000, 1016, 1024, 1032, 2048, 4096, 8192])
+@pytest.mark.parametrize("n", [1, 12, 37, 4096])
 def test_layer_norm_kernels_match_plain(dev, n, d, dtype, param_f32):
+    """d up to 1024 takes a warp a row (8, 16 or 32 elements a lane), wider
+    rows a block of up to 16 warps; 37 rows leave a block's last warps
+    without a row."""
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
     g = torch.Generator(device=dev).manual_seed(n + d)
@@ -767,10 +770,11 @@ def test_bias_gelu_kernel_on_a_misaligned_view(dev):
 @pytest.mark.parametrize("dtype", ROW_DTYPES)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("square", [True, False])
-@pytest.mark.parametrize("S", [1, 77, 512, 1025, 4096])
+@pytest.mark.parametrize("S", [1, 77, 512, 1023, 1024, 1025, 2048, 4096])
 def test_softmax_kernels_match_plain(dev, S, square, causal, dtype):
-    """Rows of up to 1024 take a warp, wider rows a block; a non-square
-    [.., 5, S] score matrix is masked top-left."""
+    """Rows of up to 1024 take a warp, wider rows a block; S 1, 77, 1023 and
+    1025 are no whole number of 16-byte packs (one element a pack); a
+    non-square [.., 5, S] score matrix (10 rows) is masked top-left."""
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import softmax as sm
     sq = S if square else 5
@@ -792,6 +796,115 @@ def test_softmax_kernels_match_plain(dev, S, square, causal, dtype):
         rows = torch.arange(y.shape[0], device=dev)[:, None] % sq
         above = torch.arange(S, device=dev)[None, :] > rows
         assert float((y.float() * above).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("d", [1000, 1024, 4096])
+def test_layer_norm_forward_on_a_misaligned_view(dev, d, dtype):
+    """x, gamma and beta start one element past a 16-byte boundary: the
+    register kernels at one element a pack."""
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator(device=dev).manual_seed(d)
+    n = 37
+    x = (torch.randn(n * d + 1, device=dev, generator=g) * 3 + 1).to(
+        dtype)[1:].view(n, d)
+    params = (1 + 0.3 * torch.randn(2 * d + 2, device=dev, generator=g)).to(
+        dtype)
+    gamma, beta = params[1:d + 1], params[d + 2:]
+    assert x.data_ptr() % 16 and gamma.data_ptr() % 16 and beta.data_ptr() % 16
+    y, mean, rstd = ln.layer_norm_forward(x, gamma, beta, 1e-5)
+    ry, rmean, rrstd = ln.layer_norm_forward_reference(x, gamma, beta, 1e-5)
+    torch.testing.assert_close(y.float(), ry.float(), **ROW_FWD_TOL[dtype])
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("S", [512, 1024, 2048])
+def test_softmax_forward_on_a_misaligned_view(dev, S, dtype):
+    """x starts one element past a 16-byte boundary: the register kernels
+    at one element a pack."""
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
+    g = torch.Generator(device=dev).manual_seed(S)
+    n = 37
+    x = (3 * torch.randn(n * S + 1, device=dev, generator=g)).to(
+        dtype)[1:].view(n, S)
+    assert x.data_ptr() % 16
+    for causal in (False, True):
+        torch.testing.assert_close(
+            sm.softmax_forward(x, 7, causal).float(),
+            sm.softmax_forward_reference(x, 7, causal).float(),
+            **ROW_FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("S", [512, 1024, 2048])
+def test_softmax_forward_at_large_magnitudes(dev, S, dtype):
+    """Rows of +-1e4 and the causal row 0 (every column but the first at
+    -1e30): exactly one 1.0 in each, the rest 0, no NaN."""
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
+    g = torch.Generator(device=dev).manual_seed(S + 1)
+    n = 12
+    hot = torch.randint(0, S, (n,), device=dev, generator=g)
+    x = torch.full((n, S), -1e4, device=dev)
+    x[torch.arange(n, device=dev), hot] = 1e4
+    x = x.to(dtype)
+    for causal, sq, cols in ((False, n, hot), (True, n, None)):
+        y = sm.softmax_forward(x, sq, causal).float()
+        ry = sm.softmax_forward_reference(x, sq, causal).float()
+        assert not bool(y.isnan().any())
+        torch.testing.assert_close(y, ry, **ROW_FWD_TOL[dtype])
+        if cols is not None:
+            assert bool((y[torch.arange(n, device=dev), cols] == 1).all())
+            assert int((y == 1).sum()) == n and int((y != 0).sum()) == n
+        else:
+            assert float(y[0, 0]) == 1.0 and int((y[0] != 0).sum()) == 1
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("width", [16384, 16392, 16393])
+def test_row_forwards_at_the_register_limit(dev, width, dtype):
+    """16384 is the widest row a block holds in registers; wider rows take
+    the looping kernels."""
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
+    g = torch.Generator(device=dev).manual_seed(width)
+    x = (3 * torch.randn(37, width, device=dev, generator=g) + 1).to(dtype)
+    gamma = (1 + 0.3 * torch.randn(width, device=dev, generator=g)).to(dtype)
+    beta = (0.3 * torch.randn(width, device=dev, generator=g)).to(dtype)
+    y, mean, rstd = ln.layer_norm_forward(x, gamma, beta, 1e-5)
+    ry, rmean, rrstd = ln.layer_norm_forward_reference(x, gamma, beta, 1e-5)
+    torch.testing.assert_close(y.float(), ry.float(), **ROW_FWD_TOL[dtype])
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+    for causal in (False, True):
+        torch.testing.assert_close(
+            sm.softmax_forward(x, 7, causal).float(),
+            sm.softmax_forward_reference(x, 7, causal).float(),
+            **ROW_FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_row_forwards_repeat_bitwise(dev, dtype):
+    """A second call of each forward on the same inputs gives the same
+    bits, on every path (warp rows, block rows, one element a pack)."""
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    from deepspeed_tpu_torch.ops.cuda import softmax as sm
+    g = torch.Generator(device=dev).manual_seed(11)
+    for d in (96, 1024, 1025, 4096):
+        x = torch.randn(37, d, device=dev, generator=g).to(dtype)
+        gamma = torch.randn(d, device=dev, generator=g).to(dtype)
+        beta = torch.randn(d, device=dev, generator=g).to(dtype)
+        first = ln.layer_norm_forward(x, gamma, beta, 1e-5)
+        second = ln.layer_norm_forward(x, gamma, beta, 1e-5)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), d
+    for S in (77, 512, 1024, 1025, 4096):
+        x = (3 * torch.randn(2, 5, S, device=dev, generator=g)).to(
+            dtype).view(-1, S)
+        for causal in (False, True):
+            assert torch.equal(sm.softmax_forward(x, 5, causal),
+                               sm.softmax_forward(x, 5, causal)), S
 
 
 def test_masked_softmax_kernel_matches_plain(dev):

@@ -69,9 +69,11 @@ def _vjp(jax_fn, torch_fn, j_args, t_args, j_w, t_w):
 
 @pytest.mark.parametrize("dtype,param", [("f32", "f32"), ("bf16", "bf16"),
                                          ("bf16", "f32")])
-@pytest.mark.parametrize("d", [32, 96])
+@pytest.mark.parametrize("d", [32, 96, 1024, 1032])
 @pytest.mark.parametrize("n", [64, 12])
 def test_layer_norm_matches_jax(n, d, dtype, param):
+    """d 1024 is the widest row the CUDA forward holds in one warp, 1032
+    the narrowest it holds in a block."""
     from deepspeed_tpu.ops.pallas.layer_norm import layer_norm as jax_ln
     from deepspeed_tpu_torch.ops.transformer import layer_norm
     rng = np.random.default_rng(n * 100 + d)
@@ -136,6 +138,12 @@ SOFTMAX_SHAPES = {
     "square": (2, 4, 16, 16),       # N = 128
     "non_square": (2, 3, 8, 24),    # N = 48, Sq = 8 < S: top-left causal
     "untileable": (3, 4, 4),        # N = 12: the JAX op's XLA expression
+    # the CUDA forward's path edges: S 1024, the widest row one warp holds,
+    # and 1025, the narrowest a block holds (no whole 16-byte pack)
+    "wide_square": (1, 1024, 1024),       # N = 1024
+    "wide_non_square": (2, 8, 1024),      # N = 16
+    "ragged_non_square": (2, 8, 1025),    # N = 16
+    "ragged_square": (1025, 1025),        # N = 1025: XLA
 }
 
 
@@ -145,7 +153,14 @@ SOFTMAX_SHAPES = {
                                          ("square", "bf16"),
                                          ("non_square", "f32"),
                                          ("non_square", "bf16"),
-                                         ("untileable", "f32")])
+                                         ("untileable", "f32"),
+                                         ("wide_square", "f32"),
+                                         ("wide_square", "bf16"),
+                                         ("wide_non_square", "f32"),
+                                         ("wide_non_square", "bf16"),
+                                         ("ragged_non_square", "f32"),
+                                         ("ragged_non_square", "bf16"),
+                                         ("ragged_square", "f32")])
 @pytest.mark.parametrize("causal", [False, True])
 def test_fused_softmax_matches_jax(shape, causal, dtype):
     from deepspeed_tpu.ops.pallas.softmax import fused_softmax as jax_sm
