@@ -8,8 +8,12 @@ Phases (any failure exits non-zero before the result lines):
      count the wgmma (SASS HGMMA) instructions of each 16-bit flash kernel
      and the TMA (UTMALDG, or UBLKCP for a plain bulk copy) instructions of
      each decode kernel in the built library (cuobjdump; fails if one has
-     none); the registers a thread of each LayerNorm and softmax forward
-     kernel (cuobjdump --dump-resource-usage);
+     none), and the HGMMA, UTMALDG and HMMA instructions of each 16-bit
+     sparse backward kernel (fails without the first two or with an HMMA);
+     the registers a thread of each LayerNorm and softmax forward kernel
+     and of each 16-bit sparse backward kernel (cuobjdump
+     --dump-resource-usage; fails on a sparse backward kernel with local
+     memory or a stack frame);
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
      retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2;
@@ -82,7 +86,8 @@ Phases (any failure exits non-zero before the result lines):
  16. the sparse kernels' device times at the training shape beside their
      plain versions, scaled_dot_product_attention with the expanded boolean
      mask (dense work; at the largest S that fits, stated) and their
-     bounds (live (q, k) pairs of the layout, causal);
+     bounds (live (q, k) pairs of the layout, causal), each time also as a
+     multiple of its bound;
  17. sparse BERT: BertForMaskedLM at bert_base width, max_seq_len 4096,
      bf16, BigBird block 64 (bidirectional), batch 4 of real lengths 4096,
      3000, 1500, 40 padded by pad_to_block_size with a batch-wide
@@ -969,8 +974,8 @@ def phase_sparse_parity(torch, sa, dev, gen):
           f"fp16 atol {FLASH_TOL[0]} + rtol {FLASH_TOL[1]} |ref|, f32 "
           f"{SPARSE_F32_TOL})", flush=True)
     # the training shape with the bench's layout; its global key tile is
-    # split over 32 dk/dv blocks, whose partials are summed in a fixed
-    # order: a second backward gives bitwise the same grads
+    # split over 512 / DKV_CHUNK dk/dv items, whose partials are summed in a
+    # fixed order: a second backward gives bitwise the same grads
     layout = _layout(bench_sparsity(12), LONG_SEQ, True, dev)
     q, k, v, do = _qkv(torch, dev, gen, 1, LONG_SEQ, 12, 64)
     e, (_, _, ro, rl, grads) = _sparse_pair(torch, sa, layout, q, k, v, do,
@@ -1071,7 +1076,9 @@ def phase_long_model_check(torch, sa, dev, engine, cfg, ids):
 
 def phase_long_profile(torch, engine, ids, card):
     """One warmed long-context step (micro 1 x gas 1) timed without the
-    profiler, then one under it; idle share against the unprofiled wall."""
+    profiler, then one under it; idle share against the unprofiled wall.
+    Returns the step's wall, device busy ms, idle share and device ms by
+    sparse kernel."""
     from torch.profiler import ProfilerActivity, profile
     batch = [{"input_ids": ids}]
     engine.train_batch(iter(batch))
@@ -1095,6 +1102,10 @@ def phase_long_profile(torch, engine, ids, card):
           f"device_kernels={sum(r[1] for r in rows)} card={card}", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"phase15 kernel ms={ms} count={count} {key[:90]}", flush=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "sparse_ms": {key: ms for ms, _, key in rows
+                          if "sparse_" in key}}
 
 
 def _sdpa_with_mask(torch, dev, gen, S):
@@ -1185,6 +1196,11 @@ def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
         t[name]["bound_by"] = "bytes" if tb >= tf else "operations"
         for key, val in t[name].items():
             print(f"{name}_{key}={val} card={card}", flush=True)
+        print(f"phase16 {name} {t[name]['ms']} ms = "
+              f"{t[name]['ms'] / t[name]['bound_ms']} x its bound "
+              f"({t[name]['bound_by']}); plain {t[name]['plain_ms']} ms, "
+              f"SDPA with the mask {t[name]['library_ms']} ms card={card}",
+              flush=True)
     return t
 
 
@@ -2202,11 +2218,12 @@ def _cuobjdump():
             or next(iter(glob.glob("/usr/local/cuda/bin/cuobjdump")), None))
 
 
-def row_registers(_build):
-    """{kernel: (registers a thread, local bytes)} of the LayerNorm and
-    softmax forward kernels in the built library (cuobjdump
-    --dump-resource-usage), names demangled where c++filt is on PATH; None
-    without cuobjdump."""
+def row_registers(_build, names=("layer_norm_fwd", "softmax_fwd")):
+    """{kernel: (registers a thread, local bytes)} of the kernels whose
+    names hold one of ``names`` (default: the LayerNorm and softmax
+    forwards) in the built library (cuobjdump --dump-resource-usage; local
+    bytes count the stack frame, where spills go, and local memory), names
+    demangled where c++filt is on PATH; None without cuobjdump."""
     import glob
     import re
     import shutil
@@ -2218,10 +2235,12 @@ def row_registers(_build):
                            capture_output=True, text=True, check=True,
                            timeout=300).stdout
     found = {}
-    for m in re.finditer(r"Function (\S+):\s*REG:(\d+).*?LOCAL:(\d+)",
-                         usage):
-        if "layer_norm_fwd" in m.group(1) or "softmax_fwd" in m.group(1):
-            found[m.group(1)] = (int(m.group(2)), int(m.group(3)))
+    for m in re.finditer(r"Function (\S+):\s*([^\n]*)", usage):
+        if any(n in m.group(1) for n in names):
+            field = {k: int(v) for k, v in
+                     re.findall(r"(REG|STACK|LOCAL):(\d+)", m.group(2))}
+            found[m.group(1)] = (field["REG"], field.get("STACK", 0)
+                                 + field.get("LOCAL", 0))
     if shutil.which("c++filt") and found:
         names = subprocess.run(["c++filt"], input="\n".join(found),
                                capture_output=True, text=True, check=True,
@@ -2252,6 +2271,25 @@ def phase_row_registers(_build):
           flush=True)
 
 
+def phase_sparse_registers(_build):
+    """Registers a thread and local bytes (stack and local memory) of each
+    16-bit sparse backward kernel (B5b); fails on any local memory."""
+    regs = row_registers(_build, ("sparse_bwd_dq_wgmma",
+                                  "sparse_bwd_dkv_wgmma"))
+    if regs is None:
+        print("phase1 sparse backward registers: no cuobjdump, not "
+              "measured", flush=True)
+        return
+    if len(regs) != 32:
+        fail(f"expected 32 sparse backward wgmma kernels, found {len(regs)}")
+    spilled = {n: r for n, r in regs.items() if r[1] > 0}
+    if spilled:
+        fail(f"sparse backward kernels with local memory: {spilled}")
+    print(f"phase1 sparse backward wgmma kernels: {len(regs)}, registers a "
+          f"thread {sorted({r[0] for r in regs.values()})} (the launch's; "
+          "setmaxnreg moves them to 224 / 56), no local memory", flush=True)
+
+
 def phase_sass(_build):
     """From the built library's SASS (cuobjdump, the toolkit's or on PATH):
     the HGMMA (wgmma) instructions of each 16-bit flash kernel, and the
@@ -2268,6 +2306,7 @@ def phase_sass(_build):
     sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     flash, decode, name = {}, {}, None
+    sparse = {}          # name: [HGMMA, UTMALDG, HMMA]
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -2276,10 +2315,16 @@ def phase_sass(_build):
                 flash[name] = 0
             elif "decode_attention_kernel" in name:
                 decode[name] = 0
+            elif "sparse_bwd_d" in name and "wgmma" in name:
+                sparse[name] = [0, 0, 0]
         elif name in flash and "HGMMA" in line:
             flash[name] += 1
         elif name in decode and ("UBLKCP" in line or "UTMALDG" in line):
             decode[name] += 1
+        elif name in sparse:
+            for i, insn in enumerate((r"\bHGMMA", r"\bUTMALDG",
+                                      r"\bHMMA\b")):
+                sparse[name][i] += bool(re.search(insn, line))
     for what, counts, insn in (("16-bit flash", flash, "HGMMA"),
                                ("decode", decode, "UTMALDG")):
         if not counts or min(counts.values()) == 0:
@@ -2288,6 +2333,14 @@ def phase_sass(_build):
               f"{sum(counts.values())} {insn} instructions "
               f"({min(counts.values())}-{max(counts.values())} each)",
               flush=True)
+    if (len(sparse) != 32 or any(h == 0 or u == 0 or mma
+                                 for h, u, mma in sparse.values())):
+        fail("the 16-bit sparse backward kernels want HGMMA and UTMALDG and "
+             f"no HMMA each: {sparse}")
+    print(f"phase1 16-bit sparse backward SASS: {len(sparse)} kernels, "
+          f"{sum(c[0] for c in sparse.values())} HGMMA and "
+          f"{sum(c[1] for c in sparse.values())} UTMALDG instructions, "
+          "no HMMA", flush=True)
 
 
 def main(argv=None) -> int:
@@ -2321,6 +2374,7 @@ def main(argv=None) -> int:
           flush=True)
     phase_sass(_build)
     phase_row_registers(_build)
+    phase_sparse_registers(_build)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)

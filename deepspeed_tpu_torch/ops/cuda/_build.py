@@ -4,9 +4,10 @@ The ``.cu`` sources under ``csrc/`` expose plain C functions (no PyTorch
 headers, so ``nvcc`` takes seconds, not minutes): decode attention and its
 paged / int8 forms (B2, B3), sampling (B4), flash attention (B1, B1b),
 block-sparse attention (B5, B5b), LayerNorm (B6), bias-GELU (B7) and
-softmax (B8). The sparse and flash sources share ``attention_tiles.cuh``,
-the two decode sources (dense, paged) ``decode_attention.cuh``, the
-row-wise ones ``rowwise.cuh``. At first use they are compiled for Hopper
+softmax (B8). The sparse and flash sources share ``attention_tiles.cuh``
+and the Hopper machinery of their wgmma kernels, ``hopper.cuh``, the two
+decode sources (dense, paged) ``decode_attention.cuh``, the row-wise ones
+``rowwise.cuh``. At first use they are compiled for Hopper
 (``sm_90a``) by ``torch.utils.cpp_extension.load`` into one library in
 ``deepspeed_tpu_torch/_build/`` (listed in ``.gitignore``) and bound with
 ``ctypes``. A build error raises; nothing here catches it.
@@ -64,8 +65,9 @@ _SIGNATURES = {
     # lut_len, shift, kvm, B, S, H, d, causal, scale, dtype, stream
     "dstorch_sparse_fwd": [_vp] * 9 + [_int] * 2 + [_vp] + [_int] * 5
     + [_float, _int, _vp],
-    "dstorch_sparse_bwd_dq": [_vp] * 11 + [_int] * 2 + [_vp] + [_int] * 5
-    + [_float, _int, _vp],
+    # dq: lut_len and shift are followed by items, n_items
+    "dstorch_sparse_bwd_dq": [_vp] * 11 + [_int] * 2 + [_vp, _int, _vp]
+    + [_int] * 5 + [_float, _int, _vp],
     # dk/dv: lut_len and shift are followed by items, n_items, parts, ws,
     # tickets
     "dstorch_sparse_bwd_dkv": [_vp] * 12 + [_int] * 2 + [_vp] + [_int] * 2

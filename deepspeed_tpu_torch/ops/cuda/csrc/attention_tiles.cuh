@@ -1,7 +1,8 @@
 // Tile building blocks of the block-sparse attention kernels for Hopper
-// (sm_90a), sparse_attention.cu (B5, B5b); the f32 parts also serve the f32
-// flash kernels of flash_attention.cu (whose 16-bit kernels are wgmma
-// kernels of their own):
+// (sm_90a), sparse_attention.cu (the B5 forward, the f32 B5b kernels); the
+// f32 parts also serve the f32 flash kernels of flash_attention.cu (the
+// 16-bit flash kernels and the 16-bit sparse backward are wgmma kernels on
+// hopper.cuh):
 //
 //   * bf16 / fp16: mma.sync m16n8k16 fragments (16-bit in, f32 accumulate),
 //     tiles of kRows rows staged in shared memory with rows padded by 16

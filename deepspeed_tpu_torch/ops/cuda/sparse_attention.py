@@ -3,21 +3,24 @@
 Counterpart of the kernels of
 ``deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py``: the Pallas
 ``_fwd_kernel`` (B5), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (B5b) become
-the CUDA kernels in ``csrc/sparse_attention.cu``, on the tile code of
-``csrc/attention_tiles.cuh`` (bf16 and fp16 on tensor cores,
-f32 on CUDA cores; head dims 32, 64, 96, 128).
+the CUDA kernels in ``csrc/sparse_attention.cu``: the bf16 / fp16 backward
+as persistent wgmma kernels fed by TMA through an mbarrier ring (the
+machinery of ``csrc/hopper.cuh``, shared with flash), the bf16 / fp16
+forward on the mma.sync tile code of ``csrc/attention_tiles.cuh``, f32 on
+CUDA cores; head dims 32, 64, 96, 128.
 
 The layout arrives as a :class:`TileLayout`: the fine layout compiled at the
 kernels' 64-row tile (``ops/sparse_attention/sparse_self_attention.py``
 builds it once per (seq_len, causal) and keeps it on each device). It holds a
 row LUT (live key tiles of each (head, query tile), for the forward and dq),
 a column LUT (live query tiles of each (head, key tile), for dk/dv), for
-each live tile pair a 64-bit mask of its live fine blocks, and the dk/dv
-kernel's work items (a long column-LUT row is split over several blocks,
-each writing its f32 partial to its own slot of a workspace the wrapper
-allocates; the last to finish sums them in item order, so dk and dv are
-bitwise reproducible from run to run). The list of live tile pairs, which
-only the plain versions read, stays on the host.
+each live tile pair a 64-bit mask of its live fine blocks, and the backward
+kernels' work lists: the dq kernel's (head, query tile) pairs, longest LUT
+rows first, and the dk/dv kernel's items (a long column-LUT row is split
+over several items, each writing its f32 partial to its own slot of a
+workspace the wrapper allocates; the partials are summed in a fixed order,
+so dk and dv are bitwise reproducible from run to run). The list of
+live tile pairs, which only the plain versions read, stays on the host.
 
 Semantics are the TPU kernels': key j is visible to query i when its fine
 block is live, (causal) j <= i and (with ``kvm``, an f32 ``[B, S]``
@@ -47,6 +50,7 @@ from .flash_attention import _stride_array, _strided, attention_delta
 
 NEG_INF = -1e30        # the TPU kernels' mask value
 TILE = 64              # rows of the kernels' tiles (kRows in the sources)
+_TICKET_LEVELS = 16    # a split tile's combine tree (kLevels in the source)
 
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -70,7 +74,9 @@ class TileLayout(NamedTuple):
     lut_q: torch.Tensor        # int32 [H, nt, Lq]  live query tiles
     cnt_q: torch.Tensor        # int32 [H, nt]
     bits_q: torch.Tensor       # int64 [H, nt, Lq]
-    dkv_items: torch.Tensor    # int32 [n, 7]: the dk/dv kernel's blocks
+    dq_items: torch.Tensor     # int32 [H * nt, 2]: the dq kernel's work
+    #                            list (head, query tile), longest rows first
+    dkv_items: torch.Tensor    # int32 [n, 7]: the dk/dv kernel's items
     dkv_parts: int             # workspace partials of the split key tiles
     pairs: tuple               # host int64 [P] x 4: head, query tile, key
     #                            tile and mask of every live tile pair, in
@@ -297,15 +303,16 @@ def sparse_attention_backward(q, k, v, out, lse, dout, layout: TileLayout,
     if layout.dkv_parts:
         ws = torch.empty(b, layout.dkv_parts, 2, TILE, d, dtype=torch.float32,
                          device=q.device)
-        tickets = torch.zeros(b, layout.dkv_parts, dtype=torch.int32,
-                              device=q.device)
+        tickets = torch.zeros(b, layout.dkv_parts, _TICKET_LEVELS,
+                              dtype=torch.int32, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.dstorch_sparse_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), strides,
             *_lut_args(layout.lut_k, layout.cnt_k, layout.bits_k,
-                       layout.shift), *tail)
+                       layout.shift),
+            layout.dq_items.data_ptr(), layout.dq_items.shape[0], *tail)
         _build.check(err, "sparse_bwd_dq")
         _build.LAUNCHES["sparse_bwd_dq"] += 1
         err = lib.dstorch_sparse_bwd_dkv(

@@ -33,7 +33,7 @@ from ..cuda.sparse_attention import TILE, SparseAttention, TileLayout
 from .sparsity_config import SparsityConfig
 
 
-DKV_CHUNK = 16        # column-LUT entries per block of the dk/dv kernel
+DKV_CHUNK = 32        # column-LUT entries per item of the dk/dv kernel
 
 
 def _dkv_items(cnt_q: np.ndarray):
@@ -57,6 +57,15 @@ def _dkv_items(cnt_q: np.ndarray):
     return items[np.argsort(items[:, 2] - items[:, 3], kind="stable")], parts
 
 
+def _dq_items(cnt_k: np.ndarray) -> np.ndarray:
+    """The dq kernel's work list [n, 2] (head, query tile): every (head,
+    query tile) once, the longest row-LUT rows first (ties in (head, tile)
+    order), so the persistent kernel's last rounds are its shortest."""
+    h, qt = np.divmod(np.argsort(-cnt_k.reshape(-1), kind="stable"),
+                      cnt_k.shape[1])
+    return np.stack([h, qt], 1).astype(np.int32)
+
+
 def _build_lut(coarse: np.ndarray, bits: np.ndarray):
     """Per row of ``coarse`` [H, n, m] (bool), the live columns in order,
     their masks from ``bits`` [H, n, m], and the counts."""
@@ -74,8 +83,11 @@ class CompiledLayout:
     """The look-up tables of one (layout, seq_len, causal): a row LUT of
     live key tiles per (head, query tile) for the forward and dq, a column
     LUT of live query tiles per (head, key tile) for dk/dv, the fine-block
-    mask of every live tile pair, and the list of live pairs for the plain
-    versions. Host arrays; :meth:`on` gives the tensors on a device."""
+    mask of every live tile pair, the backward kernels' work lists (dq:
+    query tiles longest first; dk/dv: runs of at most ``DKV_CHUNK``
+    column-LUT entries, longest first), and the list of live pairs for the
+    plain versions. Host arrays; :meth:`on` gives the tensors on a
+    device."""
 
     def __init__(self, fine: np.ndarray, block: int, seq_len: int,
                  causal: bool):
@@ -109,6 +121,7 @@ class CompiledLayout:
         self.lut_k, self.cnt_k, self.bits_k = _build_lut(coarse, bits)
         self.lut_q, self.cnt_q, self.bits_q = _build_lut(
             coarse.transpose(0, 2, 1), bits.transpose(0, 2, 1))
+        self.dq_items = _dq_items(self.cnt_k)
         self.dkv_items, self.dkv_parts = _dkv_items(self.cnt_q)
         ph, pq, pk = np.nonzero(coarse)
         self.pairs = (ph.astype(np.int64), pq.astype(np.int64),
@@ -126,7 +139,8 @@ class CompiledLayout:
                 self.seq_len, self.causal, self.shift,
                 t(self.lut_k), t(self.cnt_k), t(self.bits_k),
                 t(self.lut_q), t(self.cnt_q), t(self.bits_q),
-                t(self.dkv_items), self.dkv_parts, self.pairs)
+                t(self.dq_items), t(self.dkv_items), self.dkv_parts,
+                self.pairs)
         return self._on[key]
 
 

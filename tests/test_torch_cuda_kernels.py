@@ -546,30 +546,130 @@ def test_sparse_kernels_match_plain(dev, dtype, causal, masked, block, S):
 
 @pytest.mark.parametrize("dtype", SPARSE_DTYPES)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("block,S", [(32, 1536), (64, 2048)])
+@pytest.mark.parametrize("block,S", [(32, 2560), (64, 4096)])
 def test_sparse_dkv_split_rows_match_plain(dev, dtype, causal, block, S):
-    """Global key tiles seen by more than 16 query tiles: the dk/dv kernel
-    splits their column-LUT rows over several blocks (a workspace partial
-    each, the last block sums them in item order and stores), so a second
-    call gives bitwise the same dk and dv."""
-    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    """Global key tiles seen by more query tiles than DKV_CHUNK: the dk/dv
+    kernel splits their column-LUT rows over several items, each writing a
+    workspace partial, summed in a fixed order, so repeated calls give
+    bitwise the same dq, dk and dv."""
     from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
     from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
         import compiled_layout
     cfg = BigBirdSparsityConfig(num_heads=2, block=block)
-    layout = compiled_layout(cfg, S, causal)
-    assert layout.dkv_parts > 0
+    assert compiled_layout(cfg, S, causal).dkv_parts > 0
     q, k, v, do = _qkv_views(dev, 2, S, 2, 64, dtype, S)
     kvm = torch.ones(2, S, device=dev)
     kvm[1, S // 3:] = 0
     for mask in (None, kvm):
-        out, lse, _ = _sparse_check(dev, cfg, q, k, v, do, causal, mask,
+        _sparse_repeats(dev, cfg, q, k, v, do, causal, mask, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_dkv_split_into_three_items(dev, causal):
+    """A global key tile split over three items: the 16-bit kernel's combine
+    tree pairs ranks 0 and 1 and carries rank 2 up alone. fp16: in bf16
+    the sums of 5120 rounded terms of this input leave one small element of
+    dk just over the elementwise bound, as they did before the combine
+    tree (the kernels round p and dS to the input type, the plain version
+    does not)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import compiled_layout
+    S = 5120
+    cfg = BigBirdSparsityConfig(num_heads=2, block=16)
+    lay = compiled_layout(cfg, S, causal)
+    assert set(lay.dkv_items[lay.dkv_items[:, 4] >= 0, 6]) == {3}
+    q, k, v, do = _qkv_views(dev, 2, S, 2, 64, torch.float16, S)
+    kvm = torch.ones(2, S, device=dev)
+    kvm[1, S // 3:] = 0
+    for mask in (None, kvm):
+        _sparse_repeats(dev, cfg, q, k, v, do, causal, mask, torch.float16)
+
+
+def _sparse_repeats(dev, cfg, q, k, v, do, causal, kvm, dtype):
+    """The kernels against the plain versions, then four backwards that
+    must give bitwise the same dq, dk and dv."""
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import compiled_layout
+    out, lse, grads = _sparse_check(dev, cfg, q, k, v, do, causal, kvm,
                                     dtype)
-        grads = [sa.sparse_attention_backward(q, k, v, out, lse, do,
-                                              layout.on(dev), 1 / 8, mask)
-                 for _ in range(4)]
-        for again in grads[1:]:
-            assert all(torch.equal(a, g) for a, g in zip(again, grads[0]))
+    layout = compiled_layout(cfg, q.shape[1], causal).on(dev)
+    runs = [sa.sparse_attention_backward(q, k, v, out, lse, do, layout,
+                                         q.shape[-1] ** -0.5, kvm)
+            for _ in range(4)]
+    for again in runs[1:]:
+        for name, a, g in zip(("dq", "dk", "dv"), again, runs[0]):
+            assert torch.equal(a, g), name
+    return out, lse, grads
+
+
+# the 16-bit backward's persistent schedule: more work items than two
+# pipelines on every SM (B=2, H=4, S=4096: 512 of each kernel), fewer than
+# one block's two pipelines (one item), and a ragged S whose global column
+# LUT is split
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,S,block", [(2, 4, 4096, 64), (1, 1, 64, 16),
+                                         (1, 2, 4000, 16)])
+def test_sparse_backward_schedules_match_plain(dev, dtype, B, H, S, block):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import compiled_layout
+    cfg = BigBirdSparsityConfig(num_heads=H, block=block,
+                                different_layout_per_head=True,
+                                num_random_blocks=2)
+    lay = compiled_layout(cfg, S, True)
+    items = lay.dq_items.shape[0] * B
+    if S == 4096:
+        assert items > 2 * 132 and lay.dkv_items.shape[0] * B > 2 * 132
+    elif S == 64:
+        assert items == 1
+    else:
+        assert lay.dkv_parts > 0
+    q, k, v, do = _qkv_views(dev, B, S, H, 64, dtype, S)
+    _sparse_repeats(dev, cfg, q, k, v, do, True, None, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_key_padding_inside_a_tile(dev, dtype, causal):
+    """Block 64 (one bit a tile pair) with key-padding masks that cut inside
+    a live tile: the dq kernel takes the masked body on off-diagonal pairs,
+    the dk/dv kernel zeroes the dropped keys' rows at the store."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    B, S, H = 2, 512, 3
+    cfg = BigBirdSparsityConfig(num_heads=H, block=64,
+                                different_layout_per_head=True,
+                                num_random_blocks=2)
+    q, k, v, do = _qkv_views(dev, B, S, H, 64, dtype, 7)
+    kvm = torch.ones(B, S, device=dev)
+    kvm[0, 100:] = 0
+    kvm[1, 190:] = 0
+    kvm[1, 30:40] = 0
+    _, _, (dq, dk, dv) = _sparse_repeats(dev, cfg, q, k, v, do, causal, kvm,
+                                         dtype)
+    gone = kvm == 0
+    assert not dk[gone].any() and not dv[gone].any()
+    assert dk[~gone].abs().sum() > 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_kernels_at_d128_fp16_match_plain(dev, causal, masked):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    B, H, S = 2, 3, 2560
+    cfg = BigBirdSparsityConfig(num_heads=H, block=64,
+                                different_layout_per_head=True,
+                                num_random_blocks=2)
+    q, k, v, do = _qkv_views(dev, B, S, H, 128, torch.float16, 128)
+    kvm = None
+    if masked:
+        kvm = torch.ones(B, S, device=dev)
+        kvm[1, 1000:] = 0
+    _, _, (dq, dk, dv) = _sparse_repeats(dev, cfg, q, k, v, do, causal, kvm,
+                                         torch.float16)
+    if masked:
+        assert not dk[1, 1000:].any() and not dv[1, 1000:].any()
 
 
 @pytest.mark.parametrize("dtype", SPARSE_DTYPES)

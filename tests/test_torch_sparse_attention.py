@@ -29,8 +29,8 @@ from deepspeed_tpu.ops.sparse_attention import sparse_attention as jax_sparse
 from deepspeed_tpu_torch.ops.cuda import _build
 from deepspeed_tpu_torch.ops.cuda import sparse_attention as psa
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
-from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import \
-    compiled_layout
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
+    DKV_CHUNK, compiled_layout)
 
 FWD_TOL = 2e-4
 GRAD_TOL = 1e-3
@@ -111,21 +111,22 @@ def test_bench_layout_equals_jax_at_seq_32k():
     live = np.arange(lay.lut_k.shape[-1]) < lay.cnt_k[..., None]
     assert (lay.bits_k[live] == 1).all()     # block 64: one bit per tile
     # the dk/dv kernel's items cover every column-LUT entry once; only the
-    # global key tile of each head is split (over 32 items of 16 entries),
-    # each split item with a workspace partial of its own
+    # global key tile of each head is split (over 512 / DKV_CHUNK items of
+    # DKV_CHUNK entries), each split item with a workspace partial of its own
+    split = 512 // DKV_CHUNK
     covered = np.zeros_like(lay.cnt_q)
     partials = []
     for h, kt, t0, t1, first, rank, n in lay.dkv_items:
         covered[h, kt] += t1 - t0
-        assert (first >= 0) == (kt == 0) and n == (32 if kt == 0 else 1)
-        assert 0 <= rank < n and t0 == 16 * rank
+        assert (first >= 0) == (kt == 0) and n == (split if kt == 0 else 1)
+        assert 0 <= rank < n and t0 == DKV_CHUNK * rank
         if first >= 0:
-            assert first % 32 == 0
+            assert first % split == 0
             partials.append(first + rank)
     np.testing.assert_array_equal(covered, lay.cnt_q)
-    assert sorted(partials) == list(range(12 * 32))
-    assert lay.dkv_parts == 12 * 32 and (lay.dkv_items[:, 3]
-                                         - lay.dkv_items[:, 2]).max() == 16
+    assert sorted(partials) == list(range(12 * split))
+    assert lay.dkv_parts == 12 * split and (
+        lay.dkv_items[:, 3] - lay.dkv_items[:, 2]).max() == DKV_CHUNK
 
 
 @pytest.mark.parametrize("block,seq,causal", [
@@ -167,6 +168,81 @@ def test_compiled_luts_cover_the_fine_layout(block, seq, causal):
         else:
             want = cells
         np.testing.assert_array_equal(keep, want)
+
+
+# the backward kernels' host schedule: the bench layout at S = 32768 and
+# small layouts (blocks 16, 64, 128; causal and not; S a whole number of
+# 64-row tiles or not) whose global blocks give column (and, bidirectional,
+# row) LUTs longer than DKV_CHUNK
+SCHEDULE_CASES = {
+    "bench_32k": dict(block=64, seq=32768, causal=True, heads=12,
+                      num_random_blocks=3, num_sliding_window_blocks=3,
+                      num_global_blocks=1, different_layout_per_head=False),
+    "b16_causal_ragged": dict(block=16, seq=16 * 161, causal=True),
+    "b16_bidirectional": dict(block=16, seq=16 * 160, causal=False),
+    "b64_causal": dict(block=64, seq=64 * 40, causal=True),
+    "b64_bidirectional_ragged": dict(block=64, seq=64 * 39, causal=False),
+    "b128_causal": dict(block=128, seq=128 * 20, causal=True),
+    "b128_bidirectional": dict(block=128, seq=128 * 21, causal=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_CASES))
+def test_backward_work_lists_cover_the_luts_longest_first(case):
+    """The dq kernel's work list and the dk/dv kernel's items: every live
+    row-LUT and column-LUT entry visited exactly once, the longest items
+    first, and a split key tile's items with contiguous ranks over
+    contiguous runs of its LUT row and workspace slots of their own."""
+    kw = dict(SCHEDULE_CASES[case])
+    block, seq, causal = kw.pop("block"), kw.pop("seq"), kw.pop("causal")
+    kw.setdefault("num_random_blocks", 1)
+    kw.setdefault("different_layout_per_head", True)
+    cfg = psc.BigBirdSparsityConfig(num_heads=kw.pop("heads", 2),
+                                    block=block, **kw)
+    lay = compiled_layout(cfg, seq, causal)
+    h, nt = lay.cnt_k.shape
+    # dq: each (head, query tile) once (an item walks its whole row LUT),
+    # row lengths non-increasing, ties in (head, tile) order
+    dq = lay.dq_items
+    assert dq.dtype == np.int32 and dq.shape == (h * nt, 2)
+    assert sorted(map(tuple, dq.tolist())) == [(i, j) for i in range(h)
+                                               for j in range(nt)]
+    lengths = lay.cnt_k[dq[:, 0], dq[:, 1]]
+    assert (np.diff(lengths) <= 0).all()
+    flat = dq[:, 0] * nt + dq[:, 1]
+    for n in np.unique(lengths):
+        assert (np.diff(flat[lengths == n]) > 0).all()
+    # dk/dv: runs [t0, t1) of each column-LUT row, disjoint and covering it
+    items = lay.dkv_items
+    assert items.dtype == np.int32 and items.shape[1] == 7
+    runs = np.asarray(items[:, 3] - items[:, 2])
+    assert (np.diff(runs) <= 0).all() and runs.max() <= DKV_CHUNK
+    seen = {}
+    for hh, kt, t0, t1, first, rank, n in items.tolist():
+        seen.setdefault((hh, kt), []).append((rank, t0, t1, first, n))
+    assert sorted(seen) == [(i, j) for i in range(h) for j in range(nt)]
+    slots = []
+    for (hh, kt), parts in seen.items():
+        parts.sort()
+        count = int(lay.cnt_q[hh, kt])
+        n = parts[0][4]
+        assert [p[0] for p in parts] == list(range(n))         # ranks
+        assert all(p[4] == n for p in parts)
+        assert [p[1] for p in parts] == [r * DKV_CHUNK for r in range(n)]
+        assert [p[2] for p in parts] == [min(count, (r + 1) * DKV_CHUNK)
+                                         for r in range(n)]
+        assert n == max(1, -(-count // DKV_CHUNK))
+        firsts = {p[3] for p in parts}
+        assert len(firsts) == 1
+        if n == 1:
+            assert firsts == {-1}
+        else:
+            slots += [parts[0][3] + r for r in range(n)]
+    assert sorted(slots) == list(range(lay.dkv_parts))
+    if case == "bench_32k":
+        assert lay.dkv_parts == 12 * (512 // DKV_CHUNK)
+    else:
+        assert lay.dkv_parts > 0         # some column LUT is split
 
 
 def test_layout_block_the_kernels_lack_raises():
