@@ -9,11 +9,11 @@ Phases (any failure exits non-zero before the result lines):
      and the TMA (UTMALDG, or UBLKCP for a plain bulk copy) instructions of
      each decode kernel in the built library (cuobjdump; fails if one has
      none), and the HGMMA, UTMALDG and HMMA instructions of each 16-bit
-     sparse backward kernel (fails without the first two or with an HMMA);
-     the registers a thread of each LayerNorm and softmax forward kernel
-     and of each 16-bit sparse backward kernel (cuobjdump
-     --dump-resource-usage; fails on a sparse backward kernel with local
-     memory or a stack frame);
+     sparse kernel, forward and backward (fails without the first two or
+     with an HMMA); the registers a thread of each LayerNorm forward and dx
+     and softmax forward kernel and of each 16-bit sparse kernel (cuobjdump
+     --dump-resource-usage; fails on a sparse kernel with local memory or a
+     stack frame);
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
      retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2;
@@ -67,9 +67,10 @@ Phases (any failure exits non-zero before the result lines):
      or without a key-padding mask (BigBird, per-head layouts, B=2, H=4,
      D=64, S=480 or 512, q/k/v views of a fused qkv), D=96 (block 32,
      S=480, causal or not), a layout with dead query rows and key tiles no
-     query reaches (zeros checked), and the training
-     shape B=1, S=32768, H=12, D=64 with bench.py's BigBird layout, causal,
-     where a second backward must give bitwise the same grads;
+     query reaches (zeros checked; a dead row's lse exactly -1e30), and
+     the training shape B=1, S=32768, H=12, D=64 with bench.py's BigBird
+     layout, causal, where a second forward must give bitwise the same out
+     and lse and a second backward bitwise the same grads;
  13. the long-context training path: bench.py's long_context_sparse case
      (bench.py:344-399): GPT-2 125M at seq 32768 (full width and depth,
      bf16 over fp32 masters, remat with the default policy) through
@@ -87,7 +88,8 @@ Phases (any failure exits non-zero before the result lines):
      plain versions, scaled_dot_product_attention with the expanded boolean
      mask (dense work; at the largest S that fits, stated) and their
      bounds (live (q, k) pairs of the layout, causal), each time also as a
-     multiple of its bound;
+     multiple of its bound; the host time to issue one forward and one
+     backward call;
  17. sparse BERT: BertForMaskedLM at bert_base width, max_seq_len 4096,
      bf16, BigBird block 64 (bidirectional), batch 4 of real lengths 4096,
      3000, 1500, 40 padded by pad_to_block_size with a batch-wide
@@ -130,8 +132,9 @@ Phases (any failure exits non-zero before the result lines):
      row full;
  22. the row-wise kernels vs their plain versions, bf16 and f32: LayerNorm
      (B6) forward and dx at [8*512, 1024] (gamma/beta in the element type
-     and in f32), [37, 1000], the forward's path edges [37, 1016 / 1032 /
-     2048] and [37, 1024] one element off a 16-byte boundary; bias-GELU
+     and in f32), [37, 1000], the path edges [37, 1016 / 1032 / 2048 /
+     16384 / 16392 / 20000] and [37, 1024] one element off a 16-byte
+     boundary; bias-GELU
      (B7) forward and backward at [8*512, 4096] and [37, 1001]; softmax
      (B8) forward and backward at [8, 16, 512, 512], [2, 3, 77, 4099] (a
      block per row), the path edges [1, 2, 5, 1023 / 1024 / 1025 / 2048]
@@ -158,7 +161,10 @@ Phases (any failure exits non-zero before the result lines):
      F.layer_norm / F.gelu(x + b, approximate="tanh") / torch.softmax and
      their autograd backwards (yardsticks) and their bounds; warm (the same
      inputs each call: the kernels line) and cold (input copies of at least
-     64 MiB read in turn, past L2), the kernel and its yardstick each.
+     64 MiB read in turn, past L2), the kernel and its yardstick each;
+     LayerNorm dx also at its path edges (rows of 1032, 16384 and 16392,
+     bf16, as many rows as the layer's 4096 x 1024 elements), warm and
+     cold.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -966,20 +972,27 @@ def phase_sparse_parity(torch, sa, dev, gen):
             do, kvm, tol)
         if (out[:, 128:].any() or out[1, 64:].any() or dq[:, 128:].any()
                 or dk[:, 128:].any() or dv[:, 128:].any()
-                or not bool((lse[:, :, 128:] == -1e30).all())):
-            fail("dead rows / unreached key tiles are not zero")
+                or not bool((lse[:, :, 128:] == -1e30).all())
+                or not bool((lse[1, :, 64:] == -1e30).all())
+                or not bool((lse[0, :, :128] > -1e30).all())):
+            fail("dead rows / unreached key tiles are not zero, or a dead "
+                 "row's lse is not exactly -1e30")
         print(f"phase12 sparse {str(dtype)[6:]} dead rows and unreached key "
               f"tiles: zeros, lse -1e30", flush=True)
     print(f"phase12 sparse grid worst max_abs_err {worst} (tol bf16 and "
           f"fp16 atol {FLASH_TOL[0]} + rtol {FLASH_TOL[1]} |ref|, f32 "
           f"{SPARSE_F32_TOL})", flush=True)
-    # the training shape with the bench's layout; its global key tile is
-    # split over 512 / DKV_CHUNK dk/dv items, whose partials are summed in a
-    # fixed order: a second backward gives bitwise the same grads
+    # the training shape with the bench's layout: a second forward gives
+    # bitwise the same out and lse; its global key tile is split over 512 /
+    # DKV_CHUNK dk/dv items, whose partials are summed in a fixed order: a
+    # second backward gives bitwise the same grads
     layout = _layout(bench_sparsity(12), LONG_SEQ, True, dev)
     q, k, v, do = _qkv(torch, dev, gen, 1, LONG_SEQ, 12, 64)
-    e, (_, _, ro, rl, grads) = _sparse_pair(torch, sa, layout, q, k, v, do,
-                                            None, FLASH_TOL)
+    e, (out, lse, ro, rl, grads) = _sparse_pair(torch, sa, layout, q, k, v,
+                                                do, None, FLASH_TOL)
+    again = sa.sparse_attention_forward(q, k, v, layout, 64 ** -0.5)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        fail("a second sparse forward gave a different out or lse")
     again = sa.sparse_attention_backward(q, k, v, ro, rl, do, layout,
                                          64 ** -0.5)
     if not all(torch.equal(a, g) for a, g in zip(again, grads)):
@@ -987,7 +1000,8 @@ def phase_sparse_parity(torch, sa, dev, gen):
     print(f"phase12 sparse train B=1 S={LONG_SEQ} H=12 D=64 bf16 causal "
           f"BigBird block 64 max_abs_err " + " ".join(
               f"{k_}={v_}" for k_, v_ in e.items())
-          + "; a second backward bitwise equal", flush=True)
+          + "; a second forward and a second backward bitwise equal",
+          flush=True)
     return e, (q, k, v, do, ro, rl, layout)
 
 
@@ -1175,12 +1189,14 @@ def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
     }
     # bytes: each input read once, each output written once, of the LUTs
     # the counts and the live entries (a tile index and a mask each; the
-    # rows' padding is never read); operations: 2 per multiply-add over the
+    # rows' padding is never read) and the work lists (the forward's and
+    # dq's: 8 bytes an item); operations: 2 per multiply-add over the
     # layout's live causal (q, k) pairs, at the bf16 peak
     item = q.element_size()
     n = B * S * H * D * item
     stat = B * H * S * 4
-    lut_k = 4 * layout.cnt_k.numel() + 12 * int(layout.cnt_k.sum())
+    lut_k = (4 * layout.cnt_k.numel() + 12 * int(layout.cnt_k.sum())
+             + 4 * layout.dq_items.numel())
     lut_q = (4 * layout.cnt_q.numel() + 12 * int(layout.cnt_q.sum())
              + 4 * layout.dkv_items.numel())
     pairs = live_causal_pairs(bench_sparsity(H), S, B)
@@ -1190,6 +1206,13 @@ def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
     work = {"sparse_fwd": (4 * n + stat + lut_k, 4 * D * pairs),
             "sparse_bwd_dq": (5 * n + 2 * stat + lut_k, 6 * D * pairs),
             "sparse_bwd_dkv": (6 * n + 2 * stat + lut_q, 8 * D * pairs)}
+    issue = {
+        "sparse_fwd": _issue_us(torch, lambda: sa.sparse_attention_forward(
+            q, k, v, layout, scale)),
+        "sparse_bwd": _issue_us(torch, lambda: backward(0))}
+    print(f"phase16 host issue us per call: forward {issue['sparse_fwd']}, "
+          f"backward (dq and dk/dv) {issue['sparse_bwd']} card={card}",
+          flush=True)
     for name, (nbytes, flops) in work.items():
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         t[name]["bound_ms"] = 1e3 * max(tb, tf)
@@ -1721,10 +1744,13 @@ LAYER_LOSS_RTOL = 1e-2
 LAYER_GRAD_NORM_RTOL = 5e-2
 
 
-# the forwards' path edges (csrc/layer_norm.cu, csrc/softmax.cu): the widest
-# rows a warp holds (1016 and 1024 elements; 1023 takes one element a pack),
-# the narrowest a block holds (1025, 1032) and a block of two warps (2048)
-ROW_EDGE_WIDTHS = (1016, 1032, 2048)
+# the path edges (csrc/layer_norm.cu, csrc/softmax.cu): the widest rows a
+# warp holds (1016 and 1024 elements; 1023 takes one element a pack), the
+# narrowest a block holds (1025, 1032), a block of two warps (2048), the
+# widest a block holds (16384) and rows past it (16392, 20000: the loops)
+ROW_EDGE_WIDTHS = (1016, 1032, 2048, 16384, 16392, 20000)
+# LayerNorm dx timed at its path edges (phase 24)
+DX_EDGE_WIDTHS = (1032, 16384, 16392)
 ROW_EDGE_SEQS = (1023, 1024, 1025, 2048)
 
 
@@ -2067,18 +2093,24 @@ def rowwise_time_inputs(torch, ln, sm, dev, gen, dt):
     512, 512], the plain forward's y and a cotangent), keyed as phase 22
     keys them."""
     dtype = getattr(torch, dt)
-    n, d = LAYER_MICRO * LAYER_SEQ, LAYER_KW["hidden_size"]
+    ln_in = ln_time_inputs(torch, ln, dev, gen, dtype,
+                           LAYER_MICRO * LAYER_SEQ, LAYER_KW["hidden_size"])
+    shape = (LAYER_MICRO * LAYER_KW["heads"] * LAYER_SEQ, LAYER_SEQ)
+    xs = (3 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+    dys = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    ys = sm.softmax_forward_reference(xs, LAYER_SEQ, False)
+    return {("ln", dt): ln_in, ("softmax", dt): (xs, ys, dys)}
+
+
+def ln_time_inputs(torch, ln, dev, gen, dtype, n, d):
+    """LayerNorm inputs [n, d]: x, gamma and beta in x's type, the plain
+    forward's mean and rstd, a cotangent."""
     x = (torch.randn(n, d, device=dev, generator=gen) * 2 + 1).to(dtype)
     g = (1 + 0.3 * torch.randn(d, device=dev, generator=gen)).to(dtype)
     b = (0.3 * torch.randn(d, device=dev, generator=gen)).to(dtype)
     dy = torch.randn(n, d, device=dev, generator=gen).to(dtype)
     _, mean, rstd = ln.layer_norm_forward_reference(x, g, b, 1e-12)
-    shape = (LAYER_MICRO * LAYER_KW["heads"] * LAYER_SEQ, LAYER_SEQ)
-    xs = (3 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
-    dys = torch.randn(shape, device=dev, generator=gen).to(dtype)
-    ys = sm.softmax_forward_reference(xs, LAYER_SEQ, False)
-    return {("ln", dt): (x, g, b, mean, rstd, dy),
-            ("softmax", dt): (xs, ys, dys)}
+    return x, g, b, mean, rstd, dy
 
 
 def _grad_state(torch, fn, *leaves):
@@ -2202,6 +2234,25 @@ def phase_rowwise_timing(torch, ln, gl, sm, inputs, card):
                   f"{cold_ms / lib_cold_ms} x the library call", flush=True)
             if (dt == "float32") == name.startswith("softmax"):
                 out[name] = t
+    # dx at its path edges: the narrowest block row, the widest a block
+    # holds and the loop's narrowest, as many rows as the layer's elements
+    x = inputs[("ln", "bfloat16")][0]
+    gen = torch.Generator(device=x.device).manual_seed(24)
+    for d in DX_EDGE_WIDTHS:
+        n = x.numel() // d
+        edge = {("ln", "bfloat16"): ln_time_inputs(
+            torch, ln, x.device, gen, torch.bfloat16, n, d)}
+        case = rowwise_time_cases(torch, ln, gl, sm, edge,
+                                  "bfloat16")["layer_norm_dx"]
+        bound = 1e3 * case[6] / HBM_BYTES_PER_S
+        ms, lib_ms = time_row_case(torch, "layer_norm_dx", case, cold=False)
+        cold_ms, lib_cold_ms = time_row_case(torch, "layer_norm_dx", case,
+                                             cold=True)
+        print(f"phase24 layer_norm_dx bfloat16 [{n}, {d}]: warm {ms} ms "
+              f"({ms / bound} x its byte bound {bound}; library {lib_ms}), "
+              f"cold {cold_ms} ms (library {lib_cold_ms}) card={card}",
+              flush=True)
+        del edge, case
     print("phase24 library calls (yardsticks, never called by the port): "
           "F.layer_norm and its autograd backward (dx, dgamma and dbeta "
           "together); F.gelu(x + b, approximate='tanh') (two kernels: the "
@@ -2218,10 +2269,11 @@ def _cuobjdump():
             or next(iter(glob.glob("/usr/local/cuda/bin/cuobjdump")), None))
 
 
-def row_registers(_build, names=("layer_norm_fwd", "softmax_fwd")):
+def row_registers(_build, names=("layer_norm_fwd", "layer_norm_dx",
+                                 "softmax_fwd")):
     """{kernel: (registers a thread, local bytes)} of the kernels whose
-    names hold one of ``names`` (default: the LayerNorm and softmax
-    forwards) in the built library (cuobjdump --dump-resource-usage; local
+    names hold one of ``names`` (default: the LayerNorm forward and dx and
+    the softmax forward) in the built library (cuobjdump --dump-resource-usage; local
     bytes count the stack frame, where spills go, and local memory), names
     demangled where c++filt is on PATH; None without cuobjdump."""
     import glob
@@ -2250,51 +2302,64 @@ def row_registers(_build, names=("layer_norm_fwd", "softmax_fwd")):
 
 
 def phase_row_registers(_build):
-    """Registers a thread (and spilled local bytes) of each LayerNorm and
-    softmax forward kernel, and the warps an SM those registers allow
-    (65536 registers, allocated 256 a warp, at most 64 warps)."""
+    """Registers a thread (and spilled local bytes) of each LayerNorm
+    forward and dx and softmax forward kernel, and the warps an SM those
+    registers allow (65536 registers, allocated 256 a warp, at most 64
+    warps)."""
     regs = row_registers(_build)
     if regs is None:
         print("phase1 row-wise registers: no cuobjdump, not measured",
               flush=True)
         return
     if not regs:
-        fail("no LayerNorm or softmax forward kernel in the resource usage")
+        fail("no LayerNorm or softmax kernel in the resource usage")
     short = {}
     for name, (reg, local) in sorted(regs.items()):
         per_warp = -(-reg * 32 // 256) * 256
         warps = min(64, 65536 // max(per_warp, 1))
         name = name.split("(anonymous namespace)::")[-1].split("(")[0]
         short[name.replace("__nv_bfloat16", "bf16")] = [reg, local, warps]
-    print("phase1 row-wise forward kernels [registers a thread, local "
-          f"bytes, warps an SM those registers allow]: {json.dumps(short)}",
-          flush=True)
+    print("phase1 row-wise kernels (LayerNorm forward and dx, softmax "
+          "forward) [registers a thread, local bytes, warps an SM those "
+          f"registers allow]: {json.dumps(short)}", flush=True)
+
+
+# the 16-bit sparse wgmma kernels (B5 forward, B5b dq and dk/dv): bf16 and
+# fp16 x 4 head dims x causal or not of each
+SPARSE_WGMMA = ("sparse_fwd_wgmma", "sparse_bwd_dq_wgmma",
+                "sparse_bwd_dkv_wgmma")
+SPARSE_WGMMA_KERNELS = 16 * len(SPARSE_WGMMA)
 
 
 def phase_sparse_registers(_build):
     """Registers a thread and local bytes (stack and local memory) of each
-    16-bit sparse backward kernel (B5b); fails on any local memory."""
-    regs = row_registers(_build, ("sparse_bwd_dq_wgmma",
-                                  "sparse_bwd_dkv_wgmma"))
+    16-bit sparse kernel (B5 forward, B5b); fails on any local memory."""
+    regs = row_registers(_build, SPARSE_WGMMA)
     if regs is None:
-        print("phase1 sparse backward registers: no cuobjdump, not "
-              "measured", flush=True)
+        print("phase1 sparse registers: no cuobjdump, not measured",
+              flush=True)
         return
-    if len(regs) != 32:
-        fail(f"expected 32 sparse backward wgmma kernels, found {len(regs)}")
+    if len(regs) != SPARSE_WGMMA_KERNELS:
+        fail(f"expected {SPARSE_WGMMA_KERNELS} sparse wgmma kernels, found "
+             f"{len(regs)}")
     spilled = {n: r for n, r in regs.items() if r[1] > 0}
     if spilled:
-        fail(f"sparse backward kernels with local memory: {spilled}")
-    print(f"phase1 sparse backward wgmma kernels: {len(regs)}, registers a "
-          f"thread {sorted({r[0] for r in regs.values()})} (the launch's; "
-          "setmaxnreg moves them to 224 / 56), no local memory", flush=True)
+        fail(f"sparse wgmma kernels with local memory: {spilled}")
+    for kind in SPARSE_WGMMA:
+        print(f"phase1 sparse {kind} kernels: "
+              f"{sum(kind in n for n in regs)}, registers a thread "
+              f"{sorted({r[0] for n, r in regs.items() if kind in n})} (the "
+              "launch's; setmaxnreg moves them to 224 / 56), no local "
+              "memory", flush=True)
 
 
 def phase_sass(_build):
     """From the built library's SASS (cuobjdump, the toolkit's or on PATH):
-    the HGMMA (wgmma) instructions of each 16-bit flash kernel, and the
+    the HGMMA (wgmma) instructions of each 16-bit flash kernel, the
     bulk-copy instructions (UBLKCP for cp.async.bulk, UTMALDG for a
-    tensor-map load) of each decode kernel. Fails if one has none."""
+    tensor-map load) of each decode kernel, and the HGMMA, UTMALDG and HMMA
+    (mma.sync) instructions of each 16-bit sparse kernel. Fails if one
+    has none of what it wants, or a sparse kernel an HMMA."""
     import glob
     import re
     tool = _cuobjdump()
@@ -2315,7 +2380,7 @@ def phase_sass(_build):
                 flash[name] = 0
             elif "decode_attention_kernel" in name:
                 decode[name] = 0
-            elif "sparse_bwd_d" in name and "wgmma" in name:
+            elif any(kind in name for kind in SPARSE_WGMMA):
                 sparse[name] = [0, 0, 0]
         elif name in flash and "HGMMA" in line:
             flash[name] += 1
@@ -2333,14 +2398,16 @@ def phase_sass(_build):
               f"{sum(counts.values())} {insn} instructions "
               f"({min(counts.values())}-{max(counts.values())} each)",
               flush=True)
-    if (len(sparse) != 32 or any(h == 0 or u == 0 or mma
-                                 for h, u, mma in sparse.values())):
-        fail("the 16-bit sparse backward kernels want HGMMA and UTMALDG and "
-             f"no HMMA each: {sparse}")
-    print(f"phase1 16-bit sparse backward SASS: {len(sparse)} kernels, "
-          f"{sum(c[0] for c in sparse.values())} HGMMA and "
-          f"{sum(c[1] for c in sparse.values())} UTMALDG instructions, "
-          "no HMMA", flush=True)
+    if (len(sparse) != SPARSE_WGMMA_KERNELS
+            or any(h == 0 or u == 0 or mma for h, u, mma in sparse.values())):
+        fail("the 16-bit sparse kernels want HGMMA and UTMALDG and no HMMA "
+             f"each: {sparse}")
+    for kind in SPARSE_WGMMA:
+        counts = [c for n, c in sparse.items() if kind in n]
+        print(f"phase1 16-bit {kind} SASS: {len(counts)} kernels, "
+              f"{sum(c[0] for c in counts)} HGMMA and "
+              f"{sum(c[1] for c in counts)} UTMALDG instructions, no HMMA",
+              flush=True)
 
 
 def main(argv=None) -> int:

@@ -62,9 +62,10 @@ _SIGNATURES = {
     # dtype, stream
     "dstorch_flash_bwd_dkv": [_vp] * 9 + [_int] * 5 + [_float, _int, _vp],
     # ... the flash arguments up to strides, then lut_idx, lut_cnt, lut_bits,
-    # lut_len, shift, kvm, B, S, H, d, causal, scale, dtype, stream
-    "dstorch_sparse_fwd": [_vp] * 9 + [_int] * 2 + [_vp] + [_int] * 5
-    + [_float, _int, _vp],
+    # lut_len, shift, items, n_items, kvm, B, S, H, d, causal, scale, dtype,
+    # stream
+    "dstorch_sparse_fwd": [_vp] * 9 + [_int] * 2 + [_vp, _int, _vp]
+    + [_int] * 5 + [_float, _int, _vp],
     # dq: lut_len and shift are followed by items, n_items
     "dstorch_sparse_bwd_dq": [_vp] * 11 + [_int] * 2 + [_vp, _int, _vp]
     + [_int] * 5 + [_float, _int, _vp],

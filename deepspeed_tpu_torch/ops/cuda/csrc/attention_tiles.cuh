@@ -1,14 +1,13 @@
-// Tile building blocks of the block-sparse attention kernels for Hopper
-// (sm_90a), sparse_attention.cu (the B5 forward, the f32 B5b kernels); the
-// f32 parts also serve the f32 flash kernels of flash_attention.cu (the
-// 16-bit flash kernels and the 16-bit sparse backward are wgmma kernels on
-// hopper.cuh):
+// Tile building blocks of the attention kernels for Hopper (sm_90a),
+// shared by sparse_attention.cu and flash_attention.cu (their 16-bit
+// kernels are wgmma kernels on hopper.cuh, which includes this header):
 //
-//   * bf16 / fp16: mma.sync m16n8k16 fragments (16-bit in, f32 accumulate),
-//     tiles of kRows rows staged in shared memory with rows padded by 16
-//     bytes, the 16 x kRows score tile of a warp kept as accumulators;
-//   * f32: CUDA-core FMAs over rows split among neighbouring threads;
-//   * launch helpers (dynamic shared memory opt-in, strides, typed pointers).
+//   * the tile size, the mask value, strides and the 16-bit types with
+//     their packing, the quad reductions of an accumulator row;
+//   * f32: CUDA-core FMAs over rows split among neighbouring threads (the
+//     f32 flash and sparse kernels);
+//   * launch helpers (dynamic shared memory opt-in, strides, typed pointers,
+//     the dtype / head-dim dispatch).
 //
 // Everything is in an anonymous namespace: each source that includes this
 // header gets its own copy, and only the sources' extern "C" functions are
@@ -33,43 +32,10 @@ struct Strides {
 };
 
 // ===========================================================================
-// bf16 / fp16: tensor cores (mma.sync m16n8k16)
+// bf16 / fp16
 // ===========================================================================
 using bf16 = __nv_bfloat16;
 using f16 = __half;
-constexpr int kWarps = 4;           // 16 rows each
-constexpr int kTcThreads = 32 * kWarps;
-
-// c += a b: a 16x16 (row), b 16x8 (col), c 16x8 f32. Fragments (lane =
-// 4 g + t): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8,
-// 2t+8..); b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); c0-1 (g, 2t..2t+1),
-// c2-3 (g+8, 2t..2t+1). T (bf16 or fp16) is the type of a and b.
-template <typename T>
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    const uint32_t* b);
-template <>
-__device__ __forceinline__ void mma<bf16>(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-template <>
-__device__ __forceinline__ void mma<f16>(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t lds32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // two floats rounded to T (round to nearest even), packed lo | hi << 16
 template <typename T>
@@ -85,121 +51,8 @@ __device__ __forceinline__ uint32_t pack<f16>(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// A operand: rows row0.., depth k0.. of a row-major tile x[row][k]
-template <typename T>
-__device__ __forceinline__ void frag_a(uint32_t* a, const T* x, int ld,
-                                       int row0, int k0, int lane) {
-  const T* p = x + (row0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * ld);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * ld + 8);
-}
-
-// B operand: columns n0..n0+7, depth k0.. of y^T, y stored [n][k]
-template <typename T>
-__device__ __forceinline__ void frag_b(uint32_t* b, const T* y, int ld,
-                                       int n0, int k0, int lane) {
-  const T* p = y + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = lds32(p);
-  b[1] = lds32(p + 8);
-}
-
-// B operands of two 8-column tiles (n0.., n0+8..), depth k0..k0+15, of z
-// stored [k][n]: b[0..1] for columns n0.., b[2..3] for n0+8..
-template <typename T>
-__device__ __forceinline__ void frag_b_trans(uint32_t* b, const T* z,
-                                             int ld, int k0, int n0,
-                                             int lane) {
-  const int mat = lane >> 3;
-  const T* p = z + (k0 + (lane & 7) + (mat & 1) * 8) * ld + n0
-               + (mat >> 1) * 8;
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// Rows r0 .. r0+kRows-1 of one head of a 16-bit tensor into shared memory
-// [kRows][D + 8], zeros past S.
-template <int D, typename T>
-__device__ __forceinline__ void stage16(T* dst, const T* base, Strides st,
-                                        int b, int h, int r0, int S) {
-  constexpr int kPerRow = D / 8;    // 16-byte words
-  for (int idx = threadIdx.x; idx < kRows * kPerRow; idx += blockDim.x) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * 8;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      w = *reinterpret_cast<const uint4*>(
-          base + b * st.b + (long long)(r0 + r) * st.s + h * st.h + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = w;
-  }
-}
-
-// c[N][4] = x[rows] y^T over depth D: x rows from row0, y rows 0..8N-1
-template <typename T, int D, int N>
-__device__ __forceinline__ void tile_qkt(float (*c)[4], const T* x,
-                                         const T* y, int row0, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(a, x, LD, row0, kk * 16, lane);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      uint32_t bb[2];
-      frag_b(bb, y, LD, n * 8, kk * 16, lane);
-      mma<T>(c[n], a, bb);
-    }
-  }
-}
-
-// acc[D/8][4] += w z, w the 16 x kRows register tile (as mma accumulators,
-// rounded to T), z a [kRows][D] shared tile
-template <typename T, int D>
-__device__ __forceinline__ void tile_pv(float (*acc)[4], float (*w)[4],
-                                        const T* z, int lane) {
-#pragma unroll
-  for (int j = 0; j < kRows / 16; ++j) {
-    const uint32_t a[4] = {pack<T>(w[2 * j][0], w[2 * j][1]),
-                           pack<T>(w[2 * j][2], w[2 * j][3]),
-                           pack<T>(w[2 * j + 1][0], w[2 * j + 1][1]),
-                           pack<T>(w[2 * j + 1][2], w[2 * j + 1][3])};
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bb[4];
-      frag_b_trans(bb, z, D + 8, j * 16, np * 16, lane);
-      mma<T>(acc[2 * np], a, bb);
-      mma<T>(acc[2 * np + 1], a, bb + 2);
-    }
-  }
-}
-
-// the thread's two rows (g, g+8) of a 16 x D accumulator into a contiguous
-// [B, S, H, D] 16-bit tensor, times inv[row]
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* base, float (*acc)[4], int b,
-                                           int row0, int h, int S, int H,
-                                           const float* inv, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + (lane >> 2) + 8 * i;
-    if (row >= S) continue;
-    T* p = base + (((long long)b * S + row) * H + h) * D + 2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(p + n * 8) =
-          pack<T>(acc[n][2 * i] * inv[i], acc[n][2 * i + 1] * inv[i]);
-  }
-}
-
+// max / sum over the 4 lanes of a quad (the threads that share an
+// accumulator row)
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
   return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
@@ -347,12 +200,6 @@ Strides strides_at(const long long* s, int i) {
 
 dim3 grid_of(int B, int S, int H) {
   return dim3((S + kRows - 1) / kRows, H, B);
-}
-
-// 16-bit shared memory: `tiles` [kRows][D + 8] tiles plus `stats` f32 rows
-template <int D>
-constexpr size_t tc_smem(int tiles, int stats) {
-  return tiles * kRows * (D + 8) * 2 + stats * kRows * sizeof(float);
 }
 
 // f32 shared memory: `tiles` [kRows][D] tiles plus `stats` f32 rows

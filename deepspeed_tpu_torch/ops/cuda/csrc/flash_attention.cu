@@ -92,47 +92,6 @@ struct FwdTile {
   static constexpr size_t kSmem = hopper_smem(kQ, 2 * kKV, kStages);
 };
 
-// The online softmax of one key tile's scores s (this thread's values of
-// its two rows), in place: s becomes p = 2^(s c2 - m) in f32, m (log2
-// units) and the thread's partial l are updated, corr is the factor the
-// running output takes. One FFMA and one exp2 a score: the row max is
-// taken over the raw scores (over -s when c2 < 0, kPos false) and scaled
-// once. kEdge: the tile crosses S or (causal) the diagonal, and keys past
-// S or after the row are masked; the other tiles take a path without the
-// mask's instructions.
-template <int kN, bool kCausal, bool kEdge, bool kPos>
-__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
-                                             float* corr, float c2, int k0,
-                                             const int* row, int S,
-                                             int lane) {
-  const auto masked = [&](int e) {
-    const int key = k0 + acc_col(lane, e);
-    return key >= S || (kCausal && key > row[(e >> 1) & 1]);
-  };
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int e = 0; e < kN / 2; ++e) {
-    const float x = kEdge && masked(e) ? -INFINITY : kPos ? s[e] : -s[e];
-    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // a row masked in the whole tile: -inf * |c2| (NaN at c2 = 0) loses
-    // to m in fmaxf
-    const float m_new = fmaxf(m[r], quad_max(mx[r]) * (kPos ? c2 : -c2));
-    corr[r] = exp2_fast(m[r] - m_new);
-    m[r] = m_new;
-    l[r] *= corr[r];
-  }
-#pragma unroll
-  for (int e = 0; e < kN / 2; ++e) {
-    float p = exp2_fast(fmaf(s[e], c2, -m[(e >> 1) & 1]));
-    if (kEdge && masked(e)) p = 0.f;
-    s[e] = p;
-    l[(e >> 1) & 1] += p;
-  }
-}
-
 template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -238,9 +197,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const auto softmax = [&](int i) {
       const int k0 = i * kN;
       const bool edge = k0 + kN > S || (kCausal && k0 + kN - 1 > r0);
+      // edge: the tile crosses S or (causal) the diagonal, and keys past S
+      // or after the row are masked
+      const auto masked = [&](int e) {
+        const int key = k0 + acc_col(lane, e);
+        return key >= S || (kCausal && key > row[(e >> 1) & 1]);
+      };
       const auto go = [&](auto e, auto pos) {
-        softmax_tile<kN, kCausal, decltype(e)::value, decltype(pos)::value>(
-            s, m, l, corr, c2, k0, row, S, lane);
+        softmax_tile<kN, decltype(e)::value, decltype(pos)::value>(
+            s, m, l, corr, c2, masked);
       };
       if (c2 >= 0.f) {
         if (edge) go(std::true_type{}, std::true_type{});

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the wgmma attention kernels of
-// flash_attention.cu (B1, B1b) and sparse_attention.cu (B5b):
+// flash_attention.cu (B1, B1b) and sparse_attention.cu (B5, B5b):
 //
 //   * mbarriers (init, expect_tx, arrive, a parity wait that traps after
 //     10 s instead of hanging the card), TMA tensor-map loads of 32-column
 //     panels, wgmma matrix descriptors of 64-byte-swizzled tiles, the
 //     wgmma fences, setmaxnreg, exp2 on the special-function unit, the
-//     m64 accumulator's column map, its A fragments and its store;
+//     m64 accumulator's column map, its A fragments and its store, and the
+//     forwards' online softmax over one key tile's accumulators;
 //   * the host side: cuTensorMapEncodeTiled (fetched through the runtime,
 //     so no -lcuda), the 4-D (d, H, S, B) tile maps read through the
 //     caller's strides, and the SM count of the current device.
@@ -109,38 +110,45 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// `rows` rows of all D channels: D / 32 boxes into consecutive panels
-template <int D, int kRowsIn>
+// `rows` rows of all D channels: D / kCols boxes into consecutive panels
+// (kCols: the panel's columns, 32 with the 64-byte swizzle, 64 with the
+// 128-byte one; the tensor map's box and swizzle match it)
+template <int D, int kRowsIn, int kCols = kPanel>
 __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int h, int s, int b) {
 #pragma unroll
-  for (int c = 0; c < D / kPanel; ++c)
-    tma_load(static_cast<char*>(dst) + c * kRowsIn * kPanel * 2, map, bar,
-             c * kPanel, h, s, b);
+  for (int c = 0; c < D / kCols; ++c)
+    tma_load(static_cast<char*>(dst) + c * kRowsIn * kCols * 2, map, bar,
+             c * kCols, h, s, b);
 }
 
-// wgmma matrix descriptor of a 64-byte-swizzled operand: start address,
-// leading byte offset (MN-major: from one 32-column panel to the next),
-// stride byte offset (from 8 rows to the next 8: 512 bytes), layout 64B
+// wgmma matrix descriptor of a swizzled operand in panels of kCols columns
+// (64-byte swizzle for 32, 128-byte for 64): start address, leading byte
+// offset (MN-major: from one panel to the next), stride byte offset (from
+// 8 rows to the next 8: 8 panel rows), layout
+template <int kCols = kPanel>
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo) {
+  static_assert(kCols == 32 || kCols == 64, "a panel is 64 or 128 bytes");
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
          | (static_cast<uint64_t>(lbo >> 4) << 16)
-         | (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+         | (static_cast<uint64_t>(8 * kCols * 2 >> 4) << 32)
+         | ((kCols == 64 ? 1ull : 2ull) << 62);
 }
 
 // K-major operand: rows from `row` of a tile of kRowsIn rows, depth slice kk
 // (16 channels) of its panels
-template <int kRowsIn, typename T>
+template <int kRowsIn, int kCols = kPanel, typename T>
 __device__ __forceinline__ uint64_t desc_k(const T* tile, int row, int kk) {
-  return desc(tile + (kk >> 1) * kRowsIn * kPanel + row * kPanel
-              + (kk & 1) * 16, 16);
+  constexpr int kSlices = kCols / 16;          // depth slices a panel
+  return desc<kCols>(tile + (kk / kSlices) * kRowsIn * kCols + row * kCols
+                     + (kk % kSlices) * 16, 16);
 }
 
 // MN-major operand: depth slice j (rows 16 j ..) of a tile of kRowsIn rows,
 // its columns across the panels
-template <int kRowsIn, typename T>
+template <int kRowsIn, int kCols = kPanel, typename T>
 __device__ __forceinline__ uint64_t desc_mn(const T* tile, int j) {
-  return desc(tile + j * 16 * kPanel, kRowsIn * kPanel * 2);
+  return desc<kCols>(tile + j * 16 * kCols, kRowsIn * kCols * 2);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -182,6 +190,42 @@ __device__ __forceinline__ int snake(int j) {
 // column of accumulator value i (its row is g + 8 * ((i >> 1) & 1))
 __device__ __forceinline__ int acc_col(int lane, int i) {
   return (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+}
+
+// The online softmax of one key tile's scores s (this thread's values of
+// its two rows of an m64 x kN accumulator), in place: s becomes p =
+// 2^(s c2 - m) in f32, m (log2 units, from -1e30) and the thread's partial
+// l are updated, corr is the factor the running output takes. One FFMA and
+// one exp2 a score: the row max is taken over the raw scores (over -s when
+// c2 < 0, kPos false) and scaled once. kMasked: `hidden(e)` says whether
+// value e is masked (p = 0, out of the max); the other tiles take a path
+// without the mask's instructions. A row masked in the whole tile keeps
+// its m and l (-inf * |c2|, or NaN at c2 = 0, loses to m in fmaxf), so a
+// row that sees nothing ends with m = -1e30 and l = 0.
+template <int kN, bool kMasked, bool kPos, class Hidden>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
+                                             float* corr, float c2,
+                                             Hidden hidden) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) {
+    const float x = kMasked && hidden(e) ? -INFINITY : kPos ? s[e] : -s[e];
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]) * (kPos ? c2 : -c2));
+    corr[r] = exp2_fast(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) {
+    float p = exp2_fast(fmaf(s[e], c2, -m[(e >> 1) & 1]));
+    if (kMasked && hidden(e)) p = 0.f;
+    s[e] = p;
+    l[(e >> 1) & 1] += p;
+  }
 }
 
 // the A fragments of a 64 x N accumulator (k16 slices), rounded to T
@@ -255,12 +299,14 @@ EncodeTiled encoder() {
 }
 
 // The tensor map of a [B, S, H, D] 16-bit tensor read through its element
-// strides, as 4-D (D, H, S, B) boxes of 32 channels x 1 head x `rows` rows
-// x 1 batch row, 64-byte swizzled; rows past S (and any coordinate out of
-// range) arrive as zeros. A dimension of extent 1 gets a packed stride (its
-// own may be anything). False if the map is refused.
+// strides, as 4-D (D, H, S, B) boxes of `cols` channels (32: 64-byte
+// swizzle, 64: 128-byte) x 1 head x `rows` rows x 1 batch row; rows past S
+// (and any coordinate out of range) arrive as zeros. A dimension of extent
+// 1 gets a packed stride (its own may be anything). False if the map is
+// refused.
 bool tile_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S,
-              int H, int D, int rows, CUtensorMapDataType type) {
+              int H, int D, int rows, CUtensorMapDataType type,
+              int cols = kPanel) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const long long sh = H > 1 ? st.h : D;
@@ -270,11 +316,13 @@ bool tile_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -284,13 +332,15 @@ constexpr CUtensorMapDataType map_type() {
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-// maps of q, k, v (, dO): `rows` of each from the kernel's tile sizes
+// maps of q, k, v (, dO): `rows` of each from the kernel's tile sizes,
+// panels of `cols` channels
 template <typename T>
 bool tile_maps(CUtensorMap* maps, const void* const* ptrs, const int* rows,
-               int n, const long long* st, int B, int S, int H, int D) {
+               int n, const long long* st, int B, int S, int H, int D,
+               int cols = kPanel) {
   for (int i = 0; i < n; ++i)
     if (!tile_map(&maps[i], ptrs[i], strides_at(st, i), B, S, H, D, rows[i],
-                  map_type<T>()))
+                  map_type<T>(), cols))
       return false;
   return true;
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernels of deepspeed_tpu/ops/pallas/layer_norm.py:
 //   * layer_norm_fwd_*kernel <- `_fwd_kernel` (B6), through `_ln_fwd`
-//   * layer_norm_dx_kernel  <- `_dx_kernel`  (B6), through `_ln_bwd`
+//   * layer_norm_dx_*kernel  <- `_dx_kernel`  (B6), through `_ln_bwd`
 // They compute what the TPU kernels compute, in f32 whatever the element
 // type, over rows of x [n, d]:
 //   mean = sum(x) / d, var = sum((x - mean)^2) / d   (two passes, as the
@@ -34,9 +34,17 @@
 // The first two read and write 16-byte packs (8 bf16 / fp16 or 4 f32
 // elements a lane) when d is a multiple of the pack and x, y, gamma and
 // beta are 16-byte aligned, else the same kernel at one element a pack
-// (predicated scalar accesses). The dx kernel takes one block a row (about
-// four elements a thread, 32-1024 threads), three passes like the loop
-// kernel, f32 sums reduced with warp shuffles and one shared slot per warp.
+// (predicated scalar accesses). dx takes the same three paths
+// (layer_norm_dx_kernel, layer_norm_dx_block_kernel,
+// layer_norm_dx_loop_kernel) and the same packs (x, dy, dx and gamma
+// aligned): the first two read the row's x and dy and gamma once into
+// registers (at one element a pack dy and gamma are read again in the
+// second pass: registers), take both f32 sums (w and w xhat) in one pass and one
+// reduction (shuffles, then one shared slot a warp for each sum), and write
+// dx once. Holding gamma as well as x and dy takes up to 96 registers a
+// thread (f32), so the dx warp-row kernel runs 4 blocks an SM (16 warps,
+// 128 registers) and the block-row kernel one 16-warp block. The loop
+// kernel re-reads the row from L1/L2 in its second pass.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes by
 // deepspeed_tpu_torch/ops/cuda/layer_norm.py.
@@ -44,6 +52,9 @@
 #include "rowwise.cuh"
 
 namespace {
+
+// dx holds x, dy and gamma: 16 warps an SM, at most 128 registers a thread
+constexpr int kDxWarpRowMinBlocks = 4;
 
 // The register forward of one row, held by a row group (one warp, or the
 // block with `slots`: 64 floats) as E / V packs of V elements a thread.
@@ -160,12 +171,114 @@ layer_norm_fwd_loop_kernel(const T* __restrict__ x,
   }
 }
 
+// The register dx of one row, held by a row group (one warp, or the block
+// with `slots`: 64 floats) as E / V packs of V elements a thread.
+template <typename T, typename G, int V, int E, bool kBlock>
+__device__ __forceinline__ void layer_norm_dx_regs_row(
+    const T* __restrict__ xr, const G* __restrict__ gamma, float mean,
+    float rstd, const T* __restrict__ dyr, T* __restrict__ dxr, int d,
+    int rank, int size, float* slots) {
+  constexpr int NV = E / V;
+  // dy and gamma stay in registers beside x when the row is read in
+  // 16-byte packs; at one element a pack (32 scalars of each, with their
+  // addresses and predicates) they would spill, and are read again (from
+  // L1) in the second pass instead
+  constexpr bool kHold = V > 1;
+  Pack<T, V> a[NV], dy[kHold ? NV : 1];
+  Pack<G, V> g[kHold ? NV : 1];
+  const auto dy_pack = [&](int j, int c) {
+    if constexpr (kHold) return dy[j];
+    else return load_pack<T, V>(dyr + c);
+  };
+  const auto gamma_pack = [&](int j, int c) {
+    if constexpr (kHold) return g[j];
+    else return load_pack<G, V>(gamma + c);
+  };
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = pack_col<V>(j, rank, size);
+    if (c < d) {
+      a[j] = load_pack<T, V>(xr + c);
+      if constexpr (kHold) {
+        dy[j] = load_pack<T, V>(dyr + c);
+        g[j] = load_pack<G, V>(gamma + c);
+      }
+    }
+  }
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = pack_col<V>(j, rank, size);
+    if (c < d) {
+      const Pack<T, V> dp = dy_pack(j, c);
+      const Pack<G, V> gp = gamma_pack(j, c);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float xhat = (to_f32(a[j].v[e]) - mean) * rstd;
+        const float w = to_f32(dp.v[e]) * to_f32(gp.v[e]);
+        s1 += w;
+        s2 += w * xhat;
+      }
+    }
+  }
+  row_sum2<kBlock>(s1, s2, slots);
+  const float c1 = s1 / (float)d, c2 = s2 / (float)d;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = pack_col<V>(j, rank, size);
+    if (c < d) {
+      const Pack<T, V> dp = dy_pack(j, c);
+      const Pack<G, V> gp = gamma_pack(j, c);
+      Pack<T, V> o;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float xhat = (to_f32(a[j].v[e]) - mean) * rstd;
+        const float w = to_f32(dp.v[e]) * to_f32(gp.v[e]);
+        o.v[e] = from_f32<T>((w - c1 - xhat * c2) * rstd);
+      }
+      store_pack<T, V>(dxr + c, o);
+    }
+  }
+}
+
+template <typename T, typename G, int V, int E>
+__global__ void __launch_bounds__(32 * kWarpRows, kDxWarpRowMinBlocks)
+layer_norm_dx_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ rstd,
+                     const T* __restrict__ dy, T* __restrict__ dx, int n,
+                     int d) {
+  const long long row = (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (row >= n) return;                 // whole warps leave together
+  layer_norm_dx_regs_row<T, G, V, E, false>(
+      x + row * d, gamma, mean[row], rstd[row], dy + row * d, dx + row * d,
+      d, threadIdx.x & 31, 32, nullptr);
+}
+
+template <typename T, typename G, int V>
+__global__ void __launch_bounds__(32 * kBlockRowWarps, 1)
+layer_norm_dx_block_kernel(const T* __restrict__ x,
+                           const G* __restrict__ gamma,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ rstd,
+                           const T* __restrict__ dy, T* __restrict__ dx,
+                           int d) {
+  __shared__ float slots[64];
+  const long long row = blockIdx.x;
+  layer_norm_dx_regs_row<T, G, V, kRowElems, true>(
+      x + row * d, gamma, mean[row], rstd[row], dy + row * d, dx + row * d,
+      d, threadIdx.x, blockDim.x, slots);
+}
+
+// Rows wider than kBlockRowMax: one block a row, looping over it.
 template <typename T, typename G>
 __global__ void __launch_bounds__(1024)
-layer_norm_dx_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
-                     const float* __restrict__ mean_in,
-                     const float* __restrict__ rstd_in,
-                     const T* __restrict__ dy, T* __restrict__ dx, int d) {
+layer_norm_dx_loop_kernel(const T* __restrict__ x,
+                          const G* __restrict__ gamma,
+                          const float* __restrict__ mean_in,
+                          const float* __restrict__ rstd_in,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          int d) {
   __shared__ float red[32];
   const size_t row = blockIdx.x;
   const T* xr = x + row * d;
@@ -241,13 +354,54 @@ int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+struct DxArgs {
+  const void* x;
+  const void* gamma;
+  const float* mean;
+  const float* rstd;
+  const void* dy;
+  void* dx;
+  int n, d;
+};
+
+template <typename T, typename G, int V, int E>
+void dx_warp(const DxArgs& a, cudaStream_t stream) {
+  layer_norm_dx_kernel<T, G, V, E>
+      <<<(a.n + kWarpRows - 1) / kWarpRows, 32 * kWarpRows, 0, stream>>>(
+          static_cast<const T*>(a.x), static_cast<const G*>(a.gamma), a.mean,
+          a.rstd, static_cast<const T*>(a.dy), static_cast<T*>(a.dx), a.n,
+          a.d);
+}
+
+// The register kernels at packs of V elements (d <= kBlockRowMax).
+template <typename T, typename G, int V>
+void dx_packs(const DxArgs& a, cudaStream_t stream) {
+  if (a.d > kWarpRowMax) {
+    layer_norm_dx_block_kernel<T, G, V>
+        <<<a.n, block_row_threads(a.d), 0, stream>>>(
+            static_cast<const T*>(a.x), static_cast<const G*>(a.gamma),
+            a.mean, a.rstd, static_cast<const T*>(a.dy),
+            static_cast<T*>(a.dx), a.d);
+    return;
+  }
+  switch (warp_row_elems(a.d)) {
+    case 8: dx_warp<T, G, V, 8>(a, stream); break;
+    case 16: dx_warp<T, G, V, 16>(a, stream); break;
+    default: dx_warp<T, G, V, 32>(a, stream); break;
+  }
+}
+
 template <typename T, typename G>
-int launch_dx(const void* x, const void* gamma, const float* mean,
-              const float* rstd, const void* dy, void* dx, int n, int d,
-              cudaStream_t stream) {
-  layer_norm_dx_kernel<T, G><<<n, row_threads(d), 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const G*>(gamma), mean, rstd,
-      static_cast<const T*>(dy), static_cast<T*>(dx), d);
+int launch_dx(const DxArgs& a, cudaStream_t stream) {
+  if (a.d > kBlockRowMax)
+    layer_norm_dx_loop_kernel<T, G><<<a.n, row_threads(a.d), 0, stream>>>(
+        static_cast<const T*>(a.x), static_cast<const G*>(a.gamma), a.mean,
+        a.rstd, static_cast<const T*>(a.dy), static_cast<T*>(a.dx), a.d);
+  else if (a.d % kVec16<T> == 0 && aligned16(a.x) && aligned16(a.dy) &&
+           aligned16(a.dx) && aligned16(a.gamma))
+    dx_packs<T, G, kVec16<T>>(a, stream);
+  else
+    dx_packs<T, G, 1>(a, stream);
   return (int)cudaGetLastError();
 }
 
@@ -282,19 +436,16 @@ extern "C" int dstorch_layer_norm_dx(const void* x, const void* gamma,
                                      int dtype, int param_f32, void* stream) {
   if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DxArgs a{x, gamma, mean, rstd, dy, dx, n, d};
   switch (dtype) {
     case kF32:
-      return launch_dx<float, float>(x, gamma, mean, rstd, dy, dx, n, d, s);
+      return launch_dx<float, float>(a, s);
     case kBF16:
-      return param_f32
-          ? launch_dx<__nv_bfloat16, float>(x, gamma, mean, rstd, dy, dx, n,
-                                            d, s)
-          : launch_dx<__nv_bfloat16, __nv_bfloat16>(x, gamma, mean, rstd, dy,
-                                                    dx, n, d, s);
+      return param_f32 ? launch_dx<__nv_bfloat16, float>(a, s)
+                       : launch_dx<__nv_bfloat16, __nv_bfloat16>(a, s);
     case kF16:
-      return param_f32
-          ? launch_dx<__half, float>(x, gamma, mean, rstd, dy, dx, n, d, s)
-          : launch_dx<__half, __half>(x, gamma, mean, rstd, dy, dx, n, d, s);
+      return param_f32 ? launch_dx<__half, float>(a, s)
+                       : launch_dx<__half, __half>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,8 +5,8 @@
 //     intrinsics only (the build defines __CUDA_NO_*_CONVERSIONS__);
 //   * warp and block reductions of f32 sums and maxima (shuffles, then one
 //     shared slot per warp);
-//   * the register layout of the forwards (LayerNorm, softmax) that hold a
-//     row in registers: `Pack`s of V elements, read and written with
+//   * the register layout of the kernels (the LayerNorm forward and dx, the
+//     softmax forward) that hold a row in registers: `Pack`s of V elements, read and written with
 //     16-byte accesses where V = 16 / sizeof(T), and the row-group index
 //     of each pack;
 //   * the dtype codes the Python wrappers pass (0 f32, 1 bf16, 2 fp16).
@@ -156,6 +156,27 @@ template <bool kBlock>
 __device__ __forceinline__ float row_sum(float v, float* slots) {
   if constexpr (kBlock) return block_sum_once(v, slots);
   else return warp_sum(v);
+}
+
+// Two sums over a row group in one reduction: the warp's shuffles, or the
+// block's with `slots` (64 floats, used by this one call: one barrier).
+template <bool kBlock>
+__device__ __forceinline__ void row_sum2(float& a, float& b, float* slots) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if constexpr (kBlock) {
+    if ((threadIdx.x & 31) == 0) {
+      slots[threadIdx.x >> 5] = a;
+      slots[32 + (threadIdx.x >> 5)] = b;
+    }
+    __syncthreads();
+    const int nw = blockDim.x >> 5;
+    a = b = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      a += slots[w];
+      b += slots[32 + w];
+    }
+  }
 }
 
 template <bool kBlock>

@@ -25,10 +25,9 @@
 //     min(layout block, 64). A block of 64 is one bit; 128 spans 2 x 2 tiles;
 //   * the column LUT (dk/dv): for each (head, key tile), the live query
 //     tiles, with the same masks (still indexed query-major).
-// The forward takes one block per (query tile, head, batch row), walking
-// its row-LUT entries. The backward walks two host work lists:
-//   * dq: (head, query tile) pairs sorted by their row-LUT length, longest
-//     first; an item walks its row LUT;
+// The 16-bit kernels walk two host work lists:
+//   * forward, dq: (head, query tile) pairs sorted by their row-LUT length,
+//     longest first; an item walks its row LUT;
 //   * dk/dv: items of at most 32 column-LUT entries of one (head, key
 //     tile), longest first. A key tile with a longer LUT row (BigBird's
 //     global key tile is seen by every query tile) is split over several
@@ -44,44 +43,51 @@
 //
 // Bound: counted once, the bytes (q, k, v, out, dO, grads) bound all three
 // kernels at the training shape (S = 32768, D = 64, BigBird block 64): a
-// live 64 x 64 tile pair does 6-8 * 64 * 4096 flops in the backward
-// against two 8 KB tiles that mostly hit L2 (a tile is reused by the
-// neighbouring tiles of its window). Three designs:
-//   * bf16 / fp16 backward (the training path), d in {32, 64, 96, 128):
-//     persistent wgmma kernels on the machinery of flash_attention.cu
-//     (hopper.cuh), one block per SM. Each block runs two pipelines, one per
-//     consumer warpgroup (wgmma's m64 is the layout's 64-row tile): a
-//     producer warp of the producer warpgroup (setmaxnreg 56 / 224) takes
-//     the pipeline's items in a snake over the sorted list, loads an item's
-//     resident tiles (dq: Q, dO; dk/dv: K, V) into one of two buffers and
-//     the LUT-listed tiles (dq: K, V; dk/dv: Q, dO) into a ring of 2-4
+// live 64 x 64 tile pair does 4 * 64 * 4096 flops in the forward and 6-8
+// * 64 * 4096 in the backward against two 8 KB tiles that mostly hit L2 (a
+// tile is reused by the neighbouring tiles of its window). Two designs:
+//   * bf16 / fp16 (the training path), d in {32, 64, 96, 128): persistent
+//     wgmma kernels on the machinery of flash_attention.cu (hopper.cuh),
+//     one block per SM. Each block runs two pipelines, one per consumer
+//     warpgroup (wgmma's m64 is the layout's 64-row tile): a producer warp
+//     of the producer warpgroup (setmaxnreg 56 / 224) takes the pipeline's
+//     items in a snake over the sorted list, loads an item's resident tiles
+//     (forward: Q; dq: Q, dO; dk/dv: K, V) into one of two buffers and the
+//     LUT-listed tiles (forward, dq: K, V; dk/dv: Q, dO) into a ring of 2-8
 //     stages that runs on across items, all by TMA through 4-D tensor maps
 //     over (d, H, S, B) with the caller's strides (rows past S arrive as
-//     zeros). Beside the tiles it writes the side values into shared
-//     memory: lse in log2 units (+inf on dead rows and past S, so exp2 gives
-//     p = 0 without a mask) and delta of the query rows (dq: the item's;
-//     dk/dv: each stage's), each stage's tile index and fine-block mask, the
-//     kept keys of the key tile as 64 bits, and whether the pair needs a
-//     mask at all. Its lanes read the LUT row and the list 32 entries at a
-//     time and issue the side values' loads before they wait for a free
-//     slot. The consumers run ss wgmma m64n64k16 for S = Q K^T and
-//     dP = dO V^T (dk/dv: S^T = K Q^T, dP^T = V dO^T) and rs wgmma with P
-//     or dS rounded to the input type in registers for dQ += dS K, dV +=
-//     P^T dO and dK += dS^T Q, software pipelined as flash's backward: the
-//     products of tile i run while the exponentials of tile i - 1 do. For
-//     d >= 96 dk/dv walks a query tile as two 32-row halves (registers).
-//     Only tile pairs on the causal diagonal, with a partly live fine mask,
-//     (dq) with a dropped or missing key take the masked body; dk/dv zeroes
-//     the rows of dropped keys at the store instead (a row of dK, dV
-//     depends only on its own key's scores).
-//   * bf16 / fp16 forward: 4-warp blocks on mma.sync m16n8k16
-//     (attention_tiles.cuh), K and V staged by the threads; the mask costs
-//     a shared-memory read and a bit test per score.
-//   * f32: exact CUDA-core FMAs, on no main path; the dq kernel takes one
-//     block per query tile, the dk/dv kernel one per work item.
+//     zeros). The forward's and dq's producers are one function. Beside the
+//     tiles it writes the side values into shared memory: (backward) lse
+//     in log2 units (+inf on dead rows and past S, so exp2 gives p = 0
+//     without a mask) and delta of the query rows (dq: the item's; dk/dv:
+//     each stage's), each stage's tile index and fine-block mask, the kept
+//     keys of the key tile as 64 bits, and whether the pair needs a mask at
+//     all. Its lanes read the LUT row and the list 32 entries at a time
+//     (forward, dq: the next item and its first 32 LUT entries while this
+//     item's stages issue) and issue the side values' loads before they
+//     wait for a free slot. The forward's tiles at d = 64 and 128 lie in
+//     panels of 64 columns with the 128-byte swizzle (one TMA box a row's
+//     128 bytes; the others in 32-column, 64-byte-swizzled panels). The
+//     consumers run ss wgmma m64n64k16 for S = Q K^T and dP = dO V^T (dk/dv:
+//     S^T = K Q^T, dP^T = V dO^T) and rs wgmma with P or dS rounded to the
+//     input type in registers for O += P V, dQ += dS K, dV += P^T dO and
+//     dK += dS^T Q, software pipelined as flash's kernels: the products of
+//     tile i run while the exponentials of tile i - 1 do. The forward keeps
+//     the online softmax on the S accumulators (hopper.cuh's softmax_tile:
+//     scale * log2(e) folded into one FFMA a score, exp2 on the SFU; a row
+//     that sees nothing keeps m = -1e30 and l = 0, so it writes zeros and
+//     lse = -1e30 exactly). For d >= 96 dk/dv walks a query tile as two
+//     32-row halves (registers). Only tile pairs on the causal diagonal,
+//     with a partly live fine mask, (forward, dq) with a dropped or missing
+//     key take the masked body; dk/dv zeroes the rows of dropped keys at
+//     the store instead (a row of dK, dV depends only on its own key's
+//     scores).
+//   * f32: exact CUDA-core FMAs, on no main path; the forward and dq take
+//     one block per (query tile, head, batch row), the dk/dv kernel one per
+//     work item.
 // The forward and dq do not split long LUT rows (a bidirectional layout's
 // global query tile walks every key tile; the causal training layout has
-// none; the dq list puts such rows first).
+// none; the list puts such rows first).
 //
 // Plain C interface (no PyTorch headers), bound with ctypes by
 // deepspeed_tpu_torch/ops/cuda/sparse_attention.py.
@@ -191,95 +197,7 @@ __device__ __forceinline__ void stage_stats(float* lses, float* dels,
 }
 
 // ===========================================================================
-// bf16 / fp16: tensor cores (T is the element type)
-// ===========================================================================
-template <typename T, int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-sparse_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, Strides sq, Strides sk,
-                     Strides sv, Lut lut, const float* __restrict__ kvm,
-                     T* __restrict__ out, float* __restrict__ lse, int S,
-                     int H, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + kRows * LD;
-  T* vs = ks + kRows * LD;
-  float* kok = reinterpret_cast<float*>(vs + kRows * LD);     // [kRows]
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
-  const int q0 = qt * kRows;
-  const int r[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
-  const long long at = (long long)h * gridDim.x + qt;
-  const int cnt = lut.cnt[at];
-
-  stage16<D>(qs, q, sq, b, h, q0, S);
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-#pragma unroll 1
-  for (int t = 0; t < cnt; ++t) {
-    const int k0 = lut.idx[at * lut.len + t] * kRows;
-    const unsigned long long bits = lut.bits[at * lut.len + t];
-    __syncthreads();
-    stage16<D>(ks, k, sk, b, h, k0, S);
-    stage16<D>(vs, v, sv, b, h, k0, S);
-    stage_keys(kok, kvm, b, k0, S);
-    __syncthreads();
-    float s[kRows / 8][4];
-    tile_qkt<T, D, kRows / 8>(s, qs, ks, row0, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * (lane & 3) + (e & 1), i = e >> 1;
-        const bool seen = kok[c] != 0.f && live(bits, r[i], c, lut.shift)
-                          && (!kCausal || k0 + c <= q0 + r[i]);
-        s[n][e] = seen ? s[n][e] * scale : -INFINITY;
-        mx[i] = fmaxf(mx[i], s[n][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);  // masked: exp(-inf) = 0
-        l[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-    tile_pv<T, D>(o, s, vs, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = quad_sum(l[i]);
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    inv[i] = 1.f / l_safe;
-    if ((lane & 3) == 0 && q0 + r[i] < S)
-      lse[((long long)b * H + h) * S + q0 + r[i]] =
-          m[i] <= kNegInf / 2 ? kNegInf : m[i] + logf(l_safe);
-  }
-  store_rows<T, D>(out, o, b, q0 + row0, h, S, H, inv, lane);
-}
-
-// ===========================================================================
-// bf16 / fp16 backward: wgmma kernels fed by TMA (B5b)
+// bf16 / fp16: wgmma kernels fed by TMA (B5, B5b)
 // ===========================================================================
 // Registers a thread after the roles split: the producer warps keep a chunk
 // of 32 work items and the side values of a stage in flight, so their
@@ -292,11 +210,12 @@ constexpr int kPipes = 2;                 // one per consumer warpgroup
 // What a producer warp tells its consumer warpgroup beside the tiles of a
 // resident buffer (the work item) or of a ring stage (one LUT entry).
 struct Side {
-  float lse[kRows];       // query rows: lse in log2 units, +inf past S and
-  float delta[kRows];     //   on dead rows (so exp2 gives 0 unmasked)
+  float lse[kRows];       // backward, query rows: lse in log2 units, +inf
+  float delta[kRows];     //   past S and on dead rows (exp2 gives 0)
   unsigned long long bits;    // stage: the tile pair's fine-block mask
   unsigned long long keys;    // bit c: key c of the key tile exists and is
-  //                             kept (dq: the stage's; dk/dv: the item's)
+  //                             kept (forward, dq: the stage's; dk/dv: the
+  //                             item's)
   int tile;               // stage: the walked tile; buffer: the item's own
   int masked;             // stage: the pair takes the masked body
   int shift;              // stage: log2 of the fine block (read per stage,
@@ -305,17 +224,26 @@ struct Side {
   int h, b, n, first, rank, items;   // buffer: the item (n LUT entries)
 };
 
-template <int D>
-struct BwdTile {
-  // two 64-row tiles (Q and dO, or K and V) a buffer and a stage
-  static constexpr int kTile = 2 * kRows * D * 2;
-  static constexpr int kStages = D <= 64 ? 4 : 2;
-  static constexpr int kRes = D <= 96 ? 2 : 1;
-  // dk/dv walks a query tile in halves of 32 rows for d >= 96 (registers)
-  static constexpr int kHalves = D <= 64 ? 1 : 2;
+// The shared memory of one pipeline: kRes buffers of an item's resident
+// tiles (forward: Q; dq: Q and dO; dk/dv: K and V) and a ring of kStages
+// stages of two walked tiles each (forward, dq: K and V; dk/dv: Q and dO).
+// The forward's smaller buffer leaves room for more stages, as many as two
+// pipelines fit under the 227 KB a block can have.
+template <int D, bool kFwd>
+struct SpTile {
+  static constexpr int kOne = kRows * D * 2;    // bytes of a 64-row tile
+  static constexpr int kResTile = (kFwd ? 1 : 2) * kOne;
+  static constexpr int kStageTile = 2 * kOne;
+  static constexpr int kStages =
+      kFwd ? (D <= 32 ? 8 : D <= 64 ? 5 : D <= 96 ? 3 : 2)
+           : (D <= 64 ? 4 : 2);
+  static constexpr int kRes = kFwd || D <= 96 ? 2 : 1;
+  // the forward's tiles in panels of 64 columns (128-byte swizzle: one TMA
+  // box a row's 128 bytes) where d allows, else of 32
+  static constexpr int kCols = kFwd && D % 64 == 0 ? 64 : kPanel;
   static constexpr int kBufs = kRes + kStages;
   // one pipeline: its tiles, sides and barriers, 1024-aligned
-  static constexpr int kSides = kBufs * kTile;
+  static constexpr int kSides = kRes * kResTile + kStages * kStageTile;
   static constexpr int kBars = kSides + kBufs * (int)sizeof(Side);
   static constexpr int kPipe = (kBars + 8 * 2 * kBufs + 1023) / 1024 * 1024;
   static constexpr size_t kSmem = 1024 + kPipes * kPipe;
@@ -325,16 +253,16 @@ struct BwdTile {
 // next item's load during this one's end) and a ring of kStages stages,
 // each with a full and an empty mbarrier; its tiles (1024-aligned), then
 // their sides, then the barriers, all at fixed offsets from its base.
-template <int D>
+template <int D, bool kFwd>
 struct Pipe {
-  using C = BwdTile<D>;
+  using C = SpTile<D, kFwd>;
   unsigned char* base;
   __device__ Pipe(unsigned char* smem, int p) : base(smem + p * C::kPipe) {}
   __device__ unsigned char* res(int j) const {
-    return base + (j % C::kRes) * C::kTile;
+    return base + (j % C::kRes) * C::kResTile;
   }
   __device__ unsigned char* stage(int g) const {
-    return base + (C::kRes + g % C::kStages) * C::kTile;
+    return base + C::kRes * C::kResTile + (g % C::kStages) * C::kStageTile;
   }
   __device__ Side* rside(int j) const {
     return reinterpret_cast<Side*>(base + C::kSides) + j % C::kRes;
@@ -449,8 +377,308 @@ struct KeyFlags {
   }
 };
 
-// dq: one work item is (head, query tile) x batch row, walking the query
-// tile's row LUT; items[2 i ..] = head, query tile, longest rows first.
+// The producer warp of pipeline p of a row-LUT kernel (the forward, dq).
+// One work item is (head, query tile) x batch row, items[2 i ..] = head,
+// query tile, longest rows first; it walks the query tile's row LUT. Into
+// a resident buffer: the Q tile (dq: and dO, and the rows' lse and delta);
+// into the ring, for each LUT entry: K and V, and beside them the key
+// tile, its fine-block mask and shift, the kept keys and whether the pair
+// takes the masked body. tdo, lse and delta are not read when kFwd.
+template <typename T, int D, bool kCausal, bool kFwd>
+__device__ __forceinline__ void row_lut_producer(
+    const Pipe<D, kFwd> pipe, int p, const CUtensorMap* tq,
+    const CUtensorMap* tk, const CUtensorMap* tv, const CUtensorMap* tdo,
+    const Lut lut, const int* __restrict__ items, int n_items,
+    const float* __restrict__ kvm, const float* __restrict__ lse,
+    const float* __restrict__ delta, int B, int S, int H, int lane) {
+  using C = SpTile<D, kFwd>;
+  constexpr int kStages = C::kStages, kRes = C::kRes;
+  const int nt = (S + kRows - 1) / kRows;
+  const int n_work = n_items * B;
+  // lane l holds the item of round r0 + l (r0 a multiple of 32); a round
+  // reads the next round's item and the first 32 entries of its LUT row,
+  // so their loads run while this round's stages issue
+  int e_h = 0, e_qt = 0, e_cnt = 0;
+  const auto fetch = [&](int r0) {
+    const int wl = pipe_round(r0 + lane, p);
+    if (wl < n_work) {
+      const int it = wl / B;
+      e_h = items[2 * it];
+      e_qt = items[2 * it + 1];
+      e_cnt = lut.cnt[e_h * nt + e_qt];
+    }
+  };
+  // entries c0 + lane of LUT row `at` of cnt entries
+  const auto lut_chunk = [&](long long at, int cnt, int c0, int& idx,
+                             unsigned long long& bits) {
+    idx = 0;
+    bits = 0;
+    if (c0 + lane < cnt) {
+      idx = lut.idx[at * lut.len + c0 + lane];
+      bits = lut.bits[at * lut.len + c0 + lane];
+    }
+  };
+  fetch(0);
+  int h = __shfl_sync(kFull, e_h, 0), qt = __shfl_sync(kFull, e_qt, 0);
+  int cnt = __shfl_sync(kFull, e_cnt, 0), idx;
+  unsigned long long bits;
+  lut_chunk((long long)h * nt + qt, cnt, 0, idx, bits);
+  int g = 0;
+  for (int j = 0;; ++j) {
+    const int w = pipe_round(j, p);
+    if (w >= n_work) break;
+    if (((j + 1) & 31) == 0) fetch(j + 1);
+    const int h_n = __shfl_sync(kFull, e_h, (j + 1) & 31);
+    const int qt_n = __shfl_sync(kFull, e_qt, (j + 1) & 31);
+    const int e_next = __shfl_sync(kFull, e_cnt, (j + 1) & 31);
+    const int cnt_n = pipe_round(j + 1, p) < n_work ? e_next : 0;
+    int idx_n;
+    unsigned long long bits_n;
+    lut_chunk((long long)h_n * nt + qt_n, cnt_n, 0, idx_n, bits_n);
+    const int b = w % B, q0 = qt * kRows;
+    const long long at = (long long)h * nt + qt;
+    [[maybe_unused]] RowStats rows;
+    if constexpr (!kFwd)
+      rows.load(lse, delta, ((long long)b * H + h) * S, q0, S, lane);
+    if (j >= kRes) bar_wait(pipe.rempty(j), ((j / kRes) & 1) ^ 1);
+    Side* rs = pipe.rside(j);
+    if constexpr (!kFwd) rows.store(rs, lane);
+    if (lane == 0) {
+      rs->h = h;
+      rs->b = b;
+      rs->tile = qt;
+      rs->n = cnt;
+      if (cnt > 0) {
+        T* qs = reinterpret_cast<T*>(pipe.res(j));
+        bar_expect(pipe.rfull(j), C::kResTile);
+        tma_tile<D, kRows, C::kCols>(qs, tq, pipe.rfull(j), h, q0, b);
+        if constexpr (!kFwd)
+          tma_tile<D, kRows>(qs + kRows * D, tdo, pipe.rfull(j), h, q0, b);
+      } else {
+        bar_arrive(pipe.rfull(j));
+      }
+    } else {
+      bar_arrive(pipe.rfull(j));
+    }
+    for (int c0 = 0; c0 < cnt; c0 += 32) {
+      if (c0 > 0) lut_chunk(at, cnt, c0, idx, bits);
+      const int m = min(32, cnt - c0);
+      for (int t = 0; t < m; ++t, ++g) {
+        const int kt = __shfl_sync(kFull, idx, t);
+        const unsigned long long fb = __shfl_sync(kFull, bits, t);
+        KeyFlags keys;
+        keys.load(kvm, b, kt * kRows, S, lane);
+        if (g >= kStages) bar_wait(pipe.empty(g), ((g / kStages) & 1) ^ 1);
+        const unsigned long long kept = keys.ballot();
+        if (lane == 0) {
+          Side* ss = pipe.sside(g);
+          ss->tile = kt;
+          ss->bits = fb;
+          ss->keys = kept;
+          ss->masked = (kCausal && kt == qt) || fb != all_live(lut.shift)
+                       || kept != ~0ull;
+          ss->shift = lut.shift;
+          T* ks = reinterpret_cast<T*>(pipe.stage(g));
+          bar_expect(pipe.full(g), C::kStageTile);
+          tma_tile<D, kRows, C::kCols>(ks, tk, pipe.full(g), h, kt * kRows,
+                                       b);
+          tma_tile<D, kRows, C::kCols>(ks + kRows * D, tv, pipe.full(g), h,
+                                       kt * kRows, b);
+        } else {
+          bar_arrive(pipe.full(g));
+        }
+      }
+    }
+    h = h_n;
+    qt = qt_n;
+    cnt = cnt_n;
+    idx = idx_n;
+    bits = bits_n;
+  }
+}
+
+// The columns of a tile pair that tile-local query `row` sees, as 64 bits:
+// the columns of its live fine blocks, the kept keys (`keys`) and, for lim
+// < 63, only columns c <= lim (the causal diagonal; lim < 0: none).
+__device__ __forceinline__ unsigned long long seen_cols(
+    unsigned long long bits, unsigned long long keys, int shift, int row,
+    int lim) {
+  const int per = kRows >> shift;                 // fine blocks a row
+  const unsigned long long fine = bits >> ((row >> shift) * per);
+  const unsigned long long ones = (2ull << ((1 << shift) - 1)) - 1;
+  unsigned long long cols = 0;
+#pragma unroll 1
+  for (int f = 0; f < per; ++f)
+    if ((fine >> f) & 1ull) cols |= ones << (f << shift);
+  cols &= keys;
+  if (lim < kRows - 1) cols &= lim < 0 ? 0ull : (2ull << lim) - 1;
+  return cols;
+}
+
+// Forward (B5): the row-LUT work list of dq (row_lut_producer). Each
+// consumer warpgroup walks its pipeline's items, pipelined as flash's
+// forward: tile i's S = Q K^T runs on the tensor cores with tile i - 1's
+// O += P V, and tile i's online softmax runs while the latter does. Only
+// the pairs the producer flags take the mask's instructions: the columns
+// each of a thread's two rows sees, built once a stage (seen_cols), then
+// one bit test a score.
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+sparse_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, Lut lut,
+                        const int* __restrict__ items, int n_items,
+                        const float* __restrict__ kvm, T* __restrict__ out,
+                        float* __restrict__ lse, int B, int S, int H,
+                        float scale) {
+  using C = SpTile<D, true>;
+  constexpr int kStages = C::kStages, kRes = C::kRes, kCols = C::kCols;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int n_work = n_items * B;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < kPipes; ++p) Pipe<D, true>(base, p).init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {                       // the producers
+    regs_down<kSpProducerRegs>();
+    const int p = warp - kConsumerWarps;
+    if (p < kPipes)
+      row_lut_producer<T, D, kCausal, true>(
+          Pipe<D, true>(base, p), p, &tq, &tk, &tv, nullptr, lut, items,
+          n_items, kvm, nullptr, nullptr, B, S, H, lane);
+    return;
+  }
+
+  regs_up<kSpConsumerRegs>();
+  const int wg = warp >> 2;
+  const Pipe<D, true> pipe(base, wg);
+  const float c2 = scale * kLog2e;
+  const int w16 = (warp & 3) * 16;
+  const int rl[2] = {w16 + (lane >> 2), w16 + (lane >> 2) + 8};  // local
+  const auto slot_wait = [&](int g) {
+    bar_wait(pipe.full(g), (g / kStages) & 1);
+  };
+  float o[D / 2], s[kRows / 2], corr[2], m[2], l[2];
+  uint32_t pa[kRows / 16][4];
+  int g = 0;
+#pragma unroll 1
+  for (int j = 0;; ++j) {
+    const int w = pipe_round(j, wg);
+    if (w >= n_work) break;
+    bar_wait(pipe.rfull(j), (j / kRes) & 1);
+    const Side* rs = pipe.rside(j);
+    const int cnt = rs->n, h = rs->h, b = rs->b, q0 = rs->tile * kRows;
+    const T* qs = reinterpret_cast<const T*>(pipe.res(j));
+    const auto k_tile = [&](int slot) {
+      return reinterpret_cast<const T*>(pipe.stage(slot));
+    };
+    // S of a ring slot (one commit group)
+    const auto scores = [&](int slot) {
+      const T* ks = k_tile(slot);
+      const T* q = anew(qs);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, kRows>::ss(s, desc_k<kRows, kCols>(q, 0, kk),
+                            desc_k<kRows, kCols>(ks, 0, kk), kk);
+      wg_commit();
+    };
+    // O += P V of a ring slot (one commit group)
+    const auto values = [&](int slot) {
+      const T* vs = k_tile(slot) + kRows * D;
+#pragma unroll
+      for (int jj = 0; jj < kRows / 16; ++jj)
+        Wgmma<T, D>::rs(o, pa[jj], desc_mn<kRows, kCols>(vs, jj), 1);
+      wg_commit();
+    };
+    // the online softmax of a ring slot's scores: s becomes P
+    const auto softmax = [&](int slot) {
+      const Side* ss = pipe.sside(slot);
+      const auto go = [&](auto masked, auto hidden) {
+        constexpr bool kMasked = decltype(masked)::value;
+        if (c2 >= 0.f)
+          softmax_tile<kRows, kMasked, true>(s, m, l, corr, c2, hidden);
+        else
+          softmax_tile<kRows, kMasked, false>(s, m, l, corr, c2, hidden);
+      };
+      if (ss->masked) {
+        // each row's seen columns, shifted so that bit (e >> 2) * 8 +
+        // (e & 1) is value e's column
+        unsigned long long seen[2];
+        const int k0 = ss->tile * kRows;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          seen[r] = seen_cols(ss->bits, ss->keys, ss->shift, rl[r],
+                              kCausal ? q0 + rl[r] - k0 : kRows)
+                    >> (2 * (lane & 3));
+        go(std::true_type{}, [&](int e) {
+          return !((seen[(e >> 1) & 1] >> ((e >> 2) * 8 + (e & 1))) & 1ull);
+        });
+      } else {
+        go(std::false_type{}, [](int) { return false; });
+      }
+    };
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    m[0] = m[1] = kNegInf;                            // log2 units
+    l[0] = l[1] = 0.f;
+    if (cnt > 0) {
+      slot_wait(g);
+      fence_regs<D / 2>(o);
+      wg_fence();
+      scores(g);
+      wg_wait();
+      fence_regs<kRows / 2>(s);
+      softmax(g);
+      to_a<T, kRows>(pa, s);
+#pragma unroll 1
+      for (int i = 1; i < cnt; ++i) {
+        slot_wait(g + i);
+        fence_regs<D / 2>(o);
+        wg_fence();
+        scores(g + i);
+        values(g + i - 1);
+        wg_wait<1>();                                 // S of tile i
+        fence_regs<kRows / 2>(s);
+        softmax(g + i);
+        wg_wait<0>();                                 // P V of tile i - 1
+        fence_regs<D / 2>(o);
+        bar_release(pipe.empty(g + i - 1), lane);
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+        to_a<T, kRows>(pa, s);
+      }
+      bar_release(pipe.rempty(j), lane);   // the last read of Q
+      fence_regs<D / 2>(o);
+      wg_fence();
+      values(g + cnt - 1);
+      wg_wait();
+      fence_regs<D / 2>(o);
+      bar_release(pipe.empty(g + cnt - 1), lane);
+    } else {
+      bar_release(pipe.rempty(j), lane);
+    }
+    g += cnt;
+    // a row that saw no key has m = -1e30 and l = 0: zeros, lse = -1e30
+    const int row[2] = {q0 + rl[0], q0 + rl[1]};
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      const float l_safe = lr == 0.f ? 1.f : lr;
+      inv[r] = 1.f / l_safe;
+      if ((lane & 3) == 0 && row[r] < S)
+        lse[((long long)b * H + h) * S + row[r]] =
+            m[r] <= kNegInf / 2 ? kNegInf : m[r] * kLn2 + logf(l_safe);
+    }
+    store_acc<T, D>(out, o, b, row, h, S, H, inv, lane);
+  }
+}
+
+// dq (B5b): the row-LUT work list (row_lut_producer).
 template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -463,15 +691,14 @@ sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ delta,
                            T* __restrict__ dq, int B, int S, int H,
                            float scale) {
-  using C = BwdTile<D>;
+  using C = SpTile<D, false>;
   constexpr int kStages = C::kStages, kRes = C::kRes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
-  const int nt = (S + kRows - 1) / kRows;
   const int n_work = n_items * B;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int p = 0; p < kPipes; ++p) Pipe<D>(base, p).init();
+    for (int p = 0; p < kPipes; ++p) Pipe<D, false>(base, p).init();
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -479,82 +706,10 @@ sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp >= kConsumerWarps) {                       // the producers
     regs_down<kSpProducerRegs>();
     const int p = warp - kConsumerWarps;
-    if (p >= kPipes) return;
-    const Pipe<D> pipe(base, p);
-    int g = 0, e_h = 0, e_qt = 0, e_cnt = 0;
-    for (int j = 0;; ++j) {
-      const int w = pipe_round(j, p);
-      if (w >= n_work) break;
-      if ((j & 31) == 0) {          // lane l: the item of round j + l
-        const int wl = pipe_round(j + lane, p);
-        if (wl < n_work) {
-          const int it = wl / B;
-          e_h = items[2 * it];
-          e_qt = items[2 * it + 1];
-          e_cnt = lut.cnt[e_h * nt + e_qt];
-        }
-      }
-      const int h = __shfl_sync(kFull, e_h, j & 31);
-      const int qt = __shfl_sync(kFull, e_qt, j & 31);
-      const int cnt = __shfl_sync(kFull, e_cnt, j & 31);
-      const int b = w % B, q0 = qt * kRows;
-      const long long at = (long long)h * nt + qt;
-      RowStats rows;
-      rows.load(lse, delta, ((long long)b * H + h) * S, q0, S, lane);
-      if (j >= kRes) bar_wait(pipe.rempty(j), ((j / kRes) & 1) ^ 1);
-      Side* rs = pipe.rside(j);
-      rows.store(rs, lane);
-      if (lane == 0) {
-        rs->h = h;
-        rs->b = b;
-        rs->tile = qt;
-        rs->n = cnt;
-        if (cnt > 0) {
-          T* qs = reinterpret_cast<T*>(pipe.res(j));
-          bar_expect(pipe.rfull(j), C::kTile);
-          tma_tile<D, kRows>(qs, &tq, pipe.rfull(j), h, q0, b);
-          tma_tile<D, kRows>(qs + kRows * D, &tdo, pipe.rfull(j),
-                             h, q0, b);
-        } else {
-          bar_arrive(pipe.rfull(j));
-        }
-      } else {
-        bar_arrive(pipe.rfull(j));
-      }
-      for (int c0 = 0; c0 < cnt; c0 += 32) {
-        int idx = 0;
-        unsigned long long bits = 0;
-        if (c0 + lane < cnt) {
-          idx = lut.idx[at * lut.len + c0 + lane];
-          bits = lut.bits[at * lut.len + c0 + lane];
-        }
-        const int m = min(32, cnt - c0);
-        for (int t = 0; t < m; ++t, ++g) {
-          const int kt = __shfl_sync(kFull, idx, t);
-          const unsigned long long fb = __shfl_sync(kFull, bits, t);
-          KeyFlags keys;
-          keys.load(kvm, b, kt * kRows, S, lane);
-          if (g >= kStages) bar_wait(pipe.empty(g), ((g / kStages) & 1) ^ 1);
-          const unsigned long long kept = keys.ballot();
-          if (lane == 0) {
-            Side* ss = pipe.sside(g);
-            ss->tile = kt;
-            ss->bits = fb;
-            ss->keys = kept;
-            ss->masked = (kCausal && kt == qt) || fb != all_live(lut.shift)
-                         || kept != ~0ull;
-            ss->shift = lut.shift;
-            T* ks = reinterpret_cast<T*>(pipe.stage(g));
-            bar_expect(pipe.full(g), C::kTile);
-            tma_tile<D, kRows>(ks, &tk, pipe.full(g), h, kt * kRows, b);
-            tma_tile<D, kRows>(ks + kRows * D, &tv, pipe.full(g), h,
-                               kt * kRows, b);
-          } else {
-            bar_arrive(pipe.full(g));
-          }
-        }
-      }
-    }
+    if (p < kPipes)
+      row_lut_producer<T, D, kCausal, false>(
+          Pipe<D, false>(base, p), p, &tq, &tk, &tv, &tdo, lut, items,
+          n_items, kvm, lse, delta, B, S, H, lane);
     return;
   }
 
@@ -565,7 +720,7 @@ sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // producer flags take the mask's instructions.
   regs_up<kSpConsumerRegs>();
   const int wg = warp >> 2;
-  const Pipe<D> pipe(base, wg);
+  const Pipe<D, false> pipe(base, wg);
   const float c2 = scale * kLog2e;
   const int w16 = (warp & 3) * 16;
   const int rl[2] = {w16 + (lane >> 2), w16 + (lane >> 2) + 8};  // local
@@ -704,8 +859,10 @@ sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ delta,
                             T* __restrict__ dk, T* __restrict__ dv, int B,
                             int S, int H, float scale) {
-  using C = BwdTile<D>;
-  constexpr int kStages = C::kStages, kRes = C::kRes, kHalves = C::kHalves;
+  using C = SpTile<D, false>;
+  constexpr int kStages = C::kStages, kRes = C::kRes;
+  // a query tile is walked in halves of 32 rows for d >= 96 (registers)
+  constexpr int kHalves = D <= 64 ? 1 : 2;
   constexpr int kM = kRows / kHalves;           // query rows a step
   extern __shared__ unsigned char smem_raw[];
   __shared__ int last_flag[kPipes];
@@ -714,7 +871,7 @@ sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_work = n_items * B;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int p = 0; p < kPipes; ++p) Pipe<D>(base, p).init();
+    for (int p = 0; p < kPipes; ++p) Pipe<D, false>(base, p).init();
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -723,7 +880,7 @@ sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     regs_down<kSpProducerRegs>();
     const int p = warp - kConsumerWarps;
     if (p >= kPipes) return;
-    const Pipe<D> pipe(base, p);
+    const Pipe<D, false> pipe(base, p);
     int g = 0, e[4] = {0, 0, 0, 0};
     for (int j = 0;; ++j) {
       const int w = pipe_round(j, p);
@@ -764,7 +921,7 @@ sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         rs->keys = kept;
         if (n > 0) {
           T* ks = reinterpret_cast<T*>(pipe.res(j));
-          bar_expect(pipe.rfull(j), C::kTile);
+          bar_expect(pipe.rfull(j), C::kResTile);
           tma_tile<D, kRows>(ks, &tk, pipe.rfull(j), h, k0, b);
           tma_tile<D, kRows>(ks + kRows * D, &tv, pipe.rfull(j), h,
                              k0, b);
@@ -796,7 +953,7 @@ sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             ss->masked = (kCausal && qt == kt) || fb != all_live(lut.shift);
             ss->shift = lut.shift;
             T* qs = reinterpret_cast<T*>(pipe.stage(g));
-            bar_expect(pipe.full(g), C::kTile);
+            bar_expect(pipe.full(g), C::kStageTile);
             tma_tile<D, kRows>(qs, &tq, pipe.full(g), h, qt * kRows, b);
             tma_tile<D, kRows>(qs + kRows * D, &tdo, pipe.full(g), h,
                                qt * kRows, b);
@@ -819,7 +976,7 @@ sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // instructions; queries past S and dead rows have lse +inf (p = 0).
   regs_up<kSpConsumerRegs>();
   const int wg = warp >> 2;
-  const Pipe<D> pipe(base, wg);
+  const Pipe<D, false> pipe(base, wg);
   const float c2 = scale * kLog2e;
   const int w16 = (warp & 3) * 16;
   const int rl[2] = {w16 + (lane >> 2), w16 + (lane >> 2) + 8};  // keys
@@ -1274,20 +1431,29 @@ template <typename T, int D, bool C>
 struct Fwd {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          void* out, float* lse, const long long* st, Lut lut,
-                         const float* kvm, int B, int S, int H, float scale,
+                         const int* items, int n_items, const float* kvm,
+                         int B, int S, int H, float scale,
                          cudaStream_t stream) {
-    const dim3 grid = grid_of(B, S, H);
-    const auto go = [&](auto kernel, int threads, size_t smem) {
-      return launch(kernel, grid, threads, smem, stream, as<T>(q), as<T>(k),
-                    as<T>(v), strides_at(st, 0), strides_at(st, 1),
-                    strides_at(st, 2), lut, kvm, as<T>(out), lse, S, H,
-                    scale);
-    };
-    if constexpr (sizeof(T) == 2)
-      return go(sparse_fwd_tc_kernel<T, D, C>, kTcThreads, tc_smem<D>(3, 1));
-    else
-      return go(sparse_fwd_f32_kernel<D, C>, FwdSplit<D>::kThreads,
-                f32_smem<D>(2, 1));
+    if constexpr (sizeof(T) == 2) {
+      CUtensorMap m[3];
+      const void* ptrs[3] = {q, k, v};
+      const int rows[3] = {kRows, kRows, kRows};
+      if (!tile_maps<T>(m, ptrs, rows, 3, st, B, S, H, D,
+                        SpTile<D, true>::kCols))
+        return cudaErrorInvalidValue;
+      const int blocks = std::min((n_items * B + kPipes - 1) / kPipes,
+                                  sm_count());
+      return launch(sparse_fwd_wgmma_kernel<T, D, C>, dim3(blocks),
+                    kHopperThreads, SpTile<D, true>::kSmem, stream, m[0],
+                    m[1], m[2], lut, items, n_items, kvm, as<T>(out), lse, B,
+                    S, H, scale);
+    } else {
+      return launch(sparse_fwd_f32_kernel<D, C>, grid_of(B, S, H),
+                    FwdSplit<D>::kThreads, f32_smem<D>(2, 1), stream,
+                    as<T>(q), as<T>(k), as<T>(v), strides_at(st, 0),
+                    strides_at(st, 1), strides_at(st, 2), lut, kvm,
+                    as<T>(out), lse, S, H, scale);
+    }
   }
 };
 
@@ -1308,7 +1474,7 @@ struct Dq {
       const int blocks = std::min((n_items * B + kPipes - 1) / kPipes,
                                   sm_count());
       return launch(sparse_bwd_dq_wgmma_kernel<T, D, C>, dim3(blocks),
-                    kHopperThreads, BwdTile<D>::kSmem, stream, m[0], m[1],
+                    kHopperThreads, SpTile<D, false>::kSmem, stream, m[0], m[1],
                     m[2], m[3], lut, items, n_items, kvm, lse, delta,
                     as<T>(dq), B, S, H, scale);
     } else {
@@ -1339,7 +1505,7 @@ struct Dkv {
       const int blocks = std::min((n_items * B + kPipes - 1) / kPipes,
                                   sm_count());
       return launch(sparse_bwd_dkv_wgmma_kernel<T, D, C>, dim3(blocks),
-                    kHopperThreads, BwdTile<D>::kSmem, stream, m[0], m[1],
+                    kHopperThreads, SpTile<D, false>::kSmem, stream, m[0], m[1],
                     m[2], m[3], lut, work, n_items, kvm, lse, delta,
                     as<T>(dk), as<T>(dv), B, S, H, scale);
     } else {
@@ -1360,28 +1526,30 @@ bool bad_lut(int len, int shift) { return len < 1 || shift < 3 || shift > 6; }
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; d in {32, 64, 96, 128}.
 // `strides` is a host array of (batch, seq, head) element strides: q, k, v
-// for the forward; q, k, v, dO for the backward. lut_idx / lut_cnt / lut_bits are device
-// arrays [H, tiles, lut_len] / [H, tiles] / [H, tiles, lut_len]: the row LUT
-// for the forward and dq, the column LUT for dk/dv. kvm: the f32 [B, S]
-// key-padding mask (> 0 attends) or null. The dq kernel also takes its work
-// list ([n_items, 2] int32: head, query tile; longest LUT rows first), the
-// dk/dv kernel its work items ([n_items, 7] int32, see Work) and, when
-// parts > 0, the workspace and the zeroed tickets ([B, parts, kLevels];
-// the f32 dq kernel reads no list). 16-bit strides are multiples of 8 elements and the pointers
-// 16-byte aligned (the tensor maps). Returns a cudaError_t (0 on success).
+// for the forward; q, k, v, dO for the backward. lut_idx / lut_cnt /
+// lut_bits are device arrays [H, tiles, lut_len] / [H, tiles] / [H, tiles,
+// lut_len]: the row LUT for the forward and dq, the column LUT for dk/dv.
+// kvm: the f32 [B, S] key-padding mask (> 0 attends) or null. The forward
+// and dq kernels also take the row-LUT work list ([n_items, 2] int32:
+// head, query tile; longest LUT rows first; the f32 kernels read none),
+// the dk/dv kernel its work items ([n_items, 7] int32, see Work) and, when
+// parts > 0, the workspace and the zeroed tickets ([B, parts, kLevels]).
+// 16-bit strides are multiples of 8 elements and the pointers 16-byte
+// aligned (the tensor maps). Returns a cudaError_t (0 on success).
 extern "C" int dstorch_sparse_fwd(const void* q, const void* k, const void* v,
                                   void* out, float* lse,
                                   const long long* strides,
                                   const int* lut_idx, const int* lut_cnt,
                                   const unsigned long long* lut_bits,
-                                  int lut_len, int shift, const float* kvm,
-                                  int B, int S, int H, int d, int causal,
-                                  float scale, int dtype, void* stream) {
-  if (bad_shape(B, S, H) || bad_lut(lut_len, shift))
+                                  int lut_len, int shift, const int* items,
+                                  int n_items, const float* kvm, int B, int S,
+                                  int H, int d, int causal, float scale,
+                                  int dtype, void* stream) {
+  if (bad_shape(B, S, H) || bad_lut(lut_len, shift) || n_items < 1)
     return (int)cudaErrorInvalidValue;
   const Lut lut{lut_idx, lut_cnt, lut_bits, lut_len, shift};
   return (int)dispatch<Fwd>(dtype, d, causal, q, k, v, out, lse, strides,
-                            lut, kvm, B, S, H, scale,
+                            lut, items, n_items, kvm, B, S, H, scale,
                             static_cast<cudaStream_t>(stream));
 }
 

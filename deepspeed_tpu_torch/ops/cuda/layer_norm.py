@@ -3,10 +3,11 @@
 Counterpart of ``deepspeed_tpu/ops/pallas/layer_norm.py``. The Pallas
 kernels ``_fwd_kernel`` and ``_dx_kernel`` (B6) become the CUDA kernels in
 ``csrc/layer_norm.cu``: f32 statistics, the variance in a second pass over
-``x - mean`` as the TPU kernel takes it. The forward holds each row in
-registers (one warp a row up to d = 1024, one block a row up to 16384) and
-reads and writes it in 16-byte packs when d and the pointers allow; dx takes
-one block per row.
+``x - mean`` as the TPU kernel takes it. Both kernels hold each row in
+registers (one warp a row up to d = 1024, one block a row up to 16384, a
+looping block beyond) and read and write it in 16-byte packs when d and the
+pointers allow; dx reads x, dy and gamma once and takes its two sums in one
+pass.
 
 :func:`layer_norm` is the entry (a :class:`LayerNormFunction`
 ``autograd.Function``). The forward saves ``x`` and the f32 ``mean`` and

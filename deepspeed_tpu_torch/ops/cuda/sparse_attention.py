@@ -3,24 +3,24 @@
 Counterpart of the kernels of
 ``deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py``: the Pallas
 ``_fwd_kernel`` (B5), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (B5b) become
-the CUDA kernels in ``csrc/sparse_attention.cu``: the bf16 / fp16 backward
-as persistent wgmma kernels fed by TMA through an mbarrier ring (the
-machinery of ``csrc/hopper.cuh``, shared with flash), the bf16 / fp16
-forward on the mma.sync tile code of ``csrc/attention_tiles.cuh``, f32 on
-CUDA cores; head dims 32, 64, 96, 128.
+the CUDA kernels in ``csrc/sparse_attention.cu``: bf16 / fp16 as
+persistent wgmma kernels fed by TMA through mbarrier rings (the machinery of
+``csrc/hopper.cuh``, shared with flash), f32 on CUDA cores; head dims 32,
+64, 96, 128.
 
 The layout arrives as a :class:`TileLayout`: the fine layout compiled at the
 kernels' 64-row tile (``ops/sparse_attention/sparse_self_attention.py``
 builds it once per (seq_len, causal) and keeps it on each device). It holds a
 row LUT (live key tiles of each (head, query tile), for the forward and dq),
 a column LUT (live query tiles of each (head, key tile), for dk/dv), for
-each live tile pair a 64-bit mask of its live fine blocks, and the backward
-kernels' work lists: the dq kernel's (head, query tile) pairs, longest LUT
-rows first, and the dk/dv kernel's items (a long column-LUT row is split
-over several items, each writing its f32 partial to its own slot of a
-workspace the wrapper allocates; the partials are summed in a fixed order,
-so dk and dv are bitwise reproducible from run to run). The list of
-live tile pairs, which only the plain versions read, stays on the host.
+each live tile pair a 64-bit mask of its live fine blocks, and the 16-bit
+kernels' work lists: the (head, query tile) pairs, longest LUT rows first,
+that the forward and the dq kernel both walk, and the dk/dv kernel's items
+(a long column-LUT row is split over several items, each writing its f32
+partial to its own slot of a workspace the wrapper allocates; the partials
+are summed in a fixed order, so dk and dv are bitwise reproducible from run
+to run). The list of live tile pairs, which only the plain versions read,
+stays on the host.
 
 Semantics are the TPU kernels': key j is visible to query i when its fine
 block is live, (causal) j <= i and (with ``kvm``, an f32 ``[B, S]``
@@ -74,8 +74,9 @@ class TileLayout(NamedTuple):
     lut_q: torch.Tensor        # int32 [H, nt, Lq]  live query tiles
     cnt_q: torch.Tensor        # int32 [H, nt]
     bits_q: torch.Tensor       # int64 [H, nt, Lq]
-    dq_items: torch.Tensor     # int32 [H * nt, 2]: the dq kernel's work
-    #                            list (head, query tile), longest rows first
+    dq_items: torch.Tensor     # int32 [H * nt, 2]: the forward's and the
+    #                            dq kernel's work list (head, query tile),
+    #                            longest rows first
     dkv_items: torch.Tensor    # int32 [n, 7]: the dk/dv kernel's items
     dkv_parts: int             # workspace partials of the split key tiles
     pairs: tuple               # host int64 [P] x 4: head, query tile, key
@@ -252,6 +253,14 @@ def _lut_args(lut, cnt, bits, shift):
             shift)
 
 
+def _row_lut_args(layout: TileLayout):
+    """The row LUT and its work list, as the forward and dq kernels take
+    them: both walk ``layout.dq_items``."""
+    return (*_lut_args(layout.lut_k, layout.cnt_k, layout.bits_k,
+                       layout.shift),
+            layout.dq_items.data_ptr(), layout.dq_items.shape[0])
+
+
 def _tail(q, layout: TileLayout, kvm, scale):
     b, s, h, d = q.shape
     return (None if kvm is None else kvm.data_ptr(), b, s, h, d,
@@ -274,9 +283,8 @@ def sparse_attention_forward(q, k, v, layout: TileLayout, scale: float,
     with torch.cuda.device(q.device):
         err = lib.dstorch_sparse_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _stride_array(q, k, v),
-            *_lut_args(layout.lut_k, layout.cnt_k, layout.bits_k,
-                       layout.shift), *_tail(q, layout, kvm, scale))
+            lse.data_ptr(), _stride_array(q, k, v), *_row_lut_args(layout),
+            *_tail(q, layout, kvm, scale))
     _build.check(err, "sparse_fwd")
     _build.LAUNCHES["sparse_fwd"] += 1
     return out, lse
@@ -310,9 +318,7 @@ def sparse_attention_backward(q, k, v, out, lse, dout, layout: TileLayout,
         err = lib.dstorch_sparse_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), strides,
-            *_lut_args(layout.lut_k, layout.cnt_k, layout.bits_k,
-                       layout.shift),
-            layout.dq_items.data_ptr(), layout.dq_items.shape[0], *tail)
+            *_row_lut_args(layout), *tail)
         _build.check(err, "sparse_bwd_dq")
         _build.LAUNCHES["sparse_bwd_dq"] += 1
         err = lib.dstorch_sparse_bwd_dkv(

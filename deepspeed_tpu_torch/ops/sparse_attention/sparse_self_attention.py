@@ -58,9 +58,10 @@ def _dkv_items(cnt_q: np.ndarray):
 
 
 def _dq_items(cnt_k: np.ndarray) -> np.ndarray:
-    """The dq kernel's work list [n, 2] (head, query tile): every (head,
-    query tile) once, the longest row-LUT rows first (ties in (head, tile)
-    order), so the persistent kernel's last rounds are its shortest."""
+    """The row-LUT work list [n, 2] (head, query tile) that the forward and
+    the dq kernel walk: every (head, query tile) once, the longest row-LUT
+    rows first (ties in (head, tile) order), so the persistent kernels'
+    last rounds are their shortest."""
     h, qt = np.divmod(np.argsort(-cnt_k.reshape(-1), kind="stable"),
                       cnt_k.shape[1])
     return np.stack([h, qt], 1).astype(np.int32)

@@ -775,6 +775,144 @@ def test_sparse_gpt_under_checkpoint_matches_plain(dev):
                                    atol=1e-5, msg=name)
 
 
+class _RaggedLayout:
+    """A layout at any S (no multiple of its block needed): per head, the
+    diagonal blocks, a global first block and random blocks (about a
+    third), over ceil(S / block) blocks; a block of 16 gives tile pairs
+    whose fine masks are partly live."""
+    attention = "bidirectional"
+
+    def __init__(self, heads, block):
+        self.heads, self.block = heads, block
+
+    def make_layout(self, seq_len):
+        nb = -(-seq_len // self.block)
+        rng = np.random.default_rng(self.block * 1000 + seq_len)
+        lay = rng.random((self.heads, nb, nb)) < 0.35
+        lay[:, :, 0] = True
+        lay[:, np.arange(nb), np.arange(nb)] = True
+        return lay.astype(np.int64)
+
+
+def _sparse_forward_check(dev, cfg, q, k, v, causal, kvm):
+    """The forward kernel once against its plain version: out within the
+    flash tolerances, lse within 1e-4; returns the kernel's (out, lse)."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import compiled_layout
+    layout = compiled_layout(cfg, q.shape[1], causal).on(dev)
+    scale = q.shape[-1] ** -0.5
+    before = dict(_build.LAUNCHES)
+    out, lse = sa.sparse_attention_forward(q, k, v, layout, scale, kvm)
+    ref_out, ref_lse = sa.sparse_attention_forward_reference(q, k, v, layout,
+                                                             scale, kvm)
+    torch.cuda.synchronize()
+    _launched(("sparse_fwd",), before)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               **FLASH_TOL[q.dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    return out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("S", [480, 77])
+def test_sparse_forward_matches_plain(dev, dtype, d, causal, masked, block,
+                                      S):
+    """The 16-bit forward's branches: every head dim, causal or not, with
+    or without a key-padding mask, partly live fine masks (block 16) and
+    tiles of a 128 block, S a partial last tile (480) or under one tile
+    (77)."""
+    B, H = 2, 3
+    q, k, v, _ = _qkv_views(dev, B, S, H, d, dtype, S + d + block)
+    kvm = None
+    if masked:
+        kvm = torch.ones(B, S, device=dev)
+        kvm[0, S // 2:] = 0
+        kvm[1, 5:9] = 0
+    _sparse_forward_check(dev, _RaggedLayout(H, block), q, k, v, causal, kvm)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_forward_dropped_key_tile_and_dead_rows(dev, dtype, causal):
+    """A key-padding mask that drops every key of one key tile (the stage
+    keeps each row's running max and sum), and a batch row whose keys are
+    all dropped: its out is exactly zero and its lse exactly -1e30."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    B, S, H = 3, 512, 3
+    cfg = BigBirdSparsityConfig(num_heads=H, block=64,
+                                different_layout_per_head=True,
+                                num_random_blocks=2)
+    q, k, v, _ = _qkv_views(dev, B, S, H, 64, dtype, 3)
+    kvm = torch.ones(B, S, device=dev)
+    kvm[0, 128:192] = 0              # key tile 2 of batch row 0
+    kvm[1, 64:] = 0                  # only key tile 0 of batch row 1
+    kvm[2] = 0                       # batch row 2 sees nothing
+    out, lse = _sparse_forward_check(dev, cfg, q, k, v, causal, kvm)
+    assert not out[2].any() and bool((lse[2] == -1e30).all())
+    assert bool((lse[:2] > -1e30).all()) and out[:2].abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sparse_forward_repeats_bitwise_at_the_training_shape(dev, dtype):
+    """B=1, S=32768, H=12, D=64 with the long-context bench layout (BigBird
+    block 64, causal): a second forward gives bitwise the same out and lse,
+    both within the bounds of the plain version."""
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import compiled_layout
+    cfg = BigBirdSparsityConfig(num_heads=12, block=64, num_random_blocks=3,
+                                num_sliding_window_blocks=3,
+                                num_global_blocks=1)
+    q, k, v, _ = _qkv_views(dev, 1, 32768, 12, 64, dtype, 32768)
+    out, lse = _sparse_forward_check(dev, cfg, q, k, v, True, None)
+    again = sa.sparse_attention_forward(
+        q, k, v, compiled_layout(cfg, 32768, True).on(dev), 64 ** -0.5)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sparse_forward_lse_feeds_the_backward(dev, dtype, causal, masked):
+    """The kernels' out and lse into the backward kernels: dq, dk and dv
+    against the plain backward of the plain forward's out and lse."""
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import compiled_layout
+    B, S, H = 2, 512, 3
+    cfg = BigBirdSparsityConfig(num_heads=H, block=32,
+                                different_layout_per_head=True,
+                                num_random_blocks=2)
+    q, k, v, do = _qkv_views(dev, B, S, H, 64, dtype, 21)
+    kvm = None
+    if masked:
+        kvm = torch.ones(B, S, device=dev)
+        kvm[1, 200:] = 0
+    out, lse = _sparse_forward_check(dev, cfg, q, k, v, causal, kvm)
+    layout = compiled_layout(cfg, S, causal).on(dev)
+    scale = 64 ** -0.5
+    ro, rl = sa.sparse_attention_forward_reference(q, k, v, layout, scale,
+                                                   kvm)
+    grads = sa.sparse_attention_backward(q, k, v, out, lse, do, layout,
+                                         scale, kvm)
+    refs = sa.sparse_attention_backward_reference(q, k, v, ro, rl, do,
+                                                  layout, scale, kvm)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, refs):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FLASH_TOL[dtype])
+
+
 # --------------------------------------------------------------------------
 # Row-wise kernels: LayerNorm (B6), bias-GELU (B7), softmax (B8)
 # --------------------------------------------------------------------------
@@ -982,6 +1120,61 @@ def test_row_forwards_at_the_register_limit(dev, width, dtype):
             sm.softmax_forward(x, 7, causal).float(),
             sm.softmax_forward_reference(x, 7, causal).float(),
             **ROW_FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("width", [16384, 16392, 20000])
+def test_layer_norm_dx_at_the_register_limit(dev, width, dtype):
+    """dx at the widest row a block holds in registers (16384) and on the
+    looping kernel past it."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator(device=dev).manual_seed(width)
+    x = (3 * torch.randn(37, width, device=dev, generator=g) + 1).to(dtype)
+    gamma = (1 + 0.3 * torch.randn(width, device=dev, generator=g)).to(dtype)
+    dy = torch.randn(37, width, device=dev, generator=g).to(dtype)
+    _, mean, rstd = ln.layer_norm_forward_reference(x, gamma, gamma, 1e-5)
+    before = dict(_build.LAUNCHES)
+    dx = ln.layer_norm_dx(x, gamma, mean, rstd, dy)
+    rdx = ln.layer_norm_backward_reference(x, gamma, mean, rstd, dy)
+    torch.cuda.synchronize()
+    _launched(("layer_norm_dx",), before)
+    torch.testing.assert_close(dx.float(), rdx.float(), **ROW_GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("param_f32", [True, False])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("d", [1000, 1024, 4096])
+def test_layer_norm_dx_on_a_misaligned_view(dev, d, dtype, param_f32):
+    """x, dy and gamma start one element past a 16-byte boundary: the
+    register dx kernels at one element a pack (dy and gamma read again)."""
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator(device=dev).manual_seed(d + 1)
+    n = 37
+    x, dy = ((torch.randn(n * d + 1, device=dev, generator=g) * 3 + 1).to(
+        dtype)[1:].view(n, d) for _ in range(2))
+    gamma = (1 + 0.3 * torch.randn(d + 1, device=dev, generator=g)).to(
+        torch.float32 if param_f32 else dtype)[1:]
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16 and gamma.data_ptr() % 16
+    _, mean, rstd = ln.layer_norm_forward_reference(x, gamma, gamma, 1e-5)
+    dx = ln.layer_norm_dx(x, gamma, mean, rstd, dy)
+    rdx = ln.layer_norm_backward_reference(x, gamma, mean, rstd, dy)
+    torch.testing.assert_close(dx.float(), rdx.float(), **ROW_GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_layer_norm_dx_repeats_bitwise(dev, dtype):
+    """A second dx on the same inputs gives the same bits on every path
+    (warp rows of 8, 16 and 32 elements a lane, block rows, the loop)."""
+    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator(device=dev).manual_seed(12)
+    for d in (96, 512, 1024, 1025, 4096, 20000):
+        x, dy = (torch.randn(37, d, device=dev, generator=g).to(dtype)
+                 for _ in range(2))
+        gamma = torch.randn(d, device=dev, generator=g).to(dtype)
+        _, mean, rstd = ln.layer_norm_forward_reference(x, gamma, gamma, 1e-5)
+        assert torch.equal(ln.layer_norm_dx(x, gamma, mean, rstd, dy),
+                           ln.layer_norm_dx(x, gamma, mean, rstd, dy)), d
 
 
 @pytest.mark.parametrize("dtype", ROW_DTYPES)

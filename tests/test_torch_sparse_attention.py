@@ -14,8 +14,11 @@ f32, inputs from numpy seeds:
   * key padding with dead query rows and a key tile no query reaches;
   * grads of the ``SparseAttention`` autograd function against
     ``jax.grad`` (1e-3), dv exactly 0 at masked keys;
-  * CPU tensors never reach the kernels.
+  * CPU tensors never reach the kernels; the 16-bit forward and dq get
+    the same work list.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -243,6 +246,58 @@ def test_backward_work_lists_cover_the_luts_longest_first(case):
         assert lay.dkv_parts == 12 * (512 // DKV_CHUNK)
     else:
         assert lay.dkv_parts > 0         # some column LUT is split
+
+
+class _Pointer:
+    """Stands in for the work list on the card: its address and shape."""
+
+    def __init__(self, items):
+        self.shape = items.shape
+
+    def data_ptr(self):
+        return 0xD0D0
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_CASES))
+def test_forward_walks_the_dq_work_list(case, monkeypatch):
+    """The 16-bit forward walks the dq kernel's work list: the wrappers hand
+    both C entries the same row LUT and ``dq_items`` (its address and
+    length), each call as long as its ctypes signature. Recorded through a
+    stand-in library on meta tensors, so no kernel runs."""
+    kw = dict(SCHEDULE_CASES[case])
+    block, seq, causal = kw.pop("block"), kw.pop("seq"), kw.pop("causal")
+    kw.setdefault("num_random_blocks", 1)
+    kw.setdefault("different_layout_per_head", True)
+    heads = kw.pop("heads", 2)
+    cfg = psc.BigBirdSparsityConfig(num_heads=heads, block=block, **kw)
+    lay = compiled_layout(cfg, seq, causal)
+    layout = lay.on("meta")
+    layout = layout._replace(dq_items=_Pointer(layout.dq_items))
+    calls = {}
+
+    class Library:
+        def __getattr__(self, name):
+            def record(*args):
+                calls[name] = args
+                return 0
+            return record
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    q, k, v, do = (torch.empty(1, seq, heads, 64, dtype=torch.bfloat16,
+                               device="meta") for _ in range(4))
+    out, lse = psa.sparse_attention_forward(q, k, v, layout, 0.125)
+    psa.sparse_attention_backward(q, k, v, out, lse, do, layout, 0.125)
+    fwd, dq = calls["dstorch_sparse_fwd"], calls["dstorch_sparse_bwd_dq"]
+    for name in ("dstorch_sparse_fwd", "dstorch_sparse_bwd_dq",
+                 "dstorch_sparse_bwd_dkv"):
+        assert len(calls[name]) == len(_build._SIGNATURES[name])
+    # lut_idx, lut_cnt, lut_bits, lut_len, shift, items, n_items
+    assert fwd[6:13] == dq[8:15]
+    assert fwd[9:13] == (lay.lut_k.shape[-1], lay.shift, 0xD0D0,
+                         lay.dq_items.shape[0])
 
 
 def test_layout_block_the_kernels_lack_raises():

@@ -12,7 +12,8 @@ bf16, causal, BigBird block 64: chip_smoke.py phases 12 and 16) it prints
 one JSON line: the device ms per call of the forward (B5), dq and dk/dv
 (B5b) kernels (chip_smoke.py's ``device_ms``), of ``attention_delta``
 (the rowsum(dO * out) that each backward call computes first) and the
-host time to issue one backward call (100 calls in a row). A second line
+host time to issue one forward and one backward call (100 calls in a
+row). A second line
 does the same in fp16 at D=128. Then it trains chip_smoke.py phase 13's
 model (GPT-2 125M at seq 32768 through the sparse kernels) for 1 warm-up
 and 3 timed steps and profiles one warmed step: step wall, device busy
@@ -93,6 +94,7 @@ def main(argv=None) -> int:
                                            iters=20),
             "attention_delta_ms": device_ms(
                 lambda i: attention_delta(out, do), iters=20),
+            "fwd_issue_us": _issue_us(torch, fwd),
             "bwd_issue_us": _issue_us(torch, bwd), "card": card}),
             flush=True)
         del qkv, q, k, v, do, out, lse
