@@ -33,7 +33,14 @@ Phases (any failure exits non-zero before the result lines):
      unprofiled chunk wall);
   5. per-kernel device times (torch.profiler) beside the plain version, the
      PyTorch library call for the same function and the card's lower bound;
-     B2 also at phase 2's fills with s_q = 4 and with every row full;
+     B2 also at phase 2's fills with s_q = 4 and with every row full; B4
+     also filtering (top_k 50 + top_p 0.9, top-p 0.9 alone, top-k 50
+     alone) and drawing (temperature 0.8, top_k 50, top_p 0.9, gumbel
+     row) at b 8, V 50304, filtering at b 64, V 131072, and its launch
+     floor (b 1, V 128, greedy), each beside its byte bound and its
+     yardstick (torch.argmax; torch.topk(x, 50); the sort-based
+     serving.sampling.filter_logits, several calls; the same then the
+     argmax of the filtered row + gumbel for the draw);
   7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
      the training shape (B=8, S=1024, H=12, D=64, bf16, causal) and at a
      non-causal shape whose S (1000) is not a multiple of the 128-row
@@ -164,7 +171,13 @@ Phases (any failure exits non-zero before the result lines):
      64 MiB read in turn, past L2), the kernel and its yardstick each;
      LayerNorm dx also at its path edges (rows of 1032, 16384 and 16392,
      bf16, as many rows as the layer's 4096 x 1024 elements), warm and
-     cold.
+     cold;
+ 25. sampled serving: phase 4's model and 16 prompts through
+     ServingEngine(megakernel=True, temperature=0.8, top_k=50, top_p=0.9,
+     seed=--seed), 64 new tokens each, counts reset just before and read
+     just after (fails without a sampling launch); tokens/s; a rerun with
+     the same seed must give identical tokens; one steady chunk profiled:
+     B4's device ms per decode step beside the step's device busy ms.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -238,9 +251,9 @@ def device_ms(fn, n_inputs: int = 1, kernel: str = "", iters: int = 50,
     """Device time per call in ms: the kernels' durations under
     torch.profiler (CUPTI), summed over ``iters`` calls. Host launch
     overhead is excluded, so small kernels are not timed at the launch rate.
-    ``kernel``: count only kernels whose name contains it (else all the
-    call's kernels). ``fn(i)`` cycles over ``n_inputs`` input copies so a
-    working set larger than L2 is read cold."""
+    ``kernel``: count only kernels whose name contains it, launched once a
+    call (else all the call's kernels). ``fn(i)`` cycles over ``n_inputs``
+    input copies so a working set larger than L2 is read cold."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
@@ -248,15 +261,22 @@ def device_ms(fn, n_inputs: int = 1, kernel: str = "", iters: int = 50,
     torch.cuda.synchronize()
     # a profiler session late in a long process can come back without
     # kernel records (CUPTI); the window is measured once more before the
-    # run fails
+    # run fails. A window can also lose some of a kernel's records (often
+    # the first launch): a named kernel is averaged over those recorded
     for attempt in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i % n_inputs)
             torch.cuda.synchronize()
-        total_us = sum(_device_us(e) for e in prof.key_averages()
-                       if kernel in e.key)
+        events = [e for e in prof.key_averages()
+                  if kernel in e.key and _device_us(e) > 0]
+        total_us = sum(_device_us(e) for e in events)
+        launches = sum(e.count for e in events)
         if total_us > 0:
+            if kernel and launches < iters:
+                print(f"device_ms: {launches} of {iters} {kernel} launches "
+                      f"recorded; averaged over those", flush=True)
+                return total_us / 1e3 / launches
             return total_us / 1e3 / iters
         print(f"device_ms: no device time recorded for "
               f"{kernel or 'the call'} (attempt {attempt + 1})", flush=True)
@@ -288,6 +308,23 @@ def phase_decode_attention(torch, da, dev, gen):
     return max(errs.values()), inputs[1]
 
 
+def _top_p_differs(torch, sp, x, top_k, top_p):
+    """Compare the kernel's top-p kept set (after top-k) with the plain
+    version's. A token may flip only where the mass strictly above it
+    (f64, over the top-k output) sits at top_p within the f32 rounding of
+    the mass sums. Returns the number of differing tokens."""
+    kern = sp.threshold_filter_logits(x, 1.0, top_k, top_p) > -1e9
+    ref = sp.filter_rows_reference(x, top_k, top_p) > -1e9
+    diff = (kern != ref).nonzero().tolist()
+    p = torch.softmax(sp.filter_rows_reference(x, top_k, None).double(), -1)
+    for row, idx in diff:
+        above = p[row][p[row] > p[row, idx]].sum().item()
+        if abs(above - top_p) > TOP_P_MASS_TOL:
+            fail(f"top_k={top_k} top_p={top_p} kept sets differ beyond "
+                 f"rounding at row {row} token {idx}: mass above {above}")
+    return len(diff)
+
+
 def phase_sampling(torch, sp, dev, gen):
     b, V = 8, 50304
     x = torch.randn(b, V, device=dev, generator=gen) * 3
@@ -301,26 +338,27 @@ def phase_sampling(torch, sp, dev, gen):
     if not torch.equal(topk, topk_ref):
         fail("top-k=50 filtered logits are not bitwise equal")
     err = (topk - topk_ref).abs().max().item()
-    topp = sp.threshold_filter_logits(x, 1.0, None, 0.9) > -1e9
-    topp_ref = sp.filter_rows_reference(x, None, 0.9) > -1e9
-    n_diff = int((topp != topp_ref).sum())
-    if n_diff:
-        # a token may flip only where the mass strictly above it sits at
-        # p * Z within the f32 rounding of the mass sums
-        p = torch.softmax(x.double(), dim=-1)
-        for row, idx in (topp != topp_ref).nonzero().tolist():
-            above = p[row][p[row] > p[row, idx]].sum().item()
-            if abs(above - 0.9) > TOP_P_MASS_TOL:
-                fail(f"top-p kept sets differ beyond rounding at "
-                     f"row {row} token {idx}: mass above {above}")
+    n_diff = _top_p_differs(torch, sp, x, None, 0.9)
+    # the candidate path: top-k, then top-p on the gathered candidates
+    n_diff_kp = _top_p_differs(torch, sp, x, 50, 0.9)
     gum = -torch.log(-torch.log(
         torch.rand(b, V, device=dev, generator=gen).clamp_min(1e-30)))
     drawn = sp.fused_sample(x, gum, 0.8, 50, 0.9).long()
     kept = sp.filter_rows_reference(x / 0.8, 50, 0.9) > -1e9
     if not kept[torch.arange(b, device=dev), drawn].all():
         fail("a temperature draw fell outside the filter")
+    # the draw equals the plain version's on every row where the kernel
+    # keeps the same tokens
+    same = ((sp.threshold_filter_logits(x, 0.8, 50, 0.9) > -1e9)
+            == kept).all(-1)
+    drawn_ref = sp.fused_sample_reference(x / 0.8, gum, 50, 0.9).long()
+    if not torch.equal(drawn[same], drawn_ref[same]):
+        fail("top_k50+top_p0.9 draws differ from the plain version's on "
+             "rows with equal kept sets")
     print(f"phase3 sampling greedy=equal top_k50=bitwise top_p0.9 "
-          f"differing_tokens={n_diff} draws=inside_filter", flush=True)
+          f"differing_tokens={n_diff} top_k50+top_p0.9 "
+          f"differing_tokens={n_diff_kp} draws=inside_filter "
+          f"draws_equal_on_{int(same.sum())}_of_{b}_rows", flush=True)
     return x, err
 
 
@@ -428,7 +466,7 @@ def phase_serving(torch, np, dev, seed, card):
     if not err <= LOGITS_ATOL:
         fail(f"decode-step logits disagree: {err}")
     phase_profile(torch, ie, prompts[:8], kw, card)
-    return launches
+    return launches, ie, prompts, kw
 
 
 def phase_profile(torch, ie, prompts, kw, card, tag="phase6"):
@@ -464,6 +502,135 @@ def phase_profile(torch, ie, prompts, kw, card, tag="phase6"):
           f"idle_share={1 - busy_ms / wall_ms} card={card}", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         print(f"{tag} kernel ms={ms} count={count} {key[:90]}", flush=True)
+    return busy_ms, rows
+
+
+def phase_sampled_serving(torch, ie, prompts, kw, seed, card):
+    """Phase 25: phase 4's requests drawn at temperature 0.8 with top-k 50
+    and top-p 0.9, so every decode step runs the filtering B4 kernel."""
+    from deepspeed_tpu_torch import ServingEngine
+    from deepspeed_tpu_torch.ops.cuda import _build
+    skw = dict(kw, megakernel=True, temperature=0.8, top_k=50, top_p=0.9)
+    n_new = 64
+
+    def serve():
+        return ServingEngine(engine=ie, seed=seed, **skw).run(
+            [p.copy() for p in prompts], max_new_tokens=n_new)
+
+    ServingEngine(engine=ie, seed=seed, **skw).run(
+        [p.copy() for p in prompts[:2]], max_new_tokens=4)   # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if not launches.get("sampling"):
+        fail(f"sampled serving never launched the sampling kernel: "
+             f"{launches}")
+    for r in out:
+        if r.status != "done" or len(r.tokens) != n_new:
+            fail(f"sampled request {r.uid}: status {r.status}, "
+                 f"{len(r.tokens)} tokens")
+    n_tokens = sum(len(r.tokens) for r in out)
+    if [r.tokens for r in serve()] != [r.tokens for r in out]:
+        fail("a rerun with the same seed sampled different tokens")
+    print(f"phase25 sampled serving gpt2_125m temperature=0.8 top_k=50 "
+          f"top_p=0.9 requests=16 tokens={n_tokens} launches={launches}; "
+          f"rerun with the same seed: tokens identical", flush=True)
+    print(f"sampled_serving_tokens_per_s={n_tokens / seconds} card={card}",
+          flush=True)
+    busy_ms, rows = phase_profile(torch, ie, prompts[:8], skw, card,
+                                  tag="phase25")
+    k = kw["decode_chunk"]
+    b4_ms = sum(ms for ms, _, key in rows if "sampling_kernel" in key)
+    if b4_ms <= 0:
+        fail("the profiled sampled chunk recorded no sampling kernel")
+    print(f"phase25 sampling_kernel_ms_per_step={b4_ms / k} "
+          f"step_device_busy_ms={busy_ms / k} share={b4_ms / busy_ms} "
+          f"(K={k}, batch 8) card={card}", flush=True)
+
+
+# B4's timed modes (tools/time_sampling.py times the same): (case, b, V,
+# mode, top_k, top_p); serving's shape, a wide batch at a 128K vocabulary,
+# and the smallest launch the C interface makes (the practical floor)
+SAMPLING_TIME_CASES = (
+    ("greedy", 8, 50304, "greedy", None, None),
+    ("filter_top_k50_top_p0.9", 8, 50304, "filter", 50, 0.9),
+    ("filter_top_p0.9", 8, 50304, "filter", None, 0.9),
+    ("filter_top_k50", 8, 50304, "filter", 50, None),
+    ("draw_top_k50_top_p0.9", 8, 50304, "draw", 50, 0.9),
+    ("filter_top_k50_top_p0.9_b64_v131072", 64, 131072, "filter", 50, 0.9),
+    ("filter_top_p0.9_b64_v131072", 64, 131072, "filter", None, 0.9),
+    ("launch_floor_greedy_b1_v128", 1, 128, "greedy", None, None),
+)
+
+
+def sampling_time_cases(torch, sp, dev, gen):
+    """B4's device ms per call in each of SAMPLING_TIME_CASES (logits
+    3 * N(0, 1), temperature 1, or 0.8 with a gumbel row for the draw)
+    beside its plain version's, its byte bound (read the logits, and the
+    gumbel row, once; write the filtered row or the tokens once) and a
+    PyTorch yardstick: greedy torch.argmax; top-k alone torch.topk(x, 50);
+    the filters the sort-based serving.sampling.filter_logits (several
+    calls); the draw that filter then torch.argmax of the filtered row +
+    gumbel."""
+    from deepspeed_tpu_torch.serving.sampling import filter_logits
+    out = {}
+    for case, b, V, mode, top_k, top_p in SAMPLING_TIME_CASES:
+        x = torch.randn(b, V, device=dev, generator=gen) * 3
+        gum = -torch.log(-torch.log(torch.rand(
+            b, V, device=dev, generator=gen).clamp_min(1e-30)))
+        if mode == "greedy":
+            def fn(i):
+                sp.fused_sample(x, None, 0.0, None)
+
+            def plain(i):
+                sp.fused_sample_reference(x, None, None, None)
+
+            def yard(i):
+                torch.argmax(x, dim=-1)
+            yard_name, nbytes = "torch.argmax", b * V * 4 + b * 4
+        elif mode == "filter":
+            def fn(i):
+                sp.threshold_filter_logits(x, 1.0, top_k, top_p)
+
+            def plain(i):
+                sp.filter_rows_reference(x, top_k, top_p)
+            if top_p is None:
+                def yard(i):
+                    torch.topk(x, top_k, dim=-1)
+                yard_name = f"torch.topk(x, {top_k})"
+            else:
+                def yard(i):
+                    filter_logits(x, 1.0, top_k, top_p)
+                yard_name = "serving.sampling.filter_logits"
+            nbytes = 2 * b * V * 4
+        else:
+            def fn(i):
+                sp.fused_sample(x, gum, 0.8, top_k, top_p)
+
+            def plain(i):
+                sp.fused_sample_reference(x / 0.8, gum, top_k, top_p)
+
+            def yard(i):
+                torch.argmax(filter_logits(x, 0.8, top_k, top_p) + gum,
+                             dim=-1)
+            yard_name = "filter_logits + argmax(y + gumbel)"
+            nbytes = 2 * b * V * 4 + b * 4
+        out[case] = {
+            "b": b, "V": V,
+            "ms": device_ms(fn, kernel="sampling_kernel"),
+            "plain_ms": device_ms(plain, iters=10),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  b * V / F32_FLOPS),
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= b * V / F32_FLOPS else "operations",
+            "yardstick": yard_name,
+            "yardstick_ms": device_ms(yard)}
+        del x, gum
+    return out
 
 
 def phase_timing(torch, da, qz, sp, dev, gen, decode_inputs, logits,
@@ -509,8 +676,6 @@ def phase_timing(torch, da, qz, sp, dev, gen, decode_inputs, logits,
             x, None, None, None)),
         "library_ms": device_ms(lambda i: torch.argmax(x, dim=-1)),
     }
-    filt_ms = device_ms(lambda i: sp.threshold_filter_logits(x, 1.0, 50, 0.9),
-                        kernel="sampling_kernel")
     sp_bytes = B * V * 4 + B * 4
     sp_bound = 1e3 * max(sp_bytes / HBM_BYTES_PER_S, B * V / F32_FLOPS)
     for name, t, bound in (("decode_attention", da_t, da_bound),
@@ -518,8 +683,10 @@ def phase_timing(torch, da, qz, sp, dev, gen, decode_inputs, logits,
         for key, val in t.items():
             print(f"{name}_{key}={val} card={card}", flush=True)
         print(f"{name}_bound_ms={bound} card={card}", flush=True)
-    print(f"sampling_top_k50_top_p0.9_filter_ms={filt_ms} card={card}",
-          flush=True)
+    for case, row in sampling_time_cases(torch, sp, dev, gen).items():
+        print(f"sampling_{case}: " + " ".join(
+            f"{key}={val}" for key, val in row.items()) + f" card={card}",
+            flush=True)
     print_decode_cases(torch, da, qz, dev, gen, ("decode_attention",),
                        "phase5", card)
     return (da_t, da_bound, "bytes" if da_bytes / HBM_BYTES_PER_S
@@ -2447,9 +2614,13 @@ def main(argv=None) -> int:
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
     logits, sp_err = phase_sampling(torch, sp, dev, gen)
     flash_err, flash_inputs = phase_flash_parity(torch, fa, dev, gen)
-    launches = phase_serving(torch, np, dev, args.seed, card)
+    launches, ie, prompts, serve_kw = phase_serving(torch, np, dev,
+                                                   args.seed, card)
     (da_t, da_bound, da_by), (sp_t, sp_bound, sp_by) = phase_timing(
         torch, da, qz, sp, dev, gen, decode_inputs, logits, card)
+    phase_sampled_serving(torch, ie, prompts, serve_kw, args.seed, card)
+    del ie
+    torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
     phase_model_check(torch, dev, engine, cfg, ids)

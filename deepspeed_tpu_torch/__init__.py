@@ -21,20 +21,29 @@ __all__ = ["InferenceEngine", "ServingEngine", "GPT", "GPTConfig",
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
-               config_params=None, loss_fn=None, device="cuda"):
+               config_params=None, loss_fn=None, rng=None, device="cuda"):
     """Build the training engine (reference ``deepspeed.initialize``).
     Returns ``(engine, optimizer, dataloader, lr_scheduler)``.
 
     ``model`` is a ``torch.nn.Module`` whose parameters become the fp32
     masters; ``model_parameters`` is None, ``model.parameters()`` or a
     ``state_dict`` to load into it. ``device`` defaults to the card; a CUDA
-    device without CUDA raises. ``mpu`` (model parallelism) and
-    ``dist_init_required=True`` (more than one rank) are not ported yet."""
+    device without CUDA raises. ``dist_init_required`` is taken at one
+    rank; ``mpu`` (model parallelism), more than one rank and ``rng`` (the
+    engine keeps no random stream to seed) are not ported yet."""
     from .runtime.engine import DeepSpeedEngine, _not_ported
     if mpu is not None:
         raise _not_ported("mpu (model parallelism)", "A4.2")
     if dist_init_required:
-        raise _not_ported("dist_init_required (dp > 1)", "A4.7")
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise _not_ported(
+                f"dist_init_required over {dist.get_world_size()} ranks "
+                f"(dp > 1)", "A5")
+    if rng is not None:
+        raise _not_ported("initialize(rng=...): the engine's random stream",
+                          "A13")
     config = config if config is not None else config_params
     if args is not None and config is None:
         config = getattr(args, "deepspeed_config", None)
@@ -49,6 +58,6 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 
 def init_inference(model=None, **kwargs) -> InferenceEngine:
-    """Build an :class:`InferenceEngine` (``dtype``, ``model_parameters``,
-    ``device`` keywords)."""
+    """Build an :class:`InferenceEngine`: every keyword of the TPU
+    package's ``init_inference``, and ``device``."""
     return InferenceEngine(model, **kwargs)

@@ -5,6 +5,12 @@ weight quantization, no checkpoint loading (each waits for a later slice).
 The engine casts the model's floating-point parameters to ``dtype`` (the
 reference's ``_convert_to_dtype``), moves the model to ``device`` in place,
 and serves ``forward`` and ``generate``.
+
+It takes the TPU engine's whole parameter list. ``config``, ``max_tokens``
+and ``replace_with_kernel_inject`` are read by neither engine and are taken
+at any value; ``quantize_mode`` keeps the TPU engine's ``ValueError``s; every
+other knob set away from its default raises ``NotImplementedError`` naming
+its ROADMAP item (:data:`NOT_PORTED_KNOBS`).
 """
 
 from __future__ import annotations
@@ -14,20 +20,59 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from ..runtime.engine import _not_ported
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 
+# The TPU engine's knobs this port does not have yet: name -> (the TPU
+# engine's default, the ROADMAP item that ports it).
+NOT_PORTED_KNOBS = {
+    "mp_size": (1, "A9"),
+    "ep_size": (1, "A9"),
+    "checkpoint": (None, "A10"),
+    "injection_policy": (None, "A10"),
+    "quantize_bits": (None, "A10"),
+    "replace_method": (None, "A10"),
+}
+
 
 class InferenceEngine:
-    def __init__(self, model, *, dtype: torch.dtype = torch.bfloat16,
+    def __init__(self, model, config=None, *, mp_size: int = 1,
+                 ep_size: int = 1, dtype: torch.dtype = torch.bfloat16,
                  model_parameters: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda"):
+                 checkpoint: Optional[str] = None,
+                 replace_with_kernel_inject: bool = False,
+                 injection_policy=None, quantize_bits: Optional[int] = None,
+                 quantize_mode: str = "symmetric",
+                 max_tokens: Optional[int] = None,
+                 replace_method: Optional[str] = None, device="cuda"):
         """``model``: a ``deepspeed_tpu_torch.models.gpt.GPT`` (or any module
         with the same ``prefill`` / ``decode`` / ``logits`` interface).
         ``model_parameters``: an optional ``state_dict`` loaded into it
-        (``convert.jax_params_to_state_dict`` makes one from TPU weights).
-        ``device`` defaults to the card; a CUDA device without CUDA
-        raises."""
+        (``convert.jax_params_to_state_dict`` makes one from TPU weights);
+        without it the model keeps its own weights. ``device`` defaults to
+        the card; a CUDA device without CUDA raises."""
+        if replace_method == "auto" and ep_size > 1:
+            raise ValueError(
+                "ep_size > 1 with replace_method='auto' is unsupported: "
+                "auto-TP classifies plain Linear kernels and knows nothing "
+                "about expert banks; use the native MoE model path")
+        if quantize_mode not in ("symmetric", "asymmetric"):
+            raise ValueError(
+                f"quantize_mode {quantize_mode!r}: use 'symmetric' or "
+                f"'asymmetric'")
+        if quantize_mode != "symmetric" and quantize_bits != 8:
+            raise ValueError(
+                "quantize_mode='asymmetric' without quantize_bits=8 would "
+                "silently run unquantized; pass quantize_bits=8")
+        given = dict(mp_size=mp_size, ep_size=ep_size, checkpoint=checkpoint,
+                     injection_policy=injection_policy,
+                     quantize_bits=quantize_bits,
+                     replace_method=replace_method)
+        for name, (default, item) in NOT_PORTED_KNOBS.items():
+            if given[name] != default:
+                raise _not_ported(
+                    f"InferenceEngine({name}={given[name]!r})", item)
         self.device = resolve_device(device)
         if model_parameters is not None:
             model.load_state_dict(model_parameters)

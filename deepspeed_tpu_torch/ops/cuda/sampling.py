@@ -1,13 +1,14 @@
 """Sort-free sampling epilogue: top-k/top-p filter + draw, one kernel.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/sampling.py``. The Pallas kernel
-``_sampling_kernel`` becomes the CUDA kernel in ``csrc/sampling.cu``: one
-block per row, the row staged in shared memory, both sorts replaced by
-33-step bisections over monotonic int32 order keys. Its plain PyTorch
-version, :func:`filter_rows_reference` / :func:`fused_sample_reference`,
-runs the same bisections with tensor ops, so greedy draws and top-k
-filtered logits agree bit for bit; top-p kept sets agree up to f32
-summation order of the probability mass.
+``_sampling_kernel`` becomes the CUDA kernel in ``csrc/sampling.cu``: each
+row split over a thread-block cluster, each block's slice staged once in
+its shared memory, both sorts replaced by radix selects (four 8-bit digit
+rounds) over monotonic int32 order keys. Its plain PyTorch version,
+:func:`filter_rows_reference` / :func:`fused_sample_reference`, runs the
+TPU kernel's 33-step bisections with tensor ops; both find the same cuts,
+so greedy draws and top-k filtered logits agree bit for bit, and top-p
+kept sets agree up to f32 summation order of the probability mass.
 
 The wrappers launch the kernel for a CUDA tensor and run the plain version
 for a CPU tensor. Temperature is divided outside the kernel, as on the TPU.
@@ -119,6 +120,9 @@ def _launch(x: torch.Tensor, gumbel: Optional[torch.Tensor],
             out_tokens: Optional[torch.Tensor], top_k: Optional[int],
             top_p: Optional[float]) -> None:
     b, v = x.shape
+    if v > _MAX_VOCAB and (top_k is not None or top_p is not None):
+        raise ValueError(f"the sampling kernel filters rows of at most "
+                         f"{_MAX_VOCAB} logits, got {v}")
     for name, t in (("logits", x), ("gumbel", gumbel),
                     ("out_logits", out_logits)):
         if t is not None and (t.device != x.device or not t.is_contiguous()

@@ -293,31 +293,120 @@ def test_paged_and_int8_engines_launch_their_kernels(dev, kw):
         assert card[3].tokens == card[1].tokens
 
 
-# 50304 (GPT-2) stages the row in shared memory; 131072 is past the staging
-# budget and reads the row from device memory on every pass
-@pytest.mark.parametrize("V", [50304, 131072])
-def test_sampling_kernel_matches_plain(dev, V):
+# top-p: the kernel sums e = expf(y - max) (f32, y the top-k output)
+# exactly, as 64-bit fixed point of 2^-44 a unit, and cuts where the mass
+# strictly above a token reaches top_p * Z. The test holds its kept set
+# against that cut taken with f64 mass from the same f32 differences: a token
+# may flip only where its f64 mass above sits at top_p within the kernel's
+# rounding of e. CUDA's expf is within 2 ulp (2.4e-7 relative) of exp, which
+# moves the mass above and Z by at most that share each; the truncation to
+# fixed point adds at most V * 2^-44 (1.5e-8 at V 262144, Z >= 1). Twice
+# that sum, rounded up.
+TOP_P_EXACT_TOL = 1e-6
+
+
+def _mass_above(key, e):
+    """Per entry, the sum of e over the entries of its row with a strictly
+    larger order key (f64, exact up to the f64 sums)."""
+    keys, order = key.sort(dim=-1, descending=True)
+    es = e.gather(-1, order)
+    excl = es.cumsum(-1) - es
+    first = torch.searchsorted((-keys).contiguous(), (-key).contiguous())
+    return excl.gather(-1, first)
+
+
+def _top_p_agrees(kept, y, top_k, top_p):
+    """Assert the kernel's top-p kept set (after top-k) is the exact cut's
+    up to TOP_P_EXACT_TOL; return the largest gap of a differing token."""
+    from deepspeed_tpu_torch.ops.cuda.sampling import (filter_rows_reference,
+                                                       order_key)
+    yk = filter_rows_reference(y, top_k, None)
+    e = torch.exp((yk - yk.max(-1, keepdim=True).values).double())
+    above = _mass_above(order_key(yk), e) / e.sum(-1, keepdim=True)
+    p32 = float(np.float32(top_p))          # the kernel's top_p
+    gap = (above - p32).abs()[kept != (above < p32)]
+    worst = gap.max().item() if gap.numel() else 0.0
+    assert worst <= TOP_P_EXACT_TOL, (top_k, top_p, gap.numel(), worst)
+    return worst
+
+
+def _slice_ends(V):
+    """The first entry of rank 1 for each cluster size the sampling kernel
+    may split a row over (csrc/sampling.cu: ceil(V / C) rounded up to a
+    multiple of 4)."""
+    return [(-(-V // C) + 3) // 4 * 4 for C in (16, 8, 4, 2)]
+
+
+# every row split the way serving (b 8), a wide batch (64), a batch that
+# fills the card (256) and one row (1) split it, at GPT-2's vocabulary, at
+# 128K and at the largest row the kernel takes (_MAX_VOCAB); ties at the
+# top (greedy takes the first) and at the top-k cut (all kept), straddling
+# the first two blocks of a cluster
+@pytest.mark.parametrize("V", [50304, 131072, 262144])
+@pytest.mark.parametrize("b", [1, 8, 64, 256])
+def test_sampling_kernel_matches_plain(dev, b, V):
+    from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import sampling as sp
-    g = torch.Generator(device=dev).manual_seed(0)
-    b = 6
+    g = torch.Generator(device=dev).manual_seed(b * 7 + V)
     assert sp.sampling_supported(b, V)
     x = torch.randn(b, V, device=dev, generator=g) * 4
     x[0, 11] = x[0, 13] = x[0].max() + 1          # tie at the top
+    ends = _slice_ends(V)
+    for r in range(b):
+        s = ends[r % len(ends)]
+        if r % 2 == 1:                             # a top tie across ranks
+            x[r, s - 1] = x[r, s] = x[r].max() + 1
+        else:                                      # a tie at the top-k cut
+            x[r, s - 1] = x[r, s] = -100.0
+            x[r, s - 1] = x[r, s] = x[r].sort(descending=True).values[49]
     gum = -torch.log(-torch.log(torch.rand(b, V, device=dev, generator=g)
                                 .clamp_min(1e-30)))
+    before = _build.LAUNCHES["sampling"]
     greedy = sp.fused_sample(x, None, 0.0, None)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sampling"] == before + 1
     assert torch.equal(greedy, sp.fused_sample_reference(x, None, None,
                                                          None))
     assert int(greedy[0]) == 11
-    for top_k, top_p in ((50, None), (1, None), (None, 0.9), (40, 0.7)):
-        kern = sp.threshold_filter_logits(x, 1.3, top_k, top_p)
-        ref = sp.filter_rows_reference(x / 1.3, top_k, top_p)
+    for r in range(1, b, 2):
+        assert int(greedy[r]) == ends[r % len(ends)] - 1
+    # the kernel's candidate path (top-k, then top-p on the candidates),
+    # its general path (top-p alone; k = 2000 gathers more than 1024
+    # candidates) and, on integer logits, ties past the candidate budget
+    coarse = (x / 4).round()
+    for xx, top_k, top_p in ((x, 50, None), (x, 1, None), (x, None, 0.9),
+                             (x, 40, 0.7), (x, 2000, None), (x, 2000, 0.95),
+                             (coarse, 50, None), (coarse, 50, 0.9)):
+        kern = sp.threshold_filter_logits(xx, 1.3, top_k, top_p)
+        ref = sp.filter_rows_reference(xx / 1.3, top_k, top_p)
         if top_p is None:
             assert torch.equal(kern, ref)
         else:
-            assert torch.equal(kern > -1e9, ref > -1e9)
-        drawn = sp.fused_sample(x, gum, 1.3, top_k, top_p).long()
+            worst = _top_p_agrees(kern > -1e9, xx / 1.3, top_k, top_p)
+            print(f"sampling b={b} V={V} top_k={top_k} top_p={top_p}: "
+                  f"largest top-p gap to the exact cut {worst}")
+        drawn = sp.fused_sample(xx, gum, 1.3, top_k, top_p).long()
         assert (kern[torch.arange(b, device=dev), drawn] > -1e9).all()
+        # rows whose kept sets agree draw the plain version's token
+        same = ((kern > -1e9) == (ref > -1e9)).all(-1)
+        drawn_ref = sp.fused_sample_reference(xx / 1.3, gum, top_k, top_p)
+        assert torch.equal(drawn[same], drawn_ref.long()[same])
+    kept = (sp.threshold_filter_logits(x, 1.0, 50) > -1e9).sum(-1)
+    assert (kept[0::2] == 52).all() and (kept[1::2] >= 50).all()
+
+
+# the inputs this test held the kernel to before the redesign (b 6, seed 0):
+# there the top-p kept sets equal the f32 plain version's exactly
+@pytest.mark.parametrize("V", [50304, 131072])
+def test_sampling_top_p_equals_plain_on_seed_inputs(dev, V):
+    from deepspeed_tpu_torch.ops.cuda import sampling as sp
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(6, V, device=dev, generator=g) * 4
+    x[0, 11] = x[0, 13] = x[0].max() + 1
+    for top_k, top_p in ((None, 0.9), (40, 0.7)):
+        kern = sp.threshold_filter_logits(x, 1.3, top_k, top_p)
+        ref = sp.filter_rows_reference(x / 1.3, top_k, top_p)
+        assert torch.equal(kern > -1e9, ref > -1e9)
 
 
 def test_megakernel_engine_launches_both_kernels(dev):

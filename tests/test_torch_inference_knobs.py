@@ -1,0 +1,175 @@
+"""The port's InferenceEngine / init_inference and initialize against the TPU
+package's signatures: every TPU keyword is taken; ``config``,
+``max_tokens`` and ``replace_with_kernel_inject`` at any value;
+``quantize_mode`` keeps the TPU engine's ``ValueError``s; each other knob
+set away from its default raises ``NotImplementedError`` naming its
+ROADMAP item (``NOT_PORTED_KNOBS``), never a ``TypeError``; with the
+defaults passed explicitly the engine builds from TPU weights converted by
+``convert.py`` and its greedy tokens equal the TPU engine's.
+``initialize(dist_init_required=True)`` builds at one rank. On the CPU,
+f32, a tiny GPT."""
+
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import model_pair
+
+import deepspeed_tpu_torch as dst
+from deepspeed_tpu_torch.inference.engine import (NOT_PORTED_KNOBS,
+                                                  InferenceEngine)
+from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
+
+# a value away from each knob's default
+NON_DEFAULT = {"mp_size": 2, "ep_size": 2, "checkpoint": "ckpt",
+               "injection_policy": lambda params: params, "quantize_bits": 8,
+               "replace_method": "auto"}
+# read by neither engine: taken at any value
+INERT = {"config": {"tensor_parallel": {"tp_size": 1}}, "max_tokens": 512,
+         "replace_with_kernel_inject": True}
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 2,
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return model_pair(seed=5)
+
+
+def _model():
+    cfg = GPTConfig(vocab_size=128, max_seq_len=32, num_layers=1,
+                    num_heads=2, d_model=64, d_ff=128, dtype=torch.float32)
+    model = GPT(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model
+
+
+def test_every_tpu_inference_keyword_is_taken():
+    from deepspeed_tpu.inference.engine import InferenceEngine as JaxEngine
+    jax_params = inspect.signature(JaxEngine.__init__).parameters
+    port_params = inspect.signature(InferenceEngine.__init__).parameters
+    assert set(jax_params) <= set(port_params)
+    assert set(port_params) - set(jax_params) == {"device"}
+    assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS)
+    assert set(NOT_PORTED_KNOBS) | set(INERT) | {
+        "self", "model", "dtype", "model_parameters",
+        "quantize_mode"} == set(jax_params)
+    for name, param in jax_params.items():
+        assert param.kind == port_params[name].kind, name
+        if name in NOT_PORTED_KNOBS:
+            assert param.default == NOT_PORTED_KNOBS[name][0], name
+        elif name not in ("self", "model", "dtype"):
+            assert param.default == port_params[name].default, name
+
+
+def test_every_tpu_initialize_keyword_is_taken():
+    import deepspeed_tpu
+    jax_params = inspect.signature(deepspeed_tpu.initialize).parameters
+    port_params = inspect.signature(dst.initialize).parameters
+    assert set(jax_params) <= set(port_params)
+    assert set(port_params) - set(jax_params) == {"device"}
+    for name, param in jax_params.items():
+        assert param.default == port_params[name].default, name
+
+
+@pytest.mark.parametrize("entry", ["engine", "init_inference"])
+@pytest.mark.parametrize("name", sorted(NOT_PORTED_KNOBS))
+def test_an_inference_knob_away_from_its_default_raises(name, entry):
+    item = NOT_PORTED_KNOBS[name][1]
+    build = InferenceEngine if entry == "engine" else dst.init_inference
+    kw = {name: NON_DEFAULT[name]}
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):
+        build(_model(), device="cpu", dtype=torch.float32, **kw)
+
+
+def test_quantize_mode_keeps_the_tpu_value_errors():
+    with pytest.raises(ValueError, match="quantize_mode"):
+        InferenceEngine(_model(), device="cpu", quantize_mode="int4")
+    with pytest.raises(ValueError, match="quantize_bits=8"):
+        InferenceEngine(_model(), device="cpu", quantize_mode="asymmetric")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10\\b"):
+        InferenceEngine(_model(), device="cpu", quantize_mode="asymmetric",
+                        quantize_bits=8)
+    with pytest.raises(ValueError, match="ep_size > 1"):
+        InferenceEngine(_model(), device="cpu", ep_size=2,
+                        replace_method="auto")
+
+
+def test_init_inference_with_tpu_keywords_matches_jax(pair):
+    """The port's counterpart of tests/test_bert_and_autotp.py's
+    ``init_inference(model, mp_size=1, dtype=..., model_parameters=...)``:
+    TPU weights through convert.py, greedy tokens equal to the TPU
+    engine's."""
+    import jax
+    from deepspeed_tpu.inference.engine import InferenceEngine as JaxEngine
+    from deepspeed_tpu_torch.convert import jax_params_to_state_dict
+    jmodel, params, pmodel = pair
+    sd = jax_params_to_state_dict(jax.tree.map(np.asarray, params),
+                                  pmodel.cfg)
+    model = GPT(pmodel.cfg)              # fresh weights, replaced by sd
+    ids = np.random.default_rng(6).integers(
+        0, pmodel.cfg.vocab_size, (2, 8)).astype(np.int32)
+    ref = JaxEngine(jmodel, mp_size=1, dtype=jnp.float32,
+                    model_parameters=params).generate(
+        ids, max_new_tokens=6, temperature=0.0)
+    engine = dst.init_inference(model, mp_size=1, dtype=torch.float32,
+                                model_parameters=sd, device="cpu")
+    out = engine.generate(ids, max_new_tokens=6, temperature=0.0)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    # every knob at its default, passed explicitly, and the inert ones at
+    # other values, build the same engine
+    defaults = {n: d for n, (d, _) in NOT_PORTED_KNOBS.items()}
+    again = dst.init_inference(GPT(pmodel.cfg), dtype=torch.float32,
+                               model_parameters=sd, device="cpu",
+                               quantize_mode="symmetric", **defaults,
+                               **INERT)
+    np.testing.assert_array_equal(
+        again.generate(ids, max_new_tokens=6, temperature=0.0).numpy(),
+        np.asarray(ref))
+
+
+def _train_model():
+    return GPT(GPTConfig(vocab_size=128, max_seq_len=32, num_layers=1,
+                         num_heads=2, d_model=64, d_ff=128))
+
+
+def test_initialize_dist_init_required_builds_at_one_rank():
+    ids = np.random.default_rng(0).integers(0, 128, (2, 32))
+    engine, *_ = dst.initialize(model=_train_model(), loss_fn=lm_loss_fn,
+                                config=TRAIN_CONFIG, dist_init_required=True,
+                                device="cpu")
+    loss = engine.train_batch(iter([{"input_ids": ids}]))
+    assert np.isfinite(float(loss))
+
+
+def test_initialize_dist_init_required_in_a_one_rank_group():
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        engine, *_ = dst.initialize(model=_train_model(),
+                                    loss_fn=lm_loss_fn, config=TRAIN_CONFIG,
+                                    dist_init_required=True, device="cpu")
+        assert engine.dp_world_size == 1
+    finally:
+        dist.destroy_process_group()
+
+
+def test_initialize_refuses_more_ranks_and_rng(monkeypatch):
+    import torch.distributed as dist
+    with pytest.raises(NotImplementedError, match="ROADMAP A13\\b"):
+        dst.initialize(model=_train_model(), loss_fn=lm_loss_fn,
+                       config=TRAIN_CONFIG, rng=0, device="cpu")
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5\\b"):
+        dst.initialize(model=_train_model(), loss_fn=lm_loss_fn,
+                       config=TRAIN_CONFIG, dist_init_required=True,
+                       device="cpu")
