@@ -16,7 +16,12 @@ Phases (any failure exits non-zero before the result lines):
      stack frame);
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
-     retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2;
+     retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2; then
+     B2, B3 and their int8 branches at the speculative verify width s_q =
+     k + 1 = 5 over the arenas the speculative engine builds (dense S 1028,
+     paged tables of 65 entries), a verify from position 1023 among the
+     fills, vs their plain versions (phase 18's tolerances), and whether
+     B2's query i at s_q 5 is bitwise an s_q 1 call (printed, not gated);
   3. sampling kernel vs its plain version at b=8, V=50304: greedy tokens
      equal, top-k=50 filtered logits bitwise equal, top-p=0.9 kept sets
      equal up to f32 rounding of the probability mass, temperature draws
@@ -40,7 +45,10 @@ Phases (any failure exits non-zero before the result lines):
      floor (b 1, V 128, greedy), each beside its byte bound and its
      yardstick (torch.argmax; torch.topk(x, 50); the sort-based
      serving.sampling.filter_logits, several calls; the same then the
-     argmax of the filtered row + gumbel for the draw);
+     argmax of the filtered row + gumbel for the draw); B2/B3 (and int8)
+     at s_q 5 beside their plain versions, scaled_dot_product_attention
+     with the kernel's window and their bounds; B4's filter at the sampled
+     verify's [40, 50304] rows (T 0.8, top-k 50, top-p 0.9);
   7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
      the training shape (B=8, S=1024, H=12, D=64, bf16, causal) and at a
      non-causal shape whose S (1000) is not a multiple of the 128-row
@@ -177,7 +185,24 @@ Phases (any failure exits non-zero before the result lines):
      seed=--seed), 64 new tokens each, counts reset just before and read
      just after (fails without a sampling launch); tokens/s; a rerun with
      the same seed must give identical tokens; one steady chunk profiled:
-     B4's device ms per decode step beside the step's device busy ms.
+     B4's device ms per decode step beside the step's device busy ms;
+ 26. speculative serving: phase 4's 16 requests through
+     ServingEngine(megakernel=True, speculative=True, spec_k=4,
+     spec_ngram=2) over the dense bf16, paged, int8 and paged int8 arenas,
+     each beside the non-speculative kernel engine on the same arena:
+     fails unless every request is done, every logits tensor finite,
+     each spec step launches the arena's decode kernel (s_q 5) once a
+     layer and nothing else of B2/B3, and the greedy tokens equal the
+     non-spec engine's or part first at a near-tie of the non-spec run
+     (top-2 gap within SPEC_TIE_ULPS bf16 ulps); prints tokens/s of both,
+     the acceptance rate, chunk ms, tokens a chunk, launches a step and a
+     steady spec chunk's idle share;
+ 27. sampled speculative serving (temperature 0.8, top-k 50, top-p 0.9):
+     one B4 filter launch a spec step, a rerun with the seed bitwise equal;
+ 28. the serve loop: run() (double-buffered) against a step() loop, spec
+     and not (equal greedy tokens, both timed), with every launch under
+     torch.cuda.set_sync_debug_mode("error"); a cancel of a running and a
+     queued request in mid-run.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -469,17 +494,20 @@ def phase_serving(torch, np, dev, seed, card):
     return launches, ie, prompts, kw
 
 
-def phase_profile(torch, ie, prompts, kw, card, tag="phase6"):
+def phase_profile(torch, ie, prompts, kw, card, tag="phase6",
+                  max_new_tokens=None):
     """Two steady decode chunks (8 live lanes, K=8 steps each): the first
     timed without the profiler, the second under torch.profiler for device
     kernel time by name. The device's idle share is one minus the profiled
     chunk's device busy time over the unprofiled chunk's wall time (the
-    profiler inflates the wall time of the chunk it records)."""
+    profiler inflates the wall time of the chunk it records). The budget
+    (default 1 + 3 K) keeps every lane live through the profiled chunk."""
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch import ServingEngine
     eng = ServingEngine(engine=ie, **{"megakernel": True, **kw})
     for p in prompts:
-        eng.submit(p.copy(), max_new_tokens=1 + 3 * kw["decode_chunk"])
+        eng.submit(p.copy(), max_new_tokens=max_new_tokens
+                   or 1 + 3 * kw["decode_chunk"])
     eng.step()                       # admission, prefill, first chunk
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1881,6 +1909,480 @@ def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
     return t
 
 # ---------------------------------------------------------------------------
+# Slice 12: speculative decoding and the double-buffered serve loop
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_NGRAM = 4, 2        # the TPU ServingEngine's defaults
+VERIFY_SQ = SPEC_K + 1
+# the arenas a speculative GPT-2 engine builds (max_seq_len 1024): k
+# positions of lookahead past S (dense), one more table entry (paged)
+VERIFY_S_DENSE = 1024 + SPEC_K
+VERIFY_T_PAGED = 1024 // PAGED_BS + -(-SPEC_K // PAGED_BS)
+# cache lengths including the k + 1 verify tokens: short rows, a mid-row
+# verify, 1028 = a verify from position 1023 (its last four columns past S),
+# then the retired-lane sentinel
+VERIFY_FILLS = (5, 17, 512, 1028, 300, 64, 777)
+# spec vs non-spec greedy: the first differing position must be a near-tie
+# of the non-spec run, its top-2 gap within SPEC_TIE_ULPS bf16 ulps of the
+# top logit (the k + 1-row GEMMs round differently; 12 layers of such
+# roundings reach a few ulps of the logits)
+SPEC_TIE_ULPS = 8
+# the sampled spec phase's filter, and B4's filter timed at the verify's
+# rows (8 lanes x (k + 1))
+SPEC_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+
+
+def verify_case(torch, da, qz, dev, gen, n_copies):
+    """B2/B3 (and int8) at the verify width s_q = k + 1 = 5, GPT-2 125M
+    geometry (b 8, h 12, d 64, bf16): the dense cache [8, 1028, 768], the
+    paged pool over a random block order with tables of 65 entries (S
+    1040), VERIFY_FILLS and the sentinel. ``n_copies`` copies of each
+    cache, read in turn so each call reads its K/V cold. Returns q, the
+    copies, and per kernel name (call(copy), plain(copy), library(copy),
+    cache length, S)."""
+    import torch.nn.functional as F
+    b, h, d, bs, s_q = 8, 12, 64, PAGED_BS, VERIFY_SQ
+    Sd, T = VERIFY_S_DENSE, VERIFY_T_PAGED
+    Sp, hd = T * bs, h * d
+    q = torch.randn(b, s_q, h, d, device=dev, generator=gen).bfloat16()
+    clen_d = torch.tensor(VERIFY_FILLS + (Sd + s_q,), dtype=torch.int32,
+                          device=dev)
+    clen_p = torch.tensor(VERIFY_FILLS + (Sp + s_q,), dtype=torch.int32,
+                          device=dev)
+    perm = torch.randperm(b * T, device=dev, generator=gen)
+    tables = perm.view(b, T).int().contiguous()
+    copies = []
+    for _ in range(n_copies):
+        k = torch.randn(b, Sp, hd, device=dev, generator=gen).bfloat16()
+        v = torch.randn(b, Sp, hd, device=dev, generator=gen).bfloat16()
+        kd, vd = k[:, :Sd].contiguous(), v[:, :Sd].contiguous()
+        (kq, ks), (vq, vs) = _quantize(qz, k), _quantize(qz, v)
+        copies.append({
+            "dense": (kd, vd),
+            "paged": (_to_pool(k, perm, bs), _to_pool(v, perm, bs)),
+            "dense8": (kq[:, :Sd].contiguous(), vq[:, :Sd].contiguous(),
+                       ks[:, :Sd].contiguous(), vs[:, :Sd].contiguous()),
+            "paged8": tuple(_to_pool(t, perm, bs) for t in (kq, vq, ks, vs))})
+    p = torch.arange(Sp, device=dev)
+    flat = (tables.long()[:, p // bs] * bs + p % bs).reshape(-1)
+    qt = q.transpose(1, 2)
+
+    def mask(clen, S):
+        # the kernel's window: query i sees p < min(clen, S) - (s_q-1) + i
+        lim = clen.clamp(max=S)[:, None] - (s_q - 1) \
+            + torch.arange(s_q, device=dev)[None, :]
+        return (torch.arange(S, device=dev)[None, None, :]
+                < lim[:, :, None])[:, None]                  # [b,1,s_q,S]
+
+    m_d, m_p = mask(clen_d, Sd), mask(clen_p, Sp)
+
+    def sdpa(kk, vv, m):
+        S = kk.shape[1]
+        return F.scaled_dot_product_attention(
+            qt, kk.view(b, S, h, d).transpose(1, 2),
+            vv.view(b, S, h, d).transpose(1, 2), attn_mask=m, scale=1 / 8)
+
+    def gather(pool):
+        return pool.reshape(b * T * bs, -1).index_select(0, flat).view(
+            b, Sp, -1)
+
+    def dequant(x, s):
+        return (x.float() * s.reshape(*x.shape[:-1], 1)).bfloat16()
+
+    cases = {
+        "decode_attention": (
+            lambda c: da.decode_attention(q, *c["dense"], clen_d),
+            lambda c: da.decode_attention_reference(q, *c["dense"], clen_d,
+                                                    1 / 8),
+            lambda c: sdpa(*c["dense"], m_d), clen_d, Sd),
+        "paged_decode_attention": (
+            lambda c: da.paged_decode_attention(q, *c["paged"], tables,
+                                                clen_p),
+            lambda c: da.paged_decode_attention_reference(
+                q, *c["paged"], tables, clen_p, 1 / 8),
+            lambda c: sdpa(gather(c["paged"][0]), gather(c["paged"][1]),
+                           m_p), clen_p, Sp),
+        "decode_attention_int8": (
+            lambda c: da.decode_attention(q, *c["dense8"][:2], clen_d,
+                                          k_scale=c["dense8"][2],
+                                          v_scale=c["dense8"][3]),
+            lambda c: da.decode_attention_reference(
+                q, *c["dense8"][:2], clen_d, 1 / 8, *c["dense8"][2:]),
+            lambda c: sdpa(dequant(c["dense8"][0], c["dense8"][2]),
+                           dequant(c["dense8"][1], c["dense8"][3]), m_d),
+            clen_d, Sd),
+        "paged_decode_attention_int8": (
+            lambda c: da.paged_decode_attention(
+                q, *c["paged8"][:2], tables, clen_p, k_scale=c["paged8"][2],
+                v_scale=c["paged8"][3]),
+            lambda c: da.paged_decode_attention_reference(
+                q, *c["paged8"][:2], tables, clen_p, 1 / 8,
+                *c["paged8"][2:]),
+            lambda c: sdpa(dequant(gather(c["paged8"][0]),
+                                   gather(c["paged8"][2])),
+                           dequant(gather(c["paged8"][1]),
+                                   gather(c["paged8"][3])), m_p),
+            clen_p, Sp),
+    }
+    return q, copies, cases
+
+
+def phase_verify_parity(torch, da, qz, dev, gen):
+    """Phase 2 at the verify width: B2, B3 and their int8 branches at
+    s_q = 5 vs their plain versions (tolerances as phase 18); then whether
+    B2's query i at s_q = 5 is bitwise an s_q = 1 call on the same cache at
+    cache length clen - 4 + i (measured, not gated)."""
+    q, copies, cases = verify_case(torch, da, qz, dev, gen, 1)
+    c = copies[0]
+    errs = {}
+    for name, (call, plain, _, _, _) in cases.items():
+        got = call(c)
+        torch.cuda.synchronize()
+        rtol = DECODE_INT8_RTOL if "int8" in name else 0.0
+        errs[name] = _decode_err(torch, got, plain(c), f"{name} s_q=5",
+                                 rtol)
+        print(f"phase2 {name} s_q={VERIFY_SQ} b=8 fills={VERIFY_FILLS} + "
+              f"sentinel max_abs_err={errs[name]} (tol {DECODE_ATOL}"
+              f"{' + %g |ref|' % rtol if rtol else ''})", flush=True)
+    call, _, _, clen, _ = cases["decode_attention"]
+    out = call(c)
+    live = slice(0, len(VERIFY_FILLS))           # not the sentinel row
+    n_equal, worst = 0, 0.0
+    for i in range(VERIFY_SQ):
+        one = da.decode_attention(q[:, i:i + 1].contiguous(), *c["dense"],
+                                  clen - (VERIFY_SQ - 1) + i)
+        a, b1 = out[live, i], one[live, 0]
+        n_equal += int((a == b1).all(dim=-1).all(dim=-1).sum())
+        worst = max(worst, (a.float() - b1.float()).abs().max().item())
+    total = VERIFY_SQ * len(VERIFY_FILLS)
+    print(f"phase2 B2 query i at s_q={VERIFY_SQ} vs an s_q=1 call at "
+          f"clen-4+i: {n_equal}/{total} (row, query) pairs bitwise equal, "
+          f"max abs diff {worst}", flush=True)
+    return errs, n_equal == total
+
+
+def verify_timing(torch, da, qz, dev, gen, card):
+    """Phase 5 at the verify width: B2/B3 (and int8) at s_q = 5 (device
+    ms, 8 cold cache copies) beside their plain versions, SDPA with the
+    kernel's boolean window (paged: index_select gathers first; int8: a
+    dequantize first) and their bounds: the live K/V rows (int8: 1 byte an
+    element and a 4-byte scale), q, out and the lengths (paged: 4 bytes a
+    live table entry) over 3.35 TB/s, against 4 d operations a visible
+    (query, key) pair at the bf16 peak."""
+    q, copies, cases = verify_case(torch, da, qz, dev, gen, 8)
+    b, s_q, h, d = q.shape
+    hd, item = h * d, q.element_size()
+    out = {}
+    for name, (call, plain, lib, clen, S) in cases.items():
+        fill = clen.clamp(max=S)
+        live = int(fill.sum())
+        lim = fill[:, None] - (s_q - 1) + torch.arange(s_q, device=dev)
+        pairs = int(torch.minimum(lim.clamp(min=0), fill[:, None]).sum())
+        per_pos = hd + 4 if "int8" in name else hd * item
+        nbytes = 2 * live * per_pos + 2 * q.numel() * item + 4 * b
+        if name.startswith("paged"):
+            nbytes += 4 * int(((fill + PAGED_BS - 1) // PAGED_BS).sum())
+        tb, tf = nbytes / HBM_BYTES_PER_S, 4 * pairs * d * h / BF16_FLOPS
+        out[name] = {
+            "ms": device_ms(lambda i: call(copies[i]), 8,
+                            "decode_attention_kernel"),
+            "plain_ms": device_ms(lambda i: plain(copies[i]), 8),
+            "library_ms": device_ms(lambda i: lib(copies[i]), 8),
+            "bound_ms": 1e3 * max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations"}
+        print(f"phase5 {name} s_q={VERIFY_SQ} " + " ".join(
+            f"{k}={v}" for k, v in out[name].items()) + f" card={card}",
+            flush=True)
+    print("phase5 library_ms at s_q=5 is scaled_dot_product_attention "
+          "with the kernel's boolean window (paged: index_select gathers "
+          "of K and V first; int8: a dequantize first)", flush=True)
+    del copies
+    return out
+
+
+def filter_timing(torch, sp, dev, gen, card):
+    """B4's filter at the sampled verify's shape: [8 lanes x (k + 1),
+    50304] logits, temperature 0.8, top_k 50, top_p 0.9 (phase 27's),
+    beside its plain version, the sort-based serving.sampling.filter_logits
+    (several calls: no single PyTorch call filters top-k and top-p) and its
+    byte bound (read the logits, write the filtered row)."""
+    from deepspeed_tpu_torch.serving.sampling import filter_logits
+    rows, V = 8 * VERIFY_SQ, 50304
+    x = torch.randn(rows, V, device=dev, generator=gen) * 3
+    t, k, p = (SPEC_SAMPLED[n] for n in ("temperature", "top_k", "top_p"))
+    ref = sp.filter_rows_reference(x / t, k, None)
+    kern_k = sp.threshold_filter_logits(x, t, k, None)
+    err = (kern_k - ref).abs().max().item()
+    if not torch.equal(kern_k, ref):
+        fail("B4 filter top_k=50 at [40, 50304] is not bitwise its plain "
+             "version")
+    n_diff = _top_p_differs(torch, sp, x / t, k, p)
+    nbytes = 2 * rows * V * 4
+    res = {"ms": device_ms(lambda i: sp.threshold_filter_logits(x, t, k, p),
+                           kernel="sampling_kernel"),
+           "plain_ms": device_ms(lambda i: sp.filter_rows_reference(
+               x / t, k, p), iters=10),
+           "library_ms": None,
+           "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                 rows * V / F32_FLOPS),
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+           >= rows * V / F32_FLOPS else "operations"}
+    yard = device_ms(lambda i: filter_logits(x, t, k, p))
+    print(f"phase5 sampling_filter [{rows}, {V}] T={t} top_k={k} top_p={p}: "
+          + " ".join(f"{key}={val}" for key, val in res.items())
+          + f" yardstick filter_logits ms={yard} top_k_bitwise=True "
+          f"top_p_differing_tokens={n_diff} card={card}", flush=True)
+    return res, err
+
+
+def _first_difference(a, b):
+    return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _near_tie_gap(torch, module, prompt, tokens, t, dev):
+    """The top-2 logit gap and the tie bound where the non-speculative run
+    emitted tokens[t]: a teacher-forced forward (the cacheless prefill
+    path) of the prompt and tokens[:t]; bound = SPEC_TIE_ULPS bf16 ulps of
+    the top logit."""
+    ids = torch.tensor([list(prompt) + list(tokens[:t])], device=dev)
+    with torch.inference_mode():
+        hidden = module.prefill(ids)[0]
+        logits = module.logits(hidden[:, -1]).float()[0]
+    top = torch.topk(logits, 2).values
+    gap = (top[0] - top[1]).item()
+    ulp = 2.0 ** (math.floor(math.log2(abs(top[0].item()))) - 7)
+    return gap, SPEC_TIE_ULPS * ulp
+
+
+def phase_spec_serving(torch, dev, ie, prompts, kw, card):
+    """Phase 26: phase 4's 16 requests through ServingEngine(megakernel=
+    True, speculative=True, spec_k=4, spec_ngram=2) over the dense bf16,
+    paged, int8 and paged int8 arenas, each beside the non-speculative
+    kernel engine on the same arena in this call (every served logits
+    tensor checked finite in both). Gates: every request done; logits
+    finite; per spec step exactly num_layers launches of the arena's decode
+    kernel (at s_q = 5) and none of another, no filter launch (greedy);
+    greedy tokens equal to the non-spec engine's, or parting first at a
+    near-tie of the non-spec run (top-2 gap within SPEC_TIE_ULPS bf16 ulps
+    of the top logit). Prints tokens/s of both, acceptance rate, chunk ms,
+    tokens a chunk, launches a step and (phase_profile) a steady spec
+    chunk's idle share. Returns the decode kernels' launch counts."""
+    from deepspeed_tpu_torch import ServingEngine
+    n_new, K = 64, kw["decode_chunk"]
+    L = ie.module.cfg.num_layers
+    spec_kw = dict(kw, megakernel=True, speculative=True, spec_k=SPEC_K,
+                   spec_ngram=SPEC_NGRAM)
+    launches = {}
+    for name, extra, kernel in (
+            ("dense", {}, "decode_attention"),
+            ("paged", dict(paged=True, kv_block_size=PAGED_BS),
+             "paged_decode_attention"),
+            ("int8", dict(kv_dtype="int8"), "decode_attention_int8"),
+            ("paged_int8", dict(paged=True, kv_block_size=PAGED_BS,
+                                kv_dtype="int8"),
+             "paged_decode_attention_int8")):
+        ServingEngine(engine=ie, **spec_kw, **extra).run(
+            [p.copy() for p in prompts[:2]], max_new_tokens=4)   # warm-up
+        base_eng = ServingEngine(engine=ie, megakernel=True, **kw, **extra)
+        eng = ServingEngine(engine=ie, **spec_kw, **extra)
+        flags = [_checked_logits(torch, m, dev)
+                 for m in {id(base_eng.module): base_eng.module,
+                           id(eng.module): eng.module}.values()]
+        try:
+            base, base_s, _ = _serve(torch, base_eng, prompts, n_new)
+            out, seconds, launched = _serve(torch, eng, prompts, n_new)
+        finally:
+            for m in (base_eng.module, eng.module):
+                m.__dict__.pop("logits", None)
+        if any(bool(f) for f in flags):
+            fail(f"non-finite logits while serving speculative {name}")
+        m = eng.metrics
+        steps = m.decode_steps * K
+        other = [k for k in DECODE_KERNELS if k != kernel and launched.get(k)]
+        print(f"phase26 spec {name} launches={launched} chunks="
+              f"{m.decode_steps} steps={steps}", flush=True)
+        if launched.get(kernel, 0) != L * steps or other:
+            fail(f"spec {name}: {launched.get(kernel, 0)} {kernel} launches "
+                 f"for {steps} steps (want {L} a step, no other decode "
+                 f"kernel): {launched}")
+        if launched.get("sampling_filter") or not launched.get("sampling"):
+            fail(f"spec {name} greedy: filter launched or no prefill draw: "
+                 f"{launched}")
+        launches[kernel] = launched[kernel]
+        n_tokens = sum(len(r.tokens) for r in out)
+        decode_tokens = n_tokens - len(out)      # token #1 is prefill's
+        parted = []
+        for i, (r, s) in enumerate(zip(out, base)):
+            t = _first_difference(r.tokens, s.tokens)
+            if t is None:
+                continue
+            gap, bound = _near_tie_gap(torch, base_eng.module, prompts[i],
+                                       s.tokens, t, dev)
+            parted.append((i, t, gap, bound))
+            if not gap <= bound:
+                fail(f"spec {name} request {i} parts from the non-spec "
+                     f"tokens at {t}, top-2 gap {gap} > bound {bound}")
+        print(f"phase26 spec {name}: greedy tokens equal the non-spec "
+              f"engine's in {len(out) - len(parted)}/{len(out)} requests; "
+              f"parting (request, position, top-2 gap, bound): {parted}",
+              flush=True)
+        print(f"spec_{name}_serving_tokens_per_s={n_tokens / seconds} "
+              f"non_spec_tokens_per_s={n_tokens / base_s} (the same 16 "
+              f"requests, this call) acceptance_rate="
+              f"{m.spec_acceptance_rate} mean_chunk_ms="
+              f"{m.mean_decode_chunk_s * 1e3} decode_tokens_per_chunk="
+              f"{decode_tokens / m.decode_steps} decode_attention_launches_"
+              f"per_step={launched[kernel] / steps} (K={K}, k={SPEC_K}, "
+              f"batch 8) card={card}", flush=True)
+    # a spec chunk emits up to K (k + 1) tokens a lane: 600 keeps all 8
+    # lanes live through the three chunks
+    busy_ms, rows = phase_profile(torch, ie, prompts[:8], spec_kw, card,
+                                  tag="phase26", max_new_tokens=600)
+    b2_ms = sum(ms for ms, _, key in rows if "decode_attention_kernel" in key)
+    print(f"phase26 spec chunk decode_attention_ms_per_step={b2_ms / K} "
+          f"device_busy_ms_per_step={busy_ms / K} (K={K}, k={SPEC_K}, 8 "
+          f"live lanes) card={card}", flush=True)
+    return launches
+
+
+def phase_spec_sampled(torch, ie, prompts, kw, seed, card):
+    """Phase 27: phase 4's requests through the speculative engine at
+    temperature 0.8, top-k 50, top-p 0.9 (dense bf16): exactly one B4
+    filter launch (the [8 x 5, 50304] verify rows) and 12 B2 launches a
+    spec step; a rerun with the same seed gives the same tokens."""
+    from deepspeed_tpu_torch import ServingEngine
+    skw = dict(kw, megakernel=True, speculative=True, spec_k=SPEC_K,
+               spec_ngram=SPEC_NGRAM, seed=seed, **SPEC_SAMPLED)
+    n_new, K = 64, kw["decode_chunk"]
+    L = ie.module.cfg.num_layers
+    ServingEngine(engine=ie, **skw).run([p.copy() for p in prompts[:2]],
+                                        max_new_tokens=4)     # warm-up
+    eng = ServingEngine(engine=ie, **skw)
+    out, seconds, launched = _serve(torch, eng, prompts, n_new)
+    steps = eng.metrics.decode_steps * K
+    print(f"phase27 sampled spec launches={launched} steps={steps}",
+          flush=True)
+    if launched.get("sampling_filter", 0) != steps:
+        fail(f"sampled spec: {launched.get('sampling_filter', 0)} filter "
+             f"launches for {steps} steps (want one a step)")
+    if launched.get("decode_attention", 0) != L * steps:
+        fail(f"sampled spec: {launched.get('decode_attention', 0)} B2 "
+             f"launches for {steps} steps")
+    again = ServingEngine(engine=ie, **skw).run(
+        [p.copy() for p in prompts], max_new_tokens=n_new)
+    if [r.tokens for r in again] != [r.tokens for r in out]:
+        fail("a sampled spec rerun with the same seed gave other tokens")
+    n_tokens = sum(len(r.tokens) for r in out)
+    print(f"phase27 sampled spec gpt2_125m T=0.8 top_k=50 top_p=0.9 "
+          f"requests=16: rerun with the same seed: tokens identical; "
+          f"filter launches per step={launched['sampling_filter'] / steps}",
+          flush=True)
+    print(f"spec_sampled_serving_tokens_per_s={n_tokens / seconds} "
+          f"acceptance_rate={eng.metrics.spec_acceptance_rate} "
+          f"mean_chunk_ms={eng.metrics.mean_decode_chunk_s * 1e3} "
+          f"card={card}", flush=True)
+    return launched["sampling_filter"]
+
+
+@contextlib.contextmanager
+def _sync_errors(torch):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _no_sync_launches(torch, eng):
+    """Run the engine's launches (``_host_state``, ``_device_state``,
+    ``_launch_chunk``) under torch.cuda.set_sync_debug_mode("error"): a
+    host synchronisation inside one raises. Returns the per-method call
+    counts."""
+    counts = {}
+    for name in ("_host_state", "_device_state", "_launch_chunk"):
+        inner = getattr(eng, name)
+        counts[name] = 0
+
+        def wrapped(*args, _inner=inner, _name=name):
+            counts[_name] += 1
+            with _sync_errors(torch):
+                return _inner(*args)
+
+        setattr(eng, name, wrapped)
+    return counts
+
+
+def phase_serve_loop(torch, ie, prompts, kw, card):
+    """Phase 28: the double-buffered loop. For the speculative and the
+    non-speculative kernel engines (dense bf16): run() against a loop of
+    step() calls (equal greedy tokens; run() launches from device-carried
+    state, the step loop never; both timed), every launch under
+    set_sync_debug_mode("error"); then a cancel in mid-run (after three
+    pumps: the first running request and the last queued one): both end
+    cancelled, the running one gets no token after its cancel, every other
+    request is done with its whole budget."""
+    from deepspeed_tpu_torch import ServingEngine
+    n_new = 64
+    for tag, extra in (("spec", dict(speculative=True, spec_k=SPEC_K,
+                                     spec_ngram=SPEC_NGRAM)),
+                       ("non_spec", {})):
+        ekw = dict(kw, megakernel=True, **extra)
+        eng = ServingEngine(engine=ie, **ekw)
+        counts = _no_sync_launches(torch, eng)
+        out, run_s, _ = _serve(torch, eng, prompts, n_new)
+        stepper = ServingEngine(engine=ie, **ekw)
+        step_counts = _no_sync_launches(torch, stepper)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [stepper.submit(p.copy(), max_new_tokens=n_new)
+                for p in prompts]
+        while stepper.scheduler.has_work():
+            stepper.step()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        if not counts["_device_state"] or step_counts["_device_state"]:
+            fail(f"{tag}: run() launched {counts['_device_state']} chunks "
+                 f"from device state, the step loop "
+                 f"{step_counts['_device_state']}")
+        if [r.tokens for r in reqs] != [r.tokens for r in out]:
+            fail(f"{tag}: run() and a step() loop gave other greedy tokens")
+        n_tokens = sum(len(r.tokens) for r in out)
+        print(f"phase28 {tag}: run() == step() loop greedy tokens; "
+              f"launches {counts} / {step_counts} under "
+              f"set_sync_debug_mode('error'), no sync; tokens_per_s run="
+              f"{n_tokens / run_s} step_loop={n_tokens / step_s} card={card}",
+              flush=True)
+    eng = ServingEngine(engine=ie, **dict(kw, megakernel=True,
+                                          speculative=True, spec_k=SPEC_K))
+    _no_sync_launches(torch, eng)
+    reqs = [eng.submit(p.copy(), max_new_tokens=n_new) for p in prompts]
+    for _ in range(3):
+        eng.pump()
+    running = [r for r in reqs if r.status == "running"]
+    queued = [r for r in reqs if r.status == "queued"]
+    if not running or not queued or not eng.chunk_in_flight:
+        fail("phase28: no running and queued request with a chunk in "
+             "flight after three pumps")
+    victim, waiting = running[0], queued[-1]
+    if not (eng.cancel(victim) and eng.cancel(waiting)):
+        fail("phase28: cancel refused a live request")
+    held = list(victim.tokens)
+    while eng.scheduler.has_work() or eng.chunk_in_flight:
+        eng.pump()
+    if victim.tokens != held or waiting.tokens:
+        fail("phase28: a cancelled request received tokens after cancel")
+    rest = [r for r in reqs if r is not victim and r is not waiting]
+    if any(r.status != "done" or len(r.tokens) != n_new for r in rest):
+        fail("phase28: a request other than the cancelled ones did not "
+             "finish its budget")
+    if (victim.status, waiting.status) != ("cancelled", "cancelled"):
+        fail("phase28: the cancelled requests are not cancelled")
+    print(f"phase28 cancel mid-run (spec): request {victim.uid} after "
+          f"{len(held)} tokens and queued request {waiting.uid}: both "
+          f"cancelled, no token after cancel; the other {len(rest)} done "
+          f"with {n_new} tokens each", flush=True)
+
+# ---------------------------------------------------------------------------
 # Slice 5: the fused transformer ops (B6, B7, B8) and DeepSpeedTransformerLayer
 # ---------------------------------------------------------------------------
 
@@ -2612,13 +3114,22 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
+    verify_err, _ = phase_verify_parity(torch, da, qz, dev, gen)
     logits, sp_err = phase_sampling(torch, sp, dev, gen)
     flash_err, flash_inputs = phase_flash_parity(torch, fa, dev, gen)
     launches, ie, prompts, serve_kw = phase_serving(torch, np, dev,
                                                    args.seed, card)
     (da_t, da_bound, da_by), (sp_t, sp_bound, sp_by) = phase_timing(
         torch, da, qz, sp, dev, gen, decode_inputs, logits, card)
+    verify_t = verify_timing(torch, da, qz, dev, gen, card)
+    filter_t, filter_err = filter_timing(torch, sp, dev, gen, card)
+    torch.cuda.empty_cache()
     phase_sampled_serving(torch, ie, prompts, serve_kw, args.seed, card)
+    spec_launches = phase_spec_serving(torch, dev, ie, prompts, serve_kw,
+                                       card)
+    filter_launches = phase_spec_sampled(torch, ie, prompts, serve_kw,
+                                         args.seed, card)
+    phase_serve_loop(torch, ie, prompts, serve_kw, card)
     del ie
     torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
@@ -2725,6 +3236,22 @@ def main(argv=None) -> int:
             ("bias_gelu_bwd", "gelu.cu", "gelu.py:39"),
             ("softmax_fwd", "softmax.cu", "softmax.py:23"),
             ("softmax_bwd", "softmax.cu", "softmax.py:38"))
+    ] + [
+        {"name": f"{name}_sq{VERIFY_SQ}", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cuh",
+         "replaces": f"deepspeed_tpu/ops/pallas/decode_attention.py:{line}",
+         "launches": spec_launches[name], "max_abs_err": verify_err[name],
+         **verify_t[name]}
+        for name, line in (("decode_attention", 74),
+                           ("paged_decode_attention", 351),
+                           ("decode_attention_int8", 74),
+                           ("paged_decode_attention_int8", 351))
+    ] + [
+        {"name": "sampling_filter", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/sampling.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/sampling.py:132",
+         "launches": filter_launches, "max_abs_err": filter_err,
+         **filter_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

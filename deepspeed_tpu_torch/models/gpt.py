@@ -237,18 +237,28 @@ def _kv_write(cache: torch.Tensor, kv: torch.Tensor,
               cur: torch.Tensor) -> None:
     """Write ``kv`` [b, s, ...] into ``cache`` [b, S, ...] (a K/V arena
     layer [b, S, h*d], or its int8 scales [b, S]) at per-row offset ``cur``
-    [b], in place. Positions ``>= S`` are dropped (the masked-lane
-    sentinel): the row keeps its old value there, one query column at a
-    time so no position is written twice. Rows are distinct, so no two
-    lanes race for one position."""
+    [b], in place, in one scatter. Positions ``>= S`` are dropped (the
+    masked-lane sentinel): a dropped column is sent to a position the same
+    scatter writes with the same value, its row's first column when that is
+    live, else position S - 1 with the value the row holds there, so every
+    repeated index carries one value and the scatter stays deterministic.
+    Rows are distinct, so no two lanes race for one position."""
     b, S = cache.shape[0], cache.shape[1]
-    rows = torch.arange(b, device=cache.device)
-    for j in range(kv.shape[1]):
-        idx = cur + j
-        keep = (idx < S).view(b, *([1] * (cache.dim() - 2)))
-        idx = idx.clamp(max=S - 1)
-        cache[rows, idx] = torch.where(keep, kv[:, j].to(cache.dtype),
-                                       cache[rows, idx])
+    s = kv.shape[1]
+    rest = cache.shape[2:]
+    pos = cur.long()[:, None] + torch.arange(s, device=cache.device)
+    live = pos < S                                              # [b, s]
+    first = live[:, :1]
+    idx = torch.where(live, pos, torch.where(first, pos[:, :1], S - 1))
+    bcast = (b, s) + (1,) * len(rest)
+    new = kv.to(cache.dtype)
+    held = cache[:, S - 1:]                                     # [b, 1, ...]
+    val = torch.where(live.view(bcast), new,
+                      torch.where(first.view(b, 1, *bcast[2:]),
+                                  new[:, :1], held))
+    rows = torch.arange(b, device=cache.device)[:, None] * S
+    cache.view(b * S, *rest).index_copy_(0, (rows + idx).reshape(-1),
+                                         val.reshape(b * s, *rest))
 
 
 class PagedStep(NamedTuple):

@@ -139,7 +139,11 @@ def _launch(x: torch.Tensor, gumbel: Optional[torch.Tensor],
             b, v, 0 if top_k is None else int(top_k),
             1.0 if top_p is None else float(top_p), _build.stream_of(x))
     _build.check(err, "sampling")
-    _build.LAUNCHES["sampling"] += 1
+    # the filter (threshold_filter_logits) and the draw (fused_sample) are
+    # one kernel, counted apart: serving draws once a step, the speculative
+    # verifier filters once a sampled step
+    _build.LAUNCHES["sampling" if out_logits is None
+                    else "sampling_filter"] += 1
 
 
 def threshold_filter_logits(logits: torch.Tensor, temperature: float,

@@ -85,18 +85,26 @@ class SlotKVCacheManager:
     or int8 under ``cfg.kv_cache_dtype == "int8"`` with ``k_scale`` /
     ``v_scale`` f32 ``[L, max_batch, max_seq_len]`` (else None); the
     model's decode writes them in place. ``block_tables`` is None: the
-    dense layout has none (the paged manager's does)."""
+    dense layout has none (the paged manager's does).
+
+    ``lookahead`` positions past ``max_seq_len`` widen every row (the
+    speculative engine passes its draft length k): a verify step writes and
+    reads k + 1 positions from a lane's fill, and near the end of a row the
+    decode kernel would otherwise clamp that lane's cache length to S and
+    shift its queries' causal window. Nothing reads a lookahead position
+    unmasked: every real query sits below ``max_seq_len``."""
 
     block_tables = None
 
-    def __init__(self, cfg, max_batch: int, device):
+    def __init__(self, cfg, max_batch: int, device, lookahead: int = 0):
         self.max_seq_len = int(cfg.max_seq_len)
         self.allocator = SlotAllocator(max_batch, self.max_seq_len)
         # the fp itemsize the arena would use without int8 (arena_report's
         # kv_bytes_saved baseline)
         self._fp_itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         int8 = getattr(cfg, "kv_cache_dtype", "auto") == "int8"
-        shape = (cfg.num_layers, max_batch, self.max_seq_len,
+        shape = (cfg.num_layers, max_batch,
+                 self.max_seq_len + int(lookahead),
                  cfg.num_heads * cfg.head_dim)
         kv_dtype = torch.int8 if int8 else cfg.dtype
         self.cache_k = torch.zeros(shape, dtype=kv_dtype, device=device)

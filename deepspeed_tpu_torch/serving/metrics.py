@@ -75,6 +75,8 @@ class ServingMetrics:
         self.n_prefix_hits = 0
         self.n_prefix_misses = 0
         self.n_cow_forks = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     # ----------------------------------------------------------- recording
     def start(self) -> None:
@@ -121,6 +123,12 @@ class ServingMetrics:
         """One copy-on-write block fork (a shared tail privatized)."""
         self.n_cow_forks += 1
 
+    def on_spec(self, proposed: int, accepted: int) -> None:
+        """One speculative chunk consumed: ``proposed`` draft tokens
+        offered to verification, ``accepted`` of them kept."""
+        self.spec_proposed += int(proposed)
+        self.spec_accepted += int(accepted)
+
     # ------------------------------------------------------------ reading
     @property
     def padding_waste(self) -> float:
@@ -143,6 +151,14 @@ class ServingMetrics:
     def prefix_hit_rate(self) -> float:
         n = self.n_prefix_hits + self.n_prefix_misses
         return self.n_prefix_hits / n if n else 0.0
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Accepted / proposed draft tokens (0.0 before any speculative
+        chunk ran): a live speculative step emits 1 + rate * k tokens on
+        average."""
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
 
     def tokens_per_s(self) -> float:
         if self.t0 is None:
@@ -169,4 +185,5 @@ class ServingMetrics:
             "serving/prefix_cache_misses": float(self.n_prefix_misses),
             "serving/prefix_hit_rate": float(self.prefix_hit_rate),
             "serving/cow_forks": float(self.n_cow_forks),
+            "serving/spec_acceptance_rate": float(self.spec_acceptance_rate),
         }

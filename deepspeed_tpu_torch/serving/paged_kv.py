@@ -414,12 +414,18 @@ class PagedKVCacheManager:
     :class:`~deepspeed_tpu_torch.serving.kv_cache.SlotKVCacheManager` on the
     engine side (``insert_batch``, ``arena_report``, the allocator
     passthrough), plus ``apply_fork``/``commit_prefix``/``take_plan`` for
-    the paged admission flow."""
+    the paged admission flow.
+
+    ``lookahead`` positions past ``max_seq_len`` widen the device tables
+    by ``ceil(lookahead / block_size)`` sink entries (the speculative
+    engine passes its draft length k): a verify step near the end of a row
+    then reads and writes through sink entries instead of having its cache
+    length clamped to T * block_size by the decode kernel."""
 
     def __init__(self, cfg, max_batch: int, device, *,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache_capacity: int = 64,
-                 prefix_caching: bool = True):
+                 prefix_caching: bool = True, lookahead: int = 0):
         self.max_seq_len = int(cfg.max_seq_len)
         self.block_size = int(block_size)
         self.allocator = PagedSlotAllocator(
@@ -444,8 +450,9 @@ class PagedKVCacheManager:
                                        device=device)
             self.v_scale = torch.zeros(shape[:3], dtype=torch.float32,
                                        device=device)
-        self.block_tables = torch.full((max_batch, T), nb, dtype=torch.int32,
-                                       device=device)
+        T_dev = T + -(-int(lookahead) // self.block_size)
+        self.block_tables = torch.full((max_batch, T_dev), nb,
+                                       dtype=torch.int32, device=device)
 
     def _pools(self):
         pools = [self.cache_k, self.cache_v]
@@ -454,7 +461,7 @@ class PagedKVCacheManager:
         return pools
 
     def _install_table(self, slot: int) -> None:
-        self.block_tables[slot] = torch.from_numpy(
+        self.block_tables[slot, :self.blocks_per_seq] = torch.from_numpy(
             self.allocator.padded_table(slot)).to(self.block_tables.device)
 
     def _copy_block(self, src: int, dst: int) -> None:
@@ -490,7 +497,7 @@ class PagedKVCacheManager:
             flat_pool.index_copy_(
                 1, idx, src.reshape(L, n * P, -1).to(pool.dtype))
         self.block_tables[torch.from_numpy(np.asarray(slots, np.int64)).to(
-            dev)] = torch.from_numpy(tables).to(dev)
+            dev), :self.blocks_per_seq] = torch.from_numpy(tables).to(dev)
 
     def apply_fork(self, plan: PagedAdmitPlan) -> None:
         """Realize a prefix-cache hit on the device: install the slot's

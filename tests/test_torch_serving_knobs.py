@@ -4,7 +4,8 @@ keyword of the TPU ``ServingEngine`` is either taken by the port or named in
 ``NotImplementedError`` naming its ROADMAP item (with or without
 ``engine=``), never a silent no-op; with ``engine=`` any other leftover
 keyword raises ``TypeError``; the defaults, passed explicitly, still build
-and serve. On the CPU, f32, a tiny GPT."""
+and serve; the speculative knobs, ported, build and serve away from their
+defaults. On the CPU, f32, a tiny GPT."""
 
 import inspect
 
@@ -19,7 +20,6 @@ from deepspeed_tpu_torch.serving.engine import NOT_PORTED_KNOBS
 
 # a value away from each knob's default
 NON_DEFAULT = {
-    "speculative": True, "spec_k": 2, "spec_ngram": 3, "drafter": object(),
     "fused_prefill": True, "prefill_chunk": 32, "chunk_token_budget": 64,
     "sp_prefill_threshold": 128, "monitor": object(), "emit_every_steps": 4,
     "tp": 2, "disaggregate_prefill": True, "tiered_kv": True,
@@ -83,3 +83,43 @@ def test_the_defaults_still_build_and_serve(via_engine):
     out = eng.run([np.arange(1, 6), np.arange(3, 12)], max_new_tokens=4)
     assert [r.status for r in out] == ["done", "done"]
     assert [len(r.tokens) for r in out] == [4, 4]
+
+
+class _LastToken:
+    """A drafter: any object with ``k`` and ``propose``."""
+    k = 3
+
+    def propose(self, hist, tok, pos):
+        return tok[:, None].repeat(1, self.k)
+
+
+# each speculative knob away from its default (the TPU engine's 4 and 2)
+SPEC_KNOBS = {"speculative": dict(speculative=True),
+              "spec_k": dict(speculative=True, spec_k=2),
+              "spec_ngram": dict(speculative=True, spec_ngram=3),
+              "drafter": dict(speculative=True, drafter=_LastToken())}
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_KNOBS))
+def test_each_spec_knob_builds_and_serves(name):
+    from deepspeed_tpu.serving.engine import ServingEngine as JaxServing
+    params = inspect.signature(JaxServing.__init__).parameters
+    port = inspect.signature(ServingEngine.__init__).parameters
+    assert port[name].default == params[name].default
+    kw = SPEC_KNOBS[name]
+    eng = ServingEngine(_model(), device="cpu", dtype=torch.float32,
+                        max_batch=2, megakernel=True, **kw)
+    assert eng.speculative and eng._chunked
+    assert eng.spec_k == {"spec_k": 2, "drafter": 3}.get(name, 4)
+    if name == "spec_ngram":
+        assert eng.drafter.n == 3
+    out = eng.run([np.arange(1, 6), np.arange(3, 12)], max_new_tokens=6)
+    assert [r.status for r in out] == ["done", "done"]
+    assert [len(r.tokens) for r in out] == [6, 6]
+    assert eng.metrics.spec_proposed > 0
+
+
+def test_fused_prefill_with_speculative_still_raises_naming_a7():
+    with pytest.raises(NotImplementedError, match="ROADMAP A7\\b"):
+        ServingEngine(_model(), device="cpu", dtype=torch.float32,
+                      fused_prefill=True, speculative=True)
