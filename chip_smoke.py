@@ -202,7 +202,32 @@ Phases (any failure exits non-zero before the result lines):
  28. the serve loop: run() (double-buffered) against a step() loop, spec
      and not (equal greedy tokens, both timed), with every launch under
      torch.cuda.set_sync_debug_mode("error"); a cancel of a running and a
-     queued request in mid-run.
+     queued request in mid-run;
+ 29. resume: phase 8's gpt2_125m_zero1 engine at full width (gas cut to
+     RESUME_GAS, printed; phase 8's batch) trains 2
+     steps, saves to a temporary directory (npz), trains 2 more; a fresh
+     engine (other random weights) loads and trains the same 2: its losses
+     must be bitwise the uninterrupted ones and the flash kernels must run
+     in the resumed steps (counts reset just before, read just after);
+     prints save and load seconds and the checkpoint's bytes;
+ 30. ZeRO-1 over two data-parallel ranks: this script started twice more
+     (--dp-rank 0 / 1), each rank micro 4 of phase 29's micro-batches of 8
+     rows for the same 4 steps, over NCCL with one card a rank when the
+     host has two cards, else over gloo with both ranks on one card; fails
+     if a rank fails, if a loss leaves phase 29's by more than LOSS_ATOL,
+     if the ranks' losses differ, if a rank's launches of B1/B1b are not
+     its 12 layers x gas x steps (x2 for the forward) or if a rank's
+     optimizer state (fp32 master slices and Adam moments) is not half of
+     dp 1's, up to the padding; prints per rank the backend, launches,
+     step seconds, bytes all-reduced and all-gathered a step and its
+     optimizer-state bytes beside dp 1's;
+ 31. LAMB, Adagrad and SGD (momentum 0.9): 3 steps each of the same model
+     (micro 8, gas 1, one repeated batch): losses finite and falling; the
+     third step's masters against the same optimizer step on CPU copies of
+     its state and grads (OPT_CPU_TOL).
+
+The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
+gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
 
 Prints the kernel summary JSON, the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -217,6 +242,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
@@ -257,6 +283,17 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
                 "zero_optimization": {"stage": 1},
                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
                 "steps_per_print": 100_000}
+# phases 29-30: gpt2_125m_zero1 with gas cut from 16 to fit the time limit
+RESUME_GAS = 4
+DP_TIMEOUT_S = 300
+# phase 31: each optimizer's config (lr picked for a falling loss in 3
+# steps from random weights) and the card-vs-CPU bound of one step's
+# masters: f32 elementwise math on both, LAMB's norms summed in another
+# order (|card - cpu| <= atol + rtol |cpu|)
+OPTIMIZERS = {"Lamb": {"lr": 1e-3, "weight_decay": 0.01},
+              "Adagrad": {"lr": 1e-4},
+              "SGD": {"lr": 0.05, "momentum": 0.9}}
+OPT_CPU_TOL = (1e-6, 1e-5)
 
 
 def fail(msg: str) -> None:
@@ -824,6 +861,8 @@ def phase_training(torch, np, dev, seed, card):
                                                 gpt_flops_per_token,
                                                 lm_loss_fn)
     from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.telemetry.mfu import (mfu_report,
+                                                   peak_flops_per_device)
     cfg = gpt2_125m(max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16)
     model = GPT(cfg, device=dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
@@ -854,11 +893,16 @@ def phase_training(torch, np, dev, seed, card):
     if launches != want:
         fail(f"flash launch counts {launches}, expected {want}")
     step_s = sum(secs[2:]) / 3
-    tok_s = TRAIN_MICRO * TRAIN_SEQ * TRAIN_GAS / step_s
-    mfu = gpt_flops_per_token(cfg, TRAIN_SEQ) * tok_s / BF16_FLOPS
+    tokens = TRAIN_MICRO * TRAIN_SEQ * TRAIN_GAS
+    report = mfu_report(
+        flops_per_call=gpt_flops_per_token(cfg, TRAIN_SEQ) * tokens,
+        calls=3, wall_s=sum(secs[2:]), peak_flops=peak_flops_per_device(dev),
+        label="gpt2_125m_zero1 train_batch")
     print(f"train_step_s={step_s} card={card}", flush=True)
-    print(f"train_tokens_per_s={tok_s} card={card}", flush=True)
-    print(f"train_mfu={mfu} (vs 989 TFLOP/s bf16) card={card}", flush=True)
+    print(f"train_tokens_per_s={tokens / step_s} card={card}", flush=True)
+    print(f"train_mfu={report['mfu']} (vs "
+          f"{report['peak_flops_per_device']} FLOP/s bf16) mfu_report="
+          f"{json.dumps(report)} card={card}", flush=True)
     return engine, cfg, torch.from_numpy(ids).long().to(dev), launches
 
 
@@ -3079,9 +3123,259 @@ def phase_sass(_build):
               flush=True)
 
 
+# --------------------------------------------------------------------------
+# Phases 29-31: resume, ZeRO-1 over two ranks, LAMB / Adagrad / SGD
+# --------------------------------------------------------------------------
+
+def _gpt2_engine(torch, dev, seed, config):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_125m, lm_loss_fn
+    cfg = gpt2_125m(max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=config)
+    return engine, cfg
+
+
+def resume_micros(np, seed, vocab, steps=4):
+    """Phases 29-30's global micro-batches of TRAIN_MICRO rows: phase 8's
+    one batch, repeated (on random tokens only a repeated batch can show a
+    falling loss)."""
+    ids = np.random.default_rng(seed).integers(
+        0, vocab, (TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)
+    return [{"input_ids": ids}] * (steps * RESUME_GAS)
+
+
+def _train_steps(torch, engine, micros, first, steps):
+    losses, secs = [], []
+    for step in range(first, first + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter(
+            micros[RESUME_GAS * step:RESUME_GAS * (step + 1)]))
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def opt_state_bytes(engine) -> int:
+    """The optimizer's fp32 masters (this rank's slices under ZeRO-1 over
+    dp) and moments, in bytes."""
+    held = list(engine._opt_params)
+    for name in engine.optimizer.STATE:
+        held += getattr(engine.optimizer, name)
+    return sum(t.numel() * t.element_size() for t in held)
+
+
+def phase_resume(torch, np, dev, seed, card):
+    """Phase 29: train 2 steps, save, train 2; a fresh engine loads and
+    trains the same 2, bitwise."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=RESUME_GAS)
+    engine, cfg = _gpt2_engine(torch, dev, seed, config)
+    micros = resume_micros(np, seed, cfg.vocab_size)
+    first, _ = _train_steps(torch, engine, micros, 0, 2)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        tag_dir = engine.save_checkpoint(root, tag="two")
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tag_dir, f))
+                     for f in os.listdir(tag_dir))
+        cont, cont_s = _train_steps(torch, engine, micros, 2, 2)
+        state_bytes = opt_state_bytes(engine)
+        del engine
+        torch.cuda.empty_cache()
+        fresh, _ = _gpt2_engine(torch, dev, seed + 1, config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    resumed, _ = _train_steps(torch, fresh, micros, 2, 2)
+    launches = {name: _build.LAUNCHES[name] for name in FLASH}
+    del fresh
+    torch.cuda.empty_cache()
+    print(f"phase29 resume gpt2_125m gas={RESUME_GAS} (cut from "
+          f"{TRAIN_GAS}) losses={first + cont} resumed={resumed} "
+          f"resumed_launches={launches} step_s={cont_s} (steps 3-4, dp 1) "
+          f"card={card}", flush=True)
+    print(f"checkpoint_save_s={save_s} checkpoint_load_s={load_s} "
+          f"checkpoint_bytes={nbytes} card={card}", flush=True)
+    if resumed != cont:
+        fail(f"resumed losses {resumed} are not bitwise the uninterrupted "
+             f"{cont}")
+    if not all(np.isfinite(first + cont)) or not cont[-1] < first[0]:
+        fail(f"phase 29's losses are not finite and falling: {first + cont}")
+    if min(launches.values()) == 0:
+        fail(f"the resumed steps launched no flash kernel: {launches}")
+    return first + cont, state_bytes
+
+
+def dp_rank_main(args) -> int:
+    """One rank of phase 30 (this script with --dp-rank): its rows of
+    phase 29's micro-batches for 4 steps; results as JSON to --dp-out."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.cuda import _build
+    nccl = torch.cuda.device_count() >= 2
+    comm.init_distributed(dist_backend="nccl" if nccl else "gloo",
+                          init_method=f"tcp://localhost:{args.dp_port}",
+                          rank=args.dp_rank, world_size=2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=RESUME_GAS,
+                  train_micro_batch_size_per_gpu=TRAIN_MICRO // 2)
+    engine, cfg = _gpt2_engine(torch, dev, args.seed, config)
+    micros = resume_micros(np, args.seed, cfg.vocab_size)
+    _build.reset_launch_counts()
+    losses, secs = _train_steps(torch, engine, micros, 0, 4)
+    launches = {name: _build.LAUNCHES[name] for name in FLASH}
+    numel = sum(p.numel() for p in engine.master)
+    wire = 2 if engine._comm_dtype is not None else 4
+    out = {"rank": comm.get_rank(), "dp": engine.dp_world_size,
+           "backend": torch.distributed.get_backend(), "device": str(dev),
+           "losses": losses, "step_s": secs, "launches": launches,
+           "bytes_all_reduced_per_step": RESUME_GAS * numel * wire,
+           "bytes_all_gathered_per_step": numel * 2,
+           "opt_state_bytes": opt_state_bytes(engine),
+           "layers": cfg.num_layers}
+    with open(args.dp_out, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
+    """Phase 30: two ranks of ZeRO-1 against phase 29's dp 1 losses."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        procs, outs = [], []
+        for rank in range(2):
+            env = dict(os.environ, LOCAL_RANK=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--dp-rank", str(rank), "--dp-port", str(port),
+                 "--dp-out", os.path.join(d, f"rank{rank}.json")],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-6000:], flush=True)
+                fail(f"phase 30 rank {rank} exited {p.returncode}")
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(d, f"rank{rank}.json")) as fh:
+                ranks.append(json.load(fh))
+    for r in ranks:
+        print(f"phase30 zero1 dp=2 rank={r['rank']} backend={r['backend']} "
+              f"device={r['device']} losses={r['losses']} step_s="
+              f"{r['step_s']} launches={r['launches']} "
+              f"bytes_all_reduced_per_step={r['bytes_all_reduced_per_step']} "
+              f"bytes_all_gathered_per_step="
+              f"{r['bytes_all_gathered_per_step']} opt_state_bytes="
+              f"{r['opt_state_bytes']} dp1_opt_state_bytes={dp1_state_bytes} "
+              f"card={card}", flush=True)
+    print(f"phase30 dp2 vs dp1 losses {ranks[0]['losses']} vs {dp1_losses} "
+          f"(atol {LOSS_ATOL})", flush=True)
+    per_step = ranks[0]["layers"] * RESUME_GAS * 4
+    want = {"flash_fwd": 2 * per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    n_leaves = 4 + 12 * ranks[0]["layers"]     # bound of the padding
+    for r in ranks:
+        if r["dp"] != 2 or r["launches"] != want:
+            fail(f"rank {r['rank']}: dp {r['dp']}, launches "
+                 f"{r['launches']}, expected {want}")
+        if abs(r["opt_state_bytes"] - dp1_state_bytes / 2) \
+                > 3 * 4 * n_leaves:
+            fail(f"rank {r['rank']} holds {r['opt_state_bytes']} bytes of "
+                 f"optimizer state, not half of {dp1_state_bytes}")
+        if max(abs(a - b) for a, b in zip(r["losses"], dp1_losses)) \
+                > LOSS_ATOL:
+            fail(f"dp 2 losses {r['losses']} leave dp 1's {dp1_losses}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail("the two ranks report different losses")
+
+
+def _cpu_copy(opt):
+    """The optimizer on CPU copies of its params and state."""
+    import copy
+    cpu = copy.copy(opt)
+    cpu.__dict__.pop("step", None)          # phase 31's capture hook
+    cpu.params = [p.detach().cpu().clone() for p in opt.params]
+    for name in opt.STATE:
+        setattr(cpu, name, [t.cpu().clone() for t in getattr(opt, name)])
+    return cpu
+
+
+def phase_optimizers(torch, np, dev, seed, card):
+    """Phase 31: LAMB, Adagrad and SGD train 3 steps; the third step's
+    masters against the same step on the CPU."""
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=1)
+    for name, params in OPTIMIZERS.items():
+        engine, cfg = _gpt2_engine(
+            torch, dev, seed,
+            dict(config, optimizer={"type": name, "params": params}))
+        ids = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)
+        batch = [{"input_ids": ids}]
+        opt, seen = engine.optimizer, {}
+        step = opt.step
+
+        def capture(grads):
+            seen["cpu"] = _cpu_copy(opt)
+            seen["grads"] = [g.detach().cpu().clone() for g in grads]
+            step(grads)
+        losses, secs = [], []
+        for i in range(3):
+            if i == 2:
+                opt.step = capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(iter(batch))))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        opt.step = step
+        seen["cpu"].step(seen["grads"])
+        err = max(float((p.detach().cpu() - q).abs().max())
+                  for p, q in zip(opt.params, seen["cpu"].params))
+        atol, rtol = OPT_CPU_TOL
+        ok = all(torch.allclose(p.detach().cpu(), q, rtol=rtol, atol=atol)
+                 for p, q in zip(opt.params, seen["cpu"].params))
+        print(f"phase31 optimizer {name} {params} losses={losses} "
+              f"step_s={secs} card_vs_cpu_max_abs_err={err} "
+              f"(atol {atol}, rtol {rtol}) card={card}", flush=True)
+        del engine, opt, seen, step, capture
+        torch.cuda.empty_cache()
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"{name}: losses not finite and falling: {losses}")
+        if not ok:
+            fail(f"{name}: the card's step leaves the CPU's by {err}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 30 (the script starts them itself)
+    ap.add_argument("--dp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-out", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -3089,6 +3383,8 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.dp_rank is not None:
+        return dp_rank_main(args)
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -3177,6 +3473,12 @@ def main(argv=None) -> int:
     del engine, batch
     torch.cuda.empty_cache()
     row_t = phase_rowwise_timing(torch, ln, gl, sm, row_inputs, card)
+    del row_inputs
+    torch.cuda.empty_cache()
+    dp1_losses, dp1_state_bytes = phase_resume(torch, np, dev, args.seed,
+                                               card)
+    phase_dp(args.seed, card, dp1_losses, dp1_state_bytes)
+    phase_optimizers(torch, np, dev, args.seed, card)
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",

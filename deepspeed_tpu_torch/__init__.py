@@ -5,6 +5,7 @@ card (``device="cuda"``) unless the caller passes ``device="cpu"``, where the
 kernel wrappers run their plain PyTorch versions.
 """
 
+from .comm.comm import init_distributed
 from .inference.engine import InferenceEngine
 from .models.gpt import GPT, GPTConfig
 from .ops.transformer import (DeepSpeedTransformerConfig,
@@ -15,7 +16,7 @@ from .serving.engine import ServingEngine
 __all__ = ["InferenceEngine", "ServingEngine", "GPT", "GPTConfig",
            "DeepSpeedConfig", "DeepSpeedConfigError",
            "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
-           "initialize", "init_inference"]
+           "initialize", "init_inference", "init_distributed"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -28,19 +29,17 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``model`` is a ``torch.nn.Module`` whose parameters become the fp32
     masters; ``model_parameters`` is None, ``model.parameters()`` or a
     ``state_dict`` to load into it. ``device`` defaults to the card; a CUDA
-    device without CUDA raises. ``dist_init_required`` is taken at one
-    rank; ``mpu`` (model parallelism), more than one rank and ``rng`` (the
-    engine keeps no random stream to seed) are not ported yet."""
+    device without CUDA raises. Unless ``dist_init_required`` is False the
+    process joins its group first (:func:`init_distributed`: the one already
+    set up, or the launcher's environment; none at one rank); every rank of
+    the group is one data-parallel rank. ``mpu`` (model parallelism) and
+    ``rng`` (the engine keeps no random stream to seed) are not ported
+    yet."""
     from .runtime.engine import DeepSpeedEngine, _not_ported
     if mpu is not None:
-        raise _not_ported("mpu (model parallelism)", "A4.2")
-    if dist_init_required:
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise _not_ported(
-                f"dist_init_required over {dist.get_world_size()} ranks "
-                f"(dp > 1)", "A5")
+        raise _not_ported("mpu (model parallelism)", "A9")
+    if dist_init_required is not False:
+        init_distributed(device=device)
     if rng is not None:
         raise _not_ported("initialize(rng=...): the engine's random stream",
                           "A13")

@@ -567,7 +567,7 @@ class DeepSpeedConfig:
         (elasticity/elasticity.py); it is not ported yet."""
         raise NotImplementedError(
             "elasticity.enabled: elasticity is not ported yet "
-            "(ROADMAP A4.6)")
+            "(ROADMAP A13)")
 
     def _sanity_check(self):
         tb = self.train_batch_size

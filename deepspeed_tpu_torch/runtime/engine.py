@@ -1,23 +1,34 @@
 """The training engine, dense path.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (reference
-``DeepSpeedEngine``, deepspeed/runtime/engine.py:175) at one data-parallel
-rank. The TPU engine compiles a whole step into one program; here the same
-step runs eagerly:
+``DeepSpeedEngine``, deepspeed/runtime/engine.py:175). The TPU engine
+compiles a whole step into one program; here the same step runs eagerly,
+one process per data-parallel rank (``torch.distributed``, through
+``comm``):
 
   * fp32 master params (the module's own parameters) and an fp32 gradient
     accumulator. Once per step the master is cast to the compute dtype into
     a compute copy of the module (``_cast_params``, hoisted out of the micro
     loop as in the TPU engine); each micro-batch runs forward and backward
-    on that copy and adds its grads, cast to f32, into the accumulator;
-  * at the boundary (``_apply_update``): divide by ``scale * gas`` (and
-    ``gradient_predivide_factor`` under ``prescale_gradients``), take the
-    global norm, clip to ``gradient_clipping``, step Adam on the master,
-    skip the step on non-finite grads (fp16 only: the overflow flag is read
-    on the host, as the reference does), update the loss scale and zero the
-    accumulator;
-  * ZeRO stage 0 and 1 at data-parallel world size 1, where partitioning
-    the optimizer state over dp is the identity.
+    on that copy (over dp ranks: on this rank's rows of the global
+    micro-batch) and adds its grads into the accumulator, cast to
+    ``communication_data_type``, all-reduced over dp in one flat buffer and
+    widened back to f32, as the TPU engine's grads cross dp;
+  * at the boundary (``_apply_update``): divide by ``scale * gas * dp``
+    (and ``gradient_predivide_factor`` under ``prescale_gradients``), take
+    the global norm, clip to ``gradient_clipping``, step the optimizer
+    (Adam, LAMB, Adagrad or SGD), skip the step on non-finite grads (fp16
+    only: the overflow flag is read on the host, as the reference does),
+    update the loss scale and zero the accumulator;
+  * ZeRO stage 0 keeps the optimizer state whole on every rank. Stage 1
+    over dp > 1 gives each rank one contiguous slice of every flattened
+    leaf's fp32 master and moments (``sharding.py``): the rank steps its
+    slices and the updated slices are all-gathered into the compute copy in
+    the compute dtype. The module's fp32 parameters then lag behind the
+    slices until ``consolidated_fp32_state_dict`` or a checkpoint gathers
+    them (at f32 compute the compute copy is the module and never lags);
+  * ``save_checkpoint`` / ``load_checkpoint`` in the TPU engine's npz and
+    host-sharded layouts (``checkpoint/saving.py``).
 
 What the TPU engine supports beyond that raises ``NotImplementedError``
 naming its ROADMAP item; a parsed knob never silently does nothing.
@@ -27,13 +38,20 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
+import zlib
 from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.adam import fused_adam
+from ..checkpoint import saving as ckpt_saving
+from ..comm import comm
+from ..comm.coalesced_collectives import all_gather_coalesced
+from ..ops.adam import fused_adagrad, fused_adam
+from ..ops.lamb import fused_lamb
+from ..ops.sgd import sgd
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -43,13 +61,20 @@ from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import grads_finite, make_loss_scale_state, \
     update_scale
 from .lr_schedules import build_lr_scheduler
+from .sharding import ShardingRules
 
 _ADAM_TYPES = ("adam", "adamw", "fusedadam")
 _ADAM_KEYS = ("lr", "betas", "eps", "weight_decay", "bias_correction",
               "adam_w_mode", "torch_adam")
-_LATER_OPTIMIZERS = {"lamb": "A4.8", "adagrad": "A4.8", "sgd": "A4.8",
-                     "onebitadam": "A4.6", "onebitlamb": "A4.6",
-                     "zerooneadam": "A4.6"}
+_OPTIMIZER_KEYS = {
+    **{t: _ADAM_KEYS for t in _ADAM_TYPES},
+    "lamb": ("lr", "betas", "eps", "weight_decay", "bias_correction",
+             "max_coeff", "min_coeff"),
+    "adagrad": ("lr", "eps", "weight_decay"),
+    "sgd": ("lr", "momentum", "weight_decay"),
+}
+_LATER_OPTIMIZERS = {"onebitadam": "A13", "onebitlamb": "A13",
+                     "zerooneadam": "A13"}
 _COMM_DTYPES = {"fp16": torch.float16, "float16": torch.float16,
                 "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                 "fp32": None, "float32": None}
@@ -61,13 +86,8 @@ def _not_ported(what: str, item: str):
 
 
 def _dp_world_size() -> int:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise _not_ported(
-            f"data parallelism over {dist.get_world_size()} ranks (ZeRO-1 "
-            f"across dp > 1)", "A4.7")
-    return 1
+    """dp is the whole world (the tp / ep / sp groups wait for A9)."""
+    return comm.get_world_size()
 
 
 class DeepSpeedEngine:
@@ -76,6 +96,7 @@ class DeepSpeedEngine:
                  config=None, loss_fn=None, device="cuda"):
         self.device = resolve_device(device)
         self.dp_world_size = _dp_world_size()
+        self.dp_rank = comm.get_rank()
         self.mp_world_size = 1
         raw = config._raw if isinstance(config, DeepSpeedConfig) else config
         self.config = DeepSpeedConfig(raw, dp_world_size=self.dp_world_size)
@@ -108,11 +129,25 @@ class DeepSpeedEngine:
                 "fp16 or bf16 config blocks (same mixed-precision "
                 "semantics)")
         if self.config.disable_allgather:
-            log_dist("disable_allgather is inert at one data-parallel "
-                     "rank: there is no allgather to replace", ranks=[0])
+            log_dist("disable_allgather is inert: the ZeRO-1 slices are "
+                     "all-gathered (per-rank broadcasts would give the same "
+                     "weights)", ranks=[0])
 
         # ---- state: fp32 master, compute copy, f32 accumulator ----------
+        self._names = [n for n, _ in self.module.named_parameters()]
         self.master: List[torch.Tensor] = list(self.module.parameters())
+        if self.dp_world_size > 1:
+            self._broadcast_master()
+        self._rules = ShardingRules(self.dp_world_size, self.zero_stage,
+                                    self.dp_rank)
+        self._shards = [self._rules.master_spec(n, p.shape)
+                        for n, p in zip(self._names, self.master)]
+        # ZeRO-1 over dp > 1: the optimizer steps this rank's flat slices
+        self._partitioned = self._rules.partitioned and optimizer is None
+        self._opt_params = ([s.take(p.detach()) for s, p in
+                             zip(self._shards, self.master)]
+                            if self._partitioned else self.master)
+        self._module_stale = False
         if self.compute_dtype == torch.float32:
             self.compute_module = self.module
         else:
@@ -153,20 +188,24 @@ class DeepSpeedEngine:
         c = self.config
         zc = c.zero_config
         if zc.stage >= 2:
-            raise _not_ported(f"ZeRO stage {zc.stage}", "A4.1")
+            raise _not_ported(f"ZeRO stage {zc.stage}", "A8")
         if zc.offload_optimizer.device != OFFLOAD_NONE \
                 or zc.offload_param.device != OFFLOAD_NONE:
-            raise _not_ported("offload_optimizer / offload_param", "A4.1")
+            raise _not_ported("offload_optimizer / offload_param", "A8")
         m = c.mesh
-        if (m.tp, m.pp, m.ep, m.sp) != (1, 1, 1, 1) or m.dp not in (None, 1):
-            raise _not_ported("a tp/pp/ep/sp (or dp > 1) mesh", "A4.2")
+        if (m.tp, m.pp, m.ep, m.sp) != (1, 1, 1, 1):
+            raise _not_ported("a tp/pp/ep/sp mesh", "A9")
+        if m.dp not in (None, self.dp_world_size):
+            raise ValueError(f"mesh.dp={m.dp} but the process group has "
+                             f"{self.dp_world_size} ranks (dp is the whole "
+                             f"world)")
         if c.pipeline.stages > 1:
-            raise _not_ported("pipeline stages", "A4.3")
+            raise _not_ported("pipeline stages", "A9")
         otype = (c.optimizer.type if c.optimizer else "Adam").lower()
         if otype in _LATER_OPTIMIZERS:
             raise _not_ported(f"optimizer {c.optimizer.type}",
                               _LATER_OPTIMIZERS[otype])
-        if otype not in _ADAM_TYPES:
+        if otype not in _OPTIMIZER_KEYS:
             raise ValueError(f"unknown optimizer type {c.optimizer.type!r}")
         features = {
             "progressive_layer_drop": c.progressive_layer_drop.enabled,
@@ -181,15 +220,15 @@ class DeepSpeedEngine:
         }
         on = [name for name, flag in features.items() if flag]
         if on:
-            raise _not_ported(", ".join(on), "A4.6")
+            raise _not_ported(", ".join(on), "A13")
         ac = c.activation_checkpointing
         if ac.cpu_checkpointing:
             raise _not_ported("activation_checkpointing.cpu_checkpointing",
-                              "A4.1")
+                              "A8")
         if ac.partition_activations:
             raise _not_ported(
                 "activation_checkpointing.partition_activations (a tp "
-                "sharding of the checkpoints)", "A4.2")
+                "sharding of the checkpoints)", "A9")
         for knob in ("contiguous_memory_optimization",
                      "synchronize_checkpoint_boundary", "profile"):
             if getattr(ac, knob):
@@ -246,21 +285,46 @@ class DeepSpeedEngine:
         oc = self.config.optimizer
         otype = (oc.type if oc else "Adam").lower()
         params = dict(oc.params) if oc else {}
-        unknown = sorted(set(params) - set(_ADAM_KEYS))
+        valid = _OPTIMIZER_KEYS[otype]
+        unknown = sorted(set(params) - set(valid))
         if unknown:
-            raise ValueError(f"optimizer params {unknown} are not Adam "
-                             f"params (valid: {list(_ADAM_KEYS)})")
+            raise ValueError(f"optimizer params {unknown} are not "
+                             f"{oc.type} params (valid: {list(valid)})")
         self._base_lr = params.get("lr", 1e-3)
         sched = self.lr_scheduler
         lr = sched.lr_at if sched is not None else self._base_lr
-        # torch_adam picks the reference's torch.optim.Adam implementation;
-        # the math is the same
-        self.optimizer = fused_adam(
-            self.master, lr, betas=tuple(params.get("betas", (0.9, 0.999))),
-            eps=params.get("eps", 1e-8),
-            weight_decay=params.get("weight_decay", 0.0),
-            adam_w_mode=params.get("adam_w_mode", otype != "adam"),
-            bias_correction=params.get("bias_correction", True))
+        betas = tuple(params.get("betas", (0.9, 0.999)))
+        wd = params.get("weight_decay", 0.0)
+        # the TPU engine's table (engine.py:370-400): eps defaults to 1e-8
+        # for Adam and LAMB; Adagrad takes its configured eps (the TPU
+        # table always passes 1e-10); SGD has no weight decay there
+        if otype in _ADAM_TYPES:
+            # torch_adam picks the reference's torch.optim.Adam
+            # implementation; the math is the same
+            self.optimizer = fused_adam(
+                self._opt_params, lr, betas=betas,
+                eps=params.get("eps", 1e-8), weight_decay=wd,
+                adam_w_mode=params.get("adam_w_mode", otype != "adam"),
+                bias_correction=params.get("bias_correction", True))
+        elif otype == "lamb":
+            self.optimizer = fused_lamb(
+                self._opt_params, lr, betas=betas,
+                eps=params.get("eps", 1e-8), weight_decay=wd,
+                max_coeff=params.get("max_coeff", 10.0),
+                min_coeff=params.get("min_coeff", 0.01),
+                bias_correction=params.get("bias_correction", True),
+                norm_reduce=comm.all_reduce if self._partitioned else None)
+        elif otype == "adagrad":
+            self.optimizer = fused_adagrad(
+                self._opt_params, lr, eps=params.get("eps", 1e-10),
+                weight_decay=wd)
+        else:
+            if wd:
+                raise ValueError(
+                    "SGD takes no weight_decay (the TPU engine builds "
+                    "optax.sgd without it); remove the key or set it to 0")
+            self.optimizer = sgd(self._opt_params, lr,
+                                 momentum=params.get("momentum", 0.0))
 
     # ------------------------------------------------------- config accessors
     def train_batch_size(self):
@@ -303,11 +367,19 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------- model fns
     def _to_device(self, batch):
+        """The batch on the device; over dp ranks, this rank's rows of it
+        where the leading dim divides by dp (the TPU ``_shard_batch``: other
+        leaves stay whole on every rank)."""
+        dp, rank = self.dp_world_size, self.dp_rank
+
         def put(x):
             t = torch.as_tensor(x if isinstance(x, torch.Tensor)
                                 else np.asarray(x))
             if not t.is_floating_point() and t.dtype != torch.bool:
                 t = t.long()
+            if dp > 1 and t.dim() > 0 and t.shape[0] % dp == 0:
+                n = t.shape[0] // dp
+                t = t[rank * n:(rank + 1) * n]
             return t.to(self.device, non_blocking=True)
         if isinstance(batch, Mapping):
             return {k: put(v) for k, v in batch.items()}
@@ -337,11 +409,15 @@ class DeepSpeedEngine:
         return self._loss_of(self._to_device(batch))
 
     def _micro_backward(self, loss: torch.Tensor) -> None:
-        """Backward of one micro-batch; its grads, cast to f32, are added
-        into the accumulator (through ``communication_data_type`` first,
-        as the TPU engine rounds them for the dp reduction)."""
+        """Backward of one micro-batch; its grads go through
+        ``communication_data_type`` (as the TPU engine rounds them for the
+        dp reduction), are summed over dp ranks and added, as f32, into the
+        accumulator."""
         (loss.float() * self._scale.cur_scale).backward()
         with torch.no_grad():
+            if self.dp_world_size > 1:
+                self._reduce_into_acc()
+                return
             grads, accs = [], []
             for p, a in zip(self._compute_params, self.acc):
                 if p.grad is None:
@@ -354,10 +430,27 @@ class DeepSpeedEngine:
                 p.grad = None
             torch._foreach_add_(accs, grads)
 
+    def _reduce_into_acc(self) -> None:
+        """All-reduce (sum) of every grad in one flat buffer of the
+        communication dtype, widened into the accumulator."""
+        dt = self._comm_dtype or torch.float32
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1).to(dt)
+                          for p in self._compute_params])
+        for p in self._compute_params:
+            p.grad = None
+        comm.all_reduce(flat)
+        flat = flat.float()
+        torch._foreach_add_(self.acc, [
+            g.view_as(a) for g, a in
+            zip(flat.split([a.numel() for a in self.acc]), self.acc)])
+
     def _apply_update(self) -> Dict[str, Any]:
-        """Unscale + clip + Adam step, with the fp16 overflow guard."""
+        """Unscale + clip + optimizer step, with the fp16 overflow guard.
+        The accumulator holds the sum over dp ranks of per-rank mean
+        losses' grads, hence the ``dp`` in the denominator."""
         gas = self.gradient_accumulation_steps()
-        denom = self._scale.cur_scale * gas
+        denom = self._scale.cur_scale * gas * self.dp_world_size
         if self.config.prescale_gradients:
             denom *= self.config.gradient_predivide_factor
         with torch.no_grad():
@@ -378,11 +471,17 @@ class DeepSpeedEngine:
             self._scale, finite, dynamic=self.dynamic_loss_scale,
             scale_window=fp16.loss_scale_window,
             min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
-        self._compute_stale = True
+        if finite and not self._partitioned:
+            self._compute_stale = True
         self._last_grad_norm = gnorm
         return {"grad_norm": gnorm, "finite": finite}
 
     def _optimizer_step(self, grads: List[torch.Tensor]) -> None:
+        if self._partitioned:
+            self.optimizer.step([s.take(g) for s, g in
+                                 zip(self._shards, grads)])
+            self._gather_compute()
+            return
         if self.client_optimizer is None:
             self.optimizer.step(grads)
             return
@@ -418,7 +517,7 @@ class DeepSpeedEngine:
             self._micro_backward(loss)
             loss_sum += loss.detach().float()
         metrics = self._apply_update()
-        metrics["loss"] = loss_sum / gas
+        metrics["loss"] = comm.all_reduce(loss_sum / gas, "avg")
         if wcb:
             self.timers("train_batch").stop(sync=True)
         will_report = (self.global_steps + 1) % self.steps_per_print() == 0
@@ -480,9 +579,10 @@ class DeepSpeedEngine:
     # ---------------------------------------------------------------- eval
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
-        """Loss of ``batch`` on the compute-dtype params, no grads."""
+        """Loss of ``batch`` on the compute-dtype params, no grads (over dp
+        ranks: the mean of the ranks' losses on their rows)."""
         self._cast_params()
-        return self._loss_of(self._to_device(batch))
+        return comm.all_reduce(self._loss_of(self._to_device(batch)), "avg")
 
     # ------------------------------------------------------------ dataloader
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
@@ -492,9 +592,206 @@ class DeepSpeedEngine:
                                    collate_fn=collate_fn or self.collate_fn,
                                    drop_last=self.config.dataloader_drop_last)
 
-    # ----------------------------------------------------------- checkpoints
-    def save_checkpoint(self, *args, **kwargs):
-        raise _not_ported("checkpoint save", "A4.9")
+    # ------------------------------------------------------------- ZeRO-1
+    @torch.no_grad()
+    def _broadcast_master(self) -> None:
+        """Rank 0's initial weights on every rank (one flat broadcast), so
+        the ranks start from one model however each built it."""
+        flat = torch.cat([p.reshape(-1) for p in self.master])
+        comm.broadcast(flat, 0)
+        torch._foreach_copy_(self.master, [
+            f.view_as(p) for f, p in
+            zip(flat.split([p.numel() for p in self.master]), self.master)])
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _not_ported("checkpoint load", "A4.9")
+    @torch.no_grad()
+    def _gather_compute(self) -> None:
+        """The updated slices, in the compute dtype, all-gathered into the
+        compute copy (the module itself at f32 compute)."""
+        fulls = all_gather_coalesced(
+            [q.to(self.compute_dtype) for q in self._opt_params])
+        torch._foreach_copy_(self._compute_params, [
+            s.unpad(f) for s, f in zip(self._shards, fulls)])
+        self._compute_stale = False
+        self._module_stale = self.compute_module is not self.module
+
+    def _gathered(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole leaves from this rank's slices (every rank calls it);
+        the tensors themselves when the state is not partitioned."""
+        if not self._partitioned:
+            return list(tensors)
+        return [s.unpad(f) for s, f in
+                zip(self._shards, all_gather_coalesced(tensors))]
+
+    @torch.no_grad()
+    def _sync_module(self) -> None:
+        if self._module_stale:
+            torch._foreach_copy_(self.master,
+                                 self._gathered(self._opt_params))
+            self._module_stale = False
+
+    def consolidated_fp32_state_dict(self) -> Dict[str, np.ndarray]:
+        """Full fp32 weights keyed by ``state_dict`` name (zero_to_fp32's
+        output, in process). Over dp > 1 at stage 1 every rank must call
+        it: it gathers the slices (and refreshes ``module``)."""
+        self._sync_module()
+        return ckpt_saving.consolidated_fp32_state_dict(
+            dict(zip(self._names, self.master)))
+
+    def optimizer_state_dict(self) -> Dict[str, Any]:
+        """The optimizer's ``count`` and its moments as whole leaves
+        (gathered over dp at stage 1: every rank must call it)."""
+        sd = self.optimizer.state_dict()
+        return {"count": sd["count"],
+                **{m: self._gathered(sd[m]) for m in self.optimizer.STATE}}
+
+    # ----------------------------------------------------------- checkpoints
+    def _validate_checkpoint_tag(self, tag: str) -> None:
+        """All ranks must save under the same tag (reference
+        _checkpoint_tag_validation, engine.py:2750; warn|fail|ignore). Every
+        rank sees every rank's hash, so all take the same branch."""
+        mode = (self.config.checkpoint_tag_validation or "warn").lower()
+        if mode not in ("warn", "fail", "ignore"):
+            raise ValueError(
+                f"checkpoint_tag_validation={mode!r}: use warn|fail|ignore")
+        if mode == "ignore" or self.dp_world_size == 1:
+            return
+        mine = torch.tensor([zlib.crc32(tag.encode())], dtype=torch.int64,
+                            device=self.device)
+        if len(set(comm.all_gather(mine).flatten().tolist())) > 1:
+            msg = (f"checkpoint tags differ across ranks (this rank: "
+                   f"{tag!r}): mixed-tag checkpoints cannot be loaded back")
+            if mode == "fail":
+                raise ValueError(msg)
+            log_dist("WARNING: " + msg, ranks=None)
+
+    def _check_checkpointable(self) -> None:
+        if self.client_optimizer is not None:
+            raise _not_ported("checkpoints of a client torch.optim "
+                              "optimizer", "A13")
+
+    # Above this size the npz full gather (the whole state on rank 0)
+    # gives way to per-rank shard files, as in the TPU engine
+    SHARDED_CKPT_AUTO_BYTES = 2_000_000_000
+
+    def _use_sharded_checkpoint(self) -> bool:
+        mode = self.config.sharded_checkpoint
+        if mode != "auto":
+            return bool(mode)
+        if self.dp_world_size > 1:
+            return True
+        return sum(p.numel() * 4 for p in self.master) \
+            > self.SHARDED_CKPT_AUTO_BYTES
+
+    def _shard_arrays(self):
+        """This rank's ``<i>:master`` / ``<i>:<moment>`` slices and the
+        per-leaf metadata of the host-shard files (the stage-1 layout over
+        the world even when the state is whole here)."""
+        rules = ShardingRules(self.dp_world_size, 1, self.dp_rank)
+        shards = self._shards if self._partitioned else [
+            rules.master_spec(n, p.shape)
+            for n, p in zip(self._names, self.master)]
+        sd = self.optimizer.state_dict()
+
+        def mine(tensors, i):
+            t = tensors[i]
+            t = t if self._partitioned else shards[i].take(t)
+            return t.detach().float().cpu().numpy()
+
+        arrays = {}
+        for i in range(len(shards)):
+            arrays[f"{i}:master"] = mine(self._opt_params, i)
+            for m in self.optimizer.STATE:
+                arrays[f"{i}:{m}"] = mine(sd[m], i)
+        leaves = [{"path": s.path, "offset": s.offset, "numel": s.numel,
+                   "padded": s.padded, "global_numel": s.global_numel,
+                   "shape": list(s.shape)} for s in shards]
+        return arrays, leaves
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True) -> str:
+        """Save under ``save_dir/tag`` (default ``global_step<N>``); every
+        rank calls it. npz at one rank, per-rank shard files over dp > 1
+        (``sharded_checkpoint``: "auto", or true / false to force)."""
+        self._check_checkpointable()
+        tag = tag or f"global_step{self.global_steps}"
+        self._validate_checkpoint_tag(tag)
+        sched = self.lr_scheduler
+        meta = {
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "loss_scale": self.loss_scale,
+            "lr_scheduler": sched.state_dict() if sched else None,
+            "zero_stage": self.zero_stage,
+            "dp_world_size": self.dp_world_size,
+            "client_state": client_state or {},
+            "curriculum": None,
+            "quantizer": None,
+        }
+        if self._use_sharded_checkpoint():
+            arrays, leaves = self._shard_arrays()
+            return ckpt_saving.save_host_sharded_dir(
+                save_dir, tag, arrays=arrays, leaves=leaves,
+                step=self.optimizer.count, meta=meta,
+                save_latest=save_latest)
+        master = self.consolidated_fp32_state_dict()
+        sd = self.optimizer_state_dict()
+        opt = {"count": np.asarray(sd["count"])}
+        for m in self.optimizer.STATE:
+            for name, t in zip(self._names, sd[m]):
+                opt[f"{m}/{name}"] = t.detach().float().cpu().numpy()
+        return ckpt_saving.save_checkpoint_dir(
+            save_dir, tag, master_params=master, opt_state=opt, meta=meta,
+            save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Load ``load_dir/tag`` (default: the ``latest`` file's tag), saved
+        at any dp, in either layout. Returns ``(tag directory,
+        client_state)``, or ``(None, {})`` when there is no checkpoint."""
+        self._check_checkpointable()
+        res = ckpt_saving.load_checkpoint_dir(load_dir, tag,
+                                              self.optimizer.STATE)
+        if res is None:
+            log_dist(f"no checkpoint found in {load_dir}", ranks=[0])
+            return None, {}
+        meta, master = res["meta"], res["master_params"]
+        with torch.no_grad():
+            for name, p in zip(self._names, self.master):
+                if name not in master:
+                    raise KeyError(f"checkpoint missing tensor {name!r}")
+                arr = master[name]
+                if tuple(arr.shape) != tuple(p.shape):
+                    raise ValueError(f"shape mismatch for {name}: ckpt "
+                                     f"{arr.shape} vs model "
+                                     f"{tuple(p.shape)}")
+                p.copy_(torch.from_numpy(arr))
+            if self._partitioned:
+                torch._foreach_copy_(self._opt_params, [
+                    s.take(p) for s, p in zip(self._shards, self.master)])
+        if load_optimizer_states and not load_module_only:
+            opt = res["opt_state"]
+            state = {"count": int(opt["count"])}
+            for m in self.optimizer.STATE:
+                full = [torch.from_numpy(opt[f"{m}/{name}"]).to(self.device)
+                        for name in self._names]
+                state[m] = ([s.take(f) for s, f in zip(self._shards, full)]
+                            if self._partitioned else full)
+            self.optimizer.load_state_dict(state)
+        self._compute_stale, self._module_stale = True, False
+        self._scale = self._scale._replace(
+            cur_scale=float(meta["loss_scale"]))
+        if load_lr_scheduler_states and self.lr_scheduler is not None \
+                and meta.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        self.global_steps = meta["global_steps"]
+        self.global_samples = meta["global_samples"]
+        self.micro_steps = meta["micro_steps"]
+        self.skipped_steps = int(meta.get("skipped_steps", 0) or 0)
+        log_dist(f"loaded checkpoint tag={res['tag']} "
+                 f"step={self.global_steps}", ranks=[0])
+        return os.path.join(load_dir, res["tag"]), \
+            meta.get("client_state", {})

@@ -6,8 +6,8 @@ set away from its default raises ``NotImplementedError`` naming its
 ROADMAP item (``NOT_PORTED_KNOBS``), never a ``TypeError``; with the
 defaults passed explicitly the engine builds from TPU weights converted by
 ``convert.py`` and its greedy tokens equal the TPU engine's.
-``initialize(dist_init_required=True)`` builds at one rank. On the CPU,
-f32, a tiny GPT."""
+``initialize(dist_init_required=True)`` builds at one rank and over two
+gloo ranks. On the CPU, f32, a tiny GPT."""
 
 import inspect
 
@@ -162,14 +162,17 @@ def test_initialize_dist_init_required_in_a_one_rank_group():
         dist.destroy_process_group()
 
 
-def test_initialize_refuses_more_ranks_and_rng(monkeypatch):
-    import torch.distributed as dist
+def test_initialize_refuses_more_ranks_and_rng():
+    """``rng`` still raises (the engine keeps no random stream);
+    ``dist_init_required=True`` over two ranks, which raised naming A5
+    until data parallelism was ported, builds a dp-2 engine that trains
+    (its ranks agree on the loss)."""
+    import torch_dist_helpers
     with pytest.raises(NotImplementedError, match="ROADMAP A13\\b"):
         dst.initialize(model=_train_model(), loss_fn=lm_loss_fn,
                        config=TRAIN_CONFIG, rng=0, device="cpu")
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5\\b"):
-        dst.initialize(model=_train_model(), loss_fn=lm_loss_fn,
-                       config=TRAIN_CONFIG, dist_init_required=True,
-                       device="cpu")
+    ranks = torch_dist_helpers.run_ranks(
+        "torch_dist_helpers:initialize_ranks", 2,
+        config=TRAIN_CONFIG, rows=4)
+    assert [dp for dp, _ in ranks] == [2, 2]
+    assert np.isfinite(ranks[0][1]) and ranks[0][1] == ranks[1][1]

@@ -15,7 +15,8 @@ sizes (torch_port_helpers.TINY), inputs from numpy seeds:
   * engine: ``initialize`` + 3 x ``train_batch`` against the JAX engine
     (losses, grad norms, Adam moments; and a sparse model's losses and grad
     norms); the 3-call API against
-    ``train_batch``; every unported knob raises.
+    ``train_batch``; every unported knob raises (LAMB, Adagrad, SGD,
+    checkpoints and dp > 1 are ported now: their cases check that).
 
 Tolerances: 1e-5 (relative where stated) -- both sides are f32 and differ
 in summation order only."""
@@ -537,6 +538,11 @@ UNPORTED = {
 }
 
 
+# raised naming ROADMAP A4.8 until they were ported; their cases now check
+# that the engine builds the optimizer and trains (the optimizer's class)
+NOW_PORTED = {"lamb": "FusedLamb", "adagrad": "FusedAdagrad", "sgd": "SGD"}
+
+
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_knob_raises(name):
     import deepspeed_tpu_torch as dst
@@ -545,25 +551,41 @@ def test_unported_knob_raises(name):
     cfg = {"train_micro_batch_size_per_gpu": 2, **UNPORTED[name]}
     if name == "elasticity":
         cfg.pop("train_micro_batch_size_per_gpu")
+    if name in NOW_PORTED:
+        eng, opt, *_ = dst.initialize(model=pmodel, loss_fn=lm_loss_fn,
+                                      config=cfg, device="cpu")
+        assert type(opt).__name__ == NOW_PORTED[name]
+        assert np.isfinite(float(eng.train_batch(
+            iter([{"input_ids": _ids(3, rows=2)}]))))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dst.initialize(model=pmodel, loss_fn=lm_loss_fn, config=cfg,
                        device="cpu")
 
 
-def test_unported_calls_raise(monkeypatch):
-    import torch.distributed as dist
+def test_unported_calls_raise(tmp_path):
+    """``mpu`` still raises. Checkpoints and more than one rank raised
+    (ROADMAP A4.9, A4.7) until they were ported: a save loads back, and
+    two gloo ranks train (tests/test_torch_checkpoint.py and
+    test_torch_zero_dp.py hold them to the JAX engine)."""
+    import torch_dist_helpers
     _, _, pmodel = model_pair(seed=0)
     eng, *_ = _port_engine(pmodel)
-    for call in (eng.save_checkpoint, eng.load_checkpoint):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call("somewhere")
+    eng.train_batch(iter(_micros(2)))
+    path = eng.save_checkpoint(str(tmp_path))
+    assert eng.load_checkpoint(str(tmp_path)) == (path, {})
+    assert eng.global_steps == 1
     import deepspeed_tpu_torch as dst
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dst.initialize(model=pmodel, mpu=object(), device="cpu")
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="dp > 1"):
-        _port_engine(pmodel)
+    state = {k: v.detach().numpy().copy()
+             for k, v in pmodel.state_dict().items()}
+    ranks = torch_dist_helpers.run_ranks(
+        "torch_dist_helpers:train_cases", 2, cases={"dp2": dict(
+            state=state, micros=_micros(2), steps=1,
+            config=dict(ENGINE_CONFIG, train_micro_batch_size_per_gpu=4))})
+    assert [r["dp2"]["dp"] for r in ranks] == [2, 2]
+    assert np.isfinite(ranks[0]["dp2"]["losses"]).all()
 
 
 def test_bad_arguments_raise():

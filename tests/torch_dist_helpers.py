@@ -1,0 +1,294 @@
+"""Multi-rank runs of the PyTorch port for its CPU tests.
+
+``run_ranks("module:function", world, **kwargs)`` starts ``world`` fresh
+Python processes (no JAX, no conftest), each of which joins a gloo group
+on a free localhost port through ``deepspeed_tpu_torch.comm`` and calls
+``function(rank, world, **kwargs)``; it returns the ranks' return values in
+rank order. Arguments and results travel as pickles. A rank that fails, or
+a run that outlives ``timeout``, fails the calling test (every process is
+killed), so a hung rank cannot stall the suite.
+
+The rank functions the port's tests use live here too: they import only
+torch, numpy and the port.
+"""
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS)
+
+# the port's tiny GPT (torch_port_helpers.TINY; restated: no JAX here)
+TINY = dict(vocab_size=256, max_seq_len=64, num_layers=2, num_heads=2,
+            d_model=128, d_ff=512)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(target: str, world: int, timeout: float = 240.0, **kwargs):
+    port = free_port()
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "args.pkl"), "wb") as fh:
+            pickle.dump(kwargs, fh)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [TESTS, REPO, os.environ.get("PYTHONPATH", "")]))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), target, str(rank),
+             str(world), str(port), d],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(world)]
+        outs = []
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                left = max(deadline - time.monotonic(), 0.1)
+                outs.append(p.communicate(timeout=left)[0])
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{target} at {world} ranks outlived "
+                                 f"{timeout} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        bad = [(r, p.returncode, o) for r, (p, o)
+               in enumerate(zip(procs, outs)) if p.returncode != 0]
+        assert not bad, "\n".join(f"rank {r} exited {rc}:\n{o[-4000:]}"
+                                  for r, rc, o in bad)
+        results = []
+        for rank in range(world):
+            with open(os.path.join(d, f"out{rank}.pkl"), "rb") as fh:
+                results.append(pickle.load(fh))
+        return results
+
+
+def _child(target, rank, world, port, d):
+    import torch
+    torch.set_num_threads(1)
+    import importlib
+    from deepspeed_tpu_torch import comm
+    comm.init_distributed(dist_backend="gloo",
+                          init_method=f"tcp://localhost:{port}",
+                          rank=rank, world_size=world, device="cpu")
+    with open(os.path.join(d, "args.pkl"), "rb") as fh:
+        kwargs = pickle.load(fh)
+    module, name = target.split(":")
+    result = getattr(importlib.import_module(module), name)(
+        rank, world, **kwargs)
+    with open(os.path.join(d, f"out{rank}.pkl"), "wb") as fh:
+        pickle.dump(result, fh)
+    torch.distributed.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# The comm façade
+# --------------------------------------------------------------------------
+
+def collectives(rank, world, inputs):
+    """Each collective of ``comm`` on this rank's row of the stacked
+    ``inputs``; returns this rank's results (stack them over the ranks to
+    get the TPU package's stacked view)."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import coalesced_collectives as cc
+    mine = {k: torch.from_numpy(v[rank].copy()) for k, v in inputs.items()}
+    x = mine["x"]
+    out = {"rank": comm.get_rank(), "world": comm.get_world_size(),
+           "group": comm.get_data_parallel_group().size,
+           "devices": comm.device_count()}
+    for op in ("sum", "avg", "max", "min"):
+        out[f"all_reduce_{op}"] = comm.all_reduce(x.clone(), op).numpy()
+    out["all_gather"] = comm.all_gather(x).numpy()
+    out["all_gather_base"] = comm.all_gather_base(mine["chunk"]).numpy()
+    out["allgather_fn"] = comm.allgather_fn(mine["chunk"]).numpy()
+    for op in ("sum", "avg"):
+        out[f"reduce_scatter_base_{op}"] = comm.reduce_scatter_base(
+            mine["flat"], op).numpy()
+    out["reduce_scatter_fn"] = comm.reduce_scatter_fn(mine["flat"]).numpy()
+    out["all_to_all_single"] = comm.all_to_all_single(mine["a2a"]).numpy()
+    out["broadcast"] = comm.broadcast(x.clone(), src=1).numpy()
+    out["send"] = comm.send(x, dst=1, src=0).numpy()
+    out["recv"] = comm.recv(x, src=world - 1).numpy()
+    ring = [(r, (r + 1) % world) for r in range(world)]
+    out["ppermute"] = comm.ppermute(x, ring).numpy()
+    parts = [mine[k] for k in ("p0", "p1", "p2")]
+    out["reduce_scatter_coalesced"] = [
+        t.numpy() for t in cc.reduce_scatter_coalesced(parts)]
+    out["reduce_scatter_single"] = [
+        comm.reduce_scatter_base(torch.nn.functional.pad(
+            t.reshape(-1), (0, -(-t.numel() // world) * world - t.numel())))
+        .numpy() for t in parts]
+    slices = [mine[k] for k in ("s0", "s1")]
+    out["all_gather_coalesced"] = [
+        t.numpy() for t in cc.all_gather_coalesced(slices)]
+    out["all_gather_single"] = [comm.all_gather_base(t).numpy()
+                                for t in slices]
+    comm.barrier()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Engines and runs shared by the tests (in the test process or in a rank)
+# --------------------------------------------------------------------------
+
+def ids(seed, rows, seq=32, vocab=TINY["vocab_size"]):
+    return np.random.default_rng(seed).integers(
+        0, vocab, (rows, seq)).astype(np.int32)
+
+
+def port_model(state=None, seed=0, dtype="float32", **overrides):
+    """The port's tiny GPT: ``state`` (numpy state dict) or random weights
+    from ``seed``; ``dtype`` is the compute dtype."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(dtype=getattr(torch, dtype), param_dtype=torch.float32,
+                    remat=False, **{**TINY, **overrides})
+    model = GPT(cfg)
+    if state is not None:
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+    else:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    return model
+
+
+def port_engine(model, config):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=config, device="cpu")
+    return engine
+
+
+def train(engine, micros, steps, gas):
+    """``steps`` train_batch calls over consecutive ``gas``-long slices of
+    ``micros``; returns (losses, grad norms) as Python floats."""
+    losses, norms = [], []
+    for step in range(steps):
+        batch = micros[gas * step:gas * (step + 1)]
+        losses.append(float(engine.train_batch(iter(batch))))
+        norms.append(engine.get_global_grad_norm())
+    return losses, norms
+
+
+def engine_state(engine):
+    """The engine's whole state as numpy: fp32 masters by name and the
+    optimizer's ``count`` and moments by ``<moment>/<name>`` (gathered over
+    dp: every rank calls it)."""
+    master = engine.consolidated_fp32_state_dict()
+    sd = engine.optimizer_state_dict()
+    opt = {"count": sd["count"]}
+    for m in engine.optimizer.STATE:
+        for name, t in zip(engine._names, sd[m]):
+            opt[f"{m}/{name}"] = t.detach().float().numpy().copy()
+    return master, opt
+
+
+def close_masters(got, want, lr=1e-3, rtol=1e-4):
+    """fp32 masters after a few Adam-family steps on two summation orders:
+    within ``rtol`` and ``rtol`` × the largest magnitude for all but 1% of
+    the elements, within ``lr`` for every one (Adam moves an element whose
+    gradient is f32 summation noise by up to lr a step, either way)."""
+    scale = max(np.abs(v).max() for v in want.values())
+    loose = total = 0
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=lr,
+                                   err_msg=name)
+        loose += int((np.abs(got[name] - w) > rtol * (
+            scale + np.abs(w))).sum())
+        total += w.size
+    assert loose <= 0.01 * total, (loose, total)
+
+
+def train_ranks(rank, world, state, config, micros, steps, dtype="float32"):
+    """One run of ``steps`` train_batch calls at this rank; returns losses,
+    grad norms, the gathered state and this rank's moment sizes."""
+    engine = port_engine(port_model(state, dtype=dtype), config)
+    reduces = []                         # LAMB's norm all-reduces
+    reduce = getattr(engine.optimizer, "norm_reduce", None)
+    if reduce is not None:
+        engine.optimizer.norm_reduce = lambda t: (
+            reduces.append(tuple(t.shape)), reduce(t))[1]
+    gas = engine.gradient_accumulation_steps()
+    losses, norms = train(engine, micros, steps, gas)
+    master, opt = engine_state(engine)
+    sd = engine.optimizer.state_dict()
+    held = {m: [int(t.numel()) for t in sd[m]] for m in engine.optimizer.STATE}
+    return {"losses": losses, "norms": norms, "master": master, "opt": opt,
+            "held": held, "dp": engine.dp_world_size,
+            "samples": engine.global_samples, "norm_reduces": reduces}
+
+
+def train_cases(rank, world, cases):
+    """Several :func:`train_ranks` runs in one start of the ranks."""
+    return {name: train_ranks(rank, world, **kw) for name, kw in cases.items()}
+
+
+def resume_ranks(rank, world, config, micros, save_dir, dtype="float32",
+                 seed=0, load_dir=None):
+    """The resume gate at this rank: train 2 steps, save to ``save_dir``,
+    train 2 more; then a fresh engine loads and trains the same 2. With
+    ``load_dir``, only the second half: a fresh engine loads that
+    checkpoint and trains 2 steps."""
+    gas = config["gradient_accumulation_steps"]
+    out = {}
+    if load_dir is None:
+        engine = port_engine(port_model(seed=seed, dtype=dtype), config)
+        out["first"], _ = train(engine, micros, 2, gas)
+        engine.save_checkpoint(save_dir, tag="two")
+        out["saved"] = engine_state(engine)
+        out["cont"], _ = train(engine, micros[2 * gas:], 2, gas)
+        load_dir = save_dir
+    fresh = port_engine(port_model(seed=seed + 1, dtype=dtype), config)
+    fresh.load_checkpoint(load_dir)
+    out["loaded"] = engine_state(fresh)
+    out["resumed"], _ = train(fresh, micros[2 * gas:], 2, gas)
+    out["steps"] = fresh.global_steps
+    return out
+
+
+def initialize_ranks(rank, world, config, rows):
+    """``initialize(dist_init_required=True)`` at this rank and one
+    ``train_batch`` of ``rows`` global rows: (dp world size, loss)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    engine, *_ = dst.initialize(model=port_model(), loss_fn=lm_loss_fn,
+                                config=config, dist_init_required=True,
+                                device="cpu")
+    loss = engine.train_batch(iter([{"input_ids": ids(0, rows)}]))
+    return engine.dp_world_size, float(loss)
+
+
+def resume_cases(rank, world, cases, tag_config=None):
+    """Several :func:`resume_ranks` runs in one start of the ranks; with
+    ``tag_config``, also whether saving under a different tag on each
+    rank raises under ``checkpoint_tag_validation: fail`` (on every rank)
+    and passes under ``warn``."""
+    out = {name: resume_ranks(rank, world, **kw)
+           for name, kw in cases.items()}
+    if tag_config is not None:
+        for mode in ("fail", "warn"):
+            engine = port_engine(port_model(), dict(
+                tag_config, checkpoint_tag_validation=mode))
+            try:
+                engine._validate_checkpoint_tag(f"tag{rank}")
+                out[f"tags_{mode}"] = "passed"
+            except ValueError as e:
+                out[f"tags_{mode}"] = str(e)
+    return out
+
+
+if __name__ == "__main__":
+    a = sys.argv[1:]
+    _child(a[0], int(a[1]), int(a[2]), int(a[3]), a[4])
