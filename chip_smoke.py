@@ -50,8 +50,9 @@ Phases (any failure exits non-zero before the result lines):
      with the kernel's window and their bounds; B4's filter at the sampled
      verify's [40, 50304] rows (T 0.8, top-k 50, top-p 0.9);
   7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
-     the training shape (B=8, S=1024, H=12, D=64, bf16, causal) and at a
-     non-causal shape whose S (1000) is not a multiple of the 128-row
+     the training shape (B=8, S=1024, H=12, D=64, bf16, causal), at phase
+     32's (B=4, S=1024, H=32; the kernels line's errors are the worse of
+     the two) and at a non-causal shape whose S (1000) is not a multiple of the 128-row
      block: out, lse, and dq/dk/dv from one random dO; then over bf16 and
      fp16 x D 32/64/96/128 x causal or not x S 1024/1000/77 (B=2, H=3);
      a second backward at the training shape must give bitwise the same
@@ -224,7 +225,41 @@ Phases (any failure exits non-zero before the result lines):
  31. LAMB, Adagrad and SGD (momentum 0.9): 3 steps each of the same model
      (micro 8, gas 1, one repeated batch): losses finite and falling; the
      third step's masters against the same optimizer step on CPU copies of
-     its state and grads (OPT_CPU_TOL).
+     its state and grads (OPT_CPU_TOL);
+ 32. ZeRO-3 + CPU offload at full width: bench.py's ladder_zero3_offload
+     (GPT-2 1.3B from zero.abstract_init, seq 1024, bf16, micro 4 x gas
+     2, AdamW lr 1e-4), dp 1, 1 warm-up step and 2 timed. Fails when
+     MemAvailable is below the reckoned host bytes (18 B a parameter), a
+     loss is not finite or the third is not below the first (one repeated
+     batch), B1/B1b's launches are not 24 layers x gas x 3 steps (x2 for
+     the remat forward), the engine's device state exceeds 6 B a parameter
+     or the card memory the phase leaves live after a step exceeds it by
+     1 GiB (no fp32 master or moment on the card), or one leaf's master
+     after the last step leaves a plain torch AdamW step of its pre-step
+     state and grad by more than OPT_CPU_TOL. Prints the parameter count, init seconds, host
+     and device bytes, max_memory_allocated, each step's split (device
+     forward+backward, D2H, CPU Adam, H2D, with bytes and GB/s), tokens/s,
+     TFLOP/s and MFU (mfu_report), the CPU Adam's bytes a step over its
+     seconds, and the OpenMP runtime and threads;
+ 33. ZeRO-2 and ZeRO-3 over two ranks, as phase 30 runs ZeRO-1 (the same
+     rank processes, 4 steps each): fails if a loss leaves phase 29's by
+     more than LOSS_ATOL, if the ranks' losses differ, if B1/B1b's counts
+     are wrong, if a stage-2 rank's grad accumulator or a stage-3 rank's
+     partitioned parameters are not half of dp 1's, up to the padding, if
+     the stage-3 engine's bytes on the card are not below stage 2's by at
+     least half of the partitioned bf16 leaves' other half, or
+     if the card grows more a block in stage 3's first forward than in
+     stage 2's by half a block's gathered bf16 weights (they would outlive
+     the block); prints per rank the bytes reduce-scattered and
+     all-gathered a step, the step seconds, max_memory_allocated, the
+     bytes live after the engine's build and after the first forward's
+     blocks, that forward's peak and the growth a block, beside stage 1's;
+ 34. the NVMe tiers and offload resume: phase 29's model with
+     offload_optimizer and offload_param on nvme in a temporary directory
+     against the cpu tier (2 steps: bitwise losses), then saved at step 2
+     and loaded into a fresh engine (the next 2 losses bitwise); prints the
+     bytes read and written and their GB/s over the host step, whether
+     O_DIRECT ran, and the save and load seconds.
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
@@ -237,6 +272,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -294,6 +330,23 @@ OPTIMIZERS = {"Lamb": {"lr": 1e-3, "weight_decay": 0.01},
               "Adagrad": {"lr": 1e-4},
               "SGD": {"lr": 0.05, "momentum": 0.9}}
 OPT_CPU_TOL = (1e-6, 1e-5)
+# phase 32: bench.py's ladder_zero3_offload (bench.py:123-186, 247-257)
+LADDER_MICRO, LADDER_GAS, LADDER_SEQ = 4, 2, 1024
+LADDER_CONFIG = {"train_micro_batch_size_per_gpu": LADDER_MICRO,
+                 "gradient_accumulation_steps": LADDER_GAS,
+                 "bf16": {"enabled": True},
+                 "zero_optimization": {"stage": 3, "offload_optimizer": {
+                     "device": "cpu"}},
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                 "steps_per_print": 100_000}
+# bytes a parameter: on the host the fp32 master and two moments (12), the
+# pinned bf16 mirror (2) and fp32 grad staging (4); on the card the bf16
+# parameters (2) and the fp32 grad accumulator (4)
+OFFLOAD_HOST_BYTES, OFFLOAD_DEVICE_BYTES = 18, 6
+# the native AdamW step with a bf16 mirror: reads params, grads and both
+# moments (16 B), writes params and moments (12 B) and the mirror (2 B)
+CPU_ADAM_BYTES = 30
+MASTER_CHECK_LEAF = "blocks.0.attn.qkv.weight"
 
 
 def fail(msg: str) -> None:
@@ -812,7 +865,10 @@ def _flash_pair(torch, fa, q, k, v, do, causal):
 
 def phase_flash_parity(torch, fa, dev, gen):
     errs, train_inputs = {}, None
+    # the training shapes of phases 8 (125M) and 32 (1.3B, the ladder), and
+    # a ragged non-causal tail
     for tag, (B, S, H, D, causal) in (("train", (8, 1024, 12, 64, True)),
+                                      ("ladder", (4, 1024, 32, 64, True)),
                                       ("tail", (2, 1000, 12, 64, False))):
         q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
         e, (ro, rl) = _flash_pair(torch, fa, q, k, v, do, causal)
@@ -823,6 +879,9 @@ def phase_flash_parity(torch, fa, dev, gen):
               flush=True)
         if tag == "train":
             errs, train_inputs = e, (q, k, v, do, ro, rl)
+        elif tag == "ladder":
+            errs = {key: max(val, e[key]) for key, val in errs.items()}
+        del q, k, v, do, ro, rl
     # the Hopper kernels over their dtypes and head dims, S a multiple of
     # the 128-row block, a ragged tail, and shorter than one block
     worst = {}
@@ -3215,8 +3274,9 @@ def phase_resume(torch, np, dev, seed, card):
 
 
 def dp_rank_main(args) -> int:
-    """One rank of phase 30 (this script with --dp-rank): its rows of
-    phase 29's micro-batches for 4 steps; results as JSON to --dp-out."""
+    """One rank of phases 30 and 33 (this script with --dp-rank): its rows
+    of phase 29's micro-batches for 4 steps at each ZeRO stage of
+    --dp-stages; results as JSON to --dp-out."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch import comm
@@ -3226,30 +3286,92 @@ def dp_rank_main(args) -> int:
                           init_method=f"tcp://localhost:{args.dp_port}",
                           rank=args.dp_rank, world_size=2)
     dev = torch.device("cuda", torch.cuda.current_device())
-    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=RESUME_GAS,
-                  train_micro_batch_size_per_gpu=TRAIN_MICRO // 2)
-    engine, cfg = _gpt2_engine(torch, dev, args.seed, config)
-    micros = resume_micros(np, args.seed, cfg.vocab_size)
-    _build.reset_launch_counts()
-    losses, secs = _train_steps(torch, engine, micros, 0, 4)
-    launches = {name: _build.LAUNCHES[name] for name in FLASH}
-    numel = sum(p.numel() for p in engine.master)
-    wire = 2 if engine._comm_dtype is not None else 4
-    out = {"rank": comm.get_rank(), "dp": engine.dp_world_size,
+    stages = {}
+    for stage in (int(x) for x in args.dp_stages.split(",")):
+        config = dict(TRAIN_CONFIG, gradient_accumulation_steps=RESUME_GAS,
+                      train_micro_batch_size_per_gpu=TRAIN_MICRO // 2,
+                      zero_optimization={"stage": stage})
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak(torch, dev)
+        # what an earlier stage left in this process (cuBLAS workspaces)
+        start = torch.cuda.memory_allocated(dev)
+        engine, cfg = _gpt2_engine(torch, dev, args.seed, config)
+        state_allocated = torch.cuda.memory_allocated(dev) - start
+        micros = resume_micros(np, args.seed, cfg.vocab_size)
+        marks, forward_peak, hooks = _block_marks(torch, engine, dev)
+        _build.reset_launch_counts()
+        losses, secs = _train_steps(torch, engine, micros, 0, 4)
+        for h in hooks:
+            h.remove()
+        launches = {name: _build.LAUNCHES[name] for name in FLASH}
+        numel = sum(math.prod(s) for s in engine._shapes)
+        wire = 2 if engine._comm_dtype is not None else 4
+        split = [engine._shapes[i] for u in engine._units
+                 for i, _, _ in u.entries]
+        stages[stage] = {
+            "losses": losses, "step_s": secs, "launches": launches,
+            "numel": numel, "n_leaves": len(engine._shapes),
+            "comm_bytes_per_step": {k: v // 4 for k, v in
+                                    engine.comm_bytes.items()},
+            "bytes_all_reduced_per_step": RESUME_GAS * numel * wire,
+            "bytes_all_gathered_per_step": numel * 2,
+            "opt_state_bytes": opt_state_bytes(engine),
+            "acc_numel": sum(a.numel() for a in engine.acc),
+            "partitioned_param_bytes": sum(
+                u.shard.numel() * u.shard.element_size()
+                for u in engine._units),
+            "partitioned_leaf_bytes": sum(math.prod(s) * 2 for s in split),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "allocated_at_start": start,
+            "state_allocated": state_allocated,
+            # blocks 1.. of the first forward (block 0 also holds the
+            # process's first cuBLAS workspace)
+            "block_growth": (marks[-1] - marks[1]) / (len(marks) - 2),
+            "forward_allocated": marks[-1],
+            "forward_peak": forward_peak[0],
+            "block_gathered_bytes": max(
+                [sum(math.prod(engine._shapes[i]) for i, _, _ in u.entries)
+                 * 2 for u in engine._units[:-1]] or [0])}
+        del engine
+    out = {"rank": comm.get_rank(), "dp": comm.get_world_size(),
            "backend": torch.distributed.get_backend(), "device": str(dev),
-           "losses": losses, "step_s": secs, "launches": launches,
-           "bytes_all_reduced_per_step": RESUME_GAS * numel * wire,
-           "bytes_all_gathered_per_step": numel * 2,
-           "opt_state_bytes": opt_state_bytes(engine),
-           "layers": cfg.num_layers}
+           "layers": cfg.num_layers, "stages": stages}
     with open(args.dp_out, "w") as fh:
         json.dump(out, fh)
     torch.distributed.destroy_process_group()
     return 0
 
 
-def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
-    """Phase 30: two ranks of ZeRO-1 against phase 29's dp 1 losses."""
+def _block_marks(torch, engine, dev):
+    """Forward hooks that record ``memory_allocated`` before the first
+    block and after each block of the first forward pass (the remat
+    recompute in the backward calls the blocks again; it is not recorded),
+    and the peak when that forward returns its logits. Returns (the marks,
+    [the forward's peak], the hooks to remove)."""
+    module = engine.compute_module
+    blocks = list(getattr(module, "inner", module).blocks)
+    marks, peak = [], []
+
+    def before(*_):
+        if not marks:
+            marks.append(torch.cuda.memory_allocated(dev))
+
+    def after(*_):
+        if len(marks) <= len(blocks):
+            marks.append(torch.cuda.memory_allocated(dev))
+
+    def logits(*_):
+        if not peak:
+            peak.append(torch.cuda.max_memory_allocated(dev))
+    return marks, peak, [blocks[0].register_forward_pre_hook(before),
+                         module.register_forward_hook(logits)] + [
+        b.register_forward_hook(after) for b in blocks]
+
+
+def run_dp_ranks(seed, stages, phase):
+    """This script twice more as the two ranks (--dp-rank 0 / 1) at each
+    ZeRO stage of ``stages``; their JSON results."""
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -3261,10 +3383,11 @@ def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--seed",
                  str(seed), "--dp-rank", str(rank), "--dp-port", str(port),
+                 "--dp-stages", ",".join(str(x) for x in stages),
                  "--dp-out", os.path.join(d, f"rank{rank}.json")],
                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-        deadline = time.monotonic() + DP_TIMEOUT_S
+        deadline = time.monotonic() + DP_TIMEOUT_S * len(stages)
         try:
             for p in procs:
                 outs.append(p.communicate(
@@ -3277,39 +3400,129 @@ def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
         for rank, (p, out) in enumerate(zip(procs, outs)):
             if p.returncode != 0:
                 print(out[-6000:], flush=True)
-                fail(f"phase 30 rank {rank} exited {p.returncode}")
+                fail(f"phase {phase} rank {rank} exited {p.returncode}")
         ranks = []
         for rank in range(2):
             with open(os.path.join(d, f"rank{rank}.json")) as fh:
                 ranks.append(json.load(fh))
-    for r in ranks:
-        print(f"phase30 zero1 dp=2 rank={r['rank']} backend={r['backend']} "
-              f"device={r['device']} losses={r['losses']} step_s="
-              f"{r['step_s']} launches={r['launches']} "
-              f"bytes_all_reduced_per_step={r['bytes_all_reduced_per_step']} "
-              f"bytes_all_gathered_per_step="
-              f"{r['bytes_all_gathered_per_step']} opt_state_bytes="
-              f"{r['opt_state_bytes']} dp1_opt_state_bytes={dp1_state_bytes} "
-              f"card={card}", flush=True)
-    print(f"phase30 dp2 vs dp1 losses {ranks[0]['losses']} vs {dp1_losses} "
-          f"(atol {LOSS_ATOL})", flush=True)
+    return ranks
+
+
+def _check_dp_losses(ranks, stage, dp1_losses, phase):
     per_step = ranks[0]["layers"] * RESUME_GAS * 4
     want = {"flash_fwd": 2 * per_step, "flash_bwd_dq": per_step,
             "flash_bwd_dkv": per_step}
-    n_leaves = 4 + 12 * ranks[0]["layers"]     # bound of the padding
     for r in ranks:
-        if r["dp"] != 2 or r["launches"] != want:
-            fail(f"rank {r['rank']}: dp {r['dp']}, launches "
-                 f"{r['launches']}, expected {want}")
-        if abs(r["opt_state_bytes"] - dp1_state_bytes / 2) \
-                > 3 * 4 * n_leaves:
-            fail(f"rank {r['rank']} holds {r['opt_state_bytes']} bytes of "
-                 f"optimizer state, not half of {dp1_state_bytes}")
-        if max(abs(a - b) for a, b in zip(r["losses"], dp1_losses)) \
+        got = r["stages"][str(stage)]
+        if r["dp"] != 2 or got["launches"] != want:
+            fail(f"phase {phase} rank {r['rank']} stage {stage}: dp "
+                 f"{r['dp']}, launches {got['launches']}, expected {want}")
+        if max(abs(a - b) for a, b in zip(got["losses"], dp1_losses)) \
                 > LOSS_ATOL:
-            fail(f"dp 2 losses {r['losses']} leave dp 1's {dp1_losses}")
-    if ranks[0]["losses"] != ranks[1]["losses"]:
-        fail("the two ranks report different losses")
+            fail(f"phase {phase} stage {stage}: dp 2 losses {got['losses']} "
+                 f"leave dp 1's {dp1_losses}")
+    if ranks[0]["stages"][str(stage)]["losses"] != \
+            ranks[1]["stages"][str(stage)]["losses"]:
+        fail(f"phase {phase} stage {stage}: the two ranks report different "
+             f"losses")
+
+
+def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
+    """Phase 30: two ranks of ZeRO-1 against phase 29's dp 1 losses."""
+    ranks = run_dp_ranks(seed, (1,), 30)
+    for r in ranks:
+        z = r["stages"]["1"]
+        print(f"phase30 zero1 dp=2 rank={r['rank']} backend={r['backend']} "
+              f"device={r['device']} losses={z['losses']} step_s="
+              f"{z['step_s']} launches={z['launches']} "
+              f"bytes_all_reduced_per_step={z['bytes_all_reduced_per_step']} "
+              f"bytes_all_gathered_per_step="
+              f"{z['bytes_all_gathered_per_step']} opt_state_bytes="
+              f"{z['opt_state_bytes']} dp1_opt_state_bytes={dp1_state_bytes} "
+              f"max_memory_allocated={z['max_memory_allocated']} "
+              f"card={card}", flush=True)
+    print(f"phase30 dp2 vs dp1 losses {ranks[0]['stages']['1']['losses']} "
+          f"vs {dp1_losses} (atol {LOSS_ATOL})", flush=True)
+    _check_dp_losses(ranks, 1, dp1_losses, 30)
+    for r in ranks:
+        z = r["stages"]["1"]
+        if abs(z["opt_state_bytes"] - dp1_state_bytes / 2) \
+                > 3 * 4 * z["n_leaves"]:
+            fail(f"rank {r['rank']} holds {z['opt_state_bytes']} bytes of "
+                 f"optimizer state, not half of {dp1_state_bytes}")
+    return ranks
+
+
+def phase_dp_stages(seed, card, dp1_losses, stage1_ranks):
+    """Phase 33: ZeRO-2 and ZeRO-3 over two ranks against phase 29's dp 1
+    losses; the accumulator (stage 2) and the partitioned parameters
+    (stage 3) a rank holds against dp 1's."""
+    ranks = run_dp_ranks(seed, (2, 3), 33)
+    for stage in (2, 3):
+        for r in ranks:
+            z, one = r["stages"][str(stage)], \
+                stage1_ranks[r["rank"]]["stages"]["1"]
+            print(f"phase33 zero{stage} dp=2 rank={r['rank']} backend="
+                  f"{r['backend']} losses={z['losses']} step_s={z['step_s']} "
+                  f"launches={z['launches']} comm_bytes_per_step="
+                  f"{z['comm_bytes_per_step']} acc_numel={z['acc_numel']} "
+                  f"of {z['numel']} partitioned_param_bytes="
+                  f"{z['partitioned_param_bytes']} of "
+                  f"{z['partitioned_leaf_bytes']} max_memory_allocated="
+                  f"{z['max_memory_allocated']} allocated_at_start="
+                  f"{z['allocated_at_start']} state_allocated="
+                  f"{z['state_allocated']} forward_allocated="
+                  f"{z['forward_allocated']} forward_peak="
+                  f"{z['forward_peak']} block_growth={z['block_growth']} "
+                  f"(zero1: max_memory_allocated "
+                  f"{one['max_memory_allocated']}, state_allocated "
+                  f"{one['state_allocated']}, forward_allocated "
+                  f"{one['forward_allocated']}, forward_peak "
+                  f"{one['forward_peak']}, block_growth "
+                  f"{one['block_growth']}, step_s {one['step_s']}) "
+                  f"card={card}", flush=True)
+        _check_dp_losses(ranks, stage, dp1_losses, 33)
+    for r in ranks:
+        z2, z3 = r["stages"]["2"], r["stages"]["3"]
+        pad = z2["n_leaves"]
+        if abs(z2["acc_numel"] - z2["numel"] / 2) > pad:
+            fail(f"phase 33 rank {r['rank']}: the stage-2 accumulator holds "
+                 f"{z2['acc_numel']} of {z2['numel']} elements, not half")
+        if z3["partitioned_leaf_bytes"] == 0 or abs(
+                z3["partitioned_param_bytes"]
+                - z3["partitioned_leaf_bytes"] / 2) > 2 * pad:
+            fail(f"phase 33 rank {r['rank']}: {z3['partitioned_param_bytes']}"
+                 f" bytes of partitioned parameters, not half of "
+                 f"{z3['partitioned_leaf_bytes']}")
+        # the whole compute copies of the partitioned leaves are freed, not
+        # kept beside the shards (kept, stage 3 would hold more than stage
+        # 2); the allocator's block rounding moves each side by up to a MB
+        # a large tensor, so the gate asks for half the saving
+        saved = z3["partitioned_leaf_bytes"] - z3["partitioned_param_bytes"]
+        print(f"phase33 rank={r['rank']} engine state stage 2 - stage 3: "
+              f"{z2['state_allocated'] - z3['state_allocated']} B (the "
+              f"partitioned bf16 leaves' other half: {saved} B; gate half "
+              f"of that)", flush=True)
+        if z2["state_allocated"] - z3["state_allocated"] < saved / 2:
+            fail(f"phase 33 rank {r['rank']}: stage 3's engine holds "
+                 f"{z3['state_allocated']} B on the card, stage 2's "
+                 f"{z2['state_allocated']}: not {saved} B less")
+        # a block's gathered weights die with its checkpointed forward: the
+        # card grows by the block's saved activations a block, as at stage
+        # 2, not by those and the block's whole bf16 weights
+        kept = z3["block_growth"] - z2["block_growth"]
+        print(f"phase33 rank={r['rank']} stage-3 growth a block beyond "
+              f"stage 2's: {kept} B (a block's gathered weights: "
+              f"{z3['block_gathered_bytes']} B; gate half of that)",
+              flush=True)
+        if not z3["block_gathered_bytes"] or \
+                kept > z3["block_gathered_bytes"] / 2:
+            fail(f"phase 33 rank {r['rank']}: the card grows {kept} B a "
+                 f"block more at stage 3 than at stage 2: the gathered "
+                 f"weights ({z3['block_gathered_bytes']} B a block) outlive "
+                 f"their block")
+    return {stage: ranks[0]["stages"][str(stage)]["launches"]
+            for stage in (2, 3)}
 
 
 def _cpu_copy(opt):
@@ -3368,6 +3581,256 @@ def phase_optimizers(torch, np, dev, seed, card):
             fail(f"{name}: the card's step leaves the CPU's by {err}")
 
 
+def reset_peak(torch, dev) -> None:
+    """Reset the card's peak-memory counter (the allocator exists only
+    once a tensor has been allocated on the device)."""
+    torch.zeros(1, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def mem_available() -> int:
+    """The host's MemAvailable, in bytes."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def plain_cpu_adamw(torch, np, master, grad, m, v, lr, step,
+                    betas=(0.9, 0.999), eps=1e-8):
+    """One AdamW step (no weight decay) in plain torch on CPU copies, its
+    constants in f32 as the native step computes them."""
+    f = np.float32
+    b1, b2 = f(betas[0]), f(betas[1])
+    m = m * float(b1) + float(f(1) - b1) * grad
+    v = v * float(b2) + float(f(1) - b2) * grad * grad
+    step_size = f(lr) / (f(1) - np.power(b1, f(step)))
+    bc2_sqrt = np.sqrt(f(1) - np.power(b2, f(step)))
+    return master - float(step_size) * m / (v.sqrt() / float(bc2_sqrt)
+                                             + float(f(eps)))
+
+
+def _gbps(nbytes, secs):
+    return nbytes / secs / 1e9 if secs else None
+
+
+def phase_zero3_offload(torch, np, dev, seed, card):
+    """Phase 32: bench.py's ladder_zero3_offload, GPT-2 1.3B at full width
+    from an abstract (meta-device) model, ZeRO-3 + CPU offload at dp 1."""
+    import gc
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.models.gpt import (GPT, gpt2_1_3b,
+                                                gpt_flops_per_token,
+                                                lm_loss_fn)
+    from deepspeed_tpu_torch.ops import cpu_adam
+    from deepspeed_tpu_torch.ops.cpu import _build as cpu_build
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.telemetry.mfu import (mfu_report,
+                                                   peak_flops_per_device)
+    cfg = gpt2_1_3b(max_seq_len=LADDER_SEQ, dtype=torch.bfloat16)
+    model = zero.abstract_init(GPT, cfg)
+    n = zero.num_params(model)
+    need, avail = OFFLOAD_HOST_BYTES * n, mem_available()
+    print(f"phase32 ladder_zero3_offload gpt2_1_3b params={n} "
+          f"host_bytes_reckoned={need} MemAvailable={avail}", flush=True)
+    if avail < need:
+        fail(f"phase 32 needs {need} bytes of host memory for {n} "
+             f"parameters and MemAvailable is {avail}")
+    torch.cuda.empty_cache()
+    reset_peak(torch, dev)
+    before = torch.cuda.memory_allocated(dev)    # earlier phases' leftovers
+    t0 = time.perf_counter()
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=dict(LADDER_CONFIG, seed=seed))
+    init_s = time.perf_counter() - t0
+    host = engine.host_optimizer
+    print(f"phase32 init_s={init_s} (abstract model, counter fill, "
+          f"{len(host.leaves)} leaves) host_bytes={host.host_bytes()} "
+          f"device_state_bytes={engine.device_state_bytes()} "
+          f"openmp_runtimes={cpu_build.loaded_openmp_runtimes()} "
+          f"omp_threads={cpu_adam.omp_threads()} torch_threads="
+          f"{torch.get_num_threads()} card={card}", flush=True)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LADDER_MICRO, LADDER_SEQ)).astype(np.int32)
+    batch = [{"input_ids": ids}] * LADDER_GAS
+    k = engine._names.index(MASTER_CHECK_LEAF)
+    leaf, seen = host.leaves[k], {}
+    real_step = host.opt.step
+
+    def capture(params, grads, exp_avg, exp_avg_sq, **kw):
+        if params.data_ptr() == leaf.master.data_ptr():
+            seen.update(master=params.clone(), grad=grads.clone(),
+                        m=exp_avg.clone(), v=exp_avg_sq.clone(), **kw)
+        return real_step(params, grads, exp_avg, exp_avg_sq, **kw)
+    engine.offload_timing = {}
+    _build.reset_launch_counts()
+    losses, secs, splits = [], [], []
+    for i in range(3):                 # 1 warm-up + 2 timed steps
+        if i == 2:
+            host.opt.step = capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(iter(batch))))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        splits.append(dict(engine.offload_timing, cpu_adam_s=host.adam_s))
+    host.opt.step = real_step
+    launches = {name: _build.LAUNCHES[name] for name in FLASH}
+    peak = torch.cuda.max_memory_allocated(dev)
+    live = torch.cuda.memory_allocated(dev) - before
+    state = engine.device_state_bytes()
+    want_master = plain_cpu_adamw(torch, np, seen["master"], seen["grad"],
+                                  seen["m"], seen["v"], seen["lr"],
+                                  seen["step"])
+    err = float((leaf.master - want_master).abs().max())
+    atol, rtol = OPT_CPU_TOL
+    master_ok = torch.allclose(leaf.master, want_master, rtol=rtol,
+                               atol=atol)
+    mirror_ok = torch.equal(
+        leaf.mirror.view(torch.int16),
+        cpu_adam.f32_to_bf16_bits(leaf.master).view(torch.int16))
+    tokens = LADDER_MICRO * LADDER_SEQ * LADDER_GAS
+    report = mfu_report(
+        flops_per_call=gpt_flops_per_token(cfg, LADDER_SEQ) * tokens,
+        calls=2, wall_s=sum(secs[1:]), peak_flops=peak_flops_per_device(dev),
+        label="ladder_zero3_offload train_batch")
+    print(f"phase32 losses={losses} step_s={secs} launches={launches} "
+          f"max_memory_allocated={peak} memory_allocated_after={live} "
+          f"(beyond the {before} bytes live before the engine) "
+          f"device_state_bytes={state} ({sum(state.values()) / n} B a "
+          f"parameter) card={card}", flush=True)
+    for i, sp in enumerate(splits):
+        print(f"phase32 step{i} split: device_fwd_bwd_s="
+              f"{sp.get('device_fwd_bwd_s')} d2h_s={sp.get('d2h_s')} "
+              f"d2h_bytes={sp.get('d2h_bytes')} d2h_GBps="
+              f"{_gbps(sp.get('d2h_bytes', 0), sp.get('d2h_s'))} "
+              f"d2h_wait_s={sp.get('d2h_wait_s')} cpu_adam_s="
+              f"{sp['cpu_adam_s']} cpu_adam_bytes={CPU_ADAM_BYTES * n} "
+              f"cpu_adam_GBps={_gbps(CPU_ADAM_BYTES * n, sp['cpu_adam_s'])} "
+              f"h2d_s={sp.get('h2d_s')} h2d_bytes={sp.get('h2d_bytes')} "
+              f"h2d_GBps={_gbps(sp.get('h2d_bytes', 0), sp.get('h2d_s'))} "
+              f"host_step_s={sp.get('host_step_s')} update_s="
+              f"{sp.get('update_s')} card={card}", flush=True)
+    step_s = sum(secs[1:]) / 2
+    print(f"phase32 train_tokens_per_s={tokens / step_s} tflops="
+          f"{report['achieved_tflops_per_s']} mfu={report['mfu']} "
+          f"mfu_report={json.dumps(report)} card={card}", flush=True)
+    print(f"phase32 master check {MASTER_CHECK_LEAF}: card_vs_cpu_adamw "
+          f"max_abs_err={err} (atol {atol}, rtol {rtol}) mirror_bits_equal="
+          f"{mirror_ok}", flush=True)
+    host.close()
+    del engine, host, leaf, seen, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[2] < losses[0]:
+        fail(f"phase 32 losses are not finite and falling: {losses}")
+    per_step = cfg.num_layers * LADDER_GAS * 3
+    want = {"flash_fwd": 2 * per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    if launches != want:
+        fail(f"phase 32 flash launches {launches}, expected {want}")
+    if sum(state.values()) > OFFLOAD_DEVICE_BYTES * n \
+            or live > OFFLOAD_DEVICE_BYTES * n + 2 ** 30:
+        fail(f"phase 32: the card holds {state} ({live} bytes live) for {n} "
+             f"parameters, more than {OFFLOAD_DEVICE_BYTES} B a parameter")
+    if not master_ok or not mirror_ok:
+        fail(f"phase 32: {MASTER_CHECK_LEAF}'s master leaves the plain "
+             f"AdamW step by {err} (mirror bits equal: {mirror_ok})")
+    return launches
+
+
+def _aio_totals(host):
+    opens, nbytes = {}, 0
+    for h in host.handles():
+        nbytes += h.bytes_read + h.bytes_written
+        for mode, c in h.opens.items():
+            opens[mode] = opens.get(mode, 0) + c
+    return nbytes, opens
+
+
+def phase_nvme(torch, np, dev, seed, card):
+    """Phase 34: phase 29's model with offload_optimizer and offload_param
+    on nvme against the cpu tier, then an offload checkpoint resumed."""
+    import gc
+    from deepspeed_tpu_torch.ops.cuda import _build
+    base = dict(TRAIN_CONFIG, gradient_accumulation_steps=RESUME_GAS)
+    with tempfile.TemporaryDirectory() as root:
+        def nvme(tag):
+            return {"stage": 3, "offload_optimizer": {
+                "device": "nvme", "nvme_path": os.path.join(root, tag)},
+                "offload_param": {"device": "nvme", "nvme_path":
+                                  os.path.join(root, tag, "params")}}
+        engine, cfg = _gpt2_engine(torch, dev, seed, dict(
+            base, zero_optimization={"stage": 3, "offload_optimizer": {
+                "device": "cpu"}}))
+        micros = resume_micros(np, seed, cfg.vocab_size)
+        cpu, cpu_s = _train_steps(torch, engine, micros, 0, 4)
+        engine.host_optimizer.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, _ = _gpt2_engine(torch, dev, seed,
+                                 dict(base, zero_optimization=nvme("a")))
+        host = engine.host_optimizer
+        engine.offload_timing = {}
+        first, first_s, moved = [], [], []
+        for step in range(2):
+            before = _aio_totals(host)[0]
+            losses, secs = _train_steps(torch, engine, micros, step, 1)
+            first += losses
+            first_s += secs
+            moved.append((_aio_totals(host)[0] - before,
+                          engine.offload_timing.get("host_step_s")))
+        t0 = time.perf_counter()
+        tag_dir = engine.save_checkpoint(os.path.join(root, "ckpt"),
+                                         tag="two")
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tag_dir, f))
+                     for f in os.listdir(tag_dir))
+        cont, cont_s = _train_steps(torch, engine, micros, 2, 2)
+        _, opens = _aio_totals(host)
+        host.close()
+        del engine, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh, _ = _gpt2_engine(torch, dev, seed + 1,
+                                dict(base, zero_optimization=nvme("b")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(os.path.join(root, "ckpt"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _build.reset_launch_counts()
+        resumed, _ = _train_steps(torch, fresh, micros, 2, 2)
+        launches = {name: _build.LAUNCHES[name] for name in FLASH}
+        fresh.host_optimizer.close()
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase34 nvme tiers gpt2_125m gas={RESUME_GAS} cpu_tier_losses="
+          f"{cpu} nvme_losses={first + cont} step_s cpu={cpu_s} "
+          f"nvme={first_s + cont_s} card={card}", flush=True)
+    for i, (b, s_) in enumerate(moved):
+        print(f"phase34 step{i} aio_bytes={b} host_step_s={s_} "
+              f"aio_GBps_over_host_step={_gbps(b, s_)} opens={opens} "
+              f"O_DIRECT={'yes' if opens.get('O_DIRECT') else 'no'} "
+              f"card={card}", flush=True)
+    print(f"phase34 offload checkpoint_save_s={save_s} checkpoint_load_s="
+          f"{load_s} checkpoint_bytes={nbytes} resumed={resumed} "
+          f"resumed_launches={launches} card={card}", flush=True)
+    if first != cpu[:2]:
+        fail(f"phase 34: the nvme tiers' losses {first} are not bitwise the "
+             f"cpu tier's {cpu[:2]}")
+    if resumed != cont:
+        fail(f"phase 34: resumed losses {resumed} are not bitwise the "
+             f"uninterrupted {cont}")
+    if min(launches.values()) == 0:
+        fail(f"phase 34: the resumed steps launched no flash kernel: "
+             f"{launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3376,6 +3839,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-stages", default="1", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -3477,8 +3941,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dp1_losses, dp1_state_bytes = phase_resume(torch, np, dev, args.seed,
                                                card)
-    phase_dp(args.seed, card, dp1_losses, dp1_state_bytes)
+    stage1_ranks = phase_dp(args.seed, card, dp1_losses, dp1_state_bytes)
     phase_optimizers(torch, np, dev, args.seed, card)
+    launches_offload = phase_zero3_offload(torch, np, dev, args.seed, card)
+    launches_dp = phase_dp_stages(args.seed, card, dp1_losses, stage1_ranks)
+    phase_nvme(torch, np, dev, args.seed, card)
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",
@@ -3495,6 +3962,9 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
          "replaces": replaces, "launches": launches_train[name],
+         "launches_zero3_offload": launches_offload[name],
+         "launches_zero2_dp2": launches_dp[2][name],
+         "launches_zero3_dp2": launches_dp[3][name],
          "max_abs_err": flash_err[name], **flash_t[name]}
         for name, replaces in (
             ("flash_fwd", "deepspeed_tpu/ops/pallas/flash_attention.py:52"),

@@ -11,12 +11,15 @@ from .models.gpt import GPT, GPTConfig
 from .ops.transformer import (DeepSpeedTransformerConfig,
                               DeepSpeedTransformerLayer)
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
+# zero.Init analogue: abstract (meta-device) construction, the counter-based
+# shard fill and sharded_init (runtime/zero/partition_params.py)
+from .runtime.zero import partition_params as zero
 from .serving.engine import ServingEngine
 
 __all__ = ["InferenceEngine", "ServingEngine", "GPT", "GPTConfig",
            "DeepSpeedConfig", "DeepSpeedConfigError",
            "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
-           "initialize", "init_inference", "init_distributed"]
+           "initialize", "init_inference", "init_distributed", "zero"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -28,7 +31,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     ``model`` is a ``torch.nn.Module`` whose parameters become the fp32
     masters; ``model_parameters`` is None, ``model.parameters()`` or a
-    ``state_dict`` to load into it. ``device`` defaults to the card; a CUDA
+    ``state_dict`` to load into it. Under ``offload_optimizer`` the model
+    may be built on the meta device (``zero.abstract_init``): each rank then
+    fills its own host shards from the counter-based init. ``device`` defaults to the card; a CUDA
     device without CUDA raises. Unless ``dist_init_required`` is False the
     process joins its group first (:func:`init_distributed`: the one already
     set up, or the launcher's environment; none at one rank); every rank of

@@ -17,17 +17,19 @@ from . import comm as dist
 
 
 def reduce_scatter_coalesced(tensors: Sequence[torch.Tensor], group=None,
-                             op: str = "sum") -> List[torch.Tensor]:
+                             op: str = "sum", dtype=torch.float32
+                             ) -> List[torch.Tensor]:
     """This rank's tensors (mixed shapes) -> its reduced slices: out[i] is
     slice ``rank`` (``ceil(numel_i / G)`` elements) of the sum over ranks
-    of tensor i, flattened and zero-padded. One reduce-scatter.
+    of tensor i, flattened and zero-padded. One reduce-scatter, on the
+    wire (and in the result) in ``dtype``.
 
     The wire buffer is rank-major, [rank 0's slices of every tensor | rank
     1's | ...], so the reduce-scatter hands each rank its partition."""
     world = dist.get_world_size(group)
     numels = [t.numel() for t in tensors]
     pers = [-(-n // world) for n in numels]
-    parts = [torch.nn.functional.pad(t.reshape(-1).float(),
+    parts = [torch.nn.functional.pad(t.reshape(-1).to(dtype),
                                      (0, per * world - n)).view(world, per)
              for t, n, per in zip(tensors, numels, pers)]
     wire = torch.cat(parts, dim=1).reshape(-1)

@@ -26,11 +26,20 @@ Any tree with the params' structure maps the same way: a JAX gradient tree
 ``.nu``) becomes a name -> tensor dict that lines up with the port model's
 ``named_parameters()``; the training parity tests compare grads and moments
 through it.
+
+``gpt_flax_leaves`` runs the map the other way, element by element: for
+each port parameter name it gives the flax leaf it came from (its path,
+its shape, the layer of a stacked leaf, whether the port transposed it)
+and maps the port's flat element indices to that leaf's. The counter-based
+shard fill of ``runtime/zero/partition_params.py`` is defined over the
+flax leaf's elements, and generates a port slice through it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import dataclasses
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +91,67 @@ def jax_params_to_state_dict(params_np: Mapping[str, Any],
         out["lm_head.weight"] = np.asarray(
             params_np["lm_head"]["kernel"]).T
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlaxLeaf:
+    """The flax leaf one port parameter comes from: ``path`` ("/"-joined,
+    as the JAX package names leaves), the leaf's ``shape`` (``[L, ...]``
+    when the blocks are stacked), the ``layer`` of a stacked leaf the
+    parameter is (None otherwise), and whether the port stores it
+    ``transposed`` (a Dense ``kernel [in, out]`` as ``weight [out, in]``)."""
+    path: str
+    shape: Tuple[int, ...]
+    layer: Optional[int] = None
+    transposed: bool = False
+
+    def jax_index(self, index: np.ndarray) -> np.ndarray:
+        """Flat indices into the port parameter -> flat indices into the
+        flax leaf (int64)."""
+        idx = np.asarray(index, np.int64)
+        inner = self.shape[1:] if self.layer is not None else self.shape
+        if self.transposed:
+            n_in, n_out = inner
+            o, i = np.divmod(idx, n_in)           # port [out, in]
+            idx = i * n_out + o                   # flax [in, out]
+        if self.layer is not None:
+            idx = idx + self.layer * math.prod(inner)
+        return idx
+
+
+def gpt_flax_leaves(cfg: GPTConfig, scan_layers: bool = True
+                    ) -> Dict[str, FlaxLeaf]:
+    """Port parameter name -> :class:`FlaxLeaf` of the TPU package's GPT
+    with the same config (blocks stacked under ``scan_layers``, as the TPU
+    GPT builds them by default), in ``named_parameters()`` order."""
+    D, F, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
+    out = {}
+    if not cfg.rotary:
+        out["wpe"] = FlaxLeaf("wpe", (cfg.max_seq_len, D))
+    out["wte.weight"] = FlaxLeaf("wte/embedding", (V, D))
+
+    def leaf(i, sub, shape, transposed=False):
+        if scan_layers:
+            return FlaxLeaf(f"blocks/{sub}", (L, *shape), i, transposed)
+        return FlaxLeaf(f"block_{i}/{sub}", shape, None, transposed)
+    dense = {"attn.qkv": ("attn/qkv", D, 3 * D),
+             "attn.out_proj": ("attn/out_proj", D, D),
+             "mlp.up_proj": ("mlp/up_proj", D, F),
+             "mlp.down_proj": ("mlp/down_proj", F, D)}
+    for i in range(L):
+        pre = f"blocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            out[f"{pre}.{ln}.weight"] = leaf(i, f"{ln}/scale", (D,))
+            out[f"{pre}.{ln}.bias"] = leaf(i, f"{ln}/bias", (D,))
+        for name, (sub, n_in, n_out) in dense.items():
+            out[f"{pre}.{name}.weight"] = leaf(i, f"{sub}/kernel",
+                                               (n_in, n_out), True)
+            out[f"{pre}.{name}.bias"] = leaf(i, f"{sub}/bias", (n_out,))
+    out["ln_f.weight"] = FlaxLeaf("ln_f/scale", (D,))
+    out["ln_f.bias"] = FlaxLeaf("ln_f/bias", (D,))
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = FlaxLeaf("lm_head/kernel", (D, V), None, True)
+    return out
 
 
 def _bert_layer(prefix: str, tree: Mapping[str, Any],

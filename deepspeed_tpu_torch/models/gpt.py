@@ -485,6 +485,12 @@ class GPT(nn.Module):
                                      **kw)
         self.init_weights()
 
+    def flax_leaves(self):
+        """Parameter name -> the TPU GPT's leaf that ``zero.abstract_init``'s
+        counter fill is defined over (``convert.gpt_flax_leaves``)."""
+        from ..convert import gpt_flax_leaves
+        return gpt_flax_leaves(self.cfg)
+
     def init_weights(self, generator: Optional[torch.Generator] = None,
                      std: float = 0.02) -> None:
         """Random weights: matrices and embeddings ~ N(0, std), biases 0,

@@ -27,6 +27,24 @@ one process per data-parallel rank (``torch.distributed``, through
     the compute dtype. The module's fp32 parameters then lag behind the
     slices until ``consolidated_fp32_state_dict`` or a checkpoint gathers
     them (at f32 compute the compute copy is the module and never lags);
+  * stage 2 over dp > 1 reduce-scatters each micro-step's grads (one flat
+    buffer, in ``communication_data_type``) into this rank's slice of the
+    accumulator, which shrinks to 1/dp, and frees the module's fp32
+    parameters (the slices are the master); stage 3 also partitions the
+    compute parameters above ``param_persistence_threshold``: each block
+    all-gathers its own before it runs and reduce-scatters their grads in
+    its backward (``zero/stage3.py``);
+  * ZeRO-Offload (``offload_optimizer`` cpu or nvme, ``_init_offload``):
+    the card holds only the compute-dtype parameters and the fp32 grad
+    accumulator. At the boundary the grads' global norm and finite flag
+    are read on the host, each leaf's grad slice streams to page-locked
+    host memory on a side stream, the native CPU Adam steps it as soon as
+    it has arrived (``zero/offload.py``, master and moments in DRAM or on
+    NVMe) and its 16-bit mirror streams back. With ``offload_param`` the
+    parameters leave the card between steps and are rebuilt from the
+    mirrors at the next step's start. A module built on the meta device
+    (``zero.abstract_init``) is taken only here: each rank fills its own
+    master slices from the counter-based init;
   * ``save_checkpoint`` / ``load_checkpoint`` in the TPU engine's npz and
     host-sharded layouts (``checkpoint/saving.py``).
 
@@ -36,9 +54,12 @@ naming its ROADMAP item; a parsed knob never silently does nothing.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
+import json
 import os
+import time
 import zlib
 from typing import Any, Dict, List, Mapping, Optional
 
@@ -56,12 +77,14 @@ from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from .config import DeepSpeedConfig
-from .constants import OFFLOAD_NONE
+from .constants import OFFLOAD_CPU, OFFLOAD_NONE, OFFLOAD_NVME
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import grads_finite, make_loss_scale_state, \
     update_scale
 from .lr_schedules import build_lr_scheduler
 from .sharding import ShardingRules
+from .zero.partition_params import flax_leaves, is_abstract_tree
+from .zero.stage3 import GatherUnit, partition_module, scatter_into
 
 _ADAM_TYPES = ("adam", "adamw", "fusedadam")
 _ADAM_KEYS = ("lr", "betas", "eps", "weight_decay", "bias_correction",
@@ -78,6 +101,23 @@ _LATER_OPTIMIZERS = {"onebitadam": "A13", "onebitlamb": "A13",
 _COMM_DTYPES = {"fp16": torch.float16, "float16": torch.float16,
                 "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                 "fp32": None, "float32": None}
+
+
+class _ArrivingGrads:
+    """The offload step's grads: ``[i]`` waits for leaf i's copy to the
+    host (its event) and returns its staging view; the time spent waiting
+    is added to ``timing["d2h_wait_s"]`` when timed."""
+
+    def __init__(self, staging, events, timing=None):
+        self.staging, self.events, self.timing = staging, events, timing
+
+    def __getitem__(self, i):
+        t0 = time.perf_counter()
+        self.events[i].synchronize()
+        if self.timing is not None:
+            self.timing["d2h_wait_s"] = (self.timing.get("d2h_wait_s", 0.0)
+                                         + time.perf_counter() - t0)
+        return self.staging[i]
 
 
 def _not_ported(what: str, item: str):
@@ -102,6 +142,8 @@ class DeepSpeedEngine:
         self.config = DeepSpeedConfig(raw, dp_world_size=self.dp_world_size)
         self._config = self.config            # reference-name parity
         self._reject_unported()
+        self.offload_device = self._offload_device()
+        self.offload_enabled = self.offload_device != OFFLOAD_NONE
 
         self.module = self._prepare_module(model, model_parameters)
         self.loss_fn = loss_fn
@@ -133,16 +175,66 @@ class DeepSpeedEngine:
                      "all-gathered (per-rank broadcasts would give the same "
                      "weights)", ranks=[0])
 
-        # ---- state: fp32 master, compute copy, f32 accumulator ----------
+        # ---- ZeRO layout -------------------------------------------------
         self._names = [n for n, _ in self.module.named_parameters()]
+        self._shapes = [tuple(p.shape) for p in self.module.parameters()]
+        zc = self.config.zero_config
+        self._rules = ShardingRules(
+            self.dp_world_size, self.zero_stage, self.dp_rank,
+            param_persistence_threshold=(zc.param_persistence_threshold
+                                         if self.zero_stage >= 3 else 0))
+        self._shards = [self._rules.master_spec(n, s)
+                        for n, s in zip(self._names, self._shapes)]
+        self._grad_shards = [self._rules.grad_spec(n, s)
+                             for n, s in zip(self._names, self._shapes)]
+        self._param_shards = [self._rules.param_spec(n, s)
+                              for n, s in zip(self._names, self._shapes)]
+        # bytes this rank moved in each kind of collective (zero/stage3.py
+        # and the grad reduction add to it)
+        self.comm_bytes: collections.Counter = collections.Counter()
+        self._units: List[GatherUnit] = []
+        self._pending_loss = None
+        self._last_grad_norm: Optional[torch.Tensor] = None
+        fp16 = self.config.fp16
+        self._scale = make_loss_scale_state(
+            static_scale=fp16.loss_scale if self.fp16_enabled else 1.0,
+            initial_scale_power=fp16.initial_scale_power,
+            hysteresis=fp16.hysteresis)
+        self.lr_scheduler = lr_scheduler if lr_scheduler is not None \
+            else build_lr_scheduler(self.config.scheduler)
+        if self.offload_enabled:
+            self._init_offload(optimizer)
+        else:
+            self._init_dense(optimizer)
+
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data)
+
+        log_dist(
+            f"engine ready: device={self.device} zero_stage="
+            f"{self.zero_stage} offload={self.offload_device} dtype="
+            f"{self.compute_dtype} batch="
+            f"{self.train_batch_size()}={self.train_micro_batch_size_per_gpu()}"
+            f"x{self.gradient_accumulation_steps()}x{self.dp_world_size}",
+            ranks=[0])
+        if self.config.dump_state:
+            log_dist(f"resolved config: {dataclasses.asdict(self.config)}",
+                     ranks=[0])
+
+    def _init_dense(self, optimizer) -> None:
+        """fp32 masters (the module's parameters; this rank's slices of
+        them over dp > 1 from stage 1 on), the compute copy and the
+        accumulator."""
         self.master: List[torch.Tensor] = list(self.module.parameters())
         if self.dp_world_size > 1:
             self._broadcast_master()
-        self._rules = ShardingRules(self.dp_world_size, self.zero_stage,
-                                    self.dp_rank)
-        self._shards = [self._rules.master_spec(n, p.shape)
-                        for n, p in zip(self._names, self.master)]
-        # ZeRO-1 over dp > 1: the optimizer steps this rank's flat slices
+        if optimizer is not None and self._grad_split:
+            raise _not_ported(
+                f"a client torch.optim optimizer at ZeRO stage "
+                f"{self.zero_stage} over dp > 1 (it would need the whole "
+                f"grads); use a config-named optimizer", "A13")
+        # ZeRO over dp > 1: the optimizer steps this rank's flat slices
         self._partitioned = self._rules.partitioned and optimizer is None
         self._opt_params = ([s.take(p.detach()) for s, p in
                              zip(self._shards, self.master)]
@@ -154,44 +246,67 @@ class DeepSpeedEngine:
             self.compute_module = copy.deepcopy(self.module).to(
                 dtype=self.compute_dtype)
         self._compute_params = list(self.compute_module.parameters())
-        self._compute_stale = True
-        self.acc = [torch.zeros_like(p) for p in self.master]
-        fp16 = self.config.fp16
-        self._scale = make_loss_scale_state(
-            static_scale=fp16.loss_scale if self.fp16_enabled else 1.0,
-            initial_scale_power=fp16.initial_scale_power,
-            hysteresis=fp16.hysteresis)
-        self._last_grad_norm: Optional[torch.Tensor] = None
-        self._pending_loss = None
-
-        self.lr_scheduler = lr_scheduler if lr_scheduler is not None \
-            else build_lr_scheduler(self.config.scheduler)
+        # the compute copy is fresh; stage >= 1 over dp keeps it fresh
+        self._compute_stale = not self._partitioned
+        self.acc = self._zero_acc()
+        self._dense_params = list(enumerate(self._compute_params))
+        shared = self.compute_module is self.module
+        if any(s.partitioned for s in self._param_shards):
+            self._partition_compute()
+        if self._grad_split:
+            # stage >= 2: the slices are the master; drop the whole fp32
+            # leaves that are not also compute parameters
+            held = {i for u in self._units for i, _, _ in u.entries}
+            for i, p in enumerate(self.master):
+                if not shared or i in held:
+                    p.data = torch.empty(0, dtype=p.dtype, device=p.device)
         self._build_optimizer(optimizer)
 
-        self.training_dataloader = None
-        if training_data is not None:
-            self.training_dataloader = self.deepspeed_io(training_data)
+    @property
+    def _grad_split(self) -> bool:
+        """Grads reduce-scattered into 1/dp accumulators (stage >= 2)."""
+        return self.zero_stage >= 2 and self.dp_world_size > 1
 
-        log_dist(
-            f"engine ready: device={self.device} zero_stage="
-            f"{self.zero_stage} dtype={self.compute_dtype} batch="
-            f"{self.train_batch_size()}={self.train_micro_batch_size_per_gpu()}"
-            f"x{self.gradient_accumulation_steps()}x{self.dp_world_size}",
-            ranks=[0])
-        if self.config.dump_state:
-            log_dist(f"resolved config: {dataclasses.asdict(self.config)}",
-                     ranks=[0])
+    def _zero_acc(self) -> List[torch.Tensor]:
+        """The fp32 grad accumulator: this rank's flat slice of each leaf
+        at stage >= 2 over dp, whole leaves otherwise."""
+        return [torch.zeros(gs.numel if gs.partitioned else gs.shape,
+                            dtype=torch.float32, device=self.device)
+                for gs in self._grad_shards]
+
+    def _partition_compute(self) -> None:
+        """Stage 3: the compute module's partitioned parameters move into
+        gather units (``zero/stage3.py``); the rest stay whole."""
+        def make_unit(entries):
+            return GatherUnit(entries, dtype=self.compute_dtype,
+                              device=self.device, acc=self.acc,
+                              comm_dtype=self._comm_dtype,
+                              counts=self.comm_bytes)
+        leaf_of = {n: i for i, n in enumerate(self._names)}
+        self.compute_module, self._units = partition_module(
+            self.compute_module, leaf_of, self._param_shards, make_unit)
+        held = {i for u in self._units for i, _, _ in u.entries}
+        self._dense_params = [(i, p) for i, p in
+                              enumerate(self._compute_params)
+                              if i not in held]
+        # the units hold these leaves now: free their whole compute copies
+        for i in held:
+            p = self._compute_params[i]
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
 
     # ------------------------------------------------------------------ init
     def _reject_unported(self) -> None:
         """Every knob the TPU engine honours and this one cannot yet."""
         c = self.config
         zc = c.zero_config
-        if zc.stage >= 2:
-            raise _not_ported(f"ZeRO stage {zc.stage}", "A8")
-        if zc.offload_optimizer.device != OFFLOAD_NONE \
-                or zc.offload_param.device != OFFLOAD_NONE:
-            raise _not_ported("offload_optimizer / offload_param", "A8")
+        for what, dev in (("offload_optimizer", zc.offload_optimizer.device),
+                          ("offload_param", zc.offload_param.device)):
+            if dev not in (OFFLOAD_NONE, OFFLOAD_CPU, OFFLOAD_NVME):
+                raise ValueError(f"{what}.device={dev!r}: use none, cpu or "
+                                 f"nvme")
+        if zc.offload_param.layer_streaming:
+            raise _not_ported("offload_param.layer_streaming (one block "
+                              "on the card at a time)", "A8b")
         m = c.mesh
         if (m.tp, m.pp, m.ep, m.sp) != (1, 1, 1, 1):
             raise _not_ported("a tp/pp/ep/sp mesh", "A9")
@@ -224,7 +339,7 @@ class DeepSpeedEngine:
         ac = c.activation_checkpointing
         if ac.cpu_checkpointing:
             raise _not_ported("activation_checkpointing.cpu_checkpointing",
-                              "A8")
+                              "A8b")
         if ac.partition_activations:
             raise _not_ported(
                 "activation_checkpointing.partition_activations (a tp "
@@ -242,11 +357,32 @@ class DeepSpeedEngine:
                 "honored: remat granularity is one checkpoint per block; "
                 "control the trade with the model's remat_policy")
 
+    def _offload_device(self) -> str:
+        """Where the optimizer state lives: ``offload_optimizer.device``;
+        ``offload_param`` alone keeps the parameters' masters and mirrors on
+        the host too, so it implies the CPU optimizer (said in the log)."""
+        zc = self.config.zero_config
+        dev = zc.offload_optimizer.device
+        if dev == OFFLOAD_NONE and zc.offload_param.device != OFFLOAD_NONE:
+            log_dist(f"offload_param.device={zc.offload_param.device} keeps "
+                     f"the parameters' fp32 masters on the host: the "
+                     f"optimizer steps there too (offload_optimizer cpu)",
+                     ranks=[0])
+            dev = OFFLOAD_CPU
+        return dev
+
     def _prepare_module(self, model, model_parameters) -> nn.Module:
         if not isinstance(model, nn.Module):
             raise TypeError(
                 "model must be a torch.nn.Module (e.g. "
                 "deepspeed_tpu_torch.models.gpt.GPT)")
+        if is_abstract_tree(model) and not self.offload_enabled:
+            raise ValueError(
+                "the model is on the meta device (zero.abstract_init): the "
+                "dense path needs real weights (build the model on a "
+                "device); an abstract model is taken only with "
+                "offload_optimizer, where each rank fills its own host "
+                "shards")
         if isinstance(model_parameters, Mapping):
             model.load_state_dict(model_parameters)
         elif model_parameters is not None:
@@ -255,6 +391,8 @@ class DeepSpeedEngine:
                 raise ValueError(
                     "model_parameters must be the model's own parameters "
                     "(model.parameters()) or a state_dict for it")
+        if self.offload_enabled:
+            return model        # _init_offload moves it, in compute dtype
         # fp32 masters, in place: Parameter objects (and a client
         # optimizer built over them) are kept
         return model.to(device=self.device, dtype=torch.float32)
@@ -326,6 +464,368 @@ class DeepSpeedEngine:
             self.optimizer = sgd(self._opt_params, lr,
                                  momentum=params.get("momentum", 0.0))
 
+    # --------------------------------------------------------- ZeRO-Offload
+    def _init_offload(self, optimizer) -> None:
+        """The host optimizer (master and moments of this rank's slices,
+        in DRAM or on NVMe) and, on the card, only the compute-dtype
+        parameters and the fp32 grad accumulator (the TPU engine's
+        ``_init_offload_state``, engine.py:1415)."""
+        from .zero.offload import HostOffloadOptimizer
+        if optimizer is not None:
+            raise ValueError(
+                "offload_optimizer is driven by the config optimizer; do "
+                "not pass a client torch.optim optimizer")
+        oc = self.config.optimizer
+        params = dict(oc.params) if oc else {}
+        otype = (oc.type if oc else "Adam").lower()
+        if otype not in _ADAM_TYPES + ("cpuadam",):
+            raise ValueError(
+                f"offload_optimizer steps Adam/AdamW on the CPU, got "
+                f"{oc.type!r}")
+        unknown = sorted(set(params) - set(_ADAM_KEYS))
+        if unknown:
+            raise ValueError(f"optimizer params {unknown} are not Adam "
+                             f"params (valid: {list(_ADAM_KEYS)})")
+        if not params.get("bias_correction", True):
+            raise ValueError("the CPU Adam always corrects the moments' "
+                             "bias: remove bias_correction: false")
+        zc = self.config.zero_config
+        nvme = (zc.offload_optimizer.nvme_path
+                if self.offload_device == OFFLOAD_NVME else None)
+        if self.offload_device == OFFLOAD_NVME and not nvme:
+            raise ValueError("offload_optimizer.device=nvme requires "
+                             "nvme_path")
+        op = zc.offload_param
+        # the param tier: no parameters on the card between steps
+        self._params_resident = op.device == OFFLOAD_NONE
+        mirror_nvme = None
+        if op.device == OFFLOAD_NVME:
+            mirror_nvme = op.nvme_path or (os.path.join(nvme, "params")
+                                           if nvme else None)
+            if not mirror_nvme:
+                raise ValueError("offload_param.device=nvme requires "
+                                 "offload_param.nvme_path")
+        abstract = is_abstract_tree(self.module)
+        named = list(self.module.named_parameters())
+        if not abstract:
+            named = [(n, self._host_leaf(p)) for n, p in named]
+        raw_zero = self.config._raw.get("zero_optimization", {}) or {}
+        self._base_lr = params.get("lr", 1e-3)
+        self.host_optimizer = HostOffloadOptimizer(
+            named, lr=self._base_lr,
+            betas=tuple(params.get("betas", (0.9, 0.999))),
+            eps=params.get("eps", 1e-8),
+            weight_decay=params.get("weight_decay", 0.0),
+            adamw=params.get("adam_w_mode", otype != "adam"),
+            mirror_dtype=self.compute_dtype, nvme_path=nvme,
+            aio_cfg=self.config.aio,
+            dp_shard=(self.dp_rank, 1, self.dp_world_size),
+            init_seed=self.config.seed,
+            flax_leaves=flax_leaves(self.module) if abstract else None,
+            mirror_nvme_path=mirror_nvme,
+            # widen the swap window only when a prefetch budget is asked
+            # for explicitly (the TPU engine's rule, engine.py:1459-1465)
+            prefetch_numel=(zc.prefetch_bucket_size if any(
+                k in raw_zero for k in ("prefetch_bucket_size",
+                                        "stage3_prefetch_bucket_size"))
+                else 0),
+            pin=self.device.type == "cuda")
+        self.optimizer = self.host_optimizer
+        self.client_optimizer = None
+        self._partitioned = self.dp_world_size > 1
+        self.master, self._opt_params = [], []
+        self._module_stale = self._compute_stale = False
+        # the module becomes the compute copy: compute dtype, on the card,
+        # its values from the host mirrors (no fp32 copy is ever built
+        # there)
+        self.module.to(dtype=self.compute_dtype)
+        self.module.to_empty(device=self.device)
+        self.compute_module = self.module
+        self._compute_params = list(self.module.parameters())
+        self._dense_params = list(enumerate(self._compute_params))
+        self.acc = self._zero_acc()
+        if any(s.partitioned for s in self._param_shards):
+            self._partition_compute()
+        # whole leaves over dp > 1 come back as this rank's slice and are
+        # all-gathered (the step tail's all-gather)
+        self._gather_leaves = [i for i, _ in self._dense_params
+                               if self.dp_world_size > 1]
+        self._streams = None
+        if self.device.type == "cuda":
+            self._streams = (torch.cuda.Stream(self.device),
+                             torch.cuda.Stream(self.device))
+        self.offload_timing: Optional[Dict[str, Any]] = None
+        self._params_on_card = True
+        self._offload_restore_params()
+        if not self._params_resident:
+            self._drop_params()
+        log_dist(
+            f"ZeRO-Offload ready: {self.host_optimizer.numel():,}/"
+            f"{self.host_optimizer.global_numel():,} params on this rank "
+            f"({self.offload_device}, params "
+            f"{'resident' if self._params_resident else op.device}, "
+            f"dp_shard={self.host_optimizer.dp_shard})", ranks=[0])
+
+    def _host_leaf(self, p: torch.Tensor) -> torch.Tensor:
+        """A parameter's fp32 host copy; over dp > 1 rank 0's, so the ranks
+        start from one model however each built it."""
+        if self.dp_world_size == 1:
+            return p.detach().to("cpu", torch.float32)
+        t = p.detach().to(self.device, torch.float32)
+        comm.broadcast(t, 0)
+        return t.cpu()
+
+    def _card_params(self) -> List[torch.Tensor]:
+        """The tensors that hold the compute parameters on the card."""
+        return ([p for _, p in self._dense_params]
+                + [u.shard for u in self._units])
+
+    def device_state_bytes(self) -> Dict[str, int]:
+        """Bytes of the engine's own state on the device: the compute
+        parameters (this rank's shards at stage 3) and the fp32 grad
+        accumulator."""
+        return {"params": sum(p.numel() * p.element_size()
+                              for p in self._card_params()),
+                "grad_acc": sum(a.numel() * 4 for a in self.acc)}
+
+    def _drop_params(self) -> None:
+        """offload_param: free the card's parameters between steps."""
+        for p in self._card_params():
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self._params_on_card = False
+
+    def _materialize_params(self) -> None:
+        for (i, p) in self._dense_params:
+            p.data = torch.empty(self._shapes[i], dtype=self.compute_dtype,
+                                 device=self.device)
+        for u in self._units:
+            u.shard.data = torch.empty(sum(u.pers), dtype=self.compute_dtype,
+                                       device=self.device)
+        self._offload_restore_params()
+        self._params_on_card = True
+
+    def _upload_targets(self) -> Dict[int, torch.Tensor]:
+        """Where each leaf's mirror slice lands on the card: its stage-3
+        shard view, the whole parameter at dp 1, else a gather buffer."""
+        out = {}
+        for u in self._units:
+            for view, (i, _, _) in zip(u.views(), u.entries):
+                out[i] = view
+        for i, p in self._dense_params:
+            if self.dp_world_size == 1:
+                out[i] = p.data.view(-1)
+            else:
+                out[i] = torch.empty(self._shards[i].numel,
+                                     dtype=self.compute_dtype,
+                                     device=self.device)
+        return out
+
+    @torch.no_grad()
+    def _upload_leaf(self, i: int, targets, timing=None) -> None:
+        """Leaf i's mirror slice to the card (on the upload stream)."""
+        host = self.host_optimizer
+        src = host.mirror_flat(i)
+        dst = targets[i]
+        n = min(dst.numel(), src.numel())
+        if self._streams is None:
+            dst[:n].copy_(src[:n])
+            return
+        # the NVMe param tier reads every leaf into one staging buffer:
+        # that copy must finish before the next read reuses it
+        blocking = host.mirror_store is not None
+        with torch.cuda.stream(self._streams[1]):
+            ev = self._timed_copy(dst[:n], src[:n], not blocking, timing,
+                                  "h2d")
+        if blocking and ev is not None:
+            ev.synchronize()
+
+    def _timed_copy(self, dst, src, non_blocking, timing, kind):
+        """One copy on the current stream, bracketed by events when the
+        step is being timed (their elapsed times sum the link's busy
+        time)."""
+        if timing is None:
+            dst.copy_(src, non_blocking=non_blocking)
+            return None
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        dst.copy_(src, non_blocking=non_blocking)
+        end.record()
+        timing[f"{kind}_events"].append((start, end))
+        timing[f"{kind}_bytes"] += src.numel() * src.element_size()
+        return end
+
+    @torch.no_grad()
+    def _finish_upload(self, targets) -> None:
+        """The next forward waits for the uploads; whole leaves over dp > 1
+        are all-gathered from the ranks' slices into the parameters."""
+        if self._streams is not None:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._streams[1])
+        if self._gather_leaves:
+            fulls = all_gather_coalesced(
+                [targets[i] for i in self._gather_leaves])
+            self.comm_bytes["all_gather"] += sum(
+                f.numel() * f.element_size() for f in fulls)
+            for i, f in zip(self._gather_leaves, fulls):
+                self._compute_params[i].copy_(self._shards[i].unpad(f))
+
+    def _offload_restore_params(self) -> None:
+        """Every leaf's mirror slice onto the card (the TPU engine's
+        ``_offload_restore_params``, engine.py:1560)."""
+        targets = self._upload_targets()
+        for i in range(len(self._names)):
+            self._upload_leaf(i, targets)
+        self._finish_upload(targets)
+        if self._streams is not None:
+            # outside a step nothing else orders the host's next write of
+            # a mirror after these copies
+            self._streams[1].synchronize()
+
+    def _grad_source(self, i: int) -> torch.Tensor:
+        """This rank's slice of leaf i's accumulated grad on the card (the
+        part inside the leaf)."""
+        a = self.acc[i].view(-1)
+        if self._grad_shards[i].partitioned:
+            return a[:self._shards[i].valid]
+        s = self._shards[i]
+        return a[s.offset:s.offset + s.valid]
+
+    def _stream_grads(self, timing=None):
+        """Start every leaf's grad slice copy to the pinned staging now (on
+        the side stream, one event per leaf); returns the staging views,
+        indexed so that reading leaf i waits for its copy only."""
+        host = self.host_optimizer
+        staging = host.grad_staging
+        if self._streams is None:
+            for i, g in enumerate(staging):
+                src = self._grad_source(i)
+                g[:src.numel()].copy_(src)
+            return staging
+        stream = self._streams[0]
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        events = []
+        with torch.cuda.stream(stream):
+            for i, g in enumerate(staging):
+                src = self._grad_source(i)
+                ev = self._timed_copy(g[:src.numel()], src, True, timing,
+                                      "d2h")
+                if ev is None:
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                events.append(ev)
+        return _ArrivingGrads(staging, events, timing)
+
+    def _offload_lr(self) -> float:
+        """The TPU offload engine's lr: the schedule at the host step count
+        before this step (its dense path reads the count after)."""
+        if self.lr_scheduler is not None:
+            return float(self.lr_scheduler.lr_at(
+                self.host_optimizer.step_count))
+        return float(self._base_lr)
+
+    def _offload_update(self, denom: float) -> Dict[str, Any]:
+        """The offload boundary: grads / denom and their norm and finite
+        flag on the card (two scalars read on the host), then the host
+        step of each leaf as its grad arrives, each leaf's mirror back as
+        soon as it is stepped (the TPU engine's ``_offload_train_batch``,
+        engine.py:1712)."""
+        timing = self.offload_timing
+        if timing is not None:
+            timing.clear()
+            timing.update(d2h_events=[], h2d_events=[], d2h_bytes=0,
+                          h2d_bytes=0, cpu_adam_s=0.0)
+            t0 = time.perf_counter()
+        host = self.host_optimizer
+        with torch.no_grad():
+            torch._foreach_div_(self.acc, denom)
+            gnorm, finite = self._global_norm_and_finite(self.acc)
+            finite = bool(finite) if finite is not None else True
+            gn = float(gnorm)
+            if timing is not None:
+                # the norm's read waited for the micro-steps: their time
+                timing["device_fwd_bwd_s"] = (time.perf_counter()
+                                              - self._step_t0)
+            if finite:
+                clip = self.gradient_clipping()
+                combined = gn / clip if clip and clip > 0 and gn > clip \
+                    else 1.0
+                lr = self._offload_lr()
+                grads = self._stream_grads(timing)
+                upload = None
+                if self._params_resident:
+                    targets = self._upload_targets()
+
+                    def upload(i):
+                        self._upload_leaf(i, targets, timing)
+                t1 = time.perf_counter()
+                host.step(grads, lr, combined, on_leaf=upload)
+                if timing is not None:
+                    timing["host_step_s"] = time.perf_counter() - t1
+                if upload is not None:
+                    self._finish_upload(targets)
+            else:
+                self.skipped_steps += 1
+            if self._streams is not None:
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._streams[0])
+            torch._foreach_zero_(self.acc)
+            if not self._params_resident and self._params_on_card:
+                self._drop_params()
+        if timing is not None:
+            if self._streams is not None:
+                torch.cuda.synchronize(self.device)
+            timing["update_s"] = time.perf_counter() - t0
+            for kind in ("d2h", "h2d"):
+                evs = timing.pop(f"{kind}_events")
+                timing[f"{kind}_s"] = sum(a.elapsed_time(b)
+                                          for a, b in evs) / 1e3
+        fp16 = self.config.fp16
+        self._scale = update_scale(
+            self._scale, finite, dynamic=self.dynamic_loss_scale,
+            scale_window=fp16.loss_scale_window,
+            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        self._last_grad_norm = gnorm
+        return {"grad_norm": gnorm, "finite": finite}
+
+    def _offload_gathered(self, key: str) -> List[torch.Tensor]:
+        """Whole fp32 leaves of the host ``master`` or a moment, gathered
+        from the ranks' slices (every rank must call it), on the CPU."""
+        host = self.host_optimizer
+        out = []
+        for i, leaf in enumerate(host.leaves):
+            mine = host.shard_state(i)[key]
+            if self.dp_world_size > 1:
+                full = comm.all_gather_base(mine.to(self.device)).cpu()
+            else:
+                full = mine
+            out.append(self._shards[i].unpad(full).clone())
+        return out
+
+    def _offload_load(self, load_dir, tag, load_opt: bool):
+        """A checkpoint into the host optimizer (host-shard files leaf by
+        leaf, at any dp; or an npz one), then the mirrors to the card."""
+        tag = tag or ckpt_saving.read_latest_tag(load_dir)
+        if tag is None:
+            return None
+        ckpt_dir = os.path.join(load_dir, tag)
+        host = self.host_optimizer
+        with open(os.path.join(ckpt_dir, "meta.json")) as fh:
+            meta = json.load(fh)
+        if meta.get("format") == "host_sharded":
+            host.load_shards(ckpt_dir, load_optimizer_states=load_opt)
+        else:
+            res = ckpt_saving.load_checkpoint_dir(load_dir, tag)
+            opt = res["opt_state"]
+            host.load_state(
+                [res["master_params"][n] for n in self._names],
+                {m: [opt[f"{m}/{n}"] for n in self._names]
+                 for m in host.STATE} if load_opt else None,
+                step=int(opt["count"]) if load_opt else None)
+        if self._params_on_card:
+            self._offload_restore_params()
+        return {"tag": tag, "meta": meta}
+
     # ------------------------------------------------------- config accessors
     def train_batch_size(self):
         return self.config.train_batch_size
@@ -386,7 +886,12 @@ class DeepSpeedEngine:
         return put(batch)
 
     def _cast_params(self) -> None:
-        """fp32 master -> the compute copy, once per step."""
+        """fp32 master -> the compute copy, once per step (under offload:
+        the parameters back on the card when they left it)."""
+        if self.offload_enabled:
+            if not self._params_on_card:
+                self._materialize_params()
+            return
         if self._compute_stale and self.compute_module is not self.module:
             with torch.no_grad():
                 torch._foreach_copy_(self._compute_params, self.master)
@@ -415,6 +920,9 @@ class DeepSpeedEngine:
         accumulator."""
         (loss.float() * self._scale.cur_scale).backward()
         with torch.no_grad():
+            if self._grad_split:
+                self._scatter_into_acc()
+                return
             if self.dp_world_size > 1:
                 self._reduce_into_acc()
                 return
@@ -440,10 +948,37 @@ class DeepSpeedEngine:
         for p in self._compute_params:
             p.grad = None
         comm.all_reduce(flat)
+        self.comm_bytes["all_reduce"] += flat.numel() * flat.element_size()
         flat = flat.float()
         torch._foreach_add_(self.acc, [
             g.view_as(a) for g, a in
             zip(flat.split([a.numel() for a in self.acc]), self.acc)])
+
+    def _scatter_into_acc(self) -> None:
+        """Stage >= 2: one reduce-scatter (sum) of every whole grad, in the
+        communication dtype, into this rank's accumulator slices (the
+        stage-3 units' grads arrived in their backward already)."""
+        idx, grads = [], []
+        for i, p in self._dense_params:
+            grads.append(p.grad if p.grad is not None
+                         else torch.zeros_like(p))
+            idx.append(i)
+            p.grad = None
+        if grads:
+            scatter_into(self.acc, idx, grads, self._comm_dtype,
+                         self.comm_bytes)
+
+    def _global_norm_and_finite(self, grads: List[torch.Tensor]):
+        """The global grad norm and (fp16) the finite flag, over every
+        rank's slices when the grads are split."""
+        sq = torch.stack(torch._foreach_norm(grads)).square().sum()
+        finite = (grads_finite(grads).float() if self.fp16_enabled
+                  else None)
+        if self._grad_split:
+            comm.all_reduce(sq)
+            if finite is not None:
+                comm.all_reduce(finite, "min")
+        return sq.sqrt(), finite
 
     def _apply_update(self) -> Dict[str, Any]:
         """Unscale + clip + optimizer step, with the fp16 overflow guard.
@@ -453,11 +988,18 @@ class DeepSpeedEngine:
         denom = self._scale.cur_scale * gas * self.dp_world_size
         if self.config.prescale_gradients:
             denom *= self.config.gradient_predivide_factor
+        if self.offload_enabled:
+            return self._offload_update(denom)
         with torch.no_grad():
             grads = torch._foreach_div(self.acc, denom)
-            finite = bool(grads_finite(grads)) if self.fp16_enabled else True
-            gnorm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            if self._grad_split:
+                gnorm, finite = self._global_norm_and_finite(grads)
+                finite = bool(finite) if finite is not None else True
+            else:
+                finite = (bool(grads_finite(grads)) if self.fp16_enabled
+                          else True)
+                gnorm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(grads)))
             clip = self.gradient_clipping()
             if clip and clip > 0:
                 torch._foreach_mul_(grads, clip / gnorm.clamp(min=clip))
@@ -478,7 +1020,8 @@ class DeepSpeedEngine:
 
     def _optimizer_step(self, grads: List[torch.Tensor]) -> None:
         if self._partitioned:
-            self.optimizer.step([s.take(g) for s, g in
+            self.optimizer.step(grads if self._grad_split else
+                                [s.take(g) for s, g in
                                  zip(self._shards, grads)])
             self._gather_compute()
             return
@@ -507,6 +1050,10 @@ class DeepSpeedEngine:
             data_iter = self._train_iter
         gas = self.gradient_accumulation_steps()
         micros = [next(data_iter) for _ in range(gas)]
+        if self.offload_enabled and self.offload_timing is not None:
+            if self._streams is not None:
+                torch.cuda.synchronize(self.device)
+            self._step_t0 = time.perf_counter()
         wcb = self.config.wall_clock_breakdown
         self.tput_timer.start()
         if wcb:
@@ -606,13 +1153,24 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def _gather_compute(self) -> None:
         """The updated slices, in the compute dtype, all-gathered into the
-        compute copy (the module itself at f32 compute)."""
-        fulls = all_gather_coalesced(
-            [q.to(self.compute_dtype) for q in self._opt_params])
-        torch._foreach_copy_(self._compute_params, [
-            s.unpad(f) for s, f in zip(self._shards, fulls)])
+        compute copy (the module itself at f32 compute); at stage 3 a
+        partitioned leaf's slice is its compute shard, copied without a
+        collective."""
+        dense = [i for i, _ in self._dense_params]
+        if dense:
+            fulls = all_gather_coalesced(
+                [self._opt_params[i].to(self.compute_dtype) for i in dense])
+            self.comm_bytes["all_gather"] += sum(
+                f.numel() * f.element_size() for f in fulls)
+            torch._foreach_copy_([p for _, p in self._dense_params], [
+                self._shards[i].unpad(f) for i, f in zip(dense, fulls)])
+        for unit in self._units:
+            torch._foreach_copy_(unit.views(), [
+                self._opt_params[i].to(self.compute_dtype)
+                for i, _, _ in unit.entries])
         self._compute_stale = False
-        self._module_stale = self.compute_module is not self.module
+        self._module_stale = (self.compute_module is not self.module
+                              and not self._grad_split)
 
     def _gathered(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """Whole leaves from this rank's slices (every rank calls it);
@@ -631,8 +1189,15 @@ class DeepSpeedEngine:
 
     def consolidated_fp32_state_dict(self) -> Dict[str, np.ndarray]:
         """Full fp32 weights keyed by ``state_dict`` name (zero_to_fp32's
-        output, in process). Over dp > 1 at stage 1 every rank must call
-        it: it gathers the slices (and refreshes ``module``)."""
+        output, in process). Over dp > 1 from stage 1 on every rank must
+        call it: it gathers the slices (at stage 1 it also refreshes
+        ``module``; from stage 2 on the module holds no fp32 weights)."""
+        if self.offload_enabled:
+            return ckpt_saving.consolidated_fp32_state_dict(
+                dict(zip(self._names, self._offload_gathered("master"))))
+        if self._grad_split and self._partitioned:
+            return ckpt_saving.consolidated_fp32_state_dict(
+                dict(zip(self._names, self._gathered(self._opt_params))))
         self._sync_module()
         return ckpt_saving.consolidated_fp32_state_dict(
             dict(zip(self._names, self.master)))
@@ -640,11 +1205,48 @@ class DeepSpeedEngine:
     def optimizer_state_dict(self) -> Dict[str, Any]:
         """The optimizer's ``count`` and its moments as whole leaves
         (gathered over dp at stage 1: every rank must call it)."""
+        if self.offload_enabled:
+            return {"count": self.host_optimizer.step_count,
+                    **{m: self._offload_gathered(m)
+                       for m in self.host_optimizer.STATE}}
         sd = self.optimizer.state_dict()
         return {"count": sd["count"],
                 **{m: self._gathered(sd[m]) for m in self.optimizer.STATE}}
 
     # ----------------------------------------------------------- checkpoints
+    @torch.no_grad()
+    def _load_dense(self, res, load_opt: bool) -> None:
+        master = res["master_params"]
+        split = self._grad_split and self._partitioned
+        for i, name in enumerate(self._names):
+            if name not in master:
+                raise KeyError(f"checkpoint missing tensor {name!r}")
+            arr = master[name]
+            if tuple(arr.shape) != self._shapes[i]:
+                raise ValueError(f"shape mismatch for {name}: ckpt "
+                                 f"{arr.shape} vs model {self._shapes[i]}")
+            full = torch.from_numpy(arr)
+            if split:
+                self._opt_params[i].copy_(self._shards[i].take(full))
+            else:
+                self.master[i].copy_(full)
+        if self._partitioned and not split:
+            torch._foreach_copy_(self._opt_params, [
+                s.take(p) for s, p in zip(self._shards, self.master)])
+        if load_opt:
+            opt = res["opt_state"]
+            state = {"count": int(opt["count"])}
+            for m in self.optimizer.STATE:
+                full = [torch.from_numpy(opt[f"{m}/{name}"]).to(self.device)
+                        for name in self._names]
+                state[m] = ([s.take(f) for s, f in zip(self._shards, full)]
+                            if self._partitioned else full)
+            self.optimizer.load_state_dict(state)
+        if split:
+            self._gather_compute()
+        else:
+            self._compute_stale, self._module_stale = True, False
+
     def _validate_checkpoint_tag(self, tag: str) -> None:
         """All ranks must save under the same tag (reference
         _checkpoint_tag_validation, engine.py:2750; warn|fail|ignore). Every
@@ -677,9 +1279,11 @@ class DeepSpeedEngine:
         mode = self.config.sharded_checkpoint
         if mode != "auto":
             return bool(mode)
-        if self.dp_world_size > 1:
+        if self.dp_world_size > 1 or self.offload_enabled:
+            # the offload tier writes its host slices leaf by leaf and
+            # never gathers the state
             return True
-        return sum(p.numel() * 4 for p in self.master) \
+        return sum(int(np.prod(s)) * 4 for s in self._shapes) \
             > self.SHARDED_CKPT_AUTO_BYTES
 
     def _shard_arrays(self):
@@ -688,8 +1292,8 @@ class DeepSpeedEngine:
         the world even when the state is whole here)."""
         rules = ShardingRules(self.dp_world_size, 1, self.dp_rank)
         shards = self._shards if self._partitioned else [
-            rules.master_spec(n, p.shape)
-            for n, p in zip(self._names, self.master)]
+            rules.master_spec(n, s)
+            for n, s in zip(self._names, self._shapes)]
         sd = self.optimizer.state_dict()
 
         def mine(tensors, i):
@@ -730,7 +1334,10 @@ class DeepSpeedEngine:
             "quantizer": None,
         }
         if self._use_sharded_checkpoint():
-            arrays, leaves = self._shard_arrays()
+            if self.offload_enabled:
+                arrays, leaves = self.host_optimizer.shard_arrays()
+            else:
+                arrays, leaves = self._shard_arrays()
             return ckpt_saving.save_host_sharded_dir(
                 save_dir, tag, arrays=arrays, leaves=leaves,
                 step=self.optimizer.count, meta=meta,
@@ -753,35 +1360,18 @@ class DeepSpeedEngine:
         at any dp, in either layout. Returns ``(tag directory,
         client_state)``, or ``(None, {})`` when there is no checkpoint."""
         self._check_checkpointable()
-        res = ckpt_saving.load_checkpoint_dir(load_dir, tag,
-                                              self.optimizer.STATE)
+        load_opt = load_optimizer_states and not load_module_only
+        if self.offload_enabled:
+            res = self._offload_load(load_dir, tag, load_opt)
+        else:
+            res = ckpt_saving.load_checkpoint_dir(load_dir, tag,
+                                                  self.optimizer.STATE)
         if res is None:
             log_dist(f"no checkpoint found in {load_dir}", ranks=[0])
             return None, {}
-        meta, master = res["meta"], res["master_params"]
-        with torch.no_grad():
-            for name, p in zip(self._names, self.master):
-                if name not in master:
-                    raise KeyError(f"checkpoint missing tensor {name!r}")
-                arr = master[name]
-                if tuple(arr.shape) != tuple(p.shape):
-                    raise ValueError(f"shape mismatch for {name}: ckpt "
-                                     f"{arr.shape} vs model "
-                                     f"{tuple(p.shape)}")
-                p.copy_(torch.from_numpy(arr))
-            if self._partitioned:
-                torch._foreach_copy_(self._opt_params, [
-                    s.take(p) for s, p in zip(self._shards, self.master)])
-        if load_optimizer_states and not load_module_only:
-            opt = res["opt_state"]
-            state = {"count": int(opt["count"])}
-            for m in self.optimizer.STATE:
-                full = [torch.from_numpy(opt[f"{m}/{name}"]).to(self.device)
-                        for name in self._names]
-                state[m] = ([s.take(f) for s, f in zip(self._shards, full)]
-                            if self._partitioned else full)
-            self.optimizer.load_state_dict(state)
-        self._compute_stale, self._module_stale = True, False
+        meta = res["meta"]
+        if not self.offload_enabled:
+            self._load_dense(res, load_opt)
         self._scale = self._scale._replace(
             cur_scale=float(meta["loss_scale"]))
         if load_lr_scheduler_states and self.lr_scheduler is not None \

@@ -1,26 +1,44 @@
-"""ZeRO partitioning of the optimizer state over data parallelism.
+"""ZeRO partitioning over data parallelism.
 
-Counterpart of ``ShardingRules.master_spec`` / ``grad_spec``
-(``deepspeed_tpu/runtime/sharding.py:228-245``) at stages 0 and 1 over dp
-only. From stage 1 on each leaf is flattened and zero-padded to a multiple
-of dp, and rank r owns one contiguous ``ceil(numel / dp)`` slice of it: of
-the fp32 master and of every optimizer moment. That is the reference's
-stage-1 layout and the TPU package's host-shard tier
+Counterpart of ``ShardingRules`` (``deepspeed_tpu/runtime/sharding.py``):
+``master_spec`` / ``grad_spec`` / ``param_spec`` at stages 0-3 over dp
+only. A partitioned leaf is flattened and zero-padded to a multiple of dp,
+and rank r owns one contiguous ``ceil(numel / dp)`` slice of it. That is
+the reference's flat-partition layout and the TPU package's host-shard tier
 (``runtime/zero/offload.py:502-532``), whose shard files
 ``checkpoint/zero_to_fp32.py`` merges by offset. The TPU rule shards a
 divisible dimension instead; every update is elementwise (Lamb's norms are
-all-reduced), so both layouts compute the same step. Gradients stay whole
-below stage 2 (an all-reduce). The tp, ep and kv specs wait for ROADMAP A9.
+all-reduced), so both layouts compute the same step.
+
+  * stage 1: the fp32 master and every optimizer moment are partitioned;
+    gradients stay whole (all-reduced);
+  * stage 2: gradients too (reduce-scattered into this rank's slice of the
+    fp32 accumulator);
+  * stage 3: the compute parameters too, except leaves of at most
+    ``param_persistence_threshold`` elements, which stay whole on every rank
+    (the reference's persistence set, zero/config.py
+    stage3_param_persistence_threshold). An embedding table
+    (``_is_embed_table``) is partitioned only when dp divides its vocab dim:
+    its flat slice is then a block of whole rows, the TPU package's
+    vocab-dim rule (``_stage3_embed_spec``); otherwise it stays whole, as
+    there.
+
+The tp, ep and kv specs wait for ROADMAP A9.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..utils.logging import logger
+
+_EMBED_PAT = re.compile(r"(wte|embed|embedding)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +55,22 @@ class LeafShard:
     padded: int
     global_numel: int
 
+    @property
+    def partitioned(self) -> bool:
+        """True when the leaf is split over more than one rank."""
+        return self.numel != self.padded
+
+    @property
+    def valid(self) -> int:
+        """Elements of this slice that lie inside the leaf (the rest is
+        padding)."""
+        return max(min(self.numel, self.global_numel - self.offset), 0)
+
     def take(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of ``full`` (the whole leaf, any shape), as a
         new flat tensor; the padding is zeros."""
         flat = full.reshape(-1)
-        hi = min(self.offset + self.numel, self.global_numel)
-        part = flat[self.offset:max(hi, self.offset)]
+        part = flat[self.offset:self.offset + self.valid]
         return F.pad(part, (0, self.numel - part.numel()))
 
     def unpad(self, gathered: torch.Tensor) -> torch.Tensor:
@@ -51,15 +79,15 @@ class LeafShard:
 
 
 class ShardingRules:
-    """Which part of each leaf's master, moments and gradient a rank
-    holds, at ZeRO ``zero_stage`` over ``dp`` ranks."""
+    """Which part of each leaf's master, moments, gradient and compute
+    parameter a rank holds, at ZeRO ``zero_stage`` over ``dp`` ranks."""
 
-    def __init__(self, dp: int = 1, zero_stage: int = 0, rank: int = 0):
-        if zero_stage >= 2:
-            raise NotImplementedError(
-                f"ZeRO stage {zero_stage}: not ported to PyTorch yet "
-                f"(ROADMAP A8)")
+    def __init__(self, dp: int = 1, zero_stage: int = 0, rank: int = 0,
+                 param_persistence_threshold: int = 0):
+        if not 0 <= zero_stage <= 3:
+            raise ValueError(f"ZeRO stage {zero_stage}: use 0-3")
         self.dp, self.stage, self.rank = dp, zero_stage, rank
+        self.param_persistence_threshold = int(param_persistence_threshold)
 
     @property
     def partitioned(self) -> bool:
@@ -77,5 +105,30 @@ class ShardingRules:
         return self._shard(path, shape, self.dp if self.partitioned else 1)
 
     def grad_spec(self, path: str, shape) -> LeafShard:
-        """Gradients: whole below stage 2 (all-reduced, not scattered)."""
-        return self._shard(path, shape, 1)
+        """Gradients: reduce-scattered from stage 2 on (the accumulator
+        holds this rank's slice), whole and all-reduced below."""
+        split = self.stage >= 2 and self.dp > 1
+        return self._shard(path, shape, self.dp if split else 1)
+
+    @staticmethod
+    def _is_embed_table(path: str, shape) -> bool:
+        return bool(_EMBED_PAT.search(path)
+                    and path.endswith(("weight", "embedding"))
+                    and len(shape) >= 2)
+
+    def param_spec(self, path: str, shape) -> LeafShard:
+        """Compute parameters: from stage 3 on, leaves above the
+        persistence threshold are partitioned; an embedding table only
+        when dp divides its vocab dim."""
+        shape = tuple(shape)
+        split = (self.stage >= 3 and self.dp > 1
+                 and math.prod(shape) > self.param_persistence_threshold)
+        if split and self._is_embed_table(path, shape):
+            vdim = len(shape) - 2
+            if shape[vdim] % self.dp:
+                logger.warning(
+                    f"stage-3: embedding table {path} {shape} stays whole on "
+                    f"every rank (its vocab dim {shape[vdim]} does not "
+                    f"divide by dp={self.dp}); pad the vocab to shard it")
+                split = False
+        return self._shard(path, shape, self.dp if split else 1)

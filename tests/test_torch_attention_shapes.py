@@ -30,6 +30,7 @@ from deepspeed_tpu.ops.pallas import decode_attention as jda
 from deepspeed_tpu.ops.sparse_attention import sparse_attention as jsparse
 from deepspeed_tpu_torch.ops.cuda import decode_attention as pda
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 SPARSE_TOL = {np.float32: (2e-4, 1e-3), np.float16: (2e-3, 1e-2)}
 DECODE_TOL = {np.float32: 1e-5, np.float16: 2e-3}

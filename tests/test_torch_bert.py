@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from torch_port_helpers import sparsity_pair
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=2e-4, atol=2e-5)
 GRAD = dict(rtol=1e-3, atol=1e-5)

@@ -39,6 +39,7 @@ import pytest
 import torch_dist_helpers as helpers
 from test_torch_training import ENGINE_CONFIG, RTOL
 from torch_port_helpers import model_pair
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 REPO = helpers.REPO
 GAS = ENGINE_CONFIG["gradient_accumulation_steps"]

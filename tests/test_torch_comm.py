@@ -20,6 +20,7 @@ import pytest
 from jax.sharding import Mesh
 
 import torch_dist_helpers as helpers
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 WORLDS = (2, 4)

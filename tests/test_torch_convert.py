@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from torch_port_helpers import TINY, model_pair
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

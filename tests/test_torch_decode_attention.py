@@ -12,6 +12,7 @@ import torch
 from deepspeed_tpu.ops.pallas import decode_attention as jda
 from deepspeed_tpu_torch.ops.cuda import _build
 from deepspeed_tpu_torch.ops.cuda import decode_attention as pda
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 B, S, H, D = 3, 64, 2, 64
 ATOL = 1e-5

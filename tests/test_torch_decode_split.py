@@ -25,6 +25,7 @@ import torch
 from deepspeed_tpu.ops.pallas import decode_attention as jda
 from deepspeed_tpu_torch.ops import quantizer as pqz
 from deepspeed_tpu_torch.ops.cuda import decode_attention as pda
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 B_ROWS, S, H, D = 7, 64, 2, 64
 BS = 8                                    # paged block size

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.cuda import flash_attention as pfa
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 # the module (the package re-exports its flash_attention function)
 jfa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")

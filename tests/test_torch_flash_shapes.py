@@ -28,6 +28,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import flash_attention as pfa
 from deepspeed_tpu_torch.ops.cuda import sparse_attention as psa
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
 

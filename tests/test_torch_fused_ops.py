@@ -15,6 +15,7 @@ f32 values straddle a rounding boundary; plus, for values near zero, 1e-6
 absolute on forwards and the f32 gradient tolerance (1e-4) on gradients,
 where the f32 values themselves part: XLA's CPU tanh returns -1 exactly
 from about -7.9 down, torch's does not, so the tanh-GELU derivative at
+from torch_test_threads import one_torch_thread  # noqa: F401
 x + bias = -4.9 is 0 in JAX and 6.4e-6 here.
 """
 

@@ -22,6 +22,7 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.inference.engine import (NOT_PORTED_KNOBS,
                                                   InferenceEngine)
 from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 # a value away from each knob's default
 NON_DEFAULT = {"mp_size": 2, "ep_size": 2, "checkpoint": "ckpt",

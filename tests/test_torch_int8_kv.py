@@ -20,6 +20,7 @@ from deepspeed_tpu_torch.ops import quantizer as pq
 from deepspeed_tpu_torch.ops.cuda import decode_attention as pda
 
 from torch_port_helpers import model_pair, prompts
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
 

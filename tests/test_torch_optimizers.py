@@ -34,6 +34,7 @@ import torch
 import torch_dist_helpers as helpers
 from test_torch_training import ENGINE_CONFIG, RTOL, _state_dict_np
 from torch_port_helpers import model_pair
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 STEPS, GAS = 3, ENGINE_CONFIG["gradient_accumulation_steps"]
 MOMENT_RTOL = 1e-4

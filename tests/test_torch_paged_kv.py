@@ -26,6 +26,7 @@ from deepspeed_tpu_torch.serving.scheduler import (REJECT_KV_OOM,
                                                    Request)
 
 from torch_port_helpers import model_pair, prompts
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
 

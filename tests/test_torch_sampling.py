@@ -14,6 +14,7 @@ from deepspeed_tpu.serving import sampling as jserve
 from deepspeed_tpu_torch.ops.cuda import _build
 from deepspeed_tpu_torch.ops.cuda import sampling as psp
 from deepspeed_tpu_torch.serving import sampling as pserve
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 B, V = 4, 256
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.cuda import sampling as sp
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 NEG_CAP = -1e10
 

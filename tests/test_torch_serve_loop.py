@@ -19,6 +19,7 @@ import torch
 from deepspeed_tpu_torch import ServingEngine
 
 from torch_port_helpers import model_pair, prompts
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(max_batch=3, max_prompt_len=32, max_queue=16)
 CONFIGS = {

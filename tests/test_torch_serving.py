@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from torch_port_helpers import model_pair, prompts
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deepspeed_tpu_torch")

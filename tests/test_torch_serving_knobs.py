@@ -17,6 +17,7 @@ from deepspeed_tpu_torch import ServingEngine
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
 from deepspeed_tpu_torch.serving.engine import NOT_PORTED_KNOBS
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 # a value away from each knob's default
 NON_DEFAULT = {

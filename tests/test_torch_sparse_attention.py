@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.ops.cuda import sparse_attention as psa
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
     DKV_CHUNK, compiled_layout)
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-4
 GRAD_TOL = 1e-3

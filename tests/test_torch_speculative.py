@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.serving.speculative import (NGramDrafter,
                                                      verify_rejection)
 
 from torch_port_helpers import model_pair
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 TV_BOUND = 0.02          # first emitted token vs the filtered softmax
 ACCEPT_TOL = 0.015       # acceptance frequency vs p(draft): > 4 sigma

@@ -16,7 +16,8 @@ sizes (torch_port_helpers.TINY), inputs from numpy seeds:
     (losses, grad norms, Adam moments; and a sparse model's losses and grad
     norms); the 3-call API against
     ``train_batch``; every unported knob raises (LAMB, Adagrad, SGD,
-    checkpoints and dp > 1 are ported now: their cases check that).
+    checkpoints, dp > 1, ZeRO 2 / 3 and the offload tiers are ported now:
+    their cases check that).
 
 Tolerances: 1e-5 (relative where stated) -- both sides are f32 and differ
 in summation order only."""
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 from torch_port_helpers import TINY, model_pair
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 SEQ = 32
@@ -538,9 +540,15 @@ UNPORTED = {
 }
 
 
-# raised naming ROADMAP A4.8 until they were ported; their cases now check
-# that the engine builds the optimizer and trains (the optimizer's class)
-NOW_PORTED = {"lamb": "FusedLamb", "adagrad": "FusedAdagrad", "sgd": "SGD"}
+# raised naming ROADMAP A4.8 (the optimizers) or A8 (ZeRO 2 / 3, the
+# offload tiers) until they were ported; their cases now check that the
+# engine builds the optimizer and trains (the optimizer's class)
+NOW_PORTED = {"lamb": "FusedLamb", "adagrad": "FusedAdagrad", "sgd": "SGD",
+              "zero2": "FusedAdam", "zero3": "FusedAdam",
+              "offload_optimizer": "HostOffloadOptimizer",
+              "offload_param": "HostOffloadOptimizer"}
+# still raising, naming the ROADMAP item that ports them
+STILL_RAISES = {"cpu_checkpointing": "A8b"}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -558,7 +566,8 @@ def test_unported_knob_raises(name):
         assert np.isfinite(float(eng.train_batch(
             iter([{"input_ids": _ids(3, rows=2)}]))))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP {STILL_RAISES.get(name, '')}"):
         dst.initialize(model=pmodel, loss_fn=lm_loss_fn, config=cfg,
                        device="cpu")
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 HIDDEN, HEADS, SEQ, BATCH = 64, 4, 16, 2

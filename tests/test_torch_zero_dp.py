@@ -28,6 +28,7 @@ import pytest
 import torch_dist_helpers as helpers
 from test_torch_training import ENGINE_CONFIG, RTOL, _state_dict_np
 from torch_port_helpers import model_pair
+from torch_test_threads import one_torch_thread  # noqa: F401
 
 GLOBAL_MICRO = 8                  # rows a micro-step: JAX dp 8 x 1, port 2 x 4
 STEPS, GAS = 3, ENGINE_CONFIG["gradient_accumulation_steps"]

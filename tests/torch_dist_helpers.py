@@ -12,6 +12,7 @@ The rank functions the port's tests use live here too: they import only
 torch, numpy and the port.
 """
 
+import collections
 import os
 import pickle
 import socket
@@ -153,7 +154,7 @@ def port_model(state=None, seed=0, dtype="float32", **overrides):
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
     cfg = GPTConfig(dtype=getattr(torch, dtype), param_dtype=torch.float32,
-                    remat=False, **{**TINY, **overrides})
+                    **{"remat": False, **TINY, **overrides})
     model = GPT(cfg)
     if state is not None:
         model.load_state_dict({k: torch.from_numpy(v)
@@ -230,6 +231,57 @@ def train_ranks(rank, world, state, config, micros, steps, dtype="float32"):
             "samples": engine.global_samples, "norm_reduces": reduces}
 
 
+def held_numels(engine):
+    """Per leaf, the elements this rank holds on its device: of the fp32
+    grad accumulator (``acc``) and of the compute parameter (``params``:
+    a stage-3 unit's slice, or the whole leaf)."""
+    held = {i: p.numel() for i, p in engine._dense_params}
+    for unit in engine._units:
+        for i, _, spec in unit.entries:
+            held[i] = spec.numel
+    return {"acc": [int(a.numel()) for a in engine.acc],
+            "params": [int(held[i]) for i in range(len(engine._names))]}
+
+
+def zero_ranks(rank, world, config, micros, steps, state=None, remat=False,
+               dtype="float32", abstract=False, seed=0):
+    """One run of ``steps`` train_batch calls at any ZeRO stage, offload
+    or not; returns losses, grad norms, the gathered state, what this rank
+    holds (device and host) and its collective bytes. ``abstract``: the
+    model is built on the meta device (offload only)."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+    from deepspeed_tpu_torch.runtime.zero.partition_params import \
+        abstract_init
+    if abstract:
+        model = abstract_init(GPT, GPTConfig(
+            dtype=getattr(torch, dtype), param_dtype=torch.float32,
+            remat=remat, **TINY))
+    else:
+        model = port_model(state, seed=seed, dtype=dtype, remat=remat)
+    engine = port_engine(model, config)
+    losses, norms = train(engine, micros, steps,
+                          engine.gradient_accumulation_steps())
+    master, opt = engine_state(engine)
+    out = {"losses": losses, "norms": norms, "master": master, "opt": opt,
+           "dp": engine.dp_world_size, "comm": dict(engine.comm_bytes),
+           **held_numels(engine)}
+    if engine.offload_enabled:
+        host = engine.host_optimizer
+        out["host"] = [leaf.numel for leaf in host.leaves]
+        out["host_bytes"] = host.host_bytes()
+        out["aio_opens"] = sum((h.opens for h in host.handles()),
+                               collections.Counter())
+        out["device_bytes"] = engine.device_state_bytes()
+        host.close()
+    return out
+
+
+def zero_cases(rank, world, cases):
+    """Several :func:`zero_ranks` runs in one start of the ranks."""
+    return {name: zero_ranks(rank, world, **kw) for name, kw in cases.items()}
+
+
 def train_cases(rank, world, cases):
     """Several :func:`train_ranks` runs in one start of the ranks."""
     return {name: train_ranks(rank, world, **kw) for name, kw in cases.items()}
@@ -292,3 +344,77 @@ def resume_cases(rank, world, cases, tag_config=None):
 if __name__ == "__main__":
     a = sys.argv[1:]
     _child(a[0], int(a[1]), int(a[2]), int(a[3]), a[4])
+
+
+def gather_lifetimes(rank, world, config, micros, remats):
+    """:func:`gather_lifetime` under each of ``remats``."""
+    return {remat: gather_lifetime(config, micros, remat)
+            for remat in remats}
+
+
+def gather_lifetime(config, micros, remat):
+    """Stage 3 at this rank: after each block's forward in the first
+    micro-step, how many blocks' gathered weights are still referenced by
+    anything but this probe (the use count of the storage under every
+    parameter a unit's gather hands its block)."""
+    import torch
+    from deepspeed_tpu_torch.runtime.zero.stage3 import GatheredModule
+    engine = port_engine(port_model(remat=remat), config)
+    blocks = [m for m in engine.compute_module.modules()
+              if isinstance(m, GatheredModule) and hasattr(m.inner, "attn")]
+    storages = {id(m.unit): [] for m in blocks}
+
+    def watch(unit):
+        gathered = unit.gathered
+
+        def traced():
+            out = gathered()
+            storages[id(unit)].append(
+                [t.untyped_storage() for t in out.values()])
+            return out
+        unit.gathered = traced
+
+    def held(st):
+        return torch._C._storage_Use_Count(st._cdata) > 1
+
+    for m in blocks:
+        watch(m.unit)
+    live = []
+
+    def count(*_):
+        if len(live) < len(blocks):
+            live.append(sum(any(held(st) for st in sts)
+                            for per in storages.values() for sts in per))
+    hooks = [m.register_forward_hook(count) for m in blocks]
+    train(engine, micros, 1, engine.gradient_accumulation_steps())
+    for h in hooks:
+        h.remove()
+    return {"live": live, "blocks": len(blocks),
+            "gathers": sum(len(per) for per in storages.values())}
+
+
+def _live_storages():
+    """data_ptr -> bytes of every CPU tensor storage the garbage collector
+    can reach."""
+    import gc
+    import torch
+    gc.collect()
+    out = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.device.type == "cpu":
+            st = obj.untyped_storage()
+            out[st.data_ptr()] = st.nbytes()
+    return out
+
+
+def built_bytes(rank, world, configs, dtype="bfloat16"):
+    """Per config: the bytes of the tensors that building an engine
+    (``dtype`` compute) on the tiny GPT left alive at this rank."""
+    out = {}
+    for name, config in configs.items():
+        before = _live_storages()
+        engine = port_engine(port_model(dtype=dtype), config)
+        out[name] = sum(n for ptr, n in _live_storages().items()
+                        if ptr not in before)
+        del engine
+    return out

@@ -4,9 +4,8 @@ checkout of this repository on one NVIDIA GPU.
 
     python3 tools/time_decode.py [--root DIR] [--build-only]
 
-``--root`` names the checkout whose ``deepspeed_tpu_torch`` is imported
-(default: the one holding this script), so two commits compare in one run
-on one card: unpack the other into a directory and time both in turns.
+``--root`` names the checkout timed, ``--build-only`` only builds it
+(``tools/_checkout.py``).
 At GPT-2 125M decode geometry (b 8, S 1024, h 12, d 64, bf16, paged block
 16) it prints one JSON line per case: chip_smoke.py phase 2's mixed fills
 (and the retired-lane sentinel row) with s_q 1, the same with s_q 4, and
@@ -15,46 +14,23 @@ of the four kernels (chip_smoke.py's ``device_ms``: kernels whose name
 holds "decode_attention_kernel", 8 cache copies read in turn so each call
 reads cold) and the host time to issue one B2 and one B3 call (until it
 returns, 100 calls in a row). The card's name and power limit come first.
-``--build-only`` builds the checkout's kernels and exits.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
 import sys
-import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _checkout import open_checkout
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--build-only", action="store_true")
-    args = ap.parse_args(argv)
+    _, root, da, build_s = open_checkout(
+        "time_decode", __doc__, argv, "ops.cuda.decode_attention")
     import torch
-    if not torch.cuda.is_available():
-        print("time_decode: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from chip_smoke import (DECODE_TIME_CASES, _issue_us,   # this checkout's
-                            card_line, decode_case_inputs, decode_copies,
-                            device_ms)
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
+    from chip_smoke import (DECODE_TIME_CASES, _issue_us, card_line,
+                            decode_case_inputs, decode_copies, device_ms)
     from deepspeed_tpu_torch.ops import quantizer as qz
-    from deepspeed_tpu_torch.ops.cuda import _build
-    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
-    if not os.path.abspath(da.__file__).startswith(root):
-        raise RuntimeError(f"imported {da.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
-    if args.build_only:
-        print(json.dumps({"root": root, "build_s": build_s}), flush=True)
-        return 0
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)

@@ -4,53 +4,31 @@ NVIDIA GPU.
 
     python3 tools/time_flash.py [--root DIR] [--build-only]
 
-``--root`` names the checkout whose ``deepspeed_tpu_torch`` is imported
-(default: the one holding this script), so two commits compare in one run
-on one card: unpack the other into a directory and time both in turns.
+``--root`` names the checkout timed, ``--build-only`` only builds it
+(``tools/_checkout.py``).
 For each shape (the ``gpt2_125m_zero1`` training shape B=8, S=1024, H=12,
 D=64 causal; the transformer layer's unmasked shape B=8, S=512, H=16,
 D=64), bf16, it prints one JSON line: the device ms per call of the three
 kernels and the host time to issue one forward and one backward call
 (until the call returns, 100 calls in a row), with chip_smoke.py's
-timing functions. The card's name and power limit come first. ``--build-only``
-builds the checkout's kernels and exits.
+timing functions. The card's name and power limit come first.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
 import sys
-import time
+
+from _checkout import open_checkout
 
 SHAPES = {"train": (8, 1024, 12, 64, True), "layer": (8, 512, 16, 64, False)}
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--build-only", action="store_true")
-    args = ap.parse_args(argv)
+    _, root, fa, build_s = open_checkout(
+        "time_flash", __doc__, argv, "ops.cuda.flash_attention")
     import torch
-    if not torch.cuda.is_available():
-        print("time_flash: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from chip_smoke import _issue_us, card_line, device_ms   # this checkout's
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    from deepspeed_tpu_torch.ops.cuda import _build
-    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    if not os.path.abspath(fa.__file__).startswith(root):
-        raise RuntimeError(f"imported {fa.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
-    if args.build_only:
-        print(json.dumps({"root": root, "build_s": build_s}), flush=True)
-        return 0
+    from chip_smoke import _issue_us, card_line, device_ms
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)

@@ -4,9 +4,8 @@ repository on one NVIDIA GPU.
 
     python3 tools/time_rowwise.py [--root DIR] [--build-only]
 
-``--root`` names the checkout whose ``deepspeed_tpu_torch`` is imported
-(default: the one holding this script), so two commits compare in one run
-on one card: unpack the other into a directory and time both in turns.
+``--root`` names the checkout timed, ``--build-only`` only builds it
+(``tools/_checkout.py``).
 At the shapes of the layer stack (chip_smoke.py phases 22-24: BERT-large
 width, micro 8 x seq 512) it times the LayerNorm forward and dx at
 [4096, 1024] bf16 and the softmax forward and backward at [8 * 16 * 512,
@@ -18,51 +17,30 @@ at least 64 MiB read in turn so each call reads past the 50 MB L2. The
 card's name and power limit come first. Then it trains chip_smoke.py
 phase 23's 24-layer stack through the checkout's kernels (1 warm-up + 3
 timed steps, launch counts checked) and profiles one warmed step (device
-busy ms and idle share). ``--build-only`` builds the checkout's kernels
-and exits.
+busy ms and idle share).
 """
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
 import sys
-import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _checkout import open_checkout
+
 CASES = (("bfloat16", ("layer_norm_fwd", "layer_norm_dx", "softmax_fwd",
                        "softmax_bwd")),
          ("float32", ("softmax_fwd", "softmax_bwd")))
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--build-only", action="store_true")
-    args = ap.parse_args(argv)
+    _, root, ln, build_s = open_checkout(
+        "time_rowwise", __doc__, argv, "ops.cuda.layer_norm")
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("time_rowwise: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from chip_smoke import (card_line, phase_layer_profile,  # this checkout's
+    from chip_smoke import (card_line, phase_layer_profile,
                             phase_layer_training, rowwise_time_cases,
                             rowwise_time_inputs, time_row_case)
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    from deepspeed_tpu_torch.ops.cuda import _build
-    from deepspeed_tpu_torch.ops.cuda import layer_norm as ln
     from deepspeed_tpu_torch.ops.cuda import softmax as sm
-    if not os.path.abspath(ln.__file__).startswith(root):
-        raise RuntimeError(f"imported {ln.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
-    if args.build_only:
-        print(json.dumps({"root": root, "build_s": build_s}), flush=True)
-        return 0
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)

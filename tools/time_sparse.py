@@ -4,9 +4,8 @@ on one NVIDIA GPU.
 
     python3 tools/time_sparse.py [--root DIR] [--build-only] [--no-step]
 
-``--root`` names the checkout whose ``deepspeed_tpu_torch`` is imported
-(default: the one holding this script), so two commits compare in one run
-on one card: unpack the other into a directory and time both in turns.
+``--root`` names the checkout timed, ``--build-only`` only builds it
+(``tools/_checkout.py``).
 At ``bench.py``'s long-context training shape (B=1, S=32768, H=12, D=64,
 bf16, causal, BigBird block 64: chip_smoke.py phases 12 and 16) it prints
 one JSON line: the device ms per call of the forward (B5), dq and dk/dv
@@ -17,52 +16,31 @@ row). A second line
 does the same in fp16 at D=128. Then it trains chip_smoke.py phase 13's
 model (GPT-2 125M at seq 32768 through the sparse kernels) for 1 warm-up
 and 3 timed steps and profiles one warmed step: step wall, device busy
-ms, idle share. The card's name and power limit come first.
-``--build-only`` builds the checkout's kernels and exits; ``--no-step``
-skips the training step.
+ms, idle share. The card's name and power limit come first. ``--no-step`` skips
+the training step.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
 import sys
-import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _checkout import open_checkout
+
 # (dtype, D) of the two lines: the training shape, then fp16 at D = 128
 CASES = (("bfloat16", 64), ("float16", 128))
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--build-only", action="store_true")
-    ap.add_argument("--no-step", action="store_true")
-    args = ap.parse_args(argv)
+    args, root, sa, build_s = open_checkout(
+        "time_sparse", __doc__, argv, "ops.cuda.sparse_attention",
+        flags=("--no-step",))
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("time_sparse: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from chip_smoke import (LONG_SEQ, _issue_us,  # this checkout's
-                            _layout, bench_sparsity, card_line, device_ms,
-                            phase_long_profile, phase_long_training)
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    from deepspeed_tpu_torch.ops.cuda import _build
-    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from chip_smoke import (LONG_SEQ, _issue_us, _layout, bench_sparsity,
+                            card_line, device_ms, phase_long_profile,
+                            phase_long_training)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import attention_delta
-    if not os.path.abspath(sa.__file__).startswith(root):
-        raise RuntimeError(f"imported {sa.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
-    if args.build_only:
-        print(json.dumps({"root": root, "build_s": build_s}), flush=True)
-        return 0
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
