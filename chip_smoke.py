@@ -52,11 +52,12 @@ Phases (any failure exits non-zero before the result lines):
   7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
      the training shape (B=8, S=1024, H=12, D=64, bf16, causal), at phase
      32's (B=4, S=1024, H=32; the kernels line's errors are the worse of
-     the two) and at a non-causal shape whose S (1000) is not a multiple of the 128-row
-     block: out, lse, and dq/dk/dv from one random dO; then over bf16 and
-     fp16 x D 32/64/96/128 x causal or not x S 1024/1000/77 (B=2, H=3);
-     a second backward at the training shape must give bitwise the same
-     grads;
+     the two), at a non-causal shape whose S (1000) is not a multiple of
+     the 128-row block and at the capacity tier's GPT 2.7B shape (B=1,
+     S=1024, H=32, D=80, causal: the d 80 rows' errors): out, lse, and
+     dq/dk/dv from one random dO; then over bf16 and fp16 x D
+     32/64/80/96/128 x causal or not x S 1024/1000/77 (B=2, H=3); a second
+     backward at the training shape must give bitwise the same grads;
   8. the training path: initialize() + DeepSpeedEngine.train_batch on
      GPT-2 125M at full width and depth (12 layers, d_model 768, 12 x 64
      heads, vocab 50304, seq 1024, bf16 over fp32 masters, remat with the
@@ -76,8 +77,9 @@ Phases (any failure exits non-zero before the result lines):
      plain versions, scaled_dot_product_attention forward / its autograd
      backward (a yardstick, never called by the port) and their bounds;
      the same at the transformer layer's unmasked shape (B=8, S=512, H=16,
-     D=64, not causal) and at the training shape in fp16 and at D=96
-     (H=8); the host time to issue one forward and one backward call;
+     D=64, not causal), at the training shape in fp16 and at D=96 (H=8),
+     and at phase 7's capacity shape (D=80: the d 80 rows); the host time
+     to issue one forward and one backward call;
  12. block-sparse kernels (forward, dq, dk/dv) vs their plain versions:
      bf16, fp16 and f32 x layout blocks 16/32/64/128 x causal or not x with
      or without a key-padding mask (BigBird, per-head layouts, B=2, H=4,
@@ -259,12 +261,43 @@ Phases (any failure exits non-zero before the result lines):
      against the cpu tier (2 steps: bitwise losses), then saved at step 2
      and loaded into a fresh engine (the next 2 losses bitwise); prints the
      bytes read and written and their GB/s over the host step, whether
-     O_DIRECT ran, and the save and load seconds.
+     O_DIRECT ran, and the save and load seconds;
+ 35. the layer-streamed tier (offload_param.layer_streaming) against the
+     plain offload engine (stage 1, offload_optimizer cpu) at GPT 2.7B's
+     width (d_model 2560, 32 heads of 80, d_ff 10240) cut to 4 layers, bf16,
+     micro 1 x gas 2 x seq 1024, 3 steps from one counter fill: fails unless
+     the losses are bitwise equal, B1/B1b launch 2 / 1 / 1 times a layer
+     and micro-batch in the streamed run (counts reset just before it: the
+     d 80 rows' launches), and it fetched 2 L and emitted L blocks a
+     micro-batch through two device buffer sets;
+ 36. cpu_checkpointing: GPT-2 125M (micro 8 x seq 1024, bf16, remat policy
+     "nothing") trained 2 steps through initialize() with
+     activation_checkpointing.cpu_checkpointing against remat: fails unless
+     the losses are bitwise equal, the card's memory_allocated after each
+     block's first forward grows by less than one block input (B S D x 2
+     bytes) under cpu_checkpointing and by about one under remat (median
+     growth a block);
+ 37. bench.py's capacity_streamed (bench.py:402-480): its menu and pick
+     rule (the largest of gpt_neox_6.7b, gpt_2.7b, gpt2_1.3b whose
+     _cfg_params x 16 bytes is below 0.45 x MemAvailable; fails with the
+     numbers where none fits) at full width and depth from
+     zero.abstract_init, seq 1024, micro 1 x gas 1, bf16, AdamW lr 1e-4,
+     layer-streamed: 1 warm-up and 2 timed steps, then one eval_batch.
+     Fails unless the losses and the eval loss are finite, the streamer
+     held at most two device block buffer sets, memory_allocated after a
+     timed step equals its value before (within 1 MiB), B1/B1b launched
+     L x (2, 1, 1) a step and the eval fetched L blocks. Prints
+     MemAvailable, the pick, its exact parameter count, init seconds, step
+     seconds, tokens/s, MFU (mfu_report), max_memory_allocated and each
+     step's split (device forward+backward, H2D and D2H bytes and GB/s, the
+     host's block-norm pass, CPU Adam seconds and GB/s).
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
 
-Prints the kernel summary JSON, the card line and, last,
+Prints the kernel summary JSON (the flash rows twice: the training shape,
+and ``*_d80`` at the capacity shape with phase 35's launches; the rows of
+phase 37's head dim also carry its launches), the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
 
@@ -299,7 +332,10 @@ LSE_ATOL = 1e-3          # f32 lse: summation order over the live keys
 LOSS_ATOL = 2e-2         # model check: the einsum rounds attention
 GRAD_NORM_RTOL = 5e-2    # probabilities to bf16, the kernels keep f32
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-FLASH_HEAD_DIMS = (32, 64, 96, 128)
+FLASH_HEAD_DIMS = (32, 64, 80, 96, 128)
+# B1/B1b at the capacity tier's GPT 2.7B shape (2560 / 32 heads: d 80, which
+# the 16-bit kernels run as d 96 with zero-filled columns)
+CAPACITY_FLASH = (1, 1024, 32, 80, True)
 SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 SPARSE_F32_TOL = (1e-4, 1e-4)  # f32: CUDA-core FMAs, summation order only
 # bench.py's long_context_sparse configuration (bench.py:344-399)
@@ -869,7 +905,8 @@ def phase_flash_parity(torch, fa, dev, gen):
     # a ragged non-causal tail
     for tag, (B, S, H, D, causal) in (("train", (8, 1024, 12, 64, True)),
                                       ("ladder", (4, 1024, 32, 64, True)),
-                                      ("tail", (2, 1000, 12, 64, False))):
+                                      ("tail", (2, 1000, 12, 64, False)),
+                                      ("capacity", CAPACITY_FLASH)):
         q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
         e, (ro, rl) = _flash_pair(torch, fa, q, k, v, do, causal)
         print(f"phase7 flash {tag} B={B} S={S} H={H} D={D} causal={causal} "
@@ -881,6 +918,8 @@ def phase_flash_parity(torch, fa, dev, gen):
             errs, train_inputs = e, (q, k, v, do, ro, rl)
         elif tag == "ladder":
             errs = {key: max(val, e[key]) for key, val in errs.items()}
+        elif tag == "capacity":
+            cap_errs = e
         del q, k, v, do, ro, rl
     # the Hopper kernels over their dtypes and head dims, S a multiple of
     # the 128-row block, a ragged tail, and shorter than one block
@@ -911,7 +950,7 @@ def phase_flash_parity(torch, fa, dev, gen):
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         fail("a second flash backward gave different grads")
     print("phase7 flash train: a second backward bitwise equal", flush=True)
-    return errs, train_inputs
+    return errs, train_inputs, cap_errs
 
 
 def phase_training(torch, np, dev, seed, card):
@@ -1091,8 +1130,9 @@ def _issue_us(torch, fn, n: int = 100) -> float:
 
 def phase_flash_timing(torch, fa, dev, gen, inputs, card):
     """The training shape (its entries feed the kernels line), then the
-    layer's unmasked shape and the training shape in fp16 and at d = 96;
-    the host issue time of one forward and one backward call."""
+    layer's unmasked shape, the training shape in fp16 and at d = 96, and
+    the capacity tier's d = 80 shape (its entries feed the d 80 rows); the
+    host issue time of one forward and one backward call."""
     q, k, v, do, out, lse = inputs
     t = _flash_times(torch, fa, q, k, v, do, out, lse, True)
     for name, vals in t.items():
@@ -1101,10 +1141,13 @@ def phase_flash_timing(torch, fa, dev, gen, inputs, card):
     for tag, (B, S, H, D, causal, dtype) in (
             ("layer", (8, 512, 16, 64, False, torch.bfloat16)),
             ("train_fp16", (8, 1024, 12, 64, True, torch.float16)),
-            ("train_d96", (8, 1024, 8, 96, True, torch.bfloat16))):
+            ("train_d96", (8, 1024, 8, 96, True, torch.bfloat16)),
+            ("capacity_d80", CAPACITY_FLASH + (torch.bfloat16,))):
         xs = [x.to(dtype) for x in _qkv(torch, dev, gen, B, S, H, D)]
         o, l = fa.flash_attention_forward(*xs[:3], causal, D ** -0.5)
         extra = _flash_times(torch, fa, *xs, o, l, causal)
+        if tag == "capacity_d80":
+            t_d80 = extra
         for name, vals in extra.items():
             print(f"phase11 {tag} B={B} S={S} H={H} D={D} causal={causal} "
                   f"{str(dtype)[6:]} {name} " + " ".join(
@@ -1118,7 +1161,7 @@ def phase_flash_timing(torch, fa, dev, gen, inputs, card):
         q, k, v, out, lse, do, True, scale))
     print(f"phase11 host issue us per call: forward={fwd_us} "
           f"backward (delta, dq, dk/dv)={bwd_us} card={card}", flush=True)
-    return t
+    return t, t_d80
 
 
 def bench_sparsity(heads: int = 12):
@@ -3831,6 +3874,299 @@ def phase_nvme(torch, np, dev, seed, card):
              f"{launches}")
 
 
+# phase 35: the streamed engine against the plain offload engine at GPT
+# 2.7B's width (d_model 2560, 32 heads of 80, d_ff 10240; 4 layers), bf16,
+# micro 1 x gas 2 x seq 1024 (the capacity config with gas 2, so the host
+# adds a second micro-batch's grads), 3 steps from one counter fill
+PARITY_LAYERS, PARITY_GAS, PARITY_STEPS = 4, 2, 3
+# phase 36: cpu_checkpointing against remat (policy "nothing": both save
+# only the block input, one in host memory, one on the card), GPT-2 125M,
+# micro 8 x seq 1024 x gas 1, 2 steps
+CKPT_STEPS = 2
+# phase 37: bench.py's capacity_streamed (bench.py:402-480): its menu and
+# pick rule (bench.py:420-448; _cfg_params bench.py:199), copied here
+CAPACITY_SEQ = 1024
+CAPACITY_CONFIG = {"train_micro_batch_size_per_gpu": 1,
+                   "gradient_accumulation_steps": 1,
+                   "bf16": {"enabled": True},
+                   "zero_optimization": {
+                       "stage": 1,
+                       "offload_optimizer": {"device": "cpu"},
+                       "offload_param": {"layer_streaming": True}},
+                   "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                   "steps_per_print": 100_000}
+CAPACITY_HOST_SHARE = 0.45     # bench.py:437-438: a wide margin on a shared
+CAPACITY_BYTES_PER_PARAM = 16  # host; master, moments and grads
+# memory_allocated before and after a streamed step: equal up to the
+# returned loss tensor and the allocator's rounding of small blocks
+CAPACITY_MEM_SLACK = 1 << 20
+
+
+def capacity_menu(torch):
+    """bench.py's menu (bench.py:420-430), largest first."""
+    from deepspeed_tpu_torch.models.gpt import GPTConfig, gpt_neox_6_7b
+    return [
+        ("gpt_neox_6.7b", gpt_neox_6_7b(max_seq_len=CAPACITY_SEQ,
+                                        dtype=torch.bfloat16)),
+        ("gpt_2.7b", GPTConfig(num_layers=32, num_heads=32, d_model=2560,
+                               d_ff=10240, max_seq_len=CAPACITY_SEQ,
+                               dtype=torch.bfloat16)),
+        ("gpt2_1.3b", GPTConfig(num_layers=24, num_heads=32, d_model=2048,
+                                d_ff=8192, max_seq_len=CAPACITY_SEQ,
+                                dtype=torch.bfloat16)),
+    ]
+
+
+def bench_cfg_params(cfg) -> int:
+    """bench.py's ``_cfg_params`` (bench.py:199), the pick's measure."""
+    return ((12 * cfg.d_model ** 2 + 2 * cfg.d_model * cfg.d_ff)
+            * cfg.num_layers + cfg.vocab_size * cfg.d_model
+            + cfg.max_seq_len * cfg.d_model)
+
+
+def _free_engine(torch, engine) -> None:
+    import gc
+    engine.host_optimizer.close()
+    st = getattr(engine, "_layer_streamer", None)
+    if st is not None:
+        st.close_io()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _stream_engine(torch, cfg, config, seed):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.models.gpt import GPT, lm_loss_fn
+    model = zero.abstract_init(GPT, cfg)
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=dict(config, seed=seed))
+    return engine
+
+
+def phase_streamed_parity(torch, np, dev, seed, card):
+    """Phase 35: the layer-streamed engine against the plain offload
+    engine (stage 1, offload_optimizer cpu) at GPT 2.7B's width, 4 layers,
+    from one counter fill: bitwise losses (the same kernels on the same
+    inputs; the block grads summed in f32 on the host instead of the card,
+    the same IEEE sums)."""
+    import dataclasses
+    from deepspeed_tpu_torch.ops.cuda import _build
+    cfg = dataclasses.replace(capacity_menu(torch)[1][1],
+                              num_layers=PARITY_LAYERS)
+    plain_cfg = dict(CAPACITY_CONFIG, gradient_accumulation_steps=PARITY_GAS,
+                     zero_optimization={"stage": 1, "offload_optimizer": {
+                         "device": "cpu"}})
+    stream_cfg = dict(CAPACITY_CONFIG,
+                      gradient_accumulation_steps=PARITY_GAS)
+    rng = np.random.default_rng(seed)
+    micros = [{"input_ids": rng.integers(0, cfg.vocab_size, (
+        1, CAPACITY_SEQ)).astype(np.int32)} for _ in range(PARITY_GAS)]
+    result = {}
+    for tag, config in (("plain", plain_cfg), ("streamed", stream_cfg)):
+        engine = _stream_engine(torch, cfg, config, seed)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        losses, secs = [], []
+        for _ in range(PARITY_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(iter(micros))))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = {name: _build.LAUNCHES[name] for name in FLASH}
+        st = engine._layer_streamer
+        counts = None if st is None else (st.fetches, st.emits,
+                                          st.peak_buffer_sets)
+        result[tag] = (losses, secs, launches, counts)
+        print(f"phase35 {tag} gpt_2.7b width x {PARITY_LAYERS} layers "
+              f"(d 80) micro 1 x gas {PARITY_GAS} losses={losses} "
+              f"step_s={secs} launches={launches} (fetches, emits, "
+              f"buffer sets)={counts} card={card}", flush=True)
+        _free_engine(torch, engine)
+    plain, streamed = result["plain"][0], result["streamed"][0]
+    L, n = PARITY_LAYERS, PARITY_GAS * PARITY_STEPS
+    want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
+            "flash_bwd_dkv": L * n}
+    if plain != streamed:
+        fail(f"phase 35: streamed losses {streamed} are not bitwise the "
+             f"plain offload engine's {plain}")
+    launches = result["streamed"][2]
+    if launches != want:
+        fail(f"phase 35 streamed flash launches {launches}, expected {want}")
+    if result["streamed"][3] != (2 * L * n, L * n, 2):
+        fail(f"phase 35: (fetches, emits, buffer sets) "
+             f"{result['streamed'][3]}, expected {(2 * L * n, L * n, 2)}")
+    return launches
+
+
+def phase_cpu_checkpointing(torch, np, dev, seed, card):
+    """Phase 36: GPT-2 125M with activation_checkpointing.cpu_checkpointing
+    against remat, the card's bytes after each block's first forward."""
+    import dataclasses
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_125m, lm_loss_fn
+    cfg = gpt2_125m(max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16,
+                    remat_policy="nothing")
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)
+    block_bytes = TRAIN_MICRO * TRAIN_SEQ * cfg.d_model * 2
+    result = {}
+    for tag, extra in (("remat", {}), ("cpu_checkpointing", {
+            "activation_checkpointing": {"cpu_checkpointing": True}})):
+        model = GPT(cfg, device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        engine, *_ = dst.initialize(
+            model=model, loss_fn=lm_loss_fn,
+            config=dict(TRAIN_CONFIG, gradient_accumulation_steps=1,
+                        **extra))
+        marks, hooks = [], []
+        for blk in engine.compute_module.blocks:
+            hooks.append(blk.register_forward_hook(
+                lambda *a: marks.append(torch.cuda.memory_allocated(dev))
+                if len(marks) < cfg.num_layers else None))
+        losses, secs = [], []
+        for _ in range(CKPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(iter([{
+                "input_ids": ids}]))))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        for h in hooks:
+            h.remove()
+        growth = [b - a for a, b in zip(marks, marks[1:])]
+        result[tag] = (losses, sorted(growth)[len(growth) // 2])
+        print(f"phase36 {tag} gpt2_125m micro {TRAIN_MICRO} x seq "
+              f"{TRAIN_SEQ} losses={losses} step_s={secs} memory_allocated "
+              f"after each block's first forward={marks} (median growth a "
+              f"block {result[tag][1]}; one block input is {block_bytes} "
+              f"bytes) cpu_checkpointing={engine.module.cfg.cpu_checkpointing}"
+              f" card={card}", flush=True)
+        del engine, model
+        torch.cuda.empty_cache()
+    (remat, g_remat), (cpu, g_cpu) = result["remat"], result[
+        "cpu_checkpointing"]
+    if remat != cpu or not all(np.isfinite(cpu)):
+        fail(f"phase 36: cpu_checkpointing losses {cpu} are not bitwise "
+             f"remat's {remat}")
+    if not g_cpu < block_bytes <= g_remat * 1.1:
+        fail(f"phase 36: the card grew {g_cpu} bytes a block under "
+             f"cpu_checkpointing and {g_remat} under remat (one block input "
+             f"is {block_bytes})")
+
+
+def phase_capacity_streamed(torch, np, dev, seed, card, model=None):
+    """Phase 37: bench.py's capacity_streamed through the port's entry
+    points: the menu's largest model whose host bytes fit, full width and
+    depth, layer-streamed, 1 warm-up and 2 timed steps and one eval.
+    ``model`` names a menu entry to train instead of the pick
+    (``tools/time_capacity.py --model``)."""
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.models.gpt import gpt_flops_per_token
+    from deepspeed_tpu_torch.ops import cpu_adam
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.telemetry.mfu import (mfu_report,
+                                                   peak_flops_per_device)
+    host = mem_available()
+    menu = capacity_menu(torch)
+    pick = next(((name, c) for name, c in menu if bench_cfg_params(c)
+                 * CAPACITY_BYTES_PER_PARAM < host * CAPACITY_HOST_SHARE),
+                None)
+    print(f"phase37 capacity_streamed MemAvailable={host} menu="
+          f"{[(name, bench_cfg_params(c)) for name, c in menu]} pick="
+          f"{pick and pick[0]} (bench's rule: _cfg_params x "
+          f"{CAPACITY_BYTES_PER_PARAM} < {CAPACITY_HOST_SHARE} x "
+          f"MemAvailable)", flush=True)
+    if model is not None:
+        pick = next((e for e in menu if e[0] == model), None)
+        if pick is None:
+            fail(f"phase 37: no menu entry {model!r}")
+        print(f"phase37 training {model} instead of the pick", flush=True)
+    if pick is None:
+        need = bench_cfg_params(menu[-1][1]) * CAPACITY_BYTES_PER_PARAM
+        fail(f"phase 37: the smallest menu model needs {need} bytes of host "
+             f"memory, {CAPACITY_HOST_SHARE} x MemAvailable is "
+             f"{host * CAPACITY_HOST_SHARE}")
+    name, cfg = pick
+    torch.cuda.empty_cache()
+    reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    engine = _stream_engine(torch, cfg, CAPACITY_CONFIG, seed)
+    init_s = time.perf_counter() - t0
+    n = zero.num_params(engine.module)
+    st, hopt = engine._layer_streamer, engine.host_optimizer
+    print(f"phase37 {name} params={n} layers={cfg.num_layers} d_model="
+          f"{cfg.d_model} heads={cfg.num_heads} (d {cfg.head_dim}) init_s="
+          f"{init_s} host_bytes={hopt.host_bytes()} block_numel="
+          f"{st.block_numel} omp_threads={cpu_adam.omp_threads()} "
+          f"card={card}", flush=True)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, CAPACITY_SEQ)).astype(np.int32)
+    batch = [{"input_ids": ids}]
+    engine.offload_timing = {}
+    losses, secs, splits, steady = [], [], [], []
+    _build.reset_launch_counts()
+    for _ in range(3):                 # 1 warm-up + 2 timed steps
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(iter(batch))))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        steady.append(torch.cuda.memory_allocated(dev) - before)
+        splits.append(dict(engine.offload_timing, cpu_adam_s=hopt.adam_s))
+    launches = {k: _build.LAUNCHES[k] for k in FLASH}
+    peak = torch.cuda.max_memory_allocated(dev)
+    fetched = st.fetches
+    ev_loss = float(engine.eval_batch({"input_ids": ids}))
+    eval_fetches = st.fetches - fetched
+    tokens = CAPACITY_SEQ
+    step_s = sum(secs[1:]) / 2
+    report = mfu_report(
+        flops_per_call=gpt_flops_per_token(cfg, CAPACITY_SEQ) * tokens,
+        calls=2, wall_s=sum(secs[1:]), peak_flops=peak_flops_per_device(dev),
+        label="capacity_streamed train_batch")
+    print(f"phase37 losses={losses} step_s={secs} launches={launches} "
+          f"fetches={fetched} emits={st.emits} peak_buffer_sets="
+          f"{st.peak_buffer_sets} max_memory_allocated={peak} "
+          f"memory_allocated_change_a_step={steady} eval_loss={ev_loss} "
+          f"eval_fetches={eval_fetches} card={card}", flush=True)
+    for i, sp in enumerate(splits):
+        print(f"phase37 step{i} split: device_fwd_bwd_s="
+              f"{sp.get('device_fwd_bwd_s')} h2d_s={sp.get('h2d_s')} "
+              f"h2d_bytes={sp.get('h2d_bytes')} h2d_GBps="
+              f"{_gbps(sp.get('h2d_bytes', 0), sp.get('h2d_s'))} d2h_s="
+              f"{sp.get('d2h_s')} d2h_bytes={sp.get('d2h_bytes')} d2h_GBps="
+              f"{_gbps(sp.get('d2h_bytes', 0), sp.get('d2h_s'))} cpu_adam_s="
+              f"{sp['cpu_adam_s']} cpu_adam_bytes={CPU_ADAM_BYTES * n} "
+              f"cpu_adam_GBps={_gbps(CPU_ADAM_BYTES * n, sp['cpu_adam_s'])} "
+              f"host_norm_s={sp.get('host_norm_s')} host_step_s="
+              f"{sp.get('host_step_s')} update_s={sp.get('update_s')} "
+              f"card={card}", flush=True)
+    print(f"phase37 capacity_streamed {name} params={n} step_s={step_s} "
+          f"tokens_per_s={tokens / step_s} tflops="
+          f"{report['achieved_tflops_per_s']} mfu={report['mfu']} "
+          f"mfu_report={json.dumps(report)} card={card}", flush=True)
+    L = cfg.num_layers
+    _free_engine(torch, engine)
+    if not all(np.isfinite(losses)) or not np.isfinite(ev_loss):
+        fail(f"phase 37: non-finite losses {losses} / eval {ev_loss}")
+    if st.peak_buffer_sets > 2:
+        fail(f"phase 37: the streamer held {st.peak_buffer_sets} device "
+             f"block buffer sets")
+    if max(abs(d) for d in steady[1:]) > CAPACITY_MEM_SLACK:
+        fail(f"phase 37: memory_allocated changed by {steady} bytes over a "
+             f"step (the card must hold nothing of the model between steps)")
+    want = {"flash_fwd": 2 * L * 3, "flash_bwd_dq": L * 3,
+            "flash_bwd_dkv": L * 3}
+    if launches != want:
+        fail(f"phase 37 flash launches {launches}, expected {want}")
+    if eval_fetches != L:
+        fail(f"phase 37: the eval fetched {eval_fetches} blocks, not {L}")
+    return launches, name, cfg.head_dim
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3876,7 +4212,8 @@ def main(argv=None) -> int:
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
     verify_err, _ = phase_verify_parity(torch, da, qz, dev, gen)
     logits, sp_err = phase_sampling(torch, sp, dev, gen)
-    flash_err, flash_inputs = phase_flash_parity(torch, fa, dev, gen)
+    flash_err, flash_inputs, flash_err_d80 = phase_flash_parity(torch, fa,
+                                                                dev, gen)
     launches, ie, prompts, serve_kw = phase_serving(torch, np, dev,
                                                    args.seed, card)
     (da_t, da_bound, da_by), (sp_t, sp_bound, sp_by) = phase_timing(
@@ -3897,7 +4234,8 @@ def main(argv=None) -> int:
     phase_model_check(torch, dev, engine, cfg, ids)
     phase_train_profile(torch, engine, ids, card)
     del engine
-    flash_t = phase_flash_timing(torch, fa, dev, gen, flash_inputs, card)
+    flash_t, flash_t_d80 = phase_flash_timing(torch, fa, dev, gen,
+                                              flash_inputs, card)
     del flash_inputs
     torch.cuda.empty_cache()
 
@@ -3946,6 +4284,12 @@ def main(argv=None) -> int:
     launches_offload = phase_zero3_offload(torch, np, dev, args.seed, card)
     launches_dp = phase_dp_stages(args.seed, card, dp1_losses, stage1_ranks)
     phase_nvme(torch, np, dev, args.seed, card)
+    launches_parity = phase_streamed_parity(torch, np, dev, args.seed, card)
+    phase_cpu_checkpointing(torch, np, dev, args.seed, card)
+    launches_capacity, cap_name, cap_d = phase_capacity_streamed(
+        torch, np, dev, args.seed, card)
+    # the capacity pick's launches go to the rows of its head dim
+    cap_row = "_d80" if cap_d == 80 else ""
 
     kernels = [
         {"name": "decode_attention", "route": "cuda",
@@ -3959,13 +4303,23 @@ def main(argv=None) -> int:
          "launches": launches["sampling"], "max_abs_err": sp_err,
          **sp_t, "bound_ms": sp_bound, "bound_by": sp_by},
     ] + [
-        {"name": name, "route": "cuda",
+        {"name": name + tag, "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
-         "replaces": replaces, "launches": launches_train[name],
-         "launches_zero3_offload": launches_offload[name],
-         "launches_zero2_dp2": launches_dp[2][name],
-         "launches_zero3_dp2": launches_dp[3][name],
-         "max_abs_err": flash_err[name], **flash_t[name]}
+         "replaces": replaces, **counts(name), **(
+             {"launches_capacity_streamed": launches_capacity[name],
+              "capacity_pick": f"{cap_name} (d {cap_d})"}
+             if tag == cap_row else {}),
+         "max_abs_err": errs[name], **times[name]}
+        for tag, counts, errs, times in (
+            ("", lambda name: {
+                "launches": launches_train[name],
+                "launches_zero3_offload": launches_offload[name],
+                "launches_zero2_dp2": launches_dp[2][name],
+                "launches_zero3_dp2": launches_dp[3][name]},
+             flash_err, flash_t),
+            ("_d80", lambda name: {
+                "launches": launches_parity[name]},
+             flash_err_d80, flash_t_d80))
         for name, replaces in (
             ("flash_fwd", "deepspeed_tpu/ops/pallas/flash_attention.py:52"),
             ("flash_bwd_dq",

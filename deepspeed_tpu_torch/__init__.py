@@ -10,6 +10,7 @@ from .inference.engine import InferenceEngine
 from .models.gpt import GPT, GPTConfig
 from .ops.transformer import (DeepSpeedTransformerConfig,
                               DeepSpeedTransformerLayer)
+from .runtime import activation_checkpointing as checkpointing
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 # zero.Init analogue: abstract (meta-device) construction, the counter-based
 # shard fill and sharded_init (runtime/zero/partition_params.py)
@@ -19,7 +20,8 @@ from .serving.engine import ServingEngine
 __all__ = ["InferenceEngine", "ServingEngine", "GPT", "GPTConfig",
            "DeepSpeedConfig", "DeepSpeedConfigError",
            "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
-           "initialize", "init_inference", "init_distributed", "zero"]
+           "initialize", "init_inference", "init_distributed", "zero",
+           "checkpointing"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

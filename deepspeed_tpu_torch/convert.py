@@ -19,7 +19,9 @@ adds no parameter). ``bert_params_to_state_dict`` maps the trees of
 way onto ``deepspeed_tpu_torch.models.bert``, and
 ``transformer_layer_params_to_state_dict`` the tree of one
 ``deepspeed_tpu.ops.transformer.DeepSpeedTransformerLayer`` onto the port's
-layer of the same name.
+layer of the same name, and ``tiled_params_to_state_dict`` one
+``TiledDense`` onto ``runtime.zero.tiling.TiledLinear`` (its ``kernel``
+[p·q, in/p, out/q] keeps its layout).
 
 Any tree with the params' structure maps the same way: a JAX gradient tree
 (``jax.grad`` of the loss) or an Adam moment tree (``AdamState.mu`` /
@@ -205,4 +207,15 @@ def transformer_layer_params_to_state_dict(
         _norm(name, params_np[name], out)
     for name in ("attn_qkv", "attn_out", "inter", "output"):
         _dense(name, params_np[name], out)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def tiled_params_to_state_dict(
+        params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """One ``TiledDense`` params tree (``kernel`` [p·q, in/p, out/q], and
+    ``bias`` [out] when it has one) -> ``TiledLinear``'s state_dict: the
+    tiles keep their layout and order."""
+    out = {"kernel": np.asarray(params_np["kernel"])}
+    if "bias" in params_np:
+        out["bias"] = np.asarray(params_np["bias"])
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}

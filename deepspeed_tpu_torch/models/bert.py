@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_attention.sparse_self_attention import sparse_attention
-from .gpt import _layer_norm, _linear, init_weights
+from .gpt import _layer_norm, _linear, init_weights, layer_norm, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +71,33 @@ def bert_base(**kw) -> BertConfig:
 def bert_large(**kw) -> BertConfig:
     return BertConfig(num_layers=24, num_heads=16, d_model=1024,
                       d_ff=4096, **kw)
+
+
+def bert_embed(cfg: BertConfig, p, input_ids, token_type_ids=None
+               ) -> torch.Tensor:
+    """Word, position and token-type embeddings and their LayerNorm, the
+    encoder's input, from the ``BertModel`` tensors ``p`` by name."""
+    dt = cfg.dtype
+    s = input_ids.shape[1]
+    x = F.embedding(input_ids, p["wte.weight"].to(dt))
+    x = x + p["wpe"][None, :s].to(dt)
+    if cfg.type_vocab_size:
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = x + F.embedding(token_type_ids, p["wtt.weight"].to(dt))
+    return layer_norm(x, p["ln_emb.weight"], p["ln_emb.bias"],
+                      cfg.layer_norm_eps, dt)
+
+
+def mlm_head(cfg: BertConfig, p, x) -> torch.Tensor:
+    """The MLM head over the encoder's output, from the
+    ``BertForMaskedLM`` tensors ``p`` by name: logits [B, S, V]."""
+    dt = cfg.dtype
+    h = F.gelu(linear(x, p["transform.weight"], p["transform.bias"], dt),
+               approximate="none")
+    h = layer_norm(h, p["ln_head.weight"], p["ln_head.bias"],
+                   cfg.layer_norm_eps, dt)
+    return linear(h, p["decoder.weight"], p["decoder.bias"], dt)
 
 
 def _norm(cfg: BertConfig, device) -> nn.LayerNorm:
@@ -163,18 +190,20 @@ class BertModel(nn.Module):
         """Random weights (``models.gpt.init_weights``)."""
         init_weights(self, generator, std)
 
+    def _embedding_params(self):
+        p = {"wte.weight": self.wte.weight, "wpe": self.wpe,
+             "ln_emb.weight": self.ln_emb.weight,
+             "ln_emb.bias": self.ln_emb.bias}
+        if self.cfg.type_vocab_size:
+            p["wtt.weight"] = self.wtt.weight
+        return p
+
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 deterministic: bool = True):
         cfg = self.cfg
         dt = cfg.dtype
-        s = input_ids.shape[1]
-        x = F.embedding(input_ids, self.wte.weight.to(dt))
-        x = x + self.wpe[None, :s].to(dt)
-        if cfg.type_vocab_size:
-            if token_type_ids is None:
-                token_type_ids = torch.zeros_like(input_ids)
-            x = x + F.embedding(token_type_ids, self.wtt.weight.to(dt))
-        x = _layer_norm(x, self.ln_emb, dt)
+        x = bert_embed(cfg, self._embedding_params(), input_ids,
+                       token_type_ids)
         if attention_mask is not None:
             attention_mask = torch.as_tensor(attention_mask,
                                              device=x.device).bool()
@@ -203,11 +232,17 @@ class BertForMaskedLM(nn.Module):
         """Random weights (``models.gpt.init_weights``)."""
         init_weights(self, generator, std)
 
+    def stacked_spec(self, loss_fn):
+        """The prefix / block / suffix factoring the layer-streamed tier
+        drives (``runtime/pipe/spmd.bert_mlm_pipe_spec``)."""
+        from ..runtime.pipe.spmd import bert_mlm_pipe_spec
+        return bert_mlm_pipe_spec(self, loss_fn)
+
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 deterministic: bool = True):
-        dt = self.cfg.dtype
         x, _ = self.bert(input_ids, token_type_ids, attention_mask,
                          deterministic)
-        h = F.gelu(_linear(x, self.transform, dt), approximate="none")
-        h = _layer_norm(h, self.ln_head, dt)
-        return _linear(h, self.decoder, dt)
+        return mlm_head(self.cfg, {
+            f"{m}.{k}": getattr(getattr(self, m), k)
+            for m in ("transform", "ln_head", "decoder")
+            for k in ("weight", "bias")}, x)

@@ -56,6 +56,8 @@ from ..ops.cuda.decode_attention import (decode_attention,
 from ..ops.cuda.flash_attention import flash_attention
 from ..ops.quantizer import dequantize_kv, quantize_kv
 from ..ops.sparse_attention.sparse_self_attention import sparse_attention
+from ..runtime.activation_checkpointing import (HostCheckpoints,
+                                                OffloadedCheckpoint)
 
 aten = torch.ops.aten
 
@@ -74,8 +76,10 @@ _REMAT_SAVE = {
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The TPU package's GPTConfig, field for field. Fields of features not
-    ported yet (MoE, sequence parallelism, local windows, the tp overlap,
-    cpu checkpointing) must stay at their defaults. ``kv_cache_dtype`` is
+    ported yet (MoE, sequence parallelism, local windows, the tp overlap)
+    must stay at their defaults. ``cpu_checkpointing`` (with ``remat``)
+    keeps each block's input in page-locked host memory instead of on the
+    device (:class:`OffloadedCheckpoint`). ``kv_cache_dtype`` is
     "auto" (the cache in ``dtype``) or "int8".
     ``attention_impl="sparse"`` needs a ``sparse_attention`` SparsityConfig
     (the port's own, ``ops/sparse_attention``) and ``sparse_attention`` is
@@ -124,6 +128,10 @@ class GPTConfig:
     moe_use_residual: bool = False
 
     def __post_init__(self):
+        if self.cpu_checkpointing and not self.remat:
+            raise ValueError(
+                "cpu_checkpointing offloads remat-saved block inputs to "
+                "host memory, so it requires remat=True")
         if self.decode_impl not in ("auto", "einsum"):
             raise ValueError(f"unknown decode_impl {self.decode_impl!r}: "
                              f"use 'auto' or 'einsum'")
@@ -146,8 +154,7 @@ class GPTConfig:
         later = {"moe": self.moe,
                  "sequence_parallel": self.sequence_parallel,
                  "attn_windows": self.attn_windows is not None,
-                 "tp_overlap": self.tp_overlap,
-                 "cpu_checkpointing": self.cpu_checkpointing}
+                 "tp_overlap": self.tp_overlap}
         on = [name for name, flag in later.items() if flag]
         if on:
             raise NotImplementedError(
@@ -219,18 +226,53 @@ def init_weights(module: nn.Module,
             p.normal_(0.0, std, generator=generator)
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], dtype) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: inputs and params cast to the compute
     dtype."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    bias = None if bias is None else bias.to(dtype)
+    return F.linear(x.to(dtype), weight.to(dtype), bias)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float, dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=...)``: statistics in f32, result in dtype."""
+    return F.layer_norm(x.float(), weight.shape, weight.float(),
+                        bias.float(), eps).to(dtype)
+
+
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
+    return linear(x, layer.weight, layer.bias, dtype)
 
 
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=...)``: statistics in f32, result in dtype."""
-    return F.layer_norm(x.float(), layer.normalized_shape,
-                        layer.weight.float(), layer.bias.float(),
-                        layer.eps).to(dtype)
+    return layer_norm(x, layer.weight, layer.bias, layer.eps, dtype)
+
+
+def embed_tokens(cfg: GPTConfig, wte: torch.Tensor,
+                 wpe: Optional[torch.Tensor], input_ids: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Token (and, without rotary, learned position) embeddings in the
+    compute dtype: the trunk's input."""
+    dt = cfg.dtype
+    x = F.embedding(input_ids, wte.to(dt))
+    if not cfg.rotary:
+        x = x + wpe[positions].to(dt)
+    return x
+
+
+def head_logits(cfg: GPTConfig, head: torch.Tensor,
+                hidden: torch.Tensor) -> torch.Tensor:
+    """Final-LayerNormed hidden states -> logits over ``head`` [V, D] (the
+    tied ``wte`` or ``lm_head``)."""
+    return F.linear(hidden.to(cfg.dtype), head.to(cfg.dtype))
+
+
+def final_logits(cfg: GPTConfig, x: torch.Tensor, ln_w: torch.Tensor,
+                 ln_b: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The trunk's output -> ln_f -> logits."""
+    return head_logits(cfg, head, layer_norm(x, ln_w, ln_b,
+                                             cfg.layer_norm_eps, cfg.dtype))
 
 
 def _kv_write(cache: torch.Tensor, kv: torch.Tensor,
@@ -497,18 +539,20 @@ class GPT(nn.Module):
         LayerNorm scales 1."""
         init_weights(self, generator, std)
 
+    def stacked_spec(self, loss_fn=None):
+        """The prefix / block / suffix factoring the layer-streamed tier
+        drives (``runtime/pipe/spmd.gpt_pipe_spec``)."""
+        from ..runtime.pipe.spmd import gpt_pipe_spec
+        return gpt_pipe_spec(self, loss_fn)
+
     def _embed(self, input_ids, positions):
-        dt = self.cfg.dtype
-        x = F.embedding(input_ids, self.wte.weight.to(dt))
-        if not self.cfg.rotary:
-            x = x + self.wpe[positions].to(dt)
-        return x
+        return embed_tokens(self.cfg, self.wte.weight,
+                            getattr(self, "wpe", None), input_ids, positions)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Final-LayerNormed hidden states -> logits (tied: ``x @ wte.T``)."""
         head = self.wte if self.cfg.tie_embeddings else self.lm_head
-        return F.linear(hidden.to(self.cfg.dtype),
-                        head.weight.to(self.cfg.dtype))
+        return head_logits(self.cfg, head.weight, hidden)
 
     def prefill(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
@@ -544,7 +588,9 @@ class GPT(nn.Module):
         with grad enabled) each block runs under non-reentrant
         ``torch.utils.checkpoint``, saving only what ``cfg.remat_policy``
         names; the rest, flash or sparse attention included, is recomputed
-        in the backward."""
+        in the backward. With ``cfg.cpu_checkpointing`` a block saves nothing
+        on the device: its input waits in page-locked host memory
+        (:class:`OffloadedCheckpoint`)."""
         cfg = self.cfg
         b, s = input_ids.shape
         if positions is None:
@@ -553,8 +599,14 @@ class GPT(nn.Module):
         x = self._embed(input_ids, positions)
         run = functools.partial(_block_output, impl=cfg.attention_impl)
         remat = cfg.remat and torch.is_grad_enabled()
+        offload = HostCheckpoints(x.device) if (
+            remat and cfg.cpu_checkpointing) else None
         for blk in self.blocks:
-            if remat:
+            if offload is not None:
+                x = OffloadedCheckpoint.apply(
+                    offload, functools.partial(run, blk, positions=positions),
+                    x)
+            elif remat:
                 x = torch_checkpoint.checkpoint(
                     run, blk, x, positions, use_reentrant=False,
                     context_fn=_remat_context(cfg.remat_policy))

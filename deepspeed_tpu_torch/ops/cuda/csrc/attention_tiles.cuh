@@ -73,7 +73,7 @@ constexpr int kBwdGroup = 8;        // keys (dq) / query rows (dk, dv) per step
 // and the threads of a row are a power of two (the shuffle sums). The
 // forward takes 32; the backward kernels hold three or four row vectors, so
 // they take 16 up to D = 64 (registers limit them). D = 96 takes 24 in both
-// (4 threads a row).
+// and D = 80 (flash only) 20 (4 threads a row).
 template <int D, int CH>
 struct Split {
   static constexpr int kD = D;
@@ -83,9 +83,10 @@ struct Split {
   static constexpr int kThreads = kRows * kTpr;
 };
 template <int D>
-using FwdSplit = Split<D, (D == 96 ? 24 : 32)>;
+using FwdSplit = Split<D, (D == 96 ? 24 : D == 80 ? 20 : 32)>;
 template <int D>
-using BwdSplit = Split<D, (D == 96 ? 24 : D <= 64 ? 16 : 32)>;
+using BwdSplit =
+    Split<D, (D == 96 ? 24 : D == 80 ? 20 : D <= 64 ? 16 : 32)>;
 
 // first channel of chunk i of the thread that is part `part` of its row
 template <class SP>
@@ -216,9 +217,11 @@ template <typename T>
 T* as(void* p) { return static_cast<T*>(p); }
 
 // The element types of the C interfaces: 0 = float32, 1 = bfloat16,
-// 2 = float16; the head dims: 32, 64, 96, 128.
+// 2 = float16; the head dims: 32, 64, 96, 128, and 80 with kWith80 (the
+// flash kernels only).
 // Calls F<T, D, causal>::run(args...) for the runtime dtype / D / causal.
-template <template <typename, int, bool> class F, typename... Args>
+template <template <typename, int, bool> class F, bool kWith80 = false,
+          typename... Args>
 cudaError_t dispatch(int dtype, int d, int causal, Args... args) {
 #define DSTORCH_ATTENTION_CASE(T, D)                                  \
   if (d == D)                                                         \
@@ -228,7 +231,10 @@ cudaError_t dispatch(int dtype, int d, int causal, Args... args) {
   DSTORCH_ATTENTION_CASE(T, 32)                                       \
   DSTORCH_ATTENTION_CASE(T, 64)                                       \
   DSTORCH_ATTENTION_CASE(T, 96)                                       \
-  DSTORCH_ATTENTION_CASE(T, 128)
+  DSTORCH_ATTENTION_CASE(T, 128)                                      \
+  if constexpr (kWith80) {                                            \
+    DSTORCH_ATTENTION_CASE(T, 80)                                     \
+  }
   if (dtype == 0) {
     DSTORCH_ATTENTION_DTYPE(float)
   } else if (dtype == 1) {

@@ -20,7 +20,7 @@
 // Only wgmma reaches the tensor cores' rate, and only if the tiles arrive
 // without the threads' help. Two families:
 //
-//   * bf16 / fp16 (the training path), d in {32, 64, 96, 128): wgmma
+//   * bf16 / fp16 (the training path), d in {32, 64, 80, 96, 128}: wgmma
 //     kernels fed by TMA. A block has two consumer warpgroups of 64 rows
 //     each (wgmma's m64) and a producer warpgroup, one warp of which
 //     works; setmaxnreg moves its registers to the consumers (240 a
@@ -52,7 +52,8 @@
 //     Tiles live in shared memory as 32-column panels of 64-byte rows with
 //     the 64-byte swizzle, which TMA writes and the wgmma descriptors read,
 //     so every d is a whole number of panels (one TMA box per panel; a
-//     128-byte swizzle would split d = 96 into unequal boxes). The tensor
+//     128-byte swizzle would split d = 96 into unequal boxes); d = 80 runs
+//     as d = 96 with zero-filled columns (kWgmmaD below). The tensor
 //     maps are 4-D over (d, H, S, B) with the caller's strides: the rows
 //     of a ragged tail past S arrive as zeros, never from the next batch
 //     row. They are encoded per call on the host (cuTensorMapEncodeTiled,
@@ -92,7 +93,7 @@ struct FwdTile {
   static constexpr size_t kSmem = hopper_smem(kQ, 2 * kKV, kStages);
 };
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, int DO = D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -283,7 +284,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if ((lane & 3) == 0 && row[r] < S)
         lse[((long long)b * H + h) * S + row[r]] = m[r] * kLn2 + logf(l_safe);
     }
-    store_acc<T, D>(out, o, b, row, h, S, H, inv, lane);
+    store_acc<T, DO>(out, o, b, row, h, S, H, inv, lane);
   }
 }
 
@@ -297,7 +298,7 @@ struct DqTile {
   static constexpr size_t kSmem = hopper_smem(2 * kQ, 2 * kKV, kStages);
 };
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, int DO = D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -487,7 +488,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     g += n_kt;
     const float sc[2] = {scale, scale};   // dS carried the scale out
-    store_acc<T, D>(dq, acc, b, row, h, S, H, sc, lane);
+    store_acc<T, DO>(dq, acc, b, row, h, S, H, sc, lane);
   }
 }
 
@@ -504,7 +505,7 @@ struct DkvTile {
   static constexpr size_t kSmem = hopper_smem(2 * kKV, kStage, kStages);
 };
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, int DO = D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -719,8 +720,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) bar_arrive(&kvempty[j & 1]);  // the last read of K, V
     g += n_qt;
     const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
-    store_acc<T, D>(dk, dka, b, krow, h, S, H, sc, lane);   // dS / scale
-    store_acc<T, D>(dv, dva, b, krow, h, S, H, one, lane);
+    store_acc<T, DO>(dk, dka, b, krow, h, S, H, sc, lane);   // dS / scale
+    store_acc<T, DO>(dv, dva, b, krow, h, S, H, one, lane);
   }
 }
 
@@ -946,6 +947,15 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 // ===========================================================================
 // Launch and dispatch
 // ===========================================================================
+// The 16-bit kernels' head dim for a true head dim D: d = 80 (GPT 2.7B's
+// 2560 / 32) is not a whole number of 32-column panels, so it runs the
+// d = 96 kernels. The tensor maps keep D = 80 as their inner extent, so
+// TMA fills columns 80-95 of the third panel with zeros: Q K^T gains
+// nothing from them, P V, dQ, dK and dV compute those columns as zeros,
+// and the stores write only the first 80 (the kernels' DO). The f32
+// kernels take d = 80 as it is (attention_tiles.cuh's row splits).
+template <int D>
+constexpr int kWgmmaD = D == 80 ? 96 : D;
 
 template <typename T, int D, bool C>
 struct Fwd {
@@ -953,14 +963,14 @@ struct Fwd {
                          void* out, float* lse, const long long* st, int B,
                          int S, int H, float scale, cudaStream_t stream) {
     if constexpr (sizeof(T) == 2) {
-      using Tile = FwdTile<D>;
+      using Tile = FwdTile<kWgmmaD<D>>;
       CUtensorMap m[3];
       const void* ptrs[3] = {q, k, v};
       const int rows[3] = {Tile::kM, Tile::kN, Tile::kN};
       if (!tile_maps<T>(m, ptrs, rows, 3, st, B, S, H, D))
         return cudaErrorInvalidValue;
       const int items = (S + Tile::kM - 1) / Tile::kM * H * B;
-      return launch(flash_fwd_wgmma_kernel<T, D, C>,
+      return launch(flash_fwd_wgmma_kernel<T, kWgmmaD<D>, C, D>,
                     dim3(std::min(items, sm_count())), kHopperThreads,
                     Tile::kSmem, stream, m[0], m[1], m[2], as<T>(out), lse,
                     B, S, H, scale);
@@ -982,14 +992,14 @@ struct Dq {
                          int B, int S, int H, float scale,
                          cudaStream_t stream) {
     if constexpr (sizeof(T) == 2) {
-      using Tile = DqTile<D>;
+      using Tile = DqTile<kWgmmaD<D>>;
       CUtensorMap m[4];
       const void* ptrs[4] = {q, k, v, dout};
       const int rows[4] = {Tile::kM, Tile::kN, Tile::kN, Tile::kM};
       if (!tile_maps<T>(m, ptrs, rows, 4, st, B, S, H, D))
         return cudaErrorInvalidValue;
       const int items = (S + Tile::kM - 1) / Tile::kM * H * B;
-      return launch(flash_bwd_dq_wgmma_kernel<T, D, C>,
+      return launch(flash_bwd_dq_wgmma_kernel<T, kWgmmaD<D>, C, D>,
                     dim3(std::min(items, sm_count())), kHopperThreads,
                     Tile::kSmem, stream, m[0], m[1], m[2], m[3], lse, delta,
                     as<T>(dq), B, S, H, scale);
@@ -1011,14 +1021,14 @@ struct Dkv {
                          const long long* st, int B, int S, int H,
                          float scale, cudaStream_t stream) {
     if constexpr (sizeof(T) == 2) {
-      using Tile = DkvTile<D>;
+      using Tile = DkvTile<kWgmmaD<D>>;
       CUtensorMap m[4];
       const void* ptrs[4] = {q, k, v, dout};
       const int rows[4] = {Tile::kM, Tile::kN, Tile::kN, Tile::kM};
       if (!tile_maps<T>(m, ptrs, rows, 4, st, B, S, H, D))
         return cudaErrorInvalidValue;
       const int items = (S + Tile::kN - 1) / Tile::kN * H * B;
-      return launch(flash_bwd_dkv_wgmma_kernel<T, D, C>,
+      return launch(flash_bwd_dkv_wgmma_kernel<T, kWgmmaD<D>, C, D>,
                     dim3(std::min(items, sm_count())), kHopperThreads,
                     Tile::kSmem, stream, m[0], m[1], m[2], m[3], lse, delta,
                     as<T>(dk), as<T>(dv), B, S, H, scale);
@@ -1035,7 +1045,7 @@ struct Dkv {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d in {32, 64, 96, 128}.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d in {32, 64, 80, 96, 128}.
 // `strides` is a host array of (batch, seq, head) element strides: q, k, v
 // for the forward; q, k, v, dO for the backward (16-bit: each a multiple of
 // 8 elements, the pointers 16-byte aligned). Returns a cudaError_t (0 on
@@ -1047,8 +1057,9 @@ extern "C" int dstorch_flash_fwd(const void* q, const void* k, const void* v,
                                  int H, int d, int causal, float scale,
                                  int dtype, void* stream) {
   if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Fwd>(dtype, d, causal, q, k, v, out, lse, strides, B,
-                            S, H, scale, static_cast<cudaStream_t>(stream));
+  return (int)dispatch<Fwd, true>(dtype, d, causal, q, k, v, out, lse,
+                                  strides, B, S, H, scale,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dstorch_flash_bwd_dq(const void* q, const void* k,
@@ -1058,9 +1069,9 @@ extern "C" int dstorch_flash_bwd_dq(const void* q, const void* k,
                                     int S, int H, int d, int causal,
                                     float scale, int dtype, void* stream) {
   if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Dq>(dtype, d, causal, q, k, v, dout, lse, delta, dq,
-                           strides, B, S, H, scale,
-                           static_cast<cudaStream_t>(stream));
+  return (int)dispatch<Dq, true>(dtype, d, causal, q, k, v, dout, lse,
+                                 delta, dq, strides, B, S, H, scale,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dstorch_flash_bwd_dkv(const void* q, const void* k,
@@ -1071,7 +1082,7 @@ extern "C" int dstorch_flash_bwd_dkv(const void* q, const void* k,
                                      int H, int d, int causal, float scale,
                                      int dtype, void* stream) {
   if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Dkv>(dtype, d, causal, q, k, v, dout, lse, delta, dk,
-                            dv, strides, B, S, H, scale,
-                            static_cast<cudaStream_t>(stream));
+  return (int)dispatch<Dkv, true>(dtype, d, causal, q, k, v, dout, lse,
+                                  delta, dk, dv, strides, B, S, H, scale,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -238,8 +238,8 @@ __device__ __forceinline__ void to_a(uint32_t (*a)[4], const float* d) {
       a[j][r] = pack<T>(d[8 * j + 2 * r], d[8 * j + 2 * r + 1]);
 }
 
-// the thread's two rows of a 64 x D accumulator into a contiguous
-// [B, S, H, D] tensor, times inv[row]
+// the thread's two rows of the first D columns of a 64 x D' accumulator
+// (D' >= D) into a contiguous [B, S, H, D] tensor, times inv[row]
 template <typename T, int D>
 __device__ __forceinline__ void store_acc(T* base, const float* d, int b,
                                           const int* row, int h, int S, int H,

@@ -6,7 +6,8 @@ kernels ``_fwd_kernel`` (B1), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
 softmax in each: bf16 and fp16 inputs take Hopper kernels (wgmma products
 on tiles that a producer warp streams in with TMA through a shared-memory
 ring; p and ds rounded to the input type in between), f32 inputs exact
-CUDA-core FMAs (see the source for the design). Head dims 32, 64, 96, 128.
+CUDA-core FMAs (see the source for the design). Head dims 32, 64, 80, 96,
+128 (the 16-bit kernels run 80 as 96 with zero-filled columns).
 
 Layout is the TPU package's, ``[B, S, H, D]``; the kernels read q/k/v/dO
 through their strides, so the views of a fused qkv projection need no copy.
@@ -38,7 +39,7 @@ from . import _build
 
 NEG_INF = -1e30        # the TPU kernels' mask value
 
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 

@@ -45,6 +45,12 @@ one process per data-parallel rank (``torch.distributed``, through
     mirrors at the next step's start. A module built on the meta device
     (``zero.abstract_init``) is taken only here: each rank fills its own
     master slices from the counter-based init;
+  * the layer-streamed tier (``offload_param.layer_streaming``, one rank):
+    the card holds one block's parameters at a time, fetched from the
+    mirrors by ``zero/layer_stream.py``, and nothing of the model between
+    steps; the host steps every leaf;
+  * ``activation_checkpointing.cpu_checkpointing`` flips the model's
+    ``cpu_checkpointing`` (each remat block's input waits in host memory);
   * ``save_checkpoint`` / ``load_checkpoint`` in the TPU engine's npz and
     host-sharded layouts (``checkpoint/saving.py``).
 
@@ -145,7 +151,8 @@ class DeepSpeedEngine:
         self.offload_device = self._offload_device()
         self.offload_enabled = self.offload_device != OFFLOAD_NONE
 
-        self.module = self._prepare_module(model, model_parameters)
+        self.module = self._apply_activation_checkpointing_config(
+            self._prepare_module(model, model_parameters))
         self.loss_fn = loss_fn
         self.collate_fn = collate_fn
         self.global_steps = 0
@@ -202,6 +209,7 @@ class DeepSpeedEngine:
             hysteresis=fp16.hysteresis)
         self.lr_scheduler = lr_scheduler if lr_scheduler is not None \
             else build_lr_scheduler(self.config.scheduler)
+        self._layer_streamer = None
         if self.offload_enabled:
             self._init_offload(optimizer)
         else:
@@ -304,9 +312,13 @@ class DeepSpeedEngine:
             if dev not in (OFFLOAD_NONE, OFFLOAD_CPU, OFFLOAD_NVME):
                 raise ValueError(f"{what}.device={dev!r}: use none, cpu or "
                                  f"nvme")
-        if zc.offload_param.layer_streaming:
-            raise _not_ported("offload_param.layer_streaming (one block "
-                              "on the card at a time)", "A8b")
+        if zc.offload_param.layer_streaming and OFFLOAD_NONE == \
+                zc.offload_optimizer.device == zc.offload_param.device:
+            raise ValueError(
+                "offload_param.layer_streaming requires offload_optimizer "
+                "(the host owns master+moments and serves the per-layer "
+                "param fetches); a parsed knob must change the program or "
+                "error, never silently do nothing")
         m = c.mesh
         if (m.tp, m.pp, m.ep, m.sp) != (1, 1, 1, 1):
             raise _not_ported("a tp/pp/ep/sp mesh", "A9")
@@ -337,9 +349,6 @@ class DeepSpeedEngine:
         if on:
             raise _not_ported(", ".join(on), "A13")
         ac = c.activation_checkpointing
-        if ac.cpu_checkpointing:
-            raise _not_ported("activation_checkpointing.cpu_checkpointing",
-                              "A8b")
         if ac.partition_activations:
             raise _not_ported(
                 "activation_checkpointing.partition_activations (a tp "
@@ -356,6 +365,26 @@ class DeepSpeedEngine:
                 "activation_checkpointing.number_checkpoints cannot be "
                 "honored: remat granularity is one checkpoint per block; "
                 "control the trade with the model's remat_policy")
+
+    def _apply_activation_checkpointing_config(self, module: nn.Module
+                                               ) -> nn.Module:
+        """``activation_checkpointing.cpu_checkpointing`` is flipped on the
+        model's config (the TPU engine's rule): the module and every
+        submodule that holds that config get the new one."""
+        if not self.config.activation_checkpointing.cpu_checkpointing:
+            return module
+        cfg = getattr(module, "cfg", None)
+        if cfg is None or not dataclasses.is_dataclass(cfg) or \
+                not hasattr(cfg, "cpu_checkpointing"):
+            raise ValueError(
+                "activation_checkpointing.cpu_checkpointing needs a model "
+                "config that supports it (models.GPT does); got module "
+                f"{type(module).__name__}")
+        new = dataclasses.replace(cfg, cpu_checkpointing=True)
+        for m in module.modules():
+            if getattr(m, "cfg", None) is cfg:
+                m.cfg = new
+        return module
 
     def _offload_device(self) -> str:
         """Where the optimizer state lives: ``offload_optimizer.device``;
@@ -490,6 +519,20 @@ class DeepSpeedEngine:
             raise ValueError("the CPU Adam always corrects the moments' "
                              "bias: remove bias_correction: false")
         zc = self.config.zero_config
+        streaming = zc.offload_param.layer_streaming
+        if streaming:
+            if getattr(self.module, "stacked_spec", None) is None:
+                raise ValueError(
+                    "offload_param.layer_streaming drives the model's "
+                    "stacked-trunk structure directly and needs a module "
+                    "exposing .stacked_spec(loss_fn) -> StackedPipeSpec "
+                    "(models.GPT and models.BertForMaskedLM do; see "
+                    "runtime/pipe/spmd.py)")
+            if self.dp_world_size > 1:
+                raise ValueError(
+                    "offload_param.layer_streaming is the SINGLE-chip "
+                    "capacity tier (per-layer host fetches); over more "
+                    "ranks use ZeRO-3 for capacity instead")
         nvme = (zc.offload_optimizer.nvme_path
                 if self.offload_device == OFFLOAD_NVME else None)
         if self.offload_device == OFFLOAD_NVME and not nvme:
@@ -535,6 +578,10 @@ class DeepSpeedEngine:
         self._partitioned = self.dp_world_size > 1
         self.master, self._opt_params = [], []
         self._module_stale = self._compute_stale = False
+        self.offload_timing: Optional[Dict[str, Any]] = None
+        if streaming:
+            self._init_streamed()
+            return
         # the module becomes the compute copy: compute dtype, on the card,
         # its values from the host mirrors (no fp32 copy is ever built
         # there)
@@ -554,7 +601,6 @@ class DeepSpeedEngine:
         if self.device.type == "cuda":
             self._streams = (torch.cuda.Stream(self.device),
                              torch.cuda.Stream(self.device))
-        self.offload_timing: Optional[Dict[str, Any]] = None
         self._params_on_card = True
         self._offload_restore_params()
         if not self._params_resident:
@@ -565,6 +611,29 @@ class DeepSpeedEngine:
             f"({self.offload_device}, params "
             f"{'resident' if self._params_resident else op.device}, "
             f"dp_shard={self.host_optimizer.dp_shard})", ranks=[0])
+
+    def _init_streamed(self) -> None:
+        """The layer-streamed tier: nothing of the model on the card
+        between steps. The module stays on the meta device, as the
+        template the streamer runs each block through."""
+        from .zero.layer_stream import LayerStreamer
+        self.module.to(device="meta", dtype=self.compute_dtype)
+        self.compute_module = self.module
+        self._compute_params, self._dense_params = [], []
+        self.acc, self._gather_leaves, self._streams = [], [], None
+        self._params_resident = False
+        self._params_on_card = False
+        self._stream_step = None
+        self._stream_eval = None
+        self._layer_streamer = LayerStreamer(
+            self.host_optimizer, self.module.stacked_spec(self.loss_fn),
+            self.compute_dtype, self.device)
+        log_dist(
+            f"layer streaming ready: {self.host_optimizer.numel():,} params "
+            f"on the host ({self.offload_device}), "
+            f"{self._layer_streamer.num_layers} blocks of "
+            f"{self._layer_streamer.block_numel:,} streamed through two "
+            f"device buffer sets", ranks=[0])
 
     def _host_leaf(self, p: torch.Tensor) -> torch.Tensor:
         """A parameter's fp32 host copy; over dp > 1 rank 0's, so the ranks
@@ -595,6 +664,11 @@ class DeepSpeedEngine:
         self._params_on_card = False
 
     def _materialize_params(self) -> None:
+        if self._streaming:
+            raise RuntimeError(
+                "the layer-streamed tier never materializes the full model "
+                "on the device; train with train_batch, evaluate with "
+                "eval_batch, or take host copies with get_params()")
         for (i, p) in self._dense_params:
             p.data = torch.empty(self._shapes[i], dtype=self.compute_dtype,
                                  device=self.device)
@@ -780,11 +854,7 @@ class DeepSpeedEngine:
                 evs = timing.pop(f"{kind}_events")
                 timing[f"{kind}_s"] = sum(a.elapsed_time(b)
                                           for a, b in evs) / 1e3
-        fp16 = self.config.fp16
-        self._scale = update_scale(
-            self._scale, finite, dynamic=self.dynamic_loss_scale,
-            scale_window=fp16.loss_scale_window,
-            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        self._update_loss_scale(finite)
         self._last_grad_norm = gnorm
         return {"grad_norm": gnorm, "finite": finite}
 
@@ -1008,11 +1078,7 @@ class DeepSpeedEngine:
             else:
                 self.skipped_steps += 1
             torch._foreach_zero_(self.acc)
-        fp16 = self.config.fp16
-        self._scale = update_scale(
-            self._scale, finite, dynamic=self.dynamic_loss_scale,
-            scale_window=fp16.loss_scale_window,
-            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        self._update_loss_scale(finite)
         if finite and not self._partitioned:
             self._compute_stale = True
         self._last_grad_norm = gnorm
@@ -1058,13 +1124,17 @@ class DeepSpeedEngine:
         self.tput_timer.start()
         if wcb:
             self.timers("train_batch").start()
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for batch in micros:
-            loss = self._micro_forward(batch)
-            self._micro_backward(loss)
-            loss_sum += loss.detach().float()
-        metrics = self._apply_update()
-        metrics["loss"] = comm.all_reduce(loss_sum / gas, "avg")
+        if self._streaming:
+            metrics = self._streamed_update(micros)
+        else:
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            for batch in micros:
+                loss = self._micro_forward(batch)
+                self._micro_backward(loss)
+                loss_sum += loss.detach().float()
+            metrics = self._apply_update()
+            metrics["loss"] = comm.all_reduce(loss_sum / gas, "avg")
         if wcb:
             self.timers("train_batch").stop(sync=True)
         will_report = (self.global_steps + 1) % self.steps_per_print() == 0
@@ -1074,6 +1144,26 @@ class DeepSpeedEngine:
         self.global_samples += self.train_batch_size()
         self._after_step(metrics)
         return metrics["loss"]
+
+    @property
+    def _streaming(self) -> bool:
+        return self._layer_streamer is not None
+
+    def _streamed_update(self, micros) -> Dict[str, Any]:
+        """The layer-streamed step (``zero/layer_stream.streamed_update``),
+        then the loss scale."""
+        from .zero.layer_stream import streamed_update
+        metrics = streamed_update(self, micros)
+        self._update_loss_scale(metrics["finite"])
+        self._last_grad_norm = metrics["grad_norm"]
+        return metrics
+
+    def _update_loss_scale(self, finite: bool) -> None:
+        fp16 = self.config.fp16
+        self._scale = update_scale(
+            self._scale, finite, dynamic=self.dynamic_loss_scale,
+            scale_window=fp16.loss_scale_window,
+            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
 
     # --- 3-call API -------------------------------------------------------
     def forward(self, batch) -> torch.Tensor:
@@ -1127,9 +1217,29 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
         """Loss of ``batch`` on the compute-dtype params, no grads (over dp
-        ranks: the mean of the ranks' losses on their rows)."""
+        ranks: the mean of the ranks' losses on their rows). The
+        layer-streamed tier streams the blocks here too."""
+        if self._streaming:
+            from .zero.layer_stream import build_streamed_eval
+            if self._stream_eval is None:
+                self._stream_eval = build_streamed_eval(self._layer_streamer)
+            res = self._layer_streamer.upload_resident()
+            return self._stream_eval(res, self._to_device(batch))
         self._cast_params()
         return comm.all_reduce(self._loss_of(self._to_device(batch)), "avg")
+
+    def get_params(self, dtype=None) -> Dict[str, torch.Tensor]:
+        """The parameters in ``dtype`` (default the compute dtype) by name,
+        always a copy. The layer-streamed tier builds them on the host
+        from the mirrors (the model is larger than the card by design);
+        the other paths from the fp32 masters (every rank must call it over
+        dp > 1), on the CPU."""
+        dt = dtype or self.compute_dtype
+        if self._streaming:
+            return {n: t.to(dt) for n, t in
+                    self.host_optimizer.mirror_tree().items()}
+        return {n: torch.from_numpy(np.asarray(v)).to(dt) for n, v in
+                self.consolidated_fp32_state_dict().items()}
 
     # ------------------------------------------------------------ dataloader
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):

@@ -136,6 +136,16 @@ class MirrorNVMeStore:
         self.handle.sync_pread(view, self._file(idx), direct=True)
         return view[:nbytes]
 
+    def start_read(self, idx: int, nbytes: int, dst: torch.Tensor,
+                   handle: AsyncIOHandle) -> torch.Tensor:
+        """Start reading leaf idx's bytes into ``dst`` (a uint8 view of an
+        :func:`aligned_empty` buffer, at least ``padded_nbytes(nbytes)``
+        long, at an aligned offset) on ``handle``; the bytes are there after
+        ``handle.wait()``. Returns their view."""
+        handle.async_pread(dst[:padded_nbytes(nbytes)], self._file(idx),
+                           direct=True)
+        return dst[:nbytes]
+
     def close(self) -> None:
         self.handle.close()
 
@@ -365,6 +375,43 @@ class HostOffloadOptimizer:
         else:
             out["swap_slots"] = sum(s.numel() * 4 for s in self.swapper.slots)
         return out
+
+    @property
+    def mirror_itemsize(self) -> int:
+        return torch.empty(0, dtype=self.mirror_dtype).element_size()
+
+    def mirror_tree(self) -> Dict[str, torch.Tensor]:
+        """Every leaf's mirror as a host tensor of its shape, in the compute
+        dtype, by parameter name (a copy; this rank must hold whole leaves,
+        as at dp 1)."""
+        if self.dp_shard != (0, 1, 1):
+            raise ValueError("mirror_tree needs whole leaves (dp 1)")
+        return {leaf.path: self.mirror_flat(i)[:leaf.global_numel]
+                .reshape(leaf.shape).clone()
+                for i, leaf in enumerate(self.leaves)}
+
+    def start_mirror_reads(self, indices: Sequence[int],
+                           staging: torch.Tensor, handle: AsyncIOHandle
+                           ) -> List[torch.Tensor]:
+        """The NVMe param tier: start reading leaves ``indices``' mirror
+        files into consecutive aligned slices of ``staging`` (uint8, from
+        :func:`aligned_empty`, at least :meth:`staging_bytes` of them long)
+        on ``handle``. Returns each leaf's flat mirror view, valid after
+        ``handle.wait()``."""
+        out, at = [], 0
+        for i in indices:
+            nbytes = self.leaves[i].numel * self.mirror_itemsize
+            raw = self.mirror_store.start_read(i, nbytes, staging[at:],
+                                               handle)
+            out.append(raw.view(self.mirror_dtype))
+            at += padded_nbytes(nbytes)
+        return out
+
+    def staging_bytes(self, indices: Sequence[int]) -> int:
+        """The staging bytes :meth:`start_mirror_reads` needs for
+        ``indices``."""
+        return sum(padded_nbytes(self.leaves[i].numel * self.mirror_itemsize)
+                   for i in indices)
 
     def mirror_flat(self, i: int) -> torch.Tensor:
         """Leaf i's flat mirror slice in the compute dtype. In the NVMe

@@ -66,10 +66,14 @@ def test_prefill_then_decode_matches_full_forward(decode_impl):
 
 def test_unported_features_raise():
     from deepspeed_tpu_torch.models.gpt import GPTConfig
-    for kw in (dict(moe=True), dict(sequence_parallel=True),
-               dict(cpu_checkpointing=True)):
+    for kw in (dict(moe=True), dict(sequence_parallel=True)):
         with pytest.raises(NotImplementedError):
             GPTConfig(**kw)
+    # cpu_checkpointing raised until it was ported; it needs remat, as in
+    # the TPU package
+    assert GPTConfig(cpu_checkpointing=True).cpu_checkpointing
+    with pytest.raises(ValueError, match="requires remat"):
+        GPTConfig(cpu_checkpointing=True, remat=False)
     # "sparse" is ported; without a layout it is refused (the TPU model
     # would compute dense attention)
     with pytest.raises(ValueError, match="SparsityConfig"):

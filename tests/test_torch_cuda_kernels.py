@@ -492,7 +492,7 @@ def _flash_check(q, k, v, do, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("S", [1024, 1000, 77, 1])
 def test_flash_kernels_match_plain(dev, dtype, causal, d, S):
     B, H = 2, 3
@@ -507,7 +507,7 @@ def test_flash_kernels_at_the_layer_shape(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("d", [64, 80, 96])
 def test_flash_backward_is_bitwise_reproducible(dev, dtype, d):
     """No atomics: two backward calls give bitwise the same dq, dk, dv."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa

@@ -1,6 +1,8 @@
 """The shapes the Hopper flash kernels added, on the CPU: the port's plain
 flash versions against the TPU package's Pallas kernels run in interpret
-mode at D in {64, 96} x {f32, fp16}, causal and not, S in {64, 100}:
+mode at D in {64, 80, 96} x {f32, fp16}, causal and not, S in {64, 100}
+(D 80: GPT 2.7B's head, which the 16-bit kernels run as 96 with
+zero-filled columns):
 
   * the plain forward's out and lse against ``_flash_fwd``;
   * the plain backward's dq, dk, dv against ``_flash_bwd`` given the same
@@ -37,7 +39,7 @@ TOL = {np.float32: dict(rtol=0, atol=1e-5),
        np.float16: dict(rtol=2e-3, atol=2e-3)}
 JNP = {np.float32: jnp.float32, np.float16: jnp.float16}
 GRID = pytest.mark.parametrize("dtype,D,causal,S", [
-    (dt, d, c, s) for dt in (np.float32, np.float16) for d in (64, 96)
+    (dt, d, c, s) for dt in (np.float32, np.float16) for d in (64, 80, 96)
     for c in (True, False) for s in (64, 100)])
 
 
@@ -108,12 +110,15 @@ def test_autograd_matches_jax_grad(dtype, D, causal, S):
 
 @pytest.mark.parametrize("name", ["flash", "sparse"])
 def test_kernel_shapes_take_fp16_and_96_but_not_48(name):
+    """Flash takes d 80 too (the capacity tier's GPT 2.7B); sparse does
+    not."""
     supported = (pfa.flash_supported if name == "flash"
                  else psa.sparse_supported)
+    takes = (32, 64, 80, 96, 128) if name == "flash" else (32, 64, 96, 128)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in (32, 64, 96, 128):
+        for d in takes:
             assert supported(d, dtype), (d, dtype)
-        for d in (16, 48, 80, 256):
+        for d in {16, 48, 80, 256} - set(takes):
             assert not supported(d, dtype), (d, dtype)
     assert not supported(64, torch.float64)
 

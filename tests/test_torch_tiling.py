@@ -1,0 +1,70 @@
+"""The port's ``TiledLinear`` (deepspeed_tpu_torch/runtime/zero/tiling.py)
+against the TPU package's ``TiledDense`` on the CPU, f32, over a grid of
+(in_splits, out_splits), with and without bias: the JAX layer's params
+through ``convert.tiled_params_to_state_dict``, the same numpy input, the
+output and the grads of a weighted sum with respect to the input, the
+kernel and the bias within 1e-5 relative and 1e-6 absolute (f32 products in
+XLA's and torch's summation orders; the tiles are summed in the same
+order)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_test_threads import one_torch_thread  # noqa: F401
+
+D_IN, D_OUT = 24, 36
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("splits", [(1, 1), (2, 1), (1, 3), (2, 3), (4, 2)])
+def test_tiled_linear_matches_jax_tiled_dense(splits, bias):
+    from deepspeed_tpu.runtime.zero.tiling import TiledDense
+    from deepspeed_tpu_torch.convert import tiled_params_to_state_dict
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledLinear
+    p, q = splits
+    rng = np.random.default_rng(p * 10 + q)
+    x = rng.standard_normal((3, 5, D_IN)).astype(np.float32)
+    w = rng.standard_normal((3, 5, D_OUT)).astype(np.float32)
+    jlayer = TiledDense(features=D_OUT, in_splits=p, out_splits=q,
+                        use_bias=bias)
+    params = jlayer.init(jax.random.PRNGKey(p + q), jnp.asarray(x))["params"]
+    if bias:    # a nonzero bias, so its add is checked
+        params = dict(params, bias=jnp.asarray(
+            rng.standard_normal(D_OUT).astype(np.float32)))
+
+    def jloss(prm, xx):
+        y = jlayer.apply({"params": prm}, xx)
+        return (y * jnp.asarray(w)).sum(), y
+    (_, jy), (jg, jgx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                            has_aux=True)(params,
+                                                          jnp.asarray(x))
+    layer = TiledLinear(D_IN, D_OUT, in_splits=p, out_splits=q, bias=bias)
+    layer.load_state_dict(tiled_params_to_state_dict(
+        jax.tree.map(np.asarray, params)))
+    assert layer.kernel.shape == (p * q, D_IN // p, D_OUT // q)
+    tx = torch.from_numpy(x).requires_grad_()
+    y = layer(tx)
+    (y * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), **TOL)
+    want = tiled_params_to_state_dict(jax.tree.map(np.asarray, jg))
+    for name, prm in layer.named_parameters():
+        np.testing.assert_allclose(prm.grad.numpy(), want[name].numpy(),
+                                   err_msg=name, **TOL)
+
+
+def test_tiled_linear_equals_linear_with_the_assembled_weight():
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledDense, \
+        TiledLinear
+    assert TiledDense is TiledLinear
+    layer = TiledLinear(D_IN, D_OUT, in_splits=1, out_splits=3)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    weight = torch.cat(list(layer.kernel), dim=-1)       # [in, out]
+    x = torch.randn(4, D_IN, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(layer(x), x @ weight + layer.bias)
+    with pytest.raises(ValueError, match="divisible"):
+        TiledLinear(D_IN, D_OUT, in_splits=5)

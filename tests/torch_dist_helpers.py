@@ -418,3 +418,22 @@ def built_bytes(rank, world, configs, dtype="bfloat16"):
                         if ptr not in before)
         del engine
     return out
+
+
+# --------------------------------------------------------------------------
+# The layer-streamed tier
+# --------------------------------------------------------------------------
+
+def streamed_init(rank, world, config):
+    """``initialize`` with ``offload_param.layer_streaming`` at this rank;
+    returns the exception's type name and message (None if it built)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
+    import torch
+    model = GPT(GPTConfig(dtype=torch.float32, **TINY))
+    try:
+        dst.initialize(model=model, loss_fn=lm_loss_fn, config=config,
+                       device="cpu")
+    except Exception as exc:           # the caller checks which one
+        return type(exc).__name__, str(exc)
+    return None

@@ -20,8 +20,10 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def open_checkout(tool: str, doc: str, argv, module: str, flags=()):
-    """Parse ``--root``, ``--build-only`` and the boolean ``flags``; exit 2
+def open_checkout(tool: str, doc: str, argv, module: str, flags=(),
+                  values=()):
+    """Parse ``--root``, ``--build-only``, the boolean ``flags`` and the
+    string options ``values`` (default None); exit 2
     without CUDA; import this checkout's ``chip_smoke`` and then
     ``deepspeed_tpu_torch.<module>`` from ``--root`` (raising if it came
     from elsewhere); build that checkout's kernels, and exit 0 after
@@ -34,6 +36,8 @@ def open_checkout(tool: str, doc: str, argv, module: str, flags=()):
     ap.add_argument("--build-only", action="store_true")
     for flag in flags:
         ap.add_argument(flag, action="store_true")
+    for name in values:
+        ap.add_argument(name, default=None)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
