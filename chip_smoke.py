@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the result lines):
      with an HMMA); the registers a thread of each LayerNorm forward and dx
      and softmax forward kernel and of each 16-bit sparse kernel (cuobjdump
      --dump-resource-usage; fails on a sparse kernel with local memory or a
-     stack frame);
+     stack frame), and of the decode kernel's 300 instances by query bucket
+     and head dim (fails on a kSQ 16 instance with local memory);
   2. decode attention kernel vs its plain version at GPT-2 125M decode
      geometry (b=8, S=1024, h=12, d=64, bf16, mixed per-row fills plus a
      retired-lane sentinel row), s_q = 1 and 4, max abs err <= 2e-2; then
@@ -22,6 +23,10 @@ Phases (any failure exits non-zero before the result lines):
      paged tables of 65 entries), a verify from position 1023 among the
      fills, vs their plain versions (phase 18's tolerances), and whether
      B2's query i at s_q 5 is bitwise an s_q 1 call (printed, not gated);
+     the same four at the fused step's width s_q 16 over the fused arenas
+     (dense S 1039, paged T 65: SQ16_CASE), at GPT 2.7B's head dim
+     (h 32 x d 80, s_q 1, S 1024: D80_CASE) and at s_q 24 (SQ24_CASE:
+     two launches a call, the pieces 16 + 8, which the phase counts);
   3. sampling kernel vs its plain version at b=8, V=50304: greedy tokens
      equal, top-k=50 filtered logits bitwise equal, top-p=0.9 kept sets
      equal up to f32 rounding of the probability mass, temperature draws
@@ -47,7 +52,8 @@ Phases (any failure exits non-zero before the result lines):
      serving.sampling.filter_logits, several calls; the same then the
      argmax of the filtered row + gumbel for the draw); B2/B3 (and int8)
      at s_q 5 beside their plain versions, scaled_dot_product_attention
-     with the kernel's window and their bounds; B4's filter at the sampled
+     with the kernel's window and their bounds, and so at phase 2's s_q 16
+     and d 80 cases (the rows *_sq16, *_d80); B4's filter at the sampled
      verify's [40, 50304] rows (T 0.8, top-k 50, top-p 0.9);
   7. flash attention kernels (forward, dq, dk/dv) vs their plain versions at
      the training shape (B=8, S=1024, H=12, D=64, bf16, causal), at phase
@@ -83,12 +89,18 @@ Phases (any failure exits non-zero before the result lines):
  12. block-sparse kernels (forward, dq, dk/dv) vs their plain versions:
      bf16, fp16 and f32 x layout blocks 16/32/64/128 x causal or not x with
      or without a key-padding mask (BigBird, per-head layouts, B=2, H=4,
-     D=64, S=480 or 512, q/k/v views of a fused qkv), D=96 (block 32,
-     S=480, causal or not), a layout with dead query rows and key tiles no
+     D=64, S=480 or 512, q/k/v views of a fused qkv), D=96 and D=80 (block
+     32, S=480, causal or not; D=80 also key-padded), a layout with dead
+     query rows and key tiles no
      query reaches (zeros checked; a dead row's lse exactly -1e30), and
      the training shape B=1, S=32768, H=12, D=64 with bench.py's BigBird
      layout, causal, where a second forward must give bitwise the same out
-     and lse and a second backward bitwise the same grads;
+     and lse and a second backward bitwise the same grads; then (after
+     phase 16) d 80 at B=1, S=8192, H=32 with the bench layout: the
+     kernels vs their plain versions, their device times (rows
+     sparse_*_d80) and one training step of a sparse GPT at GPT 2.7B's
+     width cut to 2 layers (seq 8192; launches 4 / 2 / 2, the rows'
+     launches);
  13. the long-context training path: bench.py's long_context_sparse case
      (bench.py:344-399): GPT-2 125M at seq 32768 (full width and depth,
      bf16 over fp32 masters, remat with the default policy) through
@@ -202,8 +214,9 @@ Phases (any failure exits non-zero before the result lines):
      steady spec chunk's idle share;
  27. sampled speculative serving (temperature 0.8, top-k 50, top-p 0.9):
      one B4 filter launch a spec step, a rerun with the seed bitwise equal;
- 28. the serve loop: run() (double-buffered) against a step() loop, spec
-     and not (equal greedy tokens, both timed), with every launch under
+ 28. the serve loop: run() (double-buffered) against a step() loop, spec,
+     not and fused prefill (equal greedy tokens, both timed), with every
+     launch under
      torch.cuda.set_sync_debug_mode("error"); a cancel of a running and a
      queued request in mid-run;
  29. resume: phase 8's gpt2_125m_zero1 engine at full width (gas cut to
@@ -290,14 +303,40 @@ Phases (any failure exits non-zero before the result lines):
      MemAvailable, the pick, its exact parameter count, init seconds, step
      seconds, tokens/s, MFU (mfu_report), max_memory_allocated and each
      step's split (device forward+backward, H2D and D2H bytes and GB/s, the
-     host's block-norm pass, CPU Adam seconds and GB/s).
+     host's block-norm pass, CPU Adam seconds and GB/s);
+ 38. fused chunked prefill (run after phase 28): phase 4's model and 16
+     requests through ServingEngine(megakernel=True, fused_prefill=True,
+     prefill_chunk=16) over the dense, paged, int8 and paged int8 arenas
+     and speculative (k 4) on the dense one, each beside the unfused
+     engine on the same arena, and prefill_chunk 24 on the dense arena:
+     fails unless every request is done, every logits tensor finite, no
+     bucketed prefill ran, each fused step called the arena's decode
+     wrapper once a layer at the step's width (16; 24 as two launches) and
+     nothing else of B2/B3, and the greedy tokens equal the unfused
+     engine's or part first at a near-tie of its run (printed: where they
+     part and how many tokens that compared); then, teacher-forced, each
+     prompt and the unfused tokens up to where they part as one prompt:
+     the completing step's logits of the fused kernel engine within
+     LOGITS_ATOL of the fused einsum engine's and of the cacheless
+     prefill's; prints tokens/s,
+     time to first token (mean, p50, p99), chunk ms, prompt tokens
+     consumed inline and launches a step of both, and a steady fused
+     chunk's idle share (the *_sq16 rows' launches);
+ 39. decode at head dim 80 (after phase 38): ServingEngine(megakernel=True)
+     at GPT 2.7B's width (d_model 2560, 32 heads of 80, d_ff 10240, bf16)
+     cut to D80_LAYERS layers (printed), phase 4's requests over the four
+     arenas, each beside the megakernel=False engine (the einsum) on the
+     same arena: every request done, logits finite, the arena's kernel L
+     times a step and no other, greedy tokens equal or parting at a
+     near-tie (the *_d80 decode rows' launches).
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
 
 Prints the kernel summary JSON (the flash rows twice: the training shape,
 and ``*_d80`` at the capacity shape with phase 35's launches; the rows of
-phase 37's head dim also carry its launches), the card line and, last,
+phase 37's head dim also carry its launches; the decode rows at s_q 5, 16
+and d 80, the sparse rows at d 80), the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
 
@@ -1265,18 +1304,32 @@ def phase_sparse_parity(torch, sa, dev, gen):
     for dtype, tol in ((torch.bfloat16, FLASH_TOL),
                        (torch.float16, FLASH_TOL),
                        (torch.float32, SPARSE_F32_TOL)):
-        # d = 96 (gpt_neox_20b's head dim), block 32, S a partial tile
+        # d = 96 (gpt_neox_20b's head dim) and d = 80 (GPT 2.7B's: the
+        # 16-bit kernels' d 96 instances over zero-filled columns 80-95),
+        # block 32, S a partial tile; d 80 also with a key-padding mask
         cfg = BigBirdSparsityConfig(num_heads=4, block=32,
                                     different_layout_per_head=True,
                                     num_random_blocks=2)
-        for causal in (True, False):
-            q, k, v, do = (t.to(dtype) for t in _qkv(torch, dev, gen, 2, 480,
-                                                      4, 96))
-            e, _ = _sparse_pair(torch, sa, _layout(cfg, 480, causal, dev),
-                                q, k, v, do, None, tol)
-            print(f"phase12 sparse {str(dtype)[6:]} D=96 block=32 S=480 "
-                  f"causal={causal} max_abs_err " + " ".join(
-                      f"{k_}={v_:.3g}" for k_, v_ in e.items()), flush=True)
+        for D, masks in ((96, (False,)), (80, (False, True))):
+            for causal in (True, False):
+                for masked in masks:
+                    q, k, v, do = (t.to(dtype) for t in _qkv(
+                        torch, dev, gen, 2, 480, 4, D))
+                    kvm = None
+                    if masked:
+                        kvm = torch.ones(2, 480, device=dev)
+                        kvm[1, 200:] = 0
+                    e, (*_, grads) = _sparse_pair(
+                        torch, sa, _layout(cfg, 480, causal, dev), q, k, v,
+                        do, kvm, tol)
+                    if masked and (grads[1][1, 200:].any()
+                                   or grads[2][1, 200:].any()):
+                        fail(f"D={D}: non-zero dk/dv at masked keys")
+                    print(f"phase12 sparse {str(dtype)[6:]} D={D} block=32 "
+                          f"S=480 causal={causal} masked={masked} "
+                          f"max_abs_err " + " ".join(
+                              f"{k_}={v_:.3g}" for k_, v_ in e.items()),
+                          flush=True)
         for block in (16, 32, 64, 128):
             S = 480 if block == 16 else 512     # 480: a partial last tile
             cfg = BigBirdSparsityConfig(num_heads=4, block=block,
@@ -1463,16 +1516,16 @@ def phase_long_profile(torch, engine, ids, card):
                           if "sparse_" in key}}
 
 
-def _sdpa_with_mask(torch, dev, gen, S):
-    """scaled_dot_product_attention at [1, 12, S, 64] bf16 with the bench
+def _sdpa_with_mask(torch, dev, gen, S, H=12, D=64):
+    """scaled_dot_product_attention at [1, H, S, D] bf16 with the bench
     layout (causal) expanded to a boolean [S, S] mask: forward and backward
     calls, or None when it does not fit on the card."""
     import torch.nn.functional as F
-    lay = torch.from_numpy(bench_sparsity(12).make_layout(S)[0]).to(dev)
+    lay = torch.from_numpy(bench_sparsity(H).make_layout(S)[0]).to(dev)
     try:
         mask = lay.bool().repeat_interleave(64, 0).repeat_interleave(64, 1)
         mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-        qt, kt, vt, do = (torch.randn(1, 12, S, 64, device=dev,
+        qt, kt, vt, do = (torch.randn(1, H, S, D, device=dev,
                                       generator=gen).bfloat16()
                           for _ in range(4))
         qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
@@ -1488,7 +1541,10 @@ def _sdpa_with_mask(torch, dev, gen, S):
                                           retain_graph=True))
 
 
-def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
+def phase_sparse_timing(torch, sa, dev, gen, inputs, card, suffix=""):
+    """The sparse kernels' device ms at ``inputs``' shape (the training
+    shape; ``suffix`` "_d80": SPARSE_D80's) beside their plain versions,
+    SDPA with the expanded mask and their bounds."""
     q, k, v, do, out, lse, layout = inputs
     B, S, H, D = q.shape
     scale = D ** -0.5
@@ -1499,17 +1555,18 @@ def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
     plain_bwd = device_ms(lambda i: sa.sparse_attention_backward_reference(
         q, k, v, out, lse, do, layout, scale), iters=3, warmup=1)
     lib_s = S
-    lib = _sdpa_with_mask(torch, dev, gen, lib_s)
+    lib = _sdpa_with_mask(torch, dev, gen, lib_s, H, D)
     while lib is None and lib_s > 1024:
         lib_s //= 2
-        lib = _sdpa_with_mask(torch, dev, gen, lib_s)
+        lib = _sdpa_with_mask(torch, dev, gen, lib_s, H, D)
     lib_fwd = device_ms(lib[0], iters=5, warmup=1)
     lib_bwd = device_ms(lib[1], iters=5, warmup=1)
     del lib
     torch.cuda.empty_cache()
-    print(f"phase16 library yardstick: scaled_dot_product_attention with "
-          f"the expanded boolean mask at S={lib_s} (dense work), fwd "
-          f"{lib_fwd} ms, bwd {lib_bwd} ms card={card}", flush=True)
+    print(f"phase16{suffix} library yardstick: scaled_dot_product_attention "
+          f"with the expanded boolean mask at S={lib_s} H={H} D={D} (dense "
+          f"work), fwd {lib_fwd} ms, bwd {lib_bwd} ms card={card}",
+          flush=True)
     t = {
         "sparse_fwd": {
             "ms": device_ms(lambda i: sa.sparse_attention_forward(
@@ -1541,7 +1598,8 @@ def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
     lut_q = (4 * layout.cnt_q.numel() + 12 * int(layout.cnt_q.sum())
              + 4 * layout.dkv_items.numel())
     pairs = live_causal_pairs(bench_sparsity(H), S, B)
-    print(f"phase16 live causal (q, k) pairs {pairs} of {B * H * S * S} "
+    print(f"phase16{suffix} live causal (q, k) pairs {pairs} of "
+          f"{B * H * S * S} "
           f"({pairs / (B * H * S * S)}); LUT bytes read: row {lut_k}, "
           f"column {lut_q}", flush=True)
     work = {"sparse_fwd": (4 * n + stat + lut_k, 4 * D * pairs),
@@ -1551,21 +1609,81 @@ def phase_sparse_timing(torch, sa, dev, gen, inputs, card):
         "sparse_fwd": _issue_us(torch, lambda: sa.sparse_attention_forward(
             q, k, v, layout, scale)),
         "sparse_bwd": _issue_us(torch, lambda: backward(0))}
-    print(f"phase16 host issue us per call: forward {issue['sparse_fwd']}, "
-          f"backward (dq and dk/dv) {issue['sparse_bwd']} card={card}",
-          flush=True)
+    print(f"phase16{suffix} host issue us per call: forward "
+          f"{issue['sparse_fwd']}, backward (dq and dk/dv) "
+          f"{issue['sparse_bwd']} card={card}", flush=True)
     for name, (nbytes, flops) in work.items():
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         t[name]["bound_ms"] = 1e3 * max(tb, tf)
         t[name]["bound_by"] = "bytes" if tb >= tf else "operations"
         for key, val in t[name].items():
-            print(f"{name}_{key}={val} card={card}", flush=True)
-        print(f"phase16 {name} {t[name]['ms']} ms = "
+            print(f"{name}{suffix}_{key}={val} card={card}", flush=True)
+        print(f"phase16{suffix} {name} {t[name]['ms']} ms = "
               f"{t[name]['ms'] / t[name]['bound_ms']} x its bound "
               f"({t[name]['bound_by']}); plain {t[name]['plain_ms']} ms, "
               f"SDPA with the mask {t[name]['library_ms']} ms card={card}",
               flush=True)
     return t
+
+
+# B5/B5b at GPT 2.7B's head dim: (B, S, H, D) with bench.py's BigBird
+# layout at 32 heads, causal; the sparse GPT at that width (d_model 2560,
+# d_ff 10240) cut to SPARSE_D80_LAYERS, trained one step at seq S
+SPARSE_D80 = (1, 8192, 32, 80)
+SPARSE_D80_LAYERS = 2
+
+
+def phase_sparse_d80(torch, np, sa, dev, gen, seed, card):
+    """Phase 12 at d 80 (GPT 2.7B's head dim), at SPARSE_D80 in bf16: the
+    kernels (the d 96 instances storing 80) vs their plain versions, their
+    device times (phase 16's way), then a long-context sparse GPT at 2.7B's
+    width cut to SPARSE_D80_LAYERS layers trained one step through
+    initialize() (LONG_CONFIG), counts reset just before and read just
+    after: 2 / 1 / 1 launches a layer (remat), a finite loss. Returns
+    (errs, times, launches)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    B, S, H, D = SPARSE_D80
+    layout = _layout(bench_sparsity(H), S, True, dev)
+    q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+    e, (out, lse, ro, rl, grads) = _sparse_pair(torch, sa, layout, q, k, v,
+                                                do, None, FLASH_TOL)
+    print(f"phase12 sparse d80 B={B} S={S} H={H} D={D} bf16 causal BigBird "
+          f"block 64 max_abs_err " + " ".join(
+              f"{k_}={v_}" for k_, v_ in e.items()), flush=True)
+    times = phase_sparse_timing(torch, sa, dev, gen,
+                                (q, k, v, do, ro, rl, layout), card,
+                                suffix="_d80")
+    del q, k, v, do, out, lse, ro, rl, grads
+    torch.cuda.empty_cache()
+    cfg = GPTConfig(vocab_size=50304, max_seq_len=S,
+                    num_layers=SPARSE_D80_LAYERS, num_heads=H, d_model=H * D,
+                    d_ff=4 * H * D, dtype=torch.bfloat16,
+                    attention_impl="sparse", sparse_attention=bench_sparsity(H))
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=LONG_CONFIG)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, S)).astype(np.int32)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    loss = float(engine.train_batch(iter([{"input_ids": ids}])))
+    torch.cuda.synchronize()
+    launches = {n: _build.LAUNCHES[n] for n in SPARSE}
+    want = {"sparse_fwd": 2 * SPARSE_D80_LAYERS,
+            "sparse_bwd_dq": SPARSE_D80_LAYERS,
+            "sparse_bwd_dkv": SPARSE_D80_LAYERS}
+    print(f"phase12 sparse GPT at GPT 2.7B's width (d_model {H * D}, {H} "
+          f"heads of {D}) cut to {SPARSE_D80_LAYERS} layers, seq {S}: one "
+          f"step loss={loss} launches={launches}", flush=True)
+    if not math.isfinite(loss) or launches != want:
+        fail(f"sparse d80 step: loss {loss}, launches {launches} (want "
+             f"{want})")
+    del engine, model
+    torch.cuda.empty_cache()
+    return e, times, launches
 
 
 def phase_sparse_bert(torch, np, sa, dev, gen, seed):
@@ -2076,24 +2194,47 @@ SPEC_TIE_ULPS = 8
 # the sampled spec phase's filter, and B4's filter timed at the verify's
 # rows (8 lanes x (k + 1))
 SPEC_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+# B2/B3 (and int8) at the fused prefill step's width (phase 38's
+# prefill_chunk 16, the kSQ 16 instances) over the arenas a fused GPT-2
+# engine builds (C - 1 = 15 positions of lookahead: dense S 1039, paged T
+# 65): a step completing a 16-token prompt, mid-row steps, a step from
+# position 1023 (1039), then the sentinel
+FUSED_C = 16
+SQ16_CASE = dict(s_q=FUSED_C, h=12, d=64, Sd=1024 + FUSED_C - 1,
+                 T=1024 // PAGED_BS + -(-(FUSED_C - 1) // PAGED_BS),
+                 fills=(16, 33, 512, 1039, 300, 64, 777))
+# and at phase 38's prefill_chunk 24 (dense_c24): two launches a call, the
+# pieces 16 + 8, each with its own fill, over 23 positions of lookahead
+# (dense S 1047, paged T 66); fill 5 leaves every query of the first piece
+# seeing nothing (its fill 5 - 8 < 0) and 18 of the 24 queries in all
+SQ24_CASE = dict(s_q=24, h=12, d=64, Sd=1024 + 23,
+                 T=1024 // PAGED_BS + -(-23 // PAGED_BS),
+                 fills=(5, 24, 40, 512, 1047, 300, 777))
+# and at GPT 2.7B's head dim (2560 / 32 = 80: phase 39's decode step), s_q 1
+# over its max_seq_len 1024 with phase 2's fills
+D80_CASE = dict(s_q=1, h=32, d=80, Sd=1024, T=1024 // PAGED_BS,
+                fills=(1, 17, 512, 1024, 300, 64, 777))
 
 
-def verify_case(torch, da, qz, dev, gen, n_copies):
+def verify_case(torch, da, qz, dev, gen, n_copies, s_q=VERIFY_SQ, h=12,
+                d=64, Sd=VERIFY_S_DENSE, T=VERIFY_T_PAGED,
+                fills=VERIFY_FILLS):
     """B2/B3 (and int8) at the verify width s_q = k + 1 = 5, GPT-2 125M
     geometry (b 8, h 12, d 64, bf16): the dense cache [8, 1028, 768], the
     paged pool over a random block order with tables of 65 entries (S
-    1040), VERIFY_FILLS and the sentinel. ``n_copies`` copies of each
-    cache, read in turn so each call reads its K/V cold. Returns q, the
-    copies, and per kernel name (call(copy), plain(copy), library(copy),
-    cache length, S)."""
+    1040), VERIFY_FILLS and the sentinel; or at another width, head count,
+    head dim, extent and fills (SQ16_CASE, D80_CASE). ``n_copies`` copies
+    of each cache, read in turn so each call reads its K/V cold. Returns q,
+    the copies, and per kernel name (call(copy), plain(copy),
+    library(copy), cache length, S)."""
     import torch.nn.functional as F
-    b, h, d, bs, s_q = 8, 12, 64, PAGED_BS, VERIFY_SQ
-    Sd, T = VERIFY_S_DENSE, VERIFY_T_PAGED
+    b, bs = 8, PAGED_BS
     Sp, hd = T * bs, h * d
+    scale = d ** -0.5
     q = torch.randn(b, s_q, h, d, device=dev, generator=gen).bfloat16()
-    clen_d = torch.tensor(VERIFY_FILLS + (Sd + s_q,), dtype=torch.int32,
+    clen_d = torch.tensor(tuple(fills) + (Sd + s_q,), dtype=torch.int32,
                           device=dev)
-    clen_p = torch.tensor(VERIFY_FILLS + (Sp + s_q,), dtype=torch.int32,
+    clen_p = torch.tensor(tuple(fills) + (Sp + s_q,), dtype=torch.int32,
                           device=dev)
     perm = torch.randperm(b * T, device=dev, generator=gen)
     tables = perm.view(b, T).int().contiguous()
@@ -2126,7 +2267,7 @@ def verify_case(torch, da, qz, dev, gen, n_copies):
         S = kk.shape[1]
         return F.scaled_dot_product_attention(
             qt, kk.view(b, S, h, d).transpose(1, 2),
-            vv.view(b, S, h, d).transpose(1, 2), attn_mask=m, scale=1 / 8)
+            vv.view(b, S, h, d).transpose(1, 2), attn_mask=m, scale=scale)
 
     def gather(pool):
         return pool.reshape(b * T * bs, -1).index_select(0, flat).view(
@@ -2139,13 +2280,13 @@ def verify_case(torch, da, qz, dev, gen, n_copies):
         "decode_attention": (
             lambda c: da.decode_attention(q, *c["dense"], clen_d),
             lambda c: da.decode_attention_reference(q, *c["dense"], clen_d,
-                                                    1 / 8),
+                                                    scale),
             lambda c: sdpa(*c["dense"], m_d), clen_d, Sd),
         "paged_decode_attention": (
             lambda c: da.paged_decode_attention(q, *c["paged"], tables,
                                                 clen_p),
             lambda c: da.paged_decode_attention_reference(
-                q, *c["paged"], tables, clen_p, 1 / 8),
+                q, *c["paged"], tables, clen_p, scale),
             lambda c: sdpa(gather(c["paged"][0]), gather(c["paged"][1]),
                            m_p), clen_p, Sp),
         "decode_attention_int8": (
@@ -2153,7 +2294,7 @@ def verify_case(torch, da, qz, dev, gen, n_copies):
                                           k_scale=c["dense8"][2],
                                           v_scale=c["dense8"][3]),
             lambda c: da.decode_attention_reference(
-                q, *c["dense8"][:2], clen_d, 1 / 8, *c["dense8"][2:]),
+                q, *c["dense8"][:2], clen_d, scale, *c["dense8"][2:]),
             lambda c: sdpa(dequant(c["dense8"][0], c["dense8"][2]),
                            dequant(c["dense8"][1], c["dense8"][3]), m_d),
             clen_d, Sd),
@@ -2162,7 +2303,7 @@ def verify_case(torch, da, qz, dev, gen, n_copies):
                 q, *c["paged8"][:2], tables, clen_p, k_scale=c["paged8"][2],
                 v_scale=c["paged8"][3]),
             lambda c: da.paged_decode_attention_reference(
-                q, *c["paged8"][:2], tables, clen_p, 1 / 8,
+                q, *c["paged8"][:2], tables, clen_p, scale,
                 *c["paged8"][2:]),
             lambda c: sdpa(dequant(gather(c["paged8"][0]),
                                    gather(c["paged8"][2])),
@@ -2173,23 +2314,56 @@ def verify_case(torch, da, qz, dev, gen, n_copies):
     return q, copies, cases
 
 
-def phase_verify_parity(torch, da, qz, dev, gen):
-    """Phase 2 at the verify width: B2, B3 and their int8 branches at
-    s_q = 5 vs their plain versions (tolerances as phase 18); then whether
-    B2's query i at s_q = 5 is bitwise an s_q = 1 call on the same cache at
-    cache length clen - 4 + i (measured, not gated)."""
-    q, copies, cases = verify_case(torch, da, qz, dev, gen, 1)
+def case_parity(torch, da, qz, dev, gen, **case):
+    """B2, B3 and their int8 branches at a verify_case shape vs their plain
+    versions (tolerances as phase 18): (max abs errs, q, the copy, the
+    cases)."""
+    q, copies, cases = verify_case(torch, da, qz, dev, gen, 1, **case)
     c = copies[0]
     errs = {}
     for name, (call, plain, _, _, _) in cases.items():
         got = call(c)
         torch.cuda.synchronize()
         rtol = DECODE_INT8_RTOL if "int8" in name else 0.0
-        errs[name] = _decode_err(torch, got, plain(c), f"{name} s_q=5",
-                                 rtol)
-        print(f"phase2 {name} s_q={VERIFY_SQ} b=8 fills={VERIFY_FILLS} + "
-              f"sentinel max_abs_err={errs[name]} (tol {DECODE_ATOL}"
+        errs[name] = _decode_err(torch, got, plain(c),
+                                 f"{name} {_case_tag(q)}", rtol)
+        print(f"phase2 {name} {_case_tag(q)} b=8 fills="
+              f"{case.get('fills', VERIFY_FILLS)} + sentinel max_abs_err="
+              f"{errs[name]} (tol {DECODE_ATOL}"
               f"{' + %g |ref|' % rtol if rtol else ''})", flush=True)
+    return errs, q, c, cases
+
+
+def phase_piece_parity(torch, da, qz, dev, gen):
+    """Phase 2 at prefill_chunk 24 (SQ24_CASE): B2, B3 and their int8
+    branches against their plain versions at phase 2's tolerances, each
+    call launching its kernel once a piece of ``query_pieces(24)`` (16 +
+    8). Returns the max abs errors."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    before = dict(_build.LAUNCHES)
+    errs = case_parity(torch, da, qz, dev, gen, **SQ24_CASE)[0]
+    want = len(da.query_pieces(SQ24_CASE["s_q"]))
+    launched = {k: _build.LAUNCHES[k] - before.get(k, 0) for k in errs}
+    print(f"phase2 s_q={SQ24_CASE['s_q']} launches a call: {launched} "
+          f"(want {want}: the pieces {da.query_pieces(SQ24_CASE['s_q'])})",
+          flush=True)
+    if any(n != want for n in launched.values()):
+        fail(f"s_q {SQ24_CASE['s_q']}: launches {launched}, want {want} "
+             f"a call")
+    return errs
+
+
+def _case_tag(q) -> str:
+    b, s_q, h, d = q.shape
+    return f"s_q={s_q} h={h} d={d}"
+
+
+def phase_verify_parity(torch, da, qz, dev, gen):
+    """Phase 2 at the verify width: B2, B3 and their int8 branches at
+    s_q = 5 vs their plain versions (tolerances as phase 18); then whether
+    B2's query i at s_q = 5 is bitwise an s_q = 1 call on the same cache at
+    cache length clen - 4 + i (measured, not gated)."""
+    errs, q, c, cases = case_parity(torch, da, qz, dev, gen)
     call, _, _, clen, _ = cases["decode_attention"]
     out = call(c)
     live = slice(0, len(VERIFY_FILLS))           # not the sentinel row
@@ -2207,15 +2381,16 @@ def phase_verify_parity(torch, da, qz, dev, gen):
     return errs, n_equal == total
 
 
-def verify_timing(torch, da, qz, dev, gen, card):
+def verify_timing(torch, da, qz, dev, gen, card, **case):
     """Phase 5 at the verify width: B2/B3 (and int8) at s_q = 5 (device
     ms, 8 cold cache copies) beside their plain versions, SDPA with the
     kernel's boolean window (paged: index_select gathers first; int8: a
     dequantize first) and their bounds: the live K/V rows (int8: 1 byte an
     element and a 4-byte scale), q, out and the lengths (paged: 4 bytes a
     live table entry) over 3.35 TB/s, against 4 d operations a visible
-    (query, key) pair at the bf16 peak."""
-    q, copies, cases = verify_case(torch, da, qz, dev, gen, 8)
+    (query, key) pair at the bf16 peak; or at another verify_case shape
+    (SQ16_CASE, D80_CASE)."""
+    q, copies, cases = verify_case(torch, da, qz, dev, gen, 8, **case)
     b, s_q, h, d = q.shape
     hd, item = h * d, q.element_size()
     out = {}
@@ -2236,12 +2411,13 @@ def verify_timing(torch, da, qz, dev, gen, card):
             "library_ms": device_ms(lambda i: lib(copies[i]), 8),
             "bound_ms": 1e3 * max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
-        print(f"phase5 {name} s_q={VERIFY_SQ} " + " ".join(
+        print(f"phase5 {name} {_case_tag(q)} " + " ".join(
             f"{k}={v}" for k, v in out[name].items()) + f" card={card}",
             flush=True)
-    print("phase5 library_ms at s_q=5 is scaled_dot_product_attention "
-          "with the kernel's boolean window (paged: index_select gathers "
-          "of K and V first; int8: a dequantize first)", flush=True)
+    print(f"phase5 library_ms at {_case_tag(q)} is "
+          "scaled_dot_product_attention with the kernel's boolean window "
+          "(paged: index_select gathers of K and V first; int8: a "
+          "dequantize first)", flush=True)
     del copies
     return out
 
@@ -2459,8 +2635,10 @@ def _no_sync_launches(torch, eng):
 
 
 def phase_serve_loop(torch, ie, prompts, kw, card):
-    """Phase 28: the double-buffered loop. For the speculative and the
-    non-speculative kernel engines (dense bf16): run() against a loop of
+    """Phase 28: the double-buffered loop. For the speculative, the
+    non-speculative and the fused-prefill kernel engines (dense bf16; the
+    fused engine's next prompt chunks come from the host's replay of its
+    prompt cursors, never from device data): run() against a loop of
     step() calls (equal greedy tokens; run() launches from device-carried
     state, the step loop never; both timed), every launch under
     set_sync_debug_mode("error"); then a cancel in mid-run (after three
@@ -2471,7 +2649,9 @@ def phase_serve_loop(torch, ie, prompts, kw, card):
     n_new = 64
     for tag, extra in (("spec", dict(speculative=True, spec_k=SPEC_K,
                                      spec_ngram=SPEC_NGRAM)),
-                       ("non_spec", {})):
+                       ("non_spec", {}),
+                       ("fused", dict(fused_prefill=True,
+                                      prefill_chunk=FUSED_C))):
         ekw = dict(kw, megakernel=True, **extra)
         eng = ServingEngine(engine=ie, **ekw)
         counts = _no_sync_launches(torch, eng)
@@ -2527,6 +2707,362 @@ def phase_serve_loop(torch, ie, prompts, kw, card):
           f"{len(held)} tokens and queued request {waiting.uid}: both "
           f"cancelled, no token after cancel; the other {len(rest)} done "
           f"with {n_new} tokens each", flush=True)
+
+# ---------------------------------------------------------------------------
+# Slice 16: fused chunked prefill (A7) and decode at head dim 80 (C4)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def decode_widths():
+    """Count the query widths of the model's decode attention calls (the
+    wrappers' q.shape[1]; a width past 16 is one call of several launches),
+    by (wrapper, width)."""
+    import collections
+    from deepspeed_tpu_torch.models import gpt
+    seen = collections.Counter()
+    saved = gpt.decode_attention, gpt.paged_decode_attention
+
+    def counted(fn, name):
+        def call(q, *args, **kwargs):
+            seen[(name, q.shape[1])] += 1
+            return fn(q, *args, **kwargs)
+        return call
+
+    gpt.decode_attention = counted(saved[0], "decode_attention")
+    gpt.paged_decode_attention = counted(saved[1], "paged_decode_attention")
+    try:
+        yield seen
+    finally:
+        gpt.decode_attention, gpt.paged_decode_attention = saved
+
+
+def _parting(torch, dev, module, prompts, out, base, what):
+    """Requests whose greedy tokens part from the twin run's; each must
+    part first at a near-tie of the twin run (SPEC_TIE_ULPS)."""
+    parted = []
+    for i, (r, t) in enumerate(zip(out, base)):
+        pos = _first_difference(r.tokens, t.tokens)
+        if pos is None:
+            continue
+        gap, bound = _near_tie_gap(torch, module, prompts[i], t.tokens, pos,
+                                   dev)
+        parted.append((i, pos, gap, bound))
+        if not gap <= bound:
+            fail(f"{what}: request {i} parts from its twin's tokens at "
+                 f"{pos}, top-2 gap {gap} > bound {bound}")
+    return parted
+
+
+def _parting_stats(parted, n_req, n_new) -> str:
+    """Where the requests part from their twins' tokens, and how many
+    tokens the comparison covered (a request's tokens up to its parting
+    position; all n_new of one that never parts)."""
+    pos = sorted(p for _, p, _, _ in parted)
+    compared = sum(pos) + (n_req - len(pos)) * n_new
+    if not pos:
+        return (f"no request parts; tokens compared {compared}/"
+                f"{n_req * n_new}")
+    mid = len(pos) // 2
+    median = pos[mid] if len(pos) % 2 else (pos[mid - 1] + pos[mid]) / 2
+    return (f"parting positions min {pos[0]} median {median} max {pos[-1]}; "
+            f"tokens compared before parting {compared}/{n_req * n_new}")
+
+
+@contextlib.contextmanager
+def _completing_logits(eng):
+    """Capture, by request uid, the logits row a fused engine takes a
+    request's first token from: the completing prefill step's column
+    n_cons - 1. A lane that enters a chunk with pf > 0 prompt tokens
+    outstanding completes at step (pf - 1) // C, column (pf - 1) % C, when
+    that step lies in the chunk. Reads the chunk's input state on the
+    host, so only for untimed runs."""
+    rows, steps = {}, []
+    C, K = eng.prefill_chunk, eng.decode_chunk
+    name = "_fused_spec_chunk" if eng.speculative else "_fused_chunk"
+    decode, chunk = eng._decode, getattr(eng, name)
+
+    def captured_decode(*args):
+        logits = decode(*args)
+        steps.append(logits)
+        return logits
+
+    def captured_chunk(*state):
+        steps.clear()
+        act, pf = state[2].cpu(), state[5].cpu()
+        slots = {s: r.uid for s, r in eng.scheduler.running.items()}
+        result = chunk(*state)
+        for s, uid in slots.items():
+            n = int(pf[s])
+            if bool(act[s]) and 0 < n <= K * C:
+                k = (n - 1) // C
+                rows[uid] = steps[k][s, n - 1 - k * C].float().clone()
+        steps.clear()
+        return result
+
+    eng._decode = captured_decode
+    setattr(eng, name, captured_chunk)
+    try:
+        yield rows
+    finally:
+        eng.__dict__.pop("_decode", None)
+        eng.__dict__.pop(name, None)
+
+
+def _teacher_forced(torch, dev, ie, module, fused_kw, seqs, what):
+    """Phase 38's logits check at the completing step: each sequence (a
+    prompt and its twin run's tokens up to where they part) consumed as a
+    prompt by the fused kernel engine and by the same engine over the plain
+    versions (megakernel=False: the einsum route), and by the cacheless
+    prefill. Fails unless each completing step's logits lie within
+    LOGITS_ATOL of the einsum engine's and of the prefill's (under int8
+    the prefill attends over its dequantized int8 K/V, as the cache holds
+    them). Returns the largest |kernel - einsum| and |kernel - prefill|."""
+    from deepspeed_tpu_torch import ServingEngine
+    from deepspeed_tpu_torch.ops.cuda import _build
+    kw = dict(fused_kw, max_prompt_len=max(len(q) for q in seqs))
+    got = {}
+    for impl, mk in (("kernel", True), ("einsum", False)):
+        eng = ServingEngine(engine=ie, **dict(kw, megakernel=mk))
+        _build.reset_launch_counts()
+        with _completing_logits(eng) as rows:
+            out = eng.run([q.copy() for q in seqs], max_new_tokens=1)
+        torch.cuda.synchronize()
+        decode_launches = {k: _build.LAUNCHES[k] for k in DECODE_KERNELS
+                           if _build.LAUNCHES[k]}
+        if (len(rows) != len(seqs) or bool(decode_launches) != mk
+                or any(r.status != "done" for r in out)):
+            fail(f"{what}: the {impl} run captured {len(rows)} of "
+                 f"{len(seqs)} completing steps, decode launches "
+                 f"{decode_launches}")
+        got[impl] = [rows[r.uid] for r in out]
+    worst = {"einsum": 0.0, "prefill": 0.0}
+    for i, q in enumerate(seqs):
+        ids = torch.tensor([list(q)], device=dev)
+        with torch.inference_mode():
+            ref = module.logits(module.prefill(ids)[0][:, -1]).float()[0]
+        k = got["kernel"][i]
+        for against, r in (("einsum", got["einsum"][i]), ("prefill", ref)):
+            err = (k - r).abs().max().item()
+            worst[against] = max(worst[against], err)
+            if not (torch.isfinite(k).all() and err <= LOGITS_ATOL):
+                fail(f"{what}: sequence {i} (length {len(q)}) completing-step "
+                     f"logits {err} from the {against} run's (tol "
+                     f"{LOGITS_ATOL})")
+    return worst
+
+
+def _ttft(m, tag=""):
+    pct = m.ttft_reservoir.percentiles((50, 99))
+    return (f"{tag}ttft_mean_s={m.mean_ttft_s} {tag}ttft_p50_s={pct[50]} "
+            f"{tag}ttft_p99_s={pct[99]}")
+
+
+# phase 38's fused runs: (name, arena and knobs, prefill_chunk,
+# speculative); the first four give the *_sq16 rows' launches. The default
+# chunk_token_budget, 2 C + max_batch = 40, admits about two new prompts a
+# step beside the running lanes; "dense_full_budget" gives room for all 8
+# prompts' first chunks at once (8 C + 8), the unfused engine's admission
+FUSED_RUNS = (("dense", {}, FUSED_C, False),
+              ("paged", dict(paged=True, kv_block_size=PAGED_BS), FUSED_C,
+               False),
+              ("int8", dict(kv_dtype="int8"), FUSED_C, False),
+              ("paged_int8", dict(paged=True, kv_block_size=PAGED_BS,
+                                  kv_dtype="int8"), FUSED_C, False),
+              ("spec_dense", {}, FUSED_C, True),
+              ("dense_c24", {}, 24, False),
+              ("dense_full_budget",
+               dict(chunk_token_budget=8 * FUSED_C + 8), FUSED_C, False))
+
+
+def _arena_kernel(extra) -> str:
+    """The decode kernel an arena's engine launches."""
+    name = ("paged_decode_attention" if extra.get("paged")
+            else "decode_attention")
+    return name + ("_int8" if extra.get("kv_dtype") == "int8" else "")
+
+
+def phase_fused_serving(torch, dev, ie, prompts, kw, card):
+    """Phase 38: fused chunked prefill on phase 4's GPT-2 125M and its 16
+    greedy requests: ServingEngine(megakernel=True, fused_prefill=True,
+    prefill_chunk=16) over the dense, paged, int8 and paged int8 arenas
+    and speculative (k 4) on the dense one, each beside the unfused kernel
+    engine on the same arena (speculative: the unfused speculative
+    engine), prefill_chunk 24 once on the dense arena, and once with a
+    chunk_token_budget that admits a whole batch at once. Gates: every
+    request done, every logits tensor finite, no bucketed prefill program;
+    each fused step calls the arena's decode wrapper once a layer at the
+    step's width (16; 24 in two launches, the pieces 16 + 8) and no other
+    width or decode kernel; greedy tokens equal to the twin's or parting
+    first at a near-tie of the twin run. Prints tokens/s, time to first
+    token (mean, p50, p99), chunk ms, prompt tokens consumed inline and
+    launches a step for both, and a steady fused chunk's idle share.
+    Then, teacher-forced, each prompt and its twin's tokens up to where
+    they part go through the fused kernel engine, the fused einsum engine
+    and the cacheless prefill, and the completing step's logits must agree
+    (``_teacher_forced``). Returns the s_q 16 launches of each decode
+    kernel."""
+    import numpy as np
+    from deepspeed_tpu_torch import ServingEngine
+    n_new, K = 64, kw["decode_chunk"]
+    L = ie.module.cfg.num_layers
+    launches = {}
+    for name, extra, chunk, spec in FUSED_RUNS:
+        base_kw = dict(kw, megakernel=True, **extra)
+        if spec:
+            base_kw.update(speculative=True, spec_k=SPEC_K,
+                           spec_ngram=SPEC_NGRAM)
+        fused_kw = dict(base_kw, fused_prefill=True, prefill_chunk=chunk)
+        ServingEngine(engine=ie, **fused_kw).run(
+            [p.copy() for p in prompts[:2]], max_new_tokens=4)   # warm-up
+        base_eng = ServingEngine(engine=ie, **base_kw)
+        eng = ServingEngine(engine=ie, **fused_kw)
+        flags = [_checked_logits(torch, m, dev)
+                 for m in {id(base_eng.module): base_eng.module,
+                           id(eng.module): eng.module}.values()]
+        try:
+            base, base_s, base_launched = _serve(torch, base_eng, prompts,
+                                                 n_new)
+            with decode_widths() as widths:
+                out, seconds, launched = _serve(torch, eng, prompts, n_new)
+        finally:
+            for m in (base_eng.module, eng.module):
+                m.__dict__.pop("logits", None)
+        if any(bool(f) for f in flags):
+            fail(f"phase38 {name}: non-finite logits")
+        kernel = _arena_kernel(extra)
+        wrapper = kernel.replace("_int8", "")
+        m = eng.metrics
+        steps = m.decode_steps * K
+        pieces = -(-chunk // FUSED_C)
+        other = [k for k in DECODE_KERNELS if k != kernel and launched.get(k)]
+        print(f"phase38 fused {name} prefill_chunk={chunk} launches="
+              f"{launched} widths={dict(widths)} chunks={m.decode_steps} "
+              f"steps={steps}", flush=True)
+        if m.prefill_programs or m.prefill_prompt_tokens:
+            fail(f"phase38 {name}: a bucketed prefill ran")
+        if (launched.get(kernel, 0) != pieces * L * steps or other
+                or dict(widths) != {(wrapper, chunk): L * steps}):
+            fail(f"phase38 {name}: {launched.get(kernel, 0)} {kernel} "
+                 f"launches and widths {dict(widths)} for {steps} steps "
+                 f"(want {pieces} a layer a step at width {chunk}, no other "
+                 f"decode kernel or width): {launched}")
+        if eng.inline_prefill_tokens != sum(len(p) for p in prompts):
+            fail(f"phase38 {name}: {eng.inline_prefill_tokens} prompt "
+                 f"tokens consumed inline")
+        if name in ("dense", "paged", "int8", "paged_int8"):
+            launches[kernel] = launched[kernel]
+        parted = _parting(torch, dev, base_eng.module, prompts, out, base,
+                          f"phase38 {name}")
+        # teacher-forced: each prompt and its twin's tokens up to where the
+        # two part (all but the last of a request that never parts)
+        at = dict((i, pos) for i, pos, _, _ in parted)
+        seqs = [np.concatenate([p, np.asarray(t.tokens[:at.get(i, n_new - 1)],
+                                               p.dtype)])
+                for i, (p, t) in enumerate(zip(prompts, base))]
+        worst = _teacher_forced(torch, dev, ie, base_eng.module, fused_kw,
+                                seqs, f"phase38 {name}")
+        print(f"phase38 fused {name} teacher-forced completing step over "
+              f"{len(seqs)} sequences of {min(map(len, seqs))}-"
+              f"{max(map(len, seqs))} tokens: max |kernel - einsum engine| "
+              f"{worst['einsum']}, max |kernel - prefill| {worst['prefill']}"
+              f" (tol {LOGITS_ATOL})", flush=True)
+        n_tokens = sum(len(r.tokens) for r in out)
+        bm = base_eng.metrics
+        base_steps = bm.decode_steps * K
+        print(f"phase38 fused {name}: greedy tokens equal the unfused "
+              f"engine's in {len(out) - len(parted)}/{len(out)} requests; "
+              f"{_parting_stats(parted, len(out), n_new)}; parting "
+              f"(request, position, top-2 gap, bound): {parted}", flush=True)
+        print(f"fused_{name}_serving_tokens_per_s={n_tokens / seconds} "
+              f"{_ttft(m)} mean_chunk_ms={m.mean_decode_chunk_s * 1e3} "
+              f"inline_prefill_tokens={eng.inline_prefill_tokens} "
+              f"{kernel}_launches_per_step={launched[kernel] / steps}; "
+              f"unfused_tokens_per_s={n_tokens / base_s} "
+              f"{_ttft(bm, 'unfused_')} unfused_mean_chunk_ms="
+              f"{bm.mean_decode_chunk_s * 1e3} unfused_prefill_prompt_"
+              f"tokens={bm.prefill_prompt_tokens} unfused_{kernel}_launches"
+              f"_per_step={base_launched.get(kernel, 0) / base_steps}"
+              f" (K={K}, batch 8) card={card}", flush=True)
+    # a steady fused chunk: every prompt consumed by the first chunk (at
+    # most 8 steps of 16 tokens), the profiled chunks pure C-wide decode
+    busy_ms, rows = phase_profile(torch, ie, prompts[:8], dict(
+        kw, fused_prefill=True, prefill_chunk=FUSED_C), card, tag="phase38")
+    b2_ms = sum(ms for ms, _, key in rows if "decode_attention_kernel" in key)
+    print(f"phase38 fused chunk decode_attention_ms_per_step={b2_ms / K} "
+          f"device_busy_ms_per_step={busy_ms / K} (K={K}, s_q {FUSED_C}, 8 "
+          f"live lanes) card={card}", flush=True)
+    return launches
+
+
+# phase 39: GPT 2.7B's width (bench.py:423: 32 layers, 32 heads of 80,
+# d_model 2560, d_ff 10240, max_seq_len 1024, bf16) cut in depth to fit the
+# time limit
+D80_LAYERS = 4
+
+
+def phase_d80_serving(torch, np, dev, seed, prompts, kw, card):
+    """Phase 39 (fault C4): ServingEngine(megakernel=True) at GPT 2.7B's
+    width, D80_LAYERS layers, random weights from --seed, phase 4's 16
+    requests over the dense, paged, int8 and paged int8 arenas, each beside
+    the megakernel=False engine (decode_impl "einsum", the plain sampler)
+    on the same arena. Gates: every request done, logits finite, the
+    arena's decode kernel launched L times a decode step (s_q 1, d 80) and
+    no other, greedy tokens equal or parting first at a near-tie of the
+    einsum run. Returns the d 80 launches of each decode kernel."""
+    from deepspeed_tpu_torch import InferenceEngine, ServingEngine
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(vocab_size=50304, max_seq_len=1024,
+                    num_layers=D80_LAYERS, num_heads=32, d_model=2560,
+                    d_ff=10240, dtype=torch.bfloat16)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    ie = InferenceEngine(model, dtype=torch.bfloat16, device=dev)
+    n_new, K, L = 64, kw["decode_chunk"], cfg.num_layers
+    print(f"phase39 GPT 2.7B width (d_model 2560, 32 heads of 80, d_ff "
+          f"10240) cut to {L} of 32 layers, bf16", flush=True)
+    launches = {}
+    for name, extra, _, _ in FUSED_RUNS[:4]:
+        ServingEngine(engine=ie, megakernel=True, **kw, **extra).run(
+            [p.copy() for p in prompts[:2]], max_new_tokens=4)   # warm-up
+        base_eng = ServingEngine(engine=ie, megakernel=False, **kw, **extra)
+        eng = ServingEngine(engine=ie, megakernel=True, **kw, **extra)
+        flags = [_checked_logits(torch, m, dev)
+                 for m in {id(base_eng.module): base_eng.module,
+                           id(eng.module): eng.module}.values()]
+        try:
+            base, base_s, base_launched = _serve(torch, base_eng, prompts,
+                                                 n_new)
+            out, seconds, launched = _serve(torch, eng, prompts, n_new)
+        finally:
+            for m in (base_eng.module, eng.module):
+                m.__dict__.pop("logits", None)
+        if any(bool(f) for f in flags):
+            fail(f"phase39 {name}: non-finite logits")
+        kernel = _arena_kernel(extra)
+        steps = eng.metrics.decode_steps * K
+        other = [k for k in DECODE_KERNELS if k != kernel and launched.get(k)]
+        if (launched.get(kernel, 0) != L * steps or other
+                or any(base_launched.get(k) for k in DECODE_KERNELS)):
+            fail(f"phase39 {name}: {launched.get(kernel, 0)} {kernel} "
+                 f"launches for {steps} steps (want {L} a step, no other "
+                 f"decode kernel; the einsum engine none): {launched} / "
+                 f"{base_launched}")
+        launches[kernel] = launched[kernel]
+        parted = _parting(torch, dev, base_eng.module, prompts, out, base,
+                          f"phase39 {name}")
+        n_tokens = sum(len(r.tokens) for r in out)
+        print(f"phase39 d80 {name}: launches={launched}; greedy tokens equal "
+              f"the einsum engine's in {len(out) - len(parted)}/{len(out)} "
+              f"requests; parting (request, position, top-2 gap, bound): "
+              f"{parted}", flush=True)
+        print(f"d80_{name}_serving_tokens_per_s={n_tokens / seconds} "
+              f"einsum_tokens_per_s={n_tokens / base_s} mean_chunk_ms="
+              f"{eng.metrics.mean_decode_chunk_s * 1e3} (L={L}, K={K}, batch "
+              f"8) card={card}", flush=True)
+    del ie, model
+    torch.cuda.empty_cache()
+    return launches
+
 
 # ---------------------------------------------------------------------------
 # Slice 5: the fused transformer ops (B6, B7, B8) and DeepSpeedTransformerLayer
@@ -3140,10 +3676,49 @@ def phase_row_registers(_build):
 
 
 # the 16-bit sparse wgmma kernels (B5 forward, B5b dq and dk/dv): bf16 and
-# fp16 x 4 head dims x causal or not of each
+# fp16 x 5 head dims (d 80 the d 96 kernels storing 80) x causal or not of
+# each
 SPARSE_WGMMA = ("sparse_fwd_wgmma", "sparse_bwd_dq_wgmma",
                 "sparse_bwd_dkv_wgmma")
-SPARSE_WGMMA_KERNELS = 16 * len(SPARSE_WGMMA)
+SPARSE_WGMMA_KERNELS = 20 * len(SPARSE_WGMMA)
+
+
+def phase_decode_registers(_build):
+    """Registers a thread and local bytes (stack and local memory, where
+    spills go) of the decode kernel's instances (B2/B3, int8 or not), by
+    query bucket kSQ and head dim: the most of each over the instances and
+    the spilled ones. Fails on a kSQ 16 instance (the fused prefill step's)
+    with local memory; the kSQ 4 and 8 instances' spills are reported."""
+    import re
+    regs = row_registers(_build, ("decode_attention_kernel",))
+    if regs is None:
+        print("phase1 decode registers: no cuobjdump, not measured",
+              flush=True)
+        return
+    groups = {}
+    for name, (reg, local) in regs.items():
+        # demangled "<T, TC, D, kSQ, Rows>", or mangled "...Li<D>ELi<kSQ>E"
+        m = (re.search(r"decode_attention_kernel<[^,]+, [^,]+, (\d+), "
+                       r"(\d+),", name)
+             or re.search(r"Li(\d+)ELi(\d+)E", name))
+        if m is None:
+            fail(f"phase1: cannot read the decode instance {name}")
+        d, sq = int(m.group(1)), int(m.group(2))
+        g = groups.setdefault((sq, d), [0, 0, 0, 0])
+        g[0] = max(g[0], reg)
+        g[1] = max(g[1], local)
+        g[2] += 1
+        g[3] += local > 0
+    if len(regs) != 300:
+        fail(f"expected 300 decode instances (3 dtypes x int8 or not x 5 "
+             f"head dims x 5 query buckets x 2 layouts), found {len(regs)}")
+    print("phase1 decode instances by (kSQ, d): [most registers a thread, "
+          "most local bytes, instances, instances with local memory]: "
+          + json.dumps({f"{sq},{d}": v for (sq, d), v
+                        in sorted(groups.items())}), flush=True)
+    spilled16 = {k: v for k, v in groups.items() if k[0] == 16 and v[3]}
+    if spilled16:
+        fail(f"kSQ 16 decode instances with local memory: {spilled16}")
 
 
 def phase_sparse_registers(_build):
@@ -4207,10 +4782,14 @@ def main(argv=None) -> int:
     phase_sass(_build)
     phase_row_registers(_build)
     phase_sparse_registers(_build)
+    phase_decode_registers(_build)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
     verify_err, _ = phase_verify_parity(torch, da, qz, dev, gen)
+    sq16_err = case_parity(torch, da, qz, dev, gen, **SQ16_CASE)[0]
+    d80_err = case_parity(torch, da, qz, dev, gen, **D80_CASE)[0]
+    phase_piece_parity(torch, da, qz, dev, gen)
     logits, sp_err = phase_sampling(torch, sp, dev, gen)
     flash_err, flash_inputs, flash_err_d80 = phase_flash_parity(torch, fa,
                                                                 dev, gen)
@@ -4219,6 +4798,8 @@ def main(argv=None) -> int:
     (da_t, da_bound, da_by), (sp_t, sp_bound, sp_by) = phase_timing(
         torch, da, qz, sp, dev, gen, decode_inputs, logits, card)
     verify_t = verify_timing(torch, da, qz, dev, gen, card)
+    sq16_t = verify_timing(torch, da, qz, dev, gen, card, **SQ16_CASE)
+    d80_t = verify_timing(torch, da, qz, dev, gen, card, **D80_CASE)
     filter_t, filter_err = filter_timing(torch, sp, dev, gen, card)
     torch.cuda.empty_cache()
     phase_sampled_serving(torch, ie, prompts, serve_kw, args.seed, card)
@@ -4227,8 +4808,12 @@ def main(argv=None) -> int:
     filter_launches = phase_spec_sampled(torch, ie, prompts, serve_kw,
                                          args.seed, card)
     phase_serve_loop(torch, ie, prompts, serve_kw, card)
+    fused_launches = phase_fused_serving(torch, dev, ie, prompts, serve_kw,
+                                         card)
     del ie
     torch.cuda.empty_cache()
+    d80_launches = phase_d80_serving(torch, np, dev, args.seed, prompts,
+                                     serve_kw, card)
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
     phase_model_check(torch, dev, engine, cfg, ids)
@@ -4249,6 +4834,8 @@ def main(argv=None) -> int:
     sparse_t = phase_sparse_timing(torch, sa, dev, gen, sparse_inputs, card)
     del sparse_inputs
     torch.cuda.empty_cache()
+    sparse_d80_err, sparse_d80_t, sparse_d80_launches = phase_sparse_d80(
+        torch, np, sa, dev, gen, args.seed, card)
     phase_sparse_bert(torch, np, sa, dev, gen, args.seed)
     torch.cuda.empty_cache()
 
@@ -4372,6 +4959,28 @@ def main(argv=None) -> int:
                            ("paged_decode_attention", 351),
                            ("decode_attention_int8", 74),
                            ("paged_decode_attention_int8", 351))
+    ] + [
+        {"name": f"{name}{tag}", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cuh",
+         "replaces": f"deepspeed_tpu/ops/pallas/decode_attention.py:{line}",
+         "launches": launched[name], "max_abs_err": errs[name],
+         **times[name]}
+        for tag, launched, errs, times in (
+            (f"_sq{FUSED_C}", fused_launches, sq16_err, sq16_t),
+            ("_d80", d80_launches, d80_err, d80_t))
+        for name, line in (("decode_attention", 74),
+                           ("paged_decode_attention", 351),
+                           ("decode_attention_int8", 74),
+                           ("paged_decode_attention_int8", 351))
+    ] + [
+        {"name": f"{name}_d80", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/sparse_attention.cu",
+         "replaces": "deepspeed_tpu/ops/sparse_attention/"
+                     f"sparse_self_attention.py:{line}",
+         "launches": sparse_d80_launches[name],
+         "max_abs_err": sparse_d80_err[name], **sparse_d80_t[name]}
+        for name, line in (("sparse_fwd", 72), ("sparse_bwd_dq", 122),
+                           ("sparse_bwd_dkv", 166))
     ] + [
         {"name": "sampling_filter", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/sampling.cu",

@@ -33,8 +33,9 @@ Decode attention routes through ``ops/cuda/decode_attention.py`` when
 CUDA tensor; their plain versions on a CPU tensor) and through the masked
 einsum otherwise (over the pool gathered through the tables when paged).
 Unlike the TPU model, "auto" never gives way to the einsum: on the card a
-shape a kernel does not take (head dim, dtype, query width, block size)
-raises. The large projections, the loss and the LayerNorms stay torch ops.
+shape a kernel does not take (head dim, dtype, block size) raises; every
+query width is taken. The large projections, the loss and the LayerNorms
+stay torch ops.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ from ..ops.cuda.flash_attention import flash_attention
 from ..ops.quantizer import dequantize_kv, quantize_kv
 from ..ops.sparse_attention.sparse_self_attention import sparse_attention
 from ..runtime.activation_checkpointing import (HostCheckpoints,
-                                                OffloadedCheckpoint)
+                                                offloaded_checkpoint)
 
 aten = torch.ops.aten
 
@@ -79,7 +80,7 @@ class GPTConfig:
     ported yet (MoE, sequence parallelism, local windows, the tp overlap)
     must stay at their defaults. ``cpu_checkpointing`` (with ``remat``)
     keeps each block's input in page-locked host memory instead of on the
-    device (:class:`OffloadedCheckpoint`). ``kv_cache_dtype`` is
+    device (:func:`offloaded_checkpoint`). ``kv_cache_dtype`` is
     "auto" (the cache in ``dtype``) or "int8".
     ``attention_impl="sparse"`` needs a ``sparse_attention`` SparsityConfig
     (the port's own, ``ops/sparse_attention``) and ``sparse_attention`` is
@@ -590,7 +591,7 @@ class GPT(nn.Module):
         names; the rest, flash or sparse attention included, is recomputed
         in the backward. With ``cfg.cpu_checkpointing`` a block saves nothing
         on the device: its input waits in page-locked host memory
-        (:class:`OffloadedCheckpoint`)."""
+        (:func:`offloaded_checkpoint`)."""
         cfg = self.cfg
         b, s = input_ids.shape
         if positions is None:
@@ -603,7 +604,7 @@ class GPT(nn.Module):
             remat and cfg.cpu_checkpointing) else None
         for blk in self.blocks:
             if offload is not None:
-                x = OffloadedCheckpoint.apply(
+                x = offloaded_checkpoint(
                     offload, functools.partial(run, blk, positions=positions),
                     x)
             elif remat:

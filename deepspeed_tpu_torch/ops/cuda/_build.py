@@ -43,13 +43,13 @@ _lock = threading.Lock()
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ll = ctypes.c_longlong
 _SIGNATURES = {
-    # q, k, v, k_scale, v_scale, cache_len, out, b, s_q, h, d, S, scale,
-    # dtype, int8, stream
-    "dstorch_decode_attention": [_vp] * 7 + [_int] * 5
+    # q, k, v, k_scale, v_scale, cache_len, out, b, s_q, q_stride, h, d, S,
+    # scale, dtype, int8, stream
+    "dstorch_decode_attention": [_vp] * 7 + [_int] * 6
     + [_float, _int, _int, _vp],
     # q, k_pool, v_pool, k_scale, v_scale, tables, cache_len, out, b, s_q,
-    # h, d, nb, bs, T, scale, dtype, int8, stream
-    "dstorch_paged_decode_attention": [_vp] * 8 + [_int] * 7
+    # q_stride, h, d, nb, bs, T, scale, dtype, int8, stream
+    "dstorch_paged_decode_attention": [_vp] * 8 + [_int] * 8
     + [_float, _int, _int, _vp],
     # logits, gumbel, out_logits, out_tokens, b, V, top_k, top_p, stream
     "dstorch_sampling": [_vp, _vp, _vp, _vp, _int, _int, _int, _float, _vp],

@@ -73,7 +73,7 @@ constexpr int kBwdGroup = 8;        // keys (dq) / query rows (dk, dv) per step
 // and the threads of a row are a power of two (the shuffle sums). The
 // forward takes 32; the backward kernels hold three or four row vectors, so
 // they take 16 up to D = 64 (registers limit them). D = 96 takes 24 in both
-// and D = 80 (flash only) 20 (4 threads a row).
+// and D = 80 20 (4 threads a row).
 template <int D, int CH>
 struct Split {
   static constexpr int kD = D;
@@ -218,7 +218,7 @@ T* as(void* p) { return static_cast<T*>(p); }
 
 // The element types of the C interfaces: 0 = float32, 1 = bfloat16,
 // 2 = float16; the head dims: 32, 64, 96, 128, and 80 with kWith80 (the
-// flash kernels only).
+// flash and sparse kernels; decode has its own dispatch).
 // Calls F<T, D, causal>::run(args...) for the runtime dtype / D / causal.
 template <template <typename, int, bool> class F, bool kWith80 = false,
           typename... Args>

@@ -6,10 +6,14 @@
 // `decode_attention`) and `_paged_decode_kernel` (paged, wrapper
 // `paged_decode_attention`) in deepspeed_tpu/ops/pallas/decode_attention.py,
 // both with their `quantized` branch. Computes, for every (row, head) and
-// each of s_q <= 8 query positions, the softmax attention over the row's own
+// each of s_q <= 16 query positions, the softmax attention over the row's own
 // live cache prefix: query i of a row with fill f (clamped into [0, S]) sees
 // key positions p < f - (s_q - 1) + i. A query that sees no key returns
-// exact zeros.
+// exact zeros. Head dims 32, 64, 80, 96 and 128. s_q up to 8 covers a decode
+// step and a speculative verify (k + 1); s_q 9-16 a fused chunked-prefill
+// step (16 prompt tokens a lane; the wrapper cuts wider calls into pieces of
+// at most 16 queries, each with its own fill, reading and writing its own
+// columns of q and out in place through their row stride `q_stride`).
 //
 // Where key position p of row r lives is the one thing the two layouts
 // differ in, so the kernel is templated on it (`Rows`):
@@ -29,9 +33,9 @@
 // stay bf16/fp16/f32.
 //
 // Bound: device-memory bytes. A key costs 4 * d * s_q flops against 4 * d
-// bytes of bf16 K + V: at most 8 flops a byte, against the card's balance of
-// about 295, so the work runs on CUDA cores (wgmma's 64-row tiles would
-// waste most of a tile at s_q <= 8). The design keeps as many bytes in
+// bytes of bf16 K + V: at most 16 flops a byte, against the card's balance
+// of about 295, so the work runs on CUDA cores (wgmma's 64-row tiles would
+// waste most of a tile at s_q <= 16). The design keeps as many bytes in
 // flight as the card can take:
 //   * Split-KV over a thread-block cluster, one launch a call. The grid is
 //     (h, b, C) with cluster dims (1, 1, C), C = min(8, ceil(S / kTile)),
@@ -61,10 +65,15 @@
 //     lanes a key, each dotting a quarter of the key's row with the
 //     queries, summed by two shuffles (lane = 8 g + key: the 8 lanes of a
 //     16-byte load phase read 8 rows at one column, and the rows are
-//     padded by 16 bytes in shared memory, so they hit distinct banks).
+//     padded by 16 bytes in shared memory, so they hit distinct banks; a
+//     quarter row is read in the widest of 16-, 8- and 4-byte chunks that
+//     divides it: d 80 gives 20 channels a lane, 8-byte chunks in bf16).
 //     Then an online softmax in f32 per warp over its keys (max and sum by
 //     three shuffles), and the values with lane = channel (a key's row read
-//     coalesced, its probabilities read from shared memory).
+//     coalesced, its probabilities read from shared memory): d / 32
+//     neighbouring channels a lane where 32 divides d, else channels lane,
+//     lane + 32, ... below d (d 80: three for lanes 0-15, two for the
+//     rest).
 //   * The merge, in a fixed order that does not depend on the layout: each
 //     block merges its four warps' (m, l, acc[s_q][d]) in warp order and
 //     stores the result into rank 0's shared memory (distributed shared
@@ -99,8 +108,14 @@
 //     and a box whose rows are a multiple of 16 bytes. The wrapper checks
 //     16-byte alignment of every tensor; the row stride h * d * sizeof(TC),
 //     a box row of d * sizeof(TC) + 16 bytes and the head's offset
-//     head * d * sizeof(TC) are multiples of 16 for every d in {32, 64, 96,
-//     128} and every cache type, as are the ring's padded rows.
+//     head * d * sizeof(TC) are multiples of 16 for every d in {32, 64, 80,
+//     96, 128} and every cache type, as are the ring's padded rows.
+//   * Columns past d: a box from column head * d carries the next 16 bytes
+//     of the cache row, which belong to the next head (or lie past the
+//     row's end and arrive as zeros). The score chunks cover channels
+//     [0, d) exactly and the value loop reads channel < d only, so those
+//     bytes never reach a score or an output; d 80 is its own instance,
+//     never d 96 over a padded row.
 //   * Cluster scheduling: all C blocks of a cluster must be resident at
 //     once on one GPC, so a block keeps its shared memory near 30 KB (at
 //     d = 64, bf16: 7 blocks an SM, with the registers of kMinBlocks), and
@@ -115,7 +130,7 @@
 //
 // The C interface lives in decode_attention.cu (dense) and
 // paged_decode_attention.cu (paged), one layout each, so nvcc compiles the
-// two halves of the kernels' 192 instantiations in parallel. Plain C (no
+// two halves of the kernels' 300 instantiations in parallel. Plain C (no
 // PyTorch headers), bound with ctypes by
 // deepspeed_tpu_torch/ops/cuda/decode_attention.py.
 
@@ -141,7 +156,7 @@ constexpr int kMaxSplit = 8;         // blocks a cluster (portable maximum)
 constexpr int kConsumers = 4;        // consumer warps; + 1 producer warp
 constexpr int kThreads = 32 * (kConsumers + 1);
 constexpr int kRingBudget = 27648;   // bytes of ring a block aims at
-constexpr int kMaxSQ = 8;
+constexpr int kMaxSQ = 16;
 constexpr int kMinBlocks = 7;       // blocks an SM holds at kSQ <= 4
 constexpr int kMinBlocks8 = 5;      // and at kSQ = 8
 constexpr unsigned kFull = 0xffffffffu;
@@ -304,10 +319,31 @@ struct VecN<int8_t, 4> {
   }
 };
 
+// N consecutive cache elements (N * sizeof(TC) = 4, 8 or 16 bytes, aligned
+// to it) -> floats: the scores' chunk loads
+template <typename TC, int N>
+__device__ __forceinline__ void load_chunk(const TC* p, float* out) {
+  if constexpr (N * sizeof(TC) == 16) {
+    Vec16<TC>::load(p, out);
+  } else if constexpr (std::is_same<TC, int8_t>::value && N == 8) {
+    Vec8I8::load(p, out);
+  } else {
+    VecN<TC, N>::load(p, out);
+  }
+}
+
 // the lane mapping of the scores: lane = kKeysPerWarp * g + kk scores key
 // kk of its warp's kKeysPerWarp, chunk g of kGroup of the key's row
 constexpr int kKeysPerWarp = kTile / kConsumers;   // 8
 constexpr int kGroup = 32 / kKeysPerWarp;          // 4 lanes a key
+
+// The value loop's channel c of a lane: DPL = d / 32 neighbours (lane * DPL
+// + c) where 32 divides d, else strided (c * 32 + lane; at d 80 those of
+// c = 2 past lane 15 lie past d and are skipped)
+template <int D>
+__device__ __forceinline__ int value_chan(int lane, int c) {
+  return D % 32 != 0 ? c * 32 + lane : lane * (D / 32) + c;
+}
 
 // exp(m - M) as a rescale factor: 0 for a state that saw no key (m = -inf),
 // so two empty states never give exp(-inf - -inf) = NaN
@@ -421,7 +457,7 @@ struct Ring {
 };
 
 // Shared memory of one block, in bytes (every region 16-byte aligned):
-//   ring    the Ring
+//   ring    the Ring (or, where larger, the warps' states below)
 //   scales  kStages x (k, v) x kTile f32 (int8 only)
 //   q       kSQ x D f32 queries (rows past s_q zero)
 //   p       kConsumers x kKeysPerWarp x kSQ f32: a tile's probabilities
@@ -429,12 +465,16 @@ struct Ring {
 //   pml     kMaxSplit x 2 x kSQ f32: at rank 0, every rank's (m, l)
 //   bars    kStages full + kStages empty mbarriers
 // After the loop the ring holds the warps' states (m, l, acc) for the
-// block's merge (it is at least 2 x 2 x 32 x (d + 16) bytes, more than
-// their 2 x 4 x 8 x 4 + 4 x 8 x d x 4).
+// block's merge: 2 x 4 x kSQ x 4 + 4 x kSQ x d x 4 bytes, within the ring's
+// 2 x 2 x 32 x (d + 16) up to kSQ 8; at kSQ 16 an int8 ring (d + 16 bytes a
+// row) is smaller than the states at d 96 and 128, and the region grows to
+// hold them.
 template <typename TC, int D, int kSQ>
 struct Smem {
   using R = Ring<TC, D>;
-  static constexpr int kScalesAt = R::kBytes;
+  static constexpr int kStates = 2 * kConsumers * kSQ * 4
+                                 + kConsumers * kSQ * D * 4;
+  static constexpr int kScalesAt = R::kBytes > kStates ? R::kBytes : kStates;
   static constexpr int kQAt =
       kScalesAt + (R::kInt8 ? R::kStages * 2 * kTile * 4 : 0);
   static constexpr int kPAt = kQAt + kSQ * D * 4;
@@ -442,9 +482,7 @@ struct Smem {
   static constexpr int kPmlAt = kPartAt + kMaxSplit * kSQ * D * 4;
   static constexpr int kBarsAt = kPmlAt + kMaxSplit * 2 * kSQ * 4;
   static constexpr int kBytes = kBarsAt + 2 * R::kStages * 8;
-  static_assert(R::kBytes >= 2 * kConsumers * kSQ * 4
-                             + kConsumers * kSQ * D * 4,
-                "the warps' states overlay the ring");
+  static_assert(kStates % 16 == 0, "regions stay 16-byte aligned");
 };
 
 // N (1, 2, 4 or 8) consecutive f32 of shared memory, 4 N-byte aligned
@@ -475,7 +513,7 @@ __device__ __forceinline__ void cluster_wait() {     // acquire
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// kSQ: the query count s_q rounded up to 1, 2, 4 or 8 (`sq_bucket`); the
+// kSQ: the query count s_q rounded up to 1, 2, 4, 8 or 16 (`sq_bucket`); the
 // per-query loops run to kSQ, so s_q = 1, the decode step, carries no
 // code for queries it does not have (a loop to 8 with the absent queries
 // predicated off still issues their instructions, and timed the s_q = 1
@@ -485,11 +523,24 @@ __device__ __forceinline__ void cluster_wait() {     // acquire
 // Registers: up to kSQ = 4 a block fits kMinBlocks times on an SM, so the
 // serving geometry's 768 blocks can all be resident at once (a cluster
 // launch may leave a few SMs of a GPC unused); kSQ = 8 holds twice the
-// per-query state and fits kMinBlocks8 times.
+// per-query state and fits kMinBlocks8 times (both spill a few bytes at
+// most head dims: chip_smoke.py phase 1 prints every instance's registers
+// and local memory). kSQ = 16 (a fused prefill step) doubles the state
+// again (acc alone is 16 x d / 32 floats a lane): two blocks an SM (168
+// registers a thread on the H100) hold it without spilling only at d 32
+// and, with a 16-bit or int8 cache, d 64; the other kSQ 16 instances take
+// one block an SM and up to 255 registers, so none spills (phase 1 fails
+// on a kSQ 16 instance with local memory).
+template <typename TC, int D, int kSQ>
+constexpr int min_blocks() {
+  if constexpr (kSQ <= 4) return kMinBlocks;
+  if constexpr (kSQ <= 8) return kMinBlocks8;
+  return D <= 32 || (D == 64 && !std::is_same<TC, float>::value) ? 2 : 1;
+}
+
 template <typename T, typename TC, int D, int kSQ, typename Rows>
-__global__ void __launch_bounds__(kThreads,
-                                  kSQ <= 4 ? kMinBlocks : kMinBlocks8)
-decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
+__global__ void __launch_bounds__(kThreads, (min_blocks<TC, D, kSQ>()))
+decode_attention_kernel(const T* __restrict__ q,       // [b, q_stride, h, D]
                         // cache rows [*, h*D], boxes of D + 16 bytes x
                         // box_rows rows (`key_map`)
                         const __grid_constant__ CUtensorMap tk,
@@ -497,14 +548,16 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
                         const float* __restrict__ k_scale,  // [*] (int8)
                         const float* __restrict__ v_scale,
                         const int* __restrict__ cache_len,  // [b]
-                        T* __restrict__ out,           // [b, s_q, h, D]
-                        int s_q, int h, int S, float scale, int box_rows,
+                        T* __restrict__ out,      // [b, q_stride, h, D]
+                        int s_q, int q_stride, int h, int S, float scale,
+                        int box_rows,
                         Rows rows) {
   using R = Ring<TC, D>;
   using L = Smem<TC, D, kSQ>;
   constexpr bool kInt8 = R::kInt8;
   constexpr int kStages = R::kStages;
-  constexpr int DPL = D / 32;                 // channels per lane (values)
+  constexpr bool kStrided = D % 32 != 0;      // see value_chan
+  constexpr int DPL = (D + 31) / 32;          // channels per lane (values)
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   float* sc_s = reinterpret_cast<float*>(smem + L::kScalesAt);
@@ -549,7 +602,8 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
     for (int idx = threadIdx.x; idx < kSQ * D; idx += 32 * kConsumers) {
       const int i = idx / D, j = idx % D;
       q_s[idx] = i < s_q
-          ? to_f(q[(((size_t)row * s_q + i) * h + head) * D + j]) : 0.f;
+          ? to_f(q[(((size_t)row * q_stride + i) * h + head) * D + j])
+          : 0.f;
     }
     asm volatile("bar.sync 1, %0;\n" :: "n"(kThreads) : "memory");
   }
@@ -595,9 +649,12 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
     // ever more than one phase ahead of a barrier (a parity wait cannot
     // tell phase n from phase n + 2).
     constexpr int NE = D / kGroup;            // channels a lane scores
-    constexpr bool k16 = NE * sizeof(TC) % 16 == 0;
-    static_assert(k16 || sizeof(TC) == 1, "8-byte chunks only for int8");
-    constexpr int VN = k16 ? Vec16<TC>::N : 8;
+    // chunks of the widest of 16, 8 and 4 bytes that divides NE elements
+    // (a lane's quarter row starts at a multiple of its own size)
+    constexpr int kNB = NE * (int)sizeof(TC);
+    constexpr int VN =
+        (kNB % 16 == 0 ? 16 : kNB % 8 == 0 ? 8 : 4) / (int)sizeof(TC);
+    static_assert(NE % VN == 0 && VN >= 1, "whole chunks a lane");
     const int kk = lane & (kKeysPerWarp - 1);  // the lane's key of the warp
     const int g = lane / kKeysPerWarp;        // its chunk of the key's row
     const int key = warp * kKeysPerWarp + kk; // its key of the tile
@@ -624,11 +681,7 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
 #pragma unroll
         for (int e = 0; e < NE; e += VN) {
           float kv[VN];
-          if constexpr (k16) {
-            Vec16<TC>::load(kr + e, kv);
-          } else {
-            Vec8I8::load(reinterpret_cast<const int8_t*>(kr + e), kv);
-          }
+          load_chunk<TC, VN>(kr + e, kv);
           if (kInt8) {
 #pragma unroll
             for (int u = 0; u < VN; ++u) kv[u] *= ksc;
@@ -695,9 +748,16 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
       for (int u = 0; u < kKeysPerWarp; ++u) {   // all loads first
         if (u < nkw) {
           const int kr = warp * kKeysPerWarp + u;
-          VecN<TC, DPL>::load(reinterpret_cast<const TC*>(
-                                  vt + kr * R::kStride) + lane * DPL,
-                              vv[u]);
+          const TC* vrow = reinterpret_cast<const TC*>(vt + kr * R::kStride);
+          if constexpr (kStrided) {
+#pragma unroll
+            for (int c = 0; c < DPL; ++c) {
+              const int ch = value_chan<D>(lane, c);
+              vv[u][c] = ch < D ? to_f(vrow[ch]) : 0.f;
+            }
+          } else {
+            VecN<TC, DPL>::load(vrow + lane * DPL, vv[u]);
+          }
           if (kInt8) {
             const float s = vs_t[kr];
 #pragma unroll
@@ -737,7 +797,8 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
       }
 #pragma unroll
       for (int c = 0; c < DPL; ++c)
-        acc_w[(warp * kSQ + i) * D + lane * DPL + c] = acc[i][c];
+        if (!kStrided || value_chan<D>(lane, c) < D)
+          acc_w[(warp * kSQ + i) * D + value_chan<D>(lane, c)] = acc[i][c];
     }
   }
   __syncthreads();
@@ -791,7 +852,7 @@ decode_attention_kernel(const T* __restrict__ q,       // [b, s_q, h, D]
       Lc = fmaf(lr[r], f, Lc);
       o = fmaf(orr[r], f, o);
     }
-    out[(((size_t)row * s_q + i) * h + head) * D + j] =
+    out[(((size_t)row * q_stride + i) * h + head) * D + j] =
         from_f<T>(Lc > 0.f ? o / Lc : 0.f);
   }
 }
@@ -888,15 +949,16 @@ cudaError_t prepare(Kernel kern, int smem, unsigned* ready) {
 }
 
 constexpr int sq_bucket(int s_q) {
-  return s_q <= 1 ? 1 : s_q <= 2 ? 2 : s_q <= 4 ? 4 : 8;
+  return s_q <= 1 ? 1 : s_q <= 2 ? 2 : s_q <= 4 ? 4 : s_q <= 8 ? 8 : 16;
 }
 
 template <typename T, typename TC, int D, int kSQ, typename Rows>
 cudaError_t launch_sq(const T* q, const TC* k, const TC* v,
                      const float* k_scale, const float* v_scale,
-                     const int* cache_len, T* out, int b, int s_q, int h,
-                     int S, float scale, long long n_rows, int box_rows,
-                     Rows rows, cudaStream_t stream) {
+                     const int* cache_len, T* out, int b, int s_q,
+                     int q_stride, int h, int S, float scale,
+                     long long n_rows, int box_rows, Rows rows,
+                     cudaStream_t stream) {
   static unsigned ready = 0;   // devices prepared (one bit each)
   constexpr int smem = Smem<TC, D, kSQ>::kBytes;
   auto kern = decode_attention_kernel<T, TC, D, kSQ, Rows>;
@@ -920,7 +982,8 @@ cudaError_t launch_sq(const T* q, const TC* k, const TC* v,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, q, tk, tv, k_scale, v_scale,
-                         cache_len, out, s_q, h, S, scale, box_rows, rows);
+                         cache_len, out, s_q, q_stride, h, S, scale,
+                         box_rows, rows);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -928,20 +991,22 @@ cudaError_t launch_sq(const T* q, const TC* k, const TC* v,
 template <typename T, typename TC, int D, typename Rows>
 cudaError_t launch_d(const T* q, const TC* k, const TC* v,
                      const float* k_scale, const float* v_scale,
-                     const int* cache_len, T* out, int b, int s_q, int h,
-                     int S, float scale, long long n_rows, int box_rows,
-                     Rows rows, cudaStream_t stream) {
+                     const int* cache_len, T* out, int b, int s_q,
+                     int q_stride, int h, int S, float scale,
+                     long long n_rows, int box_rows, Rows rows,
+                     cudaStream_t stream) {
   switch (sq_bucket(s_q)) {
 #define DSTORCH_DECODE_SQ(SQ_)                                              \
   case SQ_:                                                                 \
     return launch_sq<T, TC, D, SQ_, Rows>(q, k, v, k_scale, v_scale,        \
-                                          cache_len, out, b, s_q, h, S,     \
-                                          scale, n_rows, box_rows, rows,    \
-                                          stream);
+                                          cache_len, out, b, s_q, q_stride, \
+                                          h, S, scale, n_rows, box_rows,    \
+                                          rows, stream);
     DSTORCH_DECODE_SQ(1)
     DSTORCH_DECODE_SQ(2)
     DSTORCH_DECODE_SQ(4)
     DSTORCH_DECODE_SQ(8)
+    DSTORCH_DECODE_SQ(16)
 #undef DSTORCH_DECODE_SQ
     default:
       return cudaErrorInvalidValue;
@@ -951,9 +1016,10 @@ cudaError_t launch_d(const T* q, const TC* k, const TC* v,
 template <typename T, typename TC, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
-                   const int* cache_len, void* out, int b, int s_q, int h,
-                   int d, int S, float scale, long long n_rows,
-                   int box_rows, Rows rows, cudaStream_t stream) {
+                   const int* cache_len, void* out, int b, int s_q,
+                   int q_stride, int h, int d, int S, float scale,
+                   long long n_rows, int box_rows, Rows rows,
+                   cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const TC* kt = static_cast<const TC*>(k);
   const TC* vt = static_cast<const TC*>(v);
@@ -962,10 +1028,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 #define DSTORCH_DECODE_CASE(D_)                                             \
   case D_:                                                                  \
     return launch_d<T, TC, D_, Rows>(qt, kt, vt, k_scale, v_scale,          \
-                                     cache_len, ot, b, s_q, h, S, scale,    \
-                                     n_rows, box_rows, rows, stream);
+                                     cache_len, ot, b, s_q, q_stride, h, S, \
+                                     scale, n_rows, box_rows, rows, stream);
     DSTORCH_DECODE_CASE(32)
     DSTORCH_DECODE_CASE(64)
+    DSTORCH_DECODE_CASE(80)
     DSTORCH_DECODE_CASE(96)
     DSTORCH_DECODE_CASE(128)
 #undef DSTORCH_DECODE_CASE
@@ -977,9 +1044,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename Rows>
 int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const int* cache_len, void* out, int b,
-             int s_q, int h, int d, int S, float scale, int dtype, int int8,
-             long long n_rows, int box_rows, Rows rows, void* stream) {
-  if (s_q < 1 || s_q > kMaxSQ || b < 1 || h < 1 || S < 1)
+             int s_q, int q_stride, int h, int d, int S, float scale,
+             int dtype, int int8, long long n_rows, int box_rows, Rows rows,
+             void* stream) {
+  if (s_q < 1 || s_q > kMaxSQ || q_stride < s_q || b < 1 || h < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
   if (int8 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -987,8 +1055,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
 #define DSTORCH_DECODE_TYPES(T_, TC_)                                       \
-  return (int)launch<T_, TC_>(q, k, v, ks, vs, cache_len, out, b, s_q, h,   \
-                              d, S, scale, n_rows, box_rows, rows, st);
+  return (int)launch<T_, TC_>(q, k, v, ks, vs, cache_len, out, b, s_q,      \
+                              q_stride, h, d, S, scale, n_rows, box_rows,  \
+                              rows, st);
   if (dtype == 0 && !int8) DSTORCH_DECODE_TYPES(float, float)
   if (dtype == 0) DSTORCH_DECODE_TYPES(float, int8_t)
   if (dtype == 1 && !int8) DSTORCH_DECODE_TYPES(__nv_bfloat16, __nv_bfloat16)

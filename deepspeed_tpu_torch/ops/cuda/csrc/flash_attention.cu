@@ -947,16 +947,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 // ===========================================================================
 // Launch and dispatch
 // ===========================================================================
-// The 16-bit kernels' head dim for a true head dim D: d = 80 (GPT 2.7B's
-// 2560 / 32) is not a whole number of 32-column panels, so it runs the
-// d = 96 kernels. The tensor maps keep D = 80 as their inner extent, so
-// TMA fills columns 80-95 of the third panel with zeros: Q K^T gains
-// nothing from them, P V, dQ, dK and dV compute those columns as zeros,
-// and the stores write only the first 80 (the kernels' DO). The f32
-// kernels take d = 80 as it is (attention_tiles.cuh's row splits).
-template <int D>
-constexpr int kWgmmaD = D == 80 ? 96 : D;
-
+// d = 80 runs the 16-bit kernels' d = 96 instances (kWgmmaD, hopper.cuh);
+// the f32 kernels take d = 80 as it is (attention_tiles.cuh's row splits).
 template <typename T, int D, bool C>
 struct Fwd {
   static cudaError_t run(const void* q, const void* k, const void* v,

@@ -36,6 +36,15 @@ constexpr int kConsumerWarps = 8;          // two warpgroups
 // registers between whole warpgroups of the block
 constexpr int kHopperThreads = 32 * (kConsumerWarps + 4);
 
+// The 16-bit flash and sparse kernels' head dim for a true head dim D:
+// d = 80 (GPT 2.7B's 2560 / 32) is not a whole number of 32-column panels,
+// so it runs the d = 96 kernels. The tensor maps keep D = 80 as their inner
+// extent, so TMA fills columns 80-95 of the third panel with zeros: Q K^T
+// gains nothing from them, P V, dQ, dK and dV compute those columns as
+// zeros, and the stores write only the first 80 (the kernels' DO).
+template <int D>
+constexpr int kWgmmaD = D == 80 ? 96 : D;
+
 // Registers a thread after the roles split in the flash kernels: the
 // launch gives each of the 12 warps 168 (65536 / 384); the producer
 // warpgroup hands back all but 24 to the block's pool and the consumers

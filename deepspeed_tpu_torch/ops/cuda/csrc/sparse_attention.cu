@@ -46,7 +46,9 @@
 // live 64 x 64 tile pair does 4 * 64 * 4096 flops in the forward and 6-8
 // * 64 * 4096 in the backward against two 8 KB tiles that mostly hit L2 (a
 // tile is reused by the neighbouring tiles of its window). Two designs:
-//   * bf16 / fp16 (the training path), d in {32, 64, 96, 128): persistent
+//   * bf16 / fp16 (the training path), d in {32, 64, 96, 128}, and 80 as
+//     the d 96 instances over maps that zero-fill columns 80-95 (kWgmmaD,
+//     hopper.cuh; the stores write 80, the kernels' DO): persistent
 //     wgmma kernels on the machinery of flash_attention.cu (hopper.cuh),
 //     one block per SM. Each block runs two pipelines, one per consumer
 //     warpgroup (wgmma's m64 is the layout's 64-row tile): a producer warp
@@ -82,7 +84,8 @@
 //     key take the masked body; dk/dv zeroes the rows of dropped keys at
 //     the store instead (a row of dK, dV depends only on its own key's
 //     scores).
-//   * f32: exact CUDA-core FMAs, on no main path; the forward and dq take
+//   * f32 (d 80 included: attention_tiles.cuh's row split of 20 channels a
+//     thread): exact CUDA-core FMAs, on no main path; the forward and dq take
 //     one block per (query tile, head, batch row), the dk/dv kernel one per
 //     work item.
 // The forward and dq do not split long LUT rows (a bidirectional layout's
@@ -522,7 +525,8 @@ __device__ __forceinline__ unsigned long long seen_cols(
 // the pairs the producer flags take the mask's instructions: the columns
 // each of a thread's two rows sees, built once a stage (seen_cols), then
 // one bit test a score.
-template <typename T, int D, bool kCausal>
+// DO (the tensors' head dim, D or 80 under D 96) is what the stores write.
+template <typename T, int D, bool kCausal, int DO = D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 sparse_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -674,12 +678,12 @@ sparse_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         lse[((long long)b * H + h) * S + row[r]] =
             m[r] <= kNegInf / 2 ? kNegInf : m[r] * kLn2 + logf(l_safe);
     }
-    store_acc<T, D>(out, o, b, row, h, S, H, inv, lane);
+    store_acc<T, DO>(out, o, b, row, h, S, H, inv, lane);
   }
 }
 
 // dq (B5b): the row-LUT work list (row_lut_producer).
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, int DO = D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -840,14 +844,14 @@ sparse_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     g += cnt;
     const int row[2] = {q0 + rl[0], q0 + rl[1]};
     const float sc[2] = {scale, scale};   // dS carried the scale out
-    store_acc<T, D>(dq, acc, b, row, h, S, H, sc, lane);
+    store_acc<T, DO>(dq, acc, b, row, h, S, H, sc, lane);
   }
 }
 
 // dk, dv: one work item is (head, key tile, a run of at most 32 column-LUT
 // entries) x batch row (the Work list, longest first); a split key tile's
 // items write f32 partials, summed up a binary tree over their ranks.
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, int DO = D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -1179,8 +1183,8 @@ sparse_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (!((kept >> rl[(e >> 1) & 1]) & 1ull)) dka[e] = dva[e] = 0.f;
     const int row[2] = {k0 + rl[0], k0 + rl[1]};
     const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
-    store_acc<T, D>(dk, dka, b, row, h, S, H, sc, lane);   // dS / scale
-    store_acc<T, D>(dv, dva, b, row, h, S, H, one, lane);
+    store_acc<T, DO>(dk, dka, b, row, h, S, H, sc, lane);   // dS / scale
+    store_acc<T, DO>(dv, dva, b, row, h, S, H, one, lane);
   }
 }
 
@@ -1435,16 +1439,17 @@ struct Fwd {
                          int B, int S, int H, float scale,
                          cudaStream_t stream) {
     if constexpr (sizeof(T) == 2) {
+      constexpr int DW = kWgmmaD<D>;
       CUtensorMap m[3];
       const void* ptrs[3] = {q, k, v};
       const int rows[3] = {kRows, kRows, kRows};
       if (!tile_maps<T>(m, ptrs, rows, 3, st, B, S, H, D,
-                        SpTile<D, true>::kCols))
+                        SpTile<DW, true>::kCols))
         return cudaErrorInvalidValue;
       const int blocks = std::min((n_items * B + kPipes - 1) / kPipes,
                                   sm_count());
-      return launch(sparse_fwd_wgmma_kernel<T, D, C>, dim3(blocks),
-                    kHopperThreads, SpTile<D, true>::kSmem, stream, m[0],
+      return launch(sparse_fwd_wgmma_kernel<T, DW, C, D>, dim3(blocks),
+                    kHopperThreads, SpTile<DW, true>::kSmem, stream, m[0],
                     m[1], m[2], lut, items, n_items, kvm, as<T>(out), lse, B,
                     S, H, scale);
     } else {
@@ -1473,8 +1478,9 @@ struct Dq {
         return cudaErrorInvalidValue;
       const int blocks = std::min((n_items * B + kPipes - 1) / kPipes,
                                   sm_count());
-      return launch(sparse_bwd_dq_wgmma_kernel<T, D, C>, dim3(blocks),
-                    kHopperThreads, SpTile<D, false>::kSmem, stream, m[0], m[1],
+      return launch(sparse_bwd_dq_wgmma_kernel<T, kWgmmaD<D>, C, D>,
+                    dim3(blocks), kHopperThreads,
+                    SpTile<kWgmmaD<D>, false>::kSmem, stream, m[0], m[1],
                     m[2], m[3], lut, items, n_items, kvm, lse, delta,
                     as<T>(dq), B, S, H, scale);
     } else {
@@ -1504,8 +1510,9 @@ struct Dkv {
         return cudaErrorInvalidValue;
       const int blocks = std::min((n_items * B + kPipes - 1) / kPipes,
                                   sm_count());
-      return launch(sparse_bwd_dkv_wgmma_kernel<T, D, C>, dim3(blocks),
-                    kHopperThreads, SpTile<D, false>::kSmem, stream, m[0], m[1],
+      return launch(sparse_bwd_dkv_wgmma_kernel<T, kWgmmaD<D>, C, D>,
+                    dim3(blocks), kHopperThreads,
+                    SpTile<kWgmmaD<D>, false>::kSmem, stream, m[0], m[1],
                     m[2], m[3], lut, work, n_items, kvm, lse, delta,
                     as<T>(dk), as<T>(dv), B, S, H, scale);
     } else {
@@ -1524,16 +1531,17 @@ bool bad_lut(int len, int shift) { return len < 1 || shift < 3 || shift > 6; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d in {32, 64, 96, 128}.
-// `strides` is a host array of (batch, seq, head) element strides: q, k, v
-// for the forward; q, k, v, dO for the backward. lut_idx / lut_cnt /
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d in {32, 64, 80, 96,
+// 128}. `strides` is a host array of (batch, seq, head) element strides: q,
+// k, v for the forward; q, k, v, dO for the backward. lut_idx / lut_cnt /
 // lut_bits are device arrays [H, tiles, lut_len] / [H, tiles] / [H, tiles,
 // lut_len]: the row LUT for the forward and dq, the column LUT for dk/dv.
 // kvm: the f32 [B, S] key-padding mask (> 0 attends) or null. The forward
 // and dq kernels also take the row-LUT work list ([n_items, 2] int32:
 // head, query tile; longest LUT rows first; the f32 kernels read none),
 // the dk/dv kernel its work items ([n_items, 7] int32, see Work) and, when
-// parts > 0, the workspace and the zeroed tickets ([B, parts, kLevels]).
+// parts > 0, the workspace ([B, parts, 2, 64, the kernel's d]: 96 for a
+// 16-bit d 80) and the zeroed tickets ([B, parts, kLevels]).
 // 16-bit strides are multiples of 8 elements and the pointers 16-byte
 // aligned (the tensor maps). Returns a cudaError_t (0 on success).
 extern "C" int dstorch_sparse_fwd(const void* q, const void* k, const void* v,
@@ -1548,9 +1556,9 @@ extern "C" int dstorch_sparse_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(B, S, H) || bad_lut(lut_len, shift) || n_items < 1)
     return (int)cudaErrorInvalidValue;
   const Lut lut{lut_idx, lut_cnt, lut_bits, lut_len, shift};
-  return (int)dispatch<Fwd>(dtype, d, causal, q, k, v, out, lse, strides,
-                            lut, items, n_items, kvm, B, S, H, scale,
-                            static_cast<cudaStream_t>(stream));
+  return (int)dispatch<Fwd, true>(dtype, d, causal, q, k, v, out, lse,
+                                  strides, lut, items, n_items, kvm, B, S, H,
+                                  scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dstorch_sparse_bwd_dq(const void* q, const void* k,
@@ -1567,9 +1575,9 @@ extern "C" int dstorch_sparse_bwd_dq(const void* q, const void* k,
   if (bad_shape(B, S, H) || bad_lut(lut_len, shift) || n_items < 1)
     return (int)cudaErrorInvalidValue;
   const Lut lut{lut_idx, lut_cnt, lut_bits, lut_len, shift};
-  return (int)dispatch<Dq>(dtype, d, causal, q, k, v, dout, lse, delta, dq,
-                           strides, lut, items, n_items, kvm, B, S, H, scale,
-                           static_cast<cudaStream_t>(stream));
+  return (int)dispatch<Dq, true>(dtype, d, causal, q, k, v, dout, lse, delta,
+                                 dq, strides, lut, items, n_items, kvm, B, S,
+                                 H, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dstorch_sparse_bwd_dkv(const void* q, const void* k,
@@ -1590,7 +1598,8 @@ extern "C" int dstorch_sparse_bwd_dkv(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const Lut lut{lut_idx, lut_cnt, lut_bits, lut_len, shift};
   const Work work{items, ws, tickets, parts};
-  return (int)dispatch<Dkv>(dtype, d, causal, q, k, v, dout, lse, delta, dk,
-                            dv, strides, lut, work, n_items, kvm, B, S, H,
-                            scale, static_cast<cudaStream_t>(stream));
+  return (int)dispatch<Dkv, true>(dtype, d, causal, q, k, v, dout, lse,
+                                  delta, dk, dv, strides, lut, work, n_items,
+                                  kvm, B, S, H, scale,
+                                  static_cast<cudaStream_t>(stream));
 }

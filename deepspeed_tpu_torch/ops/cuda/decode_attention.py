@@ -37,9 +37,12 @@ from . import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
-# Widest query width (speculative k+1 verify) the kernel takes.
-MAX_SPEC_S = 8
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+# Widest query width one launch takes: a decode step (1), a speculative
+# verify (k + 1) and a fused chunked-prefill step (prefill_chunk, 16 by
+# default). A wider call runs as consecutive launches of at most this many
+# queries (:func:`query_pieces`).
+MAX_LAUNCH_S = 16
+_KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The kernel's split (csrc/decode_attention.cuh: kTile, kMaxSplit): key
 # tiles of SPLIT_TILE positions, at most MAX_SPLIT blocks a (row, head).
@@ -66,12 +69,27 @@ def split_ranges(fill: int, n_split: int, tile: int = SPLIT_TILE):
     return out
 
 
+def query_pieces(s: int):
+    """The launches of a width-s call: ``(a, n)`` for the queries [a, a + n),
+    consecutive pieces of at most :data:`MAX_LAUNCH_S`. Query i of a call
+    with fill f sees positions < f - (s - 1) + i, so the piece [a, a + n) is
+    a width-n call with fill f - (s - 1) + a + n - 1 (:func:`piece_fill`)."""
+    return [(a, min(MAX_LAUNCH_S, s - a)) for a in range(0, s, MAX_LAUNCH_S)]
+
+
+def piece_fill(fill: torch.Tensor, s: int, a: int, n: int) -> torch.Tensor:
+    """The fill of the piece [a, a + n) of a width-s call with (clamped)
+    fill ``fill``. A negative result (a piece whose queries see nothing) is
+    clamped to 0 by the kernel, where its queries still see nothing."""
+    return fill - (s - 1) + (a + n - 1)
+
+
 def decode_supported(s: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the kernel takes this query width, head dim and compute dtype
-    (q's; the cache is the same dtype or int8 with scales).
+    (q's; the cache is the same dtype or int8 with scales). Every width >= 1
+    is taken: up to :data:`MAX_LAUNCH_S` in one launch, wider in pieces.
     :func:`decode_attention` raises on a CUDA tensor of any other shape."""
-    return 1 <= s <= MAX_SPEC_S and d in _KERNEL_HEAD_DIMS \
-        and dtype in _KERNEL_DTYPES
+    return s >= 1 and d in _KERNEL_HEAD_DIMS and dtype in _KERNEL_DTYPES
 
 
 def paged_decode_supported(s: int, d: int, dtype: torch.dtype,
@@ -222,7 +240,7 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
 def _check_kernel_args(q, k, v, k_scale, v_scale, scale_shape, d, s_q):
     if not decode_supported(s_q, d, q.dtype):
         raise ValueError(
-            f"decode kernel takes s_q in 1..{MAX_SPEC_S}, d in "
+            f"decode kernel takes s_q >= 1, d in "
             f"{_KERNEL_HEAD_DIMS}, f32/bf16/fp16; got s_q={s_q} d={d} "
             f"{q.dtype}")
     int8 = k_scale is not None
@@ -251,7 +269,7 @@ def decode_attention(q: torch.Tensor, cached_key: torch.Tensor,
                      scale: Optional[float] = None,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: [b, s_q, h, d], 1 <= s_q <= 8. cached_key/value: the flat
+    """q: [b, s_q, h, d], s_q >= 1. cached_key/value: the flat
     [b, S, h*d] cache (a rank-4 [b, S, h, d] cache is viewed flat), in q's
     dtype, or int8 with ``k_scale``/``v_scale`` [b, S] f32 dequant
     multipliers. cache_len: valid positions per row including this call's
@@ -260,7 +278,8 @@ def decode_attention(q: torch.Tensor, cached_key: torch.Tensor,
     attends to positions < f - (s_q - 1) + i. Returns [b, s_q, h, d] in q's
     dtype.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs
+    A CUDA tensor launches the kernel, once a piece of
+    :func:`query_pieces` (one launch up to s_q 16); a CPU tensor runs
     :func:`decode_attention_reference`."""
     b, s_q, h, d = q.shape
     S = cached_key.shape[1]
@@ -274,19 +293,36 @@ def decode_attention(q: torch.Tensor, cached_key: torch.Tensor,
     kf = cached_key.reshape(b, S, h * d)
     vf = cached_value.reshape(b, S, h * d)
     int8 = _check_kernel_args(q, kf, vf, k_scale, v_scale, (b, S), d, s_q)
-    clen = _as_cache_len(cache_len, b, S, q.device).contiguous()
-    out = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.dstorch_decode_attention(
-            q.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-            k_scale.data_ptr() if int8 else None,
-            v_scale.data_ptr() if int8 else None, clen.data_ptr(),
-            out.data_ptr(), b, s_q, h, d, S, float(scale),
-            _KERNEL_DTYPES[q.dtype], int(int8), _build.stream_of(q))
+    clen = _as_cache_len(cache_len, b, S, q.device)
     name = "decode_attention_int8" if int8 else "decode_attention"
-    _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+
+    def launch(a, n, fill, out):
+        lib = _build.library()
+        with torch.cuda.device(q.device):
+            err = lib.dstorch_decode_attention(
+                q[:, a:].data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                k_scale.data_ptr() if int8 else None,
+                v_scale.data_ptr() if int8 else None, fill.data_ptr(),
+                out[:, a:].data_ptr(), b, n, s_q, h, d, S, float(scale),
+                _KERNEL_DTYPES[q.dtype], int(int8), _build.stream_of(q))
+        _build.check(err, name)
+        _build.LAUNCHES[name] += 1
+
+    return _launch_pieces(q, clen, launch)
+
+
+def _launch_pieces(q: torch.Tensor, clen: torch.Tensor, launch):
+    """Run ``launch(a, n, fill, out)`` once for each piece ``(a, n)`` of
+    :func:`query_pieces` (one launch when s_q <= 16), its fill
+    :func:`piece_fill`: the kernel reads the piece's queries from q and
+    writes its columns of ``out`` in place (row stride s_q)."""
+    s_q = q.shape[1]
+    out = torch.empty_like(q)
+    if s_q <= MAX_LAUNCH_S:
+        launch(0, s_q, clen.contiguous(), out)
+        return out
+    for a, n in query_pieces(s_q):
+        launch(a, n, piece_fill(clen, s_q, a, n).contiguous(), out)
     return out
 
 
@@ -296,8 +332,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Decode attention over a paged cache. q: [b, s_q, h, d], 1 <= s_q <=
-    8; k_pool/v_pool: [nb, bs, h*d] block pools in q's dtype, or int8 with
+    """Decode attention over a paged cache. q: [b, s_q, h, d], s_q >= 1
+    (pieces of at most 16 as :func:`decode_attention`); k_pool/v_pool:
+    [nb, bs, h*d] block pools in q's dtype, or int8 with
     ``k_scale``/``v_scale`` [nb, bs] f32; block_tables: [b, T] (S = T*bs);
     cache_len: valid positions per row including this call's tokens, a
     scalar or [b], clamped to S. Table entries past nb - 1 (the
@@ -320,7 +357,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             v_scale)
     if not paged_decode_supported(s_q, d, q.dtype, bs):
         raise ValueError(
-            f"decode kernel takes s_q in 1..{MAX_SPEC_S}, d in "
+            f"decode kernel takes s_q >= 1, d in "
             f"{_KERNEL_HEAD_DIMS}, f32/bf16/fp16, block_size a multiple of 8; "
             f"got s_q={s_q} d={d} {q.dtype} block_size={bs}")
     kf = k_pool.reshape(nb, bs, h * d)
@@ -331,18 +368,20 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             or not block_tables.is_contiguous()):
         raise ValueError(f"block_tables must be contiguous int32 [{b}, T] on "
                          f"{q.device}")
-    clen = _as_cache_len(cache_len, b, S, q.device).contiguous()
-    out = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.dstorch_paged_decode_attention(
-            q.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-            k_scale.data_ptr() if int8 else None,
-            v_scale.data_ptr() if int8 else None, block_tables.data_ptr(),
-            clen.data_ptr(), out.data_ptr(), b, s_q, h, d, nb, bs, T,
-            float(scale), _KERNEL_DTYPES[q.dtype], int(int8),
-            _build.stream_of(q))
+    clen = _as_cache_len(cache_len, b, S, q.device)
     name = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
-    _build.check(err, name)
-    _build.LAUNCHES[name] += 1
-    return out
+
+    def launch(a, n, fill, out):
+        lib = _build.library()
+        with torch.cuda.device(q.device):
+            err = lib.dstorch_paged_decode_attention(
+                q[:, a:].data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                k_scale.data_ptr() if int8 else None,
+                v_scale.data_ptr() if int8 else None, block_tables.data_ptr(),
+                fill.data_ptr(), out[:, a:].data_ptr(), b, n, s_q, h, d, nb,
+                bs, T, float(scale), _KERNEL_DTYPES[q.dtype], int(int8),
+                _build.stream_of(q))
+        _build.check(err, name)
+        _build.LAUNCHES[name] += 1
+
+    return _launch_pieces(q, clen, launch)

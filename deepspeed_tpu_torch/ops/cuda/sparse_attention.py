@@ -6,7 +6,8 @@ Counterpart of the kernels of
 the CUDA kernels in ``csrc/sparse_attention.cu``: bf16 / fp16 as
 persistent wgmma kernels fed by TMA through mbarrier rings (the machinery of
 ``csrc/hopper.cuh``, shared with flash), f32 on CUDA cores; head dims 32,
-64, 96, 128.
+64, 80, 96, 128 (16-bit d 80 runs the d 96 kernels over columns 80-95 that
+TMA fills with zeros, as flash does).
 
 The layout arrives as a :class:`TileLayout`: the fine layout compiled at the
 kernels' 64-row tile (``ops/sparse_attention/sparse_self_attention.py``
@@ -52,13 +53,19 @@ NEG_INF = -1e30        # the TPU kernels' mask value
 TILE = 64              # rows of the kernels' tiles (kRows in the sources)
 _TICKET_LEVELS = 16    # a split tile's combine tree (kLevels in the source)
 
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def sparse_supported(d: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this head dim and dtype."""
     return d in _KERNEL_HEAD_DIMS and dtype in _KERNEL_DTYPES
+
+
+def _kernel_d(d: int, dtype: torch.dtype) -> int:
+    """The head dim of the kernel that runs d: the 16-bit kernels run d 80
+    as d 96 (their dk/dv workspace rows are that wide)."""
+    return 96 if d == 80 and dtype != torch.float32 else d
 
 
 class TileLayout(NamedTuple):
@@ -309,8 +316,8 @@ def sparse_attention_backward(q, k, v, out, lse, dout, layout: TileLayout,
     tail = _tail(q, layout, kvm, scale)
     ws = tickets = None
     if layout.dkv_parts:
-        ws = torch.empty(b, layout.dkv_parts, 2, TILE, d, dtype=torch.float32,
-                         device=q.device)
+        ws = torch.empty(b, layout.dkv_parts, 2, TILE, _kernel_d(d, q.dtype),
+                         dtype=torch.float32, device=q.device)
         tickets = torch.zeros(b, layout.dkv_parts, _TICKET_LEVELS,
                               dtype=torch.int32, device=q.device)
     lib = _build.library()

@@ -12,9 +12,11 @@ Counterpart of ``deepspeed_tpu/runtime/activation_checkpointing.py``
 
 ``checkpoint`` is a non-reentrant ``torch.utils.checkpoint`` by default
 (nothing saved, the forward recomputed in the backward). Under
-``checkpoint_in_cpu`` it is :class:`OffloadedCheckpoint`: the function's
+``checkpoint_in_cpu`` it is :func:`offloaded_checkpoint`: the function's
 tensor inputs wait in page-locked host memory instead of on the device,
-the TPU package's ``save_and_offload_only_these_names`` policy. Note that
+the TPU package's ``save_and_offload_only_these_names`` policy. Both modes
+differentiate what the function closes over (its parameters) whether or
+not a tensor input needs grad, as ``jax.checkpoint`` does. Note that
 ``torch.autograd.graph.save_on_cpu`` around a checkpoint would not do it:
 it does not move a checkpoint's inputs, and it would move every other
 saved tensor of the region too. ``partition_activations`` is recorded (a
@@ -27,7 +29,8 @@ port's models draw no random numbers in a checkpointed block.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import weakref
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as torch_checkpoint
@@ -37,59 +40,76 @@ _config: Optional[Dict[str, Any]] = None
 
 class HostCheckpoints:
     """The tensors checkpoints keep in host memory, by index in the order
-    they were saved. On a CUDA device each copy runs on a side stream into
-    page-locked memory, and the device tensor is recorded on that stream
-    so that the allocator reuses its memory only once the copy is done,
-    with no wait on the host; a load brings its tensor back and starts
-    fetching the one saved before it, since the backward walks the
-    checkpoints in reverse. On the CPU the copies are plain clones."""
+    they were saved. Each host copy belongs to the checkpoint that saved it
+    (:meth:`save` hands it back, and the autograd graph holds it); the
+    store keeps only a weak reference, so a forward whose backward never
+    runs frees its copies with its graph. On a CUDA device each copy runs
+    on a side stream into page-locked memory, and the device tensor is
+    recorded on that stream so that the allocator reuses its memory only
+    once the copy is done, with no wait on the host (the caching host
+    allocator likewise keeps a page-locked block until its copies have
+    run); a load brings its tensor back and starts fetching the one saved
+    before it, since the backward walks the checkpoints in reverse. On the
+    CPU the copies are plain clones."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
-        self.host: List[Optional[torch.Tensor]] = []
+        # index -> a weak reference to its host copy; None once loaded or
+        # freed with its graph
+        self.host: List[Optional[weakref.ref]] = []
         self._fetched: Dict[int, Any] = {}   # index -> (copy, its event)
-        self._live = 0                    # saved and not loaded yet
+        self._live = 0                    # saved, neither loaded nor freed
 
-    def save(self, x: torch.Tensor) -> int:
-        """Start the copy of ``x`` to the host; its index."""
+    def _freed(self, i: int) -> None:
+        """The host copy ``i`` died unloaded (its graph was dropped)."""
+        if i < len(self.host) and self.host[i] is not None:
+            self.host[i] = None
+            self._fetched.pop(i, None)
+            self._live -= 1
+
+    def save(self, x: torch.Tensor) -> Tuple[int, torch.Tensor]:
+        """Start the copy of ``x`` to the host: (its index, the copy, which
+        the caller keeps until it loads it)."""
         if self._live == 0:               # nothing refers to old indices
             self.host.clear()
             self._fetched.clear()
         self._live += 1
+        i = len(self.host)
         if not self.cuda:
-            self.host.append(x.detach().clone())
-            return len(self.host) - 1
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        self.stream.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(self.stream):
-            host.copy_(x.detach(), non_blocking=True)
-        x.record_stream(self.stream)
-        self.host.append(host)
-        return len(self.host) - 1
+            host = x.detach().clone()
+        else:
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.stream.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(self.stream):
+                host.copy_(x.detach(), non_blocking=True)
+            x.record_stream(self.stream)
+        self.host.append(weakref.ref(host, lambda _, i=i: self._freed(i)))
+        return i, host
 
-    def _start_fetch(self, i: int, device) -> None:
-        if i < 0 or i in self._fetched or self.host[i] is None:
+    def _start_fetch(self, i: int, host: torch.Tensor, device) -> None:
+        if i < 0 or i in self._fetched or host is None:
             return
         with torch.cuda.stream(self.stream):
-            dev = self.host[i].to(device, non_blocking=True)
+            dev = host.to(device, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self.stream)
         self._fetched[i] = (dev, ev)
 
-    def load(self, i: int, device) -> torch.Tensor:
-        """Tensor ``i`` back on ``device``; the fetch of ``i - 1`` starts."""
+    def load(self, i: int, host: torch.Tensor, device) -> torch.Tensor:
+        """Tensor ``i`` (whose host copy is ``host``) back on ``device``;
+        the fetch of ``i - 1`` starts."""
         self._live -= 1
+        self.host[i] = None
         if not self.cuda:
-            x, self.host[i] = self.host[i], None
-            return x
-        self._start_fetch(i, device)
+            return host
+        self._start_fetch(i, host, device)
         dev, ev = self._fetched.pop(i)
         stream = torch.cuda.current_stream(device)
         stream.wait_event(ev)
         dev.record_stream(stream)
-        self.host[i] = None       # the copy event guards its reuse
-        self._start_fetch(i - 1, device)
+        prev = self.host[i - 1] if i > 0 else None
+        self._start_fetch(i - 1, None if prev is None else prev(), device)
         return dev
 
 
@@ -99,14 +119,15 @@ class OffloadedCheckpoint(torch.autograd.Function):
     the backward brings them back (the latest first), runs ``run`` again
     under grad and backpropagates through it, the parameters' grads
     accumulating as in any backward (the reentrant checkpoint's scheme).
-    A backward reaches the parameters only when some tensor input needs
-    grad, as with the reentrant checkpoint."""
+    Call it through :func:`offloaded_checkpoint`, whose anchor input makes
+    the backward run, and so reach the parameters ``run`` closes over,
+    when no tensor input needs grad."""
 
     @staticmethod
-    def forward(ctx, store: HostCheckpoints, run, *args):
+    def forward(ctx, store: HostCheckpoints, run, anchor, *args):
         ctx.store, ctx.run = store, run
-        ctx.args = [(store.save(a), a.device, a.requires_grad)
-                    if isinstance(a, torch.Tensor) else (None, None, a)
+        ctx.args = [(*store.save(a), a.device, a.requires_grad)
+                    if isinstance(a, torch.Tensor) else (None, None, None, a)
                     for a in args]
         with torch.no_grad():
             return run(*args)
@@ -117,12 +138,13 @@ class OffloadedCheckpoint(torch.autograd.Function):
         for k in sorted(range(len(ctx.args)), reverse=True,
                         key=lambda k: -1 if ctx.args[k][0] is None
                         else ctx.args[k][0]):
-            idx, device, spec = ctx.args[k]
+            idx, host, device, spec = ctx.args[k]
             if idx is None:
                 args[k] = spec
             else:
-                args[k] = ctx.store.load(idx, device).detach() \
+                args[k] = ctx.store.load(idx, host, device).detach() \
                     .requires_grad_(spec)
+        ctx.args = None                  # the host copies go with it
         with torch.enable_grad():
             out = ctx.run(*args)
         outs = out if isinstance(out, tuple) else (out,)
@@ -132,8 +154,22 @@ class OffloadedCheckpoint(torch.autograd.Function):
         if pairs:
             torch.autograd.backward([o for o, _ in pairs],
                                     [g for _, g in pairs])
-        return (None, None) + tuple(
+        return (None, None, None) + tuple(
             a.grad if isinstance(a, torch.Tensor) else None for a in args)
+
+
+# A leaf that needs grad, handed to every offloaded checkpoint as an input:
+# autograd then runs the checkpoint's backward even when no real input needs
+# grad (a frozen embedding output, say), so the parameters the function
+# closes over get their grads, as under the non-reentrant checkpoint and
+# jax.checkpoint. Its own grad is always None.
+_ANCHOR = torch.empty(0, requires_grad=True)
+
+
+def offloaded_checkpoint(store: HostCheckpoints, run, *args):
+    """``run(*args)`` under :class:`OffloadedCheckpoint` with its inputs in
+    ``store``; the output needs grad whenever grad is enabled."""
+    return OffloadedCheckpoint.apply(store, run, _ANCHOR, *args)
 
 
 def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
@@ -194,5 +230,5 @@ def checkpoint(function, *args):
                        if isinstance(a, torch.Tensor)), None)
         if device is None:
             raise ValueError("checkpoint_in_cpu needs a tensor input")
-        return OffloadedCheckpoint.apply(_store(device), function, *args)
+        return offloaded_checkpoint(_store(device), function, *args)
     return torch_checkpoint.checkpoint(function, *args, use_reentrant=False)

@@ -50,11 +50,17 @@ class TiledLinear(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None
                          ) -> None:
-        """Truncated normal (cut at two standard deviations) of variance
-        1 / in_features; zero bias."""
+        """The TPU ``TiledDense``'s init: flax's ``variance_scaling(1.0,
+        "fan_in", "truncated_normal", in_axis=-2, out_axis=-1)`` over the
+        [p·q, in/p, out/q] kernel, which counts the tile axis as receptive
+        field: fan-in = in/p · p·q = in_features · out_splits, variance
+        1 / fan-in, a normal cut at two standard deviations and widened by
+        1 / 0.8796 (the cut normal's standard deviation) to keep that
+        variance; zero bias."""
         if self.kernel.is_meta:
             return
-        std = 1.0 / math.sqrt(self.in_features) / 0.87962566103423978
+        fan_in = self.in_features * self.out_splits
+        std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
         nn.init.trunc_normal_(self.kernel, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
         if self.bias is not None:

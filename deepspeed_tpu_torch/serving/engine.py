@@ -1,8 +1,8 @@
 """ServingEngine: continuous-batching server over the inference stack.
 
 Counterpart of ``deepspeed_tpu/serving/engine.py`` (dense and paged arenas,
-bf16/f32 or int8 KV, speculative decoding, the double-buffered serve loop).
-It composes
+bf16/f32 or int8 KV, speculative decoding, fused chunked prefill, the
+double-buffered serve loop). It composes
 
   * an :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`
     (device placement and dtype),
@@ -28,15 +28,26 @@ into a chunked serve loop:
            per lane from its history (serving/speculative.py), score all
            k + 1 positions in one forward and emit the accepted prefix plus
            one correction or bonus token.
+  fused    ``fused_prefill=True`` (Sarathi-style chunked prefill, the TPU
+           engine's ``decode_chunk_fused_fn``): no bucketed prefill runs.
+           An admitted prompt enters the decode loop in prefill mode and
+           each step consumes its next ``prefill_chunk`` (C) tokens through
+           the same C-wide ``GPT.decode`` that serves the decoding lanes
+           (their token broadcast across the columns, sampled at column 0);
+           the step that consumes a prompt's last chunk samples token #1 at
+           its last real column. ``chunk_token_budget`` caps the tokens a
+           step takes (prompt chunks plus decode tokens) and so paces
+           admission. With ``speculative`` the step is max(C, k + 1) wide
+           (greedy only).
 
-``run()`` double-buffers whenever ``decode_chunk > 1`` or speculative: the
-next chunk is launched from the previous chunk's device-carried state before
-the host waits for the previous chunk's tokens, so the host's bookkeeping
-overlaps the card's work. ``pump()`` is one iteration of that loop for an
-external driver; ``cancel()`` retires a request at once on the host and
-deactivates its lane at the next launch. A launch issues work and returns:
-no host read of device data inside it (tokens reach pinned host memory
-behind a recorded CUDA event, host corrections go up the same way).
+``run()`` double-buffers whenever ``decode_chunk > 1``, speculative or
+fused: the next chunk is launched from the previous chunk's device-carried
+state before the host waits for the previous chunk's tokens, so the host's
+bookkeeping overlaps the card's work. ``pump()`` is one iteration of that
+loop for an external driver; ``cancel()`` retires a request at once on the
+host and deactivates its lane at the next launch. A launch issues work and
+returns: no host read of device data inside it (tokens reach pinned host
+memory behind a recorded CUDA event, host corrections go up the same way).
 
 Paged admission: a prefix-cache hit (an exact repeat of a cached prompt,
 greedy only) skips prefill: its full prompt blocks are shared, its partial
@@ -47,15 +58,16 @@ token, before the request can retire.
 
 ``megakernel=True`` routes every decode step's attention through the
 hand-written decode kernels (``decode_impl="auto"``: dense or paged, int8 or
-not, at s_q = 1 or the k + 1 verify width), every sampling call through the
-sort-free sampling kernel (``fused_sample_tokens``) and the speculative
-verifier's filter through the same kernel (``fused_filter_logits``). On a
-CPU device the wrappers run their plain PyTorch versions.
+not, at s_q = 1, the k + 1 verify width or the fused step's width), every
+sampling call through the sort-free sampling kernel
+(``fused_sample_tokens``) and the speculative verifier's filter through the
+same kernel (``fused_filter_logits``). On a CPU device the wrappers run
+their plain PyTorch versions.
 
 Not in this slice (see ROADMAP.md): CUDA-graph capture of a chunk, tiered
-KV, fused prefill (with or without speculative decoding), tp,
-disaggregation, migration and telemetry spans. Each keyword of the TPU
-package's ``ServingEngine`` that selects one of them raises
+KV, the sequence-parallel prefill leg, tp, disaggregation, migration and
+telemetry spans. Each keyword of the TPU package's ``ServingEngine`` that
+selects one of them raises
 ``NotImplementedError`` naming its ROADMAP item when set away from its
 default (:data:`NOT_PORTED_KNOBS`); nothing is silently dropped.
 """
@@ -68,6 +80,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..runtime.engine import _not_ported
 from ..utils.logging import log_dist
@@ -82,9 +95,6 @@ from .speculative import NGramDrafter, verify_greedy, verify_rejection
 # The TPU package's ServingEngine keywords this port does not have yet:
 # name -> (the TPU engine's default, the ROADMAP item that ports it).
 NOT_PORTED_KNOBS = {
-    "fused_prefill": (False, "A7"),
-    "prefill_chunk": (16, "A7"),
-    "chunk_token_budget": (None, "A7"),
     "sp_prefill_threshold": (None, "A9"),
     "monitor": (None, "A11"),
     "emit_every_steps": (16, "A11"),
@@ -117,9 +127,11 @@ class _InflightChunk:
     token and valid buffers, on a CUDA device pinned host copies that land
     behind ``ready``; and the device carry the next chunk launches from."""
     slot_uids: Dict[int, int]
-    tokens: torch.Tensor     # [B, K] ([B, K*(k+1)] speculative)
+    tokens: torch.Tensor     # [B, K] ([B, K*(k+1)] speculative, [B, K*W]
+    #                          fused speculative)
     valid: torch.Tensor      # same shape: the token is real output
-    state: Tuple             # tok, pos, act, rem, eos [B] (+ hist [B, S+1])
+    state: Tuple             # tok, pos, act, rem, eos [B] (+ pf [B] fused)
+    #                          (+ hist [B, S+1] speculative)
     ready: Optional[torch.cuda.Event]
     wall_t0: float           # host clock at launch
 
@@ -157,6 +169,12 @@ class ServingEngine:
     k + 1-token forward: greedy outputs equal the non-speculative engine's;
     sampled outputs follow the same distribution (rejection resampling).
 
+    ``fused_prefill=True`` consumes prompts ``prefill_chunk`` tokens a step
+    inside the decode chunk instead of in a bucketed prefill (clamped to
+    ``max_prompt_len``), admitting against ``chunk_token_budget`` tokens a
+    step (default 2 * prefill_chunk + max_batch); greedy outputs equal the
+    bucketed engine's.
+
     ``paged=True`` serves from a block pool of ``kv_pool_blocks`` blocks of
     ``kv_block_size`` positions (default: as many positions as the dense
     arena), with the prefix cache (``prefix_cache_capacity`` entries) on
@@ -190,6 +208,9 @@ class ServingEngine:
                  spec_k: int = 4,
                  spec_ngram: int = 2,
                  drafter=None,
+                 fused_prefill: bool = False,
+                 prefill_chunk: int = 16,
+                 chunk_token_budget: Optional[int] = None,
                  **inference_kwargs):
         _reject_not_ported(inference_kwargs)
         if engine is not None and inference_kwargs:
@@ -242,6 +263,26 @@ class ServingEngine:
         self.temperature = float(temperature)
         self.top_k = top_k
         self.top_p = top_p
+        # fused chunked prefill (the TPU engine's checks, engine.py:289-320)
+        self.fused_prefill = bool(fused_prefill)
+        self.prefill_chunk = min(int(prefill_chunk), self.max_prompt_len)
+        if self.fused_prefill and self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if self.fused_prefill and speculative and self.temperature != 0.0:
+            raise ValueError(
+                "fused_prefill + speculative supports greedy sampling only "
+                "(temperature=0): the fused step verifies drafts with the "
+                "greedy rule")
+        # one token budget a step shared by prompt chunks and decode lanes:
+        # by default room for two prompt chunks on top of a full decode
+        # batch
+        self.chunk_token_budget = (
+            int(chunk_token_budget) if chunk_token_budget is not None
+            else 2 * self.prefill_chunk + self.max_batch)
+        if self.fused_prefill and self.chunk_token_budget < 1:
+            raise ValueError(f"chunk_token_budget must be >= 1, got "
+                             f"{chunk_token_budget}")
         self.speculative = bool(speculative)
         if self.speculative:
             self.drafter = (drafter if drafter is not None
@@ -253,12 +294,20 @@ class ServingEngine:
         # the verifier's filter: the sampling kernel under the megakernel
         self._spec_filter = fused_filter_logits if self.megakernel else None
         # the TPU engine's rule (engine.py:351): the chunked, double-buffered
-        # loop whenever a launch holds more than one step or verifies drafts
-        self._chunked = self.decode_chunk > 1 or self.speculative
+        # loop whenever a launch holds more than one step, verifies drafts
+        # or carries prompt chunks
+        self._chunked = (self.decode_chunk > 1 or self.speculative
+                         or self.fused_prefill)
+        # a step's width: 1, the verify's k + 1, the fused step's C or, fused
+        # and speculative, max(C, k + 1) (spec_k is 0 unless speculative)
+        self._width = max(self.prefill_chunk if self.fused_prefill else 1,
+                          self.spec_k + 1)
         self.paged = bool(paged)
-        # a verify step reads and writes k + 1 positions from a lane's fill:
-        # the arena holds spec_k positions past max_seq_len, so no lane's
-        # cache length is ever clamped (kv_cache.py, paged_kv.py)
+        # a step reads and writes width positions from a lane's fill: the
+        # arena holds width - 1 positions past max_seq_len, so no lane's
+        # cache length is ever clamped by the decode kernel (kv_cache.py,
+        # paged_kv.py)
+        lookahead = self._width - 1
         if self.paged:
             # prefix reuse replays a stored first token, which is faithful
             # only when sampling is deterministic: greedy only
@@ -267,12 +316,12 @@ class ServingEngine:
                 num_blocks=kv_pool_blocks,
                 prefix_cache_capacity=prefix_cache_capacity,
                 prefix_caching=prefix_cache and self.temperature == 0.0,
-                lookahead=self.spec_k)
+                lookahead=lookahead)
             self._kv_extent = (self.kv.block_tables.shape[1]
                                * self.kv.block_size)
         else:
             self.kv = SlotKVCacheManager(cfg, self.max_batch, self.device,
-                                         lookahead=self.spec_k)
+                                         lookahead=lookahead)
             self._kv_extent = self.kv.cache_k.shape[2]
         self.scheduler = ContinuousBatchScheduler(
             self.kv.allocator, max_queue=max_queue,
@@ -289,12 +338,29 @@ class ServingEngine:
         self._admit_patches: Dict[int, Tuple] = {}
         # the at-most-one launched, unconsumed chunk of the pipelined loop
         self._pending: Optional[_InflightChunk] = None
+        # fused-prefill host mirrors, by slot (deepspeed_tpu/serving/
+        # engine.py:463-481). A prefilling lane cannot stop (no EOS or
+        # budget before token #1), so the host tracks its prompt cursor
+        # without reading the device: _pf_consumed advances when a chunk is
+        # consumed, _pf_launched when one is launched (one chunk ahead under
+        # the double-buffered loop; the next prompt_buf is built from it)
+        self._pf_consumed: Dict[int, int] = {}
+        self._pf_launched: Dict[int, int] = {}
+        # slots whose token #1 has not been read yet: it goes through
+        # scheduler.record_first_token (the time to first token)
+        self._pf_first_pending: Set[int] = set()
+        # paged misses: the prefix commit waits for token #1
+        self._pf_plans: Dict[int, PagedAdmitPlan] = {}
+        # prompt tokens consumed inside decode chunks
+        self.inline_prefill_tokens = 0
         log_dist(f"serving engine ready: slots={self.max_batch} "
                  f"prefill_buckets={self._buckets} "
                  f"decode_chunk={self.decode_chunk} "
                  f"max_seq={self.max_seq_len} megakernel={self.megakernel} "
                  f"paged={self.paged} kv_dtype={self.kv_dtype} "
                  f"speculative={self.speculative} spec_k={self.spec_k} "
+                 f"fused_prefill={self.fused_prefill} "
+                 f"prefill_chunk={self.prefill_chunk} "
                  f"device={self.device}", ranks=[0])
 
     # --------------------------------------------------------------- API
@@ -331,7 +397,20 @@ class ServingEngine:
         if cancelled and slot is not None:
             self._deact_slots.add(slot)
             self._admit_patches.pop(slot, None)
+            self._clear_pf_slot(slot)
         return cancelled
+
+    def _clear_pf_slot(self, slot: int) -> None:
+        """Drop a slot's fused-prefill mirrors (deepspeed_tpu/serving/
+        engine.py:973): its lane retired, or it was admitted without inline
+        prefill. An uncommitted paged miss plan releases its pending-prompt
+        key, so an identical prompt can admit again."""
+        self._pf_consumed.pop(slot, None)
+        self._pf_launched.pop(slot, None)
+        self._pf_first_pending.discard(slot)
+        plan = self._pf_plans.pop(slot, None)
+        if plan is not None:
+            self.kv.abandon_plan(plan)
 
     def pump(self) -> List[Request]:
         """One iteration of the double-buffered serve loop for external
@@ -406,7 +485,18 @@ class ServingEngine:
         one batched prefill and one arena insert per group. Paged:
         prefix-cache hits skip prefill (a fork and the cached first token)
         and are enqueued before the misses' prefills, so a fork's copy
-        precedes anything that could recycle its source block."""
+        precedes anything that could recycle its source block. Fused: the
+        running lanes' step cost is taken from ``chunk_token_budget`` and
+        admission fills the rest (an idle engine always admits one), then
+        :meth:`_fused_admit`."""
+        if self.fused_prefill:
+            admitted = self.scheduler.admit(
+                token_budget=max(0, self.chunk_token_budget
+                                 - self._budget_drain()),
+                lane_cost=self._lane_cost)
+            if admitted:
+                self._fused_admit(admitted)
+            return
         admitted = self.scheduler.admit()
         plans: Dict[int, PagedAdmitPlan] = {}
         if self.paged:
@@ -425,6 +515,59 @@ class ServingEngine:
                               []).append(req)
         for bucket, reqs in sorted(groups.items()):
             self._prefill(bucket, reqs, plans)
+
+    def _budget_drain(self) -> int:
+        """Tokens the running lanes take a fused step
+        (deepspeed_tpu/serving/engine.py:1392): a prompt chunk (<= C) while
+        a lane prefills, one decode token (k + 1 speculative) after."""
+        C = self.prefill_chunk
+        base = (1 + self.spec_k) if self.speculative else 1
+        drain = 0
+        for slot, req in self.scheduler.running.items():
+            done = self._pf_consumed.get(slot, req.prompt_len)
+            drain += (min(C, req.prompt_len - done)
+                      if done < req.prompt_len else base)
+        return drain
+
+    def _lane_cost(self, req: Request) -> int:
+        """A fused step's cost of admitting ``req`` now: its first prompt
+        chunk (deepspeed_tpu/serving/engine.py:1407; a prefix-cache hit is
+        known only after the lease and is priced the same)."""
+        return min(self.prefill_chunk, req.prompt_len)
+
+    def _fused_admit(self, admitted: List[Request]) -> None:
+        """Fused admission (deepspeed_tpu/serving/engine.py:1419): no
+        prefill. A lane enters the next chunk in prefill mode at position 0
+        with its whole prompt outstanding; a paged miss installs its block
+        table now (the chunk writes the prompt's K/V through it) and
+        commits its prefix at token #1; a prefix hit forks and replays its
+        first token as in the bucketed path, joining in decode mode."""
+        for req in admitted:
+            plan = self.kv.take_plan(req.slot) if self.paged else None
+            if plan is not None and plan.hit:
+                self._admit_prefix_hit(req, plan)
+                continue
+            if plan is not None:
+                self.kv.install_table(req.slot)
+                self._pf_plans[req.slot] = plan
+            self._pf_consumed[req.slot] = 0
+            self._pf_launched[req.slot] = 0
+            self._pf_first_pending.add(req.slot)
+            self._record_fused_admit_patch(req)
+
+    def _record_fused_admit_patch(self, req: Request) -> None:
+        """Lane state of a freshly admitted inline-prefill lane
+        (deepspeed_tpu/serving/engine.py:1462): position 0, the whole
+        prompt outstanding, nothing emitted; the carried token is unused
+        until the completing step samples token #1."""
+        slot = req.slot
+        rem = min(req.max_new_tokens, self.kv.allocator.remaining(slot))
+        eos = -1 if req.eos_token_id is None else int(req.eos_token_id)
+        patch = (0, 0, rem, eos, req.prompt_len)
+        if self.speculative:
+            patch = patch + (self._history_row(req),)
+        self._admit_patches[slot] = patch
+        self._deact_slots.discard(slot)
 
     @torch.inference_mode()
     def _admit_prefix_hit(self, req: Request, plan: PagedAdmitPlan) -> None:
@@ -485,15 +628,21 @@ class ServingEngine:
     def _record_admit_patch(self, req: Request) -> None:
         """Lane state of a freshly admitted request for the next launch
         from device-carried state (deepspeed_tpu/serving/engine.py:1628):
-        its first token, fill, token budget, EOS id and, speculative, its
-        history row. A request retired on its first token keeps its lane
-        dead instead."""
+        its first token, fill, token budget, EOS id, (fused) no prompt
+        outstanding and, speculative, its history row. A request retired on
+        its first token keeps its lane dead instead."""
         slot = req.slot
+        if self.fused_prefill:
+            # admitted without inline prefill (a prefix hit): it joins in
+            # decode mode, whatever the slot's last occupant left
+            self._clear_pf_slot(slot)
         if req.status == "running":
             rem = min(req.max_new_tokens - len(req.tokens),
                       self.kv.allocator.remaining(slot))
             eos = -1 if req.eos_token_id is None else int(req.eos_token_id)
             patch = (int(req.tokens[-1]), req.prompt_len, rem, eos)
+            if self.fused_prefill:
+                patch = patch + (0,)
             if self.speculative:
                 # the drafter mines the lane's full history: the prompt and
                 # the first token
@@ -550,9 +699,16 @@ class ServingEngine:
         eos = np.full(B, -1, np.int64)
         hist = (np.zeros((B, self.max_seq_len + 1), np.int64)
                 if self.speculative else None)
+        pf = np.zeros(B, np.int64) if self.fused_prefill else None
         for slot, req in self.scheduler.running.items():
-            tokens[slot] = self._last_token[slot]
-            positions[slot] = self.kv.fill[slot]
+            done = self._pf_consumed.get(slot, req.prompt_len)
+            if done < req.prompt_len:
+                # mid-prompt: resumes in prefill mode from its cursor
+                positions[slot] = done
+                pf[slot] = req.prompt_len - done
+            else:
+                tokens[slot] = self._last_token[slot]
+                positions[slot] = self.kv.fill[slot]
             remaining[slot] = min(req.max_new_tokens - len(req.tokens),
                                   self.kv.allocator.remaining(slot))
             active[slot] = True
@@ -562,7 +718,12 @@ class ServingEngine:
                 hist[slot] = self._history_row(req)
         self._deact_slots.clear()
         self._admit_patches.clear()
+        # a rebuild from the host brings the launch cursors back to the
+        # consumed ones (no chunk is in flight)
+        self._pf_launched = dict(self._pf_consumed)
         arrays = (tokens, positions, active, remaining, eos)
+        if pf is not None:
+            arrays = arrays + (pf,)
         if hist is not None:
             arrays = arrays + (hist,)
         return tuple(self._upload(a) for a in arrays)
@@ -575,15 +736,18 @@ class ServingEngine:
         for its own reasons (deadline, cancel) go inactive; fresh
         admissions get their whole lane state (``_admit_patches``)."""
         tok, pos, act, rem, eos = chunk.state[:5]
-        hist = chunk.state[5] if self.speculative else None
+        pf = chunk.state[5] if self.fused_prefill else None
+        hist = chunk.state[-1] if self.speculative else None
         if self._deact_slots:
             idx = self._upload(np.array(sorted(self._deact_slots), np.int64))
             act = act.index_fill(0, idx, False)
         if self._admit_patches:
             slots = sorted(self._admit_patches)
             vals = [self._admit_patches[s] for s in slots]
-            # one upload: slot, token, fill, budget, eos per row
-            cols = self._upload(np.array([(s,) + tuple(v[:4])
+            # one upload: slot, token, fill, budget, eos (, prompt
+            # outstanding) per row
+            n = 5 if pf is not None else 4
+            cols = self._upload(np.array([(s,) + tuple(v[:n])
                                           for s, v in zip(slots, vals)],
                                          np.int64))
             idx = cols[:, 0]
@@ -592,12 +756,16 @@ class ServingEngine:
             rem = rem.index_copy(0, idx, cols[:, 3])
             eos = eos.index_copy(0, idx, cols[:, 4])
             act = act.index_fill(0, idx, True)
+            if pf is not None:
+                pf = pf.index_copy(0, idx, cols[:, 5])
             if hist is not None:
                 hist = hist.index_copy(0, idx, self._upload(
-                    np.stack([v[4] for v in vals])))
+                    np.stack([v[-1] for v in vals])))
         self._deact_slots.clear()
         self._admit_patches.clear()
         out = (tok, pos, act, rem, eos)
+        if pf is not None:
+            out = out + (pf,)
         return out if hist is None else out + (hist,)
 
     @torch.inference_mode()
@@ -608,7 +776,13 @@ class ServingEngine:
         which :meth:`_consume_chunk` waits on. Nothing here reads device
         data on the host."""
         wall_t0 = time.perf_counter()
-        if self.speculative:
+        if self.fused_prefill:
+            pbuf = self._upload(self._build_prompt_buf())
+            if self.speculative:
+                toks, valid, carry = self._fused_spec_chunk(*state, pbuf)
+            else:
+                toks, valid, carry = self._fused_chunk(*state, pbuf)
+        elif self.speculative:
             toks, valid, carry = self._spec_chunk(*state)
         else:
             toks, valid, carry = self._plain_chunk(*state)
@@ -720,6 +894,173 @@ class ServingEngine:
                 torch.stack(valid, dim=1).reshape(B, -1),
                 (tok, pos, act, rem, eos, hist))
 
+    def _fused_chunk(self, tok, pos, act, rem, eos, pf, pbuf):
+        """K fused steps (the TPU package's ``decode_chunk_fused_fn`` scan,
+        deepspeed_tpu/serving/engine.py:695-765, as a loop). Each step is
+        one C-wide ``GPT.decode`` over all lanes: a prefilling lane (act,
+        pf > 0) feeds its next prompt chunk from ``pbuf`` [K, B, C] and
+        consumes min(pf, C) tokens, emitting nothing until the step that
+        completes its prompt samples token #1 at its last real column; a
+        decoding lane feeds its token in every column and samples at column
+        0. Every column writes K/V from the lane's position on: columns
+        past a lane's real ones write above its fill (or to the sinks),
+        masked until a later step overwrites them. Returns (tokens [B, K],
+        valid [B, K], carry)."""
+        B, C, S = self.max_batch, self.prefill_chunk, self.max_seq_len
+        ext = self._kv_extent
+        rows = torch.arange(B, device=tok.device)
+        cspan = torch.arange(C, device=tok.device)[None, :]
+        toks, valid = [], []
+        for k in range(self.decode_chunk):
+            is_pf = act & (pf > 0)
+            n_cons = torch.where(is_pf, pf.clamp(max=C), 0)
+            completing = is_pf & (pf <= C)
+            inputs = torch.where(is_pf[:, None], pbuf[k], tok[:, None])
+            write_pos = torch.where(act, pos, ext)
+            # positions past the model's table are clamped, as the TPU
+            # package's embedding gather clamps them; only pad columns sit
+            # there
+            logits = self._decode(inputs, (pos[:, None] + cspan).clamp(
+                max=S - 1), write_pos)                          # [B, C, V]
+            sel = torch.where(is_pf, (n_cons - 1).clamp(min=0), 0)
+            nxt = self._sample(logits[rows, sel], self._generator,
+                               self.temperature, self.top_k,
+                               self.top_p).to(tok.dtype)
+            emits = act & (completing | ~is_pf)
+            nxt = torch.where(emits, nxt, tok)
+            rem = torch.where(emits, rem - 1, rem)
+            hit_eos = (eos >= 0) & (nxt == eos) & emits
+            act = act & torch.where(emits, (rem > 0) & ~hit_eos, True)
+            pos = pos + torch.where(is_pf, n_cons, emits.long())
+            pf = pf - n_cons
+            tok = nxt
+            toks.append(nxt)
+            valid.append(emits)
+        return (torch.stack(toks, dim=1), torch.stack(valid, dim=1),
+                (tok, pos, act, rem, eos, pf))
+
+    def _fused_spec_chunk(self, tok, pos, act, rem, eos, pf, hist, pbuf):
+        """K fused speculative steps (``decode_chunk_fused_spec_fn``,
+        deepspeed_tpu/serving/engine.py:766-870, as a loop), greedy. A step
+        is W = max(C, k + 1) wide: prefilling lanes consume their chunk
+        through the first C columns, decoding lanes verify k drafts through
+        the first k + 1. A completing prefill lane's token #1 is the argmax
+        at its last real column and is emitted at column 0 of the step's W
+        outputs. Returns (tokens [B, K*W], valid [B, K*W], carry)."""
+        B, k, S = self.max_batch, self.spec_k, self.max_seq_len
+        C, W, ext = self.prefill_chunk, self._width, self._kv_extent
+        kp1 = k + 1
+        dev = tok.device
+        rows = torch.arange(B, device=dev)
+        j = torch.arange(kp1, device=dev)[None, :]
+        wspan = torch.arange(W, device=dev)[None, :]
+        hist = hist.clone()                  # the chunk writes its own copy
+        toks, valid = [], []
+        for step in range(self.decode_chunk):
+            is_pf = act & (pf > 0)
+            n_cons = torch.where(is_pf, pf.clamp(max=C), 0)
+            completing = is_pf & (pf <= C)
+            is_dec = act & ~is_pf
+            # hist[b, pos] == tok for decode lanes only: a prefilling lane's
+            # row holds its prompt, and pos points inside it
+            hist[rows, torch.where(is_dec, pos, S)] = tok
+            drafts = self.drafter.propose(hist[:, :S], tok, pos).to(
+                tok.dtype)                                       # [B, k]
+            dec_in = F.pad(torch.cat([tok[:, None], drafts], dim=1),
+                           (0, W - kp1))
+            inputs = torch.where(is_pf[:, None], F.pad(pbuf[step], (0, W - C)),
+                                 dec_in)
+            write_pos = torch.where(act, pos, ext)
+            logits = self._decode(inputs, (pos[:, None] + wspan).clamp(
+                max=S - 1), write_pos)                          # [B, W, V]
+            # decode lanes: greedy verify over the first k + 1 columns
+            emitted, acc = verify_greedy(logits[:, :kp1], drafts)
+            cand = is_dec[:, None] & (j <= acc[:, None]) & (j < rem[:, None])
+            hitv = (eos[:, None] >= 0) & (emitted == eos[:, None])
+            cut = (cand & hitv).long()
+            dvalid = cand & ((cut.cumsum(dim=1) - cut) == 0)
+            n = dvalid.long().sum(dim=1)
+            last = torch.gather(emitted, 1,
+                                (n - 1).clamp(0, k)[:, None])[:, 0]
+            # prefilling lanes: token #1 at column n_cons - 1
+            t1 = torch.argmax(logits[rows, (n_cons - 1).clamp(min=0)],
+                              dim=-1).to(tok.dtype)
+            pf_emit = act & completing
+            t1_eos = (eos >= 0) & (t1 == eos) & pf_emit
+            tok_n = torch.where(is_pf, torch.where(pf_emit, t1, tok),
+                                torch.where(n > 0, last, tok))
+            stopped = (dvalid & hitv).any(dim=1) | t1_eos
+            rem_n = rem - torch.where(is_pf, pf_emit.long(), n)
+            act = act & torch.where(is_pf & ~pf_emit, True,
+                                    (rem_n > 0) & ~stopped)
+            # W outputs a step: decode lanes at columns 0..k, a completing
+            # prefill lane's token #1 at column 0
+            ys_tok = torch.where(is_pf[:, None], t1[:, None].expand(B, kp1),
+                                 emitted)
+            ys_val = torch.where(is_pf[:, None], pf_emit[:, None] & (j == 0),
+                                 dvalid)
+            # history: decode-lane token j at pos + 1 + j, a completing
+            # lane's token #1 at its prompt length (sinks: column S)
+            hist[rows[:, None], torch.where(dvalid, pos[:, None] + 1 + j,
+                                            S)] = emitted
+            hist[rows, torch.where(pf_emit, pos + n_cons, S)] = t1
+            pos = pos + torch.where(is_pf, n_cons, n)
+            pf = pf - n_cons
+            rem, tok = rem_n, tok_n
+            toks.append(F.pad(ys_tok, (0, W - kp1)))
+            valid.append(F.pad(ys_val, (0, W - kp1)))
+        return (torch.stack(toks, dim=1).reshape(B, -1),
+                torch.stack(valid, dim=1).reshape(B, -1),
+                (tok, pos, act, rem, eos, pf, hist))
+
+    def _build_prompt_buf(self) -> np.ndarray:
+        """The prompt chunks [K, B, C] of one launch for the lanes still in
+        prefill mode (deepspeed_tpu/serving/engine.py:2019), advancing the
+        launch cursors (one chunk ahead of the consumed ones under the
+        double-buffered loop): a prefilling lane's evolution on the device
+        is deterministic, so this host mirror stays exact without a read of
+        device data."""
+        K, B, C = self.decode_chunk, self.max_batch, self.prefill_chunk
+        buf = np.zeros((K, B, C), np.int64)
+        for slot, req in self.scheduler.running.items():
+            done = self._pf_launched.get(slot)
+            if done is None:
+                continue
+            L = req.prompt_len
+            for k in range(K):
+                if done >= L:
+                    break
+                n = min(C, L - done)
+                buf[k, slot, :n] = req.prompt[done:done + n]
+                done += n
+            self._pf_launched[slot] = done
+        return buf
+
+    def _sim_chunk_prefill(self, chunk: _InflightChunk
+                           ) -> Tuple[Dict[int, int], np.ndarray]:
+        """The host's replay of a consumed chunk's prefill-mode steps
+        (deepspeed_tpu/serving/engine.py:2043): each step a mid-prompt lane
+        consumes min(pf, C) tokens. Returns the advanced consumed cursors
+        and the [B, K] mask of steps each lane spent in prefill mode (its
+        completing step included)."""
+        K, C = self.decode_chunk, self.prefill_chunk
+        pf_steps = np.zeros((self.max_batch, K), bool)
+        consumed: Dict[int, int] = {}
+        for slot, uid in chunk.slot_uids.items():
+            req = self.scheduler.running.get(slot)
+            if req is None or req.uid != uid:
+                continue
+            done = self._pf_consumed.get(slot)
+            if done is None or done >= req.prompt_len:
+                continue
+            for k in range(K):
+                if done >= req.prompt_len:
+                    break
+                pf_steps[slot, k] = True
+                done += min(C, req.prompt_len - done)
+            consumed[slot] = done
+        return consumed, pf_steps
+
     @torch.inference_mode()
     def _consume_chunk(self, chunk: _InflightChunk) -> List[Request]:
         """Wait for the chunk's token buffer (the one host wait per chunk)
@@ -732,13 +1073,41 @@ class ServingEngine:
         toks = chunk.tokens.numpy()
         valid = chunk.valid.numpy()
         seconds = time.perf_counter() - chunk.wall_t0
+        pf_steps = None
+        if self.fused_prefill:
+            # the host's replay of the chunk's prompt consumption
+            consumed, pf_steps = self._sim_chunk_prefill(chunk)
+            for slot, done in consumed.items():
+                self.inline_prefill_tokens += max(
+                    done - self._pf_consumed.get(slot, done), 0)
+                self._pf_consumed[slot] = done
         fin_before = len(self.scheduler.finished)
         per_slot: Dict[int, List[int]] = {}
+        n_first = 0
         for slot, uid in chunk.slot_uids.items():
             req = self.scheduler.running.get(slot)
             if req is None or req.uid != uid:
                 continue        # slot retired or re-leased since the launch
             seq = [int(t) for t, v in zip(toks[slot], valid[slot]) if v]
+            if seq and slot in self._pf_first_pending:
+                # the lane completed its prompt in this chunk: token #1
+                # goes through record_first_token (the time to first token;
+                # no allocator advance, as after a bucketed prefill), and a
+                # paged miss publishes its prompt blocks now
+                self._pf_first_pending.discard(slot)
+                first = seq.pop(0)
+                n_first += 1
+                plan = self._pf_plans.pop(slot, None)
+                if plan is not None:
+                    cow = self.kv.commit_prefix(plan, first)
+                    if self.kv.prefix_enabled:
+                        self.metrics.on_prefix(False)
+                    if cow is not None:
+                        self.metrics.on_cow()
+                self._last_token[slot] = first
+                self.scheduler.record_first_token(req, first)
+                if req.status != "running":
+                    seq = []            # retired on token #1
             if seq:
                 per_slot[slot] = seq
                 self._last_token[slot] = seq[-1]
@@ -747,18 +1116,24 @@ class ServingEngine:
         if self.speculative:
             # a step is live iff its first column (the correction or bonus
             # token, always valid on a live lane) is; accepted drafts are
-            # the valid tokens beyond that one
-            v3 = valid.reshape(self.max_batch, -1, self.spec_k + 1)
+            # the valid tokens beyond that one. A fused lane's prompt steps
+            # verified no drafts (its completing step's column 0 is token
+            # #1): the replay's mask leaves them out
+            v3 = valid.reshape(self.max_batch, -1, self._width)
             live = v3[:, :, 0]
+            if pf_steps is not None:
+                live = live & ~pf_steps
             accepted = int(np.maximum(
                 np.where(live, v3.sum(axis=2), 0) - live, 0).sum())
             self.metrics.on_spec(int(live.sum()) * self.spec_k, accepted)
-        self.metrics.on_tokens(sum(len(v) for v in per_slot.values()))
+        self.metrics.on_tokens(n_first
+                               + sum(len(v) for v in per_slot.values()))
         self.metrics.on_decode_step(seconds)
         self.metrics.on_finished(finished)
         for req in finished:
             if req.slot is not None:
                 self._deact_slots.add(req.slot)
+                self._clear_pf_slot(req.slot)
         return finished
 
     def _may_outlive_chunk(self) -> bool:
@@ -769,6 +1144,8 @@ class ServingEngine:
         next launch so the drain tail pays no dead chunk."""
         K = self.decode_chunk
         for slot, req in self.scheduler.running.items():
+            if self._pf_consumed.get(slot, req.prompt_len) < req.prompt_len:
+                return True      # mid-prompt: more chunks to come
             rem = min(req.max_new_tokens - len(req.tokens),
                       self.kv.allocator.remaining(slot))
             if rem > K:

@@ -31,9 +31,8 @@ order: hit forks go before miss inserts, and a COW source's temporary hold
 is released only after its copy is enqueued.
 
 Not ported here (see ROADMAP.md): the tier hook (``attach_tier`` and the
-tier-deferral of ``alloc_request``), ``install_table``/``abandon_plan``
-(fused prefill), and ``alloc_span``/``export_*``/``import_blocks``
-(migration).
+tier-deferral of ``alloc_request``) and ``alloc_span``/``export_*``/
+``import_blocks`` (migration).
 """
 
 from __future__ import annotations
@@ -414,7 +413,8 @@ class PagedKVCacheManager:
     :class:`~deepspeed_tpu_torch.serving.kv_cache.SlotKVCacheManager` on the
     engine side (``insert_batch``, ``arena_report``, the allocator
     passthrough), plus ``apply_fork``/``commit_prefix``/``take_plan`` for
-    the paged admission flow.
+    the paged admission flow and ``install_table``/``abandon_plan`` for the
+    fused-prefill one.
 
     ``lookahead`` positions past ``max_seq_len`` widen the device tables
     by ``ceil(lookahead / block_size)`` sink entries (the speculative
@@ -523,6 +523,22 @@ class PagedKVCacheManager:
 
     def take_plan(self, slot: int) -> PagedAdmitPlan:
         return self.allocator.plans.pop(slot)
+
+    def install_table(self, slot: int) -> None:
+        """Install a miss lane's block table without a prefill insert
+        (deepspeed_tpu/serving/paged_kv.py:686): the fused-prefill
+        admission, whose decode chunk writes the prompt's K/V through the
+        table from position 0."""
+        self._install_table(slot)
+
+    def abandon_plan(self, plan: PagedAdmitPlan) -> None:
+        """Walk back a miss plan whose lane retired before its first token
+        (a fused lane cancelled or expired mid-prompt,
+        deepspeed_tpu/serving/paged_kv.py:701): drop its pending-prompt key
+        so an identical prompt stops waiting on a commit that will not
+        come. The lane's blocks free with its slot."""
+        if plan.key is not None:
+            self.allocator._pending.discard(plan.key)
 
     # ---------------------------------------------------------- accounting
     def arena_report(self) -> dict:

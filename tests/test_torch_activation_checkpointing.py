@@ -7,7 +7,9 @@ seeds:
     each knob with no mapping, as in the TPU package;
   * ``checkpoint`` and ``checkpoint_in_cpu`` against the function run
     without a checkpoint: outputs and grads bitwise (the recomputation runs
-    the same f32 ops on the same inputs);
+    the same f32 ops on the same inputs), the parameter grads with a frozen
+    input too (fault C6), and a forward without its backward freeing its
+    host copies;
   * GPT with ``cpu_checkpointing=True``: loss and grads bitwise the port's
     remat (both recompute each block from its input) and, within 1e-5 /
     1e-4 relative (summation order), the JAX GPT with ``cpu_checkpointing``
@@ -95,6 +97,55 @@ def test_checkpoint_grads_equal_the_unchecked_function(ckpt, in_cpu):
     if in_cpu:
         store = ckpt._store(torch.device("cpu"))
         assert store._live == 0 and store.host == [None, None]
+
+
+@pytest.mark.parametrize("input_grad", [False, True])
+def test_both_modes_give_the_parameter_grads(ckpt, input_grad):
+    """Fault C6: a checkpoint reaches the parameters its function closes
+    over whether or not its tensor input needs grad, under the default
+    (non-reentrant) mode and under checkpoint_in_cpu alike, as
+    jax.checkpoint does: every parameter grad bitwise the unchecked
+    function's, a frozen input's grad None."""
+    x0 = np.random.default_rng(2).standard_normal((4, 16)).astype(np.float32)
+    grads = {}
+    for mode in ("plain", "default", "in_cpu"):
+        ckpt.configure(None, checkpoint_in_cpu=mode == "in_cpu")
+        block = _block()
+        x = torch.from_numpy(x0).requires_grad_(input_grad)
+        y = block(x) if mode == "plain" else ckpt.checkpoint(block, x)
+        assert y.requires_grad
+        (y * y).sum().backward()
+        assert (x.grad is not None) == input_grad
+        grads[mode] = [p.grad for p in block.parameters()]
+    for mode in ("default", "in_cpu"):
+        for got, want in zip(grads[mode], grads["plain"]):
+            assert got is not None and torch.equal(got, want), mode
+
+
+def test_a_forward_without_its_backward_frees_the_store(ckpt):
+    """The host copies of a checkpoint_in_cpu forward belong to its graph:
+    dropping the output without a backward frees them (the store keeps no
+    copy for the life of the configuration), and the next forward and
+    backward run as usual."""
+    import gc
+    import weakref
+    ckpt.configure(None, checkpoint_in_cpu=True)
+    block = _block()
+    x = torch.ones(4, 16, requires_grad=True)
+    y = ckpt.checkpoint(block, ckpt.checkpoint(block, x))
+    store = ckpt._store(torch.device("cpu"))
+    assert store._live == 2
+    copies = [r() for r in store.host]
+    assert all(isinstance(c, torch.Tensor) for c in copies)
+    held = [weakref.ref(c) for c in copies]
+    del y, copies
+    gc.collect()
+    assert store._live == 0 and store.host == [None, None]
+    assert all(r() is None for r in held)
+    y = ckpt.checkpoint(block, x)
+    assert len(store.host) == 1          # a fresh forward starts over
+    y.sum().backward()
+    assert store._live == 0 and x.grad is not None
 
 
 def test_gpt_cpu_checkpointing_matches_remat_and_jax():

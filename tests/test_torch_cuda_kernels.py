@@ -123,6 +123,65 @@ def test_paged_and_int8_decode_kernels_match_plain(dev, dtype, bs, d, s_q):
         assert not got[0].any()                  # fill 0: no key, zeros
 
 
+# B2, B3 and their int8 branches at the fused-prefill widths (s_q 9-16 run
+# the kSQ 16 instance; 24 runs as pieces of 16 and 8, two launches a call)
+# at every head dim, and at d 80 at the decode and verify widths (s_q 1 and
+# 5); tolerances as above
+WIDE_D80_CASES = [(s_q, d) for s_q in (9, 16, 24) for d in (32, 64, 80, 96,
+                                                            128)] \
+    + [(1, 80), (5, 80)]
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+@pytest.mark.parametrize("s_q,d", WIDE_D80_CASES)
+def test_decode_kernels_at_prefill_widths_and_d80_match_plain(dev, dtype,
+                                                              s_q, d):
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    g = torch.Generator(device=dev).manual_seed(s_q * 1000 + d)
+    b, h, S, bs = 5, 4, 320, 16
+    T = S // bs
+    launches = len(da.query_pieces(s_q))
+    kp, vp, tables = _pools(dev, dtype, b, T, bs, h * d, g)
+    nb = kp.shape[0]
+    fills = torch.tensor([1, s_q, 33, S, S + 1], dtype=torch.int32,
+                         device=dev)
+    live_blocks = (fills.clamp(max=S) + bs - 1) // bs
+    past = torch.arange(T, device=dev)[None, :] >= live_blocks[:, None]
+    tables = torch.where(past, nb, tables).int().contiguous()
+    q = torch.randn(b, s_q, h, d, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, S, h * d, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, S, h * d, device=dev, generator=g).to(dtype)
+    (kq, ks), (vq, vs) = _quantized(k), _quantized(v)
+    (pkq, pks), (pvq, pvs) = _quantized(kp), _quantized(vp)
+    before = dict(_build.LAUNCHES)
+    got = {"B2": da.decode_attention(q, k, v, fills, scale=0.1),
+           "B3": da.paged_decode_attention(q, kp, vp, tables, fills,
+                                           scale=0.1),
+           "B2-int8": da.decode_attention(q, kq, vq, fills, scale=0.1,
+                                          k_scale=ks, v_scale=vs),
+           "B3-int8": da.paged_decode_attention(q, pkq, pvq, tables, fills,
+                                                scale=0.1, k_scale=pks,
+                                                v_scale=pvs)}
+    torch.cuda.synchronize()
+    for name in ("decode_attention", "paged_decode_attention",
+                 "decode_attention_int8", "paged_decode_attention_int8"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + launches
+    refs = {"B2": da.decode_attention_reference(q, k, v, fills, 0.1),
+            "B3": da.paged_decode_attention_reference(q, kp, vp, tables,
+                                                      fills, 0.1),
+            "B2-int8": da.decode_attention_reference(q, kq, vq, fills, 0.1,
+                                                     ks, vs),
+            "B3-int8": da.paged_decode_attention_reference(
+                q, pkq, pvq, tables, fills, 0.1, pks, pvs)}
+    for name, out in got.items():
+        rtol = INT8_RTOL[dtype] if name.endswith("int8") else 0.0
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), refs[name].float(),
+                                   rtol=rtol, atol=ATOL[dtype],
+                                   msg=lambda m: name + m)
+
+
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("s_q", [1, 4])
@@ -233,7 +292,6 @@ def test_paged_and_int8_kernels_raise_on_what_they_lack(dev):
     q = torch.randn(2, 1, 2, 64, device=dev)
     before = dict(_build.LAUNCHES)
     for bad in (dict(q=torch.randn(2, 1, 4, 32, device=dev).double()),
-                dict(q=torch.randn(2, 9, 2, 64, device=dev)),
                 dict(q=torch.randn(2, 1, 8, 16, device=dev)),
                 dict(pool=torch.randn(8, 12, 128, device=dev))):
         pool = bad.get("pool", kp)
@@ -781,6 +839,32 @@ def test_sparse_kernels_at_d96_match_plain(dev, dtype, causal, masked):
                                        dtype)
     if masked:
         assert not dk[1, 200:].any() and not dv[1, 200:].any()
+
+
+@pytest.mark.parametrize("dtype", SPARSE_DTYPES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_kernels_at_d80_match_plain(dev, dtype, causal, masked):
+    """GPT 2.7B's head dim (2560 / 32 = 80): the 16-bit kernels run their
+    d 96 instances over columns 80-95 that TMA fills with zeros, and store
+    80; f32 splits a row of 80 over 4 threads. BigBird, per-head layouts, S
+    not a multiple of the 64-row tile, and long column-LUT rows (S 2560,
+    block 32) whose dk/dv split into workspace partials."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    for B, H, S, block in ((2, 3, 480, 32), (1, 2, 2560, 32)):
+        cfg = BigBirdSparsityConfig(num_heads=H, block=block,
+                                    different_layout_per_head=True,
+                                    num_random_blocks=2)
+        q, k, v, do = _qkv_views(dev, B, S, H, 80, dtype, 80)
+        kvm = None
+        if masked:
+            kvm = torch.ones(B, S, device=dev)
+            kvm[-1, S // 2:] = 0
+        out, _, (dq, dk, dv) = _sparse_check(dev, cfg, q, k, v, do, causal,
+                                             kvm, dtype)
+        assert out.shape == (B, S, H, 80)
+        if masked:
+            assert not dk[-1, S // 2:].any() and not dv[-1, S // 2:].any()
 
 
 class _HoleyLayout:

@@ -89,18 +89,26 @@ def test_cpu_tensors_never_launch_and_rank4_cache_is_viewed_flat():
 
 
 def test_kernel_shape_gate():
+    """Every query width is taken (up to 16 in one launch, wider in
+    pieces), d 80 too (GPT 2.7B); not a width of 0, d 48 or f64."""
     assert pda.decode_supported(1, 64, torch.bfloat16)
     assert pda.decode_supported(8, 128, torch.float32)
-    assert not pda.decode_supported(9, 64, torch.bfloat16)
+    assert pda.decode_supported(9, 64, torch.bfloat16)
+    assert pda.decode_supported(16, 80, torch.bfloat16)
+    assert pda.decode_supported(24, 32, torch.float32)
+    assert not pda.decode_supported(0, 64, torch.bfloat16)
     assert not pda.decode_supported(1, 48, torch.bfloat16)
     assert pda.decode_supported(1, 64, torch.float16)
     assert not pda.decode_supported(1, 64, torch.float64)
     assert pda.decode_supported(1, 96, torch.bfloat16)
+    assert pda.decode_supported(5, 80, torch.float16)
+    assert pda.query_pieces(16) == [(0, 16)]
+    assert pda.query_pieces(24) == [(0, 16), (16, 8)]
 
 
 @pytest.mark.parametrize("d,dtype,s", [(48, torch.bfloat16, 1),
                                        (64, torch.float64, 1),
-                                       (64, torch.bfloat16, 9)])
+                                       (48, torch.bfloat16, 16)])
 def test_model_auto_raises_on_unsupported_non_cpu_shape(d, dtype, s):
     """decode_impl="auto" never gives way to the einsum off the CPU: a shape
     the kernel does not take raises. Meta tensors take the wrapper's card

@@ -110,11 +110,10 @@ def test_autograd_matches_jax_grad(dtype, D, causal, S):
 
 @pytest.mark.parametrize("name", ["flash", "sparse"])
 def test_kernel_shapes_take_fp16_and_96_but_not_48(name):
-    """Flash takes d 80 too (the capacity tier's GPT 2.7B); sparse does
-    not."""
+    """Flash and sparse take d 80 too (GPT 2.7B's head dim)."""
     supported = (pfa.flash_supported if name == "flash"
                  else psa.sparse_supported)
-    takes = (32, 64, 80, 96, 128) if name == "flash" else (32, 64, 96, 128)
+    takes = (32, 64, 80, 96, 128)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in takes:
             assert supported(d, dtype), (d, dtype)

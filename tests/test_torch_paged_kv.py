@@ -301,7 +301,8 @@ def test_paged_kernel_shape_gate():
     assert pda.paged_decode_supported(4, 32, torch.float32, 32)
     assert not pda.paged_decode_supported(1, 64, torch.bfloat16, 12)
     assert not pda.paged_decode_supported(1, 64, torch.bfloat16, 4)
-    assert not pda.paged_decode_supported(9, 64, torch.bfloat16, 16)
+    assert pda.paged_decode_supported(9, 64, torch.bfloat16, 16)
+    assert pda.paged_decode_supported(24, 80, torch.bfloat16, 16)
     assert not pda.paged_decode_supported(1, 48, torch.float32, 16)
     assert pda.paged_decode_supported(1, 64, torch.float16, 16)
     assert not pda.paged_decode_supported(1, 64, torch.float64, 16)

@@ -4,8 +4,9 @@ keyword of the TPU ``ServingEngine`` is either taken by the port or named in
 ``NotImplementedError`` naming its ROADMAP item (with or without
 ``engine=``), never a silent no-op; with ``engine=`` any other leftover
 keyword raises ``TypeError``; the defaults, passed explicitly, still build
-and serve; the speculative knobs, ported, build and serve away from their
-defaults. On the CPU, f32, a tiny GPT."""
+and serve; the speculative and the fused-prefill knobs, ported, build and
+serve away from their defaults, and fused + speculative sampling raises the
+JAX engine's ``ValueError``. On the CPU, f32, a tiny GPT."""
 
 import inspect
 
@@ -21,7 +22,6 @@ from torch_test_threads import one_torch_thread  # noqa: F401
 
 # a value away from each knob's default
 NON_DEFAULT = {
-    "fused_prefill": True, "prefill_chunk": 32, "chunk_token_budget": 64,
     "sp_prefill_threshold": 128, "monitor": object(), "emit_every_steps": 4,
     "tp": 2, "disaggregate_prefill": True, "tiered_kv": True,
     "tier_dram_bytes": 1 << 20, "tier_nvme_bytes": 1 << 30,
@@ -120,7 +120,53 @@ def test_each_spec_knob_builds_and_serves(name):
     assert eng.metrics.spec_proposed > 0
 
 
-def test_fused_prefill_with_speculative_still_raises_naming_a7():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7\\b"):
+# each fused-prefill knob away from its default (the TPU engine's False, 16,
+# None); the chunk and the budget act only with fused_prefill
+FUSED_KNOBS = {"fused_prefill": dict(fused_prefill=True),
+               "prefill_chunk": dict(fused_prefill=True, prefill_chunk=4),
+               "chunk_token_budget": dict(fused_prefill=True,
+                                          chunk_token_budget=5)}
+
+
+@pytest.mark.parametrize("via_engine", [False, True])
+@pytest.mark.parametrize("name", sorted(FUSED_KNOBS))
+def test_each_fused_knob_builds_and_serves(name, via_engine):
+    from deepspeed_tpu.serving.engine import ServingEngine as JaxServing
+    params = inspect.signature(JaxServing.__init__).parameters
+    port = inspect.signature(ServingEngine.__init__).parameters
+    assert port[name].default == params[name].default
+    kw = dict(device="cpu", dtype=torch.float32)
+    if via_engine:
+        kw = dict(engine=InferenceEngine(_model(), **kw))
+        model = None
+    else:
+        model = _model()
+    eng = ServingEngine(model, max_batch=2, megakernel=True,
+                        **FUSED_KNOBS[name], **kw)
+    assert eng.fused_prefill and eng._chunked
+    assert eng.prefill_chunk == (4 if name == "prefill_chunk" else 16)
+    # not speculative: the step is C wide (no verify width) and the arena
+    # holds C - 1 positions of lookahead
+    assert eng.spec_k == 0 and eng._width == eng.prefill_chunk
+    assert eng.paged or (eng._kv_extent
+                         == eng.max_seq_len + eng.prefill_chunk - 1)
+    assert eng.chunk_token_budget == {
+        "chunk_token_budget": 5}.get(name, 2 * eng.prefill_chunk + 2)
+    out = eng.run([np.arange(1, 6), np.arange(3, 12)], max_new_tokens=4)
+    assert [r.status for r in out] == ["done", "done"]
+    assert [len(r.tokens) for r in out] == [4, 4]
+    assert eng.inline_prefill_tokens == 5 + 9
+    assert eng.metrics.prefill_programs == 0
+
+
+def test_fused_speculative_sampling_raises_like_jax():
+    """Fused prefill with speculative decoding verifies greedily: at a
+    temperature above 0 the port refuses it with the JAX engine's
+    ValueError (test_torch_fused_prefill.py holds the two side by side);
+    greedy it builds, a step max(C, k + 1) wide."""
+    with pytest.raises(ValueError, match="greedy sampling only"):
         ServingEngine(_model(), device="cpu", dtype=torch.float32,
-                      fused_prefill=True, speculative=True)
+                      fused_prefill=True, speculative=True, temperature=0.8)
+    eng = ServingEngine(_model(), device="cpu", dtype=torch.float32,
+                        fused_prefill=True, speculative=True)
+    assert eng._width == max(eng.prefill_chunk, eng.spec_k + 1)

@@ -5,7 +5,8 @@ through ``convert.tiled_params_to_state_dict``, the same numpy input, the
 output and the grads of a weighted sum with respect to the input, the
 kernel and the bias within 1e-5 relative and 1e-6 absolute (f32 products in
 XLA's and torch's summation orders; the tiles are summed in the same
-order)."""
+order). The init's variance (fault C5) against the JAX layer's: the tile
+axis counts as receptive field, fan-in = in_features x out_splits."""
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +56,37 @@ def test_tiled_linear_matches_jax_tiled_dense(splits, bias):
     for name, prm in layer.named_parameters():
         np.testing.assert_allclose(prm.grad.numpy(), want[name].numpy(),
                                    err_msg=name, **TOL)
+
+
+# the init's sample variance over 512 x 512 = 262144 draws of a normal cut
+# at two standard deviations: its relative standard error is below
+# sqrt(2 / 262144) = 0.28%, so 3% is more than ten of them, and the wrong
+# rule (1 / in_features) is off by out_splits x at q > 1
+INIT_RTOL = 0.03
+
+
+@pytest.mark.parametrize("splits", [(1, 1), (2, 1), (1, 4), (2, 4), (4, 2)])
+def test_tiled_linear_init_variance_matches_jax(splits):
+    from deepspeed_tpu.runtime.zero.tiling import TiledDense
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledLinear
+    p, q = splits
+    d = 512
+    jk = np.asarray(TiledDense(features=d, in_splits=p, out_splits=q).init(
+        jax.random.PRNGKey(p * 10 + q), jnp.zeros((1, d)))["params"]
+        ["kernel"])
+    layer = TiledLinear(d, d, in_splits=p, out_splits=q)
+    layer.reset_parameters(torch.Generator().manual_seed(p * 10 + q))
+    pk = layer.kernel.detach().numpy()
+    assert pk.shape == jk.shape == (p * q, d // p, d // q)
+    want = 1.0 / (d * q)
+    for k in (jk, pk):
+        assert abs(k.var() / want - 1) < INIT_RTOL, (k.var(), want)
+        assert abs(k.mean()) < 0.01 * np.sqrt(want)
+    # both cut at two standard deviations of the widened normal
+    cut = 2 * np.sqrt(want) / 0.87962566103423978
+    assert np.abs(pk).max() <= cut and np.abs(jk).max() <= cut * (1 + 1e-6)
+    assert np.abs(pk).max() > 0.95 * cut
+    assert not layer.bias.any()
 
 
 def test_tiled_linear_equals_linear_with_the_assembled_weight():
