@@ -328,7 +328,29 @@ Phases (any failure exits non-zero before the result lines):
      arenas, each beside the megakernel=False engine (the einsum) on the
      same arena: every request done, logits finite, the arena's kernel L
      times a step and no other, greedy tokens equal or parting at a
-     near-tie (the *_d80 decode rows' launches).
+     near-tie (the *_d80 decode rows' launches);
+ 40. GPT-Neo 1.3B (after phase 39): EleutherAI's config.json (24 layers
+     alternating global and local attention of window 256, 16 heads of
+     128, d_model 2048, vocab 50257, unscaled scores), an HF-named state
+     dict from --seed converted on the card by HFGPTNeoPolicy; the
+     forward on [2, 1024] through B1 at the 12 global layers (scale 1.0;
+     the local ones take the windowed einsum) against attention_impl="xla"
+     within LOGITS_ATOL; greedy generate of 32 tokens; phase 4's requests
+     through the dense, fused (prefill_chunk 16) and speculative (k 4)
+     megakernel engines beside megakernel=False: B2 12 times a step at the
+     step's width, B4 never (vocab not lane-aligned), tokens equal or
+     parting at a near-tie; paged=True must raise; then B1 at [2, 1024,
+     16, 128] scale 1.0 and B2 at h 16, d 128, S 2048, s_q 1 and 16
+     against their plain versions and timed (the *_neo rows);
+ 41. int8 weights (after phase 40): the same GPT-Neo through
+     InferenceEngine(quantize_bits=8), symmetric and asymmetric: weights
+     at rest and the build's max_memory_allocated against bf16's, every
+     int8 Linear bitwise the plain quantize / dequantize of its bf16
+     weight, the forward (B1 12 times) against a bf16 model over the
+     dequantized weights within LOGITS_ATOL, max |logit - bf16 engine| and
+     top-1 agreement printed, and ServingEngine(engine=ie, megakernel=True)
+     serving phase 4's requests (B2 12 times a step; tokens/s beside
+     bf16's).
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
@@ -336,7 +358,8 @@ gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
 Prints the kernel summary JSON (the flash rows twice: the training shape,
 and ``*_d80`` at the capacity shape with phase 35's launches; the rows of
 phase 37's head dim also carry its launches; the decode rows at s_q 5, 16
-and d 80, the sparse rows at d 80), the card line and, last,
+and d 80, the sparse rows at d 80, B1 and B2 at GPT-Neo's shapes), the
+card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
 
@@ -1098,16 +1121,18 @@ def phase_train_profile(torch, engine, ids, card):
         print(f"phase10 kernel ms={ms} count={count} {key[:90]}", flush=True)
 
 
-def _flash_times(torch, fa, q, k, v, do, out, lse, causal):
+def _flash_times(torch, fa, q, k, v, do, out, lse, causal, scale=None):
     """Device ms per call of the three kernels, their plain versions and
     scaled_dot_product_attention (forward, and its autograd backward: a
-    yardstick, never called by the port), with each kernel's bound."""
+    yardstick, never called by the port), with each kernel's bound; the
+    score scale defaults to D^-0.5."""
     import torch.nn.functional as F
     B, S, H, D = q.shape
-    scale = D ** -0.5
+    scale = D ** -0.5 if scale is None else scale
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale)
     do_t = do.transpose(1, 2).contiguous()
 
     def backward(i):
@@ -1130,7 +1155,7 @@ def _flash_times(torch, fa, q, k, v, do, out, lse, causal):
                 lambda i: fa.flash_attention_forward_reference(
                     q, k, v, causal, scale), iters=10),
             "library_ms": device_ms(lambda i: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))},
+                qt, kt, vt, is_causal=causal, scale=scale))},
         # the plain and library backward compute dq, dk and dv together:
         # their times stand beside both kernels
         "flash_bwd_dq": {"ms": device_ms(backward, kernel="flash_bwd_dq"),
@@ -2218,19 +2243,21 @@ D80_CASE = dict(s_q=1, h=32, d=80, Sd=1024, T=1024 // PAGED_BS,
 
 def verify_case(torch, da, qz, dev, gen, n_copies, s_q=VERIFY_SQ, h=12,
                 d=64, Sd=VERIFY_S_DENSE, T=VERIFY_T_PAGED,
-                fills=VERIFY_FILLS):
+                fills=VERIFY_FILLS, scale=None, exact=False):
     """B2/B3 (and int8) at the verify width s_q = k + 1 = 5, GPT-2 125M
     geometry (b 8, h 12, d 64, bf16): the dense cache [8, 1028, 768], the
     paged pool over a random block order with tables of 65 entries (S
     1040), VERIFY_FILLS and the sentinel; or at another width, head count,
-    head dim, extent and fills (SQ16_CASE, D80_CASE). ``n_copies`` copies
-    of each cache, read in turn so each call reads its K/V cold. Returns q,
-    the copies, and per kernel name (call(copy), plain(copy),
-    library(copy), cache length, S)."""
+    head dim, extent, fills and score scale (SQ16_CASE, D80_CASE,
+    NEO_CASE; the scale defaults to d^-0.5). ``n_copies`` copies of each
+    cache, read in turn so each call reads its K/V cold. Returns q, the
+    copies, and per kernel name (call(copy), plain(copy), library(copy),
+    cache length, S). ``exact``: the plain versions run in f32 on the same
+    values (phase 40: at unscaled scores the bf16 einsum rounds them)."""
     import torch.nn.functional as F
     b, bs = 8, PAGED_BS
     Sp, hd = T * bs, h * d
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     q = torch.randn(b, s_q, h, d, device=dev, generator=gen).bfloat16()
     clen_d = torch.tensor(tuple(fills) + (Sd + s_q,), dtype=torch.int32,
                           device=dev)
@@ -2252,6 +2279,10 @@ def verify_case(torch, da, qz, dev, gen, n_copies, s_q=VERIFY_SQ, h=12,
             "paged8": tuple(_to_pool(t, perm, bs) for t in (kq, vq, ks, vs))})
     p = torch.arange(Sp, device=dev)
     flat = (tables.long()[:, p // bs] * bs + p % bs).reshape(-1)
+    qp = q.float() if exact else q
+
+    def up(kv):                  # a bf16 cache pair, in f32 under exact
+        return tuple(t.float() for t in kv) if exact else kv
     qt = q.transpose(1, 2)
 
     def mask(clen, S):
@@ -2278,32 +2309,34 @@ def verify_case(torch, da, qz, dev, gen, n_copies, s_q=VERIFY_SQ, h=12,
 
     cases = {
         "decode_attention": (
-            lambda c: da.decode_attention(q, *c["dense"], clen_d),
-            lambda c: da.decode_attention_reference(q, *c["dense"], clen_d,
-                                                    scale),
+            lambda c: da.decode_attention(q, *c["dense"], clen_d,
+                                          scale=scale),
+            lambda c: da.decode_attention_reference(qp, *up(c["dense"]),
+                                                    clen_d, scale),
             lambda c: sdpa(*c["dense"], m_d), clen_d, Sd),
         "paged_decode_attention": (
             lambda c: da.paged_decode_attention(q, *c["paged"], tables,
-                                                clen_p),
+                                                clen_p, scale=scale),
             lambda c: da.paged_decode_attention_reference(
-                q, *c["paged"], tables, clen_p, scale),
+                qp, *up(c["paged"]), tables, clen_p, scale),
             lambda c: sdpa(gather(c["paged"][0]), gather(c["paged"][1]),
                            m_p), clen_p, Sp),
         "decode_attention_int8": (
             lambda c: da.decode_attention(q, *c["dense8"][:2], clen_d,
+                                          scale=scale,
                                           k_scale=c["dense8"][2],
                                           v_scale=c["dense8"][3]),
             lambda c: da.decode_attention_reference(
-                q, *c["dense8"][:2], clen_d, scale, *c["dense8"][2:]),
+                qp, *c["dense8"][:2], clen_d, scale, *c["dense8"][2:]),
             lambda c: sdpa(dequant(c["dense8"][0], c["dense8"][2]),
                            dequant(c["dense8"][1], c["dense8"][3]), m_d),
             clen_d, Sd),
         "paged_decode_attention_int8": (
             lambda c: da.paged_decode_attention(
-                q, *c["paged8"][:2], tables, clen_p, k_scale=c["paged8"][2],
-                v_scale=c["paged8"][3]),
+                q, *c["paged8"][:2], tables, clen_p, scale=scale,
+                k_scale=c["paged8"][2], v_scale=c["paged8"][3]),
             lambda c: da.paged_decode_attention_reference(
-                q, *c["paged8"][:2], tables, clen_p, scale,
+                qp, *c["paged8"][:2], tables, clen_p, scale,
                 *c["paged8"][2:]),
             lambda c: sdpa(dequant(gather(c["paged8"][0]),
                                    gather(c["paged8"][2])),
@@ -3061,6 +3094,515 @@ def phase_d80_serving(torch, np, dev, seed, prompts, kw, card):
               f"8) card={card}", flush=True)
     del ie, model
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Slice 17: HF injection, local windows and int8 weights at GPT-Neo 1.3B
+# ---------------------------------------------------------------------------
+
+# EleutherAI/gpt-neo-1.3B's published config.json: 24 layers alternating
+# global and local attention (attention_types [[["global", "local"], 12]],
+# window_size 256), 16 heads of 128, hidden_size 2048, intermediate_size
+# null (so 4 x 2048), vocab 50257, max_position_embeddings 2048, unscaled
+# scores; the weights are random from --seed under HF's key names
+NEO_LAYERS = 24
+NEO_CONFIG = dict(model_type="gpt_neo", vocab_size=50257,
+                  max_position_embeddings=2048, hidden_size=2048,
+                  num_heads=16, intermediate_size=None, window_size=256,
+                  layer_norm_epsilon=1e-5, activation_function="gelu_new")
+NEO_PARAMS = 1_315_723_264           # at 24 layers, tied head
+NEO_IDS = (2, 1024)                  # phase 40's forward and generate
+NEO_GEN = 32
+# B1 at the global layers' forward shape, scale 1.0 (GPT-Neo's); B2 at a
+# decode step (s_q 1) and a fused step (s_q 16) over the dense arenas the
+# phase's engines build (max_seq_len 2048; C - 1 = 15 positions of
+# lookahead), with fills up to the row end and the sentinel
+NEO_FLASH = (2, 1024, 16, 128)
+NEO_CASE = dict(s_q=1, h=16, d=128, Sd=2048, T=2048 // PAGED_BS,
+                fills=(1, 17, 512, 2048, 300, 1500, 777), scale=1.0)
+NEO_SQ16_CASE = dict(s_q=FUSED_C, h=16, d=128, Sd=2048 + FUSED_C - 1,
+                     T=2048 // PAGED_BS + 1,
+                     fills=(16, 33, 1024, 2063, 300, 1500, 777), scale=1.0)
+
+
+def neo_hf_model(torch, dev, seed, layers):
+    """A GPT-Neo 1.3B checkpoint as HF would hold it: (config namespace,
+    state dict of bf16 tensors on the card under HF's key names), matrices
+    and embeddings N(0, 0.02) from ``seed``, LayerNorm scales 1, biases 0;
+    q / k / v without biases, the tied ``lm_head``."""
+    import types
+    cfg = types.SimpleNamespace(
+        num_layers=layers,
+        attention_layers=["global", "local"] * (layers // 2), **NEO_CONFIG)
+    D, V, P = cfg.hidden_size, cfg.vocab_size, cfg.max_position_embeddings
+    F_ = cfg.intermediate_size or 4 * D
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * 0.02).bfloat16()
+
+    def ones(n):
+        return torch.ones(n, device=dev, dtype=torch.bfloat16)
+
+    def zeros(n):
+        return torch.zeros(n, device=dev, dtype=torch.bfloat16)
+
+    sd = {"transformer.wte.weight": w(V, D), "transformer.wpe.weight": w(P, D)}
+    for i in range(layers):
+        pre = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[pre + ln + ".weight"], sd[pre + ln + ".bias"] = ones(D), zeros(D)
+        att = pre + "attn.attention."
+        for n in ("k", "v", "q"):
+            sd[att + f"{n}_proj.weight"] = w(D, D)
+        sd[att + "out_proj.weight"], sd[att + "out_proj.bias"] = w(D, D), \
+            zeros(D)
+        sd[pre + "mlp.c_fc.weight"], sd[pre + "mlp.c_fc.bias"] = w(F_, D), \
+            zeros(F_)
+        sd[pre + "mlp.c_proj.weight"], sd[pre + "mlp.c_proj.bias"] = \
+            w(D, F_), zeros(D)
+    sd["transformer.ln_f.weight"], sd["transformer.ln_f.bias"] = ones(D), \
+        zeros(D)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return cfg, sd
+
+
+def _build_engine(torch, cfg, host, dev, **kw):
+    """An InferenceEngine over a meta-device GPT taking ``host``'s tensors:
+    (engine, bytes its build added to the card's peak, weight bytes at
+    rest)."""
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.models.gpt import GPT
+    from deepspeed_tpu_torch.ops.quantizer import weight_bytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ie = InferenceEngine(GPT(cfg, device="meta"), model_parameters=host,
+                         dtype=torch.bfloat16, device=dev, **kw)
+    torch.cuda.synchronize()
+    return (ie, torch.cuda.max_memory_allocated(dev) - base,
+            weight_bytes(ie.module))
+
+
+@contextlib.contextmanager
+def kernel_checks(torch, errs, what):
+    """Hold every B1 and B2 call of the model against its plain version on
+    the call's own inputs (no extra launch: the plain version runs beside
+    the kernel's result): B1 within FLASH_TOL, B2 within DECODE_ATOL (+
+    DECODE_INT8_RTOL |ref| over an int8 cache). The plain versions run in
+    f32 on the inputs' values: at GPT-Neo's unscaled scores (|s| up to
+    about 40) the bf16 einsum of the plain decode version rounds a score
+    by up to 0.125 and errs by up to 0.2 itself. ``errs`` collects the max
+    abs error by kernel name."""
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    saved = gpt.flash_attention, gpt.decode_attention
+
+    def flash(q, k, v, causal=True, sm_scale=None):
+        out = saved[0](q, k, v, causal=causal, sm_scale=sm_scale)
+        ref = fa.flash_attention_forward_reference(
+            q.float(), k.float(), v.float(), causal, sm_scale)[0]
+        errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0),
+                                _close(out, ref, *FLASH_TOL))
+        return out
+
+    def decode(q, ck, cv, cache_len, scale=None, k_scale=None, v_scale=None):
+        out = saved[1](q, ck, cv, cache_len, scale=scale, k_scale=k_scale,
+                       v_scale=v_scale)
+        int8 = k_scale is not None
+        ref = da.decode_attention_reference(
+            q.float(), ck if int8 else ck.float(),
+            cv if int8 else cv.float(), cache_len,
+            q.shape[-1] ** -0.5 if scale is None else scale, k_scale,
+            v_scale)
+        errs["decode_attention"] = max(
+            errs.get("decode_attention", 0.0), _decode_err(
+                torch, out, ref, f"{what} decode_attention s_q "
+                f"{q.shape[1]}", DECODE_INT8_RTOL if int8 else 0.0))
+        return out
+
+    gpt.flash_attention, gpt.decode_attention = flash, decode
+    try:
+        yield errs
+    finally:
+        gpt.flash_attention, gpt.decode_attention = saved
+
+
+def _forward_counted(torch, ie, ids, what, n_global, errs):
+    """``ie.forward(ids)`` with the counts reset just before and read just
+    after (B1 once a global layer, no other kernel) and every B1 call held
+    to its plain version (``kernel_checks``)."""
+    from deepspeed_tpu_torch.ops.cuda import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with kernel_checks(torch, errs, what):
+        logits = ie.forward(ids)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launched != {"flash_fwd": n_global}:
+        fail(f"{what} forward launched {launched} (want flash_fwd "
+             f"{n_global}: once a global layer)")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{what} forward: non-finite logits")
+    return logits, launched["flash_fwd"]
+
+
+def _neo_profile(torch, ie, prompts, kw, card, tag):
+    """A steady GPT-Neo decode chunk profiled (``phase_profile``), with B2's
+    device ms a step beside the step's device busy ms."""
+    K = kw["decode_chunk"]
+    busy_ms, rows = phase_profile(torch, ie, prompts[:8], kw, card, tag=tag)
+    b2_ms = sum(ms for ms, _, key in rows if "decode_attention_kernel" in key)
+    print(f"{tag} decode chunk decode_attention_ms_per_step={b2_ms / K} "
+          f"device_busy_ms_per_step={busy_ms / K} (K={K}, 8 live lanes) "
+          f"card={card}", flush=True)
+
+
+def _lm_loss(logits, ids):
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    return float(lm_loss_fn(logits, {"input_ids": ids}))
+
+
+def _agreement(out, base):
+    """Greedy tokens of a run against its twin's: (requests equal, tokens
+    equal, tokens, first parting positions)."""
+    parts = [_first_difference(r.tokens, t.tokens) for r, t in zip(out, base)]
+    same = sum(int(a == b) for r, t in zip(out, base)
+               for a, b in zip(r.tokens, t.tokens))
+    return (sum(p is None for p in parts), same,
+            sum(len(r.tokens) for r in out),
+            sorted(p for p in parts if p is not None))
+
+
+def phase_neo_serving(torch, np, dev, seed, prompts, kw, card):
+    """Phase 40: GPT-Neo 1.3B (EleutherAI's config.json, NEO_LAYERS
+    layers) from an HF-named state dict made from --seed on the card,
+    converted there by HFGPTNeoPolicy and held on the host. Gates:
+    ``InferenceEngine.forward`` on [2, 1024] launches B1 once a global
+    layer (scale 1.0), each call within FLASH_TOL of its plain version on
+    its own inputs, and its loss within LOSS_ATOL of the same weights'
+    through attention_impl="xla" (the logits' max difference and top-1
+    agreement are printed: with unscaled scores, 24 random layers carry a
+    rounding difference far, so no logits tolerance holds across two bf16
+    paths); greedy ``generate`` of 32 tokens, its first token the xla
+    forward's argmax or a near-tie; the dense, fused (prefill_chunk 16)
+    and speculative (k 4) megakernel ServingEngines serve phase 4's 16
+    requests beside megakernel=False: every request done, logits finite,
+    B2 once a global layer a step at the step's width (1, 16, 5) and no
+    other decode kernel or width, B4 never (vocab 50257 is not
+    lane-aligned), every B2 call of a warm-up run within DECODE_ATOL of its
+    plain version, the first tokens equal where both engines prefill
+    alike (dense, speculative); the share of greedy tokens equal to the
+    twin's and where they part are printed; paged=True raises. Then B1 at
+    the forward's shape and B2 at s_q 1 and 16 against their plain
+    versions on random inputs, timed. Returns what phase 41 and the
+    kernels line need."""
+    import dataclasses
+    from deepspeed_tpu_torch import ServingEngine
+    from deepspeed_tpu_torch.models.gpt import GPT
+    from deepspeed_tpu_torch.module_inject import HFGPTNeoPolicy
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantizer as qz
+    t0 = time.perf_counter()
+    hf_cfg, hf_sd = neo_hf_model(torch, dev, seed, NEO_LAYERS)
+    cfg = dataclasses.replace(HFGPTNeoPolicy.config_from_hf(hf_cfg),
+                              dtype=torch.bfloat16)
+    sd = HFGPTNeoPolicy.convert(hf_sd, cfg.num_layers)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    host = {k: v.cpu() for k, v in sd.items()}
+    del hf_sd, sd
+    torch.cuda.empty_cache()
+    L = cfg.num_layers
+    n_global = sum(cfg.window(i) is None for i in range(L))
+    # phase 4's requests, their token ids folded into GPT-Neo's vocab
+    prompts = [(p % cfg.vocab_size).astype(p.dtype) for p in prompts]
+    n_params = sum(v.numel() for v in host.values())
+    print(f"phase40 GPT-Neo 1.3B: {L} layers ({n_global} global, "
+          f"{L - n_global} local, window {hf_cfg.window_size}), d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, qk_scale {cfg.qk_scale}; "
+          f"{n_params} parameters; HF state dict made and converted on the "
+          f"card in {convert_s:.2f} s", flush=True)
+    if L == NEO_LAYERS and n_params != NEO_PARAMS:
+        fail(f"GPT-Neo 1.3B has {n_params} parameters, want {NEO_PARAMS}")
+    if cfg.qk_scale != 1.0 or cfg.attn_windows[:2] != (
+            None, hf_cfg.window_size):
+        fail(f"HFGPTNeoPolicy config: qk_scale {cfg.qk_scale}, windows "
+             f"{cfg.attn_windows[:2]}")
+    ie, peak, at_rest = _build_engine(torch, cfg, host, dev)
+    print(f"phase40 bf16 engine: weights at rest {at_rest} B, build peak "
+          f"{peak} B card={card}", flush=True)
+
+    rng = np.random.default_rng(seed + 40)
+    ids = rng.integers(1, cfg.vocab_size, NEO_IDS).astype(np.int64)
+    ids_t = torch.from_numpy(ids).to(dev)
+    errs = {}
+    logits, b1 = _forward_counted(torch, ie, ids, "phase40 bf16", n_global,
+                                  errs)
+    xla = GPT(dataclasses.replace(cfg, attention_impl="xla"), device="meta")
+    xla.load_state_dict(ie.module.state_dict(), assign=True)
+    with torch.inference_mode():
+        ref = xla(ids_t)
+    err = (logits.float() - ref.float()).abs().max().item()
+    top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    loss, loss_xla = _lm_loss(logits, ids_t), _lm_loss(ref, ids_t)
+    print(f"phase40 forward {list(NEO_IDS)}: B1 launches {b1} (once a "
+          f"global layer), each within max_abs_err={errs['flash_fwd']} of "
+          f"its plain version on its own inputs; loss {loss} vs "
+          f"attention_impl='xla' {loss_xla} (tol {LOSS_ATOL}); logits vs "
+          f"xla max_abs_err={err} top1_agreement={top1}", flush=True)
+    if not abs(loss - loss_xla) <= LOSS_ATOL:
+        fail(f"GPT-Neo forward loss through B1 {loss} vs the einsum "
+             f"{loss_xla}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ie.generate(ids, max_new_tokens=NEO_GEN, temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    last = ref[:, -1].float()
+    for r in range(NEO_IDS[0]):
+        tok = int(out[r, NEO_IDS[1]])
+        if tok != int(last[r].argmax()):
+            top = torch.topk(last[r], 2).values
+            gap = (top[0] - top[1]).item()
+            ulp = 2.0 ** (math.floor(math.log2(abs(top[0].item()))) - 7)
+            if not gap <= SPEC_TIE_ULPS * ulp:
+                fail(f"generate's first token {tok} is not the forward's "
+                     f"argmax {int(last[r].argmax())} (gap {gap})")
+    print(f"phase40 generate greedy {NEO_GEN} tokens on {list(NEO_IDS)} "
+          f"(einsum decode) in {gen_s} s: "
+          f"{NEO_IDS[0] * NEO_GEN / gen_s} tokens/s card={card}", flush=True)
+    del ref, xla, out
+
+    n_new, K = 64, kw["decode_chunk"]
+    runs = (("dense", {}, 1),
+            ("fused", dict(fused_prefill=True, prefill_chunk=FUSED_C),
+             FUSED_C),
+            ("spec", dict(speculative=True, spec_k=SPEC_K,
+                          spec_ngram=SPEC_NGRAM), SPEC_K + 1))
+    launches, tok_s = {}, {}
+    for name, extra, width in runs:
+        mk_kw = dict(kw, megakernel=True, **extra)
+        with kernel_checks(torch, errs, f"phase40 {name}"):   # warm-up
+            ServingEngine(engine=ie, **mk_kw).run(
+                [p.copy() for p in prompts[:2]], max_new_tokens=4)
+        base_eng = ServingEngine(engine=ie, **dict(mk_kw, megakernel=False))
+        eng = ServingEngine(engine=ie, **mk_kw)
+        flags = [_checked_logits(torch, m, dev)
+                 for m in {id(base_eng.module): base_eng.module,
+                           id(eng.module): eng.module}.values()]
+        try:
+            base, base_s, base_launched = _serve(torch, base_eng, prompts,
+                                                 n_new)
+            with decode_widths() as widths:
+                got, seconds, launched = _serve(torch, eng, prompts, n_new)
+        finally:
+            for m in (base_eng.module, eng.module):
+                m.__dict__.pop("logits", None)
+        if any(bool(f) for f in flags):
+            fail(f"phase40 {name}: non-finite logits")
+        m = eng.metrics
+        steps = m.decode_steps * K
+        print(f"phase40 {name}: launches={launched} widths={dict(widths)} "
+              f"steps={steps}; megakernel=False launches={base_launched}",
+              flush=True)
+        if (launched.get("decode_attention", 0) != n_global * steps
+                or dict(widths) != {("decode_attention", width):
+                                    n_global * steps}
+                or set(launched) - {"decode_attention"}
+                or any(base_launched.get(k) for k in DECODE_KERNELS)):
+            fail(f"phase40 {name}: want decode_attention {n_global} a step "
+                 f"at width {width} and nothing else ({steps} steps), the "
+                 f"plain engine no decode kernel: {launched} "
+                 f"{dict(widths)} / {base_launched}")
+        if extra.get("fused_prefill") and (m.prefill_programs
+                                           or m.prefill_prompt_tokens):
+            fail(f"phase40 {name}: a bucketed prefill ran")
+        if not extra.get("fused_prefill") and any(
+                r.tokens[0] != t.tokens[0] for r, t in zip(got, base)):
+            fail(f"phase40 {name}: first tokens (one prefill path) differ "
+                 f"from the megakernel=False engine's")
+        launches[name] = launched["decode_attention"]
+        n_eq, same, n_tokens, parts = _agreement(got, base)
+        tok_s[name] = n_tokens / seconds
+        print(f"phase40 {name}: greedy tokens equal the megakernel=False "
+              f"engine's in {n_eq}/{len(got)} requests, {same}/{n_tokens} "
+              f"tokens; first parting positions {parts}", flush=True)
+        print(f"neo_{name}_serving_tokens_per_s={tok_s[name]} {_ttft(m)} "
+              f"mean_chunk_ms={m.mean_decode_chunk_s * 1e3} "
+              f"plain_tokens_per_s={n_tokens / base_s} "
+              f"{_ttft(base_eng.metrics, 'plain_')} (L={L}, K={K}, batch "
+              f"8) card={card}", flush=True)
+        if name == "dense":
+            dense_tokens = [list(r.tokens) for r in got]
+    print(f"phase40 every B1 / B2 call checked on its own inputs: max_abs_err "
+          f"{errs}", flush=True)
+    _neo_profile(torch, ie, prompts, kw, card, "phase40")
+    try:
+        ServingEngine(engine=ie, paged=True, megakernel=True, **kw)
+    except NotImplementedError as e:
+        print(f"phase40 paged=True raises: {e}", flush=True)
+    else:
+        fail("phase40: a paged engine over windowed layers was built")
+
+    # B1 at the global layers' forward shape with GPT-Neo's scale 1.0
+    B, S, H, D = NEO_FLASH
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+    fo, fl = fa.flash_attention_forward(q, k, v, True, 1.0)
+    ro, rl = fa.flash_attention_forward_reference(q, k, v, True, 1.0)
+    torch.cuda.synchronize()
+    flash_err = _close(fo, ro, *FLASH_TOL)
+    lse_err = _close(fl, rl, LSE_ATOL, 0.0)
+    flash_t = _flash_times(torch, fa, q, k, v, do, ro, rl, True,
+                           scale=1.0)["flash_fwd"]
+    print(f"phase40 flash_fwd B={B} S={S} H={H} D={D} causal scale=1.0 "
+          f"max_abs_err out={flash_err} lse={lse_err} " + " ".join(
+              f"{key}={val}" for key, val in flash_t.items())
+          + f" card={card}", flush=True)
+    del q, k, v, do, fo, fl, ro, rl
+    case_errs, times = {}, {}
+    for tag, case in (("", NEO_CASE), ("_sq16", NEO_SQ16_CASE)):
+        case_errs[tag] = case_parity(torch, da, qz, dev, gen, exact=True,
+                                     **case)[0]
+        times[tag] = verify_timing(torch, da, qz, dev, gen, card, **case)
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "host": host, "ie": ie, "ids": ids,
+            "prompts": prompts, "logits": logits, "bf16_peak": peak,
+            "bf16_bytes": at_rest, "tok_s": tok_s["dense"],
+            "dense_tokens": dense_tokens, "n_global": n_global, "rows": [
+                ("flash_fwd_neo", "flash_attention.cu",
+                 "flash_attention.py:52", b1,
+                 max(flash_err, lse_err, errs["flash_fwd"]), flash_t),
+                ("decode_attention_neo", "decode_attention.cuh",
+                 "decode_attention.py:74", launches["dense"],
+                 max(case_errs[""]["decode_attention"],
+                     errs["decode_attention"]),
+                 times[""]["decode_attention"]),
+                ("decode_attention_neo_sq16", "decode_attention.cuh",
+                 "decode_attention.py:74", launches["fused"],
+                 max(case_errs["_sq16"]["decode_attention"],
+                     errs["decode_attention"]),
+                 times["_sq16"]["decode_attention"])]}
+
+
+def phase_neo_int8(torch, np, dev, neo, kw, card):
+    """Phase 41: phase 40's GPT-Neo through InferenceEngine(quantize_bits=8),
+    symmetric and asymmetric, built from the same host state dict. Gates:
+    the weights at rest below 0.6 x bf16's and the build's peak below the
+    bf16 build's (no whole bf16 tree on the card); every stored Linear's
+    int8 codes and f32 scales (and zmin) equal to the plain quantize /
+    quantize_asym of its bf16 weight on the card, one group a column, and
+    its weight equal to the plain dequantize of them; the forward launches
+    B1 once a global layer, each call within FLASH_TOL of its plain
+    version, and its logits equal a bf16 model's over the dequantized
+    weights within LOGITS_ATOL (the same arithmetic); ServingEngine(
+    engine=ie, megakernel=True) serves phase 4's 16 requests (done, finite
+    logits, B2 once a global layer a step, each call of a warm-up run
+    within DECODE_ATOL of its plain version). Prints bytes at rest and the
+    build peak beside bf16's, max |logit - bf16 engine| and top-1 agreement
+    over the prompt positions, and tokens/s beside bf16's."""
+    from deepspeed_tpu_torch import ServingEngine
+    from deepspeed_tpu_torch.models.gpt import GPT
+    from deepspeed_tpu_torch.ops import quantizer as qz
+    cfg, host, n_global = neo["cfg"], neo["host"], neo["n_global"]
+    prompts = neo["prompts"]
+    n_new, K = 64, kw["decode_chunk"]
+    launches = {}
+    for mode in ("symmetric", "asymmetric"):
+        ie, peak, at_rest = _build_engine(torch, cfg, host, dev,
+                                          quantize_bits=8, quantize_mode=mode)
+        print(f"phase41 int8 {mode}: weights at rest {at_rest} B "
+              f"({at_rest / neo['bf16_bytes']} x bf16's {neo['bf16_bytes']}),"
+              f" build peak {peak} B (bf16: {neo['bf16_peak']}) card={card}",
+              flush=True)
+        if not (at_rest < 0.6 * neo["bf16_bytes"]
+                and peak < neo["bf16_peak"]):
+            fail(f"phase41 {mode}: {at_rest} B at rest, peak {peak} B "
+                 f"against bf16's {neo['bf16_bytes']} / {neo['bf16_peak']}")
+        n_lin = 0
+        deq = {}
+        for name, m in ie.module.named_modules():
+            if not isinstance(m, qz.Int8Linear):
+                continue
+            n_lin += 1
+            w = host[name + ".weight"].to(dev)
+            if mode == "symmetric":
+                want = qz.quantize(w, w.shape[0])
+                plain = qz.dequantize(*want, torch.bfloat16)
+                got = (m.q8, m.scale)
+            else:
+                want = qz.quantize_asym(w, w.shape[0])
+                plain = qz.dequantize_asym(*want, torch.bfloat16)
+                got = (m.q8, m.scale, m.zmin)
+            if m.scale.dtype != torch.float32 or not all(
+                    torch.equal(a, b) for a, b in zip(got, want)) \
+                    or not torch.equal(m.weight, plain):
+                fail(f"phase41 {mode}: {name}'s int8 weight is not the "
+                     f"plain quantization of its bf16 weight")
+            deq[name + ".weight"] = plain
+        if n_lin != 4 * cfg.num_layers:
+            fail(f"phase41 {mode}: {n_lin} int8 Linears, want "
+                 f"{4 * cfg.num_layers}")
+        errs = {}
+        logits, _ = _forward_counted(torch, ie, neo["ids"],
+                                     f"phase41 {mode}", n_global, errs)
+        ref_model = GPT(cfg, device="meta")
+        state = {k: v for k, v in ie.module.state_dict().items()
+                 if not k.endswith((".q8", ".scale", ".zmin"))}
+        ref_model.load_state_dict(dict(state, **deq), assign=True)
+        with torch.inference_mode():
+            ref = ref_model(torch.from_numpy(neo["ids"]).to(dev))
+        deq_err = (logits.float() - ref.float()).abs().max().item()
+        del ref_model, ref, deq, state
+        bf = neo["logits"]
+        err = (logits.float() - bf.float()).abs().max().item()
+        top1 = (logits.argmax(-1) == bf.argmax(-1)).float().mean().item()
+        print(f"phase41 int8 {mode}: {n_lin} Linears bitwise the plain "
+              f"quantize/dequantize; forward vs a bf16 model over the "
+              f"dequantized weights max_abs_err={deq_err} (tol "
+              f"{LOGITS_ATOL}); vs the bf16 engine max_abs_err={err} "
+              f"top1_agreement={top1} over {logits.shape[0]} x "
+              f"{logits.shape[1]} prompt positions", flush=True)
+        if not deq_err <= LOGITS_ATOL:
+            fail(f"phase41 {mode}: int8 forward vs its dequantized weights "
+                 f"{deq_err}")
+        del logits
+        with kernel_checks(torch, errs, f"phase41 {mode}"):   # warm-up
+            ServingEngine(engine=ie, megakernel=True, **kw).run(
+                [p.copy() for p in prompts[:2]], max_new_tokens=4)
+        eng = ServingEngine(engine=ie, megakernel=True, **kw)
+        flag = _checked_logits(torch, eng.module, dev)
+        try:
+            got, seconds, launched = _serve(torch, eng, prompts, n_new)
+        finally:
+            eng.module.__dict__.pop("logits", None)
+        steps = eng.metrics.decode_steps * K
+        if bool(flag) or launched.get("decode_attention", 0) \
+                != n_global * steps or set(launched) - {"decode_attention"}:
+            fail(f"phase41 {mode}: non-finite logits ({bool(flag)}) or "
+                 f"launches {launched} for {steps} steps (want "
+                 f"decode_attention {n_global} a step)")
+        launches[mode] = launched["decode_attention"]
+        if mode == "symmetric":
+            _neo_profile(torch, ie, prompts, kw, card, "phase41")
+        n_tokens = sum(len(r.tokens) for r in got)
+        same = sum(int(a == b) for r, t in zip(got, neo["dense_tokens"])
+                   for a, b in zip(r.tokens, t))
+        print(f"neo_int8_{mode}_serving_tokens_per_s={n_tokens / seconds} "
+              f"bf16_tokens_per_s={neo['tok_s']} mean_chunk_ms="
+              f"{eng.metrics.mean_decode_chunk_s * 1e3} {_ttft(eng.metrics)}"
+              f"; tokens equal to the bf16 engine's {same}/{n_tokens}; "
+              f"B1 / B2 calls checked: max_abs_err {errs} (L="
+              f"{cfg.num_layers}, K={K}, batch 8) card={card}", flush=True)
+        del ie, eng
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -4772,6 +5314,7 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
@@ -4814,6 +5357,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     d80_launches = phase_d80_serving(torch, np, dev, args.seed, prompts,
                                      serve_kw, card)
+    neo = phase_neo_serving(torch, np, dev, args.seed, prompts, serve_kw,
+                            card)
+    neo_int8 = phase_neo_int8(torch, np, dev, neo, serve_kw, card)
+    neo_rows = neo["rows"]
+    del neo
+    torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
     phase_model_check(torch, dev, engine, cfg, ids)
@@ -4982,12 +5531,23 @@ def main(argv=None) -> int:
         for name, line in (("sparse_fwd", 72), ("sparse_bwd_dq", 122),
                            ("sparse_bwd_dkv", 166))
     ] + [
+        {"name": name, "route": "cuda",
+         "source": f"deepspeed_tpu_torch/ops/cuda/csrc/{source}",
+         "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+         "launches": launched, **({f"launches_int8_{m}": n
+                                   for m, n in neo_int8.items()}
+                                  if name == "decode_attention_neo" else {}),
+         "max_abs_err": err, **times}
+        for name, source, replaces, launched, err, times in neo_rows
+    ] + [
         {"name": "sampling_filter", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/sampling.cu",
          "replaces": "deepspeed_tpu/ops/pallas/sampling.py:132",
          "launches": filter_launches, "max_abs_err": filter_err,
          **filter_t},
     ]
+    print(f"chip_smoke total_s={time.perf_counter() - t_start} "
+          f"card={card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

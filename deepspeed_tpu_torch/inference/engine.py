@@ -1,25 +1,34 @@
 """Inference engine: KV-cached generation on one device.
 
-Counterpart of ``deepspeed_tpu/inference/engine.py`` at tp=1: no mesh, no
-weight quantization, no checkpoint loading (each waits for a later slice).
-The engine casts the model's floating-point parameters to ``dtype`` (the
-reference's ``_convert_to_dtype``), moves the model to ``device`` in place,
-and serves ``forward`` and ``generate``.
+Counterpart of ``deepspeed_tpu/inference/engine.py`` at tp=1 (no mesh).
+The engine takes its weights from ``model_parameters`` (a ``state_dict``),
+a ``checkpoint`` written by the port's ``save_checkpoint``, or the module
+itself; applies an ``injection_policy`` to that ``state_dict``; casts the
+floating-point parameters to ``dtype`` (the reference's
+``_convert_to_dtype``); under ``quantize_bits=8`` quantizes the cast GEMM
+weights to int8 at rest (``ops/quantizer.quantize_module``: each Linear
+dequantized just before its matmul, one at a time); moves the model to
+``device`` in place; and serves ``forward`` and ``generate``.
 
 It takes the TPU engine's whole parameter list. ``config``, ``max_tokens``
 and ``replace_with_kernel_inject`` are read by neither engine and are taken
-at any value; ``quantize_mode`` keeps the TPU engine's ``ValueError``s; every
-other knob set away from its default raises ``NotImplementedError`` naming
-its ROADMAP item (:data:`NOT_PORTED_KNOBS`).
+at any value; ``replace_method="auto"`` (the TPU engine's policy-free
+auto-TP) shards nothing at one device and is taken; ``quantize_mode`` keeps
+the TPU engine's ``ValueError``s; ``mp_size`` and ``ep_size`` away from 1
+raise ``NotImplementedError`` naming their ROADMAP item
+(:data:`NOT_PORTED_KNOBS`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
+from ..checkpoint import saving as ckpt_saving
+from ..ops.quantizer import quantize_module
 from ..runtime.engine import _not_ported
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
@@ -29,10 +38,6 @@ from ..utils.logging import log_dist
 NOT_PORTED_KNOBS = {
     "mp_size": (1, "A9"),
     "ep_size": (1, "A9"),
-    "checkpoint": (None, "A10"),
-    "injection_policy": (None, "A10"),
-    "quantize_bits": (None, "A10"),
-    "replace_method": (None, "A10"),
 }
 
 
@@ -47,11 +52,20 @@ class InferenceEngine:
                  max_tokens: Optional[int] = None,
                  replace_method: Optional[str] = None, device="cuda"):
         """``model``: a ``deepspeed_tpu_torch.models.gpt.GPT`` (or any module
-        with the same ``prefill`` / ``decode`` / ``logits`` interface).
-        ``model_parameters``: an optional ``state_dict`` loaded into it
-        (``convert.jax_params_to_state_dict`` makes one from TPU weights);
-        without it the model keeps its own weights. ``device`` defaults to
-        the card; a CUDA device without CUDA raises."""
+        with the same ``prefill`` / ``decode`` / ``logits`` interface; a
+        ``BertModel`` serves ``forward``), on any device, the meta device
+        included when weights are given. ``model_parameters``: an optional
+        ``state_dict`` loaded into it (``convert.jax_params_to_state_dict``
+        makes one from TPU weights, ``module_inject`` from HF or Megatron
+        ones); ``checkpoint``: a checkpoint directory (its ``latest`` tag)
+        or a ``model_states.npz``, read when ``model_parameters`` is None;
+        without either the model keeps its own weights.
+        ``injection_policy``: a callable applied to that ``state_dict``
+        before the cast. ``quantize_bits=8``: int8 GEMM weights,
+        ``quantize_mode`` "symmetric" or "asymmetric", grouped across the
+        layers when the model's config has ``scan_layers``, as the TPU
+        engine's stacked tree is. ``device`` defaults to the card; a CUDA
+        device without CUDA raises."""
         if replace_method == "auto" and ep_size > 1:
             raise ValueError(
                 "ep_size > 1 with replace_method='auto' is unsupported: "
@@ -65,31 +79,75 @@ class InferenceEngine:
             raise ValueError(
                 "quantize_mode='asymmetric' without quantize_bits=8 would "
                 "silently run unquantized; pass quantize_bits=8")
-        given = dict(mp_size=mp_size, ep_size=ep_size, checkpoint=checkpoint,
-                     injection_policy=injection_policy,
-                     quantize_bits=quantize_bits,
-                     replace_method=replace_method)
+        if quantize_bits not in (None, 8):
+            raise ValueError(f"quantize_bits={quantize_bits!r}: the engine "
+                             f"quantizes weights to 8 bits only")
+        given = dict(mp_size=mp_size, ep_size=ep_size)
         for name, (default, item) in NOT_PORTED_KNOBS.items():
             if given[name] != default:
                 raise _not_ported(
                     f"InferenceEngine({name}={given[name]!r})", item)
         self.device = resolve_device(device)
+        if model_parameters is None and checkpoint is not None:
+            model_parameters = self._load_checkpoint(checkpoint)
+        if injection_policy is not None:
+            if model_parameters is None:
+                model_parameters = model.state_dict()
+            model_parameters = injection_policy(model_parameters)
         if model_parameters is not None:
-            model.load_state_dict(model_parameters)
+            # a meta-device model takes the tensors themselves
+            meta = any(p.is_meta for p in model.parameters())
+            model.load_state_dict(model_parameters, assign=meta)
+        self.quantized = quantize_bits == 8
+        if self.quantized:
+            cfg = getattr(model, "cfg", None)
+            quantize_module(model, mode=quantize_mode, dtype=dtype,
+                            device=self.device,
+                            scan_layers=getattr(cfg, "scan_layers", False))
         self.module = model.to(device=self.device, dtype=dtype).eval()
         self.dtype = dtype
         log_dist(f"inference engine ready: device={self.device} "
-                 f"dtype={dtype}", ranks=[0])
+                 f"dtype={dtype} quantized={self.quantized}", ranks=[0])
 
     def _ids(self, input_ids) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
                               device=self.device)
         return ids[None] if ids.dim() == 1 else ids
 
+    def _load_checkpoint(self, checkpoint: str):
+        """The fp32 weights by ``state_dict`` name from a checkpoint
+        directory (the tag its ``latest`` file names) or a
+        ``model_states.npz`` path."""
+        if os.path.isdir(checkpoint):
+            tag = ckpt_saving.read_latest_tag(checkpoint)
+            path = os.path.join(checkpoint, tag or "", "model_states.npz")
+        else:
+            path = checkpoint
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"{path}: no model_states.npz (a host-sharded checkpoint "
+                f"has per-rank shard files: consolidate it with the "
+                f"zero_to_fp32.py script in its tag directory, then pass "
+                f"the .npz it writes)")
+        arrays = ckpt_saving.load_tree_arrays(path)
+        log_dist(f"loaded inference checkpoint from {path}", ranks=[0])
+        return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
     @torch.inference_mode()
-    def forward(self, input_ids) -> torch.Tensor:
-        """Plain (non-incremental) causal forward -> logits [B, S, V]."""
-        return self.module(self._ids(input_ids))
+    def forward(self, input_ids, **kwargs):
+        """Plain (non-incremental) forward: a GPT's logits [B, S, V]. Extra
+        model inputs (``attention_mask``, ``token_type_ids``, ...) pass
+        through, moved to the device; None ones are dropped. A ``(logits,
+        scalar)`` pair is unwrapped to the logits, as the TPU engine does;
+        other tuples (BERT's sequence and pooled outputs) pass through."""
+        kw = {k: (v if torch.is_tensor(v) else torch.as_tensor(
+                  np.asarray(v))).to(self.device)
+              for k, v in kwargs.items() if v is not None}
+        out = self.module(self._ids(input_ids), **kw)
+        if (isinstance(out, tuple) and len(out) == 2
+                and torch.is_tensor(out[1]) and out[1].dim() == 0):
+            out = out[0]
+        return out
 
     __call__ = forward
 

@@ -77,8 +77,12 @@ _REMAT_SAVE = {
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The TPU package's GPTConfig, field for field. Fields of features not
-    ported yet (MoE, sequence parallelism, local windows, the tp overlap)
-    must stay at their defaults. ``cpu_checkpointing`` (with ``remat``)
+    ported yet (MoE, sequence parallelism, the tp overlap) must stay at
+    their defaults. ``attn_windows`` is one local-attention window (or None,
+    a global layer) a layer, GPT-Neo's alternation; it needs
+    ``scan_layers=False``, as in the TPU model, and refuses
+    ``attention_impl="sparse"`` (the TPU model's sparse path drops the
+    window). ``cpu_checkpointing`` (with ``remat``)
     keeps each block's input in page-locked host memory instead of on the
     device (:func:`offloaded_checkpoint`). ``kv_cache_dtype`` is
     "auto" (the cache in ``dtype``) or "int8".
@@ -152,9 +156,20 @@ class GPTConfig:
         if self.remat_policy not in _REMAT_SAVE:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}: "
                              f"use one of {sorted(_REMAT_SAVE)}")
+        if self.attn_windows is not None:
+            windows = tuple(self.attn_windows)
+            if len(windows) != self.num_layers:
+                raise ValueError(f"attn_windows has {len(windows)} entries "
+                                 f"for {self.num_layers} layers")
+            if self.scan_layers:
+                raise ValueError("attn_windows (heterogeneous layers) "
+                                 "requires scan_layers=False")
+            if self.attention_impl == "sparse":
+                raise ValueError("attn_windows with attention_impl='sparse':"
+                                 " the block-sparse layout has no local "
+                                 "window")
         later = {"moe": self.moe,
                  "sequence_parallel": self.sequence_parallel,
-                 "attn_windows": self.attn_windows is not None,
                  "tp_overlap": self.tp_overlap}
         on = [name for name, flag in later.items() if flag]
         if on:
@@ -164,6 +179,12 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.num_heads
+
+    def window(self, layer: int) -> Optional[int]:
+        """Layer ``layer``'s local-attention window, None for a global
+        layer."""
+        return None if self.attn_windows is None else \
+            self.attn_windows[layer]
 
 
 def gpt2_125m(**kw):
@@ -344,17 +365,22 @@ def _kv_write_paged(pool: torch.Tensor, kv: torch.Tensor,
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      dtype, impl: str = "auto",
                      scale: Optional[float] = None,
-                     sparse_config=None) -> torch.Tensor:
+                     sparse_config=None,
+                     window: Optional[int] = None) -> torch.Tensor:
     """q, k, v: [B, S, H, D]. Routes to the configured attention: "auto" or
     "pallas" is the flash attention autograd function (the CUDA kernels on a
     CUDA tensor, which raise on a shape they lack; their plain versions on a
     CPU tensor), "sparse" the block-sparse one over ``sparse_config``'s
     layout, "xla" the TPU package's masked einsum (mask -1e10,
-    probabilities cast to ``dtype``). Unlike the TPU model, "auto" does not
-    turn into "xla" off the accelerator, and "sparse" without a layout
-    raises instead of computing dense attention."""
+    probabilities cast to ``dtype``). A local ``window`` (each query sees
+    its last ``window`` keys) takes the masked einsum under every impl, as
+    the TPU model's does. Unlike the TPU model, "auto" does not turn into
+    "xla" off the accelerator, and "sparse" without a layout raises instead
+    of computing dense attention."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if window is not None:
+        impl = "xla"
     if impl in ("auto", "pallas"):
         return flash_attention(q, k, v, causal=True, sm_scale=scale)
     if impl == "sparse":
@@ -369,15 +395,24 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     s = q.shape[1]
     causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    if window is not None:
+        causal = causal.triu(-(window - 1))
     logits = torch.where(causal, logits, -1e10)
     probs = torch.softmax(logits, dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    """``window``: this layer's local-attention window (None: global). A
+    windowed layer attends through the masked einsum in the forward, the
+    prefill and decode, whatever ``attention_impl`` / ``decode_impl`` say,
+    as the TPU model's does, and has no paged path."""
+
+    def __init__(self, cfg: GPTConfig, device=None,
+                 window: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
+        self.window = window
         kw = dict(dtype=cfg.param_dtype, device=device)
         self.qkv = nn.Linear(cfg.d_model, 3 * cfg.d_model, bias=True, **kw)
         self.out_proj = nn.Linear(cfg.d_model, cfg.d_model, bias=True, **kw)
@@ -411,7 +446,8 @@ class SelfAttention(nn.Module):
         if kv is None and attention_impl is not None:
             out = causal_attention(q, k, v, dtype=cfg.dtype,
                                    impl=attention_impl, scale=self.scale,
-                                   sparse_config=cfg.sparse_attention)
+                                   sparse_config=cfg.sparse_attention,
+                                   window=self.window)
             return _linear(out.reshape(b, s, cfg.d_model), self.out_proj,
                            cfg.dtype), k, v
         k, v = k.reshape(b, s, h * d), v.reshape(b, s, h * d)
@@ -423,7 +459,8 @@ class SelfAttention(nn.Module):
                 vr = dequantize_kv(vq, vs, cfg.dtype)
                 k, v = (kq, ks[..., 0]), (vq, vs[..., 0])
             out = masked_cache_attention(q, kr.view(b, s, h, d),
-                                         vr.view(b, s, h, d), 0, self.scale)
+                                         vr.view(b, s, h, d), 0, self.scale,
+                                         window=self.window)
         else:
             ck, cv, ksc, vsc = kv
             writes = [(ck, k), (cv, v)]
@@ -446,6 +483,11 @@ class SelfAttention(nn.Module):
     def _decode_attention(self, q, ck, cv, cur, impl, block_tables=None,
                           k_scale=None, v_scale=None):
         b, s, h, d = q.shape
+        if self.window is not None:
+            if block_tables is not None:
+                raise NotImplementedError(
+                    "paged KV decode has no local-window path")
+            impl = "einsum"
         if impl == "auto":      # the kernel, which raises on a shape it lacks
             if block_tables is None:
                 return decode_attention(q.contiguous(), ck, cv, cur + s,
@@ -467,7 +509,8 @@ class SelfAttention(nn.Module):
             cv = dequantize_kv(cv, v_scale[..., None], self.cfg.dtype)
         S = ck.shape[1]
         return masked_cache_attention(q, ck.view(b, S, h, d),
-                                      cv.view(b, S, h, d), cur, self.scale)
+                                      cv.view(b, S, h, d), cur, self.scale,
+                                      window=self.window)
 
 
 class MLP(nn.Module):
@@ -485,14 +528,15 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None,
+                 window: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         kw = dict(eps=cfg.layer_norm_eps, dtype=cfg.param_dtype,
                   device=device)
         self.ln_1 = nn.LayerNorm(cfg.d_model, **kw)
         self.ln_2 = nn.LayerNorm(cfg.d_model, **kw)
-        self.attn = SelfAttention(cfg, device=device)
+        self.attn = SelfAttention(cfg, device=device, window=window)
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions, kv=None, cache_index=None,
@@ -521,7 +565,8 @@ class GPT(nn.Module):
             self.wpe = nn.Parameter(
                 torch.empty(cfg.max_seq_len, cfg.d_model, **kw))
         self.blocks = nn.ModuleList(
-            Block(cfg, device=device) for _ in range(cfg.num_layers))
+            Block(cfg, device=device, window=cfg.window(i))
+            for i in range(cfg.num_layers))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=cfg.layer_norm_eps, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,

@@ -102,11 +102,13 @@ def paged_decode_supported(s: int, d: int, dtype: torch.dtype,
         and block_size % 8 == 0
 
 
-def masked_cache_attention(q, ck, cv, first_q_pos, scale):
+def masked_cache_attention(q, ck, cv, first_q_pos, scale, window=None):
     """Masked-einsum cache attention: q [b, s, h, d] with query i at absolute
     position ``first_q_pos + i`` (a scalar or a [b] tensor), ck/cv
-    [b, S, h, d]; each query sees keys at positions <= its own. Softmax in f32, probabilities cast back to
-    q's dtype, as the TPU package computes it."""
+    [b, S, h, d]; each query sees keys at positions <= its own and, with a
+    local ``window``, > its own - window (GPT-Neo's local layers). Softmax
+    in f32, probabilities cast back to q's dtype, as the TPU package
+    computes it."""
     S = ck.shape[1]
     s = q.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, ck).float() * scale
@@ -117,7 +119,10 @@ def masked_cache_attention(q, ck, cv, first_q_pos, scale):
                  )[:, None, :, None]
     else:
         q_pos = (fq + torch.arange(s, device=q.device))[None, None, :, None]
-    logits = logits.masked_fill(key_pos > q_pos, NEG_INF)
+    hidden = key_pos > q_pos
+    if window is not None:
+        hidden = hidden | (key_pos <= q_pos - window)
+    logits = logits.masked_fill(hidden, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, cv)
 

@@ -82,6 +82,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.quantizer import quantized_like
 from ..runtime.engine import _not_ported
 from ..utils.logging import log_dist
 from .kv_cache import SlotKVCacheManager
@@ -235,6 +236,8 @@ class ServingEngine:
             # parameter tensors (no copy), as the TPU engine rebuilds it
             cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
             module = type(self.module)(cfg, device="meta")
+            # an int8-weight module's quantized Linears, as empty shells
+            quantized_like(module, self.module)
             module.load_state_dict(self.module.state_dict(), assign=True)
             self.module = module
         self.megakernel = bool(megakernel)
@@ -303,6 +306,11 @@ class ServingEngine:
         self._width = max(self.prefill_chunk if self.fused_prefill else 1,
                           self.spec_k + 1)
         self.paged = bool(paged)
+        if self.paged and any(cfg.window(i) is not None
+                              for i in range(cfg.num_layers)):
+            # the TPU model raises at its first paged decode step
+            raise NotImplementedError(
+                "paged KV decode has no local-window path (attn_windows)")
         # a step reads and writes width positions from a lane's fill: the
         # arena holds width - 1 positions past max_seq_len, so no lane's
         # cache length is ever clamped by the decode kernel (kv_cache.py,

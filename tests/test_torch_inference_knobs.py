@@ -1,9 +1,12 @@
 """The port's InferenceEngine / init_inference and initialize against the TPU
 package's signatures: every TPU keyword is taken; ``config``,
 ``max_tokens`` and ``replace_with_kernel_inject`` at any value;
-``quantize_mode`` keeps the TPU engine's ``ValueError``s; each other knob
-set away from its default raises ``NotImplementedError`` naming its
-ROADMAP item (``NOT_PORTED_KNOBS``), never a ``TypeError``; with the
+``quantize_mode`` keeps the TPU engine's ``ValueError``s; ``checkpoint``,
+``injection_policy``, ``quantize_bits`` and ``replace_method`` are ported
+(tests/test_torch_inference_checkpoint.py, test_torch_weight_quant.py);
+``mp_size`` and ``ep_size`` set away from their defaults raise
+``NotImplementedError`` naming their ROADMAP item (``NOT_PORTED_KNOBS``),
+never a ``TypeError``; with the
 defaults passed explicitly the engine builds from TPU weights converted by
 ``convert.py`` and its greedy tokens equal the TPU engine's.
 ``initialize(dist_init_required=True)`` builds at one rank and over two
@@ -25,9 +28,9 @@ from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
 from torch_test_threads import one_torch_thread  # noqa: F401
 
 # a value away from each knob's default
-NON_DEFAULT = {"mp_size": 2, "ep_size": 2, "checkpoint": "ckpt",
-               "injection_policy": lambda params: params, "quantize_bits": 8,
-               "replace_method": "auto"}
+NON_DEFAULT = {"mp_size": 2, "ep_size": 2}
+# ported knobs, taken away from their defaults
+PORTED = ("checkpoint", "injection_policy", "quantize_bits", "replace_method")
 # read by neither engine: taken at any value
 INERT = {"config": {"tensor_parallel": {"tp_size": 1}}, "max_tokens": 512,
          "replace_with_kernel_inject": True}
@@ -55,7 +58,7 @@ def test_every_tpu_inference_keyword_is_taken():
     assert set(jax_params) <= set(port_params)
     assert set(port_params) - set(jax_params) == {"device"}
     assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS)
-    assert set(NOT_PORTED_KNOBS) | set(INERT) | {
+    assert set(NOT_PORTED_KNOBS) | set(INERT) | set(PORTED) | {
         "self", "model", "dtype", "model_parameters",
         "quantize_mode"} == set(jax_params)
     for name, param in jax_params.items():
@@ -91,9 +94,9 @@ def test_quantize_mode_keeps_the_tpu_value_errors():
         InferenceEngine(_model(), device="cpu", quantize_mode="int4")
     with pytest.raises(ValueError, match="quantize_bits=8"):
         InferenceEngine(_model(), device="cpu", quantize_mode="asymmetric")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10\\b"):
-        InferenceEngine(_model(), device="cpu", quantize_mode="asymmetric",
-                        quantize_bits=8)
+    # asymmetric with quantize_bits=8 builds (the weights at rest in int8)
+    assert InferenceEngine(_model(), device="cpu", quantize_mode="asymmetric",
+                           quantize_bits=8).quantized
     with pytest.raises(ValueError, match="ep_size > 1"):
         InferenceEngine(_model(), device="cpu", ep_size=2,
                         replace_method="auto")

@@ -46,7 +46,6 @@ def model_pair(seed=0, sparse=None, **overrides):
                                    sparse_attention=jsp)
         psparse = dict(attention_impl="sparse", sparse_attention=psp)
     jmodel = JaxGPT(jcfg)
-    kw.pop("scan_layers", None)
     kw.update(psparse)
     pcfg = GPTConfig(dtype=torch.float32, param_dtype=torch.float32, **kw)
     pmodel = GPT(pcfg)
