@@ -350,15 +350,43 @@ Phases (any failure exits non-zero before the result lines):
      dequantized weights within LOGITS_ATOL, max |logit - bf16 engine| and
      top-1 agreement printed, and ServingEngine(engine=ie, megakernel=True)
      serving phase 4's requests (B2 12 times a step; tokens/s beside
-     bf16's).
+     bf16's);
+ 42. GPT-MoE (after phase 41): gpt_moe_1_3b at full width and depth (24
+     layers, d_model 2048, 16 heads of 128, d_ff 8192, top-1, eval
+     capacity 2.0, min 4) with its 128 experts cut to 16 (128 would need
+     206 GB in bf16), bf16 weights made on the card from --seed; the
+     forward on [2, 1024] through B1 (24 launches, each held to its plain
+     version) against attention_impl="xla" within LOSS_ATOL; layer 0's
+     MoE on a prefill's inputs against the same function in f32
+     (MOE_OUT_RTOL); phase 4's requests through the dense and fused (C
+     16) megakernel engines: a run with every B2 call and B4 draw held to
+     its plain version and every logits tensor checked finite, printing
+     the routing's capacity and dropped tokens, then a timed run (B2 24
+     times a step at the step's width, B4 once a step, the checked run's
+     tokens); tokens/s, chunk ms, weight bytes, max_memory_allocated, a
+     decode step's device ms split into B2, the expert GEMMs, the
+     dispatch / combine einsums and the rest; B1 at [2, 1024, 16, 128],
+     B2 at s_q 1 and 16 (S 1024) and B4 at [8, 50304] against their plain
+     versions, timed (the *_moe rows);
+ 43. its width cut to 2 layers, trained (seq 1024, micro 4 x gas 2, bf16
+     over fp32 masters, AdamW, ZeRO-1, remat): losses finite and falling
+     over 4 steps, l_aux finite, B1 / B1b 2 x 2 x (2, 1, 1) a step; B1 /
+     B1b at [4, 1024, 16, 128] against their plain versions, timed;
+ 44. ep 2 on two gloo ranks sharing the card (the script re-runs itself
+     with the hidden --ep-rank): a small GPT-MoE (EP_CFG, f32) trained 3
+     steps at mesh {"ep": 2} against ep 1 in this process (EP_LOSS_RTOL),
+     each rank holding half the expert bytes; InferenceEngine(ep_size=2)
+     greedy tokens equal ep 1's or parting at a near-tie, half the expert
+     bytes, a ServingEngine over it refused (ROADMAP A9).
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
 
 Prints the kernel summary JSON (the flash rows twice: the training shape,
 and ``*_d80`` at the capacity shape with phase 35's launches; the rows of
-phase 37's head dim also carry its launches; the decode rows at s_q 5, 16
-and d 80, the sparse rows at d 80, B1 and B2 at GPT-Neo's shapes), the
+phase 37's head dim also carry its launches, the training shape's phase
+44's; the decode rows at s_q 5, 16 and d 80, the sparse rows at d 80, B1
+and B2 at GPT-Neo's shapes, B1 / B1b, B2 and B4 at GPT-MoE's), the
 card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
@@ -3610,6 +3638,707 @@ def phase_neo_int8(torch, np, dev, neo, kw, card):
 # Slice 5: the fused transformer ops (B6, B7, B8) and DeepSpeedTransformerLayer
 # ---------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# Phases 42-44: GPT-MoE and expert parallelism
+# --------------------------------------------------------------------------
+
+# gpt_moe_1_3b (models/gpt.py, the MoE-NLG family) at its full width and
+# depth (24 layers, d_model 2048, 16 heads of 128, d_ff 8192, vocab 50304)
+# with its 128 experts cut to 16: 24 MoE layers x 128 x 33.6e6 expert
+# parameters are 206 GB in bf16, past the card's 80 GB; 16 experts make
+# 13.4e9 parameters (26.8 GB). Top-1, eval capacity 2.0, min capacity 4.
+MOE_EXPERTS = 16
+MOE_PARAMS = 13_397_790_720          # at 24 layers, 16 experts, tied head
+MOE_IDS = (2, 1024)                  # phase 42's forward check
+# one MoE layer in bf16 against the same function in f32 on the same bf16
+# inputs (identical routing: the gate computes in f32 from the same
+# weights): the expert GEMMs round to bf16 (2^-8 relative an element),
+# the combine weights too; the max error is held to 2^-6 of the output's
+# largest magnitude
+MOE_OUT_RTOL = 2.0 ** -6
+# B2 at the served decode step (s_q 1) and fused step (s_q 16) over the
+# dense arenas phase 42's engines build (max_seq_len 1024; the fused one
+# C - 1 = 15 positions of lookahead), with fills up to the row end
+MOE_CASE = dict(s_q=1, h=16, d=128, Sd=1024, T=1024 // PAGED_BS,
+                fills=(1, 17, 512, 1024, 300, 64, 777))
+MOE_SQ16_CASE = dict(s_q=FUSED_C, h=16, d=128, Sd=1024 + FUSED_C - 1,
+                     T=1024 // PAGED_BS + 1,
+                     fills=(16, 33, 512, 1039, 300, 64, 777))
+# phase 43: the same width cut to 2 layers, trained
+MOE_TRAIN_LAYERS, MOE_TRAIN_MICRO, MOE_TRAIN_GAS = 2, 4, 2
+MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1024, 4
+MOE_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": MOE_TRAIN_MICRO,
+                    "gradient_accumulation_steps": MOE_TRAIN_GAS,
+                    "bf16": {"enabled": True},
+                    "zero_optimization": {"stage": 1},
+                    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                    "steps_per_print": 1000}
+# phase 44: a small GPT-MoE (d_model 512, 8 heads of 64, d_ff 2048, 4
+# experts, 2 layers, seq 256) in f32 at ep 2 x dp 1 on two gloo ranks
+# sharing the card, against ep 1 in this process: the ep partners' expert
+# GEMMs run over 2 experts a call instead of 4 (another cuBLAS batch),
+# which may round differently; rtol on the losses
+EP_CFG = dict(vocab_size=50304, max_seq_len=256, num_layers=2, num_heads=8,
+              d_model=512, d_ff=2048, moe=True, num_experts=4)
+EP_MICRO, EP_STEPS, EP_GEN = 4, 3, 16
+EP_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": EP_MICRO,
+                   "gradient_accumulation_steps": 1,
+                   "zero_optimization": {"stage": 1},
+                   "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+                   "steps_per_print": 1000}
+EP_LOSS_RTOL = 1e-3
+EP_TIE_ATOL = 1e-4                   # f32 top-2 gap of a near-tie token
+
+
+@contextlib.contextmanager
+def sampling_checks(torch, errs):
+    """Hold every B4 draw of the served path against its plain version on
+    the call's own logits (greedy: the tokens must be equal); ``errs``
+    collects the number of rows that differ under "sampling"."""
+    from deepspeed_tpu_torch.ops.cuda import sampling as sp
+    from deepspeed_tpu_torch.serving import sampling as serving_sampling
+    saved = serving_sampling.fused_sample
+
+    def checked(logits, gumbel, temperature, top_k, top_p=None):
+        out = saved(logits, gumbel, temperature, top_k, top_p)
+        x = logits.float()
+        if temperature != 0.0:
+            x = x / temperature
+            gumbel = gumbel.float()
+        ref = sp.fused_sample_reference(x, gumbel, top_k, top_p)
+        errs["sampling"] = errs.get("sampling", 0) + int((out != ref).sum())
+        return out
+
+    serving_sampling.fused_sample = checked
+    try:
+        yield errs
+    finally:
+        serving_sampling.fused_sample = saved
+
+
+@contextlib.contextmanager
+def moe_route_stats(torch, module, decode_tokens):
+    """Forward hooks on every MoE gate of ``module``: for the calls that
+    route ``decode_tokens`` tokens (a decode step) and the others
+    (prefill), the calls, the capacity and the tokens kept (device sums,
+    read after the run). Top-1 with no ``used_token``: every token picks
+    one expert, so the dropped ones are the tokens less the kept."""
+    from deepspeed_tpu_torch.moe.sharded_moe import TopKGate
+    dev = next(module.parameters()).device
+    stats = {k: {"calls": 0, "tokens": 0, "capacity": set(),
+                 "kept": torch.zeros((), dtype=torch.long, device=dev)}
+             for k in ("decode", "prefill")}
+
+    def hook(gate, inputs, outputs):
+        s = stats["decode" if inputs[0].shape[0] == decode_tokens
+                  else "prefill"]
+        s["calls"] += 1
+        s["tokens"] += inputs[0].shape[0]
+        s["capacity"].add(outputs[1].shape[2])
+        s["kept"] += outputs[2].sum()
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, TopKGate)]
+    try:
+        yield stats
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _moe_step_split(torch, ie, prompts, kw, card, tag):
+    """A steady decode chunk of ``ie`` under torch.profiler: a decode
+    step's device ms split into the attention kernel (B2), the expert
+    bank's batched GEMMs (aten::baddbmm), the dispatch and combine einsums
+    (aten::einsum) and the rest (the gate, the dense projections, the
+    head, B4, ...), each the device time of the kernels launched under it,
+    over the chunk's K steps; the chunk's idle share as phase 6 reads it."""
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch import ServingEngine
+    K = kw["decode_chunk"]
+    eng = ServingEngine(engine=ie, **{"megakernel": True, **kw})
+    for p in prompts[:kw["max_batch"]]:
+        eng.submit(p.copy(), max_new_tokens=1 + 3 * K)
+    eng.step()                       # admission, prefill, first chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()                       # a pure decode chunk, unprofiled
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    busy = sum(_device_us(e) for e in rows) / 1e3
+
+    def under(op):
+        return sum(float(getattr(e, "device_time_total", 0.0)
+                         or getattr(e, "cuda_time_total", 0.0))
+                   for e in rows if e.key == op) / 1e3
+    attn = sum(_device_us(e) for e in rows
+               if "decode_attention_kernel" in e.key) / 1e3
+    bmm, einsum = under("aten::baddbmm"), under("aten::einsum")
+    if busy <= 0 or bmm <= 0 or einsum <= 0 or attn <= 0:
+        fail(f"{tag}: the profiler did not see the decode step's parts "
+             f"(busy {busy}, attention {attn}, bmm {bmm}, einsum {einsum})")
+    print(f"{tag} decode step device ms (K={K}, {kw['max_batch']} lanes): "
+          f"attention_kernels={attn / K} expert_bmm={bmm / K} "
+          f"dispatch_combine={einsum / K} rest={(busy - attn - bmm - einsum) / K}"
+          f" busy={busy / K}; chunk idle_share={1 - busy / wall_ms} "
+          f"card={card}", flush=True)
+    return {"attention_ms": attn / K, "expert_bmm_ms": bmm / K,
+            "dispatch_combine_ms": einsum / K, "busy_ms": busy / K}
+
+
+def _sampling_time(torch, sp, dev, gen, b, V):
+    """B4 greedy at [b, V] f32 logits: device ms beside its plain version
+    and torch.argmax, and its bound (the logits read once, the tokens
+    written; one comparison an element at the f32 peak)."""
+    x = torch.randn(b, V, device=dev, generator=gen)
+    t = {"ms": device_ms(lambda i: sp.fused_sample(x, None, 0.0, None),
+                         kernel="sampling_kernel"),
+         "plain_ms": device_ms(lambda i: sp.fused_sample_reference(
+             x, None, None, None)),
+         "library_ms": device_ms(lambda i: torch.argmax(x, dim=-1))}
+    tb, tf = (b * V * 4 + b * 4) / HBM_BYTES_PER_S, b * V / F32_FLOPS
+    t["bound_ms"] = 1e3 * max(tb, tf)
+    t["bound_by"] = "bytes" if tb >= tf else "operations"
+    err = int((sp.fused_sample(x, None, 0.0, None)
+               != sp.fused_sample_reference(x, None, None, None)).sum())
+    return t, err
+
+
+def phase_moe_serving(torch, np, dev, seed, prompts, kw, card):
+    """Phase 42: gpt_moe_1_3b(num_experts=16) at full width and depth,
+    bf16, its weights made on the card from --seed (no f32 copy). Gates:
+    ``InferenceEngine.forward`` on [2, 1024] launches B1 once a layer,
+    each call within FLASH_TOL of its plain version on its own inputs, and
+    its loss within LOSS_ATOL of the same weights through
+    attention_impl="xla"; layer 0's MoE output on a prefill's own inputs
+    within MOE_OUT_RTOL of the same function in f32; the dense and fused
+    (prefill_chunk 16) megakernel ServingEngines serve phase 4's 16
+    requests (64 new tokens, batch 8): every request done, logits finite,
+    every B2 call within DECODE_ATOL and every B4 draw equal to its plain
+    version's (one checked run), then a timed run with the counts reset
+    just before: B2 once a layer a step at the step's width, B4 once a
+    step, and its tokens the checked run's. Prints weight bytes,
+    max_memory_allocated, tokens/s, chunk ms, the capacity and dropped
+    tokens of a decode step's routing, and a decode step's device ms split
+    (``_moe_step_split``); then B1 at the forward's shape, B2 at s_q 1
+    and 16 and B4 at [8, 50304] against their plain versions, timed (the
+    *_moe rows). Returns those rows."""
+    import copy
+    import dataclasses
+    from deepspeed_tpu_torch import InferenceEngine, ServingEngine
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_moe_1_3b
+    from deepspeed_tpu_torch.moe.utils import count_moe_params
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import sampling as sp
+    from deepspeed_tpu_torch.ops import quantizer as qz
+    t_phase = time.perf_counter()
+    cfg = gpt_moe_1_3b(num_experts=MOE_EXPERTS, max_seq_len=1024,
+                       dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = GPT(cfg, device="meta")
+    model.to_empty(device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    ie = InferenceEngine(model, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    L = cfg.num_layers
+    n_params = sum(p.numel() for p in ie.module.parameters())
+    shared, expert = count_moe_params(ie.module)
+    at_rest = qz.weight_bytes(ie.module)
+    print(f"phase42 gpt_moe_1_3b({MOE_EXPERTS} experts; 128 cut to fit the "
+          f"card): {L} layers, d_model {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"top-{cfg.moe_top_k}, eval capacity {cfg.moe_eval_capacity_factor}"
+          f", min {cfg.moe_min_capacity}; {n_params} parameters ({expert} in "
+          f"expert banks, {shared} shared), built bf16 on the card in "
+          f"{build_s:.2f} s: weights at rest {at_rest} B, build peak "
+          f"{torch.cuda.max_memory_allocated(dev) - base} B card={card}",
+          flush=True)
+    if n_params != MOE_PARAMS:
+        fail(f"gpt_moe_1_3b at {MOE_EXPERTS} experts has {n_params} "
+             f"parameters, want {MOE_PARAMS}")
+
+    rng = np.random.default_rng(seed + 42)
+    ids = rng.integers(1, cfg.vocab_size, MOE_IDS).astype(np.int64)
+    ids_t = torch.from_numpy(ids).to(dev)
+    errs = {}
+    logits, b1 = _forward_counted(torch, ie, ids, "phase42", L, errs)
+    xla = GPT(dataclasses.replace(cfg, attention_impl="xla"), device="meta")
+    xla.load_state_dict(ie.module.state_dict(), assign=True)
+    with torch.inference_mode():
+        ref = xla(ids_t)[0]
+    loss, loss_xla = _lm_loss(logits, ids_t), _lm_loss(ref, ids_t)
+    err = (logits.float() - ref.float()).abs().max().item()
+    print(f"phase42 forward {list(MOE_IDS)}: B1 launches {b1} (once a "
+          f"layer), each within max_abs_err={errs['flash_fwd']} of its plain "
+          f"version on its own inputs; loss {loss} vs attention_impl='xla' "
+          f"{loss_xla} (tol {LOSS_ATOL}); logits vs xla max_abs_err={err}",
+          flush=True)
+    if not abs(loss - loss_xla) <= LOSS_ATOL:
+        fail(f"GPT-MoE forward loss through B1 {loss} vs the einsum "
+             f"{loss_xla}")
+    del logits, ref, xla
+
+    # layer 0's MoE on a prefill's own inputs, against the function in f32
+    moe = ie.module.blocks[0].moe
+    seen = []
+    hook = moe.register_forward_hook(
+        lambda m, args, out: seen.append((args[0], out[0])))
+    pids = np.zeros((kw["max_batch"], kw["max_prompt_len"]), np.int64)
+    for i, p in enumerate(prompts[:kw["max_batch"]]):
+        pids[i, :len(p)] = p
+    with torch.inference_mode():
+        ie.module.prefill(torch.from_numpy(pids).to(dev))
+    hook.remove()
+    x, out = seen[0]
+    ref_moe = copy.deepcopy(moe).float()
+    ref_moe.deepspeed_moe.experts.dtype = torch.float32
+    with torch.inference_mode():
+        want = ref_moe(x.float())[0]
+    err = (out.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"phase42 layer-0 MoE on a prefill's inputs [{x.shape[0]}, "
+          f"{x.shape[1]}, {x.shape[2]}] (bf16) vs the same function in f32: "
+          f"max_abs_err={err} (tol {MOE_OUT_RTOL} x max|ref| = "
+          f"{MOE_OUT_RTOL * scale})", flush=True)
+    if not err <= MOE_OUT_RTOL * scale:
+        fail(f"layer 0's MoE output leaves its f32 twin by {err}")
+    del ref_moe, seen, x, out, want
+    torch.cuda.empty_cache()
+
+    n_new, K = 64, kw["decode_chunk"]
+    runs = (("dense", {}, 1),
+            ("fused", dict(fused_prefill=True, prefill_chunk=FUSED_C),
+             FUSED_C))
+    launches, sampled, tok_s = {}, {}, {}
+    for name, extra, width in runs:
+        mk_kw = dict(kw, megakernel=True, **extra)
+        ServingEngine(engine=ie, **mk_kw).run(           # warm-up
+            [p.copy() for p in prompts[:2]], max_new_tokens=4)
+        checked_eng = ServingEngine(engine=ie, **mk_kw)
+        bad = _checked_logits(torch, checked_eng.module, dev)
+        try:
+            with kernel_checks(torch, errs, f"phase42 {name}"), \
+                    sampling_checks(torch, errs), \
+                    moe_route_stats(torch, ie.module,
+                                    kw["max_batch"] * width) as routes:
+                checked, _, _ = _serve(torch, checked_eng, prompts, n_new)
+        finally:
+            checked_eng.module.__dict__.pop("logits", None)
+        if bool(bad):
+            fail(f"phase42 {name}: non-finite logits")
+        if errs.get("sampling"):
+            fail(f"phase42 {name}: {errs['sampling']} B4 draws differ from "
+                 f"the plain version's")
+        d, p = routes["decode"], routes["prefill"]
+        steps_routed = d["calls"] // L
+        print(f"phase42 {name} routing: a decode step routes "
+              f"{kw['max_batch'] * width} tokens a layer at capacity "
+              f"{sorted(d['capacity'])}, dropped "
+              f"{(d['tokens'] - int(d['kept'])) / max(steps_routed, 1)} "
+              f"tokens a step over {L} layers "
+              f"({(d['tokens'] - int(d['kept'])) / max(d['tokens'], 1)} of "
+              f"the routed tokens, {steps_routed} steps); prefill calls "
+              f"{p['calls'] // L} at capacity {sorted(p['capacity'])}, "
+              f"dropped {(p['tokens'] - int(p['kept'])) / max(p['tokens'], 1)}"
+              f" of their tokens", flush=True)
+        eng = ServingEngine(engine=ie, **mk_kw)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with decode_widths() as widths:
+            got, seconds, launched = _serve(torch, eng, prompts, n_new)
+        peak = torch.cuda.max_memory_allocated(dev)
+        m = eng.metrics
+        steps = m.decode_steps * K
+        print(f"phase42 {name}: launches={launched} widths={dict(widths)} "
+              f"steps={steps}", flush=True)
+        if (launched.get("decode_attention", 0) != L * steps
+                or dict(widths) != {("decode_attention", width): L * steps}
+                or set(launched) - {"decode_attention", "sampling"}
+                or not launched.get("sampling")):
+            fail(f"phase42 {name}: want decode_attention {L} a step at "
+                 f"width {width}, sampling, and nothing else ({steps} "
+                 f"steps): {launched} {dict(widths)}")
+        if [r.tokens for r in got] != [r.tokens for r in checked]:
+            fail(f"phase42 {name}: the timed run's tokens differ from the "
+                 f"checked run's")
+        if extra.get("fused_prefill") and (m.prefill_programs
+                                           or m.prefill_prompt_tokens):
+            fail(f"phase42 {name}: a bucketed prefill ran")
+        launches[name] = launched["decode_attention"]
+        sampled[name] = launched["sampling"]
+        n_tokens = sum(len(r.tokens) for r in got)
+        tok_s[name] = n_tokens / seconds
+        print(f"moe_{name}_serving_tokens_per_s={tok_s[name]} {_ttft(m)} "
+              f"mean_chunk_ms={m.mean_decode_chunk_s * 1e3} "
+              f"max_memory_allocated={peak} weights_at_rest={at_rest} "
+              f"(L={L}, {MOE_EXPERTS} experts, K={K}, batch "
+              f"{kw['max_batch']}, {len(prompts)} requests x {n_new} tokens) "
+              f"card={card}", flush=True)
+        if name == "dense":
+            dense = got
+        else:
+            n_eq, same, total, parts = _agreement(got, dense)
+            print(f"phase42 fused tokens equal the dense engine's in "
+                  f"{n_eq}/{len(got)} requests, {same}/{total} tokens (a "
+                  f"call routes all its rows together, and a fused step "
+                  f"routes other rows than a decode step: capacity drops "
+                  f"differ); first parting positions {parts}", flush=True)
+    print(f"phase42 every B1 / B2 / B4 call checked on its own inputs: "
+          f"{errs}", flush=True)
+    split = _moe_step_split(torch, ie, prompts, kw, card, "phase42")
+    del ie, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B1 at the forward's shape, B2 at the served widths, B4 at the served
+    # logits' shape, against their plain versions, timed
+    gen = torch.Generator(device=dev).manual_seed(seed + 42)
+    B, S, H, D = MOE_IDS + (cfg.num_heads, cfg.head_dim)
+    q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+    fo, fl = fa.flash_attention_forward(q, k, v, True, D ** -0.5)
+    ro, rl = fa.flash_attention_forward_reference(q, k, v, True, D ** -0.5)
+    torch.cuda.synchronize()
+    flash_err = max(_close(fo, ro, *FLASH_TOL), _close(fl, rl, LSE_ATOL, 0.0))
+    flash_t = _flash_times(torch, fa, q, k, v, do, ro, rl,
+                           True)["flash_fwd"]
+    print(f"phase42 flash_fwd B={B} S={S} H={H} D={D} causal max_abs_err="
+          f"{flash_err} " + " ".join(f"{key}={val}" for key, val in
+                                     flash_t.items()) + f" card={card}",
+          flush=True)
+    del q, k, v, do, fo, fl, ro, rl
+    case_errs, times = {}, {}
+    for tag, case in (("", MOE_CASE), ("_sq16", MOE_SQ16_CASE)):
+        case_errs[tag] = case_parity(torch, da, qz, dev, gen, **case)[0]
+        times[tag] = verify_timing(torch, da, qz, dev, gen, card, **case)
+    sp_t, sp_err = _sampling_time(torch, sp, dev, gen, kw["max_batch"],
+                                  cfg.vocab_size)
+    print(f"phase42 sampling b={kw['max_batch']} V={cfg.vocab_size} greedy "
+          f"rows differing from the plain version: {sp_err} " + " ".join(
+              f"{key}={val}" for key, val in sp_t.items())
+          + f" card={card}", flush=True)
+    if sp_err:
+        fail(f"phase42: B4 differs from its plain version in {sp_err} rows")
+    torch.cuda.empty_cache()
+    print(f"phase42 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    return {"split": split, "tok_s": tok_s, "rows": [
+        ("flash_fwd_moe", "flash_attention.cu", "flash_attention.py:52", b1,
+         max(flash_err, errs["flash_fwd"]), flash_t),
+        ("decode_attention_moe", "decode_attention.cuh",
+         "decode_attention.py:74", launches["dense"],
+         max(case_errs[""]["decode_attention"], errs["decode_attention"]),
+         times[""]["decode_attention"]),
+        ("decode_attention_moe_sq16", "decode_attention.cuh",
+         "decode_attention.py:74", launches["fused"],
+         max(case_errs["_sq16"]["decode_attention"],
+             errs["decode_attention"]),
+         times["_sq16"]["decode_attention"]),
+        ("sampling_moe", "sampling.cu", "sampling.py:132",
+         sampled["dense"] + sampled["fused"], float(sp_err), sp_t)]}
+
+
+def phase_moe_training(torch, np, dev, seed, card):
+    """Phase 43: phase 42's width (16 experts) cut to MOE_TRAIN_LAYERS
+    layers, trained through initialize() + train_batch: seq 1024, micro 4
+    x gas 2, bf16 over fp32 masters, AdamW lr 1e-4, ZeRO-1, remat (the
+    default policy), the training gate (capacity factor 1.25, Random Token
+    Selection from the engine's seeded generator). 1 warm-up and 3 timed
+    steps on one repeated batch, counts reset before the timed ones. Gates:
+    losses finite and falling, every micro-batch's weighted l_aux finite,
+    B1 / B1b launches of L x gas x (2, 1, 1) a step. Then B1 / B1b at the
+    training attention shape [4, 1024, 16, 128] against their plain
+    versions, timed (the flash_*_moe rows' errors and times; B1's forward
+    row is phase 42's)."""
+    import dataclasses
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_moe_1_3b, lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(
+        gpt_moe_1_3b(num_experts=MOE_EXPERTS, max_seq_len=MOE_TRAIN_SEQ,
+                     dtype=torch.bfloat16), num_layers=MOE_TRAIN_LAYERS)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    auxes = []
+
+    def loss_fn(out, batch):
+        auxes.append(out[1].detach())
+        return lm_loss_fn(out, batch)
+
+    reset_peak(torch, dev)
+    engine, *_ = dst.initialize(model=model, loss_fn=loss_fn,
+                                config=MOE_TRAIN_CONFIG)
+    ids = np.random.default_rng(seed + 43).integers(
+        0, cfg.vocab_size, (MOE_TRAIN_MICRO, MOE_TRAIN_SEQ)).astype(np.int32)
+    losses, norms, secs = [], [], []
+    for step in range(MOE_TRAIN_STEPS):
+        if step == 1:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([{"input_ids": ids}] * MOE_TRAIN_GAS))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+    launches = {name: _build.LAUNCHES[name] for name in FLASH}
+    aux = [float(a) for a in auxes]
+    per_step = cfg.num_layers * MOE_TRAIN_GAS
+    timed = MOE_TRAIN_STEPS - 1
+    want = {"flash_fwd": 2 * per_step * timed,
+            "flash_bwd_dq": per_step * timed,
+            "flash_bwd_dkv": per_step * timed}
+    step_s = sum(secs[1:]) / timed
+    tokens = MOE_TRAIN_MICRO * MOE_TRAIN_SEQ * MOE_TRAIN_GAS
+    print(f"phase43 training gpt_moe_1_3b width ({cfg.num_layers} layers, "
+          f"{MOE_EXPERTS} experts, {sum(p.numel() for p in model.parameters())}"
+          f" parameters) losses={losses} grad_norms={norms} "
+          f"weighted_l_aux={aux} step_s={secs} launches={launches} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}",
+          flush=True)
+    print(f"moe_train_step_s={step_s} moe_train_tokens_per_s="
+          f"{tokens / step_s} (micro {MOE_TRAIN_MICRO} x gas "
+          f"{MOE_TRAIN_GAS} x seq {MOE_TRAIN_SEQ}) card={card}", flush=True)
+    if not all(np.isfinite(losses + norms + aux)):
+        fail("phase43: a non-finite loss, grad norm or l_aux")
+    if not losses[-1] < losses[0]:
+        fail(f"phase43: the loss did not fall over {MOE_TRAIN_STEPS} steps: "
+             f"{losses}")
+    if launches != want:
+        fail(f"phase43: flash launch counts {launches}, expected {want}")
+    del engine, model, auxes
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    B, S, H, D = MOE_TRAIN_MICRO, MOE_TRAIN_SEQ, cfg.num_heads, cfg.head_dim
+    q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+    errs, (ro, rl) = _flash_pair(torch, fa, q, k, v, do, True)
+    times = _flash_times(torch, fa, q, k, v, do, ro, rl, True)
+    print(f"phase43 flash B={B} S={S} H={H} D={D} causal max_abs_err " +
+          " ".join(f"{k_}={v_}" for k_, v_ in errs.items()) + " " + " ".join(
+              f"{name}_{key}={val}" for name, t in times.items()
+              for key, val in t.items()) + f" card={card}", flush=True)
+    del q, k, v, do, ro, rl
+    torch.cuda.empty_cache()
+    print(f"phase43 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    return {"launches": launches, "errs": errs, "times": times}
+
+
+def _ep_model(torch, dev, seed):
+    from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig
+    model = GPT(GPTConfig(dtype=torch.float32, **EP_CFG), device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def _ep_train(torch, np, dev, seed, config):
+    """Phase 44's training run: losses of EP_STEPS steps, the engine's
+    expert bytes, its B1 / B1b launches."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    engine, *_ = dst.initialize(model=_ep_model(torch, dev, seed),
+                                loss_fn=lm_loss_fn, config=config)
+    rng = np.random.default_rng(seed + 44)
+    batches = [rng.integers(0, EP_CFG["vocab_size"],
+                            (EP_MICRO, EP_CFG["max_seq_len"])).astype(np.int32)
+               for _ in range(EP_STEPS)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    losses = [float(engine.train_batch(iter([{"input_ids": b}])))
+              for b in batches]
+    torch.cuda.synchronize()
+    launches = {name: _build.LAUNCHES[name] for name in FLASH}
+    out = {"losses": losses, "launches": launches,
+           "expert_bytes": _expert_bytes(engine.module),
+           "ep": engine.ep_world_size, "dp": engine.dp_world_size}
+    del engine
+    return out
+
+
+def _expert_bytes(module) -> int:
+    from deepspeed_tpu_torch.moe.utils import \
+        split_params_into_shared_and_expert
+    _, expert = split_params_into_shared_and_expert(module)
+    return sum(p.numel() * p.element_size() for p in expert.values())
+
+
+def _ep_prompts(np, seed):
+    return np.random.default_rng(seed + 45).integers(
+        1, EP_CFG["vocab_size"], (4, 32)).astype(np.int64)
+
+
+def ep_rank_main(args) -> int:
+    """One rank of phase 44 (this script with --ep-rank): ep 2 x dp 1 over
+    gloo with both ranks on card 0; training losses and launches, and
+    InferenceEngine ep_size 1 and 2 forward logits, greedy tokens and
+    expert bytes; results as JSON to --dp-out."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine, ServingEngine, comm
+    comm.init_distributed(dist_backend="gloo",
+                          init_method=f"tcp://localhost:{args.dp_port}",
+                          rank=args.ep_rank, world_size=2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {"rank": comm.get_rank(), "backend":
+           torch.distributed.get_backend()}
+    t0 = time.perf_counter()
+    out["train"] = _ep_train(torch, np, dev, args.seed,
+                             dict(EP_TRAIN_CONFIG, mesh={"ep": 2}))
+    out["train_s"] = time.perf_counter() - t0
+    prompts = _ep_prompts(np, args.seed)
+    for ep in (1, 2):
+        ie = InferenceEngine(_ep_model(torch, dev, args.seed),
+                             dtype=torch.float32, ep_size=ep, device=dev)
+        tokens = ie.generate(prompts, max_new_tokens=EP_GEN,
+                             temperature=0.0)
+        logits = ie.forward(prompts)
+        out[f"ie{ep}"] = {"tokens": tokens.cpu().tolist(),
+                          "logits_last": logits[:, -1].cpu().tolist(),
+                          "expert_bytes": _expert_bytes(ie.module),
+                          "weight_bytes": sum(p.numel() * p.element_size()
+                                              for p in ie.module.parameters())}
+        if ep == 2:
+            try:
+                ServingEngine(engine=ie)
+                out["serving"] = "built"
+            except NotImplementedError as exc:
+                out["serving"] = str(exc)
+        del ie
+    with open(args.dp_out, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ep_ranks(seed):
+    """This script twice more as the two ranks of phase 44 (--ep-rank 0 /
+    1); their JSON results."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        procs, outs = [], []
+        for rank in range(2):
+            env = dict(os.environ, LOCAL_RANK="0")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--ep-rank", str(rank), "--dp-port", str(port),
+                 "--dp-out", os.path.join(d, f"rank{rank}.json")],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-6000:], flush=True)
+                fail(f"phase 44 rank {rank} exited {p.returncode}")
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(d, f"rank{rank}.json")) as fh:
+                ranks.append(json.load(fh))
+    return ranks
+
+
+def phase_ep(torch, np, dev, seed, card):
+    """Phase 44: expert parallelism over two gloo ranks sharing the card
+    (EP_CFG in f32). This process trains ep 1 for EP_STEPS steps; the
+    ranks train the same model and batches at mesh {"ep": 2} (dp 1). Gates:
+    the two ranks' losses equal and within EP_LOSS_RTOL of ep 1's, B1 / B1b
+    launched on each rank, each rank's engine holding half of ep 1's
+    expert bytes; on each rank ``InferenceEngine(ep_size=2)`` greedy tokens
+    equal ``ep_size=1``'s or parting first at a near-tie (top-2 gap of
+    the ep 1 logits within EP_TIE_ATOL), its last-position logits within
+    EP_TIE_ATOL of ep 1's, its expert bytes half of ep 1's, and a
+    ServingEngine over it refused (ROADMAP A9)."""
+    t_phase = time.perf_counter()
+    ref = _ep_train(torch, np, dev, seed, EP_TRAIN_CONFIG)
+    ranks = run_ep_ranks(seed)
+    for r in ranks:
+        t = r["train"]
+        print(f"phase44 rank {r['rank']} ({r['backend']}) ep={t['ep']} "
+              f"dp={t['dp']} losses={t['losses']} launches={t['launches']} "
+              f"expert_bytes={t['expert_bytes']} train_s={r['train_s']}; "
+              f"ep 1 here: losses={ref['losses']} expert_bytes="
+              f"{ref['expert_bytes']} card={card}", flush=True)
+        if (t["ep"], t["dp"]) != (2, 1):
+            fail(f"phase44: rank {r['rank']} trained at ep {t['ep']} dp "
+                 f"{t['dp']}")
+        if not np.allclose(t["losses"], ref["losses"], rtol=EP_LOSS_RTOL,
+                           atol=0):
+            fail(f"phase44: ep 2 losses {t['losses']} leave ep 1's "
+                 f"{ref['losses']}")
+        if not all(t["launches"].values()):
+            fail(f"phase44: rank {r['rank']} launches {t['launches']}")
+        if 2 * t["expert_bytes"] != ref["expert_bytes"]:
+            fail(f"phase44: rank {r['rank']} holds {t['expert_bytes']} expert"
+                 f" bytes, not half of {ref['expert_bytes']}")
+        one, two = r["ie1"], r["ie2"]
+        last1, last2 = (np.asarray(x["logits_last"]) for x in (one, two))
+        lerr = float(np.abs(last1 - last2).max())
+        parts = [_first_difference(a, b) for a, b in
+                 zip(one["tokens"], two["tokens"])]
+        print(f"phase44 rank {r['rank']} InferenceEngine ep_size 2 vs 1: "
+              f"tokens parting at {parts}, last-position logits max_abs_err="
+              f"{lerr}, expert bytes {two['expert_bytes']} vs "
+              f"{one['expert_bytes']} (weights {two['weight_bytes']} vs "
+              f"{one['weight_bytes']}); ServingEngine over ep 2: "
+              f"{r['serving']}", flush=True)
+        if not lerr <= EP_TIE_ATOL:
+            fail(f"phase44: ep 2 logits leave ep 1's by {lerr}")
+        if 2 * two["expert_bytes"] != one["expert_bytes"]:
+            fail("phase44: ep_size 2 does not halve the expert bytes")
+        if "ROADMAP A9" not in r["serving"]:
+            fail(f"phase44: a ServingEngine over ep 2 was {r['serving']}")
+        for row, at in enumerate(parts):
+            if at is not None:
+                _ep_near_tie(torch, dev, seed, one["tokens"][row][:at], at,
+                             row)
+    if ranks[0]["train"]["losses"] != ranks[1]["train"]["losses"]:
+        fail("phase44: the two ep ranks report different losses")
+    print(f"phase44 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    return {name: ranks[0]["train"]["launches"][name] for name in FLASH}
+
+
+def _ep_near_tie(torch, dev, seed, prefix, at, row):
+    """Fails unless ep 1's next token after ``prefix`` (where ep 2's tokens
+    part from ep 1's) was a near-tie: its top-2 logits within
+    EP_TIE_ATOL."""
+    from deepspeed_tpu_torch import InferenceEngine
+    ie = InferenceEngine(_ep_model(torch, dev, seed), dtype=torch.float32,
+                         device=dev)
+    with torch.inference_mode():
+        top = torch.topk(ie.forward([prefix])[0, -1].float(), 2).values
+    gap = float(top[0] - top[1])
+    if not gap <= EP_TIE_ATOL:
+        fail(f"phase44: ep 2 tokens part from ep 1's at {at} in row {row} "
+             f"(top-2 gap {gap})")
+
+
 ROWWISE = ("layer_norm_fwd", "layer_norm_dx", "bias_gelu_fwd",
            "bias_gelu_bwd", "softmax_fwd", "softmax_bwd")
 # (atol, rtol) of a row-wise kernel vs its plain version: both compute in
@@ -5293,6 +6022,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", default="", help=argparse.SUPPRESS)
     ap.add_argument("--dp-stages", default="1", help=argparse.SUPPRESS)
+    # one rank of phase 44
+    ap.add_argument("--ep-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -5302,6 +6034,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.dp_rank is not None:
         return dp_rank_main(args)
+    if args.ep_rank is not None:
+        return ep_rank_main(args)
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -5362,6 +6096,11 @@ def main(argv=None) -> int:
     neo_int8 = phase_neo_int8(torch, np, dev, neo, serve_kw, card)
     neo_rows = neo["rows"]
     del neo
+    torch.cuda.empty_cache()
+    moe = phase_moe_serving(torch, np, dev, args.seed, prompts, serve_kw,
+                            card)
+    moe_train = phase_moe_training(torch, np, dev, args.seed, card)
+    launches_ep = phase_ep(torch, np, dev, args.seed, card)
     torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
@@ -5451,7 +6190,8 @@ def main(argv=None) -> int:
                 "launches": launches_train[name],
                 "launches_zero3_offload": launches_offload[name],
                 "launches_zero2_dp2": launches_dp[2][name],
-                "launches_zero3_dp2": launches_dp[3][name]},
+                "launches_zero3_dp2": launches_dp[3][name],
+                "launches_moe_ep2_rank0": launches_ep[name]},
              flash_err, flash_t),
             ("_d80", lambda name: {
                 "launches": launches_parity[name]},
@@ -5539,6 +6279,22 @@ def main(argv=None) -> int:
                                   if name == "decode_attention_neo" else {}),
          "max_abs_err": err, **times}
         for name, source, replaces, launched, err, times in neo_rows
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"deepspeed_tpu_torch/ops/cuda/csrc/{source}",
+         "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+         "launches": launched, **({"launches_moe_training":
+                                   moe_train["launches"]["flash_fwd"]}
+                                  if name == "flash_fwd_moe" else {}),
+         "max_abs_err": err, **times}
+        for name, source, replaces, launched, err, times in moe["rows"]
+    ] + [
+        {"name": f"{name}_moe", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+         "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": moe_train["launches"][name],
+         "max_abs_err": moe_train["errs"][name], **moe_train["times"][name]}
+        for name, line in (("flash_bwd_dq", 140), ("flash_bwd_dkv", 175))
     ] + [
         {"name": "sampling_filter", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/sampling.cu",

@@ -38,8 +38,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     fills its own host shards from the counter-based init. ``device`` defaults to the card; a CUDA
     device without CUDA raises. Unless ``dist_init_required`` is False the
     process joins its group first (:func:`init_distributed`: the one already
-    set up, or the launcher's environment; none at one rank); every rank of
-    the group is one data-parallel rank. ``mpu`` (model parallelism) and
+    set up, or the launcher's environment; none at one rank); the config's
+    ``mesh`` block lays its ranks out over dp and ep (dp fills the world
+    by default). ``mpu`` (model parallelism) and
     ``rng`` (the engine keeps no random stream to seed) are not ported
     yet."""
     from .runtime.engine import DeepSpeedEngine, _not_ported

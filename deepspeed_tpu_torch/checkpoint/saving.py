@@ -9,8 +9,10 @@ directory per tag, in one of the TPU package's two numpy layouts:
       - ``meta.json``         : counters, loss scale, schedule, client state
       - ``model_states.npz``  : fp32 masters, keyed by ``state_dict`` name
       - ``optim_states.npz``  : ``count`` and ``<moment>/<name>`` arrays
-  * host_sharded (``meta.json`` ``format``): every rank writes its ZeRO
-    slice of the masters and moments, ``zero_host_shard_p<rank>.npz`` with
+  * host_sharded (``meta.json`` ``format``): every dp rank writes its
+    ZeRO slice of the masters and moments (an ep > 1 engine its slice of
+    the whole leaves, from the ranks at ep coordinate 0),
+    ``zero_host_shard_p<dp rank>.npz`` with
     keys ``<i>:master`` and ``<i>:<moment>`` beside a ``.json`` of per-leaf
     ``path``, ``offset``, ``numel``, ``padded``, ``global_numel`` and
     ``shape`` (the layout of the TPU package's offload tier).
@@ -90,18 +92,22 @@ def save_checkpoint_dir(save_dir: str, tag: str, *,
 def save_host_sharded_dir(save_dir: str, tag: str, *,
                           arrays: Dict[str, np.ndarray],
                           leaves: Iterable[Dict[str, Any]], step: int,
-                          meta: Dict[str, Any], save_latest: bool = True
-                          ) -> str:
+                          meta: Dict[str, Any], save_latest: bool = True,
+                          shard=None, write: bool = True) -> str:
     """The host_sharded layout: this rank's ``arrays`` (``<i>:master``,
-    ``<i>:<moment>``) and ``leaves`` metadata, then rank 0's shared files."""
+    ``<i>:<moment>``) and ``leaves`` metadata as shard ``shard = (index,
+    count)`` (default: this rank of the world), then rank 0's shared
+    files. A rank whose shard another rank writes (an ep partner) passes
+    ``write=False`` and only joins the barriers."""
     ckpt_dir = os.path.join(save_dir, tag)
     os.makedirs(ckpt_dir, exist_ok=True)
-    rank = comm.get_rank()
-    base = os.path.join(ckpt_dir, f"zero_host_shard_p{rank}")
-    np.savez(base + ".npz", **arrays)
-    with open(base + ".json", "w") as fh:
-        json.dump({"dp_shard": [rank, comm.get_world_size()], "step": step,
-                   "leaves": list(leaves)}, fh)
+    index, count = shard or (comm.get_rank(), comm.get_world_size())
+    if write:
+        base = os.path.join(ckpt_dir, f"zero_host_shard_p{index}")
+        np.savez(base + ".npz", **arrays)
+        with open(base + ".json", "w") as fh:
+            json.dump({"dp_shard": [index, count], "step": step,
+                       "leaves": list(leaves)}, fh)
     ckpt_dir = _finish(save_dir, tag, dict(meta, format="host_sharded"),
                        save_latest)
     log_dist(f"saved host-sharded checkpoint {ckpt_dir}", ranks=[0])

@@ -12,8 +12,11 @@ and every collective takes that rank's own tensor, as the reference and
 package's result. Before ``init_distributed`` (or with a one-rank world)
 every collective is the identity on the caller's tensor.
 
-Only data parallelism exists yet: ``dp`` is the whole world. The tp, ep, sp
-and pp groups wait for ROADMAP A9.
+Groups follow the device mesh (``parallel/mesh.py``): ``new_group(axes)``
+is the group of the ranks that share this rank's coordinates off
+``axes``, and a collective takes a group's ranks (``src``, ``perm``) in
+the group's own numbering. Without a mesh set, the mesh is the pure-dp
+one: ``dp`` spans the world and every other axis is this rank alone.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..parallel import mesh as mesh_lib
 from ..utils.device import resolve_device
 from ..utils.logging import logger
 
@@ -35,24 +39,35 @@ ReduceOp = type("ReduceOp", (), {"SUM": "sum", "AVG": "avg", "MAX": "max",
 
 _TORCH_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
               "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
-_AXES = ("dp", "tp", "ep", "sp", "pp")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: not ported to PyTorch yet (ROADMAP A9)")
 
 
 @dataclasses.dataclass(frozen=True)
 class CommGroup:
-    """A collective group: the mesh axes its members span and the
-    ``torch.distributed`` group (None: the default world group)."""
+    """A collective group: the mesh axes its members span, the
+    ``torch.distributed`` group (None: the default world group, or no
+    group when the members are this rank alone) and the members' global
+    ranks in group order (None: the world)."""
     axes: tuple
     group: Optional[object] = None
+    ranks: Optional[tuple] = None
 
     @property
     def size(self) -> int:
-        return _world(self.group)
+        return len(self.ranks) if self.ranks is not None else _world()
+
+    def global_rank(self, group_rank: int) -> int:
+        return (self.ranks[group_rank] if self.ranks is not None
+                else group_rank)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the group."""
+        me = get_rank()
+        return self.ranks.index(me) if self.ranks is not None else me
+
+    def __deepcopy__(self, memo):
+        # a handle on a process group: copies of a module share it
+        return self
 
 
 def _active() -> bool:
@@ -99,14 +114,14 @@ def init_distributed(dist_backend: str = "xla",
     ``tcp://<COORDINATOR_ADDRESS>``. ``dist_backend`` names a
     ``torch.distributed`` backend; the TPU default ``"xla"`` means
     ``"nccl"`` when ``device`` is the card and ``"gloo"`` on the CPU. A
-    one-rank world without an ``init_method`` starts no group."""
+    one-rank world without an ``init_method`` starts no group.
+    ``mesh_shape`` (a ``parallel.mesh.MeshShape`` over the world) makes the
+    global mesh and its groups; every rank must pass the same one."""
     global _INITIALIZED
-    if mesh_shape is not None:
-        raise _not_ported("init_distributed(mesh_shape=...): a tp/ep/sp mesh")
-    if _active():
+    if _active() or _INITIALIZED:
         _INITIALIZED = True
-        return
-    if _INITIALIZED:
+        if mesh_shape is not None:
+            mesh_lib.ensure_global_mesh(mesh_shape)
         return
     coord, nproc, pid = _discover(auto_mpi_discovery)
     nproc = world_size if world_size > 0 else nproc
@@ -126,6 +141,8 @@ def init_distributed(dist_backend: str = "xla",
         logger.info(f"torch.distributed initialized ({backend}): rank "
                     f"{pid}/{nproc}")
     _INITIALIZED = True
+    if mesh_shape is not None:
+        mesh_lib.ensure_global_mesh(mesh_shape)
 
 
 def is_initialized() -> bool:
@@ -138,7 +155,7 @@ def get_rank() -> int:
 
 def get_world_size(group: Optional[CommGroup] = None) -> int:
     """Ranks in ``group`` (default: the world; one rank per device)."""
-    return _world(None if group is None else group.group)
+    return _world() if group is None else group.size
 
 
 def get_local_rank() -> int:
@@ -156,19 +173,21 @@ def barrier() -> None:
 
 
 def new_group(axes: Sequence[str] | str, mesh=None) -> CommGroup:
-    """A group named by the mesh axes its members span. Only ``dp``, the
-    whole world, exists yet."""
+    """The group named by the mesh axes its members span: the ranks that
+    share this rank's coordinates on every other axis of ``mesh`` (default:
+    the global mesh)."""
     if isinstance(axes, str):
         axes = (axes,)
-    if mesh is not None:
-        raise _not_ported("new_group(mesh=...): a device mesh")
     for a in axes:
-        if a not in _AXES:
+        if a not in mesh_lib.MESH_AXES:
             raise ValueError(f"unknown mesh axis {a!r}; mesh axes are "
-                             f"{list(_AXES)}")
-        if a != "dp":
-            raise _not_ported(f"the {a!r} group")
-    return CommGroup(axes=tuple(axes))
+                             f"{list(mesh_lib.MESH_AXES)}")
+    mesh = mesh or mesh_lib.get_global_mesh()
+    ranks = mesh.group_ranks(axes)
+    if len(ranks) == _world():
+        return CommGroup(axes=tuple(axes))
+    return CommGroup(axes=tuple(axes), group=mesh.process_group(axes),
+                     ranks=tuple(ranks))
 
 
 def get_data_parallel_group() -> CommGroup:
@@ -192,7 +211,11 @@ def _pg(group: Optional[CommGroup]):
 
 
 def _size(group: Optional[CommGroup]) -> int:
-    return _world(_pg(group))
+    return _world() if group is None else group.size
+
+
+def _global(group: Optional[CommGroup], r: int) -> int:
+    return r if group is None else group.global_rank(r)
 
 
 def all_reduce(x: torch.Tensor, op: str = "sum",
@@ -275,7 +298,7 @@ def broadcast(x: torch.Tensor, src: int = 0,
     if not 0 <= src < n:
         raise ValueError(f"src {src} out of range for group of size {n}")
     if n > 1:
-        dist.broadcast(x, src, group=_pg(group))
+        dist.broadcast(x, _global(group, src), group=_pg(group))
     return x
 
 
@@ -284,8 +307,10 @@ def ppermute(x: torch.Tensor, perm, group: Optional[CommGroup] = None
     """For each ``(src, dst)`` in ``perm`` rank src's ``x`` goes to rank
     dst. Returns what this rank received (zeros if it is no destination):
     row r of the TPU package's stacked result. Gloo cannot send a CUDA
-    tensor, so over gloo the pair exchanges a host copy."""
-    me, n = get_rank(), _size(group)
+    tensor, so over gloo the pair exchanges a host copy. Ranks are the
+    group's own."""
+    n = _size(group)
+    me = get_rank() if group is None else group.rank
     if x.is_cuda and n > 1 and dist.get_backend(_pg(group)) == "gloo":
         return ppermute(x.cpu(), perm, group).to(x.device)
     out = torch.zeros_like(x)
@@ -297,10 +322,11 @@ def ppermute(x: torch.Tensor, perm, group: Optional[CommGroup] = None
         if s == d == me:
             out.copy_(x)
         elif s == me:
-            ops.append(dist.P2POp(dist.isend, x.contiguous(), d,
-                                  group=_pg(group)))
+            ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                                  _global(group, d), group=_pg(group)))
         elif d == me:
-            ops.append(dist.P2POp(dist.irecv, out, s, group=_pg(group)))
+            ops.append(dist.P2POp(dist.irecv, out, _global(group, s),
+                                  group=_pg(group)))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()

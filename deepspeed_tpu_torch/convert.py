@@ -11,7 +11,14 @@ for ``deepspeed_tpu_torch.models.gpt.GPT`` with the same config:
     fused ``qkv`` kernel keeps its q|k|v order along the output dim, which
     the port splits the same way;
   * LayerNorm ``scale`` becomes ``weight``; ``wte.embedding`` becomes
-    ``wte.weight``; ``wpe`` stays; a tied head has no ``lm_head``.
+    ``wte.weight``; ``wpe`` stays; a tied head has no ``lm_head``;
+  * an MoE block's ``moe`` subtree (``cfg.moe``): the gate's
+    ``moe/gate/wg/kernel`` [M, E] becomes ``moe.deepspeed_moe.gate.wg.weight``
+    [E, M]; the expert bank ``moe/Experts_0/experts/inner/{up,down}_proj``
+    (kernels [E, in, out], stacked over the experts, [L, E, ...] when the
+    blocks are) becomes ``moe.deepspeed_moe.experts.{up,down}_proj``
+    (weights [E, out, in]); a residual MoE's ``moe/mlp/inner`` and
+    ``moe/coefficient`` Denses become ``moe.mlp`` and ``moe.coefficient``.
 
 ``jax_params_to_state_dict`` serves every ``attention_impl`` ("sparse"
 adds no parameter). ``bert_params_to_state_dict`` maps the trees of
@@ -31,10 +38,12 @@ through it.
 
 ``gpt_flax_leaves`` runs the map the other way, element by element: for
 each port parameter name it gives the flax leaf it came from (its path,
-its shape, the layer of a stacked leaf, whether the port transposed it)
-and maps the port's flat element indices to that leaf's. The counter-based
-shard fill of ``runtime/zero/partition_params.py`` is defined over the
-flax leaf's elements, and generates a port slice through it.
+its shape, the layer of a stacked leaf, whether the port transposed its
+last two dims) and maps the port's flat element indices to that leaf's.
+The counter-based shard fill of ``runtime/zero/partition_params.py`` is
+defined over the flax leaf's elements, and generates a port slice through
+it. ``state_dict_to_jax_params`` builds the TPU GPT's params tree (numpy
+leaves, stacked or per layer) from a port ``state_dict`` through it.
 """
 
 from __future__ import annotations
@@ -61,11 +70,28 @@ def _norm(prefix: str, tree: Mapping[str, Any], out: Dict[str, Any]) -> None:
     out[f"{prefix}.bias"] = np.asarray(tree["bias"])
 
 
+def _moe(prefix: str, tree: Mapping[str, Any], out: Dict[str, Any]) -> None:
+    _dense(f"{prefix}.deepspeed_moe.gate.wg", tree["gate"]["wg"], out)
+    bank = tree["Experts_0"]["experts"]["inner"]
+    for name in ("up_proj", "down_proj"):
+        pre = f"{prefix}.deepspeed_moe.experts.{name}"
+        out[f"{pre}.weight"] = np.swapaxes(np.asarray(bank[name]["kernel"]),
+                                           -1, -2)
+        out[f"{pre}.bias"] = np.asarray(bank[name]["bias"])
+    if "mlp" in tree:
+        for name in ("up_proj", "down_proj"):
+            _dense(f"{prefix}.mlp.{name}", tree["mlp"]["inner"][name], out)
+        _dense(f"{prefix}.coefficient", tree["coefficient"], out)
+
+
 def _block(prefix: str, tree: Mapping[str, Any], out: Dict[str, Any]) -> None:
     _norm(f"{prefix}.ln_1", tree["ln_1"], out)
     _norm(f"{prefix}.ln_2", tree["ln_2"], out)
     _dense(f"{prefix}.attn.qkv", tree["attn"]["qkv"], out)
     _dense(f"{prefix}.attn.out_proj", tree["attn"]["out_proj"], out)
+    if "moe" in tree:
+        _moe(f"{prefix}.moe", tree["moe"], out)
+        return
     _dense(f"{prefix}.mlp.up_proj", tree["mlp"]["up_proj"], out)
     _dense(f"{prefix}.mlp.down_proj", tree["mlp"]["down_proj"], out)
 
@@ -101,7 +127,9 @@ class FlaxLeaf:
     as the JAX package names leaves), the leaf's ``shape`` (``[L, ...]``
     when the blocks are stacked), the ``layer`` of a stacked leaf the
     parameter is (None otherwise), and whether the port stores it
-    ``transposed`` (a Dense ``kernel [in, out]`` as ``weight [out, in]``)."""
+    ``transposed`` (a Dense ``kernel [..., in, out]`` as ``weight [...,
+    out, in]``: the last two dims swapped, an expert bank's expert dim
+    kept)."""
     path: str
     shape: Tuple[int, ...]
     layer: Optional[int] = None
@@ -112,10 +140,11 @@ class FlaxLeaf:
         flax leaf (int64)."""
         idx = np.asarray(index, np.int64)
         inner = self.shape[1:] if self.layer is not None else self.shape
-        if self.transposed:
-            n_in, n_out = inner
-            o, i = np.divmod(idx, n_in)           # port [out, in]
-            idx = i * n_out + o                   # flax [in, out]
+        if self.transposed:                       # the last two dims
+            n_in, n_out = inner[-2:]
+            lead, rest = np.divmod(idx, n_in * n_out)
+            o, i = np.divmod(rest, n_in)          # port [..., out, in]
+            idx = lead * (n_in * n_out) + i * n_out + o   # flax [.., in, out]
         if self.layer is not None:
             idx = idx + self.layer * math.prod(inner)
         return idx
@@ -136,24 +165,73 @@ def gpt_flax_leaves(cfg: GPTConfig, scan_layers: bool = True
         if scan_layers:
             return FlaxLeaf(f"blocks/{sub}", (L, *shape), i, transposed)
         return FlaxLeaf(f"block_{i}/{sub}", shape, None, transposed)
-    dense = {"attn.qkv": ("attn/qkv", D, 3 * D),
-             "attn.out_proj": ("attn/out_proj", D, D),
-             "mlp.up_proj": ("mlp/up_proj", D, F),
-             "mlp.down_proj": ("mlp/down_proj", F, D)}
+    # port name -> (flax path, in, out, leading expert dims, has a bias)
+    dense = {"attn.qkv": ("attn/qkv", D, 3 * D, (), True),
+             "attn.out_proj": ("attn/out_proj", D, D, (), True)}
+    if not cfg.moe:
+        dense.update({"mlp.up_proj": ("mlp/up_proj", D, F, (), True),
+                      "mlp.down_proj": ("mlp/down_proj", F, D, (), True)})
+    else:
+        E = (cfg.num_experts,)
+        bank = "moe/Experts_0/experts/inner"
+        dense.update({
+            "moe.deepspeed_moe.gate.wg": ("moe/gate/wg", D, E[0], (), False),
+            "moe.deepspeed_moe.experts.up_proj": (f"{bank}/up_proj", D, F, E,
+                                                  True),
+            "moe.deepspeed_moe.experts.down_proj": (f"{bank}/down_proj", F, D,
+                                                    E, True)})
+        if cfg.moe_use_residual:
+            dense.update({
+                "moe.mlp.up_proj": ("moe/mlp/inner/up_proj", D, F, (), True),
+                "moe.mlp.down_proj": ("moe/mlp/inner/down_proj", F, D, (),
+                                      True),
+                "moe.coefficient": ("moe/coefficient", D, 2, (), True)})
     for i in range(L):
         pre = f"blocks.{i}"
         for ln in ("ln_1", "ln_2"):
             out[f"{pre}.{ln}.weight"] = leaf(i, f"{ln}/scale", (D,))
             out[f"{pre}.{ln}.bias"] = leaf(i, f"{ln}/bias", (D,))
-        for name, (sub, n_in, n_out) in dense.items():
+        for name, (sub, n_in, n_out, lead, bias) in dense.items():
             out[f"{pre}.{name}.weight"] = leaf(i, f"{sub}/kernel",
-                                               (n_in, n_out), True)
-            out[f"{pre}.{name}.bias"] = leaf(i, f"{sub}/bias", (n_out,))
+                                               lead + (n_in, n_out), True)
+            if bias:
+                out[f"{pre}.{name}.bias"] = leaf(i, f"{sub}/bias",
+                                                 lead + (n_out,))
     out["ln_f.weight"] = FlaxLeaf("ln_f/scale", (D,))
     out["ln_f.bias"] = FlaxLeaf("ln_f/bias", (D,))
     if not cfg.tie_embeddings:
         out["lm_head.weight"] = FlaxLeaf("lm_head/kernel", (D, V), None, True)
     return out
+
+
+def state_dict_to_jax_params(state_dict: Mapping[str, Any], cfg: GPTConfig,
+                             scan_layers: bool = True) -> Dict[str, Any]:
+    """A port GPT ``state_dict`` -> the TPU GPT's params tree (nested dicts
+    of numpy arrays; blocks stacked ``[L, ...]`` under ``scan_layers``,
+    ``block_{i}`` subtrees otherwise): the inverse of
+    :func:`jax_params_to_state_dict`."""
+    leaves = gpt_flax_leaves(cfg, scan_layers)
+    arrays: Dict[str, np.ndarray] = {}
+    for name, fl in leaves.items():
+        v = state_dict[name]
+        v = np.asarray(v.detach().cpu().float() if torch.is_tensor(v) else v,
+                       np.float32)
+        if fl.transposed:
+            v = np.swapaxes(v, -1, -2)
+        if fl.layer is None:
+            arrays[fl.path] = v
+        else:
+            if fl.path not in arrays:
+                arrays[fl.path] = np.empty(fl.shape, np.float32)
+            arrays[fl.path][fl.layer] = v
+    tree: Dict[str, Any] = {}
+    for path, v in arrays.items():
+        node = tree
+        *dirs, last = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[last] = np.ascontiguousarray(v)
+    return tree
 
 
 def _bert_layer(prefix: str, tree: Mapping[str, Any],

@@ -1,6 +1,6 @@
-"""Inference engine: KV-cached generation on one device.
+"""Inference engine: KV-cached generation on one device, or over ep ranks.
 
-Counterpart of ``deepspeed_tpu/inference/engine.py`` at tp=1 (no mesh).
+Counterpart of ``deepspeed_tpu/inference/engine.py`` at tp=1.
 The engine takes its weights from ``model_parameters`` (a ``state_dict``),
 a ``checkpoint`` written by the port's ``save_checkpoint``, or the module
 itself; applies an ``injection_policy`` to that ``state_dict``; casts the
@@ -14,9 +14,18 @@ It takes the TPU engine's whole parameter list. ``config``, ``max_tokens``
 and ``replace_with_kernel_inject`` are read by neither engine and are taken
 at any value; ``replace_method="auto"`` (the TPU engine's policy-free
 auto-TP) shards nothing at one device and is taken; ``quantize_mode`` keeps
-the TPU engine's ``ValueError``s; ``mp_size`` and ``ep_size`` away from 1
-raise ``NotImplementedError`` naming their ROADMAP item
-(:data:`NOT_PORTED_KNOBS`).
+the TPU engine's ``ValueError``s; ``mp_size`` away from 1 raises
+``NotImplementedError`` naming its ROADMAP item (:data:`NOT_PORTED_KNOBS`).
+
+``ep_size`` (an MoE model) lays the world out as a mesh with that ep axis
+(``parallel/mesh.py``; the world must be a multiple of it): each rank
+keeps its ep coordinate's ``E / ep`` experts of every expert bank, so the
+expert bytes at rest divide by ep, and each MoE call all-gathers the
+expert outputs over the ep group. Every rank is given the same inputs and
+computes the same outputs. As in the TPU engine, ``ep_size > 1`` with
+``replace_method="auto"`` raises, and so does an ep that shards no expert
+bank; the cast to ``dtype`` covers the gate's ``wg`` too (the gate then
+computes in f32 from the cast weights).
 """
 
 from __future__ import annotations
@@ -28,7 +37,10 @@ import numpy as np
 import torch
 
 from ..checkpoint import saving as ckpt_saving
+from ..comm import comm
+from ..moe.layer import moe_layers, set_expert_parallel
 from ..ops.quantizer import quantize_module
+from ..parallel import mesh as mesh_lib
 from ..runtime.engine import _not_ported
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
@@ -37,7 +49,6 @@ from ..utils.logging import log_dist
 # engine's default, the ROADMAP item that ports it).
 NOT_PORTED_KNOBS = {
     "mp_size": (1, "A9"),
-    "ep_size": (1, "A9"),
 }
 
 
@@ -82,12 +93,15 @@ class InferenceEngine:
         if quantize_bits not in (None, 8):
             raise ValueError(f"quantize_bits={quantize_bits!r}: the engine "
                              f"quantizes weights to 8 bits only")
-        given = dict(mp_size=mp_size, ep_size=ep_size)
+        given = dict(mp_size=mp_size)
         for name, (default, item) in NOT_PORTED_KNOBS.items():
             if given[name] != default:
                 raise _not_ported(
                     f"InferenceEngine({name}={given[name]!r})", item)
         self.device = resolve_device(device)
+        self.ep_world_size = int(ep_size)
+        if self.ep_world_size > 1:
+            comm.init_distributed(device=self.device)
         if model_parameters is None and checkpoint is not None:
             model_parameters = self._load_checkpoint(checkpoint)
         if injection_policy is not None:
@@ -99,6 +113,11 @@ class InferenceEngine:
             meta = any(p.is_meta for p in model.parameters())
             model.load_state_dict(model_parameters, assign=meta)
         self.quantized = quantize_bits == 8
+        if self.quantized and moe_layers(model):
+            raise _not_ported("quantize_bits=8 over an MoE model (the "
+                              "expert banks and the gate)", "A9")
+        if self.ep_world_size > 1:
+            self._shard_experts(model)
         if self.quantized:
             cfg = getattr(model, "cfg", None)
             quantize_module(model, mode=quantize_mode, dtype=dtype,
@@ -107,7 +126,23 @@ class InferenceEngine:
         self.module = model.to(device=self.device, dtype=dtype).eval()
         self.dtype = dtype
         log_dist(f"inference engine ready: device={self.device} "
-                 f"dtype={dtype} quantized={self.quantized}", ranks=[0])
+                 f"dtype={dtype} ep={self.ep_world_size} "
+                 f"quantized={self.quantized}", ranks=[0])
+
+    def _shard_experts(self, model) -> None:
+        """The ep mesh over the world; each MoE layer keeps this rank's
+        experts. An ep that shards no expert bank raises, as in the TPU
+        engine."""
+        ep = self.ep_world_size
+        banks = [layer.experts.num_experts for layer in moe_layers(model)]
+        if not banks or any(n % ep for n in banks):
+            raise ValueError(
+                f"ep_size={ep} sharded no parameter: the model has no "
+                f"expert banks whose expert dim divides by {ep} (check "
+                f"num_experts % ep_size == 0, or drop ep_size)")
+        self.mesh = mesh_lib.ensure_global_mesh(
+            mesh_lib.MeshShape.infer(comm.get_world_size(), ep=ep))
+        set_expert_parallel(model, comm.new_group("ep", self.mesh))
 
     def _ids(self, input_ids) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,

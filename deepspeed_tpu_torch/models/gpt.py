@@ -36,6 +36,15 @@ Unlike the TPU model, "auto" never gives way to the einsum: on the card a
 shape a kernel does not take (head dim, dtype, block size) raises; every
 query width is taken. The large projections, the loss and the LayerNorms
 stay torch ops.
+
+Under ``cfg.moe`` every block's MLP is a Mixture-of-Experts layer
+(``moe/layer.py``), as in the TPU model: the training forward
+(``deterministic=False``) gates at ``moe_capacity_factor`` with the draws
+of ``generator`` (made per layer before the blocks run, so a remat
+recompute routes the same way) and returns ``(logits,
+moe_aux_loss_coef * sum of the layers' l_aux)``; every other call (eval,
+prefill, decode) gates at ``moe_eval_capacity_factor`` with no draw, over
+every row it is given.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from ..ops.cuda.decode_attention import (decode_attention,
                                          paged_gather_kv)
 from ..ops.cuda.flash_attention import flash_attention
 from ..ops.quantizer import dequantize_kv, quantize_kv
+from ..moe.layer import MoE
 from ..ops.sparse_attention.sparse_self_attention import sparse_attention
 from ..runtime.activation_checkpointing import (HostCheckpoints,
                                                 offloaded_checkpoint)
@@ -77,8 +87,10 @@ _REMAT_SAVE = {
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The TPU package's GPTConfig, field for field. Fields of features not
-    ported yet (MoE, sequence parallelism, the tp overlap) must stay at
-    their defaults. ``attn_windows`` is one local-attention window (or None,
+    ported yet (sequence parallelism, the tp overlap) must stay at their
+    defaults. ``moe`` replaces every block's MLP with ``num_experts`` MLP
+    experts behind a top-``moe_top_k`` gate (``moe_use_residual``: PR-MoE's
+    dense residual MLP beside them). ``attn_windows`` is one local-attention window (or None,
     a global layer) a layer, GPT-Neo's alternation; it needs
     ``scan_layers=False``, as in the TPU model, and refuses
     ``attention_impl="sparse"`` (the TPU model's sparse path drops the
@@ -168,13 +180,21 @@ class GPTConfig:
                 raise ValueError("attn_windows with attention_impl='sparse':"
                                  " the block-sparse layout has no local "
                                  "window")
-        later = {"moe": self.moe,
-                 "sequence_parallel": self.sequence_parallel,
+        if self.moe:
+            if self.num_experts < 1 or self.moe_top_k not in (1, 2):
+                raise ValueError(f"moe needs num_experts >= 1 and moe_top_k "
+                                 f"1 or 2, got {self.num_experts} and "
+                                 f"{self.moe_top_k}")
+            if self.cpu_checkpointing:
+                raise NotImplementedError(
+                    "cpu_checkpointing of MoE blocks: not ported to PyTorch "
+                    "yet (ROADMAP A9)")
+        later = {"sequence_parallel": self.sequence_parallel,
                  "tp_overlap": self.tp_overlap}
         on = [name for name, flag in later.items() if flag]
         if on:
             raise NotImplementedError(
-                f"{', '.join(on)}: not ported to PyTorch yet (see ROADMAP.md)")
+                f"{', '.join(on)}: not ported to PyTorch yet (ROADMAP A9)")
 
     @property
     def head_dim(self) -> int:
@@ -209,6 +229,13 @@ def gpt_neox_20b(**kw):
 def gpt3_175b(**kw):
     return GPTConfig(num_layers=96, num_heads=96, d_model=12288, d_ff=49152,
                      **kw)
+
+
+def gpt_moe_1_3b(num_experts=128, **kw):
+    """1.3B + MoE-128, the MoE-NLG family (reference
+    docs/_posts/2021-12-09-deepspeed-moe-nlg.md:123-133)."""
+    return GPTConfig(num_layers=24, num_heads=16, d_model=2048, d_ff=8192,
+                     moe=True, num_experts=num_experts, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -528,6 +555,9 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """One transformer block: the MLP is ``mlp``, or under ``cfg.moe`` the
+    MoE layer ``moe``."""
+
     def __init__(self, cfg: GPTConfig, device=None,
                  window: Optional[int] = None):
         super().__init__()
@@ -537,20 +567,43 @@ class Block(nn.Module):
         self.ln_1 = nn.LayerNorm(cfg.d_model, **kw)
         self.ln_2 = nn.LayerNorm(cfg.d_model, **kw)
         self.attn = SelfAttention(cfg, device=device, window=window)
-        self.mlp = MLP(cfg, device=device)
+        if cfg.moe:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                           k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           eval_capacity_factor=cfg.moe_eval_capacity_factor,
+                           min_capacity=cfg.moe_min_capacity,
+                           use_residual=cfg.moe_use_residual,
+                           dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                           device=device)
+        else:
+            self.mlp = MLP(cfg, device=device)
+
+    def _ffn(self, h, deterministic, draws):
+        """(ffn output, the MoE layer's l_aux or None)."""
+        if not self.cfg.moe:
+            return self.mlp(h), None
+        out, l_aux, _ = self.moe(h, deterministic=deterministic, draws=draws)
+        return out, l_aux
 
     def forward(self, x, positions, kv=None, cache_index=None,
-                decode_impl=None, attention_impl=None, paged=None):
+                decode_impl=None, attention_impl=None, paged=None,
+                deterministic=True, draws=None):
+        """Returns (out, k, v, l_aux): l_aux is None for a dense block."""
         dt = self.cfg.dtype
         a, k, v = self.attn(_layer_norm(x, self.ln_1, dt), positions, kv,
                             cache_index, decode_impl, attention_impl, paged)
         if self.cfg.parallel_residual:
             # NeoX: x + attn(ln1(x)) + ffn(ln2(x))
-            out = x + a + self.mlp(_layer_norm(x, self.ln_2, dt))
+            f, aux = self._ffn(_layer_norm(x, self.ln_2, dt), deterministic,
+                               draws)
+            out = x + a + f
         else:
             hdn = x + a
-            out = hdn + self.mlp(_layer_norm(hdn, self.ln_2, dt))
-        return out, k, v
+            f, aux = self._ffn(_layer_norm(hdn, self.ln_2, dt), deterministic,
+                               draws)
+            out = hdn + f
+        return out, k, v, aux
 
 
 class GPT(nn.Module):
@@ -616,7 +669,7 @@ class GPT(nn.Module):
         ks: List = []
         vs: List = []
         for blk in self.blocks:
-            x, k, v = blk(x, positions)
+            x, k, v, _ = blk(x, positions)
             ks.append(k)
             vs.append(v)
         x = _layer_norm(x, self.ln_f, self.cfg.dtype)
@@ -627,8 +680,16 @@ class GPT(nn.Module):
                     torch.stack([sc for _, sc in vs]))
         return x, torch.stack(ks), torch.stack(vs)
 
+    def gate_draws(self, num_tokens: int,
+                   generator: torch.Generator) -> List:
+        """Every MoE layer's training draws for a call of ``num_tokens``
+        tokens on this rank, from ``generator``, layer by layer."""
+        return [blk.moe.draws(generator, num_tokens) for blk in self.blocks]
+
     def forward(self, input_ids: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """The TPU ``GPT.__call__`` without a cache: logits [B, S, V], with
         attention through ``cfg.attention_impl``. Under ``cfg.remat`` (and
         with grad enabled) each block runs under non-reentrant
@@ -636,29 +697,42 @@ class GPT(nn.Module):
         names; the rest, flash or sparse attention included, is recomputed
         in the backward. With ``cfg.cpu_checkpointing`` a block saves nothing
         on the device: its input waits in page-locked host memory
-        (:func:`offloaded_checkpoint`)."""
+        (:func:`offloaded_checkpoint`). Under ``cfg.moe`` returns (logits,
+        the weighted aux loss); ``deterministic=False`` is the training
+        gate, with the draws of ``generator`` when one is given."""
         cfg = self.cfg
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device
                                      )[None, :].expand(b, s)
         x = self._embed(input_ids, positions)
-        run = functools.partial(_block_output, impl=cfg.attention_impl)
+        draws = [None] * cfg.num_layers
+        if cfg.moe and not deterministic and generator is not None:
+            draws = self.gate_draws(b * s, generator)
+        run = functools.partial(_block_output, impl=cfg.attention_impl,
+                                deterministic=deterministic)
         remat = cfg.remat and torch.is_grad_enabled()
         offload = HostCheckpoints(x.device) if (
             remat and cfg.cpu_checkpointing) else None
-        for blk in self.blocks:
+        aux = []
+        for blk, d in zip(self.blocks, draws):
             if offload is not None:
                 x = offloaded_checkpoint(
                     offload, functools.partial(run, blk, positions=positions),
                     x)
             elif remat:
                 x = torch_checkpoint.checkpoint(
-                    run, blk, x, positions, use_reentrant=False,
+                    run, blk, x, positions, d, use_reentrant=False,
                     context_fn=_remat_context(cfg.remat_policy))
             else:
-                x = run(blk, x, positions)
-        return self.logits(_layer_norm(x, self.ln_f, cfg.dtype))
+                x = run(blk, x, positions, d)
+            if cfg.moe:
+                x, a = x
+                aux.append(a)
+        logits = self.logits(_layer_norm(x, self.ln_f, cfg.dtype))
+        if cfg.moe:
+            return logits, cfg.moe_aux_loss_coef * torch.stack(aux).sum()
+        return logits
 
     def decode(self, input_ids: torch.Tensor, positions: torch.Tensor,
                cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -691,13 +765,18 @@ class GPT(nn.Module):
             kv = (cache_k[layer], cache_v[layer],
                   None if k_scale is None else k_scale[layer],
                   None if v_scale is None else v_scale[layer])
-            x, _, _ = blk(x, positions, kv, cache_index, decode_impl,
-                          paged=paged)
+            x, _, _, _ = blk(x, positions, kv, cache_index, decode_impl,
+                             paged=paged)
         return self.logits(_layer_norm(x, self.ln_f, self.cfg.dtype))
 
 
-def _block_output(blk: Block, x, positions, impl: str) -> torch.Tensor:
-    return blk(x, positions, attention_impl=impl)[0]
+def _block_output(blk: Block, x, positions, draws=None, *, impl: str,
+                  deterministic: bool = True):
+    """A block's output in the training forward: x, or (x, l_aux) for an
+    MoE block."""
+    out, _, _, aux = blk(x, positions, attention_impl=impl,
+                         deterministic=deterministic, draws=draws)
+    return out if aux is None else (out, aux)
 
 
 def _remat_context(policy: str):
@@ -709,12 +788,21 @@ def _remat_context(policy: str):
         torch_checkpoint.create_selective_checkpoint_contexts, list(saved))
 
 
-def lm_loss_fn(logits: torch.Tensor,
-               batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def lm_loss_fn(logits, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross entropy. ``batch``: {input_ids, labels?,
     loss_mask?}; labels default to the shifted input_ids. nll is the f32
     logsumexp minus the gathered label logit (no [B, S, V] log-softmax), as
-    in the TPU package."""
+    in the TPU package. A ``(logits, moe_aux_loss)`` model output adds the
+    aux loss."""
+    aux = None
+    if isinstance(logits, tuple):
+        logits, aux = logits
+    loss = _nll_mean(logits, batch)
+    return loss if aux is None else loss + aux
+
+
+def _nll_mean(logits: torch.Tensor,
+              batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     labels = batch.get("labels")
     if labels is None:
         labels = batch["input_ids"][:, 1:]

@@ -2,7 +2,10 @@
 (reference: deepspeed/runtime/dataloader.py — DeepSpeedDataLoader:33,
 RepeatingLoader:10). The loader yields global batches as numpy arrays; the
 engine moves each micro-batch to its device. With ``torch.distributed``
-initialized, each process takes its rank's slice of every global batch."""
+initialized, each process takes the slice of its dp coordinate on the
+device mesh (``parallel/mesh.py``): the ranks that differ only off dp (ep
+partners) hold the same rows, as the TPU engine shards the batch over dp
+only."""
 
 from __future__ import annotations
 
@@ -43,10 +46,10 @@ def default_collate(samples):
 
 
 def _process_index_and_count():
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    """(this process's dp coordinate, the dp size) on the global mesh."""
+    from ..parallel import mesh as mesh_lib
+    mesh = mesh_lib.get_global_mesh()
+    return mesh.coord("dp"), mesh.shape["dp"]
 
 
 class DeepSpeedDataLoader:

@@ -3,7 +3,7 @@
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (reference
 ``DeepSpeedEngine``, deepspeed/runtime/engine.py:175). The TPU engine
 compiles a whole step into one program; here the same step runs eagerly,
-one process per data-parallel rank (``torch.distributed``, through
+one process per rank of the device mesh (``torch.distributed``, through
 ``comm``):
 
   * fp32 master params (the module's own parameters) and an fp32 gradient
@@ -52,7 +52,19 @@ one process per data-parallel rank (``torch.distributed``, through
   * ``activation_checkpointing.cpu_checkpointing`` flips the model's
     ``cpu_checkpointing`` (each remat block's input waits in host memory);
   * ``save_checkpoint`` / ``load_checkpoint`` in the TPU engine's npz and
-    host-sharded layouts (``checkpoint/saving.py``).
+    host-sharded layouts (``checkpoint/saving.py``);
+  * the device mesh (``parallel/mesh.py``) from the config's ``mesh``:
+    ``dp`` and ``ep``. dp is the mesh's dp axis (world / ep): the batch,
+    the ZeRO partitions and every gradient reduction are over the dp group.
+    Over ``ep > 1`` each rank holds its ep coordinate's share of every
+    expert bank (``moe.set_expert_parallel``) and the ep partners of a dp
+    shard see the same rows, so their loss is the same loss: grads reduce
+    over dp only, expert and shared leaves alike. An MoE model's calls
+    route the dp group's tokens together, as the TPU program routes the
+    global batch; the training gate draws from one generator seeded
+    alike on every rank (``seed``). The global grad norm and a checkpoint
+    take the expert leaves whole, gathered over ep, so a checkpoint saved
+    at one ep degree loads at another.
 
 What the TPU engine supports beyond that raises ``NotImplementedError``
 naming its ROADMAP item; a parsed knob never silently does nothing.
@@ -76,6 +88,9 @@ from torch import nn
 from ..checkpoint import saving as ckpt_saving
 from ..comm import comm
 from ..comm.coalesced_collectives import all_gather_coalesced
+from ..moe.layer import moe_layers, set_expert_parallel
+from ..moe.utils import is_moe_param
+from ..parallel import mesh as mesh_lib
 from ..ops.adam import fused_adagrad, fused_adam
 from ..ops.lamb import fused_lamb
 from ..ops.sgd import sgd
@@ -131,9 +146,19 @@ def _not_ported(what: str, item: str):
         f"{what}: not ported to PyTorch yet (ROADMAP {item})")
 
 
-def _dp_world_size() -> int:
-    """dp is the whole world (the tp / ep / sp groups wait for A9)."""
-    return comm.get_world_size()
+def _build_mesh(raw) -> "mesh_lib.DeviceMesh":
+    """The engine's device mesh from the config's ``mesh`` block (dp fills
+    the world); tp, pp and sp wait for ROADMAP A9."""
+    if isinstance(raw, str):
+        with open(raw) as fh:
+            raw = json.load(fh)
+    m = dict((raw or {}).get("mesh") or {})
+    later = [a for a in ("tp", "pp", "sp") if m.get(a, 1) != 1]
+    if later:
+        raise _not_ported(f"a {'/'.join(later)} mesh", "A9")
+    shape = mesh_lib.MeshShape.infer(comm.get_world_size(),
+                                     ep=m.get("ep", 1), dp=m.get("dp"))
+    return mesh_lib.ensure_global_mesh(shape)
 
 
 class DeepSpeedEngine:
@@ -141,10 +166,14 @@ class DeepSpeedEngine:
                  training_data=None, lr_scheduler=None, collate_fn=None,
                  config=None, loss_fn=None, device="cuda"):
         self.device = resolve_device(device)
-        self.dp_world_size = _dp_world_size()
-        self.dp_rank = comm.get_rank()
-        self.mp_world_size = 1
         raw = config._raw if isinstance(config, DeepSpeedConfig) else config
+        self.mesh = _build_mesh(raw)
+        self.dp_world_size = self.mesh.shape["dp"]
+        self.dp_rank = self.mesh.coord("dp")
+        self.ep_world_size = self.mesh.shape["ep"]
+        self._dp_group = comm.new_group("dp", self.mesh)
+        self._ep_group = comm.new_group("ep", self.mesh)
+        self.mp_world_size = 1
         self.config = DeepSpeedConfig(raw, dp_world_size=self.dp_world_size)
         self._config = self.config            # reference-name parity
         self._reject_unported()
@@ -185,6 +214,14 @@ class DeepSpeedEngine:
         # ---- ZeRO layout -------------------------------------------------
         self._names = [n for n, _ in self.module.named_parameters()]
         self._shapes = [tuple(p.shape) for p in self.module.parameters()]
+        # expert leaves hold this rank's E / ep experts of the whole leaf
+        self._expert_leaves = ([i for i, n in enumerate(self._names)
+                                if is_moe_param(n)]
+                               if self.ep_world_size > 1 else [])
+        self._full_shapes = [
+            (s[0] * self.ep_world_size,) + s[1:]
+            if i in self._expert_leaves else s
+            for i, s in enumerate(self._shapes)]
         zc = self.config.zero_config
         self._rules = ShardingRules(
             self.dp_world_size, self.zero_stage, self.dp_rank,
@@ -235,8 +272,6 @@ class DeepSpeedEngine:
         them over dp > 1 from stage 1 on), the compute copy and the
         accumulator."""
         self.master: List[torch.Tensor] = list(self.module.parameters())
-        if self.dp_world_size > 1:
-            self._broadcast_master()
         if optimizer is not None and self._grad_split:
             raise _not_ported(
                 f"a client torch.optim optimizer at ZeRO stage "
@@ -319,13 +354,15 @@ class DeepSpeedEngine:
                 "(the host owns master+moments and serves the per-layer "
                 "param fetches); a parsed knob must change the program or "
                 "error, never silently do nothing")
-        m = c.mesh
-        if (m.tp, m.pp, m.ep, m.sp) != (1, 1, 1, 1):
-            raise _not_ported("a tp/pp/ep/sp mesh", "A9")
-        if m.dp not in (None, self.dp_world_size):
-            raise ValueError(f"mesh.dp={m.dp} but the process group has "
-                             f"{self.dp_world_size} ranks (dp is the whole "
-                             f"world)")
+        if self.ep_world_size > 1:
+            tiers = {"ZeRO-3": self.config.zero_optimization_stage >= 3,
+                     "offload_optimizer": zc.offload_optimizer.device
+                     != OFFLOAD_NONE,
+                     "offload_param": zc.offload_param.device != OFFLOAD_NONE}
+            on = [name for name, flag in tiers.items() if flag]
+            if on:
+                raise _not_ported(f"{', '.join(on)} with mesh ep="
+                                  f"{self.ep_world_size}", "A9")
         if c.pipeline.stages > 1:
             raise _not_ported("pipeline stages", "A9")
         otype = (c.optimizer.type if c.optimizer else "Adam").lower()
@@ -420,11 +457,19 @@ class DeepSpeedEngine:
                 raise ValueError(
                     "model_parameters must be the model's own parameters "
                     "(model.parameters()) or a state_dict for it")
-        if self.offload_enabled:
-            return model        # _init_offload moves it, in compute dtype
-        # fp32 masters, in place: Parameter objects (and a client
-        # optimizer built over them) are kept
-        return model.to(device=self.device, dtype=torch.float32)
+        if not self.offload_enabled:
+            # fp32 masters, in place: Parameter objects (and a client
+            # optimizer built over them) are kept; _init_offload moves an
+            # offloaded model itself, in compute dtype
+            model = model.to(device=self.device, dtype=torch.float32)
+            if comm.get_world_size() > 1:
+                self._broadcast_master(list(model.parameters()))
+        # an MoE model routes the dp group's tokens together; over ep each
+        # rank keeps its share of the experts
+        set_expert_parallel(
+            model, self._ep_group,
+            self._dp_group if self.dp_world_size > 1 else None)
+        return model
 
     def _resolve_comm_dtype(self):
         cdt = self.config.communication_data_type
@@ -480,7 +525,8 @@ class DeepSpeedEngine:
                 max_coeff=params.get("max_coeff", 10.0),
                 min_coeff=params.get("min_coeff", 0.01),
                 bias_correction=params.get("bias_correction", True),
-                norm_reduce=comm.all_reduce if self._partitioned else None)
+                norm_reduce=(self._lamb_norm_reduce if self._partitioned
+                             or self._expert_leaves else None))
         elif otype == "adagrad":
             self.optimizer = fused_adagrad(
                 self._opt_params, lr, eps=params.get("eps", 1e-10),
@@ -967,12 +1013,38 @@ class DeepSpeedEngine:
                 torch._foreach_copy_(self._compute_params, self.master)
         self._compute_stale = False
 
-    def _loss_of(self, batch) -> torch.Tensor:
+    def _model_kwargs(self, train: bool) -> Dict[str, Any]:
+        """The training switch the TPU engine hands a flax module
+        (``deterministic=not train``) and, in training, the gate's random
+        stream, for a forward that takes them (resolved once by
+        signature)."""
+        names = getattr(self, "_forward_params", None)
+        if names is None:
+            import inspect
+            try:    # the model's own (a stage-3 wrapper passes them on)
+                names = set(inspect.signature(
+                    self.module.forward).parameters)
+            except (TypeError, ValueError):
+                names = set()
+            self._forward_params = names
+        kw: Dict[str, Any] = {}
+        if "deterministic" in names:
+            kw["deterministic"] = not train
+        if train and "generator" in names and moe_layers(self.compute_module):
+            if getattr(self, "_gating_generator", None) is None:
+                # seeded alike on every rank: each draws the dp group's
+                # whole token set the same way
+                self._gating_generator = torch.Generator(
+                    device=self.device).manual_seed(int(self.config.seed))
+            kw["generator"] = self._gating_generator
+        return kw
+
+    def _loss_of(self, batch, train: bool = True) -> torch.Tensor:
         inputs = batch.get("input_ids", batch.get("inputs")) \
             if isinstance(batch, Mapping) else batch
         if inputs is None:
             raise ValueError("a dict batch needs 'input_ids' (or 'inputs')")
-        out = self.compute_module(inputs)
+        out = self.compute_module(inputs, **self._model_kwargs(train))
         if self.loss_fn is not None:
             return self.loss_fn(out, batch)
         if isinstance(out, torch.Tensor) and out.dim() == 0:
@@ -1017,7 +1089,7 @@ class DeepSpeedEngine:
                           for p in self._compute_params])
         for p in self._compute_params:
             p.grad = None
-        comm.all_reduce(flat)
+        comm.all_reduce(flat, group=self._dp_group)
         self.comm_bytes["all_reduce"] += flat.numel() * flat.element_size()
         flat = flat.float()
         torch._foreach_add_(self.acc, [
@@ -1036,19 +1108,51 @@ class DeepSpeedEngine:
             p.grad = None
         if grads:
             scatter_into(self.acc, idx, grads, self._comm_dtype,
-                         self.comm_bytes)
+                         self.comm_bytes, group=self._dp_group)
 
     def _global_norm_and_finite(self, grads: List[torch.Tensor]):
         """The global grad norm and (fp16) the finite flag, over every
-        rank's slices when the grads are split."""
-        sq = torch.stack(torch._foreach_norm(grads)).square().sum()
+        rank's slices when the grads are split, and over every ep
+        partner's experts."""
+        norms = torch.stack(torch._foreach_norm(grads))
         finite = (grads_finite(grads).float() if self.fp16_enabled
                   else None)
+        if self._expert_leaves:
+            return self._ep_norm_and_finite(norms, finite)
+        sq = norms.square().sum()
         if self._grad_split:
-            comm.all_reduce(sq)
+            comm.all_reduce(sq, group=self._dp_group)
             if finite is not None:
-                comm.all_reduce(finite, "min")
+                comm.all_reduce(finite, "min", group=self._dp_group)
         return sq.sqrt(), finite
+
+    def _ep_norm_and_finite(self, norms, finite):
+        """Over ep > 1: the shared leaves' squares summed (over dp when
+        split), the expert leaves' also over ep."""
+        mask = torch.zeros(len(norms), dtype=torch.bool, device=norms.device)
+        mask[self._expert_leaves] = True
+        sq = norms.square()
+        parts = torch.stack([sq[~mask].sum(), sq[mask].sum()])
+        if self._grad_split:
+            comm.all_reduce(parts, group=self._dp_group)
+        expert = comm.all_reduce(parts[1:].clone(), group=self._ep_group)
+        if finite is not None:
+            comm.all_reduce(finite, "min")          # the whole world
+        return (parts[0] + expert[0]).sqrt(), finite
+
+    def _lamb_norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
+        """LAMB's per-leaf partial sums [n, 2] summed over the ranks that
+        hold parts of each leaf: dp when partitioned, and ep for the
+        expert leaves."""
+        if self._partitioned:
+            comm.all_reduce(sq, group=self._dp_group)
+        if self._expert_leaves:
+            mask = torch.zeros(len(sq), 1, dtype=torch.bool,
+                               device=sq.device)
+            mask[self._expert_leaves] = True
+            experts = comm.all_reduce(sq * mask, group=self._ep_group)
+            sq = torch.where(mask, experts, sq)
+        return sq
 
     def _apply_update(self) -> Dict[str, Any]:
         """Unscale + clip + optimizer step, with the fp16 overflow guard.
@@ -1062,7 +1166,7 @@ class DeepSpeedEngine:
             return self._offload_update(denom)
         with torch.no_grad():
             grads = torch._foreach_div(self.acc, denom)
-            if self._grad_split:
+            if self._grad_split or self._expert_leaves:
                 gnorm, finite = self._global_norm_and_finite(grads)
                 finite = bool(finite) if finite is not None else True
             else:
@@ -1134,7 +1238,8 @@ class DeepSpeedEngine:
                 self._micro_backward(loss)
                 loss_sum += loss.detach().float()
             metrics = self._apply_update()
-            metrics["loss"] = comm.all_reduce(loss_sum / gas, "avg")
+            metrics["loss"] = comm.all_reduce(loss_sum / gas, "avg",
+                                              group=self._dp_group)
         if wcb:
             self.timers("train_batch").stop(sync=True)
         will_report = (self.global_steps + 1) % self.steps_per_print() == 0
@@ -1226,7 +1331,9 @@ class DeepSpeedEngine:
             res = self._layer_streamer.upload_resident()
             return self._stream_eval(res, self._to_device(batch))
         self._cast_params()
-        return comm.all_reduce(self._loss_of(self._to_device(batch)), "avg")
+        return comm.all_reduce(
+            self._loss_of(self._to_device(batch), train=False), "avg",
+            group=self._dp_group)
 
     def get_params(self, dtype=None) -> Dict[str, torch.Tensor]:
         """The parameters in ``dtype`` (default the compute dtype) by name,
@@ -1251,14 +1358,15 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------- ZeRO-1
     @torch.no_grad()
-    def _broadcast_master(self) -> None:
-        """Rank 0's initial weights on every rank (one flat broadcast), so
-        the ranks start from one model however each built it."""
-        flat = torch.cat([p.reshape(-1) for p in self.master])
+    def _broadcast_master(self, params: List[torch.Tensor]) -> None:
+        """Rank 0's initial weights on every rank of the world (one flat
+        broadcast), so the ranks start from one model however each built
+        it."""
+        flat = torch.cat([p.reshape(-1) for p in params])
         comm.broadcast(flat, 0)
-        torch._foreach_copy_(self.master, [
+        torch._foreach_copy_(params, [
             f.view_as(p) for f, p in
-            zip(flat.split([p.numel() for p in self.master]), self.master)])
+            zip(flat.split([p.numel() for p in params]), params)])
 
     @torch.no_grad()
     def _gather_compute(self) -> None:
@@ -1269,7 +1377,8 @@ class DeepSpeedEngine:
         dense = [i for i, _ in self._dense_params]
         if dense:
             fulls = all_gather_coalesced(
-                [self._opt_params[i].to(self.compute_dtype) for i in dense])
+                [self._opt_params[i].to(self.compute_dtype) for i in dense],
+                group=self._dp_group)
             self.comm_bytes["all_gather"] += sum(
                 f.numel() * f.element_size() for f in fulls)
             torch._foreach_copy_([p for _, p in self._dense_params], [
@@ -1288,7 +1397,28 @@ class DeepSpeedEngine:
         if not self._partitioned:
             return list(tensors)
         return [s.unpad(f) for s, f in
-                zip(self._shards, all_gather_coalesced(tensors))]
+                zip(self._shards, all_gather_coalesced(
+                    tensors, group=self._dp_group))]
+
+    def _ep_full(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole leaves -> the expert leaves gathered over ep (every rank
+        calls it): the leaves an ep-1 engine holds."""
+        if not self._expert_leaves:
+            return list(tensors)
+        out = list(tensors)
+        for i in self._expert_leaves:
+            out[i] = comm.all_gather_base(out[i].detach().contiguous(),
+                                          group=self._ep_group)
+        return out
+
+    def _ep_local(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of expert leaf i's whole tensor (other
+        leaves pass whole)."""
+        if i not in self._expert_leaves:
+            return full
+        n = self._shapes[i][0]
+        lo = self.mesh.coord("ep") * n
+        return full[lo:lo + n]
 
     @torch.no_grad()
     def _sync_module(self) -> None:
@@ -1307,10 +1437,11 @@ class DeepSpeedEngine:
                 dict(zip(self._names, self._offload_gathered("master"))))
         if self._grad_split and self._partitioned:
             return ckpt_saving.consolidated_fp32_state_dict(
-                dict(zip(self._names, self._gathered(self._opt_params))))
+                dict(zip(self._names, self._ep_full(
+                    self._gathered(self._opt_params)))))
         self._sync_module()
         return ckpt_saving.consolidated_fp32_state_dict(
-            dict(zip(self._names, self.master)))
+            dict(zip(self._names, self._ep_full(self.master))))
 
     def optimizer_state_dict(self) -> Dict[str, Any]:
         """The optimizer's ``count`` and its moments as whole leaves
@@ -1321,7 +1452,8 @@ class DeepSpeedEngine:
                        for m in self.host_optimizer.STATE}}
         sd = self.optimizer.state_dict()
         return {"count": sd["count"],
-                **{m: self._gathered(sd[m]) for m in self.optimizer.STATE}}
+                **{m: self._ep_full(self._gathered(sd[m]))
+                   for m in self.optimizer.STATE}}
 
     # ----------------------------------------------------------- checkpoints
     @torch.no_grad()
@@ -1332,10 +1464,11 @@ class DeepSpeedEngine:
             if name not in master:
                 raise KeyError(f"checkpoint missing tensor {name!r}")
             arr = master[name]
-            if tuple(arr.shape) != self._shapes[i]:
+            if tuple(arr.shape) != self._full_shapes[i]:
                 raise ValueError(f"shape mismatch for {name}: ckpt "
-                                 f"{arr.shape} vs model {self._shapes[i]}")
-            full = torch.from_numpy(arr)
+                                 f"{arr.shape} vs model "
+                                 f"{self._full_shapes[i]}")
+            full = self._ep_local(i, torch.from_numpy(arr))
             if split:
                 self._opt_params[i].copy_(self._shards[i].take(full))
             else:
@@ -1347,8 +1480,9 @@ class DeepSpeedEngine:
             opt = res["opt_state"]
             state = {"count": int(opt["count"])}
             for m in self.optimizer.STATE:
-                full = [torch.from_numpy(opt[f"{m}/{name}"]).to(self.device)
-                        for name in self._names]
+                full = [self._ep_local(i, torch.from_numpy(
+                    opt[f"{m}/{name}"])).to(self.device)
+                        for i, name in enumerate(self._names)]
                 state[m] = ([s.take(f) for s, f in zip(self._shards, full)]
                             if self._partitioned else full)
             self.optimizer.load_state_dict(state)
@@ -1399,7 +1533,11 @@ class DeepSpeedEngine:
     def _shard_arrays(self):
         """This rank's ``<i>:master`` / ``<i>:<moment>`` slices and the
         per-leaf metadata of the host-shard files (the stage-1 layout over
-        the world even when the state is whole here)."""
+        dp even when the state is whole here). Over ep > 1 the slices are
+        of the whole leaves (the experts gathered over ep), so the files
+        are those of an ep-1 engine at the same dp."""
+        if self._expert_leaves:
+            return self._ep_shard_arrays()
         rules = ShardingRules(self.dp_world_size, 1, self.dp_rank)
         shards = self._shards if self._partitioned else [
             rules.master_spec(n, s)
@@ -1416,10 +1554,30 @@ class DeepSpeedEngine:
             arrays[f"{i}:master"] = mine(self._opt_params, i)
             for m in self.optimizer.STATE:
                 arrays[f"{i}:{m}"] = mine(sd[m], i)
-        leaves = [{"path": s.path, "offset": s.offset, "numel": s.numel,
-                   "padded": s.padded, "global_numel": s.global_numel,
-                   "shape": list(s.shape)} for s in shards]
-        return arrays, leaves
+        return arrays, self._leaf_meta(shards)
+
+    @staticmethod
+    def _leaf_meta(shards) -> List[Dict[str, Any]]:
+        return [{"path": s.path, "offset": s.offset, "numel": s.numel,
+                 "padded": s.padded, "global_numel": s.global_numel,
+                 "shape": list(s.shape)} for s in shards]
+
+    def _ep_shard_arrays(self):
+        """:meth:`_shard_arrays` over ep > 1: every leaf gathered whole
+        (over dp, then ep), then this rank's dp slice of it."""
+        rules = ShardingRules(self.dp_world_size, 1, self.dp_rank)
+        shards = [rules.master_spec(n, s)
+                  for n, s in zip(self._names, self._full_shapes)]
+        master = self.consolidated_fp32_state_dict()
+        moments = self.optimizer_state_dict()
+        arrays = {}
+        for i, (name, spec) in enumerate(zip(self._names, shards)):
+            arrays[f"{i}:master"] = spec.take(
+                torch.from_numpy(master[name])).numpy()
+            for m in self.optimizer.STATE:
+                arrays[f"{i}:{m}"] = spec.take(
+                    moments[m][i].detach().float().cpu()).numpy()
+        return arrays, self._leaf_meta(shards)
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True) -> str:
@@ -1451,7 +1609,9 @@ class DeepSpeedEngine:
             return ckpt_saving.save_host_sharded_dir(
                 save_dir, tag, arrays=arrays, leaves=leaves,
                 step=self.optimizer.count, meta=meta,
-                save_latest=save_latest)
+                save_latest=save_latest,
+                shard=(self.dp_rank, self.dp_world_size),
+                write=self.mesh.coord("ep") == 0)
         master = self.consolidated_fp32_state_dict()
         sd = self.optimizer_state_dict()
         opt = {"count": np.asarray(sd["count"])}

@@ -98,7 +98,7 @@ def gpt_pipe_spec(model, loss_fn=None) -> StackedPipeSpec:
     suffix are the functions ``GPT.forward`` itself runs
     (``embed_tokens``, ``Block``, ``final_logits``), so a streamed step
     computes what the module computes. Refuses what the TPU adapter refuses
-    (``partition_activations``, dropout; MoE and sequence parallelism the
+    (``partition_activations``, dropout, MoE; sequence parallelism the
     port's GPTConfig refuses already)."""
     from ...models.gpt import embed_tokens, final_logits, lm_loss_fn
     cfg = model.cfg
@@ -110,6 +110,10 @@ def gpt_pipe_spec(model, loss_fn=None) -> StackedPipeSpec:
         raise ValueError("the stacked trunk runs deterministic; train with "
                          "dropout=0.0 (silently disabling dropout would "
                          "change training semantics)")
+    if cfg.moe:
+        raise ValueError("MoE blocks return a load-balancing aux loss the "
+                         "stacked trunk does not carry; a streamed step "
+                         "that dropped it would collapse the router")
     loss_fn = loss_fn or lm_loss_fn
     template = model.blocks[0]
 

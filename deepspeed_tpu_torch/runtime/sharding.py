@@ -23,7 +23,9 @@ all-reduced), so both layouts compute the same step.
     vocab-dim rule (``_stage3_embed_spec``); otherwise it stays whole, as
     there.
 
-The tp, ep and kv specs wait for ROADMAP A9.
+The leaves are a rank's own: over ep > 1 an expert bank holds this
+rank's experts only (``moe.set_expert_parallel``), and the dp slices are
+of that. The tp and kv specs wait for ROADMAP A9.
 """
 
 from __future__ import annotations

@@ -45,17 +45,17 @@ from ..sharding import LeafShard
 def scatter_into(acc: List[torch.Tensor], leaves: Sequence[int],
                  grads: Sequence[torch.Tensor],
                  comm_dtype: Optional[torch.dtype],
-                 counts: collections.Counter) -> None:
-    """Sum ``grads`` (whole leaves) over the ranks in one reduce-scatter
-    in ``comm_dtype`` (None: f32) and add this rank's slice of leaf
-    ``leaves[k]`` into ``acc[leaves[k]]``, widened to f32; the wire's bytes
-    go to ``counts["reduce_scatter"]``."""
+                 counts: collections.Counter, group=None) -> None:
+    """Sum ``grads`` (whole leaves) over the ranks of ``group`` (default:
+    the world) in one reduce-scatter in ``comm_dtype`` (None: f32) and add
+    this rank's slice of leaf ``leaves[k]`` into ``acc[leaves[k]]``,
+    widened to f32; the wire's bytes go to ``counts["reduce_scatter"]``."""
     dt = comm_dtype or torch.float32
-    world = comm.get_world_size()
+    world = comm.get_world_size(group)
     counts["reduce_scatter"] += sum(
         -(-g.numel() // world) * world for g in grads) * \
         torch.empty(0, dtype=dt).element_size()
-    mine = reduce_scatter_coalesced(grads, dtype=dt)
+    mine = reduce_scatter_coalesced(grads, group=group, dtype=dt)
     torch._foreach_add_([acc[i] for i in leaves], [r.float() for r in mine])
 
 

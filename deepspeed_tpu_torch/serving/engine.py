@@ -64,6 +64,13 @@ sampling call through the sort-free sampling kernel
 same kernel (``fused_filter_logits``). On a CPU device the wrappers run
 their plain PyTorch versions.
 
+An MoE model (``GPTConfig(moe=True)``) serves in every mode: each prefill,
+decode, verify and fused step routes every row it runs (bucket padding,
+idle lanes, pad columns) at the eval capacity with no random draw, as the
+TPU engine's ``deterministic`` calls do; ``GPT.decode`` and
+``GPT.prefill`` return no aux loss, so there is nothing to unwrap. An
+engine over ``ep_size > 1`` raises (ROADMAP A9).
+
 Not in this slice (see ROADMAP.md): CUDA-graph capture of a chunk, tiered
 KV, the sequence-parallel prefill leg, tp, disaggregation, migration and
 telemetry spans. Each keyword of the TPU package's ``ServingEngine`` that
@@ -223,6 +230,10 @@ class ServingEngine:
             from ..inference.engine import InferenceEngine
             engine = InferenceEngine(model, model_parameters=model_parameters,
                                      **inference_kwargs)
+        if getattr(engine, "ep_world_size", 1) > 1:
+            raise _not_ported(
+                f"ServingEngine over an InferenceEngine(ep_size="
+                f"{engine.ep_world_size})", "A9")
         self.engine = engine
         self.device = engine.device
         self.module = engine.module

@@ -131,14 +131,26 @@ def test_rank_world_and_groups(world):
 
 
 def test_groups_beyond_dp_raise():
+    """Every axis group follows the mesh (they raised, naming ROADMAP A9,
+    until the mesh was ported): without a mesh set the mesh is the pure-dp
+    one over the one-process world, so every axis group is this rank
+    alone, as the TPU package's groups of the one-device mesh are; an
+    unknown axis still raises. tests/test_torch_mesh.py holds the groups
+    of a dp 2 × ep 2 mesh over four ranks to the TPU mesh's layout."""
+    from deepspeed_tpu.comm import comm as jcomm
+    from deepspeed_tpu.parallel import mesh as jmesh
     from deepspeed_tpu_torch import comm
+    one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1, 1, 1),
+               jmesh.MESH_AXES)
     for get in (comm.get_model_parallel_group,
-                comm.get_expert_parallel_group):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            get()
-    for axes in ("sp", ("dp", "tp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            comm.new_group(axes)
+                comm.get_expert_parallel_group,
+                comm.get_data_parallel_group):
+        assert get().size == 1
+    for axes in ("sp", ("dp", "tp"), ("dp", "pp", "ep", "sp", "tp")):
+        g = comm.new_group(axes)
+        assert (g.axes, g.size) == (
+            (axes,) if isinstance(axes, str) else axes,
+            jcomm.new_group(axes, mesh=one).size)
     with pytest.raises(ValueError, match="unknown mesh axis"):
         comm.new_group("xx")
     # one process, no group: the identity, as at one rank

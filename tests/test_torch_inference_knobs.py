@@ -2,11 +2,11 @@
 package's signatures: every TPU keyword is taken; ``config``,
 ``max_tokens`` and ``replace_with_kernel_inject`` at any value;
 ``quantize_mode`` keeps the TPU engine's ``ValueError``s; ``checkpoint``,
-``injection_policy``, ``quantize_bits`` and ``replace_method`` are ported
-(tests/test_torch_inference_checkpoint.py, test_torch_weight_quant.py);
-``mp_size`` and ``ep_size`` set away from their defaults raise
-``NotImplementedError`` naming their ROADMAP item (``NOT_PORTED_KNOBS``),
-never a ``TypeError``; with the
+``injection_policy``, ``quantize_bits``, ``replace_method`` and ``ep_size``
+are ported (tests/test_torch_inference_checkpoint.py,
+test_torch_weight_quant.py, test_torch_moe_ep.py); ``mp_size`` set away
+from its default raises ``NotImplementedError`` naming its ROADMAP item
+(``NOT_PORTED_KNOBS``), never a ``TypeError``; with the
 defaults passed explicitly the engine builds from TPU weights converted by
 ``convert.py`` and its greedy tokens equal the TPU engine's.
 ``initialize(dist_init_required=True)`` builds at one rank and over two
@@ -28,9 +28,10 @@ from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
 from torch_test_threads import one_torch_thread  # noqa: F401
 
 # a value away from each knob's default
-NON_DEFAULT = {"mp_size": 2, "ep_size": 2}
+NON_DEFAULT = {"mp_size": 2}
 # ported knobs, taken away from their defaults
-PORTED = ("checkpoint", "injection_policy", "quantize_bits", "replace_method")
+PORTED = ("checkpoint", "injection_policy", "quantize_bits", "replace_method",
+          "ep_size")
 # read by neither engine: taken at any value
 INERT = {"config": {"tensor_parallel": {"tp_size": 1}}, "max_tokens": 512,
          "replace_with_kernel_inject": True}

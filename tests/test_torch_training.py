@@ -533,6 +533,7 @@ UNPORTED = {
     "stochastic_rounding": {"bf16": {"enabled": True,
                                      "stochastic_rounding": True}},
     "tp_mesh": {"mesh": {"tp": 2}},
+    "ep_mesh": {"mesh": {"ep": 1, "dp": 1}},
     "pipeline": {"pipeline": {"stages": 2}},
     "cpu_checkpointing": {"activation_checkpointing": {
         "cpu_checkpointing": True}},
@@ -541,14 +542,15 @@ UNPORTED = {
 
 
 # raised naming ROADMAP A4.8 (the optimizers), A8 (ZeRO 2 / 3, the
-# offload tiers) or A8b (cpu_checkpointing) until they were ported; their
-# cases now check that the engine builds the optimizer and trains (the
-# optimizer's class). cpu_checkpointing needs a remat model.
+# offload tiers), A8b (cpu_checkpointing) or A9 (an ep mesh) until they
+# were ported; their cases now check that the engine builds the optimizer
+# and trains (the optimizer's class). cpu_checkpointing needs a remat
+# model; an ep mesh over more ranks is in tests/test_torch_moe_ep.py.
 NOW_PORTED = {"lamb": "FusedLamb", "adagrad": "FusedAdagrad", "sgd": "SGD",
               "zero2": "FusedAdam", "zero3": "FusedAdam",
               "offload_optimizer": "HostOffloadOptimizer",
               "offload_param": "HostOffloadOptimizer",
-              "cpu_checkpointing": "FusedAdam"}
+              "cpu_checkpointing": "FusedAdam", "ep_mesh": "FusedAdam"}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

@@ -341,9 +341,6 @@ def resume_cases(rank, world, cases, tag_config=None):
     return out
 
 
-if __name__ == "__main__":
-    a = sys.argv[1:]
-    _child(a[0], int(a[1]), int(a[2]), int(a[3]), a[4])
 
 
 def gather_lifetimes(rank, world, config, micros, remats):
@@ -437,3 +434,139 @@ def streamed_init(rank, world, config):
     except Exception as exc:           # the caller checks which one
         return type(exc).__name__, str(exc)
     return None
+
+
+# --------------------------------------------------------------------------
+# The device mesh
+# --------------------------------------------------------------------------
+
+def mesh_groups(rank, world, shape, x):
+    """This rank's coordinates and groups on the mesh of ``shape`` and the
+    results of collectives over its dp, ep and tp groups on its row of
+    ``x``; the rows the data loader gives it of a 4-row batch."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+    mesh = mesh_lib.ensure_global_mesh(mesh_lib.MeshShape(**shape))
+    mine = torch.from_numpy(x[rank].copy())
+    out = {"coords": mesh.coords()}
+    for name, axes in (("dp", "dp"), ("ep", "ep"), ("tp", "tp"),
+                       ("dpep", ("dp", "ep"))):
+        g = comm.new_group(axes)
+        members = [g.global_rank(i) for i in range(g.size)]
+        out[f"{name}_members"] = members
+        if name == "dpep":
+            continue
+        out[f"{name}_sum"] = comm.all_reduce(mine.clone(), group=g).numpy()
+        if g.size > 1:
+            out[f"{name}_gather"] = comm.all_gather_base(mine,
+                                                         group=g).numpy()
+            out[f"{name}_bcast"] = comm.broadcast(mine.clone(), src=1,
+                                                  group=g).numpy()
+            ring = [(i, (i + 1) % g.size) for i in range(g.size)]
+            out[f"{name}_ring"] = comm.ppermute(mine, ring, group=g).numpy()
+    loader = DeepSpeedDataLoader(list(range(4)), batch_size=4)
+    out["loader"] = [int(v) for v in next(iter(loader))]
+    comm.barrier()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-Experts over the mesh's ep axis
+# --------------------------------------------------------------------------
+
+def expert_bytes(module):
+    """Bytes of the expert banks' parameters ``module`` holds."""
+    from deepspeed_tpu_torch.moe.utils import split_params_into_shared_and_expert
+    _, expert = split_params_into_shared_and_expert(module)
+    return sum(p.numel() * p.element_size() for p in expert.values())
+
+
+def moe_train(rank, world, config, micros, steps, model, state=None,
+              save_dir=None, load_dir=None):
+    """One MoE run at this rank: optionally load ``load_dir``, train
+    ``steps`` steps, optionally save to ``save_dir``; returns losses, grad
+    norms, the gathered state (whole leaves), the mesh degrees and the
+    expert bytes this rank holds."""
+    engine = port_engine(port_model(state, **model), config)
+    if load_dir is not None:
+        engine.load_checkpoint(load_dir)
+    losses, norms = train(engine, micros, steps,
+                          engine.gradient_accumulation_steps())
+    master, opt = engine_state(engine)
+    if save_dir is not None:
+        engine.save_checkpoint(save_dir)
+    return {"losses": losses, "norms": norms, "master": master, "opt": opt,
+            "dp": engine.dp_world_size, "ep": engine.ep_world_size,
+            "expert_bytes": expert_bytes(engine.module)}
+
+
+def moe_train_cases(rank, world, cases):
+    """Several :func:`moe_train` runs in one start of the ranks, in
+    order."""
+    return {name: moe_train(rank, world, **kw) for name, kw in cases.items()}
+
+
+def moe_inference(rank, world, state, model, prompts, max_new, ep_sizes):
+    """At each of ``ep_sizes``: an ``InferenceEngine(ep_size=...)`` over
+    the MoE model ``state``: its forward logits on ``prompts``, its greedy
+    tokens, the expert bytes this rank holds and (ep > 1) what building a
+    ``ServingEngine`` over it does."""
+    from deepspeed_tpu_torch import InferenceEngine
+    out = {}
+    for ep in ep_sizes:
+        eng = InferenceEngine(port_model(state, **model), ep_size=ep,
+                              dtype=getattr(__import__("torch"),
+                                            model.get("dtype", "float32")),
+                              device="cpu")
+        out[ep] = {"logits": eng.forward(prompts).float().numpy(),
+                   "tokens": eng.generate(prompts, max_new_tokens=max_new,
+                                          temperature=0.0).numpy(),
+                   "expert_bytes": expert_bytes(eng.module)}
+        if ep > 1:
+            from deepspeed_tpu_torch import ServingEngine
+            try:
+                ServingEngine(engine=eng)
+                out[ep]["serving"] = "built"
+            except NotImplementedError as exc:
+                out[ep]["serving"] = f"NotImplementedError: {exc}"
+    return out
+
+
+def moe_refusals(rank, world, state, model):
+    """What ``initialize`` does at mesh ep 2 with what the port does not
+    take there (ZeRO-3, the offload tiers) and with an ep that does not
+    divide the experts: the exception's type and message, or "built"."""
+    out = {}
+    base = {"train_micro_batch_size_per_gpu": 2,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+    cases = {
+        "zero3": {"mesh": {"ep": 2}, "zero_optimization": {"stage": 3}},
+        "offload": {"mesh": {"ep": 2}, "zero_optimization": {
+            "stage": 1, "offload_optimizer": {"device": "cpu"}}},
+        "ep_not_dividing": {"mesh": {"ep": 2}},
+    }
+    for name, extra in cases.items():
+        overrides = dict(model, num_experts=3) \
+            if name == "ep_not_dividing" else model
+        try:
+            port_engine(port_model(None if name == "ep_not_dividing"
+                                   else state, **overrides),
+                        dict(base, **extra))
+            out[name] = "built"
+        except (NotImplementedError, ValueError) as exc:
+            out[name] = f"{type(exc).__name__}: {exc}"
+    return out
+
+
+def moe_two_ranks(rank, world, inference, refusals):
+    """:func:`moe_inference` then :func:`moe_refusals` in one start of the
+    ranks."""
+    return {"inference": moe_inference(rank, world, **inference),
+            "refusals": moe_refusals(rank, world, **refusals)}
+
+
+if __name__ == "__main__":
+    a = sys.argv[1:]
+    _child(a[0], int(a[1]), int(a[2]), int(a[3]), a[4])
