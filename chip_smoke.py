@@ -331,13 +331,14 @@ Phases (any failure exits non-zero before the result lines):
      near-tie (the *_d80 decode rows' launches);
  40. GPT-Neo 1.3B (after phase 39): EleutherAI's config.json (24 layers
      alternating global and local attention of window 256, 16 heads of
-     128, d_model 2048, vocab 50257, unscaled scores), an HF-named state
-     dict from --seed converted on the card by HFGPTNeoPolicy; the
-     forward on [2, 1024] through B1 at the 12 global layers (scale 1.0;
+     128, d_model 2048, vocab 50257, unscaled scores; cut to NEO_LAYERS
+     12 to fit the time limit), an HF-named state dict from
+     --seed converted on the card by HFGPTNeoPolicy; the forward on [2,
+     1024] through B1 at the 6 global layers (scale 1.0;
      the local ones take the windowed einsum) against attention_impl="xla"
      within LOGITS_ATOL; greedy generate of 32 tokens; phase 4's requests
      through the dense, fused (prefill_chunk 16) and speculative (k 4)
-     megakernel engines beside megakernel=False: B2 12 times a step at the
+     megakernel engines beside megakernel=False: B2 6 times a step at the
      step's width, B4 never (vocab not lane-aligned), tokens equal or
      parting at a near-tie; paged=True must raise; then B1 at [2, 1024,
      16, 128] scale 1.0 and B2 at h 16, d 128, S 2048, s_q 1 and 16
@@ -346,22 +347,23 @@ Phases (any failure exits non-zero before the result lines):
      InferenceEngine(quantize_bits=8), symmetric and asymmetric: weights
      at rest and the build's max_memory_allocated against bf16's, every
      int8 Linear bitwise the plain quantize / dequantize of its bf16
-     weight, the forward (B1 12 times) against a bf16 model over the
+     weight, the forward (B1 6 times) against a bf16 model over the
      dequantized weights within LOGITS_ATOL, max |logit - bf16 engine| and
      top-1 agreement printed, and ServingEngine(engine=ie, megakernel=True)
-     serving phase 4's requests (B2 12 times a step; tokens/s beside
+     serving phase 4's requests (B2 6 times a step; tokens/s beside
      bf16's);
- 42. GPT-MoE (after phase 41): gpt_moe_1_3b at full width and depth (24
-     layers, d_model 2048, 16 heads of 128, d_ff 8192, top-1, eval
+ 42. GPT-MoE (after phase 41): gpt_moe_1_3b at full width (24 layers
+     cut to MOE_LAYERS 12 to fit the time limit, d_model
+     2048, 16 heads of 128, d_ff 8192, top-1, eval
      capacity 2.0, min 4) with its 128 experts cut to 16 (128 would need
      206 GB in bf16), bf16 weights made on the card from --seed; the
-     forward on [2, 1024] through B1 (24 launches, each held to its plain
+     forward on [2, 1024] through B1 (12 launches, each held to its plain
      version) against attention_impl="xla" within LOSS_ATOL; layer 0's
      MoE on a prefill's inputs against the same function in f32
      (MOE_OUT_RTOL); phase 4's requests through the dense and fused (C
      16) megakernel engines: a run with every B2 call and B4 draw held to
      its plain version and every logits tensor checked finite, printing
-     the routing's capacity and dropped tokens, then a timed run (B2 24
+     the routing's capacity and dropped tokens, then a timed run (B2 12
      times a step at the step's width, B4 once a step, the checked run's
      tokens); tokens/s, chunk ms, weight bytes, max_memory_allocated, a
      decode step's device ms split into B2, the expert GEMMs, the
@@ -377,7 +379,22 @@ Phases (any failure exits non-zero before the result lines):
      steps at mesh {"ep": 2} against ep 1 in this process (EP_LOSS_RTOL),
      each rank holding half the expert bytes; InferenceEngine(ep_size=2)
      greedy tokens equal ep 1's or parting at a near-tie, half the expert
-     bytes, a ServingEngine over it refused (ROADMAP A9).
+     bytes, a ServingEngine over it refused (ROADMAP A9);
+ 45. tensor parallelism (after 44): GPT-NeoX 20B (44 layers, d_model 6144,
+     64 heads of 96, d_ff 24576, parallel residual, untied head) at full
+     width and depth, bf16, split at tp 2 over two gloo ranks sharing the
+     card (the script re-runs itself with the hidden --tp-rank), each rank
+     making only its shards on the card from --seed: weights half the
+     whole model's a rank, the forward on [2, 1024] through B1 (44 a
+     rank), layer 0 and the width cut to 2 layers against tp 1 here,
+     phase 4's requests through ServingEngine(tp=2, megakernel=True) dense
+     and paged (every B2 / B3 call and B4 draw held to its plain version;
+     tokens equal on both ranks), under tp_overlap and fused (C 16), int8
+     weights at the cut depth, tokens/s and chunk ms; then B1 / B1b at [2,
+     1024, 32, 96], B2 / B3 at h 32, d 96 and B4 timed (the *_neox rows);
+ 46. its width cut to 2 layers, trained at tp 1 here and at mesh tp 2 on
+     two ranks, without and with partition_activations: losses within
+     LOSS_ATOL, falling, B1 / B1b launches a step.
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
@@ -386,8 +403,9 @@ Prints the kernel summary JSON (the flash rows twice: the training shape,
 and ``*_d80`` at the capacity shape with phase 35's launches; the rows of
 phase 37's head dim also carry its launches, the training shape's phase
 44's; the decode rows at s_q 5, 16 and d 80, the sparse rows at d 80, B1
-and B2 at GPT-Neo's shapes, B1 / B1b, B2 and B4 at GPT-MoE's), the
-card line and, last,
+and B2 at GPT-Neo's shapes, B1 / B1b, B2 and B4 at GPT-MoE's, B1 / B1b,
+B2, B3 and B4 at GPT-NeoX 20B's tp-2 rank shapes with phases 45-46's
+launches on rank 0), the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
 
@@ -3134,12 +3152,13 @@ def phase_d80_serving(torch, np, dev, seed, prompts, kw, card):
 # window_size 256), 16 heads of 128, hidden_size 2048, intermediate_size
 # null (so 4 x 2048), vocab 50257, max_position_embeddings 2048, unscaled
 # scores; the weights are random from --seed under HF's key names
-NEO_LAYERS = 24
+NEO_LAYERS = 12                      # of 24, cut to fit the time limit
 NEO_CONFIG = dict(model_type="gpt_neo", vocab_size=50257,
                   max_position_embeddings=2048, hidden_size=2048,
                   num_heads=16, intermediate_size=None, window_size=256,
                   layer_norm_epsilon=1e-5, activation_function="gelu_new")
-NEO_PARAMS = 1_315_723_264           # at 24 layers, tied head
+NEO_PARAMS = 711_424_000             # at 12 layers, tied head (24:
+#                                      1_315_723_264)
 NEO_IDS = (2, 1024)                  # phase 40's forward and generate
 NEO_GEN = 32
 # B1 at the global layers' forward shape, scale 1.0 (GPT-Neo's); B2 at a
@@ -3216,10 +3235,10 @@ def _build_engine(torch, cfg, host, dev, **kw):
 
 @contextlib.contextmanager
 def kernel_checks(torch, errs, what):
-    """Hold every B1 and B2 call of the model against its plain version on
-    the call's own inputs (no extra launch: the plain version runs beside
-    the kernel's result): B1 within FLASH_TOL, B2 within DECODE_ATOL (+
-    DECODE_INT8_RTOL |ref| over an int8 cache). The plain versions run in
+    """Hold every B1, B2 and B3 call of the model against its plain version
+    on the call's own inputs (no extra launch: the plain version runs
+    beside the kernel's result): B1 within FLASH_TOL, B2 and B3 within
+    DECODE_ATOL (+ DECODE_INT8_RTOL |ref| over an int8 cache). The plain versions run in
     f32 on the inputs' values: at GPT-Neo's unscaled scores (|s| up to
     about 40) the bf16 einsum of the plain decode version rounds a score
     by up to 0.125 and errs by up to 0.2 itself. ``errs`` collects the max
@@ -3227,7 +3246,8 @@ def kernel_checks(torch, errs, what):
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    saved = gpt.flash_attention, gpt.decode_attention
+    saved = (gpt.flash_attention, gpt.decode_attention,
+             gpt.paged_decode_attention)
 
     def flash(q, k, v, causal=True, sm_scale=None):
         out = saved[0](q, k, v, causal=causal, sm_scale=sm_scale)
@@ -3252,11 +3272,29 @@ def kernel_checks(torch, errs, what):
                 f"{q.shape[1]}", DECODE_INT8_RTOL if int8 else 0.0))
         return out
 
-    gpt.flash_attention, gpt.decode_attention = flash, decode
+    def paged(q, kp, vp, tables, cache_len, scale=None, k_scale=None,
+              v_scale=None):
+        out = saved[2](q, kp, vp, tables, cache_len, scale=scale,
+                       k_scale=k_scale, v_scale=v_scale)
+        int8 = k_scale is not None
+        ref = da.paged_decode_attention_reference(
+            q.float(), kp if int8 else kp.float(),
+            vp if int8 else vp.float(), tables, cache_len,
+            q.shape[-1] ** -0.5 if scale is None else scale, k_scale,
+            v_scale)
+        errs["paged_decode_attention"] = max(
+            errs.get("paged_decode_attention", 0.0), _decode_err(
+                torch, out, ref, f"{what} paged_decode_attention s_q "
+                f"{q.shape[1]}", DECODE_INT8_RTOL if int8 else 0.0))
+        return out
+
+    gpt.flash_attention, gpt.decode_attention, gpt.paged_decode_attention \
+        = flash, decode, paged
     try:
         yield errs
     finally:
-        gpt.flash_attention, gpt.decode_attention = saved
+        (gpt.flash_attention, gpt.decode_attention,
+         gpt.paged_decode_attention) = saved
 
 
 def _forward_counted(torch, ie, ids, what, n_global, errs):
@@ -3648,7 +3686,9 @@ def phase_neo_int8(torch, np, dev, neo, kw, card):
 # parameters are 206 GB in bf16, past the card's 80 GB; 16 experts make
 # 13.4e9 parameters (26.8 GB). Top-1, eval capacity 2.0, min capacity 4.
 MOE_EXPERTS = 16
-MOE_PARAMS = 13_397_790_720          # at 24 layers, 16 experts, tied head
+MOE_LAYERS = 12                      # of 24, cut to fit the time limit
+MOE_PARAMS = 6_751_457_280           # at 12 layers, 16 experts, tied head
+#                                      (24: 13_397_790_720)
 MOE_IDS = (2, 1024)                  # phase 42's forward check
 # one MoE layer in bf16 against the same function in f32 on the same bf16
 # inputs (identical routing: the gate computes in f32 from the same
@@ -3810,7 +3850,8 @@ def _sampling_time(torch, sp, dev, gen, b, V):
 
 
 def phase_moe_serving(torch, np, dev, seed, prompts, kw, card):
-    """Phase 42: gpt_moe_1_3b(num_experts=16) at full width and depth,
+    """Phase 42: gpt_moe_1_3b(num_experts=16) at full width, MOE_LAYERS
+    deep,
     bf16, its weights made on the card from --seed (no f32 copy). Gates:
     ``InferenceEngine.forward`` on [2, 1024] launches B1 once a layer,
     each call within FLASH_TOL of its plain version on its own inputs, and
@@ -3838,8 +3879,9 @@ def phase_moe_serving(torch, np, dev, seed, prompts, kw, card):
     from deepspeed_tpu_torch.ops.cuda import sampling as sp
     from deepspeed_tpu_torch.ops import quantizer as qz
     t_phase = time.perf_counter()
-    cfg = gpt_moe_1_3b(num_experts=MOE_EXPERTS, max_seq_len=1024,
-                       dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(gpt_moe_1_3b(
+        num_experts=MOE_EXPERTS, max_seq_len=1024, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16), num_layers=MOE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4337,6 +4379,641 @@ def _ep_near_tie(torch, dev, seed, prefix, at, row):
     if not gap <= EP_TIE_ATOL:
         fail(f"phase44: ep 2 tokens part from ep 1's at {at} in row {row} "
              f"(top-2 gap {gap})")
+
+
+# --------------------------------------------------------------------------
+# Phases 45-46: tensor parallelism at GPT-NeoX 20B
+# --------------------------------------------------------------------------
+
+# gpt_neox_20b (models/gpt.py: 44 layers, d_model 6144, 64 heads of 96,
+# d_ff 24576, rotary, parallel residual, untied head, vocab 50304) at tp 2
+# over two gloo ranks sharing the card: 41.1e9 B of bf16 weights whole,
+# half a rank, made on the card from --seed module by module
+# (models.gpt.init_tp_shards), so no rank ever holds the whole model
+NEOX_PARAMS = 20_552_994_816
+NEOX_TP = 2
+NEOX_IDS = (2, 1024)                 # the forward through B1
+NEOX_BLOCK_IN = (1, 16)              # layer 0's input rows
+NEOX_CUT = 2                         # the cut depth: tp 1 and int8 checks
+NEOX_CUT_IDS = (1, 64)
+NEOX_N_NEW = 16                      # phase 4's 64 tokens cut to fit
+NEOX_GENERATE = 1                    # requests held to generate's tokens
+# per-rank weight bytes within 1% of half the whole model's
+NEOX_HALF_RTOL = 1e-2
+# tp 2 against tp 1 (layer 0's output, the cut depth's logits): a rank's
+# halves of the row-split GEMMs and of the two branches are rounded to bf16
+# before they are summed, about four roundings an element of the branch
+# outputs (up to the output's largest magnitude; each 2^-8 of it), so
+# |got - ref| <= LOGITS_ATOL + NEOX_TP_RTOL max |ref|, as MOE_OUT_RTOL
+# holds an MoE layer
+NEOX_TP_RTOL = 2.0 ** -6
+# phase 45's tp_overlap and fused runs: the first requests, fewer tokens
+NEOX_FUSED_REQUESTS, NEOX_FUSED_NEW = 8, 8
+# B2 at the served decode step and fused step over the arenas phase 45's
+# engines build, with the local heads (h 32 of d 96)
+NEOX_CASE = dict(s_q=1, h=32, d=96, Sd=1024, T=1024 // PAGED_BS,
+                 fills=(1, 17, 512, 1024, 300, 64, 777))
+NEOX_SQ16_CASE = dict(s_q=FUSED_C, h=32, d=96, Sd=1024 + FUSED_C - 1,
+                      T=1024 // PAGED_BS + 1,
+                      fills=(16, 33, 512, 1039, 300, 64, 777))
+# phase 46: the width cut to NEOX_CUT layers, trained at mesh tp 2
+NEOX_TRAIN_MICRO, NEOX_TRAIN_GAS, NEOX_TRAIN_STEPS = 2, 2, 3
+NEOX_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": NEOX_TRAIN_MICRO,
+                     "gradient_accumulation_steps": NEOX_TRAIN_GAS,
+                     "bf16": {"enabled": True},
+                     "zero_optimization": {"stage": 1},
+                     "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                     "steps_per_print": 1000}
+TP_TIMEOUT_S = 600
+
+
+def _neox_cfg(torch, layers=None, **kw):
+    """gpt_neox_20b at max_seq_len 1024, bf16 (``layers``: cut depth)."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.gpt import gpt_neox_20b
+    cfg = gpt_neox_20b(max_seq_len=1024, dtype=torch.bfloat16,
+                       param_dtype=kw.pop("param_dtype", torch.bfloat16),
+                       **kw)
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def _neox_model(torch, cfg, group, seed, dev):
+    """GPT-NeoX at ``cfg`` built on the meta device, then given its random
+    weights on the card module by module, keeping this rank's tp shard
+    (whole when ``group`` is None): every build is a slice of one model."""
+    from deepspeed_tpu_torch.models.gpt import GPT, init_tp_shards
+    return init_tp_shards(GPT(cfg, device="meta"), group, seed, dev)
+
+
+def _neox_prompts(np, seed, vocab):
+    rng = np.random.default_rng(seed)         # phase 4's requests
+    return [rng.integers(1, vocab, int(n)).astype(np.int32)
+            for n in rng.integers(16, 129, 16)]
+
+
+def _tp_mesh(torch):
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.ensure_global_mesh(mesh_lib.MeshShape.infer(
+        comm.get_world_size(), tp=NEOX_TP))
+    return comm.new_group("tp", mesh)
+
+
+def _tp_serve_runs(torch, np, dev, ie, prompts, kw, out):
+    """Phase 45's serving on this rank: the dense and the paged engine
+    each checked (every B2 / B3 call and B4 draw held to its plain
+    version, logits finite), then timed (counts reset just before); the
+    dense engine under tp_overlap and the fused engine (C 16), each on the
+    first NEOX_FUSED_REQUESTS requests, NEOX_FUSED_NEW tokens each.
+    Tokens, launches, seconds and metrics into ``out``."""
+    import dataclasses
+    from deepspeed_tpu_torch import ServingEngine
+    from deepspeed_tpu_torch.serving.engine import _with_config
+    L = ie.module.cfg.num_layers
+    n_new = NEOX_N_NEW
+    errs = {}
+    runs = (("dense", {}), ("paged", dict(paged=True)),
+            ("overlap", {}), ("fused", dict(fused_prefill=True,
+                                            prefill_chunk=FUSED_C)))
+    base_module = ie.module
+    for name, extra in runs:
+        if name == "overlap":
+            ie.module = _with_config(base_module, dataclasses.replace(
+                base_module.cfg, tp_overlap=True))
+        mk = dict(kw, megakernel=True, tp=NEOX_TP, **extra)
+        eng = ServingEngine(engine=ie, **mk)
+        if name in ("dense", "paged"):
+            bad = _checked_logits(torch, eng.module, dev)
+            with kernel_checks(torch, errs, f"phase45 {name}"), \
+                    sampling_checks(torch, errs):
+                got, seconds, launched = _serve(torch, eng, prompts, n_new)
+            eng.module.__dict__.pop("logits", None)
+            if bool(bad):
+                fail(f"phase45 {name}: non-finite logits")
+            if errs.get("sampling"):
+                fail(f"phase45 {name}: {errs['sampling']} B4 draws differ "
+                     f"from the plain version's")
+            out[f"{name}_checked_launches"] = launched
+            checked = [r.tokens for r in got]
+            del eng
+            eng = ServingEngine(engine=ie, **mk)
+        if name in ("overlap", "fused"):
+            with decode_widths() as widths:
+                got, seconds, launched = _serve(
+                    torch, eng, prompts[:NEOX_FUSED_REQUESTS], NEOX_FUSED_NEW)
+            out[f"{name}_widths"] = {f"{k[0]}@{k[1]}": v
+                                     for k, v in widths.items()}
+        else:
+            with decode_widths() as widths:
+                got, seconds, launched = _serve(torch, eng, prompts, n_new)
+            out[f"{name}_widths"] = {f"{k[0]}@{k[1]}": v
+                                     for k, v in widths.items()}
+        m = eng.metrics
+        out[name] = {"tokens": [list(map(int, r.tokens)) for r in got],
+                     "requests": len(got), "n_new": len(got[0].tokens),
+                     "seconds": seconds, "launches": launched,
+                     "steps": m.decode_steps * kw["decode_chunk"],
+                     "chunk_ms": m.mean_decode_chunk_s * 1e3,
+                     "tok_s": sum(len(r.tokens) for r in got) / seconds,
+                     "peak": torch.cuda.max_memory_allocated(dev)}
+        if name in ("dense", "paged") and out[name]["tokens"] != checked:
+            fail(f"phase45: the timed {name} run's tokens differ from the "
+                 f"checked run's")
+        del eng
+        ie.module = base_module
+        torch.cuda.empty_cache()
+    out["errs"] = errs
+    out["L"] = L
+
+
+def tp_rank_main(args) -> int:
+    """One rank of phase 45 or 46 (this script with --tp-rank, --tp-phase):
+    tp 2 over gloo with both ranks on card 0; results as JSON (and tensors
+    as .pt beside it) under --dp-out."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm
+    comm.init_distributed(dist_backend="gloo",
+                          init_method=f"tcp://localhost:{args.dp_port}",
+                          rank=args.tp_rank, world_size=NEOX_TP)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {"rank": comm.get_rank(),
+           "backend": torch.distributed.get_backend()}
+    stem = os.path.splitext(args.dp_out)[0]
+    if args.tp_phase == 45:
+        _tp_rank_serve(torch, np, dev, args.seed, out, stem)
+    else:
+        out["train"] = {
+            "off": _neox_train(torch, np, dev, args.seed, _tp_mesh(torch),
+                               False),
+            "on": _neox_train(torch, np, dev, args.seed, _tp_mesh(torch),
+                              True)}
+    with open(args.dp_out, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tp_rank_serve(torch, np, dev, seed, out, stem):
+    """Phase 45 on one rank: NeoX 20B split at tp 2, its forward, layer 0,
+    the served runs, then the cut depth bf16 and int8."""
+    import copy
+    from deepspeed_tpu_torch import InferenceEngine, ServingEngine
+    from deepspeed_tpu_torch.ops import quantizer as qz
+    group = _tp_mesh(torch)
+    cfg = _neox_cfg(torch, decode_impl="auto")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = _neox_model(torch, cfg, group, seed, dev)
+    ie = InferenceEngine(model, mp_size=NEOX_TP, dtype=torch.bfloat16,
+                         device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["weight_bytes"] = qz.weight_bytes(ie.module)
+    out["build_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["heads"] = ie.module.blocks[0].attn.local_heads
+    # the forward through B1 (44 launches, each held to its plain version)
+    rng = np.random.default_rng(seed + 45)
+    ids = rng.integers(1, cfg.vocab_size, NEOX_IDS).astype(np.int64)
+    errs = {}
+    logits, b1 = _forward_counted(torch, ie, ids, "phase45", cfg.num_layers,
+                                  errs)
+    out["forward"] = {"b1": b1, "err": errs["flash_fwd"],
+                      "loss": _lm_loss(logits, torch.from_numpy(ids).to(dev))}
+    del logits
+    # layer 0 on a fixed input
+    gen = torch.Generator(device=dev).manual_seed(seed + 46)
+    x = torch.randn(*NEOX_BLOCK_IN, cfg.d_model, device=dev,
+                    generator=gen).bfloat16()
+    pos = torch.arange(NEOX_BLOCK_IN[1], device=dev)[None]
+    with torch.inference_mode():
+        y = ie.module.blocks[0](x, pos)[0]
+    torch.save(y.float().cpu(), f"{stem}_block0.pt")
+    prompts = _neox_prompts(np, seed, cfg.vocab_size)
+    kw = dict(max_batch=8, decode_chunk=8, max_prompt_len=128)
+    ServingEngine(engine=ie, megakernel=True, tp=NEOX_TP, **kw).run(
+        [p.copy() for p in prompts[:2]], max_new_tokens=4)    # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    _tp_serve_runs(torch, np, dev, ie, prompts, kw, out)
+    # generate on the first requests: the greedy tokens of one prompt at a
+    # time through the same kernels (decode_impl "auto")
+    out["generate"] = [
+        ie.generate(p[None], max_new_tokens=NEOX_N_NEW, temperature=0.0
+                    )[0, len(p):].tolist() for p in prompts[:NEOX_GENERATE]]
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    # where a run parts from the dense one: the top-2 gap there (both
+    # ranks hold the same tokens, so both run these forwards together)
+    dense = out["dense"]["tokens"]
+    out["partings"] = {}
+    for name in ("overlap", "fused", "generate"):
+        got = out[name] if name == "generate" else out[name]["tokens"]
+        rows = []
+        for p, a, b in zip(prompts, got, dense):
+            t = _first_difference(a, b)
+            rows.append(None if t is None else
+                        (t,) + _near_tie_gap(torch, ie.module, p, b, t, dev))
+        out["partings"][name] = rows
+    del ie, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the cut depth: bf16 logits (against tp 1 in the main process), then
+    # int8 weights quantized whole and split
+    cut = _neox_cfg(torch, NEOX_CUT, decode_impl="auto")
+    cids = np.random.default_rng(seed + 47).integers(
+        1, cut.vocab_size, NEOX_CUT_IDS).astype(np.int64)
+    ie = InferenceEngine(_neox_model(torch, cut, group, seed, dev),
+                         mp_size=NEOX_TP, dtype=torch.bfloat16, device=dev)
+    torch.save(ie.forward(cids)[0, -8:].float().cpu(), f"{stem}_cut.pt")
+    del ie
+    whole = _neox_model(torch, cut, None, seed, dev)
+    ref = qz.quantize_module(copy.deepcopy(whole), dtype=torch.bfloat16,
+                             device=dev, scan_layers=True)
+    ie = InferenceEngine(whole, mp_size=NEOX_TP, dtype=torch.bfloat16,
+                         quantize_bits=8, device=dev)
+    from deepspeed_tpu_torch.runtime.sharding import tp_split
+    mism = 0
+    for name, m in ie.module.named_modules():
+        if isinstance(m, qz.Int8Linear):
+            r = ref.get_submodule(name)
+            for buf in ("q8", "scale"):
+                full = getattr(r, buf)
+                split = tp_split(f"{name}.{buf}", full.shape, NEOX_TP)
+                want = full if split is None else \
+                    split.take(full, group.rank)
+                mism += int(not torch.equal(getattr(m, buf), want))
+    del ref
+    out["int8"] = {"shard_mismatches": mism,
+                   "weight_bytes": qz.weight_bytes(ie.module)}
+    torch.save(ie.forward(cids)[0, -8:].float().cpu(), f"{stem}_int8.pt")
+    eng = ServingEngine(engine=ie, megakernel=True, tp=NEOX_TP, **kw)
+    got, seconds, launched = _serve(torch, eng, prompts[:8], 8)
+    out["int8"].update(tokens=[list(map(int, r.tokens)) for r in got],
+                       launches=launched)
+
+
+def run_tp_ranks(seed, phase):
+    """This script twice more as the two ranks of phase 45 or 46
+    (--tp-rank 0 / 1); their JSON results and the directory of their
+    tensors (removed by the caller)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    d = tempfile.mkdtemp(prefix=f"phase{phase}_")
+    procs, outs = [], []
+    for rank in range(NEOX_TP):
+        env = dict(os.environ, LOCAL_RANK="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--tp-rank", str(rank), "--tp-phase", str(phase),
+             "--dp-port", str(port),
+             "--dp-out", os.path.join(d, f"rank{rank}.json")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase {phase}: the tp ranks outlived {TP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(o[-6000:], flush=True)
+            fail(f"phase {phase} rank {rank} exited {p.returncode}")
+    ranks = []
+    for rank in range(NEOX_TP):
+        with open(os.path.join(d, f"rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    return ranks, d
+
+
+def phase_tp_serving(torch, np, dev, seed, card):
+    """Phase 45: GPT-NeoX 20B at full width and depth, bf16, split at tp 2
+    over two gloo ranks sharing the card (the script re-runs itself with
+    the hidden --tp-rank), each rank building only its shards on the card
+    from --seed. Gates: each rank's weights at rest within NEOX_HALF_RTOL
+    of half the whole model's bytes and its peak below the whole model's;
+    the forward on [2, 1024] launching B1 once a layer, each call held to
+    its plain version; layer 0's tp-2 output on a fixed input within
+    LOGITS_ATOL of the whole layer 0 rebuilt here from the same seed; the
+    width cut to NEOX_CUT layers at tp 2 against tp 1 here (logits,
+    LOGITS_ATOL); phase 4's requests (NEOX_N_NEW tokens) through
+    ServingEngine(tp=2, megakernel=True) dense and paged, one checked run
+    each with every B2 / B3 call and B4 draw held to its plain version,
+    tokens equal on both ranks bitwise, the dense timed run's tokens the
+    checked run's, paged equal to dense, ``generate`` on the first
+    request equal or parting at a near-tie; tp_overlap and the fused
+    engine (C 16) equal or parting at a near-tie; the cut depth with int8
+    weights: each rank's codes and scales bitwise the split of the whole
+    model's quantization, logits within LOGITS_ATOL of tp 1 int8 here,
+    served tokens equal on both ranks. Prints tokens/s, chunk ms and the
+    memory; then B1 at [2, 1024, 32, 96], B2 / B3 at h 32, d 96 (s_q 1
+    and 16) and B4 at [8, 50304] against their plain versions, timed (the
+    *_neox rows)."""
+    import shutil
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.ops import quantizer as qz
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import sampling as sp
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, tmp = run_tp_ranks(seed, 45)
+    try:
+        rows = _check_tp_serving(torch, np, dev, seed, card, ranks, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 45)
+    B, S = NEOX_IDS
+    H, D = 64 // NEOX_TP, 96
+    q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+    fo, fl = fa.flash_attention_forward(q, k, v, True, D ** -0.5)
+    ro, rl = fa.flash_attention_forward_reference(q, k, v, True, D ** -0.5)
+    torch.cuda.synchronize()
+    flash_err = max(_close(fo, ro, *FLASH_TOL), _close(fl, rl, LSE_ATOL, 0.0))
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, ro, rl, do, True,
+                                             D ** -0.5)
+    rdq, rdk, rdv = fa.flash_attention_backward_reference(
+        q, k, v, ro, rl, do, True, D ** -0.5)
+    bwd_err = {"flash_bwd_dq": _close(dq, rdq, *FLASH_TOL),
+               "flash_bwd_dkv": max(_close(dk, rdk, *FLASH_TOL),
+                                    _close(dv, rdv, *FLASH_TOL))}
+    flash_t = _flash_times(torch, fa, q, k, v, do, ro, rl, True)
+    print(f"phase45 flash B={B} S={S} H={H} D={D} causal max_abs_err fwd="
+          f"{flash_err} bwd={bwd_err} " + " ".join(
+              f"{n}:{t}" for n, t in flash_t.items()) + f" card={card}",
+          flush=True)
+    del q, k, v, do, fo, fl, ro, rl, dq, dk, dv, rdq, rdk, rdv
+    case_errs, times = {}, {}
+    for tag, case in (("", NEOX_CASE), ("_sq16", NEOX_SQ16_CASE)):
+        case_errs[tag] = case_parity(torch, da, qz, dev, gen, **case)[0]
+        times[tag] = verify_timing(torch, da, qz, dev, gen, card, **case)
+    sp_t, sp_err = _sampling_time(torch, sp, dev, gen, 8, 50304)
+    print(f"phase45 sampling b=8 V=50304 greedy rows differing from the "
+          f"plain version: {sp_err} " + " ".join(
+              f"{key}={val}" for key, val in sp_t.items())
+          + f" card={card}", flush=True)
+    if sp_err:
+        fail(f"phase45: B4 differs from its plain version in {sp_err} rows")
+    torch.cuda.empty_cache()
+    print(f"phase45 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    errs = rows["errs"]
+    return {"flash_t": flash_t, "flash_err": flash_err, "bwd_err": bwd_err,
+            "rows": [
+                ("flash_fwd_neox", "flash_attention.cu",
+                 "flash_attention.py:52", rows["b1"],
+                 max(flash_err, errs["flash_fwd"]), flash_t["flash_fwd"]),
+                ("decode_attention_neox", "decode_attention.cuh",
+                 "decode_attention.py:74", rows["dense"],
+                 max(case_errs[""]["decode_attention"],
+                     errs["decode_attention"]),
+                 times[""]["decode_attention"]),
+                ("paged_decode_attention_neox", "decode_attention.cuh",
+                 "decode_attention.py:351", rows["paged"],
+                 max(case_errs[""]["paged_decode_attention"],
+                     errs["paged_decode_attention"]),
+                 times[""]["paged_decode_attention"]),
+                ("decode_attention_neox_sq16", "decode_attention.cuh",
+                 "decode_attention.py:74", rows["fused"],
+                 case_errs["_sq16"]["decode_attention"],
+                 times["_sq16"]["decode_attention"]),
+                ("sampling_neox", "sampling.cu", "sampling.py:132",
+                 rows["sampling"], float(sp_err), sp_t)]}
+
+
+def _tp_err(torch, path, ref, what) -> float:
+    """max |got - ref| of the rank's tensor saved at ``path``, failing
+    past LOGITS_ATOL + NEOX_TP_RTOL max |ref|."""
+    diff = (torch.load(path) - ref).abs()
+    if not diff.max().item() <= LOGITS_ATOL + NEOX_TP_RTOL * \
+            ref.abs().max().item():
+        fail(f"phase45 {what}: tp 2 leaves tp 1 by {diff.max().item()}")
+    return diff.max().item()
+
+
+def _check_tp_serving(torch, np, dev, seed, card, ranks, tmp):
+    """Phase 45's gates over the ranks' results, with the tp 1 references
+    built here; returns the launches a row carries and the checked
+    errors."""
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.ops import quantizer as qz
+    half = 2 * NEOX_PARAMS / NEOX_TP
+    for r in ranks:
+        print(f"phase45 rank {r['rank']} ({r['backend']}) tp={NEOX_TP}: "
+              f"{r['heads']} local heads, weights at rest "
+              f"{r['weight_bytes']} B (half the whole {2 * NEOX_PARAMS} B: "
+              f"{half}), built in {r['build_s']} s, build peak "
+              f"{r['build_peak']} B, max_memory_allocated {r['peak']} B "
+              f"card={card}", flush=True)
+        if abs(r["weight_bytes"] - half) > NEOX_HALF_RTOL * half:
+            fail(f"phase45 rank {r['rank']} holds {r['weight_bytes']} B, "
+                 f"not half of {2 * NEOX_PARAMS}")
+        if not max(r["peak"], r["build_peak"]) < 2 * NEOX_PARAMS:
+            fail(f"phase45 rank {r['rank']} peaked at {r['peak']} B, the "
+                 f"whole model's size")
+        f = r["forward"]
+        print(f"phase45 rank {r['rank']} forward {list(NEOX_IDS)}: B1 "
+              f"{f['b1']} launches, each within {f['err']} of its plain "
+              f"version; loss {f['loss']}", flush=True)
+        if not math.isfinite(f["loss"]):
+            fail(f"phase45 rank {r['rank']}: non-finite forward loss")
+    r0, r1 = ranks
+    for key in ("dense", "paged", "overlap", "fused", "generate", "int8"):
+        a = r0[key]["tokens"] if key != "generate" else r0[key]
+        b = r1[key]["tokens"] if key != "generate" else r1[key]
+        if a != b:
+            fail(f"phase45 {key}: the two ranks' tokens differ")
+    if r0["forward"]["loss"] != r1["forward"]["loss"]:
+        fail("phase45: the two ranks' forward losses differ")
+    L = r0["L"]
+    for name in ("dense", "overlap", "fused", "paged"):
+        run = r0[name]
+        steps = run["steps"]
+        width = FUSED_C if name == "fused" else 1
+        kernel = ("paged_decode_attention" if name == "paged"
+                  else "decode_attention")
+        got = run["launches"]
+        print(f"phase45 {name}: launches={got} widths="
+              f"{r0.get(name + '_widths')} steps={steps} "
+              f"neox_tp2_{name}_tokens_per_s={run['tok_s']} "
+              f"mean_chunk_ms={run['chunk_ms']} max_memory_allocated="
+              f"{run['peak']} (L={L}, K=8, batch 8, {run['requests']} "
+              f"requests x {run['n_new']} tokens, rank 0) card={card}",
+              flush=True)
+        if got.get(kernel, 0) != L * steps or not got.get("sampling") \
+                or set(got) - {kernel, "sampling"}:
+            fail(f"phase45 {name}: want {kernel} {L} a step ({steps} "
+                 f"steps) and sampling, nothing else: {got}")
+        if r0[name + "_widths"] != {f"{kernel}@{width}": L * steps}:
+            fail(f"phase45 {name}: decode widths {r0[name + '_widths']}")
+    print(f"phase45 every B1 / B2 / B3 call and B4 draw checked on its own "
+          f"inputs: {r0['errs']}", flush=True)
+    dense = r0["dense"]["tokens"]
+    if r0["paged"]["tokens"] != dense:
+        fail("phase45: the paged engine's tokens differ from the dense "
+             "engine's")
+    # the references, whole, here: layer 0, then the cut depth
+    cfg = _neox_cfg(torch, 1)
+    whole = _neox_model(torch, cfg, None, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 46)
+    x = torch.randn(*NEOX_BLOCK_IN, cfg.d_model, device=dev,
+                    generator=gen).bfloat16()
+    pos = torch.arange(NEOX_BLOCK_IN[1], device=dev)[None]
+    with torch.inference_mode():
+        want = whole.blocks[0](x, pos)[0].float().cpu()
+    del whole
+    errs = {r: _tp_err(torch, os.path.join(tmp, f"rank{r}_block0.pt"),
+                       want, "layer 0") for r in range(NEOX_TP)}
+    print(f"phase45 layer 0 at tp 2 vs whole layer 0 rebuilt here, input "
+          f"{list(NEOX_BLOCK_IN)} x {cfg.d_model}: max_abs_err {errs} (tol "
+          f"{LOGITS_ATOL} + {NEOX_TP_RTOL} max |ref|, max |ref| "
+          f"{want.abs().max().item()})", flush=True)
+    cut = _neox_cfg(torch, NEOX_CUT, decode_impl="auto")
+    cids = np.random.default_rng(seed + 47).integers(
+        1, cut.vocab_size, NEOX_CUT_IDS).astype(np.int64)
+    ref = {}
+    ie = InferenceEngine(_neox_model(torch, cut, None, seed, dev),
+                         dtype=torch.bfloat16, device=dev)
+    ref["cut"] = ie.forward(cids)[0, -8:].float().cpu()
+    del ie
+    ie = InferenceEngine(_neox_model(torch, cut, None, seed, dev),
+                         dtype=torch.bfloat16, quantize_bits=8, device=dev)
+    ref["int8"] = ie.forward(cids)[0, -8:].float().cpu()
+    del ie
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("cut", "int8"):
+        e = [_tp_err(torch, os.path.join(tmp, f"rank{r}_{key}.pt"),
+                     ref[key], f"{key} logits") for r in range(NEOX_TP)]
+        print(f"phase45 {key} ({NEOX_CUT} layers) tp 2 vs tp 1 logits, last "
+              f"8 positions of {list(NEOX_CUT_IDS)}: max_abs_err {e} (tol "
+              f"{LOGITS_ATOL} + {NEOX_TP_RTOL} max |ref|, max |ref| "
+              f"{ref[key].abs().max().item()})", flush=True)
+    i8 = r0["int8"]
+    print(f"phase45 int8 ({NEOX_CUT} layers) tp 2: shard mismatches "
+          f"{[r['int8']['shard_mismatches'] for r in ranks]}, weights at "
+          f"rest {i8['weight_bytes']} B a rank, served launches "
+          f"{i8['launches']} card={card}", flush=True)
+    if any(r["int8"]["shard_mismatches"] for r in ranks):
+        fail("phase45: an int8 shard is not the split of the whole "
+             "model's quantization")
+    if not i8["launches"].get("decode_attention"):
+        fail(f"phase45 int8: launches {i8['launches']}")
+    for name, rows in r0["partings"].items():
+        print(f"phase45 {name} tokens vs the dense engine's: (parting "
+              f"position, top-2 gap, tie bound) {rows}", flush=True)
+        for row in rows:
+            if row is not None and not row[1] <= row[2]:
+                fail(f"phase45 {name}: tokens part from the dense engine's "
+                     f"at {row[0]} with top-2 gap {row[1]} > {row[2]}")
+    return {"errs": dict(r0["errs"], flash_fwd=max(
+                r["forward"]["err"] for r in ranks)),
+            "b1": r0["forward"]["b1"],
+            "dense": r0["dense"]["launches"]["decode_attention"],
+            "paged": r0["paged"]["launches"]["paged_decode_attention"],
+            "fused": r0["fused"]["launches"]["decode_attention"],
+            "sampling": r0["dense"]["launches"]["sampling"]}
+
+
+def _neox_train(torch, np, dev, seed, group, partition):
+    """Phase 46's run: NeoX 20B's width cut to NEOX_CUT layers (f32 masters
+    made on the card from --seed, whole, then split by the engine over
+    ``group``'s tp when it is given), NEOX_TRAIN_STEPS steps of
+    NEOX_TRAIN_CONFIG on seq-1024 batches from the seed; with
+    ``partition``, activation_checkpointing.partition_activations, on one
+    repeated batch from the seed. Returns
+    losses, grad norms, B1 / B1b launches a step, step seconds, peak."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    cfg = _neox_cfg(torch, NEOX_CUT, param_dtype=torch.float32)
+    config = dict(NEOX_TRAIN_CONFIG)
+    if group is not None:
+        config["mesh"] = {"tp": NEOX_TP}
+    if partition:
+        config["activation_checkpointing"] = {"partition_activations": True}
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine, *_ = dst.initialize(
+        model=_neox_model(torch, cfg, None, seed, dev), loss_fn=lm_loss_fn,
+        config=config, device=dev)
+    # one repeated batch (as phase 43): random tokens teach nothing a
+    # fresh batch would show, so a falling loss needs the same one
+    ids = np.random.default_rng(seed + 48).integers(
+        0, cfg.vocab_size, (NEOX_TRAIN_MICRO, cfg.max_seq_len))
+    losses, norms, step_s = [], [], []
+    launches = []
+    for step in range(NEOX_TRAIN_STEPS):
+        batch = [{"input_ids": ids}] * NEOX_TRAIN_GAS
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(iter(batch))))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append({name: _build.LAUNCHES[name] for name in FLASH})
+        norms.append(float(engine.get_global_grad_norm()))
+    out = {"losses": losses, "norms": norms, "step_s": step_s,
+           "launches": launches, "tp": engine.mp_world_size,
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_training(torch, np, dev, seed, card):
+    """Phase 46: NeoX 20B's width cut to NEOX_CUT layers, trained (seq
+    1024, micro 2 x gas 2, bf16 over fp32 masters, AdamW, ZeRO-1, remat)
+    at tp 1 here, then at mesh {"tp": 2} on two gloo ranks sharing the card
+    (the script re-runs itself with --tp-rank), without and with
+    partition_activations. Gates: every step's B1 / B1b launches (2 x
+    layers x gas forwards, the remat recompute included, and layers x gas
+    of each backward), the tp 2 losses equal on both ranks and within
+    LOSS_ATOL of tp 1's, partition_activations' within LOSS_ATOL of off,
+    and falling. Returns rank 0's launches a step."""
+    import shutil
+    t_phase = time.perf_counter()
+    ref = _neox_train(torch, np, dev, seed, None, False)
+    ranks, tmp = run_tp_ranks(seed, 46)
+    shutil.rmtree(tmp, ignore_errors=True)
+    want = {"flash_fwd": 2 * NEOX_CUT * NEOX_TRAIN_GAS,
+            "flash_bwd_dq": NEOX_CUT * NEOX_TRAIN_GAS,
+            "flash_bwd_dkv": NEOX_CUT * NEOX_TRAIN_GAS}
+    runs = [("tp1", ref)] + [
+        (f"tp2 rank {r['rank']} partition_activations={key}", r["train"][key])
+        for r in ranks for key in ("off", "on")]
+    for name, run in runs:
+        print(f"phase46 neox width x {NEOX_CUT} layers {name}: losses="
+              f"{run['losses']} grad_norms={run['norms']} step_s="
+              f"{run['step_s']} launches={run['launches'][-1]} "
+              f"max_memory_allocated={run['peak']} card={card}", flush=True)
+        if any(step != want for step in run["launches"]):
+            fail(f"phase46 {name}: launches {run['launches']}, want {want} "
+                 f"a step")
+        if not all(math.isfinite(x) for x in run["losses"]) or \
+                not run["losses"][-1] < run["losses"][0]:
+            fail(f"phase46 {name}: losses {run['losses']} not falling")
+        if not np.allclose(run["losses"], ref["losses"], rtol=0,
+                           atol=LOSS_ATOL):
+            fail(f"phase46 {name}: losses leave tp 1's by more than "
+                 f"{LOSS_ATOL}")
+    for key in ("off", "on"):
+        if ranks[0]["train"][key]["losses"] != \
+                ranks[1]["train"][key]["losses"]:
+            fail(f"phase46: the two tp ranks' losses differ ({key})")
+    print(f"phase46 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    return ranks[0]["train"]["off"]["launches"][-1]
 
 
 ROWWISE = ("layer_norm_fwd", "layer_norm_dx", "bias_gelu_fwd",
@@ -6025,6 +6702,11 @@ def main(argv=None) -> int:
     # one rank of phase 44
     ap.add_argument("--ep-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
+    # one rank of phase 45 or 46
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-phase", type=int, default=45,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -6036,6 +6718,8 @@ def main(argv=None) -> int:
         return dp_rank_main(args)
     if args.ep_rank is not None:
         return ep_rank_main(args)
+    if args.tp_rank is not None:
+        return tp_rank_main(args)
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -6101,6 +6785,9 @@ def main(argv=None) -> int:
                             card)
     moe_train = phase_moe_training(torch, np, dev, args.seed, card)
     launches_ep = phase_ep(torch, np, dev, args.seed, card)
+    torch.cuda.empty_cache()
+    neox = phase_tp_serving(torch, np, dev, args.seed, card)
+    neox_train = phase_tp_training(torch, np, dev, args.seed, card)
     torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
@@ -6294,6 +6981,19 @@ def main(argv=None) -> int:
          "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
          "launches": moe_train["launches"][name],
          "max_abs_err": moe_train["errs"][name], **moe_train["times"][name]}
+        for name, line in (("flash_bwd_dq", 140), ("flash_bwd_dkv", 175))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"deepspeed_tpu_torch/ops/cuda/csrc/{source}",
+         "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+         "launches": launched, "tp": NEOX_TP, "max_abs_err": err, **times}
+        for name, source, replaces, launched, err, times in neox["rows"]
+    ] + [
+        {"name": f"{name}_neox", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+         "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": neox_train[name], "tp": NEOX_TP,
+         "max_abs_err": neox["bwd_err"][name], **neox["flash_t"][name]}
         for name, line in (("flash_bwd_dq", 140), ("flash_bwd_dkv", 175))
     ] + [
         {"name": "sampling_filter", "route": "cuda",

@@ -20,6 +20,11 @@ for ``deepspeed_tpu_torch.models.gpt.GPT`` with the same config:
     (weights [E, out, in]); a residual MoE's ``moe/mlp/inner`` and
     ``moe/coefficient`` Denses become ``moe.mlp`` and ``moe.coefficient``.
 
+``jax_params_to_tp_state_dict`` gives tp rank r's ``state_dict`` of the
+same tree: each leaf that ``runtime.sharding.tp_split`` splits becomes the
+rank's shard (a fused ``qkv``'s heads of each third), the rest stays whole;
+it loads into a model split by ``models.gpt.set_tensor_parallel``.
+
 ``jax_params_to_state_dict`` serves every ``attention_impl`` ("sparse"
 adds no parameter). ``bert_params_to_state_dict`` maps the trees of
 ``deepspeed_tpu.models.bert.BertModel`` and ``BertForMaskedLM`` the same
@@ -119,6 +124,21 @@ def jax_params_to_state_dict(params_np: Mapping[str, Any],
         out["lm_head.weight"] = np.asarray(
             params_np["lm_head"]["kernel"]).T
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def jax_params_to_tp_state_dict(params_np: Mapping[str, Any],
+                                cfg: GPTConfig, tp: int,
+                                rank: int) -> Dict[str, torch.Tensor]:
+    """Tp rank ``rank``'s ``state_dict`` of the TPU GPT ``params_np`` at
+    ``tp`` ranks (:func:`jax_params_to_state_dict`, then each split leaf's
+    shard)."""
+    from .runtime.sharding import tp_split
+    out = {}
+    for name, t in jax_params_to_state_dict(params_np, cfg).items():
+        split = tp_split(name, t.shape, tp)
+        out[name] = t if split is None else \
+            split.take(t, rank).contiguous()
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

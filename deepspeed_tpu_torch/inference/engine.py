@@ -1,6 +1,7 @@
-"""Inference engine: KV-cached generation on one device, or over ep ranks.
+"""Inference engine: KV-cached generation on one device, or over tp or ep
+ranks.
 
-Counterpart of ``deepspeed_tpu/inference/engine.py`` at tp=1.
+Counterpart of ``deepspeed_tpu/inference/engine.py``.
 The engine takes its weights from ``model_parameters`` (a ``state_dict``),
 a ``checkpoint`` written by the port's ``save_checkpoint``, or the module
 itself; applies an ``injection_policy`` to that ``state_dict``; casts the
@@ -12,10 +13,19 @@ dequantized just before its matmul, one at a time); moves the model to
 
 It takes the TPU engine's whole parameter list. ``config``, ``max_tokens``
 and ``replace_with_kernel_inject`` are read by neither engine and are taken
-at any value; ``replace_method="auto"`` (the TPU engine's policy-free
-auto-TP) shards nothing at one device and is taken; ``quantize_mode`` keeps
-the TPU engine's ``ValueError``s; ``mp_size`` away from 1 raises
-``NotImplementedError`` naming its ROADMAP item (:data:`NOT_PORTED_KNOBS`).
+at any value; ``quantize_mode`` keeps the TPU engine's ``ValueError``s.
+
+``mp_size`` (tensor parallelism) lays the world out as a mesh with that tp
+axis (tp partners are consecutive ranks; the rest of the world is dp):
+each rank keeps its shard of the model, by the TPU package's ``tp_spec``
+(``models.gpt.set_tensor_parallel``) or, under ``replace_method="auto"``,
+by the policy-free classification (``module_inject.auto_tp``; at one rank
+it splits nothing). The model is given whole and split here, after the
+int8 quantization (a row-split shard's scales are its whole columns'), or
+given already split at ``mp_size`` (``models.gpt.init_tp_shards``: a model
+too large to build whole). Every tp rank is given the same inputs and
+returns the same whole logits and tokens. An MoE model, or ``mp_size`` and
+``ep_size`` both above 1, raise naming ROADMAP A9.
 
 ``ep_size`` (an MoE model) lays the world out as a mesh with that ep axis
 (``parallel/mesh.py``; the world must be a multiple of it): each rank
@@ -38,6 +48,8 @@ import torch
 
 from ..checkpoint import saving as ckpt_saving
 from ..comm import comm
+from ..models.gpt import GPT, set_tensor_parallel
+from ..module_inject.auto_tp import auto_tp
 from ..moe.layer import moe_layers, set_expert_parallel
 from ..ops.quantizer import quantize_module
 from ..parallel import mesh as mesh_lib
@@ -45,11 +57,6 @@ from ..runtime.engine import _not_ported
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 
-# The TPU engine's knobs this port does not have yet: name -> (the TPU
-# engine's default, the ROADMAP item that ports it).
-NOT_PORTED_KNOBS = {
-    "mp_size": (1, "A9"),
-}
 
 
 class InferenceEngine:
@@ -93,15 +100,15 @@ class InferenceEngine:
         if quantize_bits not in (None, 8):
             raise ValueError(f"quantize_bits={quantize_bits!r}: the engine "
                              f"quantizes weights to 8 bits only")
-        given = dict(mp_size=mp_size)
-        for name, (default, item) in NOT_PORTED_KNOBS.items():
-            if given[name] != default:
-                raise _not_ported(
-                    f"InferenceEngine({name}={given[name]!r})", item)
         self.device = resolve_device(device)
         self.ep_world_size = int(ep_size)
-        if self.ep_world_size > 1:
+        self.mp_world_size = int(mp_size)
+        if self.mp_world_size > 1 and self.ep_world_size > 1:
+            raise _not_ported(f"mp_size={mp_size} with ep_size={ep_size}",
+                              "A9")
+        if self.ep_world_size > 1 or self.mp_world_size > 1:
             comm.init_distributed(device=self.device)
+        self.mesh = self.tp_group = None
         if model_parameters is None and checkpoint is not None:
             model_parameters = self._load_checkpoint(checkpoint)
         if injection_policy is not None:
@@ -118,16 +125,54 @@ class InferenceEngine:
                               "expert banks and the gate)", "A9")
         if self.ep_world_size > 1:
             self._shard_experts(model)
+        presplit = getattr(model, "tp_size", 1) > 1
+        if presplit and model.tp_size != self.mp_world_size:
+            raise ValueError(f"the model is split over tp={model.tp_size}, "
+                             f"the engine's mp_size is {mp_size}")
         if self.quantized:
+            if presplit:
+                raise ValueError(
+                    "quantize_bits=8 over a model split already: the int8 "
+                    "scales are the whole columns', so quantize whole "
+                    "weights (give the model whole)")
             cfg = getattr(model, "cfg", None)
             quantize_module(model, mode=quantize_mode, dtype=dtype,
                             device=self.device,
                             scan_layers=getattr(cfg, "scan_layers", False))
+        if self.mp_world_size > 1:
+            self._build_mesh()
+            if not presplit:
+                self._split_tp(model, replace_method == "auto")
         self.module = model.to(device=self.device, dtype=dtype).eval()
         self.dtype = dtype
         log_dist(f"inference engine ready: device={self.device} "
-                 f"dtype={dtype} ep={self.ep_world_size} "
-                 f"quantized={self.quantized}", ranks=[0])
+                 f"dtype={dtype} tp={self.mp_world_size} "
+                 f"ep={self.ep_world_size} quantized={self.quantized}",
+                 ranks=[0])
+
+    def _build_mesh(self) -> None:
+        """The world laid out with the engine's tp and ep axes (the rest
+        dp), and this rank's tp group."""
+        self.mesh = mesh_lib.ensure_global_mesh(mesh_lib.MeshShape.infer(
+            comm.get_world_size(), tp=self.mp_world_size,
+            ep=self.ep_world_size))
+        self.tp_group = comm.new_group("tp", self.mesh)
+
+    def _split_tp(self, model, auto: bool) -> None:
+        """This rank's tp shard of the whole ``model``: by classification
+        under ``replace_method="auto"``, else by ``tp_spec`` (a GPT)."""
+        if moe_layers(model):
+            raise _not_ported(f"an MoE model at mp_size="
+                              f"{self.mp_world_size}", "A9")
+        if auto:
+            auto_tp(model, self.tp_group)
+            return
+        if not hasattr(model, "cfg") or not isinstance(model, GPT):
+            raise ValueError(
+                f"mp_size={self.mp_world_size} splits a GPT by its tp_spec; "
+                f"pass replace_method='auto' to split a "
+                f"{type(model).__name__} by classification")
+        set_tensor_parallel(model, self.tp_group)
 
     def _shard_experts(self, model) -> None:
         """The ep mesh over the world; each MoE layer keeps this rank's
@@ -140,8 +185,7 @@ class InferenceEngine:
                 f"ep_size={ep} sharded no parameter: the model has no "
                 f"expert banks whose expert dim divides by {ep} (check "
                 f"num_experts % ep_size == 0, or drop ep_size)")
-        self.mesh = mesh_lib.ensure_global_mesh(
-            mesh_lib.MeshShape.infer(comm.get_world_size(), ep=ep))
+        self._build_mesh()
         set_expert_parallel(model, comm.new_group("ep", self.mesh))
 
     def _ids(self, input_ids) -> torch.Tensor:

@@ -13,6 +13,12 @@ their plain versions on a CPU tensor), bidirectional, with the padded
 blocks with ``SparseAttentionUtils.pad_to_block_size`` first. "xla" is the
 masked einsum (mask -1e10, probabilities cast to ``dtype``). The large
 projections, the LayerNorms and GELU stay torch ops.
+
+Split over tp by ``module_inject.auto_tp`` (``InferenceEngine(mp_size=n,
+replace_method="auto")``), a layer runs this rank's heads (its thirds of
+the fused ``qkv``) and the split Linears and embeddings carry their own
+collectives (``module_inject/layers.py``); the MLM decoder's logits are
+gathered whole.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..module_inject.layers import embedding, gather_from_tp
 from ..ops.sparse_attention.sparse_self_attention import sparse_attention
-from .gpt import _layer_norm, _linear, init_weights, layer_norm, linear
+from .gpt import (_layer_norm, _linear, _tp_group, init_weights, layer_norm,
+                  linear)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,28 +84,40 @@ def bert_large(**kw) -> BertConfig:
 def bert_embed(cfg: BertConfig, p, input_ids, token_type_ids=None
                ) -> torch.Tensor:
     """Word, position and token-type embeddings and their LayerNorm, the
-    encoder's input, from the ``BertModel`` tensors ``p`` by name."""
+    encoder's input, from the ``BertModel`` tensors ``p`` by name (an
+    embedding table may be given as its module: a tp-split one)."""
     dt = cfg.dtype
     s = input_ids.shape[1]
-    x = F.embedding(input_ids, p["wte.weight"].to(dt))
+    x = embedding(input_ids, p["wte.weight"], dt)
     x = x + p["wpe"][None, :s].to(dt)
     if cfg.type_vocab_size:
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = x + F.embedding(token_type_ids, p["wtt.weight"].to(dt))
+        x = x + embedding(token_type_ids, p["wtt.weight"], dt)
     return layer_norm(x, p["ln_emb.weight"], p["ln_emb.bias"],
                       cfg.layer_norm_eps, dt)
 
 
 def mlm_head(cfg: BertConfig, p, x) -> torch.Tensor:
     """The MLM head over the encoder's output, from the
-    ``BertForMaskedLM`` tensors ``p`` by name: logits [B, S, V]."""
+    ``BertForMaskedLM`` tensors ``p`` by name: logits [B, S, V]. A
+    ``"decoder"`` module in ``p`` (a tp-split one) replaces its tensors;
+    its logits are gathered whole."""
     dt = cfg.dtype
     h = F.gelu(linear(x, p["transform.weight"], p["transform.bias"], dt),
                approximate="none")
     h = layer_norm(h, p["ln_head.weight"], p["ln_head.bias"],
                    cfg.layer_norm_eps, dt)
+    decoder = p.get("decoder")
+    if decoder is not None:
+        return gather_from_tp(_linear(h, decoder, dt), _tp_group(decoder))
     return linear(h, p["decoder.weight"], p["decoder.bias"], dt)
+
+
+def _table(emb: nn.Embedding):
+    """An embedding's table for :func:`bert_embed`: the weight, or the
+    module itself when it is split over tp."""
+    return emb if getattr(emb, "tp", None) is not None else emb.weight
 
 
 def _norm(cfg: BertConfig, device) -> nn.LayerNorm:
@@ -120,9 +140,11 @@ class BertSelfAttention(nn.Module):
         """x [B, S, D]; ``attention_mask`` [B, S] bool (True = attend)."""
         cfg = self.cfg
         b, s, _ = x.shape
+        # this rank's heads: all of them, or num_heads / tp under tp
+        h = self.qkv.out_features // (3 * cfg.head_dim)
         qkv = _linear(x, self.qkv, cfg.dtype)
-        q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim)
-                   for t in qkv.split(cfg.d_model, -1))
+        q, k, v = (t.reshape(b, s, h, cfg.head_dim)
+                   for t in qkv.split(h * cfg.head_dim, -1))
         scale = 1.0 / math.sqrt(cfg.head_dim)
         if cfg.attention_impl == "sparse":
             out = sparse_attention(q, k, v, cfg.sparse_attention,
@@ -135,7 +157,7 @@ class BertSelfAttention(nn.Module):
                                      logits, -1e10)
             probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return _linear(out.reshape(b, s, cfg.d_model), self.out_proj,
+        return _linear(out.reshape(b, s, h * cfg.head_dim), self.out_proj,
                        cfg.dtype)
 
 
@@ -191,11 +213,11 @@ class BertModel(nn.Module):
         init_weights(self, generator, std)
 
     def _embedding_params(self):
-        p = {"wte.weight": self.wte.weight, "wpe": self.wpe,
+        p = {"wte.weight": _table(self.wte), "wpe": self.wpe,
              "ln_emb.weight": self.ln_emb.weight,
              "ln_emb.bias": self.ln_emb.bias}
         if self.cfg.type_vocab_size:
-            p["wtt.weight"] = self.wtt.weight
+            p["wtt.weight"] = _table(self.wtt)
         return p
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -242,7 +264,9 @@ class BertForMaskedLM(nn.Module):
                 deterministic: bool = True):
         x, _ = self.bert(input_ids, token_type_ids, attention_mask,
                          deterministic)
-        return mlm_head(self.cfg, {
-            f"{m}.{k}": getattr(getattr(self, m), k)
-            for m in ("transform", "ln_head", "decoder")
-            for k in ("weight", "bias")}, x)
+        p = {f"{m}.{k}": getattr(getattr(self, m), k)
+             for m in ("transform", "ln_head", "decoder")
+             for k in ("weight", "bias")}
+        if getattr(self.decoder, "tp", None) is not None:
+            p["decoder"] = self.decoder
+        return mlm_head(self.cfg, p, x)

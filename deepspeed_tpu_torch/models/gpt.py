@@ -37,6 +37,21 @@ shape a kernel does not take (head dim, dtype, block size) raises; every
 query width is taken. The large projections, the loss and the LayerNorms
 stay torch ops.
 
+Tensor parallelism (:func:`set_tensor_parallel`, or
+:func:`init_tp_shards` for a model too large to build whole): each rank
+keeps its shard of every Linear and of the token embedding by the TPU
+package's ``tp_spec`` (``runtime/sharding.py``), and the collectives are
+explicit (``module_inject/layers.py``): ``SelfAttention`` runs this rank's
+``num_heads / tp`` heads (its q, k and v thirds of the fused ``qkv``),
+``MLP`` a column then a row Linear, each row output reduced before the
+residual add (a NeoX block reduces both branches; ``cfg.tp_overlap`` splits
+the attention's reduce around the MLP GEMM in decode, ``ops/tp_overlap.py``),
+``wte`` and an untied ``lm_head`` are vocab-parallel and the logits are
+gathered whole on every rank. The KV cache a decode step reads holds this
+rank's heads. Under ``cfg.partition_activations`` with ``remat`` each
+block's saved input is this rank's ``S / tp`` rows, gathered again before
+its recompute (:class:`PartitionedCheckpoint`).
+
 Under ``cfg.moe`` every block's MLP is a Mixture-of-Experts layer
 (``moe/layer.py``), as in the TPU model: the training forward
 (``deterministic=False``) gates at ``moe_capacity_factor`` with the draws
@@ -52,12 +67,20 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import zlib
 from typing import Any, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
+
+from ..module_inject.layers import (copy_to_tp, embedding, gather_from_tp,
+                                    reduce_from_tp, scatter_to_tp,
+                                    shard_by_tp_spec, shard_module_,
+                                    tp_kind, tp_linear, tp_partial)
+from ..ops.tp_overlap import defer_attn_allreduce, overlap_supported
+from ..utils.logging import logger
 
 from ..ops.cuda.decode_attention import (decode_attention,
                                          masked_cache_attention,
@@ -68,7 +91,9 @@ from ..ops.quantizer import dequantize_kv, quantize_kv
 from ..moe.layer import MoE
 from ..ops.sparse_attention.sparse_self_attention import sparse_attention
 from ..runtime.activation_checkpointing import (HostCheckpoints,
-                                                offloaded_checkpoint)
+                                                offloaded_checkpoint,
+                                                partitionable,
+                                                partitioned_checkpoint)
 
 aten = torch.ops.aten
 
@@ -97,13 +122,15 @@ class GPTConfig:
     window). ``cpu_checkpointing`` (with ``remat``)
     keeps each block's input in page-locked host memory instead of on the
     device (:func:`offloaded_checkpoint`). ``kv_cache_dtype`` is
-    "auto" (the cache in ``dtype``) or "int8".
+    "auto" (the cache in ``dtype``) or "int8". ``tp_overlap`` (parallel
+    residual only) splits the attention's tp reduce around the MLP GEMM in
+    decode; ``partition_activations`` keeps a tp rank's ``S / tp`` rows of
+    each remat-saved block input. Both do nothing at tp 1.
     ``attention_impl="sparse"`` needs a ``sparse_attention`` SparsityConfig
     (the port's own, ``ops/sparse_attention``) and ``sparse_attention`` is
     read only under it. ``remat``/``remat_policy`` checkpoint each block of the
     training forward; ``dropout`` is unused, as in the TPU model; the scan
-    knobs and ``partition_activations`` (a tp sharding constraint) have no
-    effect on one device."""
+    knobs have no effect."""
     vocab_size: int = 50304
     max_seq_len: int = 1024
     num_layers: int = 12
@@ -189,12 +216,14 @@ class GPTConfig:
                 raise NotImplementedError(
                     "cpu_checkpointing of MoE blocks: not ported to PyTorch "
                     "yet (ROADMAP A9)")
-        later = {"sequence_parallel": self.sequence_parallel,
-                 "tp_overlap": self.tp_overlap}
-        on = [name for name, flag in later.items() if flag]
-        if on:
+        if self.tp_overlap and not self.parallel_residual:
+            raise ValueError(
+                "tp_overlap hides the attention all-reduce behind the "
+                "parallel-residual MLP gemm; it requires "
+                "parallel_residual=True")
+        if self.sequence_parallel:
             raise NotImplementedError(
-                f"{', '.join(on)}: not ported to PyTorch yet (ROADMAP A9)")
+                "sequence_parallel: not ported to PyTorch yet (ROADMAP A9)")
 
     @property
     def head_dim(self) -> int:
@@ -291,20 +320,30 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
+    """``layer`` on ``x`` in ``dtype``; a tensor-parallel layer (a ``tp``
+    tag) with its collectives."""
+    if getattr(layer, "tp", None) is not None:
+        return tp_linear(x, layer, dtype)
     return linear(x, layer.weight, layer.bias, dtype)
+
+
+def _tp_group(layer: nn.Module):
+    info = getattr(layer, "tp", None)
+    return None if info is None else info.group
 
 
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
     return layer_norm(x, layer.weight, layer.bias, layer.eps, dtype)
 
 
-def embed_tokens(cfg: GPTConfig, wte: torch.Tensor,
-                 wpe: Optional[torch.Tensor], input_ids: torch.Tensor,
+def embed_tokens(cfg: GPTConfig, wte, wpe: Optional[torch.Tensor],
+                 input_ids: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """Token (and, without rotary, learned position) embeddings in the
-    compute dtype: the trunk's input."""
+    compute dtype: the trunk's input. ``wte`` is the table or its
+    ``nn.Embedding`` (a vocab-parallel one under tp)."""
     dt = cfg.dtype
-    x = F.embedding(input_ids, wte.to(dt))
+    x = embedding(input_ids, wte, dt)
     if not cfg.rotary:
         x = x + wpe[positions].to(dt)
     return x
@@ -446,9 +485,15 @@ class SelfAttention(nn.Module):
         self.scale = (cfg.qk_scale if cfg.qk_scale is not None
                       else 1.0 / math.sqrt(cfg.head_dim))
 
+    @property
+    def local_heads(self) -> int:
+        """This rank's heads: all of them, or ``num_heads / tp`` under tp
+        (its third of the fused ``qkv``'s output features each)."""
+        return self.qkv.out_features // (3 * self.cfg.head_dim)
+
     def forward(self, x, positions, kv=None, cache_index=None,
                 decode_impl=None, attention_impl=None,
-                paged: Optional[PagedStep] = None):
+                paged: Optional[PagedStep] = None, partial: bool = False):
         """x [b, s, D]. Without ``kv``: causal attention over x itself,
         through :func:`causal_attention` with ``attention_impl`` (training)
         or, when that is None, the masked einsum (prefill; under the int8
@@ -460,12 +505,14 @@ class SelfAttention(nn.Module):
         None, or the int8 cache's f32 [b, S] / [nb + 1, bs] views.
         Returns (out [b, s, D], k, v [b, s, h*d]); under the int8 cache's
         prefill k and v are (int8 payload [b, s, h*d], f32 scale [b, s])
-        pairs."""
+        pairs. Under tp the heads and k/v are this rank's, and ``partial``
+        returns the out projection's partial product, unreduced and without
+        its bias (the caller reduces it: ``tp_overlap``)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        h, d = cfg.num_heads, cfg.head_dim
+        h, d = self.local_heads, cfg.head_dim
         qkv = _linear(x, self.qkv, cfg.dtype)
-        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(cfg.d_model, -1))
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, -1))
         if cfg.rotary:
             rd = int(cfg.rotary_pct * d)
             q = rotary_embedding(q, positions, rd)
@@ -475,13 +522,14 @@ class SelfAttention(nn.Module):
                                    impl=attention_impl, scale=self.scale,
                                    sparse_config=cfg.sparse_attention,
                                    window=self.window)
-            return _linear(out.reshape(b, s, cfg.d_model), self.out_proj,
-                           cfg.dtype), k, v
+            return self._project(out.reshape(b, s, h * d), partial), k, v
         k, v = k.reshape(b, s, h * d), v.reshape(b, s, h * d)
         if kv is None:
             kr, vr = k, v
             if cfg.kv_cache_dtype == "int8":
-                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                group = _tp_group(self.out_proj)
+                (kq, ks), (vq, vs) = (quantize_kv(k, group),
+                                      quantize_kv(v, group))
                 kr = dequantize_kv(kq, ks, cfg.dtype)
                 vr = dequantize_kv(vq, vs, cfg.dtype)
                 k, v = (kq, ks[..., 0]), (vq, vs[..., 0])
@@ -492,7 +540,9 @@ class SelfAttention(nn.Module):
             ck, cv, ksc, vsc = kv
             writes = [(ck, k), (cv, v)]
             if ksc is not None:
-                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                group = _tp_group(self.out_proj)
+                (kq, ks), (vq, vs) = (quantize_kv(k, group),
+                                      quantize_kv(v, group))
                 writes = [(ck, kq), (cv, vq), (ksc, ks[..., 0]),
                           (vsc, vs[..., 0])]
             for cache, new in writes:
@@ -503,9 +553,12 @@ class SelfAttention(nn.Module):
             out = self._decode_attention(
                 q, ck, cv, cache_index, decode_impl or cfg.decode_impl,
                 None if paged is None else paged.tables, ksc, vsc)
-        out = _linear(out.reshape(b, s, cfg.d_model), self.out_proj,
-                      cfg.dtype)
-        return out, k, v
+        return self._project(out.reshape(b, s, h * d), partial), k, v
+
+    def _project(self, out: torch.Tensor, partial: bool) -> torch.Tensor:
+        if partial:
+            return tp_partial(out, self.out_proj, self.cfg.dtype)
+        return _linear(out, self.out_proj, self.cfg.dtype)
 
     def _decode_attention(self, q, ck, cv, cur, impl, block_tables=None,
                           k_scale=None, v_scale=None):
@@ -548,9 +601,13 @@ class MLP(nn.Module):
         self.up_proj = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
         self.down_proj = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
 
-    def forward(self, x):
+    def forward(self, x, partial: bool = False):
+        """``partial``: under tp, the down projection's partial product,
+        unreduced and without its bias (the caller reduces it)."""
         dt = self.cfg.dtype
         h = F.gelu(_linear(x, self.up_proj, dt), approximate="tanh")
+        if partial:
+            return tp_partial(h, self.down_proj, dt)
         return _linear(h, self.down_proj, dt)
 
 
@@ -591,8 +648,29 @@ class Block(nn.Module):
                 deterministic=True, draws=None):
         """Returns (out, k, v, l_aux): l_aux is None for a dense block."""
         dt = self.cfg.dtype
+        group = _tp_group(self.attn.out_proj)
+        # a NeoX block split over tp reduces its two branches' partial
+        # products together, once (Megatron's gpt_j_residual); in decode
+        # under tp_overlap the attention's reduce runs under the MLP GEMM
+        split = self.cfg.parallel_residual and group is not None \
+            and not self.cfg.moe
+        overlap = (split and self.cfg.tp_overlap and kv is not None
+                   and overlap_supported(x, group))
         a, k, v = self.attn(_layer_norm(x, self.ln_1, dt), positions, kv,
-                            cache_index, decode_impl, attention_impl, paged)
+                            cache_index, decode_impl, attention_impl, paged,
+                            partial=split)
+        if split:
+            h = _layer_norm(x, self.ln_2, dt)
+            b_attn = self.attn.out_proj.bias.to(dt)
+            if overlap:
+                pending = defer_attn_allreduce(a, group)
+                f = self.mlp(h)
+                out = x + (pending.wait() + b_attn + f)
+            else:
+                f = self.mlp(h, partial=True)
+                out = x + (reduce_from_tp(a + f, group)
+                           + (b_attn + self.mlp.down_proj.bias.to(dt)))
+            return out, k, v, None
         if self.cfg.parallel_residual:
             # NeoX: x + attn(ln1(x)) + ffn(ln2(x))
             f, aux = self._ffn(_layer_norm(x, self.ln_2, dt), deterministic,
@@ -644,14 +722,35 @@ class GPT(nn.Module):
         from ..runtime.pipe.spmd import gpt_pipe_spec
         return gpt_pipe_spec(self, loss_fn)
 
+    @property
+    def tp_group(self):
+        """The tp group this model is split over (None: whole)."""
+        return _tp_group(self.wte)
+
+    @property
+    def tp_size(self) -> int:
+        group = self.tp_group
+        return 1 if group is None else group.size
+
     def _embed(self, input_ids, positions):
-        return embed_tokens(self.cfg, self.wte.weight,
-                            getattr(self, "wpe", None), input_ids, positions)
+        return embed_tokens(self.cfg, self.wte, getattr(self, "wpe", None),
+                            input_ids, positions)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Final-LayerNormed hidden states -> logits (tied: ``x @ wte.T``)."""
+        """Final-LayerNormed hidden states -> logits (tied: ``x @ wte.T``).
+        Under tp the head is vocab-parallel and the logits are gathered:
+        every rank returns them whole (a tied ``wte`` that auto-TP split by
+        features reduces the partial logits of its features instead)."""
         head = self.wte if self.cfg.tie_embeddings else self.lm_head
-        return head_logits(self.cfg, head.weight, hidden)
+        group = _tp_group(head)
+        if group is None:
+            return head_logits(self.cfg, head.weight, hidden)
+        if head.tp.kind == "feature":
+            local = head_logits(self.cfg, head.weight,
+                                scatter_to_tp(hidden, group, -1))
+            return reduce_from_tp(local, group)
+        local = head_logits(self.cfg, head.weight, copy_to_tp(hidden, group))
+        return gather_from_tp(local, group, -1)
 
     def prefill(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
@@ -714,9 +813,16 @@ class GPT(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         offload = HostCheckpoints(x.device) if (
             remat and cfg.cpu_checkpointing) else None
+        part = (self.tp_group if remat and offload is None
+                and cfg.partition_activations else None)
+        if part is not None and not partitionable(x, part):
+            part = None
         aux = []
         for blk, d in zip(self.blocks, draws):
-            if offload is not None:
+            if part is not None:
+                x = partitioned_checkpoint(part, functools.partial(
+                    run, blk, positions=positions, draws=d), x)
+            elif offload is not None:
                 x = offloaded_checkpoint(
                     offload, functools.partial(run, blk, positions=positions),
                     x)
@@ -829,3 +935,74 @@ def gpt_flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None
     n = (12 * cfg.d_model ** 2 + 2 * cfg.d_model * cfg.d_ff) \
         * cfg.num_layers + 2 * cfg.vocab_size * cfg.d_model
     return 6.0 * n + 12.0 * cfg.num_layers * cfg.d_model * s
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism
+# --------------------------------------------------------------------------
+
+def _check_tp(cfg: GPTConfig, tp: int) -> None:
+    if cfg.moe:
+        raise NotImplementedError(
+            "an MoE model at tp > 1: not ported to PyTorch yet (ROADMAP A9)")
+    if cfg.num_heads % tp:
+        raise ValueError(f"tp={tp} does not divide num_heads="
+                         f"{cfg.num_heads}: a rank runs whole heads")
+
+
+def set_tensor_parallel(model: "GPT", group) -> "GPT":
+    """Split the whole ``model`` over the tp ``group`` in place: each Linear
+    and the token embedding keep this rank's shard by the TPU package's
+    ``tp_spec`` (``module_inject.layers.shard_by_tp_spec``: q, k and v by
+    heads, column Linears by output features, row ones by input features,
+    ``wte`` and ``lm_head`` by vocab rows). int8 weights must already be
+    quantized whole (``ops.quantizer.quantize_module``). A one-rank group
+    changes nothing. Returns ``model``."""
+    if group is None or group.size == 1:
+        return model
+    _check_tp(model.cfg, group.size)
+    if model.tp_size != 1:
+        raise ValueError(f"the model is split over tp={model.tp_size} "
+                         f"already")
+    return shard_by_tp_spec(model, group)
+
+
+@torch.no_grad()
+def init_tp_shards(model: "GPT", group, seed: int, device,
+                   std: float = 0.02) -> "GPT":
+    """Give ``model`` (built on the meta device) random weights on
+    ``device`` without ever holding it whole: module by module, the whole
+    module's weights are drawn on ``device`` from a generator seeded with
+    ``seed`` and the module's name (``init_weights``' rule: matrices and
+    embeddings ~ N(0, std), biases 0, LayerNorm scales 1), then this rank
+    keeps its tp shard (:func:`set_tensor_parallel`'s rule). Every rank
+    draws the same whole modules, so the shards are slices of one model,
+    the one ``group=None`` builds whole. Returns ``model``."""
+    tp = 1 if group is None else group.size
+    if tp > 1:
+        _check_tp(model.cfg, tp)
+    device = torch.device(device)
+    # by name: a module split below is dropped (and its whole weights with
+    # it) before the next one is drawn
+    for name in [n for n, _ in model.named_modules()]:
+        module = model.get_submodule(name)
+        own = dict(module.named_parameters(recurse=False))
+        if not own:
+            continue
+        gen = torch.Generator(device=device).manual_seed(
+            (int(seed) * 1_000_003 + zlib.crc32(name.encode())) % 2 ** 63)
+        for pname, p in own.items():
+            full = torch.empty(p.shape, dtype=p.dtype, device=device)
+            qual = f"{name}.{pname}" if name else pname
+            if pname.endswith("bias"):
+                full.zero_()
+            elif ".ln_" in qual or qual.startswith("ln_"):
+                full.fill_(1.0)
+            else:
+                full.normal_(0.0, std, generator=gen)
+            setattr(module, pname, nn.Parameter(full))
+        full = p = None
+        if tp > 1 and tp_kind(name, module, tp) is not None:
+            shard_module_(model, name, module, group)
+        del module, own
+    return model

@@ -47,10 +47,17 @@ _EMBED_PAT = re.compile(r"\b(wte|wpe|wtt|embed|embedding)\b")
 _LAYER_PAT = re.compile(r"\.(\d+)\.")
 
 
-def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [..., D] -> (int8 [..., D], f32 dequant multiplier [..., 1])."""
+def quantize_kv(x: torch.Tensor, group=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [..., D] -> (int8 [..., D], f32 dequant multiplier [..., 1]).
+    Under tp ``x`` is this rank's heads of each position and ``group`` the
+    tp group: the absmax is the whole position's (max-reduced over the
+    group), so the codes and scales are the unsplit cache's."""
     flat = x.float()
     absmax = flat.abs().amax(dim=-1, keepdim=True)
+    if group is not None and group.size > 1:
+        from ..comm import comm
+        absmax = comm.all_reduce(absmax.contiguous(), "max", group=group)
     q_scale = 256.0 / (2.0 * absmax + 1e-5)
     q = torch.round(flat * q_scale).clamp(-128.0, 127.0).to(torch.int8)
     return q, 1.0 / q_scale
@@ -231,20 +238,14 @@ class Int8Linear(nn.Module):
         self.bias = (None if bias is None
                      else nn.Parameter(bias, requires_grad=False))
 
-    @classmethod
-    def empty_like(cls, other: "Int8Linear", device="meta") -> "Int8Linear":
-        """A shell with ``other``'s shapes, for ``load_state_dict(...,
-        assign=True)``."""
-        def like(t):
-            return None if t is None else torch.empty_like(t, device=device)
-        return cls(like(other.q8), like(other.scale), like(other.zmin),
-                   like(other.bias), other.dtype)
-
     @property
     def weight(self) -> torch.Tensor:
         return dequantize_weight(self.q8, self.scale, self.zmin, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if getattr(self, "tp", None) is not None:    # split over tp
+            from ..module_inject.layers import tp_linear
+            return tp_linear(x, self, x.dtype)
         return F.linear(x, self.weight, self.bias)
 
     def _apply(self, fn, recurse=True):
@@ -320,15 +321,31 @@ def quantize_module(module: nn.Module, mode: str = "symmetric",
     return module
 
 
-def quantized_like(module: nn.Module, template: nn.Module) -> nn.Module:
-    """Give ``module`` (built on the meta device from ``template``'s class)
-    an empty :class:`Int8Linear` wherever ``template`` has one, so that
-    ``module.load_state_dict(template.state_dict(), assign=True)`` takes
-    the int8 weights. Returns ``module``."""
-    for name, m in template.named_modules():
-        if isinstance(m, Int8Linear):
-            _set_submodule(module, name, Int8Linear.empty_like(m))
-    return module
+def _is_qleaf(x) -> bool:
+    return isinstance(x, dict) and "q8" in x and "scale" in x
+
+
+def quantize_shardings(qtree, fp_specs):
+    """The TPU package's ``quantize_shardings`` over PartitionSpec tuples:
+    for a quantized tree (``{"q8", "scale"[, "zmin"]}`` leaves, the codes
+    ``moveaxis(-1, 0)`` of the kernel) and the fp tree's specs, each q8 leaf
+    takes its kernel's spec moved the same way and its per-output-column
+    scales (and zmin) that spec's output entry; other leaves keep theirs.
+    So int8 weights rest tp-split as the fp ones would: on a module the
+    split is ``module_inject.layers.shard_linear`` of an ``Int8Linear``,
+    quantized whole first (a row shard's scales are its whole columns')."""
+    if _is_qleaf(qtree):
+        nd = qtree["q8"].ndim
+        spec = list(fp_specs or ()) + [None] * (nd - len(fp_specs or ()))
+        moved = tuple([spec[-1]] + spec[:-1])
+        out = {"q8": moved, "scale": (moved[0],)}
+        if "zmin" in qtree:
+            out["zmin"] = (moved[0],)
+        return out
+    if isinstance(qtree, dict):
+        return {k: quantize_shardings(v, fp_specs[k])
+                for k, v in qtree.items()}
+    return fp_specs
 
 
 def weight_bytes(module: nn.Module) -> int:

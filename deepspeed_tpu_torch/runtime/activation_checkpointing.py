@@ -19,9 +19,13 @@ differentiate what the function closes over (its parameters) whether or
 not a tensor input needs grad, as ``jax.checkpoint`` does. Note that
 ``torch.autograd.graph.save_on_cpu`` around a checkpoint would not do it:
 it does not move a checkpoint's inputs, and it would move every other
-saved tensor of the region too. ``partition_activations`` is recorded (a
-tensor-parallel sharding of the saved inputs: ROADMAP A9) and changes
-nothing on one device. The knobs with no mapping here
+saved tensor of the region too. ``partition_activations`` (the GPT model's
+``cfg.partition_activations``, which the engine sets from the config) is
+:func:`partitioned_checkpoint`: a tp rank keeps its ``S / tp`` rows of the
+block input and gathers the rest from its tp partners before the
+recompute (the TPU package's ``tp_shard_sequence``, reference
+checkpointing.py:493); where tp does not divide S it warns once and the
+block keeps its whole input, as the TPU package does. The knobs with no mapping here
 (``contiguous_checkpointing``, ``synchronize``, ``profile``) raise, as in
 the TPU package. The reference's RNG tracker has no counterpart: the
 port's models draw no random numbers in a checkpointed block.
@@ -34,6 +38,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as torch_checkpoint
+
+from ..utils.logging import logger
 
 _config: Optional[Dict[str, Any]] = None
 
@@ -170,6 +176,69 @@ def offloaded_checkpoint(store: HostCheckpoints, run, *args):
     """``run(*args)`` under :class:`OffloadedCheckpoint` with its inputs in
     ``store``; the output needs grad whenever grad is enabled."""
     return OffloadedCheckpoint.apply(store, run, _ANCHOR, *args)
+
+
+class PartitionedCheckpoint(torch.autograd.Function):
+    """``run(x)`` checkpointed with only this tp rank's ``S / tp`` rows of
+    its input ``x`` [B, S, ...] kept (every tp rank holds the same ``x``):
+    the forward runs ``run`` without grad; the backward all-gathers the rows
+    over the tp group, runs ``run`` again under grad and backpropagates
+    through it (the reentrant scheme, as :class:`OffloadedCheckpoint`).
+    The grad of ``x`` is the same on every tp rank (the block's collectives
+    reduce it), so it is returned whole."""
+
+    @staticmethod
+    def forward(ctx, group, run, anchor, x):
+        from ..module_inject.layers import _slice
+        ctx.group, ctx.run = group, run
+        ctx.needs = x.requires_grad
+        ctx.save_for_backward(_slice(x.detach(), group, 1))
+        with torch.no_grad():
+            return run(x)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from ..module_inject.layers import _gather
+        (rows,) = ctx.saved_tensors
+        x = _gather(rows, ctx.group, 1).detach().requires_grad_(ctx.needs)
+        with torch.enable_grad():
+            out = ctx.run(x)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if isinstance(o, torch.Tensor) and o.requires_grad
+                 and g is not None]
+        if pairs:
+            torch.autograd.backward([o for o, _ in pairs],
+                                    [g for _, g in pairs])
+        return None, None, None, x.grad
+
+
+_partition_warned = set()
+
+
+def partitionable(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` [B, S, ...] partitions over the tp ``group``: more
+    than one rank, and S divisible by it. Warns once a shape where S does
+    not divide (the block then keeps its whole input)."""
+    n = 1 if group is None else group.size
+    if n <= 1 or x.dim() < 3:
+        return False
+    if x.shape[1] % n:
+        key = (tuple(x.shape), n)
+        if x.shape[1] > 1 and key not in _partition_warned:
+            _partition_warned.add(key)
+            logger.warning(
+                f"partition_activations dropped: seq dim {x.shape[1]} of a "
+                f"{tuple(x.shape)} tensor is not divisible by tp={n}; "
+                f"activations stay whole for this shape")
+        return False
+    return True
+
+
+def partitioned_checkpoint(group, run, x: torch.Tensor):
+    """``run(x)`` under :class:`PartitionedCheckpoint` over the tp
+    ``group``; the output needs grad whenever grad is enabled."""
+    return PartitionedCheckpoint.apply(group, run, _ANCHOR, x)
 
 
 def configure(mpu_=None, deepspeed_config=None, partition_activations=None,

@@ -79,7 +79,7 @@ import json
 import os
 import time
 import zlib
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,7 +103,7 @@ from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import grads_finite, make_loss_scale_state, \
     update_scale
 from .lr_schedules import build_lr_scheduler
-from .sharding import ShardingRules
+from .sharding import ShardingRules, TpSplit, tp_split
 from .zero.partition_params import flax_leaves, is_abstract_tree
 from .zero.stage3 import GatherUnit, partition_module, scatter_into
 
@@ -148,15 +148,15 @@ def _not_ported(what: str, item: str):
 
 def _build_mesh(raw) -> "mesh_lib.DeviceMesh":
     """The engine's device mesh from the config's ``mesh`` block (dp fills
-    the world); tp, pp and sp wait for ROADMAP A9."""
+    the world); pp and sp wait for ROADMAP A9."""
     if isinstance(raw, str):
         with open(raw) as fh:
             raw = json.load(fh)
     m = dict((raw or {}).get("mesh") or {})
-    later = [a for a in ("tp", "pp", "sp") if m.get(a, 1) != 1]
+    later = [a for a in ("pp", "sp") if m.get(a, 1) != 1]
     if later:
         raise _not_ported(f"a {'/'.join(later)} mesh", "A9")
-    shape = mesh_lib.MeshShape.infer(comm.get_world_size(),
+    shape = mesh_lib.MeshShape.infer(comm.get_world_size(), tp=m.get("tp", 1),
                                      ep=m.get("ep", 1), dp=m.get("dp"))
     return mesh_lib.ensure_global_mesh(shape)
 
@@ -171,9 +171,13 @@ class DeepSpeedEngine:
         self.dp_world_size = self.mesh.shape["dp"]
         self.dp_rank = self.mesh.coord("dp")
         self.ep_world_size = self.mesh.shape["ep"]
+        self.mp_world_size = self.mesh.shape["tp"]
         self._dp_group = comm.new_group("dp", self.mesh)
         self._ep_group = comm.new_group("ep", self.mesh)
-        self.mp_world_size = 1
+        self._tp_group = comm.new_group("tp", self.mesh)
+        # every leaf's whole shape, taken before the tp split (empty at tp
+        # 1); at most one of ep and tp is above 1
+        self._tp_whole: Dict[str, Tuple[int, ...]] = {}
         self.config = DeepSpeedConfig(raw, dp_world_size=self.dp_world_size)
         self._config = self.config            # reference-name parity
         self._reject_unported()
@@ -214,14 +218,27 @@ class DeepSpeedEngine:
         # ---- ZeRO layout -------------------------------------------------
         self._names = [n for n, _ in self.module.named_parameters()]
         self._shapes = [tuple(p.shape) for p in self.module.parameters()]
-        # expert leaves hold this rank's E / ep experts of the whole leaf
-        self._expert_leaves = ([i for i, n in enumerate(self._names)
-                                if is_moe_param(n)]
-                               if self.ep_world_size > 1 else [])
+        # leaves split over a model-parallel group: an expert leaf holds
+        # this rank's E / ep experts, a tp-split leaf its tp shard
+        self._splits: Dict[int, TpSplit] = {}
+        if self.ep_world_size > 1:
+            self._split_group = self._ep_group
+            self._splits = {i: TpSplit(0, self.ep_world_size)
+                            for i, n in enumerate(self._names)
+                            if is_moe_param(n)}
+        else:
+            self._split_group = self._tp_group
+            for i, n in enumerate(self._names):
+                split = tp_split(n, self._tp_whole.get(n, ()),
+                                 self.mp_world_size)
+                if split is not None:
+                    self._splits[i] = split
+        self._split_leaves = sorted(self._splits)
         self._full_shapes = [
             (s[0] * self.ep_world_size,) + s[1:]
-            if i in self._expert_leaves else s
-            for i, s in enumerate(self._shapes)]
+            if i in self._splits and self.ep_world_size > 1
+            else tuple(self._tp_whole.get(n, s))
+            for i, (n, s) in enumerate(zip(self._names, self._shapes))]
         zc = self.config.zero_config
         self._rules = ShardingRules(
             self.dp_world_size, self.zero_stage, self.dp_rank,
@@ -354,15 +371,21 @@ class DeepSpeedEngine:
                 "(the host owns master+moments and serves the per-layer "
                 "param fetches); a parsed knob must change the program or "
                 "error, never silently do nothing")
-        if self.ep_world_size > 1:
+        for axis, n in (("ep", self.ep_world_size),
+                        ("tp", self.mp_world_size)):
+            if n == 1:
+                continue
             tiers = {"ZeRO-3": self.config.zero_optimization_stage >= 3,
                      "offload_optimizer": zc.offload_optimizer.device
                      != OFFLOAD_NONE,
                      "offload_param": zc.offload_param.device != OFFLOAD_NONE}
             on = [name for name, flag in tiers.items() if flag]
             if on:
-                raise _not_ported(f"{', '.join(on)} with mesh ep="
-                                  f"{self.ep_world_size}", "A9")
+                raise _not_ported(f"{', '.join(on)} with mesh {axis}={n}",
+                                  "A9")
+        if self.ep_world_size > 1 and self.mp_world_size > 1:
+            raise _not_ported(f"a mesh with ep={self.ep_world_size} and tp="
+                              f"{self.mp_world_size}", "A9")
         if c.pipeline.stages > 1:
             raise _not_ported("pipeline stages", "A9")
         otype = (c.optimizer.type if c.optimizer else "Adam").lower()
@@ -386,10 +409,6 @@ class DeepSpeedEngine:
         if on:
             raise _not_ported(", ".join(on), "A13")
         ac = c.activation_checkpointing
-        if ac.partition_activations:
-            raise _not_ported(
-                "activation_checkpointing.partition_activations (a tp "
-                "sharding of the checkpoints)", "A9")
         for knob in ("contiguous_memory_optimization",
                      "synchronize_checkpoint_boundary", "profile"):
             if getattr(ac, knob):
@@ -405,19 +424,24 @@ class DeepSpeedEngine:
 
     def _apply_activation_checkpointing_config(self, module: nn.Module
                                                ) -> nn.Module:
-        """``activation_checkpointing.cpu_checkpointing`` is flipped on the
-        model's config (the TPU engine's rule): the module and every
-        submodule that holds that config get the new one."""
-        if not self.config.activation_checkpointing.cpu_checkpointing:
+        """``activation_checkpointing.cpu_checkpointing`` and
+        ``partition_activations`` are flipped on the model's config (the TPU
+        engine's rule): the module and every submodule that holds that
+        config get the new one."""
+        ac = self.config.activation_checkpointing
+        flips = {k: True for k in ("cpu_checkpointing",
+                                   "partition_activations")
+                 if getattr(ac, k)}
+        if not flips:
             return module
         cfg = getattr(module, "cfg", None)
         if cfg is None or not dataclasses.is_dataclass(cfg) or \
-                not hasattr(cfg, "cpu_checkpointing"):
+                not all(hasattr(cfg, k) for k in flips):
             raise ValueError(
-                "activation_checkpointing.cpu_checkpointing needs a model "
-                "config that supports it (models.GPT does); got module "
-                f"{type(module).__name__}")
-        new = dataclasses.replace(cfg, cpu_checkpointing=True)
+                f"activation_checkpointing.{' / '.join(flips)} needs a "
+                f"model config that supports it (models.GPT does); got "
+                f"module {type(module).__name__}")
+        new = dataclasses.replace(cfg, **flips)
         for m in module.modules():
             if getattr(m, "cfg", None) is cfg:
                 m.cfg = new
@@ -469,6 +493,16 @@ class DeepSpeedEngine:
         set_expert_parallel(
             model, self._ep_group,
             self._dp_group if self.dp_world_size > 1 else None)
+        if self.mp_world_size > 1:
+            # over tp each rank keeps its shard of the one whole model
+            from ..models.gpt import GPT, set_tensor_parallel
+            if not isinstance(model, GPT):
+                raise ValueError(
+                    f"mesh tp={self.mp_world_size} splits a GPT by its "
+                    f"tp_spec; got {type(model).__name__}")
+            self._tp_whole = {n: tuple(p.shape)
+                              for n, p in model.named_parameters()}
+            set_tensor_parallel(model, self._tp_group)
         return model
 
     def _resolve_comm_dtype(self):
@@ -526,7 +560,7 @@ class DeepSpeedEngine:
                 min_coeff=params.get("min_coeff", 0.01),
                 bias_correction=params.get("bias_correction", True),
                 norm_reduce=(self._lamb_norm_reduce if self._partitioned
-                             or self._expert_leaves else None))
+                             or self._split_leaves else None))
         elif otype == "adagrad":
             self.optimizer = fused_adagrad(
                 self._opt_params, lr, eps=params.get("eps", 1e-10),
@@ -1117,8 +1151,8 @@ class DeepSpeedEngine:
         norms = torch.stack(torch._foreach_norm(grads))
         finite = (grads_finite(grads).float() if self.fp16_enabled
                   else None)
-        if self._expert_leaves:
-            return self._ep_norm_and_finite(norms, finite)
+        if self._split_leaves:
+            return self._split_norm_and_finite(norms, finite)
         sq = norms.square().sum()
         if self._grad_split:
             comm.all_reduce(sq, group=self._dp_group)
@@ -1126,31 +1160,32 @@ class DeepSpeedEngine:
                 comm.all_reduce(finite, "min", group=self._dp_group)
         return sq.sqrt(), finite
 
-    def _ep_norm_and_finite(self, norms, finite):
-        """Over ep > 1: the shared leaves' squares summed (over dp when
-        split), the expert leaves' also over ep."""
+    def _split_norm_and_finite(self, norms, finite):
+        """Over ep or tp > 1: the shared leaves' squares summed (over dp
+        when split) once, the split leaves' (experts, tp shards) also over
+        their ep or tp group, so each shard counts once."""
         mask = torch.zeros(len(norms), dtype=torch.bool, device=norms.device)
-        mask[self._expert_leaves] = True
+        mask[self._split_leaves] = True
         sq = norms.square()
         parts = torch.stack([sq[~mask].sum(), sq[mask].sum()])
         if self._grad_split:
             comm.all_reduce(parts, group=self._dp_group)
-        expert = comm.all_reduce(parts[1:].clone(), group=self._ep_group)
+        expert = comm.all_reduce(parts[1:].clone(), group=self._split_group)
         if finite is not None:
             comm.all_reduce(finite, "min")          # the whole world
         return (parts[0] + expert[0]).sqrt(), finite
 
     def _lamb_norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
         """LAMB's per-leaf partial sums [n, 2] summed over the ranks that
-        hold parts of each leaf: dp when partitioned, and ep for the
-        expert leaves."""
+        hold parts of each leaf: dp when partitioned, and ep or tp for the
+        split leaves."""
         if self._partitioned:
             comm.all_reduce(sq, group=self._dp_group)
-        if self._expert_leaves:
+        if self._split_leaves:
             mask = torch.zeros(len(sq), 1, dtype=torch.bool,
                                device=sq.device)
-            mask[self._expert_leaves] = True
-            experts = comm.all_reduce(sq * mask, group=self._ep_group)
+            mask[self._split_leaves] = True
+            experts = comm.all_reduce(sq * mask, group=self._split_group)
             sq = torch.where(mask, experts, sq)
         return sq
 
@@ -1166,7 +1201,7 @@ class DeepSpeedEngine:
             return self._offload_update(denom)
         with torch.no_grad():
             grads = torch._foreach_div(self.acc, denom)
-            if self._grad_split or self._expert_leaves:
+            if self._grad_split or self._split_leaves:
                 gnorm, finite = self._global_norm_and_finite(grads)
                 finite = bool(finite) if finite is not None else True
             else:
@@ -1400,25 +1435,24 @@ class DeepSpeedEngine:
                 zip(self._shards, all_gather_coalesced(
                     tensors, group=self._dp_group))]
 
-    def _ep_full(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Whole leaves -> the expert leaves gathered over ep (every rank
-        calls it): the leaves an ep-1 engine holds."""
-        if not self._expert_leaves:
+    def _mp_full(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole leaves -> the split leaves gathered over ep or tp (every
+        rank calls it): the leaves an ep-1, tp-1 engine holds."""
+        if not self._split_leaves:
             return list(tensors)
         out = list(tensors)
-        for i in self._expert_leaves:
-            out[i] = comm.all_gather_base(out[i].detach().contiguous(),
-                                          group=self._ep_group)
+        for i in self._split_leaves:
+            shards = comm.all_gather(out[i].detach().contiguous(),
+                                     group=self._split_group)
+            out[i] = self._splits[i].merge(list(shards.unbind(0)))
         return out
 
-    def _ep_local(self, i: int, full: torch.Tensor) -> torch.Tensor:
-        """This rank's experts of expert leaf i's whole tensor (other
-        leaves pass whole)."""
-        if i not in self._expert_leaves:
+    def _mp_local(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of split leaf i's whole tensor (its experts, or
+        its tp shard); other leaves pass whole."""
+        if i not in self._splits:
             return full
-        n = self._shapes[i][0]
-        lo = self.mesh.coord("ep") * n
-        return full[lo:lo + n]
+        return self._splits[i].take(full, self._split_group.rank)
 
     @torch.no_grad()
     def _sync_module(self) -> None:
@@ -1437,11 +1471,11 @@ class DeepSpeedEngine:
                 dict(zip(self._names, self._offload_gathered("master"))))
         if self._grad_split and self._partitioned:
             return ckpt_saving.consolidated_fp32_state_dict(
-                dict(zip(self._names, self._ep_full(
+                dict(zip(self._names, self._mp_full(
                     self._gathered(self._opt_params)))))
         self._sync_module()
         return ckpt_saving.consolidated_fp32_state_dict(
-            dict(zip(self._names, self._ep_full(self.master))))
+            dict(zip(self._names, self._mp_full(self.master))))
 
     def optimizer_state_dict(self) -> Dict[str, Any]:
         """The optimizer's ``count`` and its moments as whole leaves
@@ -1452,7 +1486,7 @@ class DeepSpeedEngine:
                        for m in self.host_optimizer.STATE}}
         sd = self.optimizer.state_dict()
         return {"count": sd["count"],
-                **{m: self._ep_full(self._gathered(sd[m]))
+                **{m: self._mp_full(self._gathered(sd[m]))
                    for m in self.optimizer.STATE}}
 
     # ----------------------------------------------------------- checkpoints
@@ -1468,7 +1502,7 @@ class DeepSpeedEngine:
                 raise ValueError(f"shape mismatch for {name}: ckpt "
                                  f"{arr.shape} vs model "
                                  f"{self._full_shapes[i]}")
-            full = self._ep_local(i, torch.from_numpy(arr))
+            full = self._mp_local(i, torch.from_numpy(arr))
             if split:
                 self._opt_params[i].copy_(self._shards[i].take(full))
             else:
@@ -1480,7 +1514,7 @@ class DeepSpeedEngine:
             opt = res["opt_state"]
             state = {"count": int(opt["count"])}
             for m in self.optimizer.STATE:
-                full = [self._ep_local(i, torch.from_numpy(
+                full = [self._mp_local(i, torch.from_numpy(
                     opt[f"{m}/{name}"])).to(self.device)
                         for i, name in enumerate(self._names)]
                 state[m] = ([s.take(f) for s, f in zip(self._shards, full)]
@@ -1533,11 +1567,11 @@ class DeepSpeedEngine:
     def _shard_arrays(self):
         """This rank's ``<i>:master`` / ``<i>:<moment>`` slices and the
         per-leaf metadata of the host-shard files (the stage-1 layout over
-        dp even when the state is whole here). Over ep > 1 the slices are
-        of the whole leaves (the experts gathered over ep), so the files
-        are those of an ep-1 engine at the same dp."""
-        if self._expert_leaves:
-            return self._ep_shard_arrays()
+        dp even when the state is whole here). Over ep or tp > 1 the slices
+        are of the whole leaves (gathered over ep or tp), so the files are
+        those of an ep-1, tp-1 engine at the same dp."""
+        if self._split_leaves:
+            return self._full_shard_arrays()
         rules = ShardingRules(self.dp_world_size, 1, self.dp_rank)
         shards = self._shards if self._partitioned else [
             rules.master_spec(n, s)
@@ -1562,9 +1596,9 @@ class DeepSpeedEngine:
                  "padded": s.padded, "global_numel": s.global_numel,
                  "shape": list(s.shape)} for s in shards]
 
-    def _ep_shard_arrays(self):
-        """:meth:`_shard_arrays` over ep > 1: every leaf gathered whole
-        (over dp, then ep), then this rank's dp slice of it."""
+    def _full_shard_arrays(self):
+        """:meth:`_shard_arrays` over ep or tp > 1: every leaf gathered
+        whole (over dp, then ep or tp), then this rank's dp slice of it."""
         rules = ShardingRules(self.dp_world_size, 1, self.dp_rank)
         shards = [rules.master_spec(n, s)
                   for n, s in zip(self._names, self._full_shapes)]
@@ -1611,7 +1645,8 @@ class DeepSpeedEngine:
                 step=self.optimizer.count, meta=meta,
                 save_latest=save_latest,
                 shard=(self.dp_rank, self.dp_world_size),
-                write=self.mesh.coord("ep") == 0)
+                write=self.mesh.coord("ep") == 0
+                and self.mesh.coord("tp") == 0)
         master = self.consolidated_fp32_state_dict()
         sd = self.optimizer_state_dict()
         opt = {"count": np.asarray(sd["count"])}

@@ -71,8 +71,17 @@ TPU engine's ``deterministic`` calls do; ``GPT.decode`` and
 ``GPT.prefill`` return no aux loss, so there is nothing to unwrap. An
 engine over ``ep_size > 1`` raises (ROADMAP A9).
 
+``tp=n`` serves a model split over n tensor-parallel ranks (the
+``InferenceEngine``'s ``mp_size``; every rank runs the engine on the same
+requests): the arenas hold each rank's heads, the gathered logits are
+whole and bitwise alike on every rank, so the scheduler, the sampler (its
+generator seeded alike) and the prefix cache decide alike everywhere. A
+disagreement would stall the next collective. Unlike the TPU engine's, the
+megakernel switch does not turn the model's ``tp_overlap`` on: the model's
+config says (over gloo the split is three collectives for one).
+
 Not in this slice (see ROADMAP.md): CUDA-graph capture of a chunk, tiered
-KV, the sequence-parallel prefill leg, tp, disaggregation, migration and
+KV, the sequence-parallel prefill leg, disaggregation, migration and
 telemetry spans. Each keyword of the TPU package's ``ServingEngine`` that
 selects one of them raises
 ``NotImplementedError`` naming its ROADMAP item when set away from its
@@ -81,6 +90,7 @@ default (:data:`NOT_PORTED_KNOBS`); nothing is silently dropped.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
@@ -89,7 +99,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.quantizer import quantized_like
 from ..runtime.engine import _not_ported
 from ..utils.logging import log_dist
 from .kv_cache import SlotKVCacheManager
@@ -106,7 +115,6 @@ NOT_PORTED_KNOBS = {
     "sp_prefill_threshold": (None, "A9"),
     "monitor": (None, "A11"),
     "emit_every_steps": (16, "A11"),
-    "tp": (1, "A11"),
     "disaggregate_prefill": (False, "A11"),
     "tiered_kv": (False, "A11"),
     "tier_dram_bytes": (256 << 20, "A11"),
@@ -142,6 +150,21 @@ class _InflightChunk:
     #                          (+ hist [B, S+1] speculative)
     ready: Optional[torch.cuda.Event]
     wall_t0: float           # host clock at launch
+
+
+def _with_config(module, cfg):
+    """A copy of ``module`` whose submodules hold ``cfg`` in place of the
+    module's config, over the same parameter and buffer tensors (no copy;
+    tp-split and int8 layers included)."""
+    old = module.cfg
+    memo = {id(t): t for t in list(module.parameters())
+            + list(module.buffers())}
+    memo[id(old)] = old
+    new = copy.deepcopy(module, memo)
+    for m in new.modules():
+        if getattr(m, "cfg", None) is old:
+            m.cfg = cfg
+    return new
 
 
 def default_prefill_buckets(max_prompt_len: int) -> List[int]:
@@ -219,6 +242,7 @@ class ServingEngine:
                  fused_prefill: bool = False,
                  prefill_chunk: int = 16,
                  chunk_token_budget: Optional[int] = None,
+                 tp: int = 1,
                  **inference_kwargs):
         _reject_not_ported(inference_kwargs)
         if engine is not None and inference_kwargs:
@@ -228,12 +252,21 @@ class ServingEngine:
                 f"apply only when it builds the engine)")
         if engine is None:
             from ..inference.engine import InferenceEngine
+            if int(tp) > 1:
+                # the serving tp rides the inference engine's mp_size
+                inference_kwargs.setdefault("mp_size", int(tp))
             engine = InferenceEngine(model, model_parameters=model_parameters,
                                      **inference_kwargs)
         if getattr(engine, "ep_world_size", 1) > 1:
             raise _not_ported(
                 f"ServingEngine over an InferenceEngine(ep_size="
                 f"{engine.ep_world_size})", "A9")
+        self.tp = int(getattr(engine, "mp_world_size", 1))
+        if int(tp) > 1 and self.tp != int(tp):
+            raise ValueError(
+                f"tp={tp} requested but the engine's mesh has tp={self.tp} "
+                f"(pass mp_size={tp} when building the InferenceEngine, or "
+                f"drop the engine= argument)")
         self.engine = engine
         self.device = engine.device
         self.module = engine.module
@@ -246,11 +279,7 @@ class ServingEngine:
             # the module rebuilt with the int8 cache config over the same
             # parameter tensors (no copy), as the TPU engine rebuilds it
             cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
-            module = type(self.module)(cfg, device="meta")
-            # an int8-weight module's quantized Linears, as empty shells
-            quantized_like(module, self.module)
-            module.load_state_dict(self.module.state_dict(), assign=True)
-            self.module = module
+            self.module = _with_config(self.module, cfg)
         self.megakernel = bool(megakernel)
         # the megakernel switch: decode attention through the kernel wrapper
         # and sampling through the fused epilogue
@@ -335,12 +364,12 @@ class ServingEngine:
                 num_blocks=kv_pool_blocks,
                 prefix_cache_capacity=prefix_cache_capacity,
                 prefix_caching=prefix_cache and self.temperature == 0.0,
-                lookahead=lookahead)
+                lookahead=lookahead, tp=self.tp)
             self._kv_extent = (self.kv.block_tables.shape[1]
                                * self.kv.block_size)
         else:
             self.kv = SlotKVCacheManager(cfg, self.max_batch, self.device,
-                                         lookahead=lookahead)
+                                         lookahead=lookahead, tp=self.tp)
             self._kv_extent = self.kv.cache_k.shape[2]
         self.scheduler = ContinuousBatchScheduler(
             self.kv.allocator, max_queue=max_queue,

@@ -92,11 +92,17 @@ class SlotKVCacheManager:
     reads k + 1 positions from a lane's fill, and near the end of a row the
     decode kernel would otherwise clamp that lane's cache length to S and
     shift its queries' causal window. Nothing reads a lookahead position
-    unmasked: every real query sits below ``max_seq_len``."""
+    unmasked: every real query sits below ``max_seq_len``.
+
+    Under tensor parallelism (``tp`` > 1) the arena holds this rank's
+    ``num_heads / tp`` heads a position (the TPU package's ``kv_spec``:
+    the flat ``h*d`` dim split over tp); the scales are whole-position
+    ones, the same on every rank."""
 
     block_tables = None
 
-    def __init__(self, cfg, max_batch: int, device, lookahead: int = 0):
+    def __init__(self, cfg, max_batch: int, device, lookahead: int = 0,
+                 tp: int = 1):
         self.max_seq_len = int(cfg.max_seq_len)
         self.allocator = SlotAllocator(max_batch, self.max_seq_len)
         # the fp itemsize the arena would use without int8 (arena_report's
@@ -105,7 +111,7 @@ class SlotKVCacheManager:
         int8 = getattr(cfg, "kv_cache_dtype", "auto") == "int8"
         shape = (cfg.num_layers, max_batch,
                  self.max_seq_len + int(lookahead),
-                 cfg.num_heads * cfg.head_dim)
+                 cfg.num_heads // int(tp) * cfg.head_dim)
         kv_dtype = torch.int8 if int8 else cfg.dtype
         self.cache_k = torch.zeros(shape, dtype=kv_dtype, device=device)
         self.cache_v = torch.zeros(shape, dtype=kv_dtype, device=device)

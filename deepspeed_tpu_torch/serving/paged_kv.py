@@ -420,12 +420,17 @@ class PagedKVCacheManager:
     by ``ceil(lookahead / block_size)`` sink entries (the speculative
     engine passes its draft length k): a verify step near the end of a row
     then reads and writes through sink entries instead of having its cache
-    length clamped to T * block_size by the decode kernel."""
+    length clamped to T * block_size by the decode kernel.
+
+    Under tensor parallelism (``tp`` > 1) each pool position holds this
+    rank's ``num_heads / tp`` heads (``kv_spec``); every rank keeps the
+    same tables and allocator state, since every rank admits alike."""
 
     def __init__(self, cfg, max_batch: int, device, *,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache_capacity: int = 64,
-                 prefix_caching: bool = True, lookahead: int = 0):
+                 prefix_caching: bool = True, lookahead: int = 0,
+                 tp: int = 1):
         self.max_seq_len = int(cfg.max_seq_len)
         self.block_size = int(block_size)
         self.allocator = PagedSlotAllocator(
@@ -439,7 +444,7 @@ class PagedKVCacheManager:
         # the fp itemsize the pool would use without int8 (arena_report's
         # kv_bytes_saved baseline)
         self._fp_itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-        L, hd = cfg.num_layers, cfg.num_heads * cfg.head_dim
+        L, hd = cfg.num_layers, cfg.num_heads // int(tp) * cfg.head_dim
         shape = (L, nb + 1, self.block_size, hd)
         kv_dtype = torch.int8 if int8 else cfg.dtype
         self.cache_k = torch.zeros(shape, dtype=kv_dtype, device=device)

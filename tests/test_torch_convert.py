@@ -66,10 +66,13 @@ def test_prefill_then_decode_matches_full_forward(decode_impl):
 
 def test_unported_features_raise():
     from deepspeed_tpu_torch.models.gpt import GPTConfig
-    # moe raised until it was ported (tests/test_torch_moe.py)
-    for kw in (dict(sequence_parallel=True), dict(tp_overlap=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            GPTConfig(**kw)
+    # moe raised until it was ported (tests/test_torch_moe.py); tp_overlap
+    # too (tests/test_torch_tp.py): now, as in the TPU config, it needs a
+    # parallel-residual block
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        GPTConfig(sequence_parallel=True)
+    with pytest.raises(ValueError, match="parallel_residual"):
+        GPTConfig(tp_overlap=True)
     assert GPTConfig(moe=True, num_experts=4).moe
     # cpu_checkpointing raised until it was ported; it needs remat, as in
     # the TPU package

@@ -2,11 +2,12 @@
 package's signatures: every TPU keyword is taken; ``config``,
 ``max_tokens`` and ``replace_with_kernel_inject`` at any value;
 ``quantize_mode`` keeps the TPU engine's ``ValueError``s; ``checkpoint``,
-``injection_policy``, ``quantize_bits``, ``replace_method`` and ``ep_size``
-are ported (tests/test_torch_inference_checkpoint.py,
-test_torch_weight_quant.py, test_torch_moe_ep.py); ``mp_size`` set away
-from its default raises ``NotImplementedError`` naming its ROADMAP item
-(``NOT_PORTED_KNOBS``), never a ``TypeError``; with the
+``injection_policy``, ``quantize_bits``, ``replace_method``, ``ep_size``
+and ``mp_size`` are ported (tests/test_torch_inference_checkpoint.py,
+test_torch_weight_quant.py, test_torch_moe_ep.py, test_torch_tp.py);
+``mp_size`` away from its default on a one-rank world raises a
+``ValueError`` naming the world (a tp mesh needs that many ranks), never a
+``TypeError``; with the
 defaults passed explicitly the engine builds from TPU weights converted by
 ``convert.py`` and its greedy tokens equal the TPU engine's.
 ``initialize(dist_init_required=True)`` builds at one rank and over two
@@ -22,16 +23,17 @@ import torch
 from torch_port_helpers import model_pair
 
 import deepspeed_tpu_torch as dst
-from deepspeed_tpu_torch.inference.engine import (NOT_PORTED_KNOBS,
-                                                  InferenceEngine)
+from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, lm_loss_fn
 from torch_test_threads import one_torch_thread  # noqa: F401
 
-# a value away from each knob's default
+# a value away from each mesh knob's default, and its default: on a
+# one-rank world each asks for a mesh the world cannot hold
 NON_DEFAULT = {"mp_size": 2}
+MESH_DEFAULTS = {"mp_size": 1}
 # ported knobs, taken away from their defaults
 PORTED = ("checkpoint", "injection_policy", "quantize_bits", "replace_method",
-          "ep_size")
+          "ep_size", "mp_size")
 # read by neither engine: taken at any value
 INERT = {"config": {"tensor_parallel": {"tp_size": 1}}, "max_tokens": 512,
          "replace_with_kernel_inject": True}
@@ -58,15 +60,15 @@ def test_every_tpu_inference_keyword_is_taken():
     port_params = inspect.signature(InferenceEngine.__init__).parameters
     assert set(jax_params) <= set(port_params)
     assert set(port_params) - set(jax_params) == {"device"}
-    assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS)
-    assert set(NOT_PORTED_KNOBS) | set(INERT) | set(PORTED) | {
+    assert set(NON_DEFAULT) == set(MESH_DEFAULTS)
+    assert set(INERT) | set(PORTED) | {
         "self", "model", "dtype", "model_parameters",
         "quantize_mode"} == set(jax_params)
     for name, param in jax_params.items():
         assert param.kind == port_params[name].kind, name
-        if name in NOT_PORTED_KNOBS:
-            assert param.default == NOT_PORTED_KNOBS[name][0], name
-        elif name not in ("self", "model", "dtype"):
+        if name in MESH_DEFAULTS:
+            assert param.default == MESH_DEFAULTS[name], name
+        if name not in ("self", "model", "dtype"):
             assert param.default == port_params[name].default, name
 
 
@@ -81,12 +83,12 @@ def test_every_tpu_initialize_keyword_is_taken():
 
 
 @pytest.mark.parametrize("entry", ["engine", "init_inference"])
-@pytest.mark.parametrize("name", sorted(NOT_PORTED_KNOBS))
+@pytest.mark.parametrize("name", sorted(NON_DEFAULT))
 def test_an_inference_knob_away_from_its_default_raises(name, entry):
-    item = NOT_PORTED_KNOBS[name][1]
+    """mp_size 2 on a one-rank world: the tp mesh cannot be laid out."""
     build = InferenceEngine if entry == "engine" else dst.init_inference
     kw = {name: NON_DEFAULT[name]}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):
+    with pytest.raises(ValueError, match="1 devices not divisible"):
         build(_model(), device="cpu", dtype=torch.float32, **kw)
 
 
@@ -126,7 +128,7 @@ def test_init_inference_with_tpu_keywords_matches_jax(pair):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     # every knob at its default, passed explicitly, and the inert ones at
     # other values, build the same engine
-    defaults = {n: d for n, (d, _) in NOT_PORTED_KNOBS.items()}
+    defaults = dict(MESH_DEFAULTS)
     again = dst.init_inference(GPT(pmodel.cfg), dtype=torch.float32,
                                model_parameters=sd, device="cpu",
                                quantize_mode="symmetric", **defaults,

@@ -2,7 +2,9 @@
 keyword of the TPU ``ServingEngine`` is either taken by the port or named in
 ``NOT_PORTED_KNOBS``; a not-ported knob set away from its default raises
 ``NotImplementedError`` naming its ROADMAP item (with or without
-``engine=``), never a silent no-op; with ``engine=`` any other leftover
+``engine=``), never a silent no-op; ``tp`` (ported) set to 2 on a one-rank
+world raises a ``ValueError`` (no tp-2 mesh there; with ``engine=`` the
+engine's tp 1 mismatches, the JAX engine's error); with ``engine=`` any other leftover
 keyword raises ``TypeError``; the defaults, passed explicitly, still build
 and serve; the speculative and the fused-prefill knobs, ported, build and
 serve away from their defaults, and fused + speculative sampling raises the
@@ -41,7 +43,8 @@ def test_every_tpu_keyword_is_taken_or_named():
     from deepspeed_tpu.serving.engine import ServingEngine as JaxServing
     jax_kw = set(inspect.signature(JaxServing.__init__).parameters)
     port_kw = set(inspect.signature(ServingEngine.__init__).parameters)
-    assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS)
+    assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS) | {"tp"}
+    assert "tp" in port_kw
     assert not set(NOT_PORTED_KNOBS) & port_kw
     assert jax_kw - port_kw == set(NOT_PORTED_KNOBS)
     params = inspect.signature(JaxServing.__init__).parameters
@@ -50,15 +53,21 @@ def test_every_tpu_keyword_is_taken_or_named():
 
 
 @pytest.mark.parametrize("via_engine", [False, True])
-@pytest.mark.parametrize("name", sorted(NOT_PORTED_KNOBS))
+@pytest.mark.parametrize("name", sorted(NON_DEFAULT))
 def test_a_knob_set_away_from_its_default_raises(name, via_engine):
-    item = NOT_PORTED_KNOBS[name][1]
     kw = dict(device="cpu", dtype=torch.float32)
     if via_engine:
         kw = dict(engine=InferenceEngine(_model(), **kw))
         model = None
     else:
         model = _model()
+    if name == "tp":
+        match = ("the engine's mesh has tp=1" if via_engine
+                 else "1 devices not divisible")
+        with pytest.raises(ValueError, match=match):
+            ServingEngine(model, max_batch=2, tp=2, **kw)
+        return
+    item = NOT_PORTED_KNOBS[name][1]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):
         ServingEngine(model, max_batch=2, **{name: NON_DEFAULT[name]}, **kw)
 

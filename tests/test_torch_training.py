@@ -542,10 +542,13 @@ UNPORTED = {
 
 
 # raised naming ROADMAP A4.8 (the optimizers), A8 (ZeRO 2 / 3, the
-# offload tiers), A8b (cpu_checkpointing) or A9 (an ep mesh) until they
-# were ported; their cases now check that the engine builds the optimizer
-# and trains (the optimizer's class). cpu_checkpointing needs a remat
-# model; an ep mesh over more ranks is in tests/test_torch_moe_ep.py.
+# offload tiers), A8b (cpu_checkpointing) or A9 (an ep mesh, a tp mesh)
+# until they were ported; their cases now check that the engine builds the
+# optimizer and trains (the optimizer's class). cpu_checkpointing needs a
+# remat model; an ep mesh over more ranks is in tests/test_torch_moe_ep.py.
+# A tp mesh of 2 cannot be laid out over this one-rank world (a ValueError
+# naming the world); tp over two and four ranks is in tests/test_torch_tp.py.
+MESH_NEEDS_RANKS = {"tp_mesh": "1 devices not divisible"}
 NOW_PORTED = {"lamb": "FusedLamb", "adagrad": "FusedAdagrad", "sgd": "SGD",
               "zero2": "FusedAdam", "zero3": "FusedAdam",
               "offload_optimizer": "HostOffloadOptimizer",
@@ -567,6 +570,11 @@ def test_unported_knob_raises(name):
         assert type(opt).__name__ == NOW_PORTED[name]
         assert np.isfinite(float(eng.train_batch(
             iter([{"input_ids": _ids(3, rows=2)}]))))
+        return
+    if name in MESH_NEEDS_RANKS:
+        with pytest.raises(ValueError, match=MESH_NEEDS_RANKS[name]):
+            dst.initialize(model=pmodel, loss_fn=lm_loss_fn, config=cfg,
+                           device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dst.initialize(model=pmodel, loss_fn=lm_loss_fn, config=cfg,
