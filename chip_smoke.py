@@ -353,18 +353,18 @@ Phases (any failure exits non-zero before the result lines):
      serving phase 4's requests (B2 6 times a step; tokens/s beside
      bf16's);
  42. GPT-MoE (after phase 41): gpt_moe_1_3b at full width (24 layers
-     cut to MOE_LAYERS 12 to fit the time limit, d_model
+     cut to MOE_LAYERS 6 to fit the time limit, d_model
      2048, 16 heads of 128, d_ff 8192, top-1, eval
      capacity 2.0, min 4) with its 128 experts cut to 16 (128 would need
      206 GB in bf16), bf16 weights made on the card from --seed; the
-     forward on [2, 1024] through B1 (12 launches, each held to its plain
-     version) against attention_impl="xla" within LOSS_ATOL; layer 0's
+     forward on [2, 1024] through B1 (a launch a layer, each held to its
+     plain version) against attention_impl="xla" within LOSS_ATOL; layer 0's
      MoE on a prefill's inputs against the same function in f32
      (MOE_OUT_RTOL); phase 4's requests through the dense and fused (C
      16) megakernel engines: a run with every B2 call and B4 draw held to
      its plain version and every logits tensor checked finite, printing
-     the routing's capacity and dropped tokens, then a timed run (B2 12
-     times a step at the step's width, B4 once a step, the checked run's
+     the routing's capacity and dropped tokens, then a timed run (B2 once
+     a layer a step at the step's width, B4 once a step, the checked run's
      tokens); tokens/s, chunk ms, weight bytes, max_memory_allocated, a
      decode step's device ms split into B2, the expert GEMMs, the
      dispatch / combine einsums and the rest; B1 at [2, 1024, 16, 128],
@@ -380,21 +380,50 @@ Phases (any failure exits non-zero before the result lines):
      each rank holding half the expert bytes; InferenceEngine(ep_size=2)
      greedy tokens equal ep 1's or parting at a near-tie, half the expert
      bytes, a ServingEngine over it refused (ROADMAP A9);
- 45. tensor parallelism (after 44): GPT-NeoX 20B (44 layers, d_model 6144,
-     64 heads of 96, d_ff 24576, parallel residual, untied head) at full
-     width and depth, bf16, split at tp 2 over two gloo ranks sharing the
-     card (the script re-runs itself with the hidden --tp-rank), each rank
-     making only its shards on the card from --seed: weights half the
-     whole model's a rank, the forward on [2, 1024] through B1 (44 a
-     rank), layer 0 and the width cut to 2 layers against tp 1 here,
-     phase 4's requests through ServingEngine(tp=2, megakernel=True) dense
-     and paged (every B2 / B3 call and B4 draw held to its plain version;
-     tokens equal on both ranks), under tp_overlap and fused (C 16), int8
-     weights at the cut depth, tokens/s and chunk ms; then B1 / B1b at [2,
+ 45. tensor parallelism (after 44): GPT-NeoX 20B (d_model 6144, 64 heads
+     of 96, d_ff 24576, parallel residual, untied head) at full width, its
+     44 layers cut to NEOX_LAYERS, bf16, split at tp 2 over two gloo ranks
+     sharing the card (the script re-runs itself with the hidden
+     --tp-rank), each rank making only its shards on the card from --seed:
+     weights half the whole model's a rank, the forward on [2, 1024]
+     through B1 (once a layer a rank), layer 0 and the width cut to 2
+     layers against tp 1 here, phase 4's requests through
+     ServingEngine(tp=2, megakernel=True) dense and paged (every B2 / B3
+     call and B4 draw held to its plain version; tokens equal on both
+     ranks), under tp_overlap and fused (C 16), int8 weights at the cut
+     depth, tokens/s and chunk ms; then B1 / B1b at [2,
      1024, 32, 96], B2 / B3 at h 32, d 96 and B4 timed (the *_neox rows);
  46. its width cut to 2 layers, trained at tp 1 here and at mesh tp 2 on
      two ranks, without and with partition_activations: losses within
-     LOSS_ATOL, falling, B1 / B1b launches a step.
+     LOSS_ATOL, falling, B1 / B1b launches a step;
+ 47. sequence parallelism (after 46): bench.py's long_context (GPT-2 125M
+     at seq 16384, micro 1 x gas 2, bf16 over fp32 masters, remat, AdamW,
+     ZeRO-1, dense flash) trained 3 steps at sp 1: losses finite and
+     falling, B1 / B1b 48 / 24 / 24 a step, step seconds, peak memory, a
+     profiled micro-step's idle share; then B1 / B1b at the four shapes
+     of phases 47-48 (SP_FLASH: [1, 16384, 12, 64] causal, a Ulysses
+     rank's [1, 16384, 6, 64], a ring rank's [1, 8192, 12, 64] causal and
+     full blocks) against their plain versions (over head slices: the
+     f32 scores of the whole sequence take 12.9e9 B) within SP_ROW_RTOL
+     of each row's largest |plain| plus SP_HEAD_ATOL of the head's rms,
+     and lse within LSE_ATOL, timed beside
+     scaled_dot_product_attention and their bounds (the *_ctx16k,
+     *_ulysses_sp2, *_ring_diag_sp2, *_ring_full_sp2 rows);
+ 48. the same at mesh {"sp": 2} over two gloo ranks sharing the card (the
+     script re-runs itself with the hidden --sp-rank), cp_impl "ulysses"
+     and "ring": all_to_all_single of a CUDA tensor over gloo checked, the
+     ring's merged output and grads against the plain ring at 2 heads
+     (the same bound),
+     3 steps each with losses equal on both ranks and within LOSS_ATOL of
+     phase 47's, B1 / B1b launches a step (Ulysses 48 / 24 / 24 a rank;
+     ring 48 / 24 / 24 on rank 0, which runs only its diagonal blocks, and
+     96 / 48 / 48 on rank 1), the exchanges a step and their bytes, step
+     seconds and peak memory a rank;
+ 49. (after phase 38) the sp prefill route: phase 38's dense fused engine
+     with sp_prefill_threshold=SP_ROUTE_THRESHOLD beside the same engine
+     without it: greedy tokens equal or parting at a near-tie, the long
+     prompts' tokens through the sp leg and the short ones inline, B2 at
+     the fused width and B4 in every decode step after the route.
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
@@ -405,7 +434,8 @@ phase 37's head dim also carry its launches, the training shape's phase
 44's; the decode rows at s_q 5, 16 and d 80, the sparse rows at d 80, B1
 and B2 at GPT-Neo's shapes, B1 / B1b, B2 and B4 at GPT-MoE's, B1 / B1b,
 B2, B3 and B4 at GPT-NeoX 20B's tp-2 rank shapes with phases 45-46's
-launches on rank 0), the card line and, last,
+launches on rank 0, B1 / B1b at phases 47-48's shapes with their
+launches), the card line and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
 
@@ -437,6 +467,18 @@ FLASH_TOL = (2e-2, 2e-2)  # (atol, rtol) of bf16 out/dq/dk/dv: both round
 #                          their f32 result to bf16 (2^-8 relative), and the
 #                          kernels round p and ds to bf16 for the tensor cores
 LSE_ATOL = 1e-3          # f32 lse: summation order over the live keys
+# B1 / B1b at SP_FLASH's shapes and the sp ring check (``_close_rows``):
+# |err| of an element within SP_ROW_RTOL of the largest |plain| of its row
+# (the d entries of one query or key of one head) plus SP_HEAD_ATOL of its
+# head's rms. At S 8192-16384 a row's entries are ~sqrt(e/n) small, below
+# FLASH_TOL's atol, so the bound scales with the row: rounding (a bf16
+# result, p and dS in bf16) errs by a few 2^-9 of the row, and a KV tile
+# of 128 keys left out of n moves a row by about sqrt(128 / n) of its size
+# (>= 2^-3.5 at n 16384). The head's share covers rows that cancel (causal
+# dq of query 0 is 0 in exact arithmetic). tools/check_sp_gates.py plants
+# such faults.
+SP_ROW_RTOL = 2.0 ** -5
+SP_HEAD_ATOL = 2.0 ** -8
 LOSS_ATOL = 2e-2         # model check: the einsum rounds attention
 GRAD_NORM_RTOL = 5e-2    # probabilities to bf16, the kernels keep f32
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -518,11 +560,12 @@ def device_ms(fn, n_inputs: int = 1, kernel: str = "", iters: int = 50,
     for i in range(warmup):
         fn(i % n_inputs)
     torch.cuda.synchronize()
-    # a profiler session late in a long process can come back without
-    # kernel records (CUPTI); the window is measured once more before the
-    # run fails. A window can also lose some of a kernel's records (often
-    # the first launch): a named kernel is averaged over those recorded
-    for attempt in range(2):
+    # a profiler session can come back without kernel records (CUPTI),
+    # late in a long process or, once in a run, early; the window is
+    # measured twice more before the run fails. A window can also lose some
+    # of a kernel's records (often the first launch): a named kernel is
+    # averaged over those recorded
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i % n_inputs)
@@ -978,6 +1021,27 @@ def _close(got, ref, atol, rtol, rows=False) -> float:
     return diff.max().item()
 
 
+def _row_atol(ref):
+    """SP_HEAD_ATOL of the rms of each head (dim 2) of a [B, S, H, D]
+    tensor."""
+    return SP_HEAD_ATOL * ref.float().pow(2).mean((0, 1, 3),
+                                                  keepdim=True).sqrt()
+
+
+def _close_rows(got, ref) -> float:
+    """``_close`` under the sp bound: SP_ROW_RTOL of the row's largest
+    |ref| plus ``_row_atol``."""
+    return _close(got, ref, _row_atol(ref), SP_ROW_RTOL, rows=True)
+
+
+def _row_share(got, ref) -> float:
+    """max |got - ref| over the bound of ``_close_rows`` (it passes at
+    <= 1)."""
+    ref = ref.float()
+    bound = _row_atol(ref) + SP_ROW_RTOL * ref.abs().amax(-1, keepdim=True)
+    return ((got.float() - ref).abs() / bound).max().item()
+
+
 def _qkv(torch, dev, gen, B, S, H, D):
     """bf16 q, k, v as views of one fused [B, S, 3*H*D] projection output
     (the model's layout) and a random dO."""
@@ -987,24 +1051,64 @@ def _qkv(torch, dev, gen, B, S, H, D):
     return q, k, v, do
 
 
-def _flash_pair(torch, fa, q, k, v, do, causal):
-    """The three flash kernels once each against the plain versions:
-    (max abs errs, (plain out, plain lse))."""
+def _flash_results(torch, fa, q, k, v, do, causal, plain_heads=None):
+    """The three flash kernels once each and their plain versions: yields
+    (name, kernel result, plain result) for "out", "lse", then "dq", "dk"
+    and "dv" by head slices. ``plain_heads``: the plain versions run over
+    slices of that many heads (the kernels over all)."""
     scale = q.shape[-1] ** -0.5
+    H = q.shape[2]
+    parts = [slice(h, h + (plain_heads or H)) for h in
+             range(0, H, plain_heads or H)]
     out, lse = fa.flash_attention_forward(q, k, v, causal, scale)
-    ro, rl = fa.flash_attention_forward_reference(q, k, v, causal, scale)
+    refs = [fa.flash_attention_forward_reference(
+        q[:, :, h], k[:, :, h], v[:, :, h], causal, scale) for h in parts]
+    ro = torch.cat([r[0] for r in refs], 2)
+    rl = torch.cat([r[1] for r in refs], 1)
+    del refs
     grads = fa.flash_attention_backward(q, k, v, ro, rl, do, causal, scale)
-    refs = fa.flash_attention_backward_reference(q, k, v, ro, rl, do, causal,
-                                                 scale)
     torch.cuda.synchronize()
     if out.dtype != q.dtype or any(g.dtype != q.dtype for g in grads):
         fail("a flash kernel returned another dtype than its inputs'")
-    e = {"flash_fwd": _close(out, ro, *FLASH_TOL),
-         "lse": _close(lse, rl, LSE_ATOL, 0.0),
-         "flash_bwd_dq": _close(grads[0], refs[0], *FLASH_TOL),
-         "flash_bwd_dkv": max(_close(grads[1], refs[1], *FLASH_TOL),
-                              _close(grads[2], refs[2], *FLASH_TOL))}
-    return e, (ro, rl)
+    yield "out", out, ro
+    yield "lse", lse, rl
+    for h in parts:
+        ref = fa.flash_attention_backward_reference(
+            q[:, :, h], k[:, :, h], v[:, :, h], ro[:, :, h], rl[:, h],
+            do[:, :, h], causal, scale)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+            yield name, got[:, :, h], want
+        del ref
+
+
+FLASH_KEYS = {"out": "flash_fwd", "lse": "lse", "dq": "flash_bwd_dq",
+              "dk": "flash_bwd_dkv", "dv": "flash_bwd_dkv"}
+
+
+def _flash_pair(torch, fa, q, k, v, do, causal, plain_heads=None,
+                rows=False):
+    """The three flash kernels once each against the plain versions
+    (``_flash_results``): out and the grads within FLASH_TOL, or with
+    ``rows`` within ``_close_rows``'s bound (then ``e["row"]`` holds each
+    one's ``_row_share``), lse within LSE_ATOL.
+    Returns (max abs errs, (plain out, plain lse))."""
+    e = dict.fromkeys(FLASH_KEYS.values(), 0.0)
+    row, plain = {}, {}
+    for name, got, ref in _flash_results(torch, fa, q, k, v, do, causal,
+                                         plain_heads):
+        if name == "lse":
+            err = _close(got, ref, LSE_ATOL, 0.0)
+        elif rows:
+            err = _close_rows(got, ref)
+            row[name] = max(row.get(name, 0.0), _row_share(got, ref))
+        else:
+            err = _close(got, ref, *FLASH_TOL)
+        e[FLASH_KEYS[name]] = max(e[FLASH_KEYS[name]], err)
+        if name in ("out", "lse"):
+            plain[name] = ref
+    if rows:
+        e["row"] = row
+    return e, (plain["out"], plain["lse"])
 
 
 def phase_flash_parity(torch, fa, dev, gen):
@@ -1136,7 +1240,7 @@ def phase_model_check(torch, dev, engine, cfg, ids):
         fail("the model through the kernels disagrees with the einsum path")
 
 
-def phase_train_profile(torch, engine, ids, card):
+def phase_train_profile(torch, engine, ids, card, tag="phase10"):
     """One micro-step (forward + backward of one micro-batch) after a
     warm-up one, timed without the profiler (host issue time: until the
     calls return; wall: until the device is done), then one under it; idle
@@ -1159,22 +1263,28 @@ def phase_train_profile(torch, engine, ids, card):
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         fail("the profiler recorded no device time for a training micro-step")
-    print(f"phase10 profile train micro-step wall_ms={wall_ms} (unprofiled) "
+    print(f"{tag} profile train micro-step wall_ms={wall_ms} (unprofiled) "
           f"host_issue_ms={issue_ms} device_busy_ms={busy_ms} "
           f"idle_share={1 - busy_ms / wall_ms} "
           f"device_kernels={sum(r[1] for r in rows)} card={card}", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:12]:
-        print(f"phase10 kernel ms={ms} count={count} {key[:90]}", flush=True)
+        print(f"{tag} kernel ms={ms} count={count} {key[:90]}", flush=True)
+    return wall_ms, busy_ms
 
 
-def _flash_times(torch, fa, q, k, v, do, out, lse, causal, scale=None):
+def _flash_times(torch, fa, q, k, v, do, out, lse, causal, scale=None,
+                 plain_heads=None):
     """Device ms per call of the three kernels, their plain versions and
     scaled_dot_product_attention (forward, and its autograd backward: a
     yardstick, never called by the port), with each kernel's bound; the
-    score scale defaults to D^-0.5."""
+    score scale defaults to D^-0.5. ``plain_heads``: a plain call covers
+    every head in slices of that many (its f32 scores would not fit
+    whole)."""
     import torch.nn.functional as F
     B, S, H, D = q.shape
     scale = D ** -0.5 if scale is None else scale
+    parts = [slice(h, h + (plain_heads or H)) for h in
+             range(0, H, plain_heads or H)]
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -1184,9 +1294,16 @@ def _flash_times(torch, fa, q, k, v, do, out, lse, causal, scale=None):
     def backward(i):
         fa.flash_attention_backward(q, k, v, out, lse, do, causal, scale)
 
+    def plain_forward(i):
+        for h in parts:
+            fa.flash_attention_forward_reference(
+                q[:, :, h], k[:, :, h], v[:, :, h], causal, scale)
+
     def plain_backward(i):
-        fa.flash_attention_backward_reference(q, k, v, out, lse, do, causal,
-                                              scale)
+        for h in parts:
+            fa.flash_attention_backward_reference(
+                q[:, :, h], k[:, :, h], v[:, :, h], out[:, :, h], lse[:, h],
+                do[:, :, h], causal, scale)
 
     def sdpa_backward(i):
         torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t, retain_graph=True)
@@ -1197,9 +1314,7 @@ def _flash_times(torch, fa, q, k, v, do, out, lse, causal, scale=None):
         "flash_fwd": {
             "ms": device_ms(lambda i: fa.flash_attention_forward(
                 q, k, v, causal, scale), kernel="flash_fwd"),
-            "plain_ms": device_ms(
-                lambda i: fa.flash_attention_forward_reference(
-                    q, k, v, causal, scale), iters=10),
+            "plain_ms": device_ms(plain_forward, iters=10),
             "library_ms": device_ms(lambda i: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale))},
         # the plain and library backward compute dq, dk and dv together:
@@ -3686,9 +3801,10 @@ def phase_neo_int8(torch, np, dev, neo, kw, card):
 # parameters are 206 GB in bf16, past the card's 80 GB; 16 experts make
 # 13.4e9 parameters (26.8 GB). Top-1, eval capacity 2.0, min capacity 4.
 MOE_EXPERTS = 16
-MOE_LAYERS = 12                      # of 24, cut to fit the time limit
-MOE_PARAMS = 6_751_457_280           # at 12 layers, 16 experts, tied head
-#                                      (24: 13_397_790_720)
+MOE_LAYERS = 6                       # of 24, cut to fit the time limit
+MOE_PARAMS = 3_428_290_560           # at 6 layers, 16 experts, tied head
+#                                      (12: 6_751_457_280; 24:
+#                                      13_397_790_720)
 MOE_IDS = (2, 1024)                  # phase 42's forward check
 # one MoE layer in bf16 against the same function in f32 on the same bf16
 # inputs (identical routing: the gate computes in f32 from the same
@@ -4267,42 +4383,54 @@ def ep_rank_main(args) -> int:
     return 0
 
 
+def spawn_ranks(seed, n, args, phase, timeout, d, own_card=False):
+    """This script ``n`` times more as the ranks of a multi-rank phase: each
+    run gets ``args`` with its rank after the first (the hidden flag),
+    --dp-port (a free localhost port for gloo) and --dp-out (its JSON result
+    under ``d``); LOCAL_RANK is 0 (every rank on card 0) or, with
+    ``own_card``, the rank. Fails on a rank's exit code or on ``timeout``
+    seconds; returns the ranks' JSON results."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs, outs = [], []
+    for rank in range(n):
+        env = dict(os.environ, LOCAL_RANK=str(rank if own_card else 0))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             args[0], str(rank), *args[1:], "--dp-port", str(port),
+             "--dp-out", os.path.join(d, f"rank{rank}.json")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase {phase}: the ranks outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:], flush=True)
+            fail(f"phase {phase} rank {rank} exited {p.returncode}")
+    ranks = []
+    for rank in range(n):
+        with open(os.path.join(d, f"rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    return ranks
+
+
 def run_ep_ranks(seed):
     """This script twice more as the two ranks of phase 44 (--ep-rank 0 /
     1); their JSON results."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as d:
-        procs, outs = [], []
-        for rank in range(2):
-            env = dict(os.environ, LOCAL_RANK="0")
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--ep-rank", str(rank), "--dp-port", str(port),
-                 "--dp-out", os.path.join(d, f"rank{rank}.json")],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        try:
-            for p in procs:
-                outs.append(p.communicate(
-                    timeout=max(deadline - time.monotonic(), 1))[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for rank, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                print(out[-6000:], flush=True)
-                fail(f"phase 44 rank {rank} exited {p.returncode}")
-        ranks = []
-        for rank in range(2):
-            with open(os.path.join(d, f"rank{rank}.json")) as fh:
-                ranks.append(json.load(fh))
-    return ranks
+        return spawn_ranks(seed, 2, ["--ep-rank"], 44, DP_TIMEOUT_S, d)
 
 
 def phase_ep(torch, np, dev, seed, card):
@@ -4387,10 +4515,12 @@ def _ep_near_tie(torch, dev, seed, prefix, at, row):
 
 # gpt_neox_20b (models/gpt.py: 44 layers, d_model 6144, 64 heads of 96,
 # d_ff 24576, rotary, parallel residual, untied head, vocab 50304) at tp 2
-# over two gloo ranks sharing the card: 41.1e9 B of bf16 weights whole,
-# half a rank, made on the card from --seed module by module
-# (models.gpt.init_tp_shards), so no rank ever holds the whole model
-NEOX_PARAMS = 20_552_994_816
+# over two gloo ranks sharing the card, cut in depth to fit the time limit:
+# 12.1e9 B of bf16 weights whole (41.1e9 at 44 layers), half a rank, made on
+# the card from --seed module by module (models.gpt.init_tp_shards), so no
+# rank ever holds the whole model
+NEOX_LAYERS = 12                     # of 44
+NEOX_PARAMS = 6_054_924_288          # at 12 layers (44: 20_552_994_816)
 NEOX_TP = 2
 NEOX_IDS = (2, 1024)                 # the forward through B1
 NEOX_BLOCK_IN = (1, 16)              # layer 0's input rows
@@ -4563,7 +4693,7 @@ def _tp_rank_serve(torch, np, dev, seed, out, stem):
     from deepspeed_tpu_torch import InferenceEngine, ServingEngine
     from deepspeed_tpu_torch.ops import quantizer as qz
     group = _tp_mesh(torch)
-    cfg = _neox_cfg(torch, decode_impl="auto")
+    cfg = _neox_cfg(torch, NEOX_LAYERS, decode_impl="auto")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = _neox_model(torch, cfg, group, seed, dev)
@@ -4574,7 +4704,8 @@ def _tp_rank_serve(torch, np, dev, seed, out, stem):
     out["weight_bytes"] = qz.weight_bytes(ie.module)
     out["build_peak"] = torch.cuda.max_memory_allocated(dev)
     out["heads"] = ie.module.blocks[0].attn.local_heads
-    # the forward through B1 (44 launches, each held to its plain version)
+    # the forward through B1 (a launch a layer, each held to its plain
+    # version)
     rng = np.random.default_rng(seed + 45)
     ids = rng.integers(1, cfg.vocab_size, NEOX_IDS).astype(np.int64)
     errs = {}
@@ -4657,46 +4788,15 @@ def run_tp_ranks(seed, phase):
     """This script twice more as the two ranks of phase 45 or 46
     (--tp-rank 0 / 1); their JSON results and the directory of their
     tensors (removed by the caller)."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     d = tempfile.mkdtemp(prefix=f"phase{phase}_")
-    procs, outs = [], []
-    for rank in range(NEOX_TP):
-        env = dict(os.environ, LOCAL_RANK="0")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-             "--tp-rank", str(rank), "--tp-phase", str(phase),
-             "--dp-port", str(port),
-             "--dp-out", os.path.join(d, f"rank{rank}.json")],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    deadline = time.monotonic() + TP_TIMEOUT_S
-    try:
-        for p in procs:
-            outs.append(p.communicate(
-                timeout=max(deadline - time.monotonic(), 1))[0])
-    except subprocess.TimeoutExpired:
-        fail(f"phase {phase}: the tp ranks outlived {TP_TIMEOUT_S} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, o) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            print(o[-6000:], flush=True)
-            fail(f"phase {phase} rank {rank} exited {p.returncode}")
-    ranks = []
-    for rank in range(NEOX_TP):
-        with open(os.path.join(d, f"rank{rank}.json")) as fh:
-            ranks.append(json.load(fh))
-    return ranks, d
+    return spawn_ranks(seed, NEOX_TP, ["--tp-rank", "--tp-phase",
+                                       str(phase)], phase, TP_TIMEOUT_S,
+                       d), d
 
 
 def phase_tp_serving(torch, np, dev, seed, card):
-    """Phase 45: GPT-NeoX 20B at full width and depth, bf16, split at tp 2
+    """Phase 45: GPT-NeoX 20B at full width (NEOX_LAYERS of its 44 layers),
+    bf16, split at tp 2
     over two gloo ranks sharing the card (the script re-runs itself with
     the hidden --tp-rank), each rank building only its shards on the card
     from --seed. Gates: each rank's weights at rest within NEOX_HALF_RTOL
@@ -5014,6 +5114,379 @@ def phase_tp_training(torch, np, dev, seed, card):
     print(f"phase46 seconds={time.perf_counter() - t_phase} card={card}",
           flush=True)
     return ranks[0]["train"]["off"]["launches"][-1]
+
+
+# --------------------------------------------------------------------------
+# Phases 47-49: sequence parallelism at bench.py's long_context
+# --------------------------------------------------------------------------
+
+# bench.py's long_context (bench.py:332-341): gpt2_125m at max_seq_len 16384,
+# micro 1 x gas 2, bf16 over fp32 masters, remat, AdamW 1e-4, ZeRO-1, dense
+# flash attention; trained CTX_STEPS steps on one repeated batch from --seed
+# at sp 1 (phase 47) and at mesh {"sp": SP} over two gloo ranks sharing the
+# card, each rank 8192 of the 16384 positions (phase 48)
+CTX_SEQ, CTX_GAS, CTX_STEPS, SP = 16384, 2, 3, 2
+CTX_CONFIG = {"train_micro_batch_size_per_gpu": 1,
+              "gradient_accumulation_steps": CTX_GAS,
+              "bf16": {"enabled": True},
+              "zero_optimization": {"stage": 1},
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+              "steps_per_print": 100_000}
+CTX_LAYERS = 12
+SP_TIMEOUT_S = 600
+# B1 / B1b at the shapes phases 47-48 give them: (row tag, B, S, H, D,
+# causal): the whole sequence, a Ulysses rank's 6 heads over it, a ring
+# rank's diagonal and full 8192-row blocks
+SP_FLASH = (("ctx16k", 1, CTX_SEQ, 12, 64, True),
+            ("ulysses_sp2", 1, CTX_SEQ, 12 // SP, 64, True),
+            ("ring_diag_sp2", 1, CTX_SEQ // SP, 12, 64, True),
+            ("ring_full_sp2", 1, CTX_SEQ // SP, 12, 64, False))
+# the plain versions' f32 scores of the whole sequence take 12.9e9 B (and
+# their backward four such tensors): they run over slices of this many heads
+SP_PLAIN_HEADS = 3
+# phase 48's ring check: the ring's merged output and grads against the
+# plain ring (ring_attention_reference, f32) at this many heads of the
+# training sequence
+SP_RING_CHECK_HEADS = 2
+# the exchanges a layer makes a micro-step on a rank of phase 48: Ulysses
+# two all-to-alls (q/k/v stacked, the output) in each of the forward, its
+# remat recompute and the backward; ring one K/V hop in the forward and the
+# recompute, and one hop of the dk/dv accumulators in the backward
+SP_EXCHANGES = {"ulysses": ("all_to_all", 6), "ring": ("ring_hops", 3)}
+# phase 49: phase 4's prompts (16-128 tokens) this long or longer take the
+# sp prefill leg
+SP_ROUTE_THRESHOLD = 64
+
+
+def _ctx_want(cp_impl, rank):
+    """B1 / B1b launches a step on ``rank``: a forward and its remat
+    recompute and a backward a layer a micro-step, once a block; a causal
+    ring rank r runs r + 1 blocks."""
+    blocks = rank + 1 if cp_impl == "ring" else 1
+    per = CTX_LAYERS * CTX_GAS * blocks
+    return {"flash_fwd": 2 * per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def ctx_train(torch, np, dev, seed, cp_impl=None):
+    """bench.py's long_context trained CTX_STEPS steps on one batch from
+    --seed: at sp 1, or under ``cp_impl`` at mesh {"sp": SP} (a rank of
+    phase 48), the weights drawn alike. The counts are reset just before
+    each step and read just after. Returns (results, engine, ids)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_125m, lm_loss_fn
+    from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.ring_attention import SP_TRAFFIC
+    kw = {} if cp_impl is None else dict(sequence_parallel=True,
+                                         cp_impl=cp_impl)
+    cfg = gpt2_125m(max_seq_len=CTX_SEQ, dtype=torch.bfloat16, **kw)
+    config = dict(CTX_CONFIG)
+    if cp_impl is not None:
+        config["mesh"] = {"sp": SP}
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=config, device=dev)
+    ids = np.random.default_rng(seed + 47).integers(
+        0, cfg.vocab_size, (1, CTX_SEQ)).astype(np.int32)
+    out = {k: [] for k in ("losses", "norms", "step_s", "launches",
+                           "traffic")}
+    reduced = engine.comm_bytes["all_reduce"]
+    for _ in range(CTX_STEPS):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        SP_TRAFFIC.clear()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([{"input_ids": ids}] * CTX_GAS))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append({n: _build.LAUNCHES[n] for n in FLASH})
+        out["traffic"].append(dict(SP_TRAFFIC))
+        out["losses"].append(float(loss))
+        out["norms"].append(float(engine.get_global_grad_norm()))
+    out["grad_all_reduce_bytes_per_step"] = (
+        engine.comm_bytes["all_reduce"] - reduced) / CTX_STEPS
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["sp"] = engine.sp_world_size
+    return out, engine, ids
+
+
+def _check_ctx_run(run, cp_impl, rank, what):
+    want = _ctx_want(cp_impl, rank)
+    if any(step != want for step in run["launches"]):
+        fail(f"{what}: launches {run['launches']}, want {want} a step")
+    if not all(math.isfinite(x) for x in run["losses"] + run["norms"]) or \
+            not run["losses"][-1] < run["losses"][0]:
+        fail(f"{what}: losses {run['losses']} not finite and falling")
+
+
+def sp_flash_checks(torch, fa, dev, gen, card):
+    """B1 / B1b at SP_FLASH's shapes against their plain versions (over
+    head slices; ``_close_rows``) and timed beside
+    scaled_dot_product_attention and their bounds. Returns ({tag: max abs errs}, {tag: times})."""
+    errs, times = {}, {}
+    for tag, B, S, H, D, causal in SP_FLASH:
+        q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+        e, (ro, rl) = _flash_pair(torch, fa, q, k, v, do, causal,
+                                  plain_heads=SP_PLAIN_HEADS, rows=True)
+        errs[tag] = e
+        print(f"phase47 flash {tag} B={B} S={S} H={H} D={D} causal={causal} "
+              f"bf16 max_abs_err out={e['flash_fwd']} lse={e['lse']} "
+              f"dq={e['flash_bwd_dq']} dk_dv={e['flash_bwd_dkv']}; max err "
+              f"over its bound {e['row']} (tol: 1 of the bound, "
+              f"{SP_ROW_RTOL} of the row's largest |plain| + {SP_HEAD_ATOL} "
+              f"of the head's rms; lse atol {LSE_ATOL})", flush=True)
+        del ro, rl
+        out, lse = fa.flash_attention_forward(q, k, v, causal, D ** -0.5)
+        times[tag] = _flash_times(torch, fa, q, k, v, do, out, lse, causal,
+                                  plain_heads=SP_PLAIN_HEADS)
+        for name, vals in times[tag].items():
+            print(f"phase47 {tag} B={B} S={S} H={H} D={D} causal={causal} "
+                  f"{name} " + " ".join(f"{key}={val}" for key, val in
+                                         vals.items()) + f" card={card}",
+                  flush=True)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def phase_long_context(torch, np, fa, dev, gen, seed, card):
+    """Phase 47: bench.py's long_context at sp 1 (gates: B1 / B1b 48 / 24 /
+    24 a step, losses finite and falling), a profiled micro-step's idle
+    share, then B1 / B1b at SP_FLASH's shapes (``sp_flash_checks``).
+    Returns (the run, errs, times)."""
+    from deepspeed_tpu_torch.models.gpt import gpt_flops_per_token
+    from deepspeed_tpu_torch.telemetry.mfu import (mfu_report,
+                                                   peak_flops_per_device)
+    t_phase = time.perf_counter()
+    run, engine, ids = ctx_train(torch, np, dev, seed)
+    print(f"phase47 long_context gpt2_125m seq={CTX_SEQ} micro 1 x gas "
+          f"{CTX_GAS} sp 1: losses={run['losses']} grad_norms="
+          f"{run['norms']} step_s={run['step_s']} launches_per_step="
+          f"{run['launches'][-1]} max_memory_allocated={run['peak']} "
+          f"card={card}", flush=True)
+    _check_ctx_run(run, None, 0, "phase47")
+    wall_ms, busy_ms = phase_train_profile(
+        torch, engine, torch.from_numpy(ids).long().to(dev), card,
+        tag="phase47")
+    step_s = sum(run["step_s"][1:]) / (CTX_STEPS - 1)
+    tokens = CTX_SEQ * CTX_GAS
+    report = mfu_report(
+        flops_per_call=gpt_flops_per_token(engine.module.cfg, CTX_SEQ)
+        * tokens, calls=CTX_STEPS - 1, wall_s=sum(run["step_s"][1:]),
+        peak_flops=peak_flops_per_device(dev), label="long_context sp 1")
+    print(f"long_context_step_s={step_s} long_context_tokens_per_s="
+          f"{tokens / step_s} long_context_mfu={report['mfu']} "
+          f"long_context_peak_bytes={run['peak']} "
+          f"long_context_micro_step_idle_share={1 - busy_ms / wall_ms} "
+          f"card={card}", flush=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs, times = sp_flash_checks(torch, fa, dev, gen, card)
+    print(f"phase47 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    return run, errs, times
+
+
+def _sp_a2a_check(torch, comm, group, dev) -> None:
+    """all_to_all_single of a CUDA tensor over the gloo sp group: row j of
+    the result is rank j's row for this rank, on the card."""
+    n, r = group.size, group.rank
+    x = torch.arange(4.0 * n, device=dev).view(n, 4) + 100 * r
+    got = comm.all_to_all_single(x, group)
+    want = torch.stack([torch.arange(4.0 * r, 4.0 * r + 4, device=dev)
+                        + 100 * j for j in range(n)])
+    if got.device != x.device or not torch.equal(got, want):
+        fail(f"all_to_all_single of a CUDA tensor over gloo gave {got}")
+
+
+def _sp_ring_results(torch, group, dev, seed):
+    """The ring over ``group`` at SP_RING_CHECK_HEADS heads of the training
+    sequence (bf16, the kernels) and the plain ring in f32: (name, this
+    rank's rows of the ring's result, the plain result's) for the output
+    and the q / k / v grads."""
+    from deepspeed_tpu_torch.ops.ring_attention import (
+        ring_attention, ring_attention_reference)
+    g = torch.Generator(device=dev).manual_seed(seed + 48)
+    q, k, v, do = (torch.randn(1, CTX_SEQ, SP_RING_CHECK_HEADS, 64,
+                               device=dev, generator=g).bfloat16()
+                   for _ in range(4))
+    s = CTX_SEQ // group.size
+    rows = slice(group.rank * s, (group.rank + 1) * s)
+    mine = [t[:, rows].clone().requires_grad_() for t in (q, k, v)]
+    out = ring_attention(*mine, group)
+    out.backward(do[:, rows])
+    full = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = ring_attention_reference(*full, group.size)
+    ref.backward(do.float())
+    return [("out", out.detach(), ref[:, rows].detach())] + [
+        (name, a.grad, b.grad[:, rows])
+        for name, a, b in zip(("dq", "dk", "dv"), mine, full)]
+
+
+def _sp_ring_check(torch, group, dev, seed):
+    """``_sp_ring_results`` within ``_close_rows``'s bound. Returns the
+    max abs errs and (``row``) each ``_row_share``."""
+    errs, row = {}, {}
+    for name, got, ref in _sp_ring_results(torch, group, dev, seed):
+        errs[name] = _close_rows(got, ref)
+        row[name] = _row_share(got, ref)
+    errs["row"] = row
+    return errs
+
+
+def sp_rank_main(args) -> int:
+    """One rank of phase 48 (this script with --sp-rank): mesh {"sp": SP}
+    over gloo with both ranks on card 0; results as JSON under --dp-out."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+    comm.init_distributed(dist_backend="gloo",
+                          init_method=f"tcp://localhost:{args.dp_port}",
+                          rank=args.sp_rank, world_size=SP)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh_lib.ensure_global_mesh(mesh_lib.MeshShape.infer(SP, sp=SP))
+    group = comm.new_group("sp")
+    _sp_a2a_check(torch, comm, group, dev)
+    out = {"rank": comm.get_rank(),
+           "backend": torch.distributed.get_backend(),
+           "ring_check": _sp_ring_check(torch, group, dev, args.seed)}
+    torch.cuda.empty_cache()
+    for cp_impl in ("ulysses", "ring"):
+        out[cp_impl], engine, _ = ctx_train(torch, np, dev, args.seed,
+                                            cp_impl)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(args.dp_out, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_sp(seed, card, ctx):
+    """Phase 48: bench.py's long_context at mesh {"sp": SP} over two gloo
+    ranks sharing the card (this script re-run with --sp-rank), cp_impl
+    "ulysses" then "ring" (``sp_rank_main``). Gates: all_to_all_single of a
+    CUDA tensor over gloo, the ring's merged output and grads against the
+    plain ring (``_close_rows``), every step's B1 / B1b launches
+    (``_ctx_want``),
+    the exchanges a step (SP_EXCHANGES), losses equal on both ranks, finite,
+    falling and within LOSS_ATOL of phase 47's (``ctx``). Returns each
+    cp_impl's runs by rank."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(seed, SP, ["--sp-rank"], 48, SP_TIMEOUT_S, d)
+    for r in ranks:
+        print(f"phase48 rank {r['rank']} ({r['backend']}): all_to_all_single "
+              f"of a CUDA tensor checked; ring at {SP_RING_CHECK_HEADS} heads "
+              f"vs the plain ring (f32) max_abs_err {r['ring_check']} (row: "
+              f"max err over its bound, {SP_ROW_RTOL} of the row's largest "
+              f"|plain| + {SP_HEAD_ATOL} of the head's rms)", flush=True)
+    runs = {}
+    for cp_impl in ("ulysses", "ring"):
+        kind, per_layer = SP_EXCHANGES[cp_impl]
+        calls = per_layer * CTX_LAYERS * CTX_GAS
+        runs[cp_impl] = [r[cp_impl] for r in ranks]
+        for rank, run in enumerate(runs[cp_impl]):
+            what = f"phase48 {cp_impl} rank {rank}"
+            traffic = run["traffic"][-1]
+            print(f"{what}: losses={run['losses']} grad_norms={run['norms']} "
+                  f"step_s={run['step_s']} launches_per_step="
+                  f"{run['launches'][-1]} exchanges_per_step={traffic} "
+                  f"grad_all_reduce_bytes_per_step="
+                  f"{run['grad_all_reduce_bytes_per_step']} "
+                  f"max_memory_allocated={run['peak']} (sp 1: losses "
+                  f"{ctx['losses']} step_s {ctx['step_s']}) card={card}",
+                  flush=True)
+            _check_ctx_run(run, cp_impl, rank, what)
+            if run["sp"] != SP or any(t.get(kind) != calls
+                                      for t in run["traffic"]):
+                fail(f"{what}: sp {run['sp']}, {kind} a step "
+                     f"{[t.get(kind) for t in run['traffic']]}, want {calls}")
+            if max(abs(a - b) for a, b in zip(run["losses"],
+                                              ctx["losses"])) > LOSS_ATOL:
+                fail(f"{what}: losses leave sp 1's by more than {LOSS_ATOL}")
+        if runs[cp_impl][0]["losses"] != runs[cp_impl][1]["losses"]:
+            fail(f"phase48 {cp_impl}: the two sp ranks' losses differ")
+        step_s = sum(runs[cp_impl][0]["step_s"][1:]) / (CTX_STEPS - 1)
+        print(f"long_context_sp{SP}_{cp_impl}_step_s={step_s} "
+              f"long_context_sp{SP}_{cp_impl}_tokens_per_s="
+              f"{CTX_SEQ * CTX_GAS / step_s} card={card}", flush=True)
+    print(f"phase48 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    return runs
+
+
+def sp_launches(ctx, sp_runs, tag, name) -> int:
+    """A SP_FLASH shape's launches of kernel ``name`` on phases 47-48's main
+    paths: phase 47's steps, or phase 48's over both ranks (ring rank 1
+    runs as many diagonal blocks as rank 0, and the rest full)."""
+    def total(run):
+        return sum(step[name] for step in run["launches"])
+    if tag == "ctx16k":
+        return total(ctx)
+    if tag == "ulysses_sp2":
+        return sum(total(r) for r in sp_runs["ulysses"])
+    r0, r1 = (total(r) for r in sp_runs["ring"])
+    return 2 * r0 if tag == "ring_diag_sp2" else r1 - r0
+
+
+def phase_sp_route(torch, dev, ie, prompts, kw, card):
+    """Phase 49: phase 38's dense fused engine (megakernel, prefill_chunk
+    16) with sp_prefill_threshold=SP_ROUTE_THRESHOLD beside the same engine
+    without it, on phase 4's requests. Gates: every request done, the long
+    prompts' tokens through the sp leg and the short ones inline, every
+    decode step after the route through B2 at the fused width (12 a step)
+    and B4, greedy tokens equal or parting first at a near-tie of the twin
+    run. Returns the route's launches."""
+    from deepspeed_tpu_torch import ServingEngine
+    n_new, K = 64, kw["decode_chunk"]
+    L = ie.module.cfg.num_layers
+    base_kw = dict(kw, megakernel=True, fused_prefill=True,
+                   prefill_chunk=FUSED_C)
+    route_kw = dict(base_kw, sp_prefill_threshold=SP_ROUTE_THRESHOLD)
+    ServingEngine(engine=ie, **route_kw).run(
+        [p.copy() for p in prompts[:2]], max_new_tokens=4)    # warm-up
+    base = ServingEngine(engine=ie, **base_kw)
+    eng = ServingEngine(engine=ie, **route_kw)
+    base_out, base_s, _ = _serve(torch, base, prompts, n_new)
+    with decode_widths() as widths:
+        out, seconds, launched = _serve(torch, eng, prompts, n_new)
+    long = sum(len(p) for p in prompts if len(p) >= SP_ROUTE_THRESHOLD)
+    short = sum(len(p) for p in prompts) - long
+    steps = eng.metrics.decode_steps * K
+    print(f"phase49 sp route threshold={SP_ROUTE_THRESHOLD} launches="
+          f"{launched} widths={dict(widths)} sp_prefill_tokens="
+          f"{eng.sp_prefill_tokens} inline_prefill_tokens="
+          f"{eng.inline_prefill_tokens} steps={steps}", flush=True)
+    if not long or not short:
+        fail(f"phase49: the threshold splits no prompts ({long} tokens at "
+             f"or above it, {short} below)")
+    if (eng.sp_prefill_tokens, eng.inline_prefill_tokens) != (long, short):
+        fail(f"phase49: {eng.sp_prefill_tokens} tokens through the sp leg "
+             f"and {eng.inline_prefill_tokens} inline, want {long} and "
+             f"{short}")
+    if (launched.get("decode_attention") != L * steps
+            or not launched.get("sampling")
+            or dict(widths) != {("decode_attention", FUSED_C): L * steps}):
+        fail(f"phase49: launches {launched}, widths {dict(widths)} for "
+             f"{steps} steps")
+    parted = _parting(torch, dev, base.module, prompts, out, base_out,
+                      "phase49 sp route")
+    n_tokens = sum(len(r.tokens) for r in out)
+    print(f"phase49 sp route: greedy tokens equal the engine's without it "
+          f"in {len(out) - len(parted)}/{len(out)} requests; "
+          f"{_parting_stats(parted, len(out), n_new)}; parting (request, "
+          f"position, top-2 gap, bound): {parted}", flush=True)
+    print(f"sp_route_serving_tokens_per_s={n_tokens / seconds} "
+          f"{_ttft(eng.metrics)} without_route_tokens_per_s="
+          f"{n_tokens / base_s} {_ttft(base.metrics, 'without_route_')} "
+          f"(K={K}, batch 8) card={card}", flush=True)
+    return launched
 
 
 ROWWISE = ("layer_norm_fwd", "layer_norm_dx", "bias_gelu_fwd",
@@ -5938,40 +6411,11 @@ def _block_marks(torch, engine, dev):
 def run_dp_ranks(seed, stages, phase):
     """This script twice more as the two ranks (--dp-rank 0 / 1) at each
     ZeRO stage of ``stages``; their JSON results."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as d:
-        procs, outs = [], []
-        for rank in range(2):
-            env = dict(os.environ, LOCAL_RANK=str(rank))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--dp-rank", str(rank), "--dp-port", str(port),
-                 "--dp-stages", ",".join(str(x) for x in stages),
-                 "--dp-out", os.path.join(d, f"rank{rank}.json")],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        deadline = time.monotonic() + DP_TIMEOUT_S * len(stages)
-        try:
-            for p in procs:
-                outs.append(p.communicate(
-                    timeout=max(deadline - time.monotonic(), 1))[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for rank, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                print(out[-6000:], flush=True)
-                fail(f"phase {phase} rank {rank} exited {p.returncode}")
-        ranks = []
-        for rank in range(2):
-            with open(os.path.join(d, f"rank{rank}.json")) as fh:
-                ranks.append(json.load(fh))
-    return ranks
+        return spawn_ranks(
+            seed, 2, ["--dp-rank", "--dp-stages",
+                      ",".join(str(x) for x in stages)], phase,
+            DP_TIMEOUT_S * len(stages), d, own_card=True)
 
 
 def _check_dp_losses(ranks, stage, dp1_losses, phase):
@@ -6707,6 +7151,9 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-phase", type=int, default=45,
                     help=argparse.SUPPRESS)
+    # one rank of phase 48
+    ap.add_argument("--sp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -6720,6 +7167,8 @@ def main(argv=None) -> int:
         return ep_rank_main(args)
     if args.tp_rank is not None:
         return tp_rank_main(args)
+    if args.sp_rank is not None:
+        return sp_rank_main(args)
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -6771,6 +7220,7 @@ def main(argv=None) -> int:
     phase_serve_loop(torch, ie, prompts, serve_kw, card)
     fused_launches = phase_fused_serving(torch, dev, ie, prompts, serve_kw,
                                          card)
+    route_launches = phase_sp_route(torch, dev, ie, prompts, serve_kw, card)
     del ie
     torch.cuda.empty_cache()
     d80_launches = phase_d80_serving(torch, np, dev, args.seed, prompts,
@@ -6788,6 +7238,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     neox = phase_tp_serving(torch, np, dev, args.seed, card)
     neox_train = phase_tp_training(torch, np, dev, args.seed, card)
+    torch.cuda.empty_cache()
+    ctx, ctx_errs, ctx_t = phase_long_context(torch, np, fa, dev, gen,
+                                              args.seed, card)
+    sp_runs = phase_sp(args.seed, card, ctx)
     torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
@@ -6862,7 +7316,9 @@ def main(argv=None) -> int:
         {"name": "sampling", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/sampling.cu",
          "replaces": "deepspeed_tpu/ops/pallas/sampling.py:132",
-         "launches": launches["sampling"], "max_abs_err": sp_err,
+         "launches": launches["sampling"],
+         "launches_sp_prefill_route": route_launches["sampling"],
+         "max_abs_err": sp_err,
          **sp_t, "bound_ms": sp_bound, "bound_by": sp_by},
     ] + [
         {"name": name + tag, "route": "cuda",
@@ -6939,8 +7395,10 @@ def main(argv=None) -> int:
         {"name": f"{name}{tag}", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cuh",
          "replaces": f"deepspeed_tpu/ops/pallas/decode_attention.py:{line}",
-         "launches": launched[name], "max_abs_err": errs[name],
-         **times[name]}
+         "launches": launched[name], **(
+             {"launches_sp_prefill_route": route_launches[name]}
+             if f"{name}{tag}" == f"decode_attention_sq{FUSED_C}" else {}),
+         "max_abs_err": errs[name], **times[name]}
         for tag, launched, errs, times in (
             (f"_sq{FUSED_C}", fused_launches, sq16_err, sq16_t),
             ("_d80", d80_launches, d80_err, d80_t))
@@ -6995,6 +7453,15 @@ def main(argv=None) -> int:
          "launches": neox_train[name], "tp": NEOX_TP,
          "max_abs_err": neox["bwd_err"][name], **neox["flash_t"][name]}
         for name, line in (("flash_bwd_dq", 140), ("flash_bwd_dkv", 175))
+    ] + [
+        {"name": f"{name}_{tag}", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+         "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": sp_launches(ctx, sp_runs, tag, name),
+         "max_abs_err": ctx_errs[tag][name], **ctx_t[tag][name]}
+        for tag, *_ in SP_FLASH
+        for name, line in (("flash_fwd", 52), ("flash_bwd_dq", 140),
+                           ("flash_bwd_dkv", 175))
     ] + [
         {"name": "sampling_filter", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/cuda/csrc/sampling.cu",

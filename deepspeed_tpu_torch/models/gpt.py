@@ -52,6 +52,17 @@ rank's heads. Under ``cfg.partition_activations`` with ``remat`` each
 block's saved input is this rank's ``S / tp`` rows, gathered again before
 its recompute (:class:`PartitionedCheckpoint`).
 
+Sequence parallelism (:func:`set_sequence_parallel`, the engine's
+``mesh: {"sp": n}``): the TPU model expresses it as sharding constraints
+and GSPMD inserts the exchanges; here each rank holds whole parameters and
+its ``S / sp`` columns of every row (positions ``r * S / sp + i``), and
+``SelfAttention`` exchanges explicitly over the sp group: under
+``cp_impl="ulysses"`` q, k and v go to head shards (the whole sequence for
+``H / sp`` heads, one all-to-all, :func:`seq_to_heads`), attend (the flash
+kernels in training, which the TPU model cannot partition there) and come
+back (:func:`heads_to_seq`); under ``"ring"`` the K/V chunks travel the
+ring (``ops/ring_attention.py``).
+
 Under ``cfg.moe`` every block's MLP is a Mixture-of-Experts layer
 (``moe/layer.py``), as in the TPU model: the training forward
 (``deterministic=False``) gates at ``moe_capacity_factor`` with the draws
@@ -79,6 +90,8 @@ from ..module_inject.layers import (copy_to_tp, embedding, gather_from_tp,
                                     reduce_from_tp, scatter_to_tp,
                                     shard_by_tp_spec, shard_module_,
                                     tp_kind, tp_linear, tp_partial)
+from ..comm import comm
+from ..ops.ring_attention import SP_TRAFFIC, ring_attention
 from ..ops.tp_overlap import defer_attn_allreduce, overlap_supported
 from ..utils.logging import logger
 
@@ -111,10 +124,11 @@ _REMAT_SAVE = {
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """The TPU package's GPTConfig, field for field. Fields of features not
-    ported yet (sequence parallelism, the tp overlap) must stay at their
-    defaults. ``moe`` replaces every block's MLP with ``num_experts`` MLP
-    experts behind a top-``moe_top_k`` gate (``moe_use_residual``: PR-MoE's
+    """The TPU package's GPTConfig, field for field. ``sequence_parallel``
+    splits the sequence over the engine's sp group
+    (:func:`set_sequence_parallel`) with ``cp_impl`` "ulysses" or "ring";
+    it does nothing without one. ``moe`` replaces every block's MLP with
+    ``num_experts`` MLP experts behind a top-``moe_top_k`` gate (``moe_use_residual``: PR-MoE's
     dense residual MLP beside them). ``attn_windows`` is one local-attention window (or None,
     a global layer) a layer, GPT-Neo's alternation; it needs
     ``scan_layers=False``, as in the TPU model, and refuses
@@ -176,6 +190,9 @@ class GPTConfig:
             raise ValueError(
                 "cpu_checkpointing offloads remat-saved block inputs to "
                 "host memory, so it requires remat=True")
+        if self.cp_impl not in ("ulysses", "ring"):
+            raise ValueError(
+                f"cp_impl must be 'ulysses' or 'ring', got {self.cp_impl!r}")
         if self.decode_impl not in ("auto", "einsum"):
             raise ValueError(f"unknown decode_impl {self.decode_impl!r}: "
                              f"use 'auto' or 'einsum'")
@@ -216,14 +233,15 @@ class GPTConfig:
                 raise NotImplementedError(
                     "cpu_checkpointing of MoE blocks: not ported to PyTorch "
                     "yet (ROADMAP A9)")
+            if self.sequence_parallel:
+                raise NotImplementedError(
+                    "sequence_parallel MoE blocks: not ported to PyTorch "
+                    "yet (ROADMAP A9)")
         if self.tp_overlap and not self.parallel_residual:
             raise ValueError(
                 "tp_overlap hides the attention all-reduce behind the "
                 "parallel-residual MLP gemm; it requires "
                 "parallel_residual=True")
-        if self.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel: not ported to PyTorch yet (ROADMAP A9)")
 
     @property
     def head_dim(self) -> int:
@@ -468,11 +486,118 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+# --------------------------------------------------------------------------
+# Sequence parallelism: the Ulysses exchanges
+# --------------------------------------------------------------------------
+
+def _sp_size(group) -> int:
+    return 1 if group is None else group.size
+
+
+def _all_to_all(x: torch.Tensor, group, split: int, cat: int
+                ) -> torch.Tensor:
+    """``x`` cut into ``group.size`` pieces along dim ``split``, piece j to
+    rank j; the pieces received are joined along dim ``cat`` in rank
+    order."""
+    n = group.size
+    shape = list(x.shape)
+    pieces = x.reshape(shape[:split] + [n, shape[split] // n]
+                       + shape[split + 1:]).movedim(split, 0).contiguous()
+    SP_TRAFFIC["all_to_all"] += 1
+    SP_TRAFFIC["all_to_all_bytes"] += pieces.numel() * pieces.element_size()
+    got = comm.all_to_all_single(pieces, group)          # [n, ...piece]
+    shape[split] //= n
+    shape[cat] *= n
+    return got.movedim(0, cat).reshape(shape)
+
+
+class _SeqHeads(torch.autograd.Function):
+    """``[..., S/sp, H, d]`` -> ``[..., S, H/sp, d]`` (``to_heads``) or
+    back; the backward is the opposite exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, to_heads: bool):
+        ctx.group, ctx.to_heads = group, to_heads
+        seq, heads = x.dim() - 3, x.dim() - 2
+        return (_all_to_all(x, group, heads, seq) if to_heads
+                else _all_to_all(x, group, seq, heads))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SeqHeads.forward(ctx, g, ctx.group, not ctx.to_heads), \
+            None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """``[..., S/sp, H, d]`` -> every rank's chunk joined along the
+    sequence; the backward sums the ranks' grads and keeps this rank's
+    chunk (each rank's grad of the whole sequence is its own)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        seq = x.dim() - 3
+        return comm.all_gather(x.contiguous(), group).movedim(0, seq) \
+            .flatten(seq, seq + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, seq = ctx.group.size, g.dim() - 3
+        parts = g.unflatten(seq, (n, g.shape[seq] // n)).movedim(seq, 0)
+        return comm.reduce_scatter_base(parts.contiguous(),
+                                        group=ctx.group)[0], None
+
+
+def seq_to_heads(x: torch.Tensor, group) -> torch.Tensor:
+    """The TPU package's ``sp_shard_heads``: ``[..., S/sp, H, d]`` sequence
+    chunks -> ``[..., S, H/sp, d]``, the whole sequence for this rank's
+    heads, by one all-to-all over the sp ``group`` (identity without
+    one)."""
+    return x if _sp_size(group) == 1 else _SeqHeads.apply(x, group, True)
+
+
+def heads_to_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The TPU package's ``sp_shard_sequence`` of an attention output:
+    ``[..., S, H/sp, d]`` -> ``[..., S/sp, H, d]``."""
+    return x if _sp_size(group) == 1 else _SeqHeads.apply(x, group, False)
+
+
+_sp_drop_warned = set()
+
+
+def ulysses_attention(q, k, v, group, attend) -> torch.Tensor:
+    """``attend(q, k, v)`` over the whole sequence, for this rank's
+    ``[B, S/sp, H, d]`` chunks: q, k and v go to head shards together and
+    the output comes back to sequence chunks. Where sp does not divide the
+    heads, the TPU package's constraint drops the sp axis (with a warning)
+    and computes the same result; so does this: the chunks are gathered,
+    every head attends over the whole sequence and the rank keeps its own
+    rows."""
+    n = _sp_size(group)
+    if n == 1:
+        return attend(q, k, v)
+    qkv = torch.stack([q, k, v])
+    if q.shape[2] % n == 0:
+        return heads_to_seq(attend(*seq_to_heads(qkv, group).unbind(0)),
+                            group)
+    key = (tuple(q.shape), n)
+    if key not in _sp_drop_warned:
+        _sp_drop_warned.add(key)
+        logger.warning(
+            f"sequence-parallel sharding dropped: dim 2 of a "
+            f"{tuple(q.shape)} chunk is not divisible by sp={n} -- Ulysses "
+            f"needs num_heads % sp == 0; gathering the sequence instead")
+    s, r = q.shape[1], group.rank
+    out = attend(*_GatherSeq.apply(qkv, group).unbind(0))
+    return out[:, r * s:(r + 1) * s]
+
+
 class SelfAttention(nn.Module):
     """``window``: this layer's local-attention window (None: global). A
     windowed layer attends through the masked einsum in the forward, the
     prefill and decode, whatever ``attention_impl`` / ``decode_impl`` say,
-    as the TPU model's does, and has no paged path."""
+    as the TPU model's does, and has no paged path. ``sp_group``: the sp
+    group the sequence is split over (:func:`set_sequence_parallel`)."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  window: Optional[int] = None):
@@ -484,6 +609,7 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(cfg.d_model, cfg.d_model, bias=True, **kw)
         self.scale = (cfg.qk_scale if cfg.qk_scale is not None
                       else 1.0 / math.sqrt(cfg.head_dim))
+        self.sp_group = None
 
     @property
     def local_heads(self) -> int:
@@ -507,10 +633,19 @@ class SelfAttention(nn.Module):
         prefill k and v are (int8 payload [b, s, h*d], f32 scale [b, s])
         pairs. Under tp the heads and k/v are this rank's, and ``partial``
         returns the out projection's partial product, unreduced and without
-        its bias (the caller reduces it: ``tp_overlap``)."""
+        its bias (the caller reduces it: ``tp_overlap``).
+
+        Under ``cfg.sequence_parallel`` with an sp group, x is this rank's
+        sequence chunk and attention without ``kv`` spans the whole
+        sequence: ``cp_impl="ulysses"`` through :func:`ulysses_attention`
+        (the training forward's flash kernels over ``H / sp`` heads, or
+        the prefill's masked einsum), ``"ring"`` (training) through
+        ``ops/ring_attention.py``; k/v come back as the chunk's own. A
+        decode step over an sp group raises."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, d = self.local_heads, cfg.head_dim
+        sp = self.sp_group if _sp_size(self.sp_group) > 1 else None
         qkv = _linear(x, self.qkv, cfg.dtype)
         q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, -1))
         if cfg.rotary:
@@ -518,11 +653,30 @@ class SelfAttention(nn.Module):
             q = rotary_embedding(q, positions, rd)
             k = rotary_embedding(k, positions, rd)
         if kv is None and attention_impl is not None:
-            out = causal_attention(q, k, v, dtype=cfg.dtype,
-                                   impl=attention_impl, scale=self.scale,
-                                   sparse_config=cfg.sparse_attention,
-                                   window=self.window)
+            ring = cfg.sequence_parallel and cfg.cp_impl == "ring"
+            if ring and (self.window is not None
+                         or cfg.sparse_attention is not None):
+                raise NotImplementedError(
+                    "cp_impl='ring' computes full causal attention; local "
+                    "windows / sparse layouts are not ring-aware -- use "
+                    "cp_impl='ulysses' for those configs")
+            if sp is not None and attention_impl == "sparse":
+                raise NotImplementedError(
+                    "block-sparse attention over an sp group (its layout "
+                    "split by heads): not ported to PyTorch yet (ROADMAP "
+                    "A9)")
+            if ring:
+                out = ring_attention(q, k, v, sp, scale=self.scale)
+            else:
+                out = ulysses_attention(q, k, v, sp, functools.partial(
+                    causal_attention, dtype=cfg.dtype, impl=attention_impl,
+                    scale=self.scale, sparse_config=cfg.sparse_attention,
+                    window=self.window))
             return self._project(out.reshape(b, s, h * d), partial), k, v
+        if kv is not None and sp is not None:
+            raise NotImplementedError(
+                "a decode step over an sp group (a KV cache split over sp): "
+                "not ported to PyTorch yet (ROADMAP A9)")
         k, v = k.reshape(b, s, h * d), v.reshape(b, s, h * d)
         if kv is None:
             kr, vr = k, v
@@ -533,9 +687,10 @@ class SelfAttention(nn.Module):
                 kr = dequantize_kv(kq, ks, cfg.dtype)
                 vr = dequantize_kv(vq, vs, cfg.dtype)
                 k, v = (kq, ks[..., 0]), (vq, vs[..., 0])
-            out = masked_cache_attention(q, kr.view(b, s, h, d),
-                                         vr.view(b, s, h, d), 0, self.scale,
-                                         window=self.window)
+            out = ulysses_attention(
+                q, kr.view(b, s, h, d), vr.view(b, s, h, d), sp,
+                functools.partial(masked_cache_attention, first_q_pos=0,
+                                  scale=self.scale, window=self.window))
         else:
             ck, cv, ksc, vsc = kv
             writes = [(ck, k), (cv, v)]
@@ -702,6 +857,7 @@ class GPT(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
                                      **kw)
+        self.sp_group = None
         self.init_weights()
 
     def flax_leaves(self):
@@ -732,6 +888,17 @@ class GPT(nn.Module):
         group = self.tp_group
         return 1 if group is None else group.size
 
+    @property
+    def sp_size(self) -> int:
+        return _sp_size(self.sp_group)
+
+    def _positions(self, b: int, s: int, device) -> torch.Tensor:
+        """Each row's positions [b, s]: ``0 .. s - 1``, or over an sp group
+        this rank's chunk of the sequence, ``r * s + i``."""
+        start = self.sp_group.rank * s if self.sp_size > 1 else 0
+        return torch.arange(start, start + s, device=device)[None, :] \
+            .expand(b, s)
+
     def _embed(self, input_ids, positions):
         return embed_tokens(self.cfg, self.wte, getattr(self, "wpe", None),
                             input_ids, positions)
@@ -759,11 +926,11 @@ class GPT(nn.Module):
         keys and values [L, B, P, h*d]); under ``kv_cache_dtype="int8"``
         (hidden, int8 keys, int8 values, f32 key scales, f32 value scales
         [L, B, P]), the prompt having attended over the dequantized int8
-        K/V."""
+        K/V. Over an sp group, ``input_ids`` and every output are this
+        rank's chunk of the prompt positions."""
         b, s = input_ids.shape
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device
-                                     )[None, :].expand(b, s)
+            positions = self._positions(b, s, input_ids.device)
         x = self._embed(input_ids, positions)
         ks: List = []
         vs: List = []
@@ -802,8 +969,7 @@ class GPT(nn.Module):
         cfg = self.cfg
         b, s = input_ids.shape
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device
-                                     )[None, :].expand(b, s)
+            positions = self._positions(b, s, input_ids.device)
         x = self._embed(input_ids, positions)
         draws = [None] * cfg.num_layers
         if cfg.moe and not deterministic and generator is not None:
@@ -941,7 +1107,13 @@ def gpt_flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None
 # Tensor parallelism
 # --------------------------------------------------------------------------
 
-def _check_tp(cfg: GPTConfig, tp: int) -> None:
+_TP_AND_SP = ("a model split over both tp and sp: not ported to PyTorch yet "
+              "(ROADMAP A9)")
+
+
+def _check_tp(cfg: GPTConfig, tp: int, sp: int = 1) -> None:
+    if sp > 1:
+        raise NotImplementedError(_TP_AND_SP)
     if cfg.moe:
         raise NotImplementedError(
             "an MoE model at tp > 1: not ported to PyTorch yet (ROADMAP A9)")
@@ -960,7 +1132,7 @@ def set_tensor_parallel(model: "GPT", group) -> "GPT":
     changes nothing. Returns ``model``."""
     if group is None or group.size == 1:
         return model
-    _check_tp(model.cfg, group.size)
+    _check_tp(model.cfg, group.size, model.sp_size)
     if model.tp_size != 1:
         raise ValueError(f"the model is split over tp={model.tp_size} "
                          f"already")
@@ -1005,4 +1177,28 @@ def init_tp_shards(model: "GPT", group, seed: int, device,
         if tp > 1 and tp_kind(name, module, tp) is not None:
             shard_module_(model, name, module, group)
         del module, own
+    return model
+
+
+# --------------------------------------------------------------------------
+# Sequence parallelism
+# --------------------------------------------------------------------------
+
+def set_sequence_parallel(model: "GPT", group) -> "GPT":
+    """Split ``model``'s sequence over the sp ``group``: the parameters stay
+    whole on every rank, each rank's forward takes its ``S / sp`` columns
+    of every row (positions ``r * S / sp + i``) and attention exchanges
+    over ``group`` (``cfg.cp_impl``). Needs ``cfg.sequence_parallel``; a
+    one-rank group (or None) changes nothing. Returns ``model``."""
+    if _sp_size(group) == 1:
+        return model
+    if not model.cfg.sequence_parallel:
+        raise ValueError(
+            f"mesh sp={group.size} needs a GPTConfig with "
+            f"sequence_parallel=True (and cp_impl 'ulysses' or 'ring')")
+    if model.tp_size > 1:
+        raise NotImplementedError(_TP_AND_SP)
+    model.sp_group = group
+    for blk in model.blocks:
+        blk.attn.sp_group = group
     return model

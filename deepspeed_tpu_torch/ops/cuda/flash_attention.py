@@ -78,13 +78,16 @@ def flash_attention_forward_reference(q, k, v, causal: bool, scale: float
 
 
 def flash_attention_backward_reference(q, k, v, out, lse, dout, causal: bool,
-                                       scale: float):
+                                       scale: float, delta=None):
     """The plain backward: the equations of ``_bwd_dq_kernel`` and
-    ``_bwd_dkv_kernel``. Returns (dq, dk, dv) in the inputs' dtype."""
+    ``_bwd_dkv_kernel``. Returns (dq, dk, dv) in the inputs' dtype.
+    ``delta`` defaults to :func:`attention_delta` of ``out`` and ``dout``."""
     p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
     dof = dout.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    ds = p * (dp - attention_delta(out, dout)[..., None]) * scale
+    if delta is None:
+        delta = attention_delta(out, dout)
+    ds = p * (dp - delta[..., None]) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
@@ -152,17 +155,21 @@ def flash_attention_forward(q, k, v, causal: bool, scale: float
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool,
-                             scale: float):
+                             scale: float, delta=None):
     """(dq, dk, dv): the two kernels for a CUDA tensor, the plain version
-    for a CPU tensor."""
+    for a CPU tensor. ``delta`` [B, H, S] f32 defaults to
+    :func:`attention_delta` of ``out`` and ``dout``; a caller that runs
+    several blocks of one softmax row (ring attention) passes the row's
+    own, with its ``lse``, and ``out`` is then not read."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, dout,
-                                                  causal, scale)
+                                                  causal, scale, delta)
     _check(q, k, v, dout)
     q, k, v, dout = _strided(q), _strided(k), _strided(v), _strided(dout)
     b, s, h, d = q.shape
-    delta = attention_delta(out, dout)
-    lse = lse.contiguous()
+    if delta is None:
+        delta = attention_delta(out, dout)
+    delta, lse = delta.contiguous(), lse.contiguous()
     dq, dk, dv = (torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     strides = _stride_array(q, k, v, dout)

@@ -64,7 +64,14 @@ one process per rank of the device mesh (``torch.distributed``, through
     global batch; the training gate draws from one generator seeded
     alike on every rank (``seed``). The global grad norm and a checkpoint
     take the expert leaves whole, gathered over ep, so a checkpoint saved
-    at one ep degree loads at another.
+    at one ep degree loads at another. Over ``sp > 1`` (a GPT with
+    ``sequence_parallel``, ``models.gpt.set_sequence_parallel``) every
+    rank holds the whole parameters and takes its dp rows and its sp
+    columns of each global batch (the TPU ``_shard_batch``); the shifted
+    labels come from the whole row before it is cut, the loss is the sp
+    group's token mean, and the grads are summed over sp and averaged over
+    dp (one all-reduce over the dp x sp group). ZeRO partitions over dp
+    only, and a checkpoint, of whole leaves, loads at any sp degree.
 
 What the TPU engine supports beyond that raises ``NotImplementedError``
 naming its ROADMAP item; a parsed knob never silently does nothing.
@@ -88,6 +95,7 @@ from torch import nn
 from ..checkpoint import saving as ckpt_saving
 from ..comm import comm
 from ..comm.coalesced_collectives import all_gather_coalesced
+from ..module_inject.layers import reduce_from_tp
 from ..moe.layer import moe_layers, set_expert_parallel
 from ..moe.utils import is_moe_param
 from ..parallel import mesh as mesh_lib
@@ -148,16 +156,16 @@ def _not_ported(what: str, item: str):
 
 def _build_mesh(raw) -> "mesh_lib.DeviceMesh":
     """The engine's device mesh from the config's ``mesh`` block (dp fills
-    the world); pp and sp wait for ROADMAP A9."""
+    the world); pp waits for ROADMAP A9."""
     if isinstance(raw, str):
         with open(raw) as fh:
             raw = json.load(fh)
     m = dict((raw or {}).get("mesh") or {})
-    later = [a for a in ("pp", "sp") if m.get(a, 1) != 1]
-    if later:
-        raise _not_ported(f"a {'/'.join(later)} mesh", "A9")
+    if m.get("pp", 1) != 1:
+        raise _not_ported("a pp mesh", "A9")
     shape = mesh_lib.MeshShape.infer(comm.get_world_size(), tp=m.get("tp", 1),
-                                     ep=m.get("ep", 1), dp=m.get("dp"))
+                                     ep=m.get("ep", 1), sp=m.get("sp", 1),
+                                     dp=m.get("dp"))
     return mesh_lib.ensure_global_mesh(shape)
 
 
@@ -172,11 +180,16 @@ class DeepSpeedEngine:
         self.dp_rank = self.mesh.coord("dp")
         self.ep_world_size = self.mesh.shape["ep"]
         self.mp_world_size = self.mesh.shape["tp"]
+        self.sp_world_size = self.mesh.shape["sp"]
         self._dp_group = comm.new_group("dp", self.mesh)
         self._ep_group = comm.new_group("ep", self.mesh)
         self._tp_group = comm.new_group("tp", self.mesh)
+        self._sp_group = comm.new_group("sp", self.mesh)
+        # the grads' reduction: summed over sp (each sp rank's grads are
+        # its columns' share) and over dp (divided by dp at the update)
+        self._grad_group = comm.new_group(("dp", "sp"), self.mesh)
         # every leaf's whole shape, taken before the tp split (empty at tp
-        # 1); at most one of ep and tp is above 1
+        # 1); at most one of ep, tp and sp is above 1
         self._tp_whole: Dict[str, Tuple[int, ...]] = {}
         self.config = DeepSpeedConfig(raw, dp_world_size=self.dp_world_size)
         self._config = self.config            # reference-name parity
@@ -372,7 +385,8 @@ class DeepSpeedEngine:
                 "param fetches); a parsed knob must change the program or "
                 "error, never silently do nothing")
         for axis, n in (("ep", self.ep_world_size),
-                        ("tp", self.mp_world_size)):
+                        ("tp", self.mp_world_size),
+                        ("sp", self.sp_world_size)):
             if n == 1:
                 continue
             tiers = {"ZeRO-3": self.config.zero_optimization_stage >= 3,
@@ -383,9 +397,11 @@ class DeepSpeedEngine:
             if on:
                 raise _not_ported(f"{', '.join(on)} with mesh {axis}={n}",
                                   "A9")
-        if self.ep_world_size > 1 and self.mp_world_size > 1:
-            raise _not_ported(f"a mesh with ep={self.ep_world_size} and tp="
-                              f"{self.mp_world_size}", "A9")
+        many = [f"{a}={n}" for a, n in (("ep", self.ep_world_size),
+                                        ("tp", self.mp_world_size),
+                                        ("sp", self.sp_world_size)) if n > 1]
+        if len(many) > 1:
+            raise _not_ported(f"a mesh with {' and '.join(many)}", "A9")
         if c.pipeline.stages > 1:
             raise _not_ported("pipeline stages", "A9")
         otype = (c.optimizer.type if c.optimizer else "Adam").lower()
@@ -493,6 +509,14 @@ class DeepSpeedEngine:
         set_expert_parallel(
             model, self._ep_group,
             self._dp_group if self.dp_world_size > 1 else None)
+        if self.sp_world_size > 1:
+            # over sp each rank runs its columns of the whole model
+            from ..models.gpt import GPT, set_sequence_parallel
+            if not isinstance(model, GPT):
+                raise ValueError(
+                    f"mesh sp={self.sp_world_size} splits a GPT's sequence; "
+                    f"got {type(model).__name__}")
+            set_sequence_parallel(model, self._sp_group)
         if self.mp_world_size > 1:
             # over tp each rank keeps its shard of the one whole model
             from ..models.gpt import GPT, set_tensor_parallel
@@ -1019,8 +1043,12 @@ class DeepSpeedEngine:
     def _to_device(self, batch):
         """The batch on the device; over dp ranks, this rank's rows of it
         where the leading dim divides by dp (the TPU ``_shard_batch``: other
-        leaves stay whole on every rank)."""
+        leaves stay whole on every rank); over sp ranks also this rank's
+        columns (:meth:`_sp_labels` first)."""
         dp, rank = self.dp_world_size, self.dp_rank
+        sp, sp_rank = self.sp_world_size, self._sp_group.rank
+        if sp > 1:
+            batch = self._sp_labels(batch)
 
         def put(x):
             t = torch.as_tensor(x if isinstance(x, torch.Tensor)
@@ -1030,10 +1058,43 @@ class DeepSpeedEngine:
             if dp > 1 and t.dim() > 0 and t.shape[0] % dp == 0:
                 n = t.shape[0] // dp
                 t = t[rank * n:(rank + 1) * n]
+            if sp > 1 and t.dim() > 1 and t.shape[1] % sp == 0:
+                n = t.shape[1] // sp
+                t = t[:, sp_rank * n:(sp_rank + 1) * n]
             return t.to(self.device, non_blocking=True)
         if isinstance(batch, Mapping):
             return {k: put(v) for k, v in batch.items()}
         return put(batch)
+
+    def _sp_labels(self, batch):
+        """A global batch made ready for its sp columns: the next-token
+        ``labels`` taken from the whole row (a rank's last column predicts
+        the next rank's first token; only the row's last position has no
+        label) and a ``loss_mask`` over every column (the batch's own, as
+        ``lm_loss_fn`` reads it, zero at that last position), so each rank's
+        loss is a token mean whose count is known (:meth:`_loss_of`)."""
+        if not isinstance(batch, Mapping) or "input_ids" not in batch:
+            raise ValueError("mesh sp > 1 takes dict batches with "
+                             "'input_ids'")
+
+        def tensor(x):
+            return x if isinstance(x, torch.Tensor) else \
+                torch.as_tensor(np.asarray(x))
+        ids = tensor(batch["input_ids"])
+        B, S = ids.shape
+        if S % self.sp_world_size:
+            raise ValueError(f"mesh sp={self.sp_world_size} does not divide "
+                             f"the sequence length {S}")
+        out = dict(batch)
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(B, S, device=ids.device) if mask is None
+                else tensor(mask).float()[:, :S])
+        if "labels" not in batch:
+            out["labels"] = torch.cat([ids[:, 1:], ids[:, :1]], 1)
+            mask = torch.cat([mask[:, :S - 1],
+                              mask.new_zeros(B, 1)], 1)
+        out["loss_mask"] = mask
+        return out
 
     def _cast_params(self) -> None:
         """fp32 master -> the compute copy, once per step (under offload:
@@ -1079,11 +1140,27 @@ class DeepSpeedEngine:
         if inputs is None:
             raise ValueError("a dict batch needs 'input_ids' (or 'inputs')")
         out = self.compute_module(inputs, **self._model_kwargs(train))
+        if self.sp_world_size > 1:
+            if self.loss_fn is None:
+                raise ValueError("mesh sp > 1 needs a loss_fn (a token mean "
+                                 "over the batch's loss_mask: lm_loss_fn)")
+            return self._sp_mean(self.loss_fn(out, batch), batch)
         if self.loss_fn is not None:
             return self.loss_fn(out, batch)
         if isinstance(out, torch.Tensor) and out.dim() == 0:
             return out
         raise ValueError("model output is not a scalar loss; pass loss_fn")
+
+    def _sp_mean(self, loss: torch.Tensor, batch) -> torch.Tensor:
+        """The sp group's token mean from each rank's mean over its columns'
+        ``loss_mask``: the ranks' sums (loss x count) summed over sp and
+        divided by the whole count, the sum's backward the identity (each
+        rank's grads are its columns' share; they are summed over sp in
+        the reduction)."""
+        count = batch["loss_mask"].float().sum()
+        total = comm.all_reduce(count.clone(), group=self._sp_group)
+        return reduce_from_tp(loss * count, self._sp_group) \
+            / total.clamp_min(1)
 
     def _micro_forward(self, batch) -> torch.Tensor:
         self._cast_params()
@@ -1099,7 +1176,7 @@ class DeepSpeedEngine:
             if self._grad_split:
                 self._scatter_into_acc()
                 return
-            if self.dp_world_size > 1:
+            if self._grad_group.size > 1:
                 self._reduce_into_acc()
                 return
             grads, accs = [], []
@@ -1115,15 +1192,15 @@ class DeepSpeedEngine:
             torch._foreach_add_(accs, grads)
 
     def _reduce_into_acc(self) -> None:
-        """All-reduce (sum) of every grad in one flat buffer of the
-        communication dtype, widened into the accumulator."""
+        """All-reduce (sum) of every grad over dp x sp in one flat buffer of
+        the communication dtype, widened into the accumulator."""
         dt = self._comm_dtype or torch.float32
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1).to(dt)
                           for p in self._compute_params])
         for p in self._compute_params:
             p.grad = None
-        comm.all_reduce(flat, group=self._dp_group)
+        comm.all_reduce(flat, group=self._grad_group)
         self.comm_bytes["all_reduce"] += flat.numel() * flat.element_size()
         flat = flat.float()
         torch._foreach_add_(self.acc, [
@@ -1140,6 +1217,14 @@ class DeepSpeedEngine:
                          else torch.zeros_like(p))
             idx.append(i)
             p.grad = None
+        if grads and self.sp_world_size > 1:
+            # summed over sp first (one flat buffer), then scattered over dp
+            dt = self._comm_dtype or torch.float32
+            flat = comm.all_reduce(torch.cat(
+                [g.reshape(-1).to(dt) for g in grads]), group=self._sp_group)
+            self.comm_bytes["all_reduce"] += flat.numel() * flat.element_size()
+            grads = [f.view_as(g) for f, g in
+                     zip(flat.split([g.numel() for g in grads]), grads)]
         if grads:
             scatter_into(self.acc, idx, grads, self._comm_dtype,
                          self.comm_bytes, group=self._dp_group)
@@ -1646,7 +1731,8 @@ class DeepSpeedEngine:
                 save_latest=save_latest,
                 shard=(self.dp_rank, self.dp_world_size),
                 write=self.mesh.coord("ep") == 0
-                and self.mesh.coord("tp") == 0)
+                and self.mesh.coord("tp") == 0
+                and self.mesh.coord("sp") == 0)
         master = self.consolidated_fp32_state_dict()
         sd = self.optimizer_state_dict()
         opt = {"count": np.asarray(sd["count"])}

@@ -98,8 +98,7 @@ def gpt_pipe_spec(model, loss_fn=None) -> StackedPipeSpec:
     suffix are the functions ``GPT.forward`` itself runs
     (``embed_tokens``, ``Block``, ``final_logits``), so a streamed step
     computes what the module computes. Refuses what the TPU adapter refuses
-    (``partition_activations``, dropout, MoE; sequence parallelism the
-    port's GPTConfig refuses already)."""
+    (``partition_activations``, ``sequence_parallel``, dropout, MoE)."""
     from ...models.gpt import embed_tokens, final_logits, lm_loss_fn
     cfg = model.cfg
     if cfg.partition_activations or cfg.sequence_parallel:

@@ -80,10 +80,16 @@ disagreement would stall the next collective. Unlike the TPU engine's, the
 megakernel switch does not turn the model's ``tp_overlap`` on: the model's
 config says (over gloo the split is three collectives for one).
 
+``sp_prefill_threshold=n`` sends every prompt of n tokens or more through
+one bucketed prefill instead of the inline chunks or the plain prefill; the
+lane then joins the decode chunks in decode mode. The TPU engine runs that
+prefill through a ``sequence_parallel`` copy of its model, but its mesh,
+like this one's, has sp 1 there, where that layout is the identity: the
+model's own prefill computes the same, so the route runs that.
+
 Not in this slice (see ROADMAP.md): CUDA-graph capture of a chunk, tiered
-KV, the sequence-parallel prefill leg, disaggregation, migration and
-telemetry spans. Each keyword of the TPU package's ``ServingEngine`` that
-selects one of them raises
+KV, disaggregation, migration and telemetry spans. Each keyword of the TPU
+package's ``ServingEngine`` that selects one of them raises
 ``NotImplementedError`` naming its ROADMAP item when set away from its
 default (:data:`NOT_PORTED_KNOBS`); nothing is silently dropped.
 """
@@ -112,7 +118,6 @@ from .speculative import NGramDrafter, verify_greedy, verify_rejection
 # The TPU package's ServingEngine keywords this port does not have yet:
 # name -> (the TPU engine's default, the ROADMAP item that ports it).
 NOT_PORTED_KNOBS = {
-    "sp_prefill_threshold": (None, "A9"),
     "monitor": (None, "A11"),
     "emit_every_steps": (16, "A11"),
     "disaggregate_prefill": (False, "A11"),
@@ -206,6 +211,11 @@ class ServingEngine:
     step (default 2 * prefill_chunk + max_batch); greedy outputs equal the
     bucketed engine's.
 
+    ``sp_prefill_threshold``: prompts of that many tokens or more skip the
+    inline chunks (or the plain prefill) and run one bucketed prefill,
+    then decode; a fused step prices admitting one at a decode token
+    (``_lane_cost``). ``sp_prefill_tokens`` counts their prompt tokens.
+
     ``paged=True`` serves from a block pool of ``kv_pool_blocks`` blocks of
     ``kv_block_size`` positions (default: as many positions as the dense
     arena), with the prefix cache (``prefix_cache_capacity`` entries) on
@@ -242,6 +252,7 @@ class ServingEngine:
                  fused_prefill: bool = False,
                  prefill_chunk: int = 16,
                  chunk_token_budget: Optional[int] = None,
+                 sp_prefill_threshold: Optional[int] = None,
                  tp: int = 1,
                  **inference_kwargs):
         _reject_not_ported(inference_kwargs)
@@ -326,6 +337,10 @@ class ServingEngine:
         if self.fused_prefill and self.chunk_token_budget < 1:
             raise ValueError(f"chunk_token_budget must be >= 1, got "
                              f"{chunk_token_budget}")
+        # prompts at or above the threshold take the sp leg: one bucketed
+        # prefill (the TPU engine's prefill_sp_fn, at sp 1), then decode mode
+        self.sp_prefill_threshold = (None if sp_prefill_threshold is None
+                                     else int(sp_prefill_threshold))
         self.speculative = bool(speculative)
         if self.speculative:
             self.drafter = (drafter if drafter is not None
@@ -378,8 +393,9 @@ class ServingEngine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(seed))
         self._last_token = np.zeros(self.max_batch, np.int32)
-        # distinct (batch, bucket) prefill shapes seen so far
-        self._prefill_shapes: Set[Tuple[int, int]] = set()
+        # distinct (batch, bucket) prefill shapes seen so far (the sp leg's
+        # tagged "sp", as the TPU engine keys its program family)
+        self._prefill_shapes: Set[Tuple] = set()
         # host corrections to the device-carried chunk state, applied at
         # the next launch (_device_state)
         self._deact_slots: Set[int] = set()
@@ -399,8 +415,9 @@ class ServingEngine:
         self._pf_first_pending: Set[int] = set()
         # paged misses: the prefix commit waits for token #1
         self._pf_plans: Dict[int, PagedAdmitPlan] = {}
-        # prompt tokens consumed inside decode chunks
+        # prompt tokens consumed inside decode chunks, and by the sp leg
         self.inline_prefill_tokens = 0
+        self.sp_prefill_tokens = 0
         log_dist(f"serving engine ready: slots={self.max_batch} "
                  f"prefill_buckets={self._buckets} "
                  f"decode_chunk={self.decode_chunk} "
@@ -557,12 +574,22 @@ class ServingEngine:
                     plans[req.slot] = plan
                     misses.append(req)
             admitted = misses
-        groups: Dict[int, List[Request]] = {}
-        for req in admitted:
-            groups.setdefault(self._bucket_for(req.prompt_len),
-                              []).append(req)
-        for bucket, reqs in sorted(groups.items()):
-            self._prefill(bucket, reqs, plans)
+        self._prefill_groups(admitted, plans)
+
+    def _prefill_groups(self, reqs: List[Request],
+                        plans: Dict[int, PagedAdmitPlan]) -> None:
+        """One bucketed prefill per (bucket, sp leg) group of ``reqs``."""
+        groups: Dict[Tuple[int, bool], List[Request]] = {}
+        for req in reqs:
+            key = (self._bucket_for(req.prompt_len), self._takes_sp(req))
+            groups.setdefault(key, []).append(req)
+        for (bucket, sp), group in sorted(groups.items()):
+            self._prefill(bucket, group, plans, sp)
+
+    def _takes_sp(self, req: Request) -> bool:
+        """Whether ``req`` takes the sp prefill leg."""
+        return (self.sp_prefill_threshold is not None
+                and req.prompt_len >= self.sp_prefill_threshold)
 
     def _budget_drain(self) -> int:
         """Tokens the running lanes take a fused step
@@ -580,7 +607,11 @@ class ServingEngine:
     def _lane_cost(self, req: Request) -> int:
         """A fused step's cost of admitting ``req`` now: its first prompt
         chunk (deepspeed_tpu/serving/engine.py:1407; a prefix-cache hit is
-        known only after the lease and is priced the same)."""
+        known only after the lease and is priced the same), or one decode
+        token (k + 1 speculative) when it takes the sp leg and joins in
+        decode mode."""
+        if self._takes_sp(req):
+            return (1 + self.spec_k) if self.speculative else 1
         return min(self.prefill_chunk, req.prompt_len)
 
     def _fused_admit(self, admitted: List[Request]) -> None:
@@ -589,11 +620,21 @@ class ServingEngine:
         with its whole prompt outstanding; a paged miss installs its block
         table now (the chunk writes the prompt's K/V through it) and
         commits its prefix at token #1; a prefix hit forks and replays its
-        first token as in the bucketed path, joining in decode mode."""
+        first token as in the bucketed path, joining in decode mode; a
+        prompt for the sp leg runs its bucketed prefill after the loop and
+        joins in decode mode too."""
+        sp_reqs: List[Request] = []
+        sp_plans: Dict[int, PagedAdmitPlan] = {}
         for req in admitted:
             plan = self.kv.take_plan(req.slot) if self.paged else None
             if plan is not None and plan.hit:
                 self._admit_prefix_hit(req, plan)
+                continue
+            if self._takes_sp(req):
+                self._clear_pf_slot(req.slot)
+                sp_reqs.append(req)
+                if plan is not None:
+                    sp_plans[req.slot] = plan
                 continue
             if plan is not None:
                 self.kv.install_table(req.slot)
@@ -602,6 +643,8 @@ class ServingEngine:
             self._pf_launched[req.slot] = 0
             self._pf_first_pending.add(req.slot)
             self._record_fused_admit_patch(req)
+        if sp_reqs:
+            self._prefill_groups(sp_reqs, sp_plans)
 
     def _record_fused_admit_patch(self, req: Request) -> None:
         """Lane state of a freshly admitted inline-prefill lane
@@ -634,14 +677,16 @@ class ServingEngine:
 
     @torch.inference_mode()
     def _prefill(self, bucket: int, reqs: List[Request],
-                 plans: Dict[int, PagedAdmitPlan]) -> None:
+                 plans: Dict[int, PagedAdmitPlan], sp: bool = False) -> None:
+        """The bucketed prefill of ``reqs``; ``sp``: the sp leg's, kept
+        apart in the shape set and counted in ``sp_prefill_tokens``."""
         n = len(reqs)
         ids = np.zeros((n, bucket), np.int64)
         lens = np.empty(n, np.int64)
         for i, r in enumerate(reqs):
             ids[i, :r.prompt_len] = r.prompt
             lens[i] = r.prompt_len
-        self._prefill_shapes.add((n, bucket))
+        self._prefill_shapes.add((n, bucket, "sp") if sp else (n, bucket))
         dev = self.device
         # (hidden, keys, values) or, under the int8 cache, also the scales
         hidden, *kv = self.module.prefill(torch.from_numpy(ids).to(dev))
@@ -649,6 +694,8 @@ class ServingEngine:
                       torch.from_numpy(lens - 1).to(dev)]
         toks = self._sample(self.module.logits(last), self._generator,
                             self.temperature, self.top_k, self.top_p)
+        if sp:
+            self.sp_prefill_tokens += int(lens.sum())
         self.kv.insert_batch(*kv[:2], [r.slot for r in reqs], *kv[2:])
         toks_host = toks.cpu().numpy()
         self.metrics.on_prefill(n, bucket, int(lens.sum()),

@@ -68,9 +68,12 @@ def test_unported_features_raise():
     from deepspeed_tpu_torch.models.gpt import GPTConfig
     # moe raised until it was ported (tests/test_torch_moe.py); tp_overlap
     # too (tests/test_torch_tp.py): now, as in the TPU config, it needs a
-    # parallel-residual block
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        GPTConfig(sequence_parallel=True)
+    # parallel-residual block; sequence_parallel too
+    # (tests/test_torch_sequence_parallel.py): now only a cp_impl the TPU
+    # config refuses raises
+    assert GPTConfig(sequence_parallel=True).cp_impl == "ulysses"
+    with pytest.raises(ValueError, match="cp_impl"):
+        GPTConfig(sequence_parallel=True, cp_impl="zigzag")
     with pytest.raises(ValueError, match="parallel_residual"):
         GPTConfig(tp_overlap=True)
     assert GPTConfig(moe=True, num_experts=4).moe

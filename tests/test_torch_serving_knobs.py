@@ -4,7 +4,8 @@ keyword of the TPU ``ServingEngine`` is either taken by the port or named in
 ``NotImplementedError`` naming its ROADMAP item (with or without
 ``engine=``), never a silent no-op; ``tp`` (ported) set to 2 on a one-rank
 world raises a ``ValueError`` (no tp-2 mesh there; with ``engine=`` the
-engine's tp 1 mismatches, the JAX engine's error); with ``engine=`` any other leftover
+engine's tp 1 mismatches, the JAX engine's error); ``sp_prefill_threshold``
+(ported) is taken; with ``engine=`` any other leftover
 keyword raises ``TypeError``; the defaults, passed explicitly, still build
 and serve; the speculative and the fused-prefill knobs, ported, build and
 serve away from their defaults, and fused + speculative sampling raises the
@@ -24,11 +25,15 @@ from torch_test_threads import one_torch_thread  # noqa: F401
 
 # a value away from each knob's default
 NON_DEFAULT = {
-    "sp_prefill_threshold": 128, "monitor": object(), "emit_every_steps": 4,
+    "sp_prefill_threshold": 8, "monitor": object(), "emit_every_steps": 4,
     "tp": 2, "disaggregate_prefill": True, "tiered_kv": True,
     "tier_dram_bytes": 1 << 20, "tier_nvme_bytes": 1 << 30,
     "tier_spill_dir": "spill", "tuned_config": {"max_batch": 4},
 }
+
+
+# the knobs ported since the list was made: taken, not refused
+PORTED = {"tp", "sp_prefill_threshold"}
 
 
 def _model():
@@ -43,8 +48,8 @@ def test_every_tpu_keyword_is_taken_or_named():
     from deepspeed_tpu.serving.engine import ServingEngine as JaxServing
     jax_kw = set(inspect.signature(JaxServing.__init__).parameters)
     port_kw = set(inspect.signature(ServingEngine.__init__).parameters)
-    assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS) | {"tp"}
-    assert "tp" in port_kw
+    assert set(NON_DEFAULT) == set(NOT_PORTED_KNOBS) | PORTED
+    assert PORTED <= port_kw
     assert not set(NOT_PORTED_KNOBS) & port_kw
     assert jax_kw - port_kw == set(NOT_PORTED_KNOBS)
     params = inspect.signature(JaxServing.__init__).parameters
@@ -66,6 +71,15 @@ def test_a_knob_set_away_from_its_default_raises(name, via_engine):
                  else "1 devices not divisible")
         with pytest.raises(ValueError, match=match):
             ServingEngine(model, max_batch=2, tp=2, **kw)
+        return
+    if name == "sp_prefill_threshold":
+        # ported (tests/test_torch_sequence_parallel.py): taken, and a
+        # prompt at the threshold takes the sp leg, a shorter one does not
+        eng = ServingEngine(model, max_batch=2, **{name: NON_DEFAULT[name]},
+                            **kw)
+        assert eng.sp_prefill_threshold == NON_DEFAULT[name]
+        eng.run([np.arange(1, 9), np.arange(1, 5)], max_new_tokens=2)
+        assert (eng.sp_prefill_tokens, eng.inline_prefill_tokens) == (8, 0)
         return
     item = NOT_PORTED_KNOBS[name][1]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):

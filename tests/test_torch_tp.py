@@ -26,7 +26,7 @@ package runs on its 8 virtual CPU devices.
     (host-sharded files) loads at tp 1 and trains on as the saving run
     does, and ``zero_to_fp32.py`` rebuilds its whole weights;
   * the refusals left: ZeRO-3 and the offload tiers at tp 2, an MoE model
-    at tp 2, ep x tp, heads tp does not divide, ``sequence_parallel``.
+    at tp 2, ep x tp, heads tp does not divide, tp x sp.
 """
 
 import functools
@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.convert import (gpt_flax_leaves,
                                          jax_params_to_state_dict,
                                          jax_params_to_tp_state_dict)
 from deepspeed_tpu_torch.models.gpt import (GPT, GPTConfig,
+                                            set_sequence_parallel,
                                             set_tensor_parallel)
 from deepspeed_tpu_torch.module_inject import auto_tp as pauto
 from deepspeed_tpu_torch.ops import quantizer as pq
@@ -219,9 +220,17 @@ def test_refusals_without_ranks():
     with pytest.raises(ValueError, match="parallel_residual"):
         GPTConfig(tp_overlap=True)
     GPTConfig(tp_overlap=True, parallel_residual=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        GPTConfig(sequence_parallel=True)
+    with pytest.raises(ValueError, match="cp_impl"):
+        GPTConfig(sequence_parallel=True, cp_impl="zigzag")
     two = CommGroup(axes=("tp",), ranks=(0, 1))
+    # sequence_parallel builds (tests/test_torch_sequence_parallel.py); a
+    # model split over sp and then tp is what raises
+    sp = set_sequence_parallel(
+        GPT(GPTConfig(dtype=torch.float32, sequence_parallel=True,
+                      **_model_kw("gpt2"))),
+        CommGroup(axes=("sp",), ranks=(0, 1)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        set_tensor_parallel(sp, two)
     moe = GPT(GPTConfig(dtype=torch.float32, moe=True, num_experts=2,
                         **_model_kw("gpt2")))
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):

@@ -6,7 +6,7 @@ NVIDIA GPU, and run it over two expert-parallel ranks.
 
 ``--root`` names the checkout run, ``--build-only`` only builds it
 (``tools/_checkout.py``). It runs this checkout's ``chip_smoke.py`` phases
-42 (gpt_moe_1_3b with 16 experts at full width and depth, bf16, served
+42 (gpt_moe_1_3b with 16 experts at full width, cut in depth, bf16, served
 dense and fused through B1 / B2 / B4 with every call held to its plain
 version, one layer's MoE against f32, the routing's capacity and drops, a
 decode step's device time split, and B1 / B2 / B4 at its shapes timed),

@@ -7,7 +7,8 @@ checkout of this repository on one NVIDIA GPU.
 
 ``--root`` names the checkout run, ``--build-only`` only builds it
 (``tools/_checkout.py``). It runs this checkout's ``chip_smoke.py`` phases
-45 (gpt_neox_20b at full width and depth, bf16, split over two gloo ranks
+45 (gpt_neox_20b at full width, cut to chip_smoke's NEOX_LAYERS layers,
+bf16, split over two gloo ranks
 sharing the card: its forward through B1, layer 0 and the width cut to 2
 layers against tp 1, phase 4's requests served dense, paged, under
 tp_overlap and fused with every B1 / B2 / B3 call and B4 draw held to its
