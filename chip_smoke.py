@@ -197,12 +197,12 @@ Phases (any failure exits non-zero before the result lines):
      cold;
  25. sampled serving: phase 4's model and 16 prompts through
      ServingEngine(megakernel=True, temperature=0.8, top_k=50, top_p=0.9,
-     seed=--seed), 64 new tokens each, counts reset just before and read
-     just after (fails without a sampling launch); tokens/s; a rerun with
+     seed=--seed), CUT_NEW new tokens each, counts reset just before and
+     read just after (fails without a sampling launch); tokens/s; a rerun with
      the same seed must give identical tokens; one steady chunk profiled:
      B4's device ms per decode step beside the step's device busy ms;
- 26. speculative serving: phase 4's 16 requests through
-     ServingEngine(megakernel=True, speculative=True, spec_k=4,
+ 26. speculative serving: phase 4's 16 requests (CUT_NEW new tokens
+     each) through ServingEngine(megakernel=True, speculative=True, spec_k=4,
      spec_ngram=2) over the dense bf16, paged, int8 and paged int8 arenas,
      each beside the non-speculative kernel engine on the same arena:
      fails unless every request is done, every logits tensor finite,
@@ -228,7 +228,7 @@ Phases (any failure exits non-zero before the result lines):
      prints save and load seconds and the checkpoint's bytes;
  30. ZeRO-1 over two data-parallel ranks: this script started twice more
      (--dp-rank 0 / 1), each rank micro 4 of phase 29's micro-batches of 8
-     rows for the same 4 steps, over NCCL with one card a rank when the
+     rows for its first DP_STEPS (3) steps, over NCCL with one card a rank when the
      host has two cards, else over gloo with both ranks on one card; fails
      if a rank fails, if a loss leaves phase 29's by more than LOSS_ATOL,
      if the ranks' losses differ, if a rank's launches of B1/B1b are not
@@ -257,7 +257,7 @@ Phases (any failure exits non-zero before the result lines):
      TFLOP/s and MFU (mfu_report), the CPU Adam's bytes a step over its
      seconds, and the OpenMP runtime and threads;
  33. ZeRO-2 and ZeRO-3 over two ranks, as phase 30 runs ZeRO-1 (the same
-     rank processes, 4 steps each): fails if a loss leaves phase 29's by
+     rank processes, DP_STEPS each): fails if a loss leaves phase 29's by
      more than LOSS_ATOL, if the ranks' losses differ, if B1/B1b's counts
      are wrong, if a stage-2 rank's grad accumulator or a stage-3 rank's
      partitioned parameters are not half of dp 1's, up to the padding, if
@@ -305,7 +305,8 @@ Phases (any failure exits non-zero before the result lines):
      step's split (device forward+backward, H2D and D2H bytes and GB/s, the
      host's block-norm pass, CPU Adam seconds and GB/s);
  38. fused chunked prefill (run after phase 28): phase 4's model and 16
-     requests through ServingEngine(megakernel=True, fused_prefill=True,
+     requests (CUT_NEW new tokens each) through
+     ServingEngine(megakernel=True, fused_prefill=True,
      prefill_chunk=16) over the dense, paged, int8 and paged int8 arenas
      and speculative (k 4) on the dense one, each beside the unfused
      engine on the same arena, and prefill_chunk 24 on the dense arena:
@@ -337,7 +338,8 @@ Phases (any failure exits non-zero before the result lines):
      1024] through B1 at the 6 global layers (scale 1.0;
      the local ones take the windowed einsum) against attention_impl="xla"
      within LOGITS_ATOL; greedy generate of 32 tokens; phase 4's requests
-     through the dense, fused (prefill_chunk 16) and speculative (k 4)
+     (CUT_NEW new tokens each) through the dense, fused (prefill_chunk
+     16) and speculative (k 4)
      megakernel engines beside megakernel=False: B2 6 times a step at the
      step's width, B4 never (vocab not lane-aligned), tokens equal or
      parting at a near-tie; paged=True must raise; then B1 at [2, 1024,
@@ -398,8 +400,9 @@ Phases (any failure exits non-zero before the result lines):
      LOSS_ATOL, falling, B1 / B1b launches a step;
  47. sequence parallelism (after 46): bench.py's long_context (GPT-2 125M
      at seq 16384, micro 1 x gas 2, bf16 over fp32 masters, remat, AdamW,
-     ZeRO-1, dense flash) trained 3 steps at sp 1: losses finite and
-     falling, B1 / B1b 48 / 24 / 24 a step, step seconds, peak memory, a
+     ZeRO-1, dense flash) trained CTX_STEPS (2) steps at sp 1: losses
+     finite and falling, B1 / B1b 48 / 24 / 24 a step, step seconds, peak
+     memory, a
      profiled micro-step's idle share; then B1 / B1b at the four shapes
      of phases 47-48 (SP_FLASH: [1, 16384, 12, 64] causal, a Ulysses
      rank's [1, 16384, 6, 64], a ring rank's [1, 8192, 12, 64] causal and
@@ -413,17 +416,33 @@ Phases (any failure exits non-zero before the result lines):
      script re-runs itself with the hidden --sp-rank), cp_impl "ulysses"
      and "ring": all_to_all_single of a CUDA tensor over gloo checked, the
      ring's merged output and grads against the plain ring at 2 heads
-     (the same bound),
-     3 steps each with losses equal on both ranks and within LOSS_ATOL of
-     phase 47's, B1 / B1b launches a step (Ulysses 48 / 24 / 24 a rank;
-     ring 48 / 24 / 24 on rank 0, which runs only its diagonal blocks, and
-     96 / 48 / 48 on rank 1), the exchanges a step and their bytes, step
-     seconds and peak memory a rank;
+     (the same bound), CTX_STEPS steps each with losses equal on both
+     ranks and within LOSS_ATOL of phase 47's, B1 / B1b launches a step
+     (Ulysses 48 / 24 / 24 a rank; ring 48 / 24 / 24 on rank 0, which
+     runs only its diagonal blocks, and 96 / 48 / 48 on rank 1), the
+     exchanges a step and their bytes, step seconds and peak memory a
+     rank;
  49. (after phase 38) the sp prefill route: phase 38's dense fused engine
      with sp_prefill_threshold=SP_ROUTE_THRESHOLD beside the same engine
      without it: greedy tokens equal or parting at a near-tie, the long
      prompts' tokens through the sp leg and the short ones inline, B2 at
      the fused width and B4 in every decode step after the route.
+ 50. the pipeline (after 48): bench.py's ladder_zero1 (GPT-2 1.3B at full
+     width and depth, seq 1024, bf16 over fp32 masters, AdamW, micro 4 x
+     M 4, ZeRO-1, weights from --seed) trained PIPE_STEPS steps by the
+     dense engine here, then by the 1F1B PipelineEngine at mesh {"pp": 2}
+     (parts [0, 13, 27]) over two gloo ranks sharing the card (the script
+     re-runs itself with the hidden --pipe-rank) from the same state dict
+     and batches: losses equal on both ranks, within PIPE_LOSS_ATOL of the
+     dense engine's, the first step's grad norm within PIPE_NORM_RTOL of
+     its, B1 / B1b launches a step a rank (pipe_want: stage 0 96 / 48 /
+     48, stage 1 48 / 48 / 48); step s, tokens/s, hop and tied-reduce
+     bytes, peak memory and a profiled step's device busy share a rank;
+     then B1 / B1b at the stage shape [4, 1024, 32, 64] against their
+     plain versions, timed (the *_pipe rows);
+ 51. GPipeSpmdEngine at pp 2 in the same rank processes (M 4, remat): the
+     same gates (B1 / B1b 120 / 60 / 60 a step a rank: every one of the
+     M + S - 1 ticks, forward, remat recompute and backward).
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
@@ -435,7 +454,9 @@ phase 37's head dim also carry its launches, the training shape's phase
 and B2 at GPT-Neo's shapes, B1 / B1b, B2 and B4 at GPT-MoE's, B1 / B1b,
 B2, B3 and B4 at GPT-NeoX 20B's tp-2 rank shapes with phases 45-46's
 launches on rank 0, B1 / B1b at phases 47-48's shapes with their
-launches), the card line and, last,
+launches, and at the pipe stage shape with phases 50-51's launches a
+rank), each phase group's wall seconds (``phase_wall``), the card line
+and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
 
@@ -508,6 +529,8 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
 # phases 29-30: gpt2_125m_zero1 with gas cut from 16 to fit the time limit
 RESUME_GAS = 4
 DP_TIMEOUT_S = 300
+# phases 30 and 33: the first DP_STEPS of phase 29's 4 steps (cut to fit)
+DP_STEPS = 3
 # phase 31: each optimizer's config (lr picked for a falling loss in 3
 # steps from random weights) and the card-vs-CPU bound of one step's
 # masters: f32 elementwise math on both, LAMB's norms summed in another
@@ -816,7 +839,7 @@ def phase_sampled_serving(torch, ie, prompts, kw, seed, card):
     from deepspeed_tpu_torch import ServingEngine
     from deepspeed_tpu_torch.ops.cuda import _build
     skw = dict(kw, megakernel=True, temperature=0.8, top_k=50, top_p=0.9)
-    n_new = 64
+    n_new = CUT_NEW
 
     def serve():
         return ServingEngine(engine=ie, seed=seed, **skw).run(
@@ -2363,6 +2386,10 @@ def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
 # ---------------------------------------------------------------------------
 
 SPEC_K, SPEC_NGRAM = 4, 2        # the TPU ServingEngine's defaults
+# new tokens a request in phases 25-27, 38 and 40-41 (sampled,
+# speculative, fused and GPT-Neo serving): phase 4's 64 cut to fit the
+# time limit
+CUT_NEW = 32
 VERIFY_SQ = SPEC_K + 1
 # the arenas a speculative GPT-2 engine builds (max_seq_len 1024): k
 # positions of lookahead past S (dense), one more table entry (paged)
@@ -2684,7 +2711,7 @@ def phase_spec_serving(torch, dev, ie, prompts, kw, card):
     tokens a chunk, launches a step and (phase_profile) a steady spec
     chunk's idle share. Returns the decode kernels' launch counts."""
     from deepspeed_tpu_torch import ServingEngine
-    n_new, K = 64, kw["decode_chunk"]
+    n_new, K = CUT_NEW, kw["decode_chunk"]
     L = ie.module.cfg.num_layers
     spec_kw = dict(kw, megakernel=True, speculative=True, spec_k=SPEC_K,
                    spec_ngram=SPEC_NGRAM)
@@ -2769,7 +2796,7 @@ def phase_spec_sampled(torch, ie, prompts, kw, seed, card):
     from deepspeed_tpu_torch import ServingEngine
     skw = dict(kw, megakernel=True, speculative=True, spec_k=SPEC_K,
                spec_ngram=SPEC_NGRAM, seed=seed, **SPEC_SAMPLED)
-    n_new, K = 64, kw["decode_chunk"]
+    n_new, K = CUT_NEW, kw["decode_chunk"]
     L = ie.module.cfg.num_layers
     ServingEngine(engine=ie, **skw).run([p.copy() for p in prompts[:2]],
                                         max_new_tokens=4)     # warm-up
@@ -3097,7 +3124,7 @@ def phase_fused_serving(torch, dev, ie, prompts, kw, card):
     kernel."""
     import numpy as np
     from deepspeed_tpu_torch import ServingEngine
-    n_new, K = 64, kw["decode_chunk"]
+    n_new, K = CUT_NEW, kw["decode_chunk"]
     L = ie.module.cfg.num_layers
     launches = {}
     for name, extra, chunk, spec in FUSED_RUNS:
@@ -3561,7 +3588,7 @@ def phase_neo_serving(torch, np, dev, seed, prompts, kw, card):
           f"{NEO_IDS[0] * NEO_GEN / gen_s} tokens/s card={card}", flush=True)
     del ref, xla, out
 
-    n_new, K = 64, kw["decode_chunk"]
+    n_new, K = CUT_NEW, kw["decode_chunk"]
     runs = (("dense", {}, 1),
             ("fused", dict(fused_prefill=True, prefill_chunk=FUSED_C),
              FUSED_C),
@@ -3694,7 +3721,7 @@ def phase_neo_int8(torch, np, dev, neo, kw, card):
     from deepspeed_tpu_torch.ops import quantizer as qz
     cfg, host, n_global = neo["cfg"], neo["host"], neo["n_global"]
     prompts = neo["prompts"]
-    n_new, K = 64, kw["decode_chunk"]
+    n_new, K = CUT_NEW, kw["decode_chunk"]
     launches = {}
     for mode in ("symmetric", "asymmetric"):
         ie, peak, at_rest = _build_engine(torch, cfg, host, dev,
@@ -4519,8 +4546,8 @@ def _ep_near_tie(torch, dev, seed, prefix, at, row):
 # 12.1e9 B of bf16 weights whole (41.1e9 at 44 layers), half a rank, made on
 # the card from --seed module by module (models.gpt.init_tp_shards), so no
 # rank ever holds the whole model
-NEOX_LAYERS = 12                     # of 44
-NEOX_PARAMS = 6_054_924_288          # at 12 layers (44: 20_552_994_816)
+NEOX_LAYERS = 6                      # of 44, cut to fit the time limit
+NEOX_PARAMS = 3_336_536_064          # at 6 layers (44: 20_552_994_816)
 NEOX_TP = 2
 NEOX_IDS = (2, 1024)                 # the forward through B1
 NEOX_BLOCK_IN = (1, 16)              # layer 0's input rows
@@ -4658,9 +4685,10 @@ def _tp_serve_runs(torch, np, dev, ie, prompts, kw, out):
 
 
 def tp_rank_main(args) -> int:
-    """One rank of phase 45 or 46 (this script with --tp-rank, --tp-phase):
-    tp 2 over gloo with both ranks on card 0; results as JSON (and tensors
-    as .pt beside it) under --dp-out."""
+    """One rank of phases 45 and / or 46 (this script with --tp-rank,
+    --tp-phase "45", "46" or "45,46"): tp 2 over gloo with both ranks on
+    card 0; results as JSON (and tensors as .pt beside it) under
+    --dp-out."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch import comm
@@ -4672,9 +4700,12 @@ def tp_rank_main(args) -> int:
     out = {"rank": comm.get_rank(),
            "backend": torch.distributed.get_backend()}
     stem = os.path.splitext(args.dp_out)[0]
-    if args.tp_phase == 45:
+    phases = {int(p) for p in args.tp_phase.split(",")}
+    if 45 in phases:
         _tp_rank_serve(torch, np, dev, args.seed, out, stem)
-    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 46 in phases:
         out["train"] = {
             "off": _neox_train(torch, np, dev, args.seed, _tp_mesh(torch),
                                False),
@@ -4784,17 +4815,18 @@ def _tp_rank_serve(torch, np, dev, seed, out, stem):
                        launches=launched)
 
 
-def run_tp_ranks(seed, phase):
-    """This script twice more as the two ranks of phase 45 or 46
-    (--tp-rank 0 / 1); their JSON results and the directory of their
-    tensors (removed by the caller)."""
-    d = tempfile.mkdtemp(prefix=f"phase{phase}_")
-    return spawn_ranks(seed, NEOX_TP, ["--tp-rank", "--tp-phase",
-                                       str(phase)], phase, TP_TIMEOUT_S,
+def run_tp_ranks(seed, phases="45,46"):
+    """This script twice more as the two ranks of phases ``phases`` ("45",
+    "46" or both: one start of the ranks; --tp-rank 0 / 1); their JSON
+    results and the directory of their tensors (removed by the caller)."""
+    d = tempfile.mkdtemp(prefix=f"phase{phases.replace(',', '_')}_")
+    first = int(phases.split(",")[0])
+    return spawn_ranks(seed, NEOX_TP, ["--tp-rank", "--tp-phase", phases],
+                       first, TP_TIMEOUT_S * len(phases.split(",")),
                        d), d
 
 
-def phase_tp_serving(torch, np, dev, seed, card):
+def phase_tp_serving(torch, np, dev, seed, card, spawned=None):
     """Phase 45: GPT-NeoX 20B at full width (NEOX_LAYERS of its 44 layers),
     bf16, split at tp 2
     over two gloo ranks sharing the card (the script re-runs itself with
@@ -4827,7 +4859,8 @@ def phase_tp_serving(torch, np, dev, seed, card):
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    ranks, tmp = run_tp_ranks(seed, 45)
+    # ``spawned``: ranks already run (with phase 46's) by run_tp_ranks
+    ranks, tmp = spawned or run_tp_ranks(seed, "45")
     try:
         rows = _check_tp_serving(torch, np, dev, seed, card, ranks, tmp)
     finally:
@@ -5071,7 +5104,7 @@ def _neox_train(torch, np, dev, seed, group, partition):
     return out
 
 
-def phase_tp_training(torch, np, dev, seed, card):
+def phase_tp_training(torch, np, dev, seed, card, ranks=None):
     """Phase 46: NeoX 20B's width cut to NEOX_CUT layers, trained (seq
     1024, micro 2 x gas 2, bf16 over fp32 masters, AdamW, ZeRO-1, remat)
     at tp 1 here, then at mesh {"tp": 2} on two gloo ranks sharing the card
@@ -5084,8 +5117,9 @@ def phase_tp_training(torch, np, dev, seed, card):
     import shutil
     t_phase = time.perf_counter()
     ref = _neox_train(torch, np, dev, seed, None, False)
-    ranks, tmp = run_tp_ranks(seed, 46)
-    shutil.rmtree(tmp, ignore_errors=True)
+    if ranks is None:          # else phase 45's rank processes ran them
+        ranks, tmp = run_tp_ranks(seed, "46")
+        shutil.rmtree(tmp, ignore_errors=True)
     want = {"flash_fwd": 2 * NEOX_CUT * NEOX_TRAIN_GAS,
             "flash_bwd_dq": NEOX_CUT * NEOX_TRAIN_GAS,
             "flash_bwd_dkv": NEOX_CUT * NEOX_TRAIN_GAS}
@@ -5125,7 +5159,7 @@ def phase_tp_training(torch, np, dev, seed, card):
 # flash attention; trained CTX_STEPS steps on one repeated batch from --seed
 # at sp 1 (phase 47) and at mesh {"sp": SP} over two gloo ranks sharing the
 # card, each rank 8192 of the 16384 positions (phase 48)
-CTX_SEQ, CTX_GAS, CTX_STEPS, SP = 16384, 2, 3, 2
+CTX_SEQ, CTX_GAS, CTX_STEPS, SP = 16384, 2, 2, 2   # 3 steps cut to fit
 CTX_CONFIG = {"train_micro_batch_size_per_gpu": 1,
               "gradient_accumulation_steps": CTX_GAS,
               "bf16": {"enabled": True},
@@ -5361,16 +5395,20 @@ def sp_rank_main(args) -> int:
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+    if args.then_pipe:     # phases 50-51's ranks: the same two processes
+        out["pipe"] = pipe_rank_work(args, args.sp_rank)
     with open(args.dp_out, "w") as fh:
         json.dump(out, fh)
     torch.distributed.destroy_process_group()
     return 0
 
 
-def phase_sp(seed, card, ctx):
+def phase_sp(seed, card, ctx, then_pipe=False):
     """Phase 48: bench.py's long_context at mesh {"sp": SP} over two gloo
     ranks sharing the card (this script re-run with --sp-rank), cp_impl
-    "ulysses" then "ring" (``sp_rank_main``). Gates: all_to_all_single of a
+    "ulysses" then "ring" (``sp_rank_main``); with ``then_pipe`` the same
+    rank processes then run phases 50-51's engines (their results under
+    "pipe", by rank). Gates: all_to_all_single of a
     CUDA tensor over gloo, the ring's merged output and grads against the
     plain ring (``_close_rows``), every step's B1 / B1b launches
     (``_ctx_want``),
@@ -5379,7 +5417,9 @@ def phase_sp(seed, card, ctx):
     cp_impl's runs by rank."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        ranks = spawn_ranks(seed, SP, ["--sp-rank"], 48, SP_TIMEOUT_S, d)
+        ranks = spawn_ranks(
+            seed, SP, ["--sp-rank"] + (["--then-pipe"] if then_pipe else []),
+            48, SP_TIMEOUT_S + (PIPE_TIMEOUT_S if then_pipe else 0), d)
     for r in ranks:
         print(f"phase48 rank {r['rank']} ({r['backend']}): all_to_all_single "
               f"of a CUDA tensor checked; ring at {SP_RING_CHECK_HEADS} heads "
@@ -5418,6 +5458,8 @@ def phase_sp(seed, card, ctx):
               f"{CTX_SEQ * CTX_GAS / step_s} card={card}", flush=True)
     print(f"phase48 seconds={time.perf_counter() - t_phase} card={card}",
           flush=True)
+    if then_pipe:
+        runs["pipe"] = [r["pipe"] for r in ranks]
     return runs
 
 
@@ -5433,6 +5475,304 @@ def sp_launches(ctx, sp_runs, tag, name) -> int:
         return sum(total(r) for r in sp_runs["ulysses"])
     r0, r1 = (total(r) for r in sp_runs["ring"])
     return 2 * r0 if tag == "ring_diag_sp2" else r1 - r0
+
+
+# --------------------------------------------------------------------------
+# Phases 50-51: the pipeline at GPT-2 1.3B over two ranks (pp 2)
+# --------------------------------------------------------------------------
+
+# bench.py's ladder_zero1 (bench.py:231-238): GPT-2 1.3B at full width and
+# depth (24 x 2048, 32 heads of 64, vocab 50304, seq 1024, tied head), bf16
+# over fp32 masters, AdamW 1e-4, micro 4 x gas (M) 4, ZeRO-1; every engine
+# from one state dict drawn from --seed, PIPE_STEPS steps on the same M
+# micro-batches
+PIPE_MICRO, PIPE_M, PIPE_SEQ, PIPE_STEPS, PIPE_S = 4, 4, 1024, 3, 2
+PIPE_CONFIG = {"train_micro_batch_size_per_gpu": PIPE_MICRO,
+               "gradient_accumulation_steps": PIPE_M,
+               "bf16": {"enabled": True},
+               "zero_optimization": {"stage": 1},
+               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+               "steps_per_print": 100_000}
+PIPE_TIMEOUT_S = 900
+# phases 50-51 against the dense engine on the same weights and batches:
+# each step's loss within PIPE_LOSS_ATOL, the first step's global grad norm
+# within PIPE_NORM_RTOL of it (AdamW divides each grad by its own size, so
+# a fault that scales one group of grads, such as tied grads summed twice,
+# barely moves the losses; the norm sees it). Measured clean on the card:
+# losses 1.21e-4 (1F1B) and 1.43e-4 (GPipe) apart, norms 5.5e-7 and 1.8e-6
+# of it; the planted faults of tools/check_pipe_gates.py move the losses by
+# 0.054-0.080 or the norm by 0.044-0.24 of it (PERF.md)
+PIPE_LOSS_ATOL = 1e-3
+PIPE_NORM_RTOL = 1e-4
+# B1 / B1b at the stage shape (rows flash_*_pipe)
+PIPE_FLASH = (PIPE_MICRO, PIPE_SEQ, 32, 64)
+
+
+def pipe_gpt(torch, dev, seed):
+    """GPT-2 1.3B (PIPE_* config) on the card in f32, weights from
+    ``seed``: (cfg, model)."""
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_1_3b
+    cfg = gpt2_1_3b(max_seq_len=PIPE_SEQ, dtype=torch.bfloat16)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return cfg, model
+
+
+def pipe_micros(np, seed, vocab, m=PIPE_M):
+    rng = np.random.default_rng(seed + 50)
+    return [rng.integers(0, vocab, (PIPE_MICRO, PIPE_SEQ)).astype(np.int32)
+            for _ in range(m)]
+
+
+def pipe_want(engine_kind, stage, m, cfg=None):
+    """B1 / B1b launches a step on ``stage``'s rank at pp PIPE_S with ``m``
+    micro-batches: 1F1B runs each micro's stage forward, then replays it in
+    the backward (the last stage only replays); GPipe runs its blocks at
+    every one of the m + S - 1 ticks, forward, remat recompute and
+    backward."""
+    layers = (cfg.num_layers if cfg is not None else 24) // PIPE_S
+    if engine_kind == "1f1b":
+        per = layers * m
+        fwd = per if stage == PIPE_S - 1 else 2 * per
+        return {"flash_fwd": fwd, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    per = layers * (m + PIPE_S - 1)
+    return {"flash_fwd": 2 * per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def _pipe_steps(torch, dev, engine, batches, steps=PIPE_STEPS):
+    """``steps`` steps, counts reset just before and read just after each;
+    then one more under torch.profiler for the device busy ms (None when
+    the profiler records no device time). Returns the run's record."""
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.ops.cuda import _build
+    out = {k: [] for k in ("losses", "norms", "step_s", "launches")}
+    torch.cuda.reset_peak_memory_stats(dev)
+    sent = dict(engine.comm_bytes)
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batches())
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append({n: _build.LAUNCHES[n] for n in FLASH})
+        out["losses"].append(float(loss))
+        out["norms"].append(engine.get_global_grad_norm())
+    out["comm_bytes_per_step"] = {k: (v - sent.get(k, 0)) / steps
+                                  for k, v in engine.comm_bytes.items()}
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batches())
+        torch.cuda.synchronize()
+    out["profiled_step_s"] = time.perf_counter() - t0
+    busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
+    out["busy_s"] = busy if busy > 0 else None
+    return out
+
+
+def pipe_rank_main(args) -> int:
+    """One rank of phases 50-51 alone (this script with --pipe-rank;
+    ``pipe_rank_work``); results as JSON under --dp-out."""
+    import torch
+    out = pipe_rank_work(args, args.pipe_rank)
+    with open(args.dp_out, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def pipe_rank_work(args, rank):
+    """One rank of phases 50-51: mesh {"pp": PIPE_S} over gloo with both
+    ranks on card 0; the 1F1B engine (phase 50) then GPipeSpmdEngine
+    (phase 51) from the one GPT-2 1.3B state dict, with --pipe-m
+    micro-batches. Returns the rank's results."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt_pipe import (gpt_pipe_module,
+                                                     gpt_pipe_state_dict)
+    from deepspeed_tpu_torch.runtime.pipe import (GPipeSpmdEngine,
+                                                  gpt_pipe_spec)
+    comm.init_distributed(dist_backend="gloo",
+                          init_method=f"tcp://localhost:{args.dp_port}",
+                          rank=rank, world_size=PIPE_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    m = args.pipe_m
+    cfg, model = pipe_gpt(torch, dev, args.seed)
+    micros = pipe_micros(np, args.seed, cfg.vocab_size, m)
+    phases = {int(p) for p in args.pipe_phases.split(",")}
+    out = {"rank": comm.get_rank(), "m": m,
+           "backend": torch.distributed.get_backend()}
+    if 50 in phases:
+        t0 = time.perf_counter()
+        engine, *_ = dst.initialize(
+            model=gpt_pipe_module(cfg, PIPE_S),
+            config=dict(PIPE_CONFIG, gradient_accumulation_steps=m,
+                        mesh={"pp": PIPE_S}),
+            model_parameters=gpt_pipe_state_dict(model.state_dict(), cfg),
+            device=dev)
+        build_s = time.perf_counter() - t0
+        run = _pipe_steps(torch, dev, engine,
+                          lambda: iter([(x, x) for x in micros]))
+        run.update(stage=engine.stage_id, parts=engine.module.parts,
+                   build_s=build_s, blocks=sum(
+                       type(layer).__name__ == "PipeGPTBlock"
+                       for layer in engine.stage_layers[engine.stage_id]))
+        out["1f1b"] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 51 in phases:
+        t0 = time.perf_counter()
+        engine = GPipeSpmdEngine(
+            gpt_pipe_spec(model), model.state_dict(), num_stages=PIPE_S,
+            micro_batches=m, dp=1, lr=1e-4, remat=True, device=dev)
+        model.to(device="meta")       # the engine holds its own masters
+        torch.cuda.empty_cache()
+        build_s = time.perf_counter() - t0
+        run = _pipe_steps(torch, dev, engine, lambda: iter(
+            [{"input_ids": x} for x in micros]))
+        run.update(stage=engine.stage, build_s=build_s,
+                   blocks=len(engine.blocks))
+        out["gpipe"] = run
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_pipe_ranks(seed, phases="50,51", m=PIPE_M):
+    """This script twice more as the two ranks of phases 50-51."""
+    with tempfile.TemporaryDirectory() as d:
+        return spawn_ranks(seed, PIPE_S, ["--pipe-rank", "--pipe-phases",
+                                          phases, "--pipe-m", str(m)],
+                           50, PIPE_TIMEOUT_S, d)
+
+
+def pipe_dense(torch, np, dev, seed, card):
+    """The dense engine (initialize + DeepSpeedEngine) on the phases'
+    weights and batches: its losses, first-step grad norm, step s and peak
+    memory."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    cfg, model = pipe_gpt(torch, dev, seed)
+    micros = pipe_micros(np, seed, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=PIPE_CONFIG, device=dev)
+    out = {"losses": [], "norms": [], "step_s": []}
+    for _ in range(PIPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([{"input_ids": x} for x in micros]))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(loss))
+        out["norms"].append(float(engine.get_global_grad_norm()))
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    print(f"phase50 dense reference gpt2_1.3b micro {PIPE_MICRO} x gas "
+          f"{PIPE_M} bf16 ZeRO-1: losses={out['losses']} grad_norms="
+          f"{out['norms']} step_s={out['step_s']} max_memory_allocated="
+          f"{out['peak']} card={card}", flush=True)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_pipe_run(run, dense, kind, rank, what, m=PIPE_M):
+    """Gates of one rank's run: launches a step, losses within
+    PIPE_LOSS_ATOL of the dense engine's, the first grad norm within
+    PIPE_NORM_RTOL. Returns (loss gap, norm gap) for the record."""
+    want = pipe_want(kind, run["stage"], m)
+    if any(step != want for step in run["launches"]):
+        fail(f"{what}: launches {run['launches']}, want {want} a step")
+    if not all(math.isfinite(x) for x in run["losses"] + run["norms"]):
+        fail(f"{what}: losses {run['losses']} or norms not finite")
+    gap = max(abs(a - b) for a, b in zip(run["losses"], dense["losses"]))
+    norm_gap = abs(run["norms"][0] - dense["norms"][0]) / dense["norms"][0]
+    print(f"{what}: max |loss - dense| {gap} (gate {PIPE_LOSS_ATOL}); "
+          f"first grad norm {run['norms'][0]} vs dense {dense['norms'][0]}: "
+          f"rel gap {norm_gap} (gate {PIPE_NORM_RTOL})", flush=True)
+    if gap > PIPE_LOSS_ATOL:
+        fail(f"{what}: losses {run['losses']} leave the dense engine's "
+             f"{dense['losses']} by {gap} > {PIPE_LOSS_ATOL}")
+    if norm_gap > PIPE_NORM_RTOL:
+        fail(f"{what}: the first grad norm {run['norms'][0]} leaves the "
+             f"dense engine's {dense['norms'][0]} by {norm_gap} of it > "
+             f"{PIPE_NORM_RTOL}")
+    return gap, norm_gap
+
+
+def print_pipe_run(run, kind, rank, m, card, dense=None):
+    """One rank's record of phase 50 (``kind`` "1f1b") or 51 ("gpipe")."""
+    steady = run["step_s"][1:] or run["step_s"]
+    step_s = sum(steady) / len(steady)
+    busy = run["busy_s"]
+    share = None if busy is None else busy / run["profiled_step_s"]
+    bubble = (PIPE_S - 1) / (m + PIPE_S - 1)
+    tokens = PIPE_MICRO * m * PIPE_SEQ
+    print(f"phase{50 if kind == '1f1b' else 51} {kind} pp {PIPE_S} rank "
+          f"{rank} (stage {run['stage']}, {run['blocks']} blocks) M={m}: "
+          f"losses={run['losses']} grad_norms={run['norms']} step_s="
+          f"{run['step_s']} mean_step_s={step_s} tokens_per_s="
+          f"{tokens / step_s} launches_per_step={run['launches'][-1]} "
+          f"comm_bytes_per_step={run['comm_bytes_per_step']} "
+          f"max_memory_allocated={run['peak']} build_s={run['build_s']} "
+          f"profiled_step_s={run['profiled_step_s']} device_busy_s={busy} "
+          f"device_busy_share={share} (both ranks share the card: the idle "
+          f"share mixes the schedule's bubble {bubble} with the other rank's "
+          f"time slices) card={card}", flush=True)
+    return {"step_s": step_s, "busy_share": share, "bubble": bubble}
+
+
+def phase_pipe(torch, np, fa, dev, gen, seed, card, ranks=None):
+    """Phases 50-51: the dense reference here, then both pipeline engines
+    over two gloo ranks sharing the card (``pipe_rank_main``); gates:
+    losses equal on both ranks, each within PIPE_LOSS_ATOL of the dense
+    engine's and the first grad norm within PIPE_NORM_RTOL, B1 / B1b
+    launches a step (``pipe_want``). Then B1 / B1b at the stage shape
+    against their plain versions, timed. ``ranks``: the ranks' results
+    when phase 48's rank processes ran them. Returns (launches by engine
+    and rank over the steps, errs, times)."""
+    t_phase = time.perf_counter()
+    dense = pipe_dense(torch, np, dev, seed, card)
+    ranks = ranks or run_pipe_ranks(seed)
+    launches = {}
+    for kind in ("1f1b", "gpipe"):
+        runs = [r[kind] for r in ranks]
+        for rank, run in enumerate(runs):
+            what = f"phase{50 if kind == '1f1b' else 51} {kind} rank {rank}"
+            print_pipe_run(run, kind, rank, PIPE_M, card)
+            check_pipe_run(run, dense, kind, rank, what)
+        if runs[0]["losses"] != runs[1]["losses"]:
+            fail(f"{kind}: the two ranks' losses differ: "
+                 f"{[r['losses'] for r in runs]}")
+        launches[kind] = [{n: sum(step[n] for step in r["launches"])
+                           for n in FLASH} for r in runs]
+    if ranks[0]["1f1b"]["parts"] != [0, 13, 27]:
+        fail(f"phase50: parts {ranks[0]['1f1b']['parts']}, want "
+             f"[0, 13, 27]")
+    B, S, H, D = PIPE_FLASH
+    q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+    errs, _ = _flash_pair(torch, fa, q, k, v, do, True)
+    print(f"phase50 flash B={B} S={S} H={H} D={D} causal bf16 max_abs_err "
+          f"{errs} (tol {FLASH_TOL})", flush=True)
+    out, lse = fa.flash_attention_forward(q, k, v, True, D ** -0.5)
+    times = _flash_times(torch, fa, q, k, v, do, out, lse, True)
+    for name, vals in times.items():
+        print(f"phase50 pipe stage shape {name} " + " ".join(
+            f"{key}={val}" for key, val in vals.items()) + f" card={card}",
+            flush=True)
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    print(f"phase50-51 seconds={time.perf_counter() - t_phase} card={card}",
+          flush=True)
+    return launches, errs, times
 
 
 def phase_sp_route(torch, dev, ie, prompts, kw, card):
@@ -6041,6 +6381,39 @@ def _cuobjdump():
             or next(iter(glob.glob("/usr/local/cuda/bin/cuobjdump")), None))
 
 
+_DUMPS: dict = {}
+
+
+def start_dumps(_build) -> None:
+    """Start cuobjdump's resource-usage and SASS dumps of the built library
+    together (each takes seconds over its hundreds of kernels); phase 1's
+    register and SASS checks read them through ``library_dump``."""
+    import glob
+    tool = _cuobjdump()
+    if tool is None:
+        return
+    lib = glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))[0]
+    for kind in ("--dump-resource-usage", "--dump-sass"):
+        out = tempfile.TemporaryFile(mode="w+")   # no pipe to fill up
+        _DUMPS[kind] = (subprocess.Popen([tool, kind, lib], stdout=out),
+                        out)
+
+
+def library_dump(kind: str):
+    """The text of a dump ``start_dumps`` started (None without
+    cuobjdump); fails on the tool's error or after 300 s."""
+    entry = _DUMPS.get(kind)
+    if entry is None or isinstance(entry, str):
+        return entry
+    proc, out = entry
+    if proc.wait(timeout=300):
+        fail(f"cuobjdump {kind} exited {proc.returncode}")
+    out.seek(0)
+    _DUMPS[kind] = text = out.read()
+    out.close()
+    return text
+
+
 def row_registers(_build, names=("layer_norm_fwd", "layer_norm_dx",
                                  "softmax_fwd")):
     """{kernel: (registers a thread, local bytes)} of the kernels whose
@@ -6048,16 +6421,13 @@ def row_registers(_build, names=("layer_norm_fwd", "layer_norm_dx",
     the softmax forward) in the built library (cuobjdump --dump-resource-usage; local
     bytes count the stack frame, where spills go, and local memory), names
     demangled where c++filt is on PATH; None without cuobjdump."""
-    import glob
     import re
     import shutil
-    tool = _cuobjdump()
-    if tool is None:
+    if not _DUMPS:
+        start_dumps(_build)
+    usage = library_dump("--dump-resource-usage")
+    if usage is None:
         return None
-    lib = glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))[0]
-    usage = subprocess.run([tool, "--dump-resource-usage", lib],
-                           capture_output=True, text=True, check=True,
-                           timeout=300).stdout
     found = {}
     for m in re.finditer(r"Function (\S+):\s*([^\n]*)", usage):
         if any(n in m.group(1) for n in names):
@@ -6171,36 +6541,27 @@ def phase_sass(_build):
     tensor-map load) of each decode kernel, and the HGMMA, UTMALDG and HMMA
     (mma.sync) instructions of each 16-bit sparse kernel. Fails if one
     has none of what it wants, or a sparse kernel an HMMA."""
-    import glob
     import re
-    tool = _cuobjdump()
-    if tool is None:
+    if not _DUMPS:
+        start_dumps(_build)
+    sass = library_dump("--dump-sass")
+    if sass is None:
         print("phase1 SASS: no cuobjdump, HGMMA and UTMALDG counts not "
               "measured", flush=True)
         return
-    lib = glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))[0]
-    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    flash, decode, name = {}, {}, None
+    flash, decode = {}, {}
     sparse = {}          # name: [HGMMA, UTMALDG, HMMA]
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            if "flash" in name and "wgmma" in name:
-                flash[name] = 0
-            elif "decode_attention_kernel" in name:
-                decode[name] = 0
-            elif any(kind in name for kind in SPARSE_WGMMA):
-                sparse[name] = [0, 0, 0]
-        elif name in flash and "HGMMA" in line:
-            flash[name] += 1
-        elif name in decode and ("UBLKCP" in line or "UTMALDG" in line):
-            decode[name] += 1
-        elif name in sparse:
-            for i, insn in enumerate((r"\bHGMMA", r"\bUTMALDG",
-                                      r"\bHMMA\b")):
-                sparse[name][i] += bool(re.search(insn, line))
+    # each function's text up to the next header; a SASS line holds one
+    # instruction, so counting the text counts the lines
+    parts = re.split(r"Function : (\S+)", sass)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if "flash" in name and "wgmma" in name:
+            flash[name] = body.count("HGMMA")
+        elif "decode_attention_kernel" in name:
+            decode[name] = body.count("UBLKCP") + body.count("UTMALDG")
+        elif any(kind in name for kind in SPARSE_WGMMA):
+            sparse[name] = [len(re.findall(insn, body)) for insn in
+                            (r"\bHGMMA", r"\bUTMALDG", r"\bHMMA\b")]
     for what, counts, insn in (("16-bit flash", flash, "HGMMA"),
                                ("decode", decode, "UTMALDG")):
         if not counts or min(counts.values()) == 0:
@@ -6314,7 +6675,7 @@ def phase_resume(torch, np, dev, seed, card):
 
 def dp_rank_main(args) -> int:
     """One rank of phases 30 and 33 (this script with --dp-rank): its rows
-    of phase 29's micro-batches for 4 steps at each ZeRO stage of
+    of phase 29's micro-batches for DP_STEPS steps at each ZeRO stage of
     --dp-stages; results as JSON to --dp-out."""
     import numpy as np
     import torch
@@ -6340,7 +6701,7 @@ def dp_rank_main(args) -> int:
         micros = resume_micros(np, args.seed, cfg.vocab_size)
         marks, forward_peak, hooks = _block_marks(torch, engine, dev)
         _build.reset_launch_counts()
-        losses, secs = _train_steps(torch, engine, micros, 0, 4)
+        losses, secs = _train_steps(torch, engine, micros, 0, DP_STEPS)
         for h in hooks:
             h.remove()
         launches = {name: _build.LAUNCHES[name] for name in FLASH}
@@ -6419,7 +6780,7 @@ def run_dp_ranks(seed, stages, phase):
 
 
 def _check_dp_losses(ranks, stage, dp1_losses, phase):
-    per_step = ranks[0]["layers"] * RESUME_GAS * 4
+    per_step = ranks[0]["layers"] * RESUME_GAS * DP_STEPS
     want = {"flash_fwd": 2 * per_step, "flash_bwd_dq": per_step,
             "flash_bwd_dkv": per_step}
     for r in ranks:
@@ -6438,8 +6799,10 @@ def _check_dp_losses(ranks, stage, dp1_losses, phase):
 
 
 def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
-    """Phase 30: two ranks of ZeRO-1 against phase 29's dp 1 losses."""
-    ranks = run_dp_ranks(seed, (1,), 30)
+    """Phase 30: two ranks of ZeRO-1 against phase 29's dp 1 losses. The
+    rank processes then run phase 33's ZeRO-2 and ZeRO-3 (one start of the
+    ranks for both phases); returns their results."""
+    ranks = run_dp_ranks(seed, (1, 2, 3), 30)
     for r in ranks:
         z = r["stages"]["1"]
         print(f"phase30 zero1 dp=2 rank={r['rank']} backend={r['backend']} "
@@ -6463,15 +6826,15 @@ def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
     return ranks
 
 
-def phase_dp_stages(seed, card, dp1_losses, stage1_ranks):
-    """Phase 33: ZeRO-2 and ZeRO-3 over two ranks against phase 29's dp 1
-    losses; the accumulator (stage 2) and the partitioned parameters
-    (stage 3) a rank holds against dp 1's."""
-    ranks = run_dp_ranks(seed, (2, 3), 33)
+def phase_dp_stages(card, dp1_losses, ranks):
+    """Phase 33: ZeRO-2 and ZeRO-3 over two ranks (phase 30's rank
+    processes, ``ranks``) against phase 29's dp 1 losses; the accumulator
+    (stage 2) and the partitioned parameters (stage 3) a rank holds
+    against dp 1's."""
     for stage in (2, 3):
         for r in ranks:
             z, one = r["stages"][str(stage)], \
-                stage1_ranks[r["rank"]]["stages"]["1"]
+                ranks[r["rank"]]["stages"]["1"]
             print(f"phase33 zero{stage} dp=2 rank={r['rank']} backend="
                   f"{r['backend']} losses={z['losses']} step_s={z['step_s']} "
                   f"launches={z['launches']} comm_bytes_per_step="
@@ -7134,6 +7497,17 @@ def phase_capacity_streamed(torch, np, dev, seed, card, model=None):
     return launches, name, cfg.head_dim
 
 
+_LAP = [0.0]
+
+
+def lap(label: str) -> None:
+    """Print the wall seconds since the previous lap (or the start of
+    ``main``) on a line of its own, labelled by the phases they cover."""
+    now = time.perf_counter()
+    print(f"phase_wall {label} seconds={now - _LAP[0]}", flush=True)
+    _LAP[0] = now
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7149,10 +7523,18 @@ def main(argv=None) -> int:
     # one rank of phase 45 or 46
     ap.add_argument("--tp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--tp-phase", type=int, default=45,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-phase", default="45", help=argparse.SUPPRESS)
     # one rank of phase 48
     ap.add_argument("--sp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    # one rank of phases 50-51
+    ap.add_argument("--pipe-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--pipe-phases", default="50,51", help=argparse.SUPPRESS)
+    ap.add_argument("--pipe-m", type=int, default=PIPE_M,
+                    help=argparse.SUPPRESS)
+    # phase 48's ranks then run phases 50-51's
+    ap.add_argument("--then-pipe", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
@@ -7169,6 +7551,8 @@ def main(argv=None) -> int:
         return tp_rank_main(args)
     if args.sp_rank is not None:
         return sp_rank_main(args)
+    if args.pipe_rank is not None:
+        return pipe_rank_main(args)
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -7182,6 +7566,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    _LAP[0] = t_start
     card = card_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
@@ -7189,10 +7574,10 @@ def main(argv=None) -> int:
     _build.library()
     print(f"phase1 kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    phase_sass(_build)
-    phase_row_registers(_build)
-    phase_sparse_registers(_build)
-    phase_decode_registers(_build)
+    # the library's cuobjdump dumps run beside the phases; phase 1's
+    # register and SASS checks read them at the end
+    start_dumps(_build)
+    lap("1 build")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     da_err, decode_inputs = phase_decode_attention(torch, da, dev, gen)
@@ -7200,17 +7585,21 @@ def main(argv=None) -> int:
     sq16_err = case_parity(torch, da, qz, dev, gen, **SQ16_CASE)[0]
     d80_err = case_parity(torch, da, qz, dev, gen, **D80_CASE)[0]
     phase_piece_parity(torch, da, qz, dev, gen)
+    lap("2 decode parity")
     logits, sp_err = phase_sampling(torch, sp, dev, gen)
     flash_err, flash_inputs, flash_err_d80 = phase_flash_parity(torch, fa,
                                                                 dev, gen)
+    lap("3,7 sampling+flash parity")
     launches, ie, prompts, serve_kw = phase_serving(torch, np, dev,
                                                    args.seed, card)
+    lap("4,6 serving")
     (da_t, da_bound, da_by), (sp_t, sp_bound, sp_by) = phase_timing(
         torch, da, qz, sp, dev, gen, decode_inputs, logits, card)
     verify_t = verify_timing(torch, da, qz, dev, gen, card)
     sq16_t = verify_timing(torch, da, qz, dev, gen, card, **SQ16_CASE)
     d80_t = verify_timing(torch, da, qz, dev, gen, card, **D80_CASE)
     filter_t, filter_err = filter_timing(torch, sp, dev, gen, card)
+    lap("5 decode/sampling timing")
     torch.cuda.empty_cache()
     phase_sampled_serving(torch, ie, prompts, serve_kw, args.seed, card)
     spec_launches = phase_spec_serving(torch, dev, ie, prompts, serve_kw,
@@ -7218,39 +7607,60 @@ def main(argv=None) -> int:
     filter_launches = phase_spec_sampled(torch, ie, prompts, serve_kw,
                                          args.seed, card)
     phase_serve_loop(torch, ie, prompts, serve_kw, card)
+    lap("25-28 sampled/spec/serve loop")
     fused_launches = phase_fused_serving(torch, dev, ie, prompts, serve_kw,
                                          card)
     route_launches = phase_sp_route(torch, dev, ie, prompts, serve_kw, card)
+    lap("38,49 fused prefill+sp route")
     del ie
     torch.cuda.empty_cache()
     d80_launches = phase_d80_serving(torch, np, dev, args.seed, prompts,
                                      serve_kw, card)
+    lap("39 d80 serving")
     neo = phase_neo_serving(torch, np, dev, args.seed, prompts, serve_kw,
                             card)
     neo_int8 = phase_neo_int8(torch, np, dev, neo, serve_kw, card)
     neo_rows = neo["rows"]
+    lap("40-41 neo")
     del neo
     torch.cuda.empty_cache()
     moe = phase_moe_serving(torch, np, dev, args.seed, prompts, serve_kw,
                             card)
+    lap("42 moe serving")
     moe_train = phase_moe_training(torch, np, dev, args.seed, card)
+    lap("43 moe training")
     launches_ep = phase_ep(torch, np, dev, args.seed, card)
+    lap("44 ep")
     torch.cuda.empty_cache()
-    neox = phase_tp_serving(torch, np, dev, args.seed, card)
-    neox_train = phase_tp_training(torch, np, dev, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_spawned = run_tp_ranks(args.seed)     # phases 45 and 46's ranks
+    neox = phase_tp_serving(torch, np, dev, args.seed, card, tp_spawned)
+    lap("45 tp serving (and 46's ranks)")
+    neox_train = phase_tp_training(torch, np, dev, args.seed, card,
+                                   tp_spawned[0])
+    lap("46 tp training")
     torch.cuda.empty_cache()
     ctx, ctx_errs, ctx_t = phase_long_context(torch, np, fa, dev, gen,
                                               args.seed, card)
-    sp_runs = phase_sp(args.seed, card, ctx)
+    lap("47 long_context sp 1")
+    sp_runs = phase_sp(args.seed, card, ctx, then_pipe=True)
+    lap("48 sp 2 (and 50-51's ranks)")
+    torch.cuda.empty_cache()
+    pipe_launches, pipe_errs, pipe_t = phase_pipe(
+        torch, np, fa, dev, gen, args.seed, card, sp_runs["pipe"])
+    lap("50-51 pipeline")
     torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
     phase_model_check(torch, dev, engine, cfg, ids)
     phase_train_profile(torch, engine, ids, card)
+    lap("8-10 training")
     del engine
     flash_t, flash_t_d80 = phase_flash_timing(torch, fa, dev, gen,
                                               flash_inputs, card)
     del flash_inputs
+    lap("11 flash timing")
     torch.cuda.empty_cache()
 
     sparse_err, sparse_inputs = phase_sparse_parity(torch, sa, dev, gen)
@@ -7258,6 +7668,7 @@ def main(argv=None) -> int:
                                                           args.seed, card)
     phase_long_model_check(torch, sa, dev, engine, cfg, ids)
     phase_long_profile(torch, engine, ids, card)
+    lap("12-15 sparse parity+long training")
     del engine
     torch.cuda.empty_cache()
     sparse_t = phase_sparse_timing(torch, sa, dev, gen, sparse_inputs, card)
@@ -7266,6 +7677,7 @@ def main(argv=None) -> int:
     sparse_d80_err, sparse_d80_t, sparse_d80_launches = phase_sparse_d80(
         torch, np, sa, dev, gen, args.seed, card)
     phase_sparse_bert(torch, np, sa, dev, gen, args.seed)
+    lap("16-17 sparse timing+d80+bert")
     torch.cuda.empty_cache()
 
     paged_err = phase_paged_parity(torch, da, qz, dev, gen)
@@ -7273,11 +7685,13 @@ def main(argv=None) -> int:
         torch, np, dev, args.seed, card)
     launches_int8 = phase_int8_serving(torch, np, dev, ie, prompts,
                                        bf16_tokens, card)
+    lap("18-20 paged+int8")
     del ie
     torch.cuda.empty_cache()
     paged_t = phase_paged_timing(torch, da, qz, dev, gen, decode_inputs,
                                  card)
     del decode_inputs
+    lap("21 paged timing")
     torch.cuda.empty_cache()
 
     row_err, row_inputs = phase_rowwise_parity(torch, ln, gl, sm, dev, gen)
@@ -7288,22 +7702,38 @@ def main(argv=None) -> int:
     phase_layer_profile(torch, engine, batch, card)
     phase_layer_unmasked(torch, engine, batch)
     phase_layer_model_check(torch, ln, sm, engine, batch)
+    lap("22-23 rowwise parity+layer")
     del engine, batch
     torch.cuda.empty_cache()
     row_t = phase_rowwise_timing(torch, ln, gl, sm, row_inputs, card)
     del row_inputs
+    lap("24 rowwise timing")
     torch.cuda.empty_cache()
     dp1_losses, dp1_state_bytes = phase_resume(torch, np, dev, args.seed,
                                                card)
-    stage1_ranks = phase_dp(args.seed, card, dp1_losses, dp1_state_bytes)
+    lap("29 resume")
+    dp_ranks = phase_dp(args.seed, card, dp1_losses, dp1_state_bytes)
+    lap("30 dp 2 (and 33's ranks)")
     phase_optimizers(torch, np, dev, args.seed, card)
+    lap("31 optimizers")
     launches_offload = phase_zero3_offload(torch, np, dev, args.seed, card)
-    launches_dp = phase_dp_stages(args.seed, card, dp1_losses, stage1_ranks)
+    lap("32 zero3 offload")
+    launches_dp = phase_dp_stages(card, dp1_losses, dp_ranks)
+    lap("33 zero2/3 dp 2")
     phase_nvme(torch, np, dev, args.seed, card)
+    lap("34 nvme")
     launches_parity = phase_streamed_parity(torch, np, dev, args.seed, card)
+    lap("35 streamed parity")
     phase_cpu_checkpointing(torch, np, dev, args.seed, card)
+    lap("36 cpu checkpointing")
     launches_capacity, cap_name, cap_d = phase_capacity_streamed(
         torch, np, dev, args.seed, card)
+    lap("37 capacity streamed")
+    phase_sass(_build)
+    phase_row_registers(_build)
+    phase_sparse_registers(_build)
+    phase_decode_registers(_build)
+    lap("1 registers+SASS (dumps started after the build)")
     # the capacity pick's launches go to the rows of its head dim
     cap_row = "_d80" if cap_d == 80 else ""
 
@@ -7460,6 +7890,17 @@ def main(argv=None) -> int:
          "launches": sp_launches(ctx, sp_runs, tag, name),
          "max_abs_err": ctx_errs[tag][name], **ctx_t[tag][name]}
         for tag, *_ in SP_FLASH
+        for name, line in (("flash_fwd", 52), ("flash_bwd_dq", 140),
+                           ("flash_bwd_dkv", 175))
+    ] + [
+        {"name": f"{name}_pipe", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+         "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": pipe_launches["1f1b"][0][name],
+         "launches_1f1b_rank1": pipe_launches["1f1b"][1][name],
+         "launches_gpipe_rank0": pipe_launches["gpipe"][0][name],
+         "launches_gpipe_rank1": pipe_launches["gpipe"][1][name],
+         "max_abs_err": pipe_errs[name], **pipe_t[name]}
         for name, line in (("flash_fwd", 52), ("flash_bwd_dq", 140),
                            ("flash_bwd_dkv", 175))
     ] + [

@@ -40,12 +40,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     process joins its group first (:func:`init_distributed`: the one already
     set up, or the launcher's environment; none at one rank); the config's
     ``mesh`` block lays its ranks out over dp and ep (dp fills the world
-    by default). ``mpu`` (model parallelism) and
-    ``rng`` (the engine keeps no random stream to seed) are not ported
-    yet."""
+    by default). A ``runtime.pipe.PipelineModule`` gets a
+    ``PipelineEngine`` (the mesh's pp axis lays its stages over the ranks).
+    ``mpu`` raises: the TPU engines store it and never read it. ``rng``
+    (the engine keeps no random stream to seed) is not ported yet."""
     from .runtime.engine import DeepSpeedEngine, _not_ported
+    from .runtime.pipe.engine import MPU_MESSAGE, PipelineEngine
+    from .runtime.pipe.module import PipelineModule
     if mpu is not None:
-        raise _not_ported("mpu (model parallelism)", "A9")
+        raise ValueError(MPU_MESSAGE)
     if dist_init_required is not False:
         init_distributed(device=device)
     if rng is not None:
@@ -54,12 +57,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     config = config if config is not None else config_params
     if args is not None and config is None:
         config = getattr(args, "deepspeed_config", None)
-    engine = DeepSpeedEngine(model=model, optimizer=optimizer,
-                             model_parameters=model_parameters,
-                             training_data=training_data,
-                             lr_scheduler=lr_scheduler,
-                             collate_fn=collate_fn, config=config,
-                             loss_fn=loss_fn, device=device)
+    engine_cls = PipelineEngine if isinstance(model, PipelineModule) \
+        else DeepSpeedEngine
+    engine = engine_cls(model=model, optimizer=optimizer,
+                        model_parameters=model_parameters,
+                        training_data=training_data,
+                        lr_scheduler=lr_scheduler,
+                        collate_fn=collate_fn, config=config,
+                        loss_fn=loss_fn, device=device)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

@@ -352,6 +352,50 @@ def recv(x: torch.Tensor, src: int, dst: Optional[int] = None,
     return ppermute(x, [(src, dst)], group=group)
 
 
+class PendingSend:
+    """A send in flight (:func:`isend`): ``wait()`` returns once the tensor
+    may be reused."""
+
+    def __init__(self, work, tensor: torch.Tensor):
+        self.work, self.tensor = work, tensor
+
+    def wait(self) -> None:
+        if self.work is not None:
+            self.work.wait()
+        self.work = self.tensor = None
+
+
+def _wire(x: torch.Tensor, group) -> torch.Tensor:
+    """What goes on the wire for ``x``: a host copy over gloo (which cannot
+    send a CUDA tensor), else ``x`` itself."""
+    x = x.contiguous()
+    if x.is_cuda and dist.get_backend(_pg(group)) == "gloo":
+        return x.cpu()
+    return x
+
+
+def isend(x: torch.Tensor, dst: int, group: Optional[CommGroup] = None,
+          tag: int = 0) -> PendingSend:
+    """Start sending ``x`` to rank ``dst`` (the group's numbering) alone,
+    the reference pipeline's point-to-point send (p2p.py:21-48): the
+    caller goes on at once and waits on the handle before it reuses ``x``.
+    The receiving rank calls :func:`recv_into` with the same ``tag``."""
+    wire = _wire(x, group)
+    return PendingSend(dist.isend(wire, _global(group, dst),
+                                  group=_pg(group), tag=tag), wire)
+
+
+def recv_into(x: torch.Tensor, src: int, group: Optional[CommGroup] = None,
+              tag: int = 0) -> torch.Tensor:
+    """Receive rank ``src``'s :func:`isend` of ``tag`` into ``x`` (its
+    shape and dtype), blocking; returns ``x``."""
+    wire = _wire(x, group)
+    dist.recv(wire, _global(group, src), group=_pg(group), tag=tag)
+    if wire is not x:
+        x.copy_(wire)
+    return x
+
+
 # Capability aliases kept for API parity with the reference (comm.py:165-216).
 allgather_fn = all_gather_base
 reduce_scatter_fn = reduce_scatter_base

@@ -41,6 +41,12 @@ Any tree with the params' structure maps the same way: a JAX gradient tree
 ``named_parameters()``; the training parity tests compare grads and moments
 through it.
 
+``pipe_params_to_state_dict`` maps the TPU ``PipelineEngine``'s
+``stage_params`` (a list a stage of per-layer trees: the
+``models.gpt_pipe`` layers, or modules of flax Dense / LayerNorm / Embed
+children) to the port ``PipelineEngine``'s state dict (``"{layer}.{name}"``,
+every tied replica), and ``state_dict_to_pipe_params`` back.
+
 ``gpt_flax_leaves`` runs the map the other way, element by element: for
 each port parameter name it gives the flax leaf it came from (its path,
 its shape, the layer of a stacked leaf, whether the port transposed its
@@ -317,3 +323,117 @@ def tiled_params_to_state_dict(
     if "bias" in params_np:
         out["bias"] = np.asarray(params_np["bias"])
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def _pipe_layer_params(kind: str, tree: Mapping[str, Any],
+                       out: Dict[str, Any]) -> None:
+    """One TPU pipeline layer's params tree -> the port layer's names."""
+    if kind == "PipeGPTEmbed":
+        out["wte.weight"] = np.asarray(tree["wte"]["embedding"])
+        out["wpe"] = np.asarray(tree["wpe"])
+    elif kind == "PipeGPTBlock":
+        sub: Dict[str, Any] = {}
+        _block("b", tree, sub)
+        out.update({k[2:]: v for k, v in sub.items()})
+    elif kind == "PipeGPTFinalNorm":
+        _norm("ln_f", tree["ln_f"], out)
+    elif kind == "PipeGPTLMHead":
+        out["lm_head.weight"] = np.asarray(tree["lm_head"]["kernel"]).T
+    else:                          # Dense / LayerNorm / Embed modules
+        for name, v in tree.items():
+            if not isinstance(v, Mapping):
+                out[name] = np.asarray(v)
+            elif "kernel" in v:
+                _dense(name, v, out)
+            elif "scale" in v:
+                _norm(name, v, out)
+            elif "embedding" in v:
+                out[f"{name}.weight"] = np.asarray(v["embedding"])
+            else:
+                sub = {}
+                _pipe_layer_params("", v, sub)
+                out.update({f"{name}.{k}": s for k, s in sub.items()})
+
+
+def pipe_params_to_state_dict(stage_params, module
+                              ) -> Dict[str, torch.Tensor]:
+    """The TPU ``PipelineEngine.stage_params`` (numpy leaves: a list a
+    stage of per-layer params trees, None for a layer without any) ->
+    the port ``PipelineEngine``'s state dict (``"{layer}.{name}"``, every
+    tied replica; ``model_parameters`` takes it). ``module`` is the
+    port's ``PipelineModule`` with the same layer list and parts: its
+    layer classes name each tree's kind (the ``models.gpt_pipe`` layers,
+    or modules of Dense / LayerNorm / Embed children named as in flax)."""
+    out: Dict[str, Any] = {}
+    for s, layers in enumerate(stage_params):
+        for j, tree in enumerate(layers):
+            if tree is None:
+                continue
+            idx = module.parts[s] + j
+            sub: Dict[str, Any] = {}
+            _pipe_layer_params(module.layer_specs[idx].typename.__name__,
+                               tree, sub)
+            out.update({f"{idx}.{k}": v for k, v in sub.items()})
+    return {k: torch.from_numpy(np.array(v, order="C"))
+            for k, v in out.items()}
+
+
+def _nest(arrays: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, v in arrays.items():
+        node = tree
+        *dirs, last = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[last] = np.ascontiguousarray(v)
+    return tree
+
+
+def state_dict_to_pipe_params(state_dict: Mapping[str, Any], module
+                              ) -> list:
+    """The inverse of :func:`pipe_params_to_state_dict`: a port pipeline
+    state dict -> the TPU engine's ``stage_params`` layout (numpy)."""
+    def arr(v):
+        return np.asarray(v.detach().cpu().float() if torch.is_tensor(v)
+                          else v, np.float32)
+    stages = []
+    for s in range(module.num_stages):
+        layers = []
+        for idx in range(module.parts[s], module.parts[s + 1]):
+            spec = module.layer_specs[idx]
+            kind = spec.typename.__name__
+            pre = f"{idx}."
+            mine = {k[len(pre):]: arr(v) for k, v in state_dict.items()
+                    if k.startswith(pre)}
+            if not mine:
+                layers.append(None)
+                continue
+            flat: Dict[str, np.ndarray] = {}
+            if kind == "PipeGPTEmbed":
+                flat = {"wte/embedding": mine["wte.weight"],
+                        "wpe": mine["wpe"]}
+            elif kind == "PipeGPTBlock":
+                cfg = dataclasses.replace(spec.module_args[0], num_layers=1,
+                                          scan_layers=False,
+                                          attn_windows=None)
+                for name, fl in gpt_flax_leaves(cfg, False).items():
+                    if name.startswith("blocks.0."):
+                        v = mine[name[len("blocks.0."):]]
+                        flat[fl.path[len("block_0/"):]] = (
+                            np.swapaxes(v, -1, -2) if fl.transposed else v)
+            else:
+                for name, v in mine.items():
+                    mod, _, leaf = name.rpartition(".")
+                    mod = mod.replace(".", "/")
+                    if leaf == "weight" and v.ndim == 2 and \
+                            mod.split("/")[-1] in ("wte", "embedding"):
+                        flat[f"{mod}/embedding"] = v
+                    elif leaf == "weight" and v.ndim >= 2:
+                        flat[f"{mod}/kernel"] = np.swapaxes(v, -1, -2)
+                    elif leaf == "weight":
+                        flat[f"{mod}/scale"] = v
+                    else:
+                        flat[f"{mod}/{leaf}" if mod else leaf] = v
+            layers.append(_nest(flat))
+        stages.append(layers)
+    return stages

@@ -156,13 +156,17 @@ def _not_ported(what: str, item: str):
 
 def _build_mesh(raw) -> "mesh_lib.DeviceMesh":
     """The engine's device mesh from the config's ``mesh`` block (dp fills
-    the world); pp waits for ROADMAP A9."""
+    the world). A pp axis raises: the TPU dense engine has no stages, and a
+    pipeline's come from ``PipelineModule(num_stages=)``."""
     if isinstance(raw, str):
         with open(raw) as fh:
             raw = json.load(fh)
     m = dict((raw or {}).get("mesh") or {})
     if m.get("pp", 1) != 1:
-        raise _not_ported("a pp mesh", "A9")
+        raise ValueError(
+            f"a pp mesh (pp={m['pp']}) given to the dense engine: pipelining "
+            f"needs a runtime.pipe.PipelineModule, whose num_stages the "
+            f"PipelineEngine lays over the mesh's pp axis")
     shape = mesh_lib.MeshShape.infer(comm.get_world_size(), tp=m.get("tp", 1),
                                      ep=m.get("ep", 1), sp=m.get("sp", 1),
                                      dp=m.get("dp"))
@@ -403,7 +407,13 @@ class DeepSpeedEngine:
         if len(many) > 1:
             raise _not_ported(f"a mesh with {' and '.join(many)}", "A9")
         if c.pipeline.stages > 1:
-            raise _not_ported("pipeline stages", "A9")
+            # the TPU dense engine reads no pipeline block: stages come from
+            # PipelineModule(num_stages=), which initialize() hands to the
+            # PipelineEngine
+            raise ValueError(
+                f"pipeline.stages={c.pipeline.stages} given to the dense "
+                f"engine: pipelining needs a runtime.pipe.PipelineModule "
+                f"(its num_stages sets the stages)")
         otype = (c.optimizer.type if c.optimizer else "Adam").lower()
         if otype in _LATER_OPTIMIZERS:
             raise _not_ported(f"optimizer {c.optimizer.type}",

@@ -549,6 +549,11 @@ UNPORTED = {
 # A tp mesh of 2 cannot be laid out over this one-rank world (a ValueError
 # naming the world); tp over two and four ranks is in tests/test_torch_tp.py.
 MESH_NEEDS_RANKS = {"tp_mesh": "1 devices not divisible"}
+# ``pipeline.stages`` raised naming ROADMAP A9 until the pipeline was
+# ported; the dense engine reads no pipeline block (neither does the TPU
+# one), so it now raises a ValueError pointing at PipelineModule
+# (tests/test_torch_pipe.py holds the pipeline engine to the TPU one)
+POINTS_AT_PIPELINE = {"pipeline": "needs a runtime.pipe.PipelineModule"}
 NOW_PORTED = {"lamb": "FusedLamb", "adagrad": "FusedAdagrad", "sgd": "SGD",
               "zero2": "FusedAdam", "zero3": "FusedAdam",
               "offload_optimizer": "HostOffloadOptimizer",
@@ -571,6 +576,11 @@ def test_unported_knob_raises(name):
         assert np.isfinite(float(eng.train_batch(
             iter([{"input_ids": _ids(3, rows=2)}]))))
         return
+    if name in POINTS_AT_PIPELINE:
+        with pytest.raises(ValueError, match=POINTS_AT_PIPELINE[name]):
+            dst.initialize(model=pmodel, loss_fn=lm_loss_fn, config=cfg,
+                           device="cpu")
+        return
     if name in MESH_NEEDS_RANKS:
         with pytest.raises(ValueError, match=MESH_NEEDS_RANKS[name]):
             dst.initialize(model=pmodel, loss_fn=lm_loss_fn, config=cfg,
@@ -582,7 +592,8 @@ def test_unported_knob_raises(name):
 
 
 def test_unported_calls_raise(tmp_path):
-    """``mpu`` still raises. Checkpoints and more than one rank raised
+    """``mpu`` still raises (the TPU engine stores it and never reads it).
+    Checkpoints and more than one rank raised
     (ROADMAP A4.9, A4.7) until they were ported: a save loads back, and
     two gloo ranks train (tests/test_torch_checkpoint.py and
     test_torch_zero_dp.py hold them to the JAX engine)."""
@@ -594,7 +605,7 @@ def test_unported_calls_raise(tmp_path):
     assert eng.load_checkpoint(str(tmp_path)) == (path, {})
     assert eng.global_steps == 1
     import deepspeed_tpu_torch as dst
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="stores it and never reads it"):
         dst.initialize(model=pmodel, mpu=object(), device="cpu")
     state = {k: v.detach().numpy().copy()
              for k, v in pmodel.state_dict().items()}
