@@ -228,7 +228,7 @@ Phases (any failure exits non-zero before the result lines):
      prints save and load seconds and the checkpoint's bytes;
  30. ZeRO-1 over two data-parallel ranks: this script started twice more
      (--dp-rank 0 / 1), each rank micro 4 of phase 29's micro-batches of 8
-     rows for its first DP_STEPS (3) steps, over NCCL with one card a rank when the
+     rows for its first DP_STEPS (2) steps, over NCCL with one card a rank when the
      host has two cards, else over gloo with both ranks on one card; fails
      if a rank fails, if a loss leaves phase 29's by more than LOSS_ATOL,
      if the ranks' losses differ, if a rank's launches of B1/B1b are not
@@ -355,15 +355,15 @@ Phases (any failure exits non-zero before the result lines):
      serving phase 4's requests (B2 6 times a step; tokens/s beside
      bf16's);
  42. GPT-MoE (after phase 41): gpt_moe_1_3b at full width (24 layers
-     cut to MOE_LAYERS 6 to fit the time limit, d_model
+     cut to MOE_LAYERS 4 to fit the time limit, d_model
      2048, 16 heads of 128, d_ff 8192, top-1, eval
      capacity 2.0, min 4) with its 128 experts cut to 16 (128 would need
      206 GB in bf16), bf16 weights made on the card from --seed; the
      forward on [2, 1024] through B1 (a launch a layer, each held to its
      plain version) against attention_impl="xla" within LOSS_ATOL; layer 0's
      MoE on a prefill's inputs against the same function in f32
-     (MOE_OUT_RTOL); phase 4's requests through the dense and fused (C
-     16) megakernel engines: a run with every B2 call and B4 draw held to
+     (MOE_OUT_RTOL); phase 4's requests (CUT_NEW new tokens each) through
+     the dense and fused (C 16) megakernel engines: a run with every B2 call and B4 draw held to
      its plain version and every logits tensor checked finite, printing
      the routing's capacity and dropped tokens, then a timed run (B2 once
      a layer a step at the step's width, B4 once a step, the checked run's
@@ -443,6 +443,30 @@ Phases (any failure exits non-zero before the result lines):
  51. GPipeSpmdEngine at pp 2 in the same rank processes (M 4, remat): the
      same gates (B1 / B1b 120 / 60 / 60 a step a rank: every one of the
      M + S - 1 ticks, forward, remat recompute and backward).
+ 52. compressed communication, in phase 30's rank processes (after phase
+     33's stages): COMPRESSED_CALLS error-feedback 1-bit all-reduces in a
+     row at GPT-2 125M's padded size (124,475,904 elements, buffers and
+     starting error buffers from --seed), each held to the plain exchange
+     (``plain_compressed``: every rank's corrected buffer gathered whole,
+     the signs packed by numpy) and then to the same calls on host copies:
+     sign bytes equal, average and both error buffers within
+     COMPRESSED_TOL of the input's rms, the average the same bits on both
+     ranks, the bytes a rank sent and received equal to
+     wire_bytes_compressed(npad, 2); ms a call;
+ 53. the 1-bit optimizers in the same rank processes: OneBitAdam,
+     OneBitLamb (freeze_step 2, 4 steps) and ZeroOneAdam (2, 1, 1, 2: 6
+     steps) train GPT-2 125M (gpt2_125m_zero1's model, micro 4 a rank x
+     RESUME_GAS, ZeRO-1, lr ONEBIT_LR) on phase 29's micro-batches: the
+     modes the policy gives, losses finite and equal on both ranks, the
+     master's checksum equal on both after every step, the ranks' worker
+     errors different after the first compressed step (gradients kept
+     local), ZeroOneAdam's delta zero after each sync, B1 / B1b 12 x gas x
+     steps (x 2 forward), the compression ratio and each step's wire bytes
+     the formula's, OneBitAdam's two warmup steps against the dense AdamW
+     without bias correction (ONEBIT_WARM_MAX, ONEBIT_WARM_LOOSE); step s,
+     a rank's device busy share and max_memory_allocated by optimizer and
+     mode. ``tools/check_onebit_gates.py`` runs 52-53 alone and on planted
+     faults.
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
@@ -455,7 +479,8 @@ and B2 at GPT-Neo's shapes, B1 / B1b, B2 and B4 at GPT-MoE's, B1 / B1b,
 B2, B3 and B4 at GPT-NeoX 20B's tp-2 rank shapes with phases 45-46's
 launches on rank 0, B1 / B1b at phases 47-48's shapes with their
 launches, and at the pipe stage shape with phases 50-51's launches a
-rank), each phase group's wall seconds (``phase_wall``), the card line
+rank; phase 53's on rank 0 with the training shape's), each phase group's
+wall seconds (``phase_wall``), the card line
 and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
 """
@@ -530,7 +555,7 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
 RESUME_GAS = 4
 DP_TIMEOUT_S = 300
 # phases 30 and 33: the first DP_STEPS of phase 29's 4 steps (cut to fit)
-DP_STEPS = 3
+DP_STEPS = 2
 # phase 31: each optimizer's config (lr picked for a falling loss in 3
 # steps from random weights) and the card-vs-CPU bound of one step's
 # masters: f32 elementwise math on both, LAMB's norms summed in another
@@ -556,6 +581,37 @@ OFFLOAD_HOST_BYTES, OFFLOAD_DEVICE_BYTES = 18, 6
 # moments (16 B), writes params and moments (12 B) and the mirror (2 B)
 CPU_ADAM_BYTES = 30
 MASTER_CHECK_LEAF = "blocks.0.attn.qkv.weight"
+# phases 52-53: the 1-bit path in phase 30's two rank processes. Phase 52
+# runs COMPRESSED_CALLS exchanges in a row at GPT-2 125M's padded size;
+# card, host and the plain exchange do the same f32 operations in the same
+# order with every norm summed in f64, so they should agree to the bit:
+# the bound is COMPRESSED_TOL of the input's rms (a few f32 ulps)
+COMPRESSED_CALLS = 3
+COMPRESSED_TOL = 2.0 ** -20
+# phase 53: each 1-bit optimizer (config params, the modes of its steps;
+# ZeroOnePolicy(2, 1, 1, 2) gives dense, dense, grad_comp, sync, local,
+# sync) on phase 29's micro-batches, micro 4 a rank x RESUME_GAS
+ONEBIT_LR, ONEBIT_WD = 1e-4, 0.01
+ONEBIT_RUNS = {
+    "OneBitAdam": ({"freeze_step": 2}, ("warmup", "warmup", "comp", "comp")),
+    "OneBitLamb": ({"freeze_step": 2}, ("warmup", "warmup", "comp", "comp")),
+    "ZeroOneAdam": ({"var_freeze_step": 2, "var_update_scaler": 1,
+                     "local_step_scaler": 1, "local_step_clipper": 2},
+                    ("dense", "dense", "grad_comp", "sync", "local",
+                     "sync")),
+}
+# phase 53's OneBitAdam warmup against the dense AdamW without bias
+# correction, after 2 steps. The two sum each element's bf16 micro-batch
+# grads in another order; Adam moves an element whose gradient is rounding
+# noise by up to (1 - b1) / sqrt(1 - b2) lr (3.16 lr) a step either way,
+# so every master within 4 x 3.16 lr, and at most ONEBIT_WARM_LOOSE
+# elements (1e-4 of them) apart by more than lr. Measured on the H100:
+# at most 4.74 lr, 2,246 elements over lr (20.3e6 over 1e-2 lr, 0.57e6
+# over 0.1 lr); a step with bias correction would move every element 2.16
+# lr away
+ONEBIT_WARM_MAX = 4 * 0.1 / math.sqrt(0.001)
+ONEBIT_WARM_LOOSE = 12_500
+ONEBIT_TIMEOUT_S = 600
 
 
 def fail(msg: str) -> None:
@@ -2388,8 +2444,8 @@ def phase_paged_timing(torch, da, qz, dev, gen, decode_inputs, card):
 SPEC_K, SPEC_NGRAM = 4, 2        # the TPU ServingEngine's defaults
 # new tokens a request in phases 25-27, 38 and 40-41 (sampled,
 # speculative, fused and GPT-Neo serving): phase 4's 64 cut to fit the
-# time limit
-CUT_NEW = 32
+# time limit (to 32, then to 16 when phases 52-53 came)
+CUT_NEW = 16
 VERIFY_SQ = SPEC_K + 1
 # the arenas a speculative GPT-2 engine builds (max_seq_len 1024): k
 # positions of lookahead past S (dense), one more table entry (paged)
@@ -3828,10 +3884,10 @@ def phase_neo_int8(torch, np, dev, neo, kw, card):
 # parameters are 206 GB in bf16, past the card's 80 GB; 16 experts make
 # 13.4e9 parameters (26.8 GB). Top-1, eval capacity 2.0, min capacity 4.
 MOE_EXPERTS = 16
-MOE_LAYERS = 6                       # of 24, cut to fit the time limit
-MOE_PARAMS = 3_428_290_560           # at 6 layers, 16 experts, tied head
-#                                      (12: 6_751_457_280; 24:
-#                                      13_397_790_720)
+MOE_LAYERS = 4                       # of 24, cut to fit the time limit
+MOE_PARAMS = 2_320_568_320           # at 4 layers, 16 experts, tied head
+#                                      (6: 3_428_290_560; 12:
+#                                      6_751_457_280; 24: 13_397_790_720)
 MOE_IDS = (2, 1024)                  # phase 42's forward check
 # one MoE layer in bf16 against the same function in f32 on the same bf16
 # inputs (identical routing: the gate computes in f32 from the same
@@ -4102,7 +4158,7 @@ def phase_moe_serving(torch, np, dev, seed, prompts, kw, card):
     del ref_moe, seen, x, out, want
     torch.cuda.empty_cache()
 
-    n_new, K = 64, kw["decode_chunk"]
+    n_new, K = CUT_NEW, kw["decode_chunk"]
     runs = (("dense", {}, 1),
             ("fused", dict(fused_prefill=True, prefill_chunk=FUSED_C),
              FUSED_C))
@@ -4410,10 +4466,11 @@ def ep_rank_main(args) -> int:
     return 0
 
 
-def spawn_ranks(seed, n, args, phase, timeout, d, own_card=False):
-    """This script ``n`` times more as the ranks of a multi-rank phase: each
-    run gets ``args`` with its rank after the first (the hidden flag),
-    --dp-port (a free localhost port for gloo) and --dp-out (its JSON result
+def spawn_ranks(seed, n, args, phase, timeout, d, own_card=False,
+                script=None):
+    """``script`` (default this one) ``n`` times more as the ranks of a
+    multi-rank phase: each run gets ``args`` with its rank after the first
+    (the hidden flag), --dp-port (a free localhost port for gloo) and --dp-out (its JSON result
     under ``d``); LOCAL_RANK is 0 (every rank on card 0) or, with
     ``own_card``, the rank. Fails on a rank's exit code or on ``timeout``
     seconds; returns the ranks' JSON results."""
@@ -4425,8 +4482,8 @@ def spawn_ranks(seed, n, args, phase, timeout, d, own_card=False):
     for rank in range(n):
         env = dict(os.environ, LOCAL_RANK=str(rank if own_card else 0))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-             args[0], str(rank), *args[1:], "--dp-port", str(port),
+            [sys.executable, script or os.path.abspath(__file__), "--seed",
+             str(seed), args[0], str(rank), *args[1:], "--dp-port", str(port),
              "--dp-out", os.path.join(d, f"rank{rank}.json")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -4543,11 +4600,11 @@ def _ep_near_tie(torch, dev, seed, prefix, at, row):
 # gpt_neox_20b (models/gpt.py: 44 layers, d_model 6144, 64 heads of 96,
 # d_ff 24576, rotary, parallel residual, untied head, vocab 50304) at tp 2
 # over two gloo ranks sharing the card, cut in depth to fit the time limit:
-# 12.1e9 B of bf16 weights whole (41.1e9 at 44 layers), half a rank, made on
+# 4.9e9 B of bf16 weights whole (41.1e9 at 44 layers), half a rank, made on
 # the card from --seed module by module (models.gpt.init_tp_shards), so no
 # rank ever holds the whole model
-NEOX_LAYERS = 6                      # of 44, cut to fit the time limit
-NEOX_PARAMS = 3_336_536_064          # at 6 layers (44: 20_552_994_816)
+NEOX_LAYERS = 4                      # of 44, cut to fit the time limit
+NEOX_PARAMS = 2_430_406_656          # at 4 layers (44: 20_552_994_816)
 NEOX_TP = 2
 NEOX_IDS = (2, 1024)                 # the forward through B1
 NEOX_BLOCK_IN = (1, 16)              # layer 0's input rows
@@ -6676,7 +6733,8 @@ def phase_resume(torch, np, dev, seed, card):
 def dp_rank_main(args) -> int:
     """One rank of phases 30 and 33 (this script with --dp-rank): its rows
     of phase 29's micro-batches for DP_STEPS steps at each ZeRO stage of
-    --dp-stages; results as JSON to --dp-out."""
+    --dp-stages; then the phases of --dp-onebit (52: ``compressed_rank``,
+    53: ``onebit_rank``); results as JSON to --dp-out."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch import comm
@@ -6686,8 +6744,8 @@ def dp_rank_main(args) -> int:
                           init_method=f"tcp://localhost:{args.dp_port}",
                           rank=args.dp_rank, world_size=2)
     dev = torch.device("cuda", torch.cuda.current_device())
-    stages = {}
-    for stage in (int(x) for x in args.dp_stages.split(",")):
+    stages, cfg = {}, None
+    for stage in (int(x) for x in args.dp_stages.split(",") if x):
         config = dict(TRAIN_CONFIG, gradient_accumulation_steps=RESUME_GAS,
                       train_micro_batch_size_per_gpu=TRAIN_MICRO // 2,
                       zero_optimization={"stage": stage})
@@ -6736,7 +6794,16 @@ def dp_rank_main(args) -> int:
         del engine
     out = {"rank": comm.get_rank(), "dp": comm.get_world_size(),
            "backend": torch.distributed.get_backend(), "device": str(dev),
-           "layers": cfg.num_layers, "stages": stages}
+           "layers": cfg.num_layers if cfg else None, "stages": stages}
+    onebit = args.dp_onebit.split(",")
+    if "52" in onebit:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["compressed"] = compressed_rank(torch, np, dev, args.seed)
+    if "53" in onebit:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["onebit"] = onebit_rank(torch, np, dev, args.seed)
     with open(args.dp_out, "w") as fh:
         json.dump(out, fh)
     torch.distributed.destroy_process_group()
@@ -6769,14 +6836,17 @@ def _block_marks(torch, engine, dev):
         b.register_forward_hook(after) for b in blocks]
 
 
-def run_dp_ranks(seed, stages, phase):
-    """This script twice more as the two ranks (--dp-rank 0 / 1) at each
-    ZeRO stage of ``stages``; their JSON results."""
+def run_dp_ranks(seed, stages, phase, onebit="", script=None):
+    """``script`` (default this one) twice more as the two ranks
+    (--dp-rank 0 / 1) at each ZeRO stage of ``stages``, then the 1-bit
+    phases of ``onebit`` ("52,53"); their JSON results."""
     with tempfile.TemporaryDirectory() as d:
         return spawn_ranks(
             seed, 2, ["--dp-rank", "--dp-stages",
-                      ",".join(str(x) for x in stages)], phase,
-            DP_TIMEOUT_S * len(stages), d, own_card=True)
+                      ",".join(str(x) for x in stages),
+                      "--dp-onebit", onebit], phase,
+            DP_TIMEOUT_S * len(stages) + ONEBIT_TIMEOUT_S * bool(onebit), d,
+            own_card=True, script=script)
 
 
 def _check_dp_losses(ranks, stage, dp1_losses, phase):
@@ -6800,9 +6870,9 @@ def _check_dp_losses(ranks, stage, dp1_losses, phase):
 
 def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
     """Phase 30: two ranks of ZeRO-1 against phase 29's dp 1 losses. The
-    rank processes then run phase 33's ZeRO-2 and ZeRO-3 (one start of the
-    ranks for both phases); returns their results."""
-    ranks = run_dp_ranks(seed, (1, 2, 3), 30)
+    rank processes then run phase 33's ZeRO-2 and ZeRO-3 and phases 52-53
+    (one start of the ranks for the four); returns their results."""
+    ranks = run_dp_ranks(seed, (1, 2, 3), 30, onebit="52,53")
     for r in ranks:
         z = r["stages"]["1"]
         print(f"phase30 zero1 dp=2 rank={r['rank']} backend={r['backend']} "
@@ -6896,6 +6966,343 @@ def phase_dp_stages(card, dp1_losses, ranks):
                  f"their block")
     return {stage: ranks[0]["stages"][str(stage)]["launches"]
             for stage in (2, 3)}
+
+
+def _host_group(torch, comm):
+    """The group for phase 52's host run: the world over gloo, or a gloo
+    group beside NCCL (NCCL moves no host tensor)."""
+    if torch.distributed.get_backend() == "gloo":
+        return None
+    world = comm.get_world_size()
+    return comm.CommGroup(axes=("dp",), ranks=tuple(range(world)),
+                          group=torch.distributed.new_group(
+                              list(range(world)), backend="gloo"))
+
+
+def plain_compressed(torch, np, comm, corrected, server_error, group=None):
+    """The 1-bit exchange written out plainly, for phase 52: every rank's
+    corrected buffer (buffer + worker error) and server error all-gathered
+    whole, then the worker and server compression of every chunk done
+    here, the sign bits packed by numpy (``packbits``, little bit order).
+    Returns this rank's (average, new worker error, new server error,
+    phase-1 sign bytes, server sign bytes)."""
+    world, rank = comm.get_world_size(group), comm.get_rank()
+    everyone = comm.all_gather(corrected, group=group)        # [world, n]
+    servers = comm.all_gather(server_error, group=group)
+    n = corrected.numel()
+    chunk = n // world
+
+    def rms(x):
+        norm = torch.linalg.vector_norm(x, dtype=torch.float64).float()
+        return norm / torch.sqrt(torch.tensor(float(x.numel()),
+                                              device=x.device))
+
+    def pm1(x):
+        return torch.where(x >= 0, 1.0, -1.0)
+    scales = [rms(everyone[r]) for r in range(world)]
+    new_worker = corrected - scales[rank] * pm1(corrected)
+    out, server_bits, new_server = [], [], None
+    for s in range(world):
+        m = torch.zeros(chunk, device=corrected.device)
+        for r in range(world):
+            m = m + (scales[r] / world) * pm1(
+                everyone[r, s * chunk:(s + 1) * chunk])
+        m = m + servers[s]
+        scale = rms(m)
+        out.append(scale * pm1(m))
+        server_bits.append((m >= 0).cpu().numpy())
+        if s == rank:
+            new_server = m - scale * pm1(m)
+    return (torch.cat(out), new_worker, new_server,
+            np.packbits((corrected >= 0).cpu().numpy(), bitorder="little"),
+            np.packbits(np.concatenate(server_bits), bitorder="little"))
+
+
+def _gap(got, want, rms) -> float:
+    return float((got.to(want.device) - want).abs().max()) / rms
+
+
+def compressed_rank(torch, np, dev, seed):
+    """Phase 52 at this rank: COMPRESSED_CALLS compressed all-reduces in a
+    row on the card at GPT-2 125M's padded size (buffers and starting
+    error buffers from ``seed``, this rank's own), each held to
+    ``plain_compressed`` on the same inputs; then the same calls on host
+    copies of the same inputs. Returns each call's ms, the bytes this
+    rank sent and received, the gaps (over the input's rms), whether the
+    sign bytes agree, and a digest of the average."""
+    import collections
+    import hashlib
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm import compressed as cp
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_125m
+    t_start = time.perf_counter()
+    world, rank = comm.get_world_size(), comm.get_rank()
+    cfg = gpt2_125m(max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16)
+    n = sum(p.numel() for p in GPT(cfg, device="meta").parameters())
+    npad = cp.padded_size(n, world)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1 + rank)
+    bufs = [torch.randn(npad, generator=gen, device=dev)
+            for _ in range(COMPRESSED_CALLS)]
+    we = 0.1 * torch.randn(npad, generator=gen, device=dev)
+    se = 0.1 * torch.randn(npad // world, generator=gen, device=dev)
+    host_we, host_se = we.cpu(), se.cpu()
+    calls, outs = [], []
+    for buf in bufs:
+        rms = float(buf.square().mean().sqrt())
+        corrected = buf + we
+        signs = cp.pack_signs(corrected >= 0).cpu().numpy()
+        want = plain_compressed(torch, np, comm, corrected, se)
+        del corrected
+        before = collections.Counter(cp.WIRE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, we, se = cp.compressed_allreduce(buf, we, se)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        wire = collections.Counter(cp.WIRE) - before
+        server = cp.pack_signs(res >= 0).cpu().numpy()
+        calls.append({
+            "ms": ms, "sent": wire["sent"], "received": wire["received"],
+            "plain_gap": max(_gap(res, want[0], rms), _gap(we, want[1], rms),
+                             _gap(se, want[2], rms)),
+            "plain_signs_equal": bool(np.array_equal(signs, want[3])
+                                      and np.array_equal(server, want[4])),
+            "digest": hashlib.sha1(res.cpu().numpy().tobytes()).hexdigest()})
+        outs.append((res.cpu(), we.cpu(), se.cpu(), signs, server, rms))
+        del want, res
+    # the same calls on host copies of the same inputs
+    group = _host_group(torch, comm)
+    for c, buf in enumerate(bufs):
+        host = buf.cpu()
+        res, we_c, se_c, signs, server, rms = outs[c]
+        corrected = host + host_we
+        signs_host = cp.pack_signs(corrected >= 0).numpy()
+        del corrected
+        t0 = time.perf_counter()
+        hres, host_we, host_se = cp.compressed_allreduce(host, host_we,
+                                                         host_se, group)
+        calls[c]["host_s"] = time.perf_counter() - t0
+        calls[c]["host_gap"] = max(_gap(hres, res, rms),
+                                   _gap(host_we, we_c, rms),
+                                   _gap(host_se, se_c, rms))
+        calls[c]["host_signs_equal"] = bool(
+            np.array_equal(signs_host, signs)
+            and np.array_equal(cp.pack_signs(hres >= 0).numpy(), server))
+    return {"n": n, "npad": npad, "calls": calls,
+            "wall_s": time.perf_counter() - t_start}
+
+
+def _int_sum(torch, x) -> int:
+    """A checksum of an f32 tensor's bits: the sum of its int32 views."""
+    return int(x.view(torch.int32).sum(dtype=torch.int64))
+
+
+def onebit_rank(torch, np, dev, seed):
+    """Phase 53 at this rank: each optimizer of ONEBIT_RUNS trains GPT-2
+    125M (gpt2_125m_zero1's model, micro 4 a rank x RESUME_GAS on phase
+    29's micro-batches, ZeRO-1, lr ONEBIT_LR) for its modes' steps, each
+    step under torch.profiler; then the dense engine (AdamW without bias
+    correction, ZeRO 0) takes OneBitAdam's two warmup steps. Returns per
+    run and step the loss, mode, seconds, device busy seconds, checksums
+    of the master and the worker error, the largest |delta|, the bytes
+    this rank put on and took off the wire; the launches, the wire
+    accounting and peak memory; the warmup's gap to the dense masters."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.comm import compressed as cp
+    from deepspeed_tpu_torch.ops.cuda import _build
+    t_start = time.perf_counter()
+    base = dict(TRAIN_CONFIG, gradient_accumulation_steps=RESUME_GAS,
+                train_micro_batch_size_per_gpu=TRAIN_MICRO // 2)
+    runs, warm = {}, None
+    for kind, (params, modes) in ONEBIT_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak(torch, dev)
+        engine, cfg = _gpt2_engine(torch, dev, seed, dict(
+            base, optimizer={"type": kind, "params": dict(
+                lr=ONEBIT_LR, weight_decay=ONEBIT_WD, **params)}))
+        run = engine._onebit
+        micros = resume_micros(np, seed, cfg.vocab_size, steps=len(modes))
+        rec = collections.defaultdict(list)
+        _build.reset_launch_counts()
+        for step in range(len(modes)):
+            before = collections.Counter(cp.WIRE)
+            dense = run.comm_bytes["dense"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                loss = engine.train_batch(iter(
+                    micros[RESUME_GAS * step:RESUME_GAS * (step + 1)]))
+                torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            rec["busy_s"].append(sum(_device_us(e) for e in
+                                     prof.key_averages()) / 1e6)
+            wire = collections.Counter(cp.WIRE) - before
+            rec["losses"].append(float(loss))
+            rec["modes"].append(run.last_mode)
+            rec["master_sum"].append(_int_sum(torch, run.master))
+            rec["worker_error_sum"].append(
+                _int_sum(torch, run.state["worker_error"]))
+            rec["delta_max"].append(float(run.state["delta"].abs().max())
+                                    if "delta" in run.state else None)
+            rec["wire_compressed"].append(wire["sent"] + wire["received"])
+            rec["wire_dense"].append(run.comm_bytes["dense"] - dense)
+            if kind == "OneBitAdam" and step == 1:
+                warm = torch.cat([p.detach().reshape(-1)
+                                  for p in engine.master])
+        rec.update(launches={k: _build.LAUNCHES[k] for k in FLASH},
+                   ratio=run.compression_ratio(), n=run.n,
+                   npad=run.opt.npad, layers=cfg.num_layers,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        runs[kind] = dict(rec)
+        del engine, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, cfg = _gpt2_engine(torch, dev, seed, dict(
+        base, zero_optimization={"stage": 0}, optimizer={
+            "type": "AdamW", "params": {"lr": ONEBIT_LR,
+                                        "weight_decay": ONEBIT_WD,
+                                        "bias_correction": False}}))
+    micros = resume_micros(np, seed, cfg.vocab_size, steps=2)
+    dense_losses, _ = _train_steps(torch, engine, micros, 0, 2)
+    gap = (torch.cat([p.detach().reshape(-1) for p in engine.master])
+           - warm).abs()
+    runs["warmup_vs_dense"] = {
+        "losses": dense_losses, "max": float(gap.max()),
+        "over": {str(f): int((gap > f * ONEBIT_LR).sum())
+                 for f in (1e-3, 1e-2, 1e-1, 1.0)}}
+    del engine, warm, gap
+    runs["wall_s"] = time.perf_counter() - t_start
+    return runs
+
+
+def phase_compressed(card, ranks):
+    """Phase 52 (run in phase 30's rank processes): every call's average,
+    worker and server error within COMPRESSED_TOL of the plain exchange's
+    and of the host run's, their sign bytes equal, the average the same
+    bits on both ranks, and each rank's bytes sent and received equal to
+    wire_bytes_compressed(npad, 2)."""
+    from deepspeed_tpu_torch.comm.compressed import (wire_bytes_compressed,
+                                                     wire_bytes_dense)
+    for r in ranks:
+        got = r["compressed"]
+        npad, n = got["npad"], got["n"]
+        for c, call in enumerate(got["calls"]):
+            print(f"phase52 compressed_allreduce rank={r['rank']} call={c} "
+                  f"n={n} npad={npad} ms={call['ms']} host_s="
+                  f"{call['host_s']} sent={call['sent']} received="
+                  f"{call['received']} wire_bytes_compressed(npad, 2)="
+                  f"{wire_bytes_compressed(npad, 2)} wire_bytes_dense(n, 2)="
+                  f"{wire_bytes_dense(n, 2)} plain_gap={call['plain_gap']} "
+                  f"host_gap={call['host_gap']} (of the input's rms; bound "
+                  f"{COMPRESSED_TOL}) card={card}", flush=True)
+            if not (call["plain_signs_equal"] and call["host_signs_equal"]):
+                fail(f"phase 52 rank {r['rank']} call {c}: sign bytes equal "
+                     f"to the plain exchange's: {call['plain_signs_equal']}, "
+                     f"to the host run's: {call['host_signs_equal']}")
+            if max(call["plain_gap"], call["host_gap"]) > COMPRESSED_TOL:
+                fail(f"phase 52 rank {r['rank']} call {c}: gap "
+                     f"{call['plain_gap']} / {call['host_gap']} over "
+                     f"{COMPRESSED_TOL}")
+            if call["sent"] + call["received"] != \
+                    wire_bytes_compressed(npad, 2):
+                fail(f"phase 52 rank {r['rank']}: {call['sent']} + "
+                     f"{call['received']} B on the wire, not "
+                     f"{wire_bytes_compressed(npad, 2)}")
+        print(f"phase_wall 52 (rank {r['rank']}) seconds={got['wall_s']}",
+              flush=True)
+    for a, b in zip(*(r["compressed"]["calls"] for r in ranks)):
+        if a["digest"] != b["digest"]:
+            fail("phase 52: the ranks' averages differ")
+
+
+def _onebit_want(kind, rec):
+    """What a run's records must show: the B1 / B1b launches, the
+    compression ratio for its modes, the wire bytes a step."""
+    from deepspeed_tpu_torch.comm.compressed import (wire_bytes_compressed,
+                                                     wire_bytes_dense)
+    modes = ONEBIT_RUNS[kind][1]
+    bwd = rec["layers"] * RESUME_GAS * len(modes)
+    comp = wire_bytes_compressed(rec["npad"], 2)
+    dense = wire_bytes_dense(rec["n"], 2)
+    compressed = [m in ("comp", "grad_comp", "sync") for m in modes]
+    wire = [(comp if c else 0, dense if m in ("warmup", "dense") else 0)
+            for c, m in zip(compressed, modes)]
+    ratio = len(modes) * dense / sum(a + b for a, b in wire)
+    return ({"flash_fwd": 2 * bwd, "flash_bwd_dq": bwd,
+             "flash_bwd_dkv": bwd}, ratio, wire)
+
+
+def phase_onebit(card, ranks):
+    """Phase 53 (run in phase 30's rank processes): gates on each 1-bit
+    optimizer's run (see ``onebit_rank``). Returns rank 0's B1 / B1b
+    launches over the three runs."""
+    for kind, (params, modes) in ONEBIT_RUNS.items():
+        recs = [r["onebit"][kind] for r in ranks]
+        launches, ratio, wire = _onebit_want(kind, recs[0])
+        for r, rec in zip(ranks, recs):
+            for step, mode in enumerate(modes):
+                print(f"phase53 {kind} {params} rank={r['rank']} step="
+                      f"{step + 1} mode={rec['modes'][step]} loss="
+                      f"{rec['losses'][step]} step_s={rec['step_s'][step]} "
+                      f"device_busy_share="
+                      f"{rec['busy_s'][step] / rec['step_s'][step]} "
+                      f"wire_bytes={rec['wire_compressed'][step]} "
+                      f"(compressed) + {rec['wire_dense'][step]} (dense) "
+                      f"card={card}", flush=True)
+            print(f"phase53 {kind} rank={r['rank']} launches="
+                  f"{rec['launches']} compression_ratio={rec['ratio']} "
+                  f"max_memory_allocated={rec['max_memory_allocated']} "
+                  f"card={card}", flush=True)
+            if rec["modes"] != list(modes):
+                fail(f"phase 53 {kind}: modes {rec['modes']}, want {modes}")
+            if not all(math.isfinite(x) for x in rec["losses"]):
+                fail(f"phase 53 {kind}: losses {rec['losses']}")
+            if rec["launches"] != launches:
+                fail(f"phase 53 {kind} rank {r['rank']}: launches "
+                     f"{rec['launches']}, want {launches}")
+            if abs(rec["ratio"] - ratio) > 1e-9 * ratio:
+                fail(f"phase 53 {kind}: compression ratio {rec['ratio']}, "
+                     f"the formula gives {ratio}")
+            if [tuple(w) for w in zip(rec["wire_compressed"],
+                                      rec["wire_dense"])] != wire:
+                fail(f"phase 53 {kind} rank {r['rank']}: wire bytes "
+                     f"{rec['wire_compressed']} / {rec['wire_dense']}, "
+                     f"want {wire}")
+            for step, mode in enumerate(modes):
+                delta = rec["delta_max"][step]
+                if delta is not None and (delta == 0) != (mode != "local"):
+                    fail(f"phase 53 {kind} step {step + 1} ({mode}): "
+                         f"max |delta| {delta}")
+        a, b = recs
+        if a["losses"] != b["losses"]:
+            fail(f"phase 53 {kind}: the ranks' losses differ")
+        if a["master_sum"] != b["master_sum"]:
+            fail(f"phase 53 {kind}: the ranks' masters differ "
+                 f"({a['master_sum']} / {b['master_sum']})")
+        first = next(i for i, m in enumerate(modes)
+                     if m in ("comp", "grad_comp"))
+        if a["worker_error_sum"][first] == b["worker_error_sum"][first]:
+            fail(f"phase 53 {kind}: the ranks' worker errors are equal "
+                 f"after the first compressed step: the gradients were "
+                 f"averaged before compression")
+    for r in ranks:
+        w = r["onebit"]["warmup_vs_dense"]
+        print(f"phase53 OneBitAdam warmup vs dense AdamW (no bias "
+              f"correction) rank={r['rank']} after 2 steps: max |master "
+              f"gap|={w['max']} elements over (x lr): {w['over']} losses "
+              f"{r['onebit']['OneBitAdam']['losses'][:2]} vs {w['losses']} "
+              f"card={card}", flush=True)
+        if w["max"] > ONEBIT_WARM_MAX * ONEBIT_LR or \
+                w["over"]["1.0"] > ONEBIT_WARM_LOOSE:
+            fail(f"phase 53 rank {r['rank']}: OneBitAdam's warmup leaves "
+                 f"the dense AdamW's masters (max {w['max']}, over "
+                 f"{w['over']})")
+        print(f"phase_wall 53 (rank {r['rank']}) seconds="
+              f"{r['onebit']['wall_s']}", flush=True)
+    return {name: sum(ranks[0]["onebit"][kind]["launches"][name]
+                      for kind in ONEBIT_RUNS) for name in FLASH}
 
 
 def _cpu_copy(opt):
@@ -7517,6 +7924,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", default="", help=argparse.SUPPRESS)
     ap.add_argument("--dp-stages", default="1", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-onebit", default="", help=argparse.SUPPRESS)
     # one rank of phase 44
     ap.add_argument("--ep-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -7713,13 +8121,16 @@ def main(argv=None) -> int:
                                                card)
     lap("29 resume")
     dp_ranks = phase_dp(args.seed, card, dp1_losses, dp1_state_bytes)
-    lap("30 dp 2 (and 33's ranks)")
+    lap("30 dp 2 (and 33, 52-53's ranks)")
     phase_optimizers(torch, np, dev, args.seed, card)
     lap("31 optimizers")
     launches_offload = phase_zero3_offload(torch, np, dev, args.seed, card)
     lap("32 zero3 offload")
     launches_dp = phase_dp_stages(card, dp1_losses, dp_ranks)
     lap("33 zero2/3 dp 2")
+    phase_compressed(card, dp_ranks)
+    launches_onebit = phase_onebit(card, dp_ranks)
+    lap("52-53 1-bit gates (run in 30's ranks)")
     phase_nvme(torch, np, dev, args.seed, card)
     lap("34 nvme")
     launches_parity = phase_streamed_parity(torch, np, dev, args.seed, card)
@@ -7764,7 +8175,8 @@ def main(argv=None) -> int:
                 "launches_zero3_offload": launches_offload[name],
                 "launches_zero2_dp2": launches_dp[2][name],
                 "launches_zero3_dp2": launches_dp[3][name],
-                "launches_moe_ep2_rank0": launches_ep[name]},
+                "launches_moe_ep2_rank0": launches_ep[name],
+                "launches_onebit_dp2_rank0": launches_onebit[name]},
              flash_err, flash_t),
             ("_d80", lambda name: {
                 "launches": launches_parity[name]},

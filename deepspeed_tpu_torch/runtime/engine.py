@@ -71,7 +71,14 @@ one process per rank of the device mesh (``torch.distributed``, through
     labels come from the whole row before it is cut, the loss is the sp
     group's token mean, and the grads are summed over sp and averaged over
     dp (one all-reduce over the dp x sp group). ZeRO partitions over dp
-    only, and a checkpoint, of whole leaves, loads at any sp degree.
+    only, and a checkpoint, of whole leaves, loads at any sp degree;
+  * the 1-bit optimizers (OneBitAdam, ZeroOneAdam, OneBitLamb) step
+    through ``fp16/onebit/integration.OnebitRunner``: each rank keeps its
+    gradient local (no dp all-reduce of grads) and the optimizer decides
+    what crosses the wire, a dense mean in warmup or the 1-bit exchange of
+    ``comm/compressed.py`` after it. The master stays whole and the same on
+    every rank; each rank's optimizer state goes to its own checkpoint
+    file beside the npz master.
 
 What the TPU engine supports beyond that raises ``NotImplementedError``
 naming its ROADMAP item; a parsed knob never silently does nothing.
@@ -125,8 +132,7 @@ _OPTIMIZER_KEYS = {
     "adagrad": ("lr", "eps", "weight_decay"),
     "sgd": ("lr", "momentum", "weight_decay"),
 }
-_LATER_OPTIMIZERS = {"onebitadam": "A13", "onebitlamb": "A13",
-                     "zerooneadam": "A13"}
+_ONEBIT_TYPES = ("onebitadam", "onebitlamb", "zerooneadam")
 _COMM_DTYPES = {"fp16": torch.float16, "float16": torch.float16,
                 "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                 "fp32": None, "float32": None}
@@ -281,8 +287,11 @@ class DeepSpeedEngine:
         self.lr_scheduler = lr_scheduler if lr_scheduler is not None \
             else build_lr_scheduler(self.config.scheduler)
         self._layer_streamer = None
+        self._onebit = None
         if self.offload_enabled:
             self._init_offload(optimizer)
+        elif self._onebit_type is not None:
+            self._init_onebit(optimizer)
         else:
             self._init_dense(optimizer)
 
@@ -338,6 +347,22 @@ class DeepSpeedEngine:
                 if not shared or i in held:
                     p.data = torch.empty(0, dtype=p.dtype, device=p.device)
         self._build_optimizer(optimizer)
+
+    def _init_onebit(self, optimizer) -> None:
+        """The 1-bit runner (the TPU engine's ``OnebitRunner``,
+        engine.py:421-447): the flat f32 master, this rank's optimizer
+        state, the compute copy; no grad accumulator."""
+        from .fp16.onebit.integration import OnebitRunner
+        if optimizer is not None:
+            raise ValueError(
+                f"{self.config.optimizer.type} is a config-named 1-bit "
+                f"optimizer: do not pass a client torch.optim optimizer too")
+        self._onebit = OnebitRunner(self, self._onebit_type,
+                                    dict(self.config.optimizer.params))
+        self._onebit.setup_compute()
+        self.client_optimizer = None
+        self.optimizer = self._onebit.opt
+        self._base_lr = self._onebit.lr
 
     @property
     def _grad_split(self) -> bool:
@@ -415,10 +440,10 @@ class DeepSpeedEngine:
                 f"engine: pipelining needs a runtime.pipe.PipelineModule "
                 f"(its num_stages sets the stages)")
         otype = (c.optimizer.type if c.optimizer else "Adam").lower()
-        if otype in _LATER_OPTIMIZERS:
-            raise _not_ported(f"optimizer {c.optimizer.type}",
-                              _LATER_OPTIMIZERS[otype])
-        if otype not in _OPTIMIZER_KEYS:
+        self._onebit_type = otype if otype in _ONEBIT_TYPES else None
+        if self._onebit_type is not None:
+            self._reject_for_onebit()
+        elif otype not in _OPTIMIZER_KEYS:
             raise ValueError(f"unknown optimizer type {c.optimizer.type!r}")
         features = {
             "progressive_layer_drop": c.progressive_layer_drop.enabled,
@@ -447,6 +472,27 @@ class DeepSpeedEngine:
                 "activation_checkpointing.number_checkpoints cannot be "
                 "honored: remat granularity is one checkpoint per block; "
                 "control the trade with the model's remat_policy")
+
+    def _reject_for_onebit(self) -> None:
+        """What the TPU engine refuses beside a 1-bit optimizer, with its
+        exception types (engine.py:421-439; the runner checks the mesh, the
+        loss scale, clipping and the ZeRO stage)."""
+        c = self.config
+        zc = c.zero_config
+        if OFFLOAD_NONE != zc.offload_optimizer.device or \
+                OFFLOAD_NONE != zc.offload_param.device:
+            raise ValueError(f"{c.optimizer.type} is incompatible with "
+                             "offload_optimizer (reference parity)")
+        if c.progressive_layer_drop.enabled or c.quantize_training.enabled:
+            raise ValueError(
+                "progressive_layer_drop / quantize_training are not wired "
+                "into the 1-bit train path; disable them or use a dense "
+                "optimizer")
+        if c.bf16.stochastic_rounding:
+            raise NotImplementedError(
+                "bf16.stochastic_rounding with 1-bit optimizers: the 1-bit "
+                "step casts master -> compute without a stochastic-rounding "
+                "stream, so the knob would silently not apply")
 
     def _apply_activation_checkpointing_config(self, module: nn.Module
                                                ) -> nn.Module:
@@ -1038,8 +1084,9 @@ class DeepSpeedEngine:
 
     def get_lr(self) -> List[float]:
         if self.lr_scheduler is not None:
-            count = self.global_steps if self.client_optimizer is not None \
-                else self.optimizer.count
+            count = (self.global_steps if self.client_optimizer is not None
+                     else self._onebit.count if self._onebit is not None
+                     else self.optimizer.count)
             return [self.lr_scheduler.lr_at(count)]
         if self.client_optimizer is not None:
             return [float("nan")]
@@ -1360,6 +1407,8 @@ class DeepSpeedEngine:
             self.timers("train_batch").start()
         if self._streaming:
             metrics = self._streamed_update(micros)
+        elif self._onebit is not None:
+            metrics = self._onebit.train_batch(micros)
         else:
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=self.device)
@@ -1401,8 +1450,15 @@ class DeepSpeedEngine:
             min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
 
     # --- 3-call API -------------------------------------------------------
+    def _refuse_onebit(self) -> None:
+        if self._onebit is not None:
+            raise NotImplementedError(
+                "1-bit optimizers fuse the micro loop with the compressed "
+                "exchange: use engine.train_batch(data_iter)")
+
     def forward(self, batch) -> torch.Tensor:
         """One micro-batch's loss, with its graph (backward comes next)."""
+        self._refuse_onebit()
         self._pending_loss = self._micro_forward(batch)
         return self._pending_loss
 
@@ -1412,6 +1468,7 @@ class DeepSpeedEngine:
                  allreduce_gradients: bool = True) -> torch.Tensor:
         """Backward of ``loss`` (default: the last forward's) into the
         accumulator; the gradient-accumulation bookkeeping point."""
+        self._refuse_onebit()
         loss = self._pending_loss if loss is None else loss
         self._micro_backward(loss)
         self._pending_loss = None
@@ -1424,6 +1481,7 @@ class DeepSpeedEngine:
         return self.micro_steps % self.gradient_accumulation_steps() == 0
 
     def step(self) -> None:
+        self._refuse_onebit()
         if not self.is_gradient_accumulation_boundary():
             return
         metrics = self._apply_update()
@@ -1730,6 +1788,16 @@ class DeepSpeedEngine:
             "curriculum": None,
             "quantizer": None,
         }
+        if self._onebit is not None:
+            # the master is the same on every rank (npz from rank 0); each
+            # rank's optimizer state is its own file
+            self._onebit.save(os.path.join(save_dir, tag))
+            return ckpt_saving.save_checkpoint_dir(
+                save_dir, tag,
+                master_params=self.consolidated_fp32_state_dict(),
+                opt_state={"count": np.asarray(self._onebit.count)},
+                meta=dict(meta, onebit=self._onebit.kind),
+                save_latest=save_latest)
         if self._use_sharded_checkpoint():
             if self.offload_enabled:
                 arrays, leaves = self.host_optimizer.shard_arrays()
@@ -1765,13 +1833,21 @@ class DeepSpeedEngine:
         if self.offload_enabled:
             res = self._offload_load(load_dir, tag, load_opt)
         else:
-            res = ckpt_saving.load_checkpoint_dir(load_dir, tag,
-                                                  self.optimizer.STATE)
+            res = ckpt_saving.load_checkpoint_dir(
+                load_dir, tag,
+                self.optimizer.STATE if self._onebit is None else ())
         if res is None:
             log_dist(f"no checkpoint found in {load_dir}", ranks=[0])
             return None, {}
         meta = res["meta"]
-        if not self.offload_enabled:
+        if self._onebit is not None:
+            self._onebit.load_master(self._names, res["master_params"])
+            if load_opt:
+                self._onebit.load(os.path.join(load_dir, res["tag"]))
+            # the phase is keyed on applied updates: realign the counters
+            # and the host-side policy to the loaded run
+            self._onebit.realign(meta)
+        elif not self.offload_enabled:
             self._load_dense(res, load_opt)
         self._scale = self._scale._replace(
             cur_scale=float(meta["loss_scale"]))

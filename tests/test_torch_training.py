@@ -542,9 +542,10 @@ UNPORTED = {
 
 
 # raised naming ROADMAP A4.8 (the optimizers), A8 (ZeRO 2 / 3, the
-# offload tiers), A8b (cpu_checkpointing) or A9 (an ep mesh, a tp mesh)
-# until they were ported; their cases now check that the engine builds the
-# optimizer and trains (the optimizer's class). cpu_checkpointing needs a
+# offload tiers), A8b (cpu_checkpointing), A9 (an ep mesh, a tp mesh) or
+# A13 (the 1-bit optimizers) until they were ported; their cases now check
+# that the engine builds the optimizer and trains (the optimizer's class;
+# OneBitAdam's is the 1-bit runner's, tests/test_torch_onebit.py). cpu_checkpointing needs a
 # remat model; an ep mesh over more ranks is in tests/test_torch_moe_ep.py.
 # A tp mesh of 2 cannot be laid out over this one-rank world (a ValueError
 # naming the world); tp over two and four ranks is in tests/test_torch_tp.py.
@@ -558,7 +559,8 @@ NOW_PORTED = {"lamb": "FusedLamb", "adagrad": "FusedAdagrad", "sgd": "SGD",
               "zero2": "FusedAdam", "zero3": "FusedAdam",
               "offload_optimizer": "HostOffloadOptimizer",
               "offload_param": "HostOffloadOptimizer",
-              "cpu_checkpointing": "FusedAdam", "ep_mesh": "FusedAdam"}
+              "cpu_checkpointing": "FusedAdam", "ep_mesh": "FusedAdam",
+              "onebitadam": "OnebitAdam"}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
