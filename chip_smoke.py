@@ -278,7 +278,8 @@ Phases (any failure exits non-zero before the result lines):
  35. the layer-streamed tier (offload_param.layer_streaming) against the
      plain offload engine (stage 1, offload_optimizer cpu) at GPT 2.7B's
      width (d_model 2560, 32 heads of 80, d_ff 10240) cut to 4 layers, bf16,
-     micro 1 x gas 2 x seq 1024, 3 steps from one counter fill: fails unless
+     micro 1 x gas 2 x seq 1024, PARITY_STEPS (2) steps from one counter
+     fill: fails unless
      the losses are bitwise equal, B1/B1b launch 2 / 1 / 1 times a layer
      and micro-batch in the streamed run (counts reset just before it: the
      d 80 rows' launches), and it fetched 2 L and emitted L blocks a
@@ -355,7 +356,7 @@ Phases (any failure exits non-zero before the result lines):
      serving phase 4's requests (B2 6 times a step; tokens/s beside
      bf16's);
  42. GPT-MoE (after phase 41): gpt_moe_1_3b at full width (24 layers
-     cut to MOE_LAYERS 4 to fit the time limit, d_model
+     cut to MOE_LAYERS, 2, to fit the time limit, d_model
      2048, 16 heads of 128, d_ff 8192, top-1, eval
      capacity 2.0, min 4) with its 128 experts cut to 16 (128 would need
      206 GB in bf16), bf16 weights made on the card from --seed; the
@@ -385,8 +386,9 @@ Phases (any failure exits non-zero before the result lines):
  45. tensor parallelism (after 44): GPT-NeoX 20B (d_model 6144, 64 heads
      of 96, d_ff 24576, parallel residual, untied head) at full width, its
      44 layers cut to NEOX_LAYERS, bf16, split at tp 2 over two gloo ranks
-     sharing the card (the script re-runs itself with the hidden
-     --tp-rank), each rank making only its shards on the card from --seed:
+     sharing the card (phase 44's rank processes, --then-tp; alone
+     ``tools/time_tp.py`` starts them with --tp-rank), each rank making
+     only its shards on the card from --seed:
      weights half the whole model's a rank, the forward on [2, 1024]
      through B1 (once a layer a rank), layer 0 and the width cut to 2
      layers against tp 1 here, phase 4's requests through
@@ -400,8 +402,9 @@ Phases (any failure exits non-zero before the result lines):
      LOSS_ATOL, falling, B1 / B1b launches a step;
  47. sequence parallelism (after 46): bench.py's long_context (GPT-2 125M
      at seq 16384, micro 1 x gas 2, bf16 over fp32 masters, remat, AdamW,
-     ZeRO-1, dense flash) trained CTX_STEPS (2) steps at sp 1: losses
-     finite and falling, B1 / B1b 48 / 24 / 24 a step, step seconds, peak
+     ZeRO-1, dense flash; cut to CTX_LAYERS, 6 of its 12 layers) trained
+     CTX_STEPS (2) steps at sp 1: losses finite and falling, B1 / B1b 24 /
+     12 / 12 a step, step seconds, peak
      memory, a
      profiled micro-step's idle share; then B1 / B1b at the four shapes
      of phases 47-48 (SP_FLASH: [1, 16384, 12, 64] causal, a Ulysses
@@ -418,8 +421,8 @@ Phases (any failure exits non-zero before the result lines):
      ring's merged output and grads against the plain ring at 2 heads
      (the same bound), CTX_STEPS steps each with losses equal on both
      ranks and within LOSS_ATOL of phase 47's, B1 / B1b launches a step
-     (Ulysses 48 / 24 / 24 a rank; ring 48 / 24 / 24 on rank 0, which
-     runs only its diagonal blocks, and 96 / 48 / 48 on rank 1), the
+     (Ulysses 24 / 12 / 12 a rank; ring 24 / 12 / 12 on rank 0, which
+     runs only its diagonal blocks, and 48 / 24 / 24 on rank 1), the
      exchanges a step and their bytes, step seconds and peak memory a
      rank;
  49. (after phase 38) the sp prefill route: phase 38's dense fused engine
@@ -467,6 +470,38 @@ Phases (any failure exits non-zero before the result lines):
      a rank's device busy share and max_memory_allocated by optimizer and
      mode. ``tools/check_onebit_gates.py`` runs 52-53 alone and on planted
      faults.
+ 54. 3D parallelism (after 51): GPT-2 1.3B's width (PIPE_CONFIG, micro 4
+     x M 4, pipe_micros' batches) cut to PIPE3D_LAYERS (8: 4 blocks a
+     stage; printed), the dense engine here at that depth, then four gloo
+     ranks sharing the card (the script re-runs itself with the hidden
+     --pipe3d-rank) train it at mesh {"pp": 2, "tp": 2}, PIPE3D_STEPS
+     steps: losses finite, equal on every rank, within PIPE_LOSS_ATOL of
+     the dense engine's and the first grad norm within PIPE_NORM_RTOL,
+     B1 / B1b launches a step a rank (pipe3d_want: 32 / 16 / 16 on stage
+     0, 16 / 16 / 16 on stage 1), each stage's tp shards disjoint pieces
+     of the whole leaf (counts, the gathered leaf equal to the tp 1 leaf,
+     f64 checksums), the checkpoint saved after step 1 replaying step 2
+     bitwise; step s, busy share, peak memory and p2p / tp / sp bytes a
+     step a rank;
+ 55. the same ranks at mesh {"pp": 2, "sp": 2}, cp_impl "ulysses" (with
+     the checkpoint replay) then "ring" (launches doubled on sp rank 1: it
+     attends to rank 0's block too); then B1 / B1b at the new stage shapes
+     ([4, 1024, 16, 64]: a tp rank's heads, and Ulysses'; [4, 512, 32, 64]:
+     a ring block) against their plain versions, timed beside SDPA (the
+     *_pipe3d_tp and *_pipe3d_ring rows);
+ 56. ZeRO-3's tile-at-a-time gather, in phase 30's rank processes: a
+     TiledLinear(2048, 8192, in_splits 2, out_splits 4) in bf16 (a GPT-2
+     1.3B MLP's up projection), 2 x 512 rows a rank: each gather one
+     tile's bytes with one tile alive, the forward's rise of
+     max_memory_allocated at most one tile (plus TILE_SLACK) above its
+     activations while the whole gather's holds the whole kernel, out, the
+     grads' slices and the updated master slices within TILE_RTOL of the
+     whole-gather path's;
+ 57. the block-sparse MatMul (after 17): sdd, dsd and dds over
+     long_context_sparse's BigBird layout (12 heads, block 64) at seq 8192,
+     d 64, bf16, each element within 2^-8 (|A| |B| + |ref|) of the dense
+     product through the layout's mask in f32; ms a call beside the dense
+     masked product's.
 
 The training MFU (phase 8) is ``telemetry.mfu.mfu_report`` over
 gpt_flops_per_token x tokens and the card's ``peak_flops_per_device``.
@@ -478,8 +513,9 @@ phase 37's head dim also carry its launches, the training shape's phase
 and B2 at GPT-Neo's shapes, B1 / B1b, B2 and B4 at GPT-MoE's, B1 / B1b,
 B2, B3 and B4 at GPT-NeoX 20B's tp-2 rank shapes with phases 45-46's
 launches on rank 0, B1 / B1b at phases 47-48's shapes with their
-launches, and at the pipe stage shape with phases 50-51's launches a
-rank; phase 53's on rank 0 with the training shape's), each phase group's
+launches, at the pipe stage shape with phases 50-51's launches a rank,
+and at phases 54-55's tp / Ulysses and ring shapes with their launches;
+phase 53's on rank 0 with the training shape's), each phase group's
 wall seconds (``phase_wall``), the card line
 and, last,
 {"ok": true, "device": {...}}. Exits 2 without CUDA.
@@ -3274,7 +3310,7 @@ def phase_fused_serving(torch, dev, ie, prompts, kw, card):
 # phase 39: GPT 2.7B's width (bench.py:423: 32 layers, 32 heads of 80,
 # d_model 2560, d_ff 10240, max_seq_len 1024, bf16) cut in depth to fit the
 # time limit
-D80_LAYERS = 4
+D80_LAYERS = 2                       # of 32, cut to fit the time limit
 
 
 def phase_d80_serving(torch, np, dev, seed, prompts, kw, card):
@@ -3884,9 +3920,10 @@ def phase_neo_int8(torch, np, dev, neo, kw, card):
 # parameters are 206 GB in bf16, past the card's 80 GB; 16 experts make
 # 13.4e9 parameters (26.8 GB). Top-1, eval capacity 2.0, min capacity 4.
 MOE_EXPERTS = 16
-MOE_LAYERS = 4                       # of 24, cut to fit the time limit
-MOE_PARAMS = 2_320_568_320           # at 4 layers, 16 experts, tied head
-#                                      (6: 3_428_290_560; 12:
+MOE_LAYERS = 2                       # of 24, cut to fit the time limit
+MOE_PARAMS = 1_212_846_080           # at 2 layers, 16 experts, tied head
+#                                      (4: 2_320_568_320; 6:
+#                                      3_428_290_560; 12:
 #                                      6_751_457_280; 24: 13_397_790_720)
 MOE_IDS = (2, 1024)                  # phase 42's forward check
 # one MoE layer in bf16 against the same function in f32 on the same bf16
@@ -4460,6 +4497,10 @@ def ep_rank_main(args) -> int:
             except NotImplementedError as exc:
                 out["serving"] = str(exc)
         del ie
+    if args.then_tp:       # phases 45-46's ranks: the same two processes
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tp"] = tp_rank_work(args, args.ep_rank)
     with open(args.dp_out, "w") as fh:
         json.dump(out, fh)
     torch.distributed.destroy_process_group()
@@ -4517,7 +4558,17 @@ def run_ep_ranks(seed):
         return spawn_ranks(seed, 2, ["--ep-rank"], 44, DP_TIMEOUT_S, d)
 
 
-def phase_ep(torch, np, dev, seed, card):
+def run_ep_tp_ranks(seed):
+    """The two ranks of phase 44 (``run_ep_ranks``) that then run phases
+    45-46 in the same processes (their results under "tp"): the results
+    and the directory of the tp tensors (removed by the caller)."""
+    d = tempfile.mkdtemp(prefix="phase44_45_")
+    return spawn_ranks(seed, 2, ["--ep-rank", "--then-tp", "--tp-phase",
+                                 "45,46"], 44,
+                       DP_TIMEOUT_S + 2 * TP_TIMEOUT_S, d), d
+
+
+def phase_ep(torch, np, dev, seed, card, ranks=None):
     """Phase 44: expert parallelism over two gloo ranks sharing the card
     (EP_CFG in f32). This process trains ep 1 for EP_STEPS steps; the
     ranks train the same model and batches at mesh {"ep": 2} (dp 1). Gates:
@@ -4530,7 +4581,7 @@ def phase_ep(torch, np, dev, seed, card):
     ServingEngine over it refused (ROADMAP A9)."""
     t_phase = time.perf_counter()
     ref = _ep_train(torch, np, dev, seed, EP_TRAIN_CONFIG)
-    ranks = run_ep_ranks(seed)
+    ranks = ranks or run_ep_ranks(seed)
     for r in ranks:
         t = r["train"]
         print(f"phase44 rank {r['rank']} ({r['backend']}) ep={t['ep']} "
@@ -4603,8 +4654,9 @@ def _ep_near_tie(torch, dev, seed, prefix, at, row):
 # 4.9e9 B of bf16 weights whole (41.1e9 at 44 layers), half a rank, made on
 # the card from --seed module by module (models.gpt.init_tp_shards), so no
 # rank ever holds the whole model
-NEOX_LAYERS = 4                      # of 44, cut to fit the time limit
-NEOX_PARAMS = 2_430_406_656          # at 4 layers (44: 20_552_994_816)
+NEOX_LAYERS = 2                      # of 44, cut to fit the time limit
+NEOX_PARAMS = 1_524_277_248          # at 2 layers (4: 2_430_406_656; 44:
+#                                      20_552_994_816)
 NEOX_TP = 2
 NEOX_IDS = (2, 1024)                 # the forward through B1
 NEOX_BLOCK_IN = (1, 16)              # layer 0's input rows
@@ -4746,16 +4798,27 @@ def tp_rank_main(args) -> int:
     --tp-phase "45", "46" or "45,46"): tp 2 over gloo with both ranks on
     card 0; results as JSON (and tensors as .pt beside it) under
     --dp-out."""
-    import numpy as np
     import torch
     from deepspeed_tpu_torch import comm
     comm.init_distributed(dist_backend="gloo",
                           init_method=f"tcp://localhost:{args.dp_port}",
                           rank=args.tp_rank, world_size=NEOX_TP)
     torch.backends.cuda.matmul.allow_tf32 = False
+    out = tp_rank_work(args, args.tp_rank)
+    with open(args.dp_out, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_rank_work(args, rank):
+    """One rank of phases 45 and / or 46 (--tp-phase) in a process already
+    in its two-rank gloo group; tensors as .pt beside --dp-out. Returns
+    the rank's results."""
+    import numpy as np
+    import torch
     dev = torch.device("cuda", 0)
-    out = {"rank": comm.get_rank(),
-           "backend": torch.distributed.get_backend()}
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
     stem = os.path.splitext(args.dp_out)[0]
     phases = {int(p) for p in args.tp_phase.split(",")}
     if 45 in phases:
@@ -4768,10 +4831,7 @@ def tp_rank_main(args) -> int:
                                False),
             "on": _neox_train(torch, np, dev, args.seed, _tp_mesh(torch),
                               True)}
-    with open(args.dp_out, "w") as fh:
-        json.dump(out, fh)
-    torch.distributed.destroy_process_group()
-    return 0
+    return out
 
 
 def _tp_rank_serve(torch, np, dev, seed, out, stem):
@@ -5223,7 +5283,7 @@ CTX_CONFIG = {"train_micro_batch_size_per_gpu": 1,
               "zero_optimization": {"stage": 1},
               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
               "steps_per_print": 100_000}
-CTX_LAYERS = 12
+CTX_LAYERS = 6                       # of 12, cut to fit the time limit
 SP_TIMEOUT_S = 600
 # B1 / B1b at the shapes phases 47-48 give them: (row tag, B, S, H, D,
 # causal): the whole sequence, a Ulysses rank's 6 heads over it, a ring
@@ -5269,7 +5329,10 @@ def ctx_train(torch, np, dev, seed, cp_impl=None):
     from deepspeed_tpu_torch.ops.ring_attention import SP_TRAFFIC
     kw = {} if cp_impl is None else dict(sequence_parallel=True,
                                          cp_impl=cp_impl)
-    cfg = gpt2_125m(max_seq_len=CTX_SEQ, dtype=torch.bfloat16, **kw)
+    import dataclasses
+    cfg = dataclasses.replace(gpt2_125m(max_seq_len=CTX_SEQ,
+                                        dtype=torch.bfloat16, **kw),
+                              num_layers=CTX_LAYERS)
     config = dict(CTX_CONFIG)
     if cp_impl is not None:
         config["mesh"] = {"sp": SP}
@@ -5543,7 +5606,7 @@ def sp_launches(ctx, sp_runs, tag, name) -> int:
 # over fp32 masters, AdamW 1e-4, micro 4 x gas (M) 4, ZeRO-1; every engine
 # from one state dict drawn from --seed, PIPE_STEPS steps on the same M
 # micro-batches
-PIPE_MICRO, PIPE_M, PIPE_SEQ, PIPE_STEPS, PIPE_S = 4, 4, 1024, 3, 2
+PIPE_MICRO, PIPE_M, PIPE_SEQ, PIPE_STEPS, PIPE_S = 4, 4, 1024, 2, 2
 PIPE_CONFIG = {"train_micro_batch_size_per_gpu": PIPE_MICRO,
                "gradient_accumulation_steps": PIPE_M,
                "bf16": {"enabled": True},
@@ -5829,6 +5892,346 @@ def phase_pipe(torch, np, fa, dev, gen, seed, card, ranks=None):
     torch.cuda.empty_cache()
     print(f"phase50-51 seconds={time.perf_counter() - t_phase} card={card}",
           flush=True)
+    return launches, errs, times
+
+
+# phases 54-55: 3D parallelism, tp and sp inside the stages of phase 50's
+# GPT-2 1.3B (its width: 32 heads of 64, d_ff 8192, vocab 50304, seq 1024;
+# PIPE_CONFIG, micro 4 x gas (M) 4 on pipe_micros' batches), over four gloo
+# ranks sharing the card: pp 2 x tp 2 (54), pp 2 x sp 2 with Ulysses and
+# with the ring (55), PIPE3D_STEPS steps each, the checkpoint saved after
+# step 1 loaded to replay step 2. The depth is cut to PIPE3D_LAYERS (4 blocks
+# a stage) to fit the script's time limit, and the dense reference runs at
+# that depth (printed); the width is never cut.
+PIPE3D_LAYERS = 8
+PIPE3D_STEPS = 2
+PIPE3D_WORLD = 4
+PIPE3D_TIMEOUT_S = 900
+# (name, phase, mesh, cp_impl, whether step 2 is replayed from the
+# checkpoint of step 1: the sp runs share one checkpoint path, whole leaves
+# over sp, so the ring's is not run again)
+PIPE3D_RUNS = (("tp", 54, {"pp": 2, "tp": 2}, None, True),
+               ("ulysses", 55, {"pp": 2, "sp": 2}, "ulysses", True),
+               ("ring", 55, {"pp": 2, "sp": 2}, "ring", False))
+# B1 / B1b at the new stage shapes: a tp 2 rank's heads (and Ulysses' after
+# its all-to-all), and a ring block (rows flash_*_pipe3d_tp / _ring)
+PIPE3D_FLASH = {"tp": (PIPE_MICRO, PIPE_SEQ, 16, 64),
+                "ring": (PIPE_MICRO, PIPE_SEQ // 2, 32, 64)}
+# a tp shard's checksum (f64 over f32 leaves): the shards' sums add up to
+# the whole leaf's in another order, within this much of the sum of |x|
+PIPE3D_SUM_RTOL = 1e-12
+
+
+def pipe3d_gpt(torch, dev, seed, cp_impl=None):
+    """GPT-2 1.3B cut to PIPE3D_LAYERS on the card in f32, weights from
+    ``seed`` (as ``pipe_gpt``); with ``cp_impl`` its config splits the
+    sequence. Returns (cfg, model)."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt2_1_3b
+    cfg = dataclasses.replace(gpt2_1_3b(max_seq_len=PIPE_SEQ,
+                                        dtype=torch.bfloat16),
+                              num_layers=PIPE3D_LAYERS)
+    if cp_impl is not None:
+        cfg = dataclasses.replace(cfg, sequence_parallel=True,
+                                  cp_impl=cp_impl)
+    model = GPT(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return cfg, model
+
+
+def pipe3d_want(name, stage, sp_rank, m=PIPE_M):
+    """B1 / B1b launches a step on one rank of run ``name``: 1F1B over the
+    stage's blocks (the first stage forwards each micro-batch, then replays
+    it in the backward; the last only replays), each block one attention
+    call; a ring call at sp 2 runs its rank's visible blocks (the diagonal,
+    and on sp rank 1 the block of rank 0 too) forward and backward."""
+    calls = PIPE3D_LAYERS // PIPE_S * m
+    per = sp_rank + 1 if name == "ring" else 1
+    fwd = calls * per * (1 if stage == PIPE_S - 1 else 2)
+    return {"flash_fwd": fwd, "flash_bwd_dq": calls * per,
+            "flash_bwd_dkv": calls * per}
+
+
+def _traffic(engine):
+    from deepspeed_tpu_torch.module_inject.layers import TP_TRAFFIC
+    from deepspeed_tpu_torch.ops.ring_attention import SP_TRAFFIC
+    return {"p2p": engine.comm_bytes["p2p"],
+            "tp": TP_TRAFFIC["all_reduce_bytes"]
+            + TP_TRAFFIC["all_gather_bytes"],
+            "sp": SP_TRAFFIC["all_to_all_bytes"] + SP_TRAFFIC["ring_bytes"]}
+
+
+def pipe3d_run(torch, np, dev, seed, mesh, cp_impl, ckpt):
+    """One run of phases 54-55 on this rank: the pipeline engine over
+    ``mesh`` from the whole state dict (the engine splits it), the tp
+    shards' checksums, PIPE3D_STEPS steps (counts reset just before and
+    read just after each); with ``ckpt`` (a directory) the checkpoint saved
+    after step 1 loaded and step 2 replayed under torch.profiler, else the
+    last step profiled. Returns the run's record."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt_pipe import (gpt_pipe_module,
+                                                     gpt_pipe_state_dict)
+    from deepspeed_tpu_torch.ops.cuda import _build
+    cfg, model = pipe3d_gpt(torch, dev, seed, cp_impl)
+    state = gpt_pipe_state_dict(model.state_dict(), cfg)
+    del model
+    t0 = time.perf_counter()
+    engine, *_ = dst.initialize(
+        model=gpt_pipe_module(cfg, PIPE_S),
+        config=dict(PIPE_CONFIG, mesh=mesh), model_parameters=state,
+        device=dev)
+    build_s = time.perf_counter() - t0
+    s = engine.stage_id
+    shards = {}
+    for j in sorted(engine._splits[s]):
+        name, local = engine._names[s][j], engine._master[s][j]
+        whole = engine._whole(s, j, local)
+        shards[name] = {"numel": local.numel(),
+                        "sum": float(local.detach().double().sum()),
+                        "abs": float(local.detach().double().abs().sum()),
+                        "whole_numel": state[name].numel(),
+                        "whole_sum": float(state[name].double().sum()),
+                        "gathered_equal": bool(torch.equal(
+                            whole, state[name].to(whole)))}
+        del whole
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    micros = pipe_micros(np, seed, cfg.vocab_size)
+
+    def batches():
+        return iter([(x, x) for x in micros])
+    run = {"stage": s, "sp_rank": engine._sp_group.rank,
+           "tp_rank": engine._tp_group.rank, "parts": engine.module.parts,
+           "blocks": sum(type(layer).__name__ == "PipeGPTBlock"
+                         for layer in engine.stage_layers[s]),
+           "build_s": build_s, "shards": shards, "losses": [], "norms": [],
+           "step_s": [], "launches": [], "traffic": []}
+    def profiled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        run["profiled_step_s"] = time.perf_counter() - t0
+        busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
+        run["busy_s"] = busy if busy > 0 else None
+        return out
+
+    def step():
+        before = _traffic(engine)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batches())
+        torch.cuda.synchronize()
+        run["step_s"].append(time.perf_counter() - t0)
+        run["launches"].append({n: _build.LAUNCHES[n] for n in FLASH})
+        run["losses"].append(float(loss))
+        run["norms"].append(engine.get_global_grad_norm())
+        run["traffic"].append({k: v - before[k]
+                               for k, v in _traffic(engine).items()})
+    reset_peak(torch, dev)
+    for i in range(PIPE3D_STEPS):
+        if i == 1 and ckpt:
+            t0 = time.perf_counter()
+            engine.save_checkpoint(ckpt, tag="step1")
+            run["save_s"] = time.perf_counter() - t0
+        if i == PIPE3D_STEPS - 1 and not ckpt:
+            profiled(step)
+        else:
+            step()
+    run["peak"] = torch.cuda.max_memory_allocated(dev)
+    if ckpt:
+        t0 = time.perf_counter()
+        engine.load_checkpoint(ckpt, tag="step1")
+        run["load_s"] = time.perf_counter() - t0
+        run["ckpt_bytes"] = sum(
+            os.path.getsize(os.path.join(ckpt, "step1", f))
+            for f in os.listdir(os.path.join(ckpt, "step1")))
+        run["replay_loss"] = profiled(
+            lambda: float(engine.train_batch(batches())))
+        torch.distributed.barrier()
+        if torch.distributed.get_rank() == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def pipe3d_rank_main(args) -> int:
+    """One rank of phases 54-55 (this script with --pipe3d-rank): gloo over
+    PIPE3D_WORLD ranks on card 0, every run of PIPE3D_RUNS in turn; the
+    checkpoints go beside --dp-out. Results as JSON under --dp-out."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm
+    comm.init_distributed(dist_backend="gloo",
+                          init_method=f"tcp://localhost:{args.dp_port}",
+                          rank=args.pipe3d_rank, world_size=PIPE3D_WORLD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {"rank": comm.get_rank(), "runs": {}}
+    for name, _, mesh, cp_impl, replay in PIPE3D_RUNS:
+        t0 = time.perf_counter()
+        run = pipe3d_run(torch, np, dev, args.seed, mesh, cp_impl,
+                         os.path.join(os.path.dirname(args.dp_out),
+                                      f"ckpt_{name}") if replay else None)
+        run["wall_s"] = time.perf_counter() - t0
+        out["runs"][name] = run
+    with open(args.dp_out, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def pipe3d_dense(torch, np, dev, seed, card):
+    """The dense engine on phases 54-55's weights (PIPE3D_LAYERS) and
+    batches: its losses and grad norms over PIPE3D_STEPS steps."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import lm_loss_fn
+    cfg, model = pipe3d_gpt(torch, dev, seed)
+    micros = pipe_micros(np, seed, cfg.vocab_size)
+    engine, *_ = dst.initialize(model=model, loss_fn=lm_loss_fn,
+                                config=PIPE_CONFIG, device=dev)
+    out = {"losses": [], "norms": [], "step_s": []}
+    for _ in range(PIPE3D_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([{"input_ids": x} for x in micros]))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(loss))
+        out["norms"].append(float(engine.get_global_grad_norm()))
+    print(f"phase54-55 dense reference gpt2_1.3b width at {PIPE3D_LAYERS} "
+          f"layers micro {PIPE_MICRO} x gas {PIPE_M} bf16 ZeRO-1: losses="
+          f"{out['losses']} grad_norms={out['norms']} step_s="
+          f"{out['step_s']} card={card}", flush=True)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_pipe3d_shards(runs, what):
+    """pp x tp: on each stage the tp ranks' shards of every split leaf are
+    disjoint pieces of it: their element counts add up to the whole leaf's,
+    the leaf merged from them (``TpSplit.merge``) equals the tp 1 leaf the
+    engine was given, and their f64 checksums add up to that leaf's."""
+    for stage in range(PIPE_S):
+        held = [r["shards"] for r in runs if r["stage"] == stage]
+        if len(held) != 2 or set(held[0]) != set(held[1]) or not held[0]:
+            fail(f"{what} stage {stage}: split leaves "
+                 f"{[sorted(h) for h in held]}")
+        for name, a in held[0].items():
+            b = held[1][name]
+            total = a["sum"] + b["sum"]
+            if a["numel"] + b["numel"] != a["whole_numel"] or \
+                    abs(total - a["whole_sum"]) > PIPE3D_SUM_RTOL * (
+                        a["abs"] + b["abs"]) \
+                    or not (a["gathered_equal"] and b["gathered_equal"]):
+                fail(f"{what} stage {stage} {name}: shards {a} / {b}")
+        print(f"{what} stage {stage}: {len(held[0])} split leaves, the two "
+              f"tp shards of each disjoint, summing to the whole leaf's "
+              f"checksum (rtol {PIPE3D_SUM_RTOL}) and gathered equal to the "
+              f"tp 1 leaf", flush=True)
+
+
+def check_pipe3d_run(name, phase, runs, dense, card):
+    """Gates of one run over the four ranks: finite losses, equal on every
+    rank, each within PIPE_LOSS_ATOL of the dense engine's and the first
+    grad norm within PIPE_NORM_RTOL; B1 / B1b launches a step
+    (``pipe3d_want``); 4 blocks a stage; the replayed step 2 bitwise (tp,
+    Ulysses); pp x tp's shards. Prints each rank's record."""
+    what = f"phase{phase} {name}"
+    for r, run in enumerate(runs):
+        want = pipe3d_want(name, run["stage"], run["sp_rank"])
+        if any(step != want for step in run["launches"]):
+            fail(f"{what} rank {r}: launches {run['launches']}, want {want} "
+                 f"a step")
+        if not all(math.isfinite(x) for x in run["losses"] + run["norms"]):
+            fail(f"{what} rank {r}: losses {run['losses']} or norms "
+                 f"{run['norms']} not finite")
+        if run["blocks"] != PIPE3D_LAYERS // PIPE_S:
+            fail(f"{what} rank {r}: {run['blocks']} blocks on its stage")
+        if "replay_loss" in run and run["replay_loss"] != run["losses"][1]:
+            fail(f"{what} rank {r}: step 2 from the checkpoint of step 1 "
+                 f"gives {run['replay_loss']!r}, not {run['losses'][1]!r}")
+        steady = run["step_s"][1:] or run["step_s"]
+        busy = run["busy_s"]
+        print(f"{what} rank {r} (stage {run['stage']}, tp rank "
+              f"{run['tp_rank']}, sp rank {run['sp_rank']}, {run['blocks']} "
+              f"blocks) M={PIPE_M}: losses={run['losses']} grad_norms="
+              f"{run['norms']} step_s={run['step_s']} mean_step_s="
+              f"{sum(steady) / len(steady)} tokens_per_s="
+              f"{PIPE_MICRO * PIPE_M * PIPE_SEQ / (sum(steady) / len(steady))}"
+              f" launches_per_step={run['launches'][-1]} bytes_per_step="
+              f"{run['traffic'][-1]} max_memory_allocated={run['peak']} "
+              f"build_s={run['build_s']} save_s={run.get('save_s')} load_s="
+              f"{run.get('load_s')} ckpt_bytes={run.get('ckpt_bytes')} "
+              f"replay_loss={run.get('replay_loss')} profiled_step_s="
+              f"{run['profiled_step_s']} device_busy_s={busy} "
+              f"device_busy_share="
+              f"{None if busy is None else busy / run['profiled_step_s']} "
+              f"(four ranks share the card) wall_s={run['wall_s']} "
+              f"card={card}", flush=True)
+    if any(run["losses"] != runs[0]["losses"] for run in runs):
+        fail(f"{what}: the ranks' losses differ: "
+             f"{[run['losses'] for run in runs]}")
+    got = runs[0]
+    gap = max(abs(a - b) for a, b in zip(got["losses"], dense["losses"]))
+    norm_gap = abs(got["norms"][0] - dense["norms"][0]) / dense["norms"][0]
+    print(f"{what}: max |loss - dense| {gap} (gate {PIPE_LOSS_ATOL}); "
+          f"first grad norm {got['norms'][0]} vs dense {dense['norms'][0]}: "
+          f"rel gap {norm_gap} (gate {PIPE_NORM_RTOL})", flush=True)
+    if gap > PIPE_LOSS_ATOL:
+        fail(f"{what}: losses {got['losses']} leave the dense engine's "
+             f"{dense['losses']} by {gap} > {PIPE_LOSS_ATOL}")
+    if norm_gap > PIPE_NORM_RTOL:
+        fail(f"{what}: the first grad norm {got['norms'][0]} leaves the "
+             f"dense engine's {dense['norms'][0]} by {norm_gap} of it > "
+             f"{PIPE_NORM_RTOL}")
+    if name == "tp":
+        check_pipe3d_shards(runs, what)
+
+
+def phase_pipe3d(torch, np, fa, dev, gen, seed, card):
+    """Phases 54-55: the dense reference at the cut depth here, then four
+    gloo ranks sharing the card (``pipe3d_rank_main``) run pp 2 x tp 2 and
+    pp 2 x sp 2 (Ulysses, ring) with their gates (``check_pipe3d_run``);
+    then B1 / B1b at the new stage shapes against their plain versions,
+    timed beside SDPA. Returns (launches over the steps by run and rank,
+    errs and times by shape)."""
+    print(f"phase54-55 depth cut: GPT-2 1.3B at {PIPE3D_LAYERS} of 24 layers "
+          f"({PIPE3D_LAYERS // PIPE_S} blocks a stage), full width; the "
+          f"dense reference runs at the same depth", flush=True)
+    dense = pipe3d_dense(torch, np, dev, seed, card)
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(seed, PIPE3D_WORLD, ["--pipe3d-rank"], 54,
+                            PIPE3D_TIMEOUT_S, d)
+    launches = {}
+    for name, phase, *_ in PIPE3D_RUNS:
+        runs = [r["runs"][name] for r in ranks]
+        check_pipe3d_run(name, phase, runs, dense, card)
+        launches[name] = [{n: sum(step[n] for step in run["launches"])
+                           for n in FLASH} for run in runs]
+    errs, times = {}, {}
+    for tag, (B, S, H, D) in PIPE3D_FLASH.items():
+        q, k, v, do = _qkv(torch, dev, gen, B, S, H, D)
+        errs[tag], _ = _flash_pair(torch, fa, q, k, v, do, True)
+        print(f"phase54-55 flash {tag} B={B} S={S} H={H} D={D} causal bf16 "
+              f"max_abs_err {errs[tag]} (tol {FLASH_TOL})", flush=True)
+        out, lse = fa.flash_attention_forward(q, k, v, True, D ** -0.5)
+        times[tag] = _flash_times(torch, fa, q, k, v, do, out, lse, True)
+        for name, vals in times[tag].items():
+            print(f"phase54-55 {tag} stage shape {name} " + " ".join(
+                f"{key}={val}" for key, val in vals.items())
+                + f" card={card}", flush=True)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
     return launches, errs, times
 
 
@@ -6734,7 +7137,8 @@ def dp_rank_main(args) -> int:
     """One rank of phases 30 and 33 (this script with --dp-rank): its rows
     of phase 29's micro-batches for DP_STEPS steps at each ZeRO stage of
     --dp-stages; then the phases of --dp-onebit (52: ``compressed_rank``,
-    53: ``onebit_rank``); results as JSON to --dp-out."""
+    53: ``onebit_rank``, 56: ``tiles_rank``); results as JSON to
+    --dp-out."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch import comm
@@ -6804,6 +7208,12 @@ def dp_rank_main(args) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         out["onebit"] = onebit_rank(torch, np, dev, args.seed)
+    if "56" in onebit:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["tiles"] = tiles_rank(torch, np, dev, args.seed)
+        out["tiles"]["wall_s"] = time.perf_counter() - t0
     with open(args.dp_out, "w") as fh:
         json.dump(out, fh)
     torch.distributed.destroy_process_group()
@@ -6871,8 +7281,9 @@ def _check_dp_losses(ranks, stage, dp1_losses, phase):
 def phase_dp(seed, card, dp1_losses, dp1_state_bytes):
     """Phase 30: two ranks of ZeRO-1 against phase 29's dp 1 losses. The
     rank processes then run phase 33's ZeRO-2 and ZeRO-3 and phases 52-53
-    (one start of the ranks for the four); returns their results."""
-    ranks = run_dp_ranks(seed, (1, 2, 3), 30, onebit="52,53")
+    and 56 (one start of the ranks for them all); returns their
+    results."""
+    ranks = run_dp_ranks(seed, (1, 2, 3), 30, onebit="52,53,56")
     for r in ranks:
         z = r["stages"]["1"]
         print(f"phase30 zero1 dp=2 rank={r['rank']} backend={r['backend']} "
@@ -7316,6 +7727,223 @@ def _cpu_copy(opt):
     return cpu
 
 
+# phase 56 (run in phase 30's rank processes): ZeRO-3 over a GPT-2 1.3B
+# MLP's up projection, TiledLinear(2048, 8192, in_splits=2, out_splits=4),
+# bf16 over fp32 masters, 2 x 512 rows a rank; the kernel gathered a tile
+# at a time against the same engine gathering it whole
+TILE_LAYER = (2048, 8192, 2, 4)
+TILE_ROWS = (4, 512)                 # the global batch: 2 rows a rank
+# tile and whole paths run the same bf16 products on the same bytes; the
+# bound is one bf16 rounding (2^-8) of the largest entry
+TILE_RTOL = 2.0 ** -8
+# the forward's activations: its q output pieces, their concatenation and
+# the biased output (3 x rows x d_out bf16) and the unit's other gathered
+# leaf (the bias); the rise gate's slack for the allocator's rounding
+TILE_SLACK = 1 << 20
+
+
+def tiles_rank(torch, np, dev, seed):
+    """Phase 56 on this rank: for the tile path and the whole-gather path,
+    the rise of ``max_memory_allocated`` over one forward (after a first,
+    unmeasured one) beside the forward's activation bytes; then one step
+    each (forward, backward, the grads' slices, AdamW), the tile gathers'
+    counts and bytes. Returns the record."""
+    from torch import nn
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledLinear
+    d_in, d_out, p, q = TILE_LAYER
+    gen = torch.Generator(device=dev).manual_seed(seed + 56)
+    x = torch.randn(*TILE_ROWS, d_in, device=dev, generator=gen).bfloat16()
+    w = torch.randn(*TILE_ROWS, d_out, device=dev, generator=gen)
+    rank, world = torch.distributed.get_rank(), 2
+    n = TILE_ROWS[0] // world
+    mine = x[rank * n:(rank + 1) * n]
+
+    class Model(nn.Module):
+        def __init__(self, tiles):
+            super().__init__()
+            self.layer = TiledLinear(d_in, d_out, p, q, device=dev)
+            self.layer.reset_parameters(
+                torch.Generator(device=dev).manual_seed(seed))
+            self.layer.gather_tiles = tiles
+
+        def forward(self, inputs):
+            return self.layer(inputs)
+
+    def loss_fn(out, batch):
+        return (out.float() * w[rank * n:(rank + 1) * n]).mean()
+
+    def rise(fn):
+        """The forward's rise of max_memory_allocated over what was
+        allocated before it, and what it keeps (its output, the tensors
+        saved for the backward)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        got = (torch.cuda.max_memory_allocated(dev) - base,
+               torch.cuda.memory_allocated(dev) - base)
+        return out, got
+    rows = n * TILE_ROWS[1]
+    rec = {"tile_bytes": d_in // p * d_out // q * 2,
+           "act_bytes": 3 * rows * d_out * 2 + d_out * 2}
+    outs = {}
+    for tiles in (True, False):
+        engine, *_ = dst.initialize(
+            model=Model(tiles), loss_fn=loss_fn, device=dev, config={
+                "train_micro_batch_size_per_gpu": n,
+                "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+                "zero_optimization": {
+                    "stage": 3, "stage3_param_persistence_threshold": 0},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}})
+        gather = engine.compute_module.inner.layer.zero3_tiles
+        key = "tile" if tiles else "whole"
+        engine.compute_module(mine)              # the process's first use
+        if gather is not None:
+            gather.gathers = gather.gather_bytes = gather.max_live = 0
+        out, rec[f"{key}_rise"] = rise(lambda: engine.compute_module(mine))
+        if gather is not None:
+            rec["forward_gathers"] = (gather.gathers, gather.gather_bytes,
+                                      gather.max_live)
+            gather.gathers = gather.gather_bytes = gather.max_live = 0
+        leaves = [engine._names.index(f"layer.{k}")
+                  for k in ("kernel", "bias")]
+        engine.forward({"input_ids": x})
+        engine.backward()
+        grads = [engine.acc[i].clone() for i in leaves]
+        engine.step()
+        if gather is not None:
+            rec["step_gathers"] = (gather.gathers, gather.gather_bytes,
+                                   gather.max_live)
+        outs[key] = (out.detach(), grads,
+                     [engine._opt_params[i].detach().clone()
+                      for i in leaves])
+        rec[f"{key}_comm_bytes"] = dict(engine.comm_bytes)
+        del engine, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    gaps = {}
+    for part, (got, want) in enumerate(zip(outs["tile"], outs["whole"])):
+        for name, g, v in zip(
+                (("out",), ("grad_kernel", "grad_bias"),
+                 ("master_kernel", "master_bias"))[part],
+                [got] if part == 0 else got, [want] if part == 0 else want):
+            gaps[name] = float((g.float() - v.float()).abs().max()
+                               / v.float().abs().max().clamp_min(1e-30))
+    rec["gaps"] = gaps
+    return rec
+
+
+def phase_tiles(card, ranks):
+    """Phase 56 (run in phase 30's rank processes): each tile gather moves
+    one tile's bytes and one tile is alive at a time; the forward's rise of
+    max_memory_allocated is at most one gathered tile (plus TILE_SLACK)
+    above its activations, while the whole gather's holds the whole kernel
+    above them; out, the grads' slices and the updated master slices equal
+    the whole-gather path's within TILE_RTOL of their largest entry."""
+    d_in, d_out, p, q = TILE_LAYER
+    for r in ranks:
+        got = r["tiles"]
+        tile = got["tile_bytes"]
+        print(f"phase56 zero3 TiledLinear{TILE_LAYER} bf16 rank {r['rank']}: "
+              f"forward gathers (count, bytes, most alive) "
+              f"{got['forward_gathers']}, step {got['step_gathers']}, "
+              f"tile_bytes={tile} act_bytes={got['act_bytes']} forward rise "
+              f"(peak, kept) tile {got['tile_rise']} whole "
+              f"{got['whole_rise']} gaps {got['gaps']} (bound "
+              f"{TILE_RTOL}) comm_bytes tile {got['tile_comm_bytes']} whole "
+              f"{got['whole_comm_bytes']} card={card}", flush=True)
+        if tuple(got["forward_gathers"]) != (p * q, p * q * tile, 1) or \
+                tuple(got["step_gathers"]) != (2 * p * q, 2 * p * q * tile,
+                                               1):
+            fail(f"phase 56 rank {r['rank']}: gathers {got['forward_gathers']}"
+                 f" / {got['step_gathers']}, want {p * q} then {2 * p * q} of "
+                 f"{tile} bytes, one alive at a time")
+        act = got["act_bytes"]
+        if got["tile_rise"][0] > act + tile + TILE_SLACK:
+            fail(f"phase 56 rank {r['rank']}: the tiled forward rose "
+                 f"{got['tile_rise'][0]} bytes, over {act} + one tile {tile} "
+                 f"+ {TILE_SLACK}")
+        if got["whole_rise"][0] < act + p * q * tile:
+            fail(f"phase 56 rank {r['rank']}: the whole gather's forward "
+                 f"rose only {got['whole_rise'][0]} bytes")
+        if max(got["gaps"].values()) > TILE_RTOL:
+            fail(f"phase 56 rank {r['rank']}: tile vs whole gaps "
+                 f"{got['gaps']} over {TILE_RTOL}")
+        print(f"phase_wall 56 (rank {r['rank']}) seconds={got['wall_s']}",
+              flush=True)
+
+
+# phase 57: A12's block-sparse MatMul over long_context_sparse's BigBird
+# layout (bench_sparsity: 12 heads, block 64) at seq 8192, d 64, bf16
+MATMUL_SEQ, MATMUL_D, MATMUL_M = 8192, 64, 64
+
+
+def phase_sparse_matmul(torch, np, dev, gen, card):
+    """Phase 57: sdd (q k^T at the layout's blocks), dsd (packed probs @ v)
+    and dds (a [B, H, 64, S] @ packed) against the dense product through
+    the layout's mask in f32, over the same bf16 operands. Bound, element
+    by element: each output is a sum of block products, each rounded to
+    bf16 once (2^-8 of its size, at most 2^-8 of its terms' summed
+    magnitudes) and the f32 sum rounded once more (2^-8 of the output):
+    ``2^-8 (|A| |B| + |ref|)``, |A| |B| the masked product of the
+    operands' magnitudes. Prints ms a call beside the dense masked
+    torch.matmul's."""
+    from deepspeed_tpu_torch.ops.sparse_attention import MatMul
+    sparsity = bench_sparsity(heads=12)
+    layout = np.asarray(sparsity.make_layout(MATMUL_SEQ))
+    blk, H, S, D = sparsity.block, layout.shape[0], MATMUL_SEQ, MATMUL_D
+    mask = torch.from_numpy(np.kron(layout, np.ones((blk, blk), bool))
+                            ).to(dev)[None]
+    ops = {"sdd": MatMul(layout, blk, "sdd", trans_b=True),
+           "dsd": MatMul(layout, blk, "dsd"),
+           "dds": MatMul(layout, blk, "dds")}
+    nnz = ops["sdd"].nnz
+    q, k, v = (torch.randn(1, H, S, D, device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    packed = torch.randn(1, nnz, blk, blk, device=dev,
+                         generator=gen).bfloat16()
+    a = torch.randn(1, H, MATMUL_M, S, device=dev, generator=gen).bfloat16()
+    dense_p = ops["dsd"].unpack(packed)          # bf16 [1, H, S, S]
+
+    def sdd_ref(f):
+        return ops["sdd"].pack(f(q) @ f(k).transpose(-1, -2) * mask)
+    cases = {   # (operands, f -> f(A) f(B) through the mask, dense product)
+        "sdd": ((q, k), sdd_ref, lambda: (q @ k.transpose(-1, -2)) * mask),
+        "dsd": ((packed, v), lambda f: f(dense_p) @ f(v),
+                lambda: dense_p @ v),
+        "dds": ((a, packed), lambda f: f(a) @ f(dense_p),
+                lambda: a @ dense_p),
+    }
+    out = {}
+    for mode, (args, ref_fn, dense_fn) in cases.items():
+        got = ops[mode](*args).float()
+        ref = ref_fn(lambda t: t.float())
+        bound = 2.0 ** -8 * (ref_fn(lambda t: t.float().abs()) + ref.abs())
+        err = (got - ref).abs()
+        share = float((err / bound.clamp_min(1e-30)).max())
+        max_err = float(err.max())
+        del got, ref, bound, err
+        torch.cuda.empty_cache()
+        ms = device_ms(lambda i: ops[mode](*args), iters=10)
+        dense_ms = device_ms(lambda i: dense_fn(), iters=10)
+        out[mode] = {"max_abs_err": max_err, "bound_share": share, "ms": ms,
+                     "dense_masked_ms": dense_ms}
+        print(f"phase57 MatMul {mode} BigBird H={H} S={S} block={blk} d={D} "
+              f"nnz={nnz} bf16: max_abs_err={max_err}, largest share of its "
+              f"element's bound 2^-8 (|A| |B| + |ref|) {share} ms={ms} "
+              f"dense_masked_ms={dense_ms} card={card}", flush=True)
+        if not share <= 1.0:
+            fail(f"phase 57: MatMul {mode} leaves the masked dense product "
+                 f"by {share} of its bound")
+        torch.cuda.empty_cache()
+    del mask, dense_p, q, k, v, a, packed
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_optimizers(torch, np, dev, seed, card):
     """Phase 31: LAMB, Adagrad and SGD train 3 steps; the third step's
     masters against the same step on the CPU."""
@@ -7614,8 +8242,9 @@ def phase_nvme(torch, np, dev, seed, card):
 # phase 35: the streamed engine against the plain offload engine at GPT
 # 2.7B's width (d_model 2560, 32 heads of 80, d_ff 10240; 4 layers), bf16,
 # micro 1 x gas 2 x seq 1024 (the capacity config with gas 2, so the host
-# adds a second micro-batch's grads), 3 steps from one counter fill
-PARITY_LAYERS, PARITY_GAS, PARITY_STEPS = 4, 2, 3
+# adds a second micro-batch's grads), PARITY_STEPS steps from one counter
+# fill
+PARITY_LAYERS, PARITY_GAS, PARITY_STEPS = 4, 2, 2
 # phase 36: cpu_checkpointing against remat (policy "nothing": both save
 # only the block input, one in host memory, one on the card), GPT-2 125M,
 # micro 8 x seq 1024 x gas 1, 2 steps
@@ -7915,6 +8544,20 @@ def lap(label: str) -> None:
     _LAP[0] = now
 
 
+# the depths and step counts cut to make room for phases 54-57 (before ->
+# now); every gate stays as it was
+TIME_CUTS = {"NEOX_LAYERS (45)": (4, NEOX_LAYERS),
+             "MOE_LAYERS (42)": (4, MOE_LAYERS),
+             "D80_LAYERS (39)": (4, D80_LAYERS),
+             "CTX_LAYERS (47-48)": (12, CTX_LAYERS),
+             "PIPE_STEPS (50-51)": (3, PIPE_STEPS),
+             "PARITY_STEPS (35)": (3, PARITY_STEPS),
+             "phase 55's ring: checkpoint replay": ("yes", "no (Ulysses "
+                                                    "replays sp's path)"),
+             "phases 45-46's ranks": ("their own processes",
+                                      "phase 44's")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7944,6 +8587,12 @@ def main(argv=None) -> int:
     # phase 48's ranks then run phases 50-51's
     ap.add_argument("--then-pipe", action="store_true",
                     help=argparse.SUPPRESS)
+    # phase 44's ranks then run phases 45-46's
+    ap.add_argument("--then-tp", action="store_true",
+                    help=argparse.SUPPRESS)
+    # one rank of phases 54-55
+    ap.add_argument("--pipe3d-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -7961,6 +8610,8 @@ def main(argv=None) -> int:
         return sp_rank_main(args)
     if args.pipe_rank is not None:
         return pipe_rank_main(args)
+    if args.pipe3d_rank is not None:
+        return pipe3d_rank_main(args)
     from deepspeed_tpu_torch.ops.cuda import _build
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -7976,6 +8627,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     _LAP[0] = t_start
     card = card_line()
+    print("cut to fit the time limit (gates unchanged): " + "; ".join(
+        f"{name} {was} -> {now}" for name, (was, now) in TIME_CUTS.items()),
+        flush=True)
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -8037,14 +8691,15 @@ def main(argv=None) -> int:
     lap("42 moe serving")
     moe_train = phase_moe_training(torch, np, dev, args.seed, card)
     lap("43 moe training")
-    launches_ep = phase_ep(torch, np, dev, args.seed, card)
-    lap("44 ep")
+    ep_ranks, tp_dir = run_ep_tp_ranks(args.seed)
+    launches_ep = phase_ep(torch, np, dev, args.seed, card, ep_ranks)
+    lap("44 ep (and 45-46's ranks)")
     torch.cuda.empty_cache()
     gc.collect()
     torch.cuda.empty_cache()
-    tp_spawned = run_tp_ranks(args.seed)     # phases 45 and 46's ranks
+    tp_spawned = ([r["tp"] for r in ep_ranks], tp_dir)   # 45-46's ranks
     neox = phase_tp_serving(torch, np, dev, args.seed, card, tp_spawned)
-    lap("45 tp serving (and 46's ranks)")
+    lap("45 tp serving")
     neox_train = phase_tp_training(torch, np, dev, args.seed, card,
                                    tp_spawned[0])
     lap("46 tp training")
@@ -8058,6 +8713,9 @@ def main(argv=None) -> int:
     pipe_launches, pipe_errs, pipe_t = phase_pipe(
         torch, np, fa, dev, gen, args.seed, card, sp_runs["pipe"])
     lap("50-51 pipeline")
+    pipe3d_launches, pipe3d_errs, pipe3d_t = phase_pipe3d(
+        torch, np, fa, dev, gen, args.seed, card)
+    lap("54-55 pp x tp, pp x sp")
     torch.cuda.empty_cache()
     engine, cfg, ids, launches_train = phase_training(torch, np, dev,
                                                       args.seed, card)
@@ -8086,6 +8744,8 @@ def main(argv=None) -> int:
         torch, np, sa, dev, gen, args.seed, card)
     phase_sparse_bert(torch, np, sa, dev, gen, args.seed)
     lap("16-17 sparse timing+d80+bert")
+    phase_sparse_matmul(torch, np, dev, gen, card)
+    lap("57 sparse MatMul")
     torch.cuda.empty_cache()
 
     paged_err = phase_paged_parity(torch, da, qz, dev, gen)
@@ -8130,7 +8790,8 @@ def main(argv=None) -> int:
     lap("33 zero2/3 dp 2")
     phase_compressed(card, dp_ranks)
     launches_onebit = phase_onebit(card, dp_ranks)
-    lap("52-53 1-bit gates (run in 30's ranks)")
+    phase_tiles(card, dp_ranks)
+    lap("52-53 1-bit, 56 tile gates (run in 30's ranks)")
     phase_nvme(torch, np, dev, args.seed, card)
     lap("34 nvme")
     launches_parity = phase_streamed_parity(torch, np, dev, args.seed, card)
@@ -8313,6 +8974,19 @@ def main(argv=None) -> int:
          "launches_gpipe_rank0": pipe_launches["gpipe"][0][name],
          "launches_gpipe_rank1": pipe_launches["gpipe"][1][name],
          "max_abs_err": pipe_errs[name], **pipe_t[name]}
+        for name, line in (("flash_fwd", 52), ("flash_bwd_dq", 140),
+                           ("flash_bwd_dkv", 175))
+    ] + [
+        {"name": f"{name}_pipe3d_{tag}", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+         "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": pipe3d_launches[run][rank][name],
+         **{f"launches_{other}_rank{r}": pipe3d_launches[other][r][name]
+            for other, r in extra},
+         "max_abs_err": pipe3d_errs[tag][name], **pipe3d_t[tag][name]}
+        for tag, run, rank, extra in (
+            ("tp", "tp", 0, (("tp", 2), ("ulysses", 0), ("ulysses", 2))),
+            ("ring", "ring", 1, (("ring", 0), ("ring", 2), ("ring", 3))))
         for name, line in (("flash_fwd", 52), ("flash_bwd_dq", 140),
                            ("flash_bwd_dkv", 175))
     ] + [

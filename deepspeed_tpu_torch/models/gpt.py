@@ -374,6 +374,23 @@ def head_logits(cfg: GPTConfig, head: torch.Tensor,
     return F.linear(hidden.to(cfg.dtype), head.to(cfg.dtype))
 
 
+def vocab_logits(cfg: GPTConfig, head: nn.Module,
+                 hidden: torch.Tensor) -> torch.Tensor:
+    """Final-LayerNormed hidden states -> logits over the module ``head``
+    (the tied ``wte`` or ``lm_head``, weight [V, D]). Under tp the head is
+    vocab-parallel and the logits are gathered: every rank returns them
+    whole (a tied ``wte`` that auto-TP split by features reduces the partial
+    logits of its features instead)."""
+    group = _tp_group(head)
+    if group is None:
+        return head_logits(cfg, head.weight, hidden)
+    if head.tp.kind == "feature":
+        local = head_logits(cfg, head.weight, scatter_to_tp(hidden, group, -1))
+        return reduce_from_tp(local, group)
+    local = head_logits(cfg, head.weight, copy_to_tp(hidden, group))
+    return gather_from_tp(local, group, -1)
+
+
 def final_logits(cfg: GPTConfig, x: torch.Tensor, ln_w: torch.Tensor,
                  ln_b: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """The trunk's output -> ln_f -> logits."""
@@ -909,15 +926,7 @@ class GPT(nn.Module):
         every rank returns them whole (a tied ``wte`` that auto-TP split by
         features reduces the partial logits of its features instead)."""
         head = self.wte if self.cfg.tie_embeddings else self.lm_head
-        group = _tp_group(head)
-        if group is None:
-            return head_logits(self.cfg, head.weight, hidden)
-        if head.tp.kind == "feature":
-            local = head_logits(self.cfg, head.weight,
-                                scatter_to_tp(hidden, group, -1))
-            return reduce_from_tp(local, group)
-        local = head_logits(self.cfg, head.weight, copy_to_tp(hidden, group))
-        return gather_from_tp(local, group, -1)
+        return vocab_logits(self.cfg, head, hidden)
 
     def prefill(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None

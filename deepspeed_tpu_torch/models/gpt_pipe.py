@@ -17,20 +17,28 @@ block adds its gate's load-balancing loss to ``aux`` and the head returns
 loss. Each layer draws its weights as ``models.gpt.init_weights`` does
 (matrices and tables N(0, 0.02), biases 0, LayerNorm scales 1). A block
 has no remat of its own: the pipeline engine replays a whole stage in its
-backward. ``PipeGPTBlock.num_params`` is the TPU package's
-estimate (``12 d^2 + 2 d d_ff``, no biases), so ``parameters`` partitions
-agree with it.
+backward. ``PipeGPTBlock.num_params`` is the TPU package's estimate (``12
+d^2 + 2 d d_ff``, no biases), so ``parameters`` partitions agree with it.
+
+Inside a stage the pipeline engine may split the layers over a tp group (the
+dense GPT's ``tp_spec`` rules, ``module_inject.layers.shard_by_tp_spec``:
+the tied table by vocab rows, whose logits ``vocab_logits`` gathers) or the
+sequence over an sp group (:func:`set_pipe_sequence_parallel`: the
+embedding takes its rank's positions, a block's attention exchanges over
+the group, as the dense GPT's do).
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import torch
 from torch import nn
 
 from ..module_inject.layers import embedding
 from ..runtime.pipe.module import LayerSpec, PipelineModule, TiedLayerSpec
-from .gpt import (Block, GPTConfig, _layer_norm, _linear, head_logits,
-                  init_weights, lm_loss_fn)
+from .gpt import (Block, GPTConfig, _layer_norm, _sp_size, init_weights,
+                  lm_loss_fn, vocab_logits)
 
 
 def _split_aux(x):
@@ -41,9 +49,17 @@ def _split_aux(x):
     return x, None
 
 
-def _positions(x: torch.Tensor) -> torch.Tensor:
+def _start(x: torch.Tensor, group) -> int:
+    """The first position of ``x``'s columns: 0, or over an sp group the
+    rank's chunk of the sequence, ``r * s``."""
+    return group.rank * x.shape[1] if _sp_size(group) > 1 else 0
+
+
+def _positions(x: torch.Tensor, group=None) -> torch.Tensor:
     b, s = x.shape[:2]
-    return torch.arange(s, device=x.device)[None, :].expand(b, s)
+    start = _start(x, group)
+    return torch.arange(start, start + s, device=x.device)[None, :] \
+        .expand(b, s)
 
 
 class PipeGPTEmbed(nn.Module):
@@ -57,6 +73,7 @@ class PipeGPTEmbed(nn.Module):
         self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, **kw)
         self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.d_model,
                                             **kw))
+        self.sp_group = None
         init_weights(self)
 
     def forward(self, x):
@@ -64,12 +81,13 @@ class PipeGPTEmbed(nn.Module):
         x, aux = _split_aux(x)
         if not x.is_floating_point():                 # the embedding end
             h = embedding(x, self.wte, cfg.dtype)
-            h = h + self.wpe[:x.shape[1]][None].to(cfg.dtype)
+            start = _start(x, self.sp_group)
+            h = h + self.wpe[start:start + x.shape[1]][None].to(cfg.dtype)
             if cfg.moe:
                 return h, torch.zeros((), dtype=torch.float32,
                                       device=h.device)
             return h
-        logits = head_logits(cfg, self.wte.weight, x)  # the LM-head end
+        logits = vocab_logits(cfg, self.wte, x)        # the LM-head end
         if aux is not None:
             return logits, cfg.moe_aux_loss_coef * aux
         return logits
@@ -92,7 +110,8 @@ class PipeGPTBlock(Block):
     def forward(self, x, deterministic: bool = True):
         x, aux = _split_aux(x)
         out, _, _, l_aux = super().forward(
-            x, _positions(x), attention_impl=self.cfg.attention_impl,
+            x, _positions(x, self.attn.sp_group),
+            attention_impl=self.cfg.attention_impl,
             deterministic=deterministic)
         if self.cfg.moe:
             return out, (l_aux if aux is None else aux + l_aux)
@@ -139,7 +158,7 @@ class PipeGPTLMHead(nn.Module):
 
     def forward(self, x):
         x, aux = _split_aux(x)
-        logits = _linear(x, self.lm_head, self.cfg.dtype)
+        logits = vocab_logits(self.cfg, self.lm_head, x)
         if aux is not None:
             return logits, self.cfg.moe_aux_loss_coef * aux
         return logits
@@ -163,8 +182,32 @@ def gpt_pipe_specs(cfg: GPTConfig):
 
 def pipe_lm_loss(logits, labels):
     """The pipeline's loss: next-token cross entropy of ``logits`` (or the
-    ``(logits, aux)`` pair) against the shifted ``labels``."""
-    return lm_loss_fn(logits, {"input_ids": labels})
+    ``(logits, aux)`` pair) against the shifted ``labels``; or, over an sp
+    group, against the batch dict the engine hands the last stage (this
+    rank's columns of ``labels``, the next tokens and a ``loss_mask``:
+    ``lm_loss_fn`` takes its token mean)."""
+    return lm_loss_fn(logits, labels if isinstance(labels, Mapping)
+                      else {"input_ids": labels})
+
+
+def set_pipe_sequence_parallel(layer: nn.Module, group) -> nn.Module:
+    """Split ``layer``'s sequence over the sp ``group`` (the pipeline
+    counterpart of ``models.gpt.set_sequence_parallel``): the embedding
+    takes its rank's positions and a block's attention spans the whole
+    sequence over ``group``; the other layers act position by position.
+    A GPT layer needs ``cfg.sequence_parallel``. Returns ``layer``."""
+    if _sp_size(group) == 1:
+        return layer
+    cfg = getattr(layer, "cfg", None)
+    if isinstance(cfg, GPTConfig) and not cfg.sequence_parallel:
+        raise ValueError(
+            f"mesh sp={group.size} needs a GPTConfig with "
+            f"sequence_parallel=True (and cp_impl 'ulysses' or 'ring')")
+    if isinstance(layer, PipeGPTEmbed):
+        layer.sp_group = group
+    if isinstance(layer, Block):
+        layer.attn.sp_group = group
+    return layer
 
 
 def gpt_pipe_module(cfg: GPTConfig, num_stages: int,

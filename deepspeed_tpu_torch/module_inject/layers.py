@@ -26,11 +26,14 @@ reduce (a sharded bias would be added tp times). :class:`LinearLayer` and
 :class:`LinearAllreduce` are ``nn.Linear``s so tagged, with the same
 ``state_dict`` names. :class:`ParallelEmbedding` holds a vocab range (the
 lookup masked to it and reduced) or a feature range (the lookup gathered).
-With a one-rank group every collective is the identity.
+With a one-rank group every collective is the identity. ``TP_TRAFFIC``
+counts this rank's collectives here (calls and bytes sent: all-reduces and
+all-gathers).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -52,8 +55,17 @@ class TPInfo:
         return self
 
 
+TP_TRAFFIC: collections.Counter = collections.Counter()
+
+
 def tp_size(group: Optional[comm.CommGroup]) -> int:
     return 1 if group is None else group.size
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    TP_TRAFFIC["all_reduce"] += 1
+    TP_TRAFFIC["all_reduce_bytes"] += x.numel() * x.element_size()
+    return comm.all_reduce(x.contiguous().clone(), group=group)
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -64,13 +76,13 @@ class _CopyToTP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return comm.all_reduce(g.contiguous().clone(), group=ctx.group), None
+        return _all_reduce(g, ctx.group), None
 
 
 class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return comm.all_reduce(x.contiguous().clone(), group=group)
+        return _all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,6 +91,8 @@ class _ReduceFromTP(torch.autograd.Function):
 
 def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim``, in rank order."""
+    TP_TRAFFIC["all_gather"] += 1
+    TP_TRAFFIC["all_gather_bytes"] += x.numel() * x.element_size()
     parts = comm.all_gather(x.contiguous(), group=group)       # [G, ...]
     return torch.cat(list(parts.unbind(0)), dim)
 

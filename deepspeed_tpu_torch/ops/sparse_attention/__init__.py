@@ -1,6 +1,7 @@
-"""Block-sparse attention (counterpart of deepspeed_tpu/ops/sparse_attention;
-the standalone block-sparse ``MatMul`` is not ported yet, ROADMAP A4.5)."""
+"""Block-sparse attention and the standalone block-sparse ``MatMul``
+(counterpart of deepspeed_tpu/ops/sparse_attention)."""
 
+from .matmul import MatMul
 from .sparse_attention_utils import SparseAttentionUtils
 from .sparse_self_attention import sparse_attention
 from .sparsity_config import (BigBirdSparsityConfig,
@@ -8,7 +9,7 @@ from .sparsity_config import (BigBirdSparsityConfig,
                               DenseSparsityConfig, FixedSparsityConfig,
                               SparsityConfig, VariableSparsityConfig)
 
-__all__ = ["SparseAttentionUtils", "sparse_attention",
+__all__ = ["MatMul", "SparseAttentionUtils", "sparse_attention",
            "BigBirdSparsityConfig", "BSLongformerSparsityConfig",
            "DenseSparsityConfig", "FixedSparsityConfig", "SparsityConfig",
            "VariableSparsityConfig"]

@@ -1,13 +1,18 @@
-"""Input-geometry helpers for block-sparse attention.
+"""Model-integration helpers for block-sparse attention.
 
-Counterpart of ``pad_to_block_size`` and ``unpad_sequence_output`` in
-``deepspeed_tpu/ops/sparse_attention/sparse_attention_utils.py``: sequences
-must be whole layout blocks, so BERT pads its inputs and masks the padding
-as keys. The rest of that module (``extend_position_embedding``,
-``sparse_gpt_config``) is not ported yet (ROADMAP A4.5).
+Counterpart of ``deepspeed_tpu/ops/sparse_attention/sparse_attention_utils.py``
+(reference ``SparseAttentionUtils``): sequences must be whole layout blocks,
+so BERT pads its inputs and masks the padding as keys
+(``pad_to_block_size``, ``unpad_sequence_output``); a learned position
+table is tiled out to a longer sequence (``extend_position_embedding``);
+and a GPT runs block-sparse by config, not by module surgery
+(``sparse_gpt_config``).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -41,3 +46,23 @@ class SparseAttentionUtils:
         if pad_len == 0:
             return sequence_output
         return sequence_output[:, :-pad_len]
+
+    @staticmethod
+    def extend_position_embedding(wpe: torch.Tensor,
+                                  max_position: int) -> torch.Tensor:
+        """The position table [P, D] tiled (or cut) to ``max_position`` rows:
+        the learned table repeats, so a 512-position model can run longer
+        sparse sequences."""
+        cur = wpe.shape[0]
+        if max_position <= cur:
+            return wpe[:max_position]
+        reps = -(-max_position // cur)
+        return wpe.repeat(reps, 1)[:max_position]
+
+    @staticmethod
+    def sparse_gpt_config(cfg, sparsity_config) -> Any:
+        """``cfg`` (a ``models.gpt.GPTConfig``) with block-sparse attention
+        over ``sparsity_config``: the module-patch step of the reference
+        (``replace_model_self_attention``) is a config choice here."""
+        return dataclasses.replace(cfg, attention_impl="sparse",
+                                   sparse_attention=sparsity_config)

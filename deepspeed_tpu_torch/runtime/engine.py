@@ -379,11 +379,11 @@ class DeepSpeedEngine:
     def _partition_compute(self) -> None:
         """Stage 3: the compute module's partitioned parameters move into
         gather units (``zero/stage3.py``); the rest stay whole."""
-        def make_unit(entries):
+        def make_unit(entries, tiled=()):
             return GatherUnit(entries, dtype=self.compute_dtype,
                               device=self.device, acc=self.acc,
                               comm_dtype=self._comm_dtype,
-                              counts=self.comm_bytes)
+                              counts=self.comm_bytes, tiled=tiled)
         leaf_of = {n: i for i, n in enumerate(self._names)}
         self.compute_module, self._units = partition_module(
             self.compute_module, leaf_of, self._param_shards, make_unit)

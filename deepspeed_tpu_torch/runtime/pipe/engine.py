@@ -8,12 +8,12 @@ of ranks of the device mesh (``parallel/mesh.py``):
 
   * **mesh ``{"pp": S, ...}``** (pp equal to the module's ``num_stages``):
     each rank runs one stage's ``TrainSchedule``. Activations and their
-    cotangents hop to the neighbouring stage's rank with the same dp and
-    ep coordinates through ``comm.isend`` / ``comm.recv_into`` (sends are
-    posted and waited at the step's end, receives block: a blocking send
-    would deadlock this schedule, whose sender and receiver of one hop act
-    on different ticks). ``PipelineParallelGrid`` names the stage and its
-    neighbours' ranks;
+    cotangents hop to the neighbouring stage's rank with the same dp, ep,
+    sp and tp coordinates through ``comm.isend`` / ``comm.recv_into`` (sends
+    are posted and waited at the step's end, receives block: a blocking
+    send would deadlock this schedule, whose sender and receiver of one hop
+    act on different ticks). ``PipelineParallelGrid`` names the stage and
+    its neighbours' ranks;
   * **pp 1**: this process runs every stage in turn, tick by tick, and a
     hop is a hand-over in memory, as the TPU engine's shared mode does.
 
@@ -45,7 +45,28 @@ Within a stage the port computes what the TPU stage programs compute:
     only;
   * pp x ep: each stage's MoE layers keep their ep coordinate's experts
     and route the stage's dp group's tokens together; the ``(hidden, aux)``
-    pair hops as two tensors and aux's cotangent hops back with dx.
+    pair hops as two tensors and aux's cotangent hops back with dx;
+  * pp x tp (3D parallelism, the TPU engine's Megatron split inside each
+    stage, ``engine.py:265-291``): the layers are built whole (or taken
+    whole from ``model_parameters``) and each rank keeps its shard by the
+    TPU ``tp_spec`` (``module_inject.layers.shard_by_tp_spec``: q, k and v
+    by heads, column Linears by output features, row Linears by input
+    features, the tied table by vocab rows); the collectives run inside the
+    layers, so a split leaf's grad is this rank's and a replicated one's is
+    equal on every tp rank: grads reduce over dp only, and the global norm
+    counts each tp shard once and each replicated leaf once. Tied groups
+    and hops keep the tp coordinate. ZeRO-1/2 slice each rank's shard over
+    dp. Checkpoints hold whole leaves (gathered over tp), so any tp loads
+    them;
+  * pp x sp (the TPU ``_batch_spec``, ``engine.py:232-253``): token ids,
+    activations and hops are this rank's ``S / sp`` columns; the embedding
+    takes its rank's positions and each block attends over the whole
+    sequence through the sp group (``cfg.cp_impl``: Ulysses or ring,
+    ``models.gpt_pipe.set_pipe_sequence_parallel``). The last stage's loss
+    is the sp group's token mean, with the next-token labels taken from the
+    whole row before the columns are cut (a rank's last column predicts
+    the next rank's first token), and every grad is summed over sp, then
+    over dp.
 
 ``train_batch`` returns the mean micro-batch loss on every rank (the last
 stage broadcasts it over pp).
@@ -59,8 +80,8 @@ dict given there (``"{layer index}.{name}"``, the keys of
 every other optimizer type (LAMB silently becomes Adam); the port takes
 Adam, AdamW and SGD and raises on any other type, and on a client
 optimizer. The TPU engine ignores ``gradient_clipping``; the port raises
-on it. pp x tp and pp x sp (which the TPU engine has) raise naming
-ROADMAP A9.
+on it. pp x tp x sp, pp x tp x ep and pp x sp x ep raise naming ROADMAP
+A9 (the dense model refuses tp x sp, MoE at tp and MoE with sp).
 """
 
 from __future__ import annotations
@@ -83,6 +104,9 @@ from ...comm.coalesced_collectives import (all_gather_coalesced,
                                            reduce_scatter_coalesced)
 from ...moe.layer import set_expert_parallel
 from ...moe.utils import is_moe_param
+from ...models.gpt import GPTConfig, _check_tp
+from ...models.gpt_pipe import set_pipe_sequence_parallel
+from ...module_inject.layers import reduce_from_tp, shard_by_tp_spec
 from ...ops.adam import fused_adam
 from ...ops.sgd import sgd
 from ...parallel import mesh as mesh_lib
@@ -95,7 +119,7 @@ from ..engine import _not_ported
 from ..fp16.loss_scaler import grads_finite, make_loss_scale_state, \
     update_scale
 from ..lr_schedules import build_lr_scheduler
-from ..sharding import ShardingRules
+from ..sharding import ShardingRules, TpSplit, tp_split
 from . import schedule as sched_lib
 from .module import PipelineModule, TiedLayerSpec
 
@@ -150,6 +174,8 @@ class PipelineEngine:
         self.dp_world_size = shape["dp"]
         self.dp_rank = self.mesh.coord("dp")
         self.ep_world_size = shape["ep"]
+        self.mp_world_size = shape["tp"]
+        self.sp_world_size = shape["sp"]
         self.config = DeepSpeedConfig(raw, dp_world_size=self.dp_world_size)
         self.loss_fn = loss_fn or model.loss_fn
         self.collate_fn = collate_fn
@@ -185,9 +211,18 @@ class PipelineEngine:
         self._dp_group = comm.new_group("dp", self.mesh)
         self._ep_group = comm.new_group("ep", self.mesh)
         self._pp_group = comm.new_group("pp", self.mesh)
+        self._tp_group = comm.new_group("tp", self.mesh)
+        self._sp_group = comm.new_group("sp", self.mesh)
+        # grads sum over dp and sp; split leaves (experts, tp shards) are
+        # counted over their ep or tp group in the global norm
+        self._grad_group = comm.new_group(("dp", "sp"), self.mesh)
+        self._split_group = self._ep_group if self.ep_world_size > 1 \
+            else self._tp_group
         self._distributed = shape["pp"] == S and S > 1
-        topo = ProcessTopology(axes=["data", "pipe", "expert"],
-                               dims=[shape["dp"], shape["pp"], shape["ep"]])
+        # the mesh's axes in its rank order (tp innermost)
+        topo = ProcessTopology(
+            axes=["data", "pipe", "expert", "sequence", "model"],
+            dims=[shape[a] for a in mesh_lib.MESH_AXES])
         self.grid = PipelineParallelGrid(topo, global_rank=comm.get_rank())
         self.stage_id = self.grid.get_stage_id()
         self.local_stages = [self.stage_id] if self._distributed \
@@ -219,18 +254,20 @@ class PipelineEngine:
     # ------------------------------------------------------------- mesh
     def _build_mesh(self, raw) -> "mesh_lib.DeviceMesh":
         m = dict((raw or {}).get("mesh") or {})
-        for axis in ("tp", "sp"):
-            if m.get(axis, 1) != 1:
-                raise _not_ported(f"pp x {axis} (mesh {axis}={m[axis]} inside "
-                                  f"a pipeline stage)", "A9")
+        for a, b in (("tp", "sp"), ("tp", "ep"), ("sp", "ep")):
+            if m.get(a, 1) > 1 and m.get(b, 1) > 1:
+                raise _not_ported(
+                    f"pp x {a} x {b} (mesh {a}={m[a]} and {b}={m[b]} inside "
+                    f"a pipeline stage)", "A9")
         pp = m.get("pp", 1)
         if pp not in (1, self.num_stages):
             raise ValueError(
                 f"mesh pp={pp} with a {self.num_stages}-stage PipelineModule: "
                 f"use pp={self.num_stages} (one stage a rank) or pp=1 (every "
                 f"stage in each process)")
-        shape = mesh_lib.MeshShape.infer(comm.get_world_size(), pp=pp,
-                                         ep=m.get("ep", 1), dp=m.get("dp"))
+        shape = mesh_lib.MeshShape.infer(
+            comm.get_world_size(), pp=pp, ep=m.get("ep", 1),
+            tp=m.get("tp", 1), sp=m.get("sp", 1), dp=m.get("dp"))
         return mesh_lib.ensure_global_mesh(shape)
 
     def _rank_of(self, **coord) -> int:
@@ -241,17 +278,19 @@ class PipelineEngine:
 
     def _build_tied_groups(self) -> None:
         """Per tied key, the group of the ranks that hold its owner stages
-        at this rank's dp and ep coordinates (every rank makes every group,
-        in one order); none when one rank holds every owner."""
+        at this rank's dp, ep, sp and tp coordinates (every rank makes every
+        group, in one order); none when one rank holds every owner."""
         self._tied_groups: Dict[str, comm.CommGroup] = {}
         shape = self.mesh.shape
+        others = [a for a in mesh_lib.MESH_AXES if a != "pp"]
         for key, idxs in self.module.tied_keys().items():
             stages = sorted({self.module.stage_owner(i) for i in idxs})
             if not self._distributed or len(stages) < 2:
                 continue
-            for d, e in itertools.product(range(shape["dp"]),
-                                          range(shape["ep"])):
-                ranks = [self._rank_of(dp=d, pp=s, ep=e) for s in stages]
+            for coord in itertools.product(*(range(shape[a])
+                                             for a in others)):
+                at = dict(zip(others, coord))
+                ranks = [self._rank_of(pp=s, **at) for s in stages]
                 pg = dist.new_group(ranks)
                 if comm.get_rank() in ranks:
                     self._tied_groups[key] = comm.CommGroup(
@@ -306,6 +345,7 @@ class PipelineEngine:
         self._compute: Dict[int, List[torch.Tensor]] = {}
         self._shards: Dict[int, list] = {}
         self._grad_shards: Dict[int, list] = {}
+        self._splits: Dict[int, Dict[int, TpSplit]] = {}
         self.acc: Dict[int, List[torch.Tensor]] = {}
         self._opt_params: Dict[int, List[torch.Tensor]] = {}
         self.optimizers: Dict[int, Any] = {}
@@ -319,6 +359,10 @@ class PipelineEngine:
                 for p in layers.parameters():
                     comm.broadcast(p.data, 0, group=self._dp_group)
             set_expert_parallel(layers, self._ep_group, token_group)
+            whole = {f"{lo + int(k.partition('.')[0])}."
+                     f"{k.partition('.')[2]}": tuple(p.shape)
+                     for k, p in layers.named_parameters()}
+            self._split_stage(layers)
             self.stage_layers[s] = layers
             self.compute_layers[s] = layers \
                 if self.compute_dtype == torch.float32 else \
@@ -326,6 +370,12 @@ class PipelineEngine:
             names = [f"{lo + int(k.partition('.')[0])}.{k.partition('.')[2]}"
                      for k, _ in layers.named_parameters()]
             self._names[s] = names
+            # leaves this rank holds a tp shard of: how they merge
+            self._splits[s] = {
+                j: sp for j, sp in ((j, tp_split(n, whole[n],
+                                                 self.mp_world_size))
+                                    for j, n in enumerate(names))
+                if sp is not None}
             self._master[s] = list(layers.parameters())
             self._compute[s] = list(self.compute_layers[s].parameters())
             shapes = [tuple(p.shape) for p in self._master[s]]
@@ -340,6 +390,24 @@ class PipelineEngine:
                 if self._partitioned else self._master[s])
             self.optimizers[s] = self._build_optimizer(self._opt_params[s])
         self.optimizer = self.optimizers[self.local_stages[0]]
+
+    def _split_stage(self, layers: nn.ModuleList) -> None:
+        """A stage's whole layers split over this rank's tp group (the TPU
+        ``tp_spec``) and their sequence over its sp group."""
+        tp, sp = self.mp_world_size, self.sp_world_size
+        for layer in layers:
+            cfg = getattr(layer, "cfg", None)
+            gpt = isinstance(cfg, GPTConfig)
+            if tp > 1:
+                if gpt:
+                    _check_tp(cfg, tp)
+                shard_by_tp_spec(layer, self._tp_group)
+            if sp > 1:
+                if gpt and cfg.attention_impl == "sparse":
+                    raise _not_ported(
+                        "block-sparse attention over an sp group (its "
+                        "layout split by heads)", "A9")
+                set_pipe_sequence_parallel(layer, self._sp_group)
 
     @property
     def _partitioned(self) -> bool:
@@ -446,16 +514,54 @@ class PipelineEngine:
 
     def _put(self, x) -> torch.Tensor:
         """A batch leaf on the device: this rank's dp rows when dp divides
-        the leading dim (the TPU engine's ``_batch_spec``), else whole."""
+        the leading dim, and over sp its columns of a sequence-shaped leaf
+        (integer [B, S] ids, or [B, S, ...] of rank 3 and more) when sp
+        divides S (the TPU engine's ``_batch_spec``); else whole."""
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
             np.asarray(x))
         if not t.is_floating_point() and t.dtype != torch.bool:
             t = t.long()
-        dp = self.dp_world_size
+        dp, sp = self.dp_world_size, self.sp_world_size
         if dp > 1 and t.dim() > 0 and t.shape[0] % dp == 0:
             n = t.shape[0] // dp
             t = t[self.dp_rank * n:(self.dp_rank + 1) * n]
+        seq = t.dim() >= 3 or (t.dim() == 2 and not t.is_floating_point())
+        if sp > 1 and seq and t.shape[1] % sp == 0:
+            n, r = t.shape[1] // sp, self._sp_group.rank
+            t = t[:, r * n:(r + 1) * n]
         return t.to(self.device)
+
+    def _labels(self, labels):
+        """The last stage's labels on the device: over sp a batch dict of
+        this rank's columns (``input_ids``, the next-token ``labels`` taken
+        from the whole row, and a ``loss_mask`` zero at the row's last
+        position, which has no next token)."""
+        if self.sp_world_size == 1:
+            return self._put(labels)
+        ids = labels if isinstance(labels, torch.Tensor) else \
+            torch.as_tensor(np.asarray(labels))
+        B, S = ids.shape
+        if S % self.sp_world_size:
+            raise ValueError(f"mesh sp={self.sp_world_size} does not divide "
+                             f"the sequence length {S}")
+        mask = torch.ones(B, S, dtype=torch.int64)
+        mask[:, -1] = 0
+        return {"input_ids": self._put(ids),
+                "labels": self._put(torch.cat([ids[:, 1:], ids[:, :1]], 1)),
+                "loss_mask": self._put(mask)}
+
+    def _loss(self, out, labels) -> torch.Tensor:
+        """The last stage's loss (f32); over sp the sp group's token mean:
+        each rank's mean over its columns times its count, summed over sp
+        with an identity backward (each rank's grads are its columns'
+        share), divided by the whole count."""
+        loss = self.loss_fn(out, labels).float()
+        if self.sp_world_size == 1:
+            return loss
+        count = labels["loss_mask"].float().sum()
+        total = comm.all_reduce(count.clone(), group=self._sp_group)
+        return reduce_from_tp(loss * count, self._sp_group) \
+            / total.clamp_min(1)
 
     def _micro_of(self, s: int, forward: bool) -> int:
         """The micro-batch of this stage's next forward (or backward): the
@@ -477,7 +583,7 @@ class PipelineEngine:
                 x = self._fetch(s - 1, _ACT, m)
             acts[(s, m)] = x      # the stage INPUT, for the backward replay
             if last:
-                acts[("labels", m)] = self._put(
+                acts[("labels", m)] = self._labels(
                     self._split_batch(micros[m])[1])
                 return
             with torch.no_grad():
@@ -491,7 +597,7 @@ class PipelineEngine:
             with torch.enable_grad():
                 out = self._run_stage(s, _pack(ins), train=True)
                 if last:
-                    loss = self.loss_fn(out, acts.pop(("labels", m))).float()
+                    loss = self._loss(out, acts.pop(("labels", m)))
                     (loss * self.scale_state.cur_scale).backward()
                     self._loss_sum += loss.detach()
                 else:
@@ -526,6 +632,13 @@ class PipelineEngine:
         for p in params:
             p.grad = None
         if self._grad_split:
+            if self.sp_world_size > 1:       # summed over sp, then scattered
+                flat = comm.all_reduce(torch.cat(
+                    [g.reshape(-1) for g in grads]), group=self._sp_group)
+                self.comm_bytes["sp_all_reduce"] += \
+                    flat.numel() * flat.element_size()
+                grads = [f.view_as(g) for f, g in
+                         zip(flat.split([g.numel() for g in grads]), grads)]
             parts = reduce_scatter_coalesced(grads, group=self._dp_group)
             torch._foreach_add_(self.acc[s], parts)
             return
@@ -563,13 +676,13 @@ class PipelineEngine:
 
     @torch.no_grad()
     def _reduce_grads(self) -> None:
-        """ReduceGrads: the accumulators summed over the stage's dp group
-        (ZeRO-2 reduced them in every backward already)."""
-        if self.dp_world_size == 1 or self._grad_split:
+        """ReduceGrads: the accumulators summed over the stage's dp and sp
+        groups (ZeRO-2 reduced them in every backward already)."""
+        if self._grad_group.size == 1 or self._grad_split:
             return
         for s in self.local_stages:
             flat = torch.cat([a.reshape(-1) for a in self.acc[s]])
-            comm.all_reduce(flat, group=self._dp_group)
+            comm.all_reduce(flat, group=self._grad_group)
             self.comm_bytes["dp_all_reduce"] += \
                 flat.numel() * flat.element_size()
             torch._foreach_copy_(self.acc[s], [
@@ -652,7 +765,8 @@ class PipelineEngine:
     def _global_norm(self, grads) -> torch.Tensor:
         """The global L2 norm of the step's grads: every leaf of every stage
         once (a tied key's canonical owner's copy only), slices summed over
-        dp (ZeRO-2) and expert banks over ep."""
+        dp (ZeRO-2), expert banks over ep and tp shards over tp (a
+        replicated leaf, equal on the tp and sp ranks, once)."""
         tied_copies = {i for idxs in self.module.tied_keys().values()
                        for i in idxs[1:]}
         parts = torch.zeros(2, dtype=torch.float32, device=self.device)
@@ -660,13 +774,14 @@ class PipelineEngine:
             for j, (n, g) in enumerate(zip(self._names[s], grads[s])):
                 if int(n.partition(".")[0]) in tied_copies:
                     continue
-                expert = self.ep_world_size > 1 and is_moe_param(n)
-                parts[int(expert)] += g.float().square().sum()
+                split = (self.ep_world_size > 1 and is_moe_param(n)) \
+                    or j in self._splits[s]
+                parts[int(split)] += g.float().square().sum()
         if self._grad_split:
             comm.all_reduce(parts, group=self._dp_group)
-        if self.ep_world_size > 1:
+        if self._split_group.size > 1:
             parts[1:] = comm.all_reduce(parts[1:].clone(),
-                                        group=self._ep_group)
+                                        group=self._split_group)
         if self._distributed:
             comm.all_reduce(parts, group=self._pp_group)
         return parts.sum().sqrt()
@@ -708,7 +823,7 @@ class PipelineEngine:
             h = self._put(x) if s == 0 else self._fetch(s - 1, _EVAL, 0)
             out = self._run_stage(s, h, train=False)
             if s == S - 1:
-                loss = self.loss_fn(out, self._put(labels)).float()
+                loss = self._loss(out, self._labels(labels))
             else:
                 self._post(s, s + 1, _EVAL, 0, out)
         self._drain_sends()
@@ -722,10 +837,14 @@ class PipelineEngine:
     # -------------------------------------------------------------- state
     def _whole(self, s: int, j: int, t: torch.Tensor) -> torch.Tensor:
         """Stage ``s``'s leaf ``j`` whole over ep (an expert bank holds this
-        rank's experts; every ep rank calls it)."""
+        rank's experts) or tp (a split leaf this rank's shard); every rank
+        of the group calls it."""
         if self.ep_world_size > 1 and is_moe_param(self._names[s][j]):
             return torch.cat(list(comm.all_gather(t.contiguous(),
                                                   group=self._ep_group)))
+        if j in self._splits[s]:
+            return self._splits[s][j].merge(list(comm.all_gather(
+                t.contiguous(), group=self._tp_group).unbind(0)))
         return t
 
     def _local(self, s: int, j: int, whole: torch.Tensor) -> torch.Tensor:
@@ -733,6 +852,8 @@ class PipelineEngine:
             n = whole.shape[0] // self.ep_world_size
             r = self._ep_group.rank
             return whole[r * n:(r + 1) * n]
+        if j in self._splits[s]:
+            return self._splits[s][j].take(whole, self._tp_group.rank)
         return whole
 
     def stage_state_dict(self, s: int) -> Dict[str, torch.Tensor]:
@@ -763,10 +884,12 @@ class PipelineEngine:
     def save_checkpoint(self, save_dir, tag=None, client_state=None):
         """``save_dir/tag/`` with one ``stage_{s}_model_states.npz`` and
         ``stage_{s}_optim_states.npz`` a stage (whole leaves, written by
-        the stage's rank at dp 0 and ep 0), ``meta.json`` and ``latest``."""
+        the stage's rank at dp, ep, sp and tp 0), ``meta.json`` and
+        ``latest``."""
         tag = tag or f"global_step{self.global_steps}"
         ckpt_dir = os.path.join(save_dir, tag)
-        writer = self.dp_rank == 0 and self.mesh.coord("ep") == 0
+        writer = all(self.mesh.coord(a) == 0 for a in mesh_lib.MESH_AXES
+                     if a != "pp")
         for s in self.local_stages:
             master = {n: t.cpu().numpy()
                       for n, t in self.stage_state_dict(s).items()}

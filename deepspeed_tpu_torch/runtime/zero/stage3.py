@@ -26,11 +26,21 @@ already scattered. Without remat the matmuls' saved tensors keep the
 gathered weights until the backward reaches them. The root unit's
 parameters are gathered once a micro-step, for the whole forward (the tied
 embedding is read at both ends of the model).
+
+A ``TiledLinear`` (``zero/tiling.py``) kernel is gathered a tile at a time
+(:class:`TileGather`): its leaf stays an entry of its unit (the same flat
+slices, masters, moments and checkpoint), but the unit's gather skips it.
+The layer's forward gathers tile ``t`` (a broadcast from each rank whose
+slice holds part of it: one tile's bytes), multiplies, and lets it go before
+tile ``t + 1``; each tile is its own autograd node (:class:`_TileMatmul`),
+whose backward gathers the tile again and reduce-scatters that tile's
+gradient into the accumulator slices of the ranks that hold it.
 """
 
 from __future__ import annotations
 
 import collections
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -88,13 +98,15 @@ class GatherUnit:
     def __init__(self, entries: Sequence[Tuple[int, str, LeafShard]], *,
                  dtype: torch.dtype, device, acc: List[torch.Tensor],
                  comm_dtype: Optional[torch.dtype],
-                 counts: collections.Counter):
+                 counts: collections.Counter, tiled: Sequence[str] = ()):
         self.entries = list(entries)
         self.names = [name for _, name, _ in self.entries]
         self.pers = [spec.numel for _, _, spec in self.entries]
         self.shard = nn.Parameter(torch.empty(sum(self.pers), dtype=dtype,
                                               device=device))
         self.acc, self.comm_dtype, self.counts = acc, comm_dtype, counts
+        # entries gathered a tile at a time (TileGather), not with the rest
+        self.whole = [k for k, n in enumerate(self.names) if n not in tiled]
 
     def views(self) -> List[torch.Tensor]:
         """The shard's per-leaf slices (write the compute slices here)."""
@@ -102,21 +114,131 @@ class GatherUnit:
 
     @torch.no_grad()
     def gather(self) -> List[torch.Tensor]:
-        fulls = all_gather_coalesced(self.views())
+        views = self.views()
+        fulls = all_gather_coalesced([views[k] for k in self.whole])
         self.counts["all_gather"] += sum(f.numel() * f.element_size()
                                          for f in fulls)
-        return [spec.unpad(f) for f, (_, _, spec) in zip(fulls, self.entries)]
+        return [self.entries[k][2].unpad(f)
+                for k, f in zip(self.whole, fulls)]
 
     @torch.no_grad()
     def reduce(self, grads) -> None:
-        scatter_into(self.acc, [i for i, _, _ in self.entries], [
+        entries = [self.entries[k] for k in self.whole]
+        scatter_into(self.acc, [i for i, _, _ in entries], [
             g if g is not None else torch.zeros(spec.shape,
                                                 device=self.shard.device)
-            for g, (_, _, spec) in zip(grads, self.entries)],
+            for g, (_, _, spec) in zip(grads, entries)],
             self.comm_dtype, self.counts)
 
     def gathered(self) -> Dict[str, torch.Tensor]:
-        return dict(zip(self.names, _GatherParams.apply(self.shard, self)))
+        if not self.whole:
+            return {}
+        return dict(zip([self.names[k] for k in self.whole],
+                        _GatherParams.apply(self.shard, self)))
+
+
+class TileGather:
+    """One ``TiledLinear`` kernel leaf of a unit (entry ``k``), gathered a
+    tile at a time. Its flat slices are the leaf's usual ones (rank r holds
+    elements ``[r * per, (r + 1) * per)``), so tile ``t`` (elements
+    ``[t * T, (t + 1) * T)``) lies on one rank or spans a few: a gather
+    broadcasts each piece from the rank that holds it, and a gradient goes
+    back by one reduce-scatter whose row r is rank r's piece. ``gathers``
+    and ``gather_bytes`` count the gathers and the bytes they assembled,
+    ``live`` / ``max_live`` the gathered tiles alive at once."""
+
+    def __init__(self, unit: GatherUnit, k: int, tiles: int):
+        self.unit, self.k = unit, k
+        self.leaf, _, self.spec = unit.entries[k]
+        self.tiles = tiles
+        self.tile_numel = self.spec.global_numel // tiles
+        self.tile_shape = tuple(self.spec.shape[1:])
+        self.gathers = self.gather_bytes = 0
+        self.live = self.max_live = 0
+
+    def pieces(self, t: int) -> List[Tuple[int, int, int]]:
+        """``(rank, start, stop)``: the part of tile ``t`` in each rank's
+        slice, as flat offsets into the tile."""
+        per, T = self.spec.numel, self.tile_numel
+        lo, hi = t * T, (t + 1) * T
+        return [(r, max(lo, r * per) - lo, min(hi, (r + 1) * per) - lo)
+                for r in range(lo // per, (hi - 1) // per + 1)]
+
+    def _freed(self) -> None:
+        self.live -= 1
+
+    @torch.no_grad()
+    def gather(self, t: int) -> torch.Tensor:
+        """Tile ``t`` whole, ``[in/p, out/q]`` in the compute dtype."""
+        mine = self.unit.views()[self.k]
+        me, per = comm.get_rank(), self.spec.numel
+        buf = torch.empty(self.tile_numel, dtype=mine.dtype,
+                          device=mine.device)
+        base = t * self.tile_numel
+        for r, a, b in self.pieces(t):
+            piece = buf[a:b]
+            if r == me:
+                piece.copy_(mine[base + a - r * per:base + b - r * per])
+            comm.broadcast(piece, r)
+        self.gathers += 1
+        self.gather_bytes += buf.numel() * buf.element_size()
+        self.live += 1
+        self.max_live = max(self.max_live, self.live)
+        self.unit.counts["all_gather"] += buf.numel() * buf.element_size()
+        tile = buf.view(self.tile_shape)
+        # the caller's tile, not ``buf``: gloo's worker thread may still
+        # hold a finished broadcast's pieces of ``buf`` for a moment
+        weakref.finalize(tile, self._freed)
+        return tile
+
+    @torch.no_grad()
+    def reduce(self, t: int, grad: torch.Tensor) -> None:
+        """Tile ``t``'s gradient (this rank's) summed over the ranks into
+        the accumulator slices of the ranks that hold its pieces."""
+        unit = self.unit
+        dt = unit.comm_dtype or torch.float32
+        flat = grad.reshape(-1).to(dt)
+        pieces = self.pieces(t)
+        width = max(b - a for _, a, b in pieces)
+        world, me = comm.get_world_size(), comm.get_rank()
+        rows = flat.new_zeros(world, width)
+        for r, a, b in pieces:
+            rows[r, :b - a] = flat[a:b]
+        unit.counts["reduce_scatter"] += rows.numel() * rows.element_size()
+        got = comm.reduce_scatter_base(rows)[0]
+        per, base = self.spec.numel, t * self.tile_numel
+        for r, a, b in pieces:
+            if r == me:
+                at = base + a - r * per
+                unit.acc[self.leaf][at:at + b - a] += got[:b - a].float()
+
+
+class _TileMatmul(torch.autograd.Function):
+    """``x @ tile t`` with the tile gathered in the forward and again in the
+    backward; only ``x`` is saved. ``shard`` (the unit's) makes the node
+    run its backward even when ``x`` needs no grad."""
+
+    @staticmethod
+    def forward(ctx, x, shard, tiles: TileGather, t: int, dtype):
+        ctx.tiles, ctx.t, ctx.dtype = tiles, t, dtype
+        ctx.save_for_backward(x)
+        return x @ tiles.gather(t).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        w = ctx.tiles.gather(ctx.t).to(ctx.dtype)
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        del w
+        dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        ctx.tiles.reduce(ctx.t, dw)
+        return dx, None, None, None, None
+
+
+def tile_matmul(x: torch.Tensor, tiles: TileGather, t: int,
+                dtype) -> torch.Tensor:
+    """``x @ W_t`` for tile ``t`` of a ZeRO-3 ``TiledLinear`` kernel."""
+    return _TileMatmul.apply(x, tiles.unit.shard, tiles, t, dtype)
 
 
 class GatheredModule(nn.Module):
@@ -154,12 +276,20 @@ def partition_module(module: nn.Module, leaf_of: Dict[str, int],
         params = dict(inner.named_parameters())
         entries = [(leaf_of[prefix + n], n, specs[leaf_of[prefix + n]])
                    for n in names]
-        unit = make_unit(entries)
+        # TiledLinear kernels (gather_tiles) are gathered a tile at a time
+        tiled = {f"{m}.kernel" if m else "kernel": mod
+                 for m, mod in inner.named_modules()
+                 if getattr(mod, "gather_tiles", False)}
+        tiled = {n: mod for n, mod in tiled.items() if n in names}
+        unit = make_unit(entries, tiled=list(tiled))
         with torch.no_grad():
             for view, (i, n, spec) in zip(unit.views(), entries):
                 view.copy_(spec.take(params[n].detach()))
         for n in names:
             _pop_param(inner, n)
+        for n, mod in tiled.items():
+            mod.zero3_tiles = TileGather(unit, unit.names.index(n),
+                                         mod.in_splits * mod.out_splits)
         units.append(unit)
         return GatheredModule(inner, unit)
 

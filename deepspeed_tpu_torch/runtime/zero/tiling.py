@@ -12,8 +12,14 @@ output splits are concatenated and the bias is added once, all in the
 compute dtype, as the TPU layer's scan does; so it equals a Linear with
 the assembled weight up to the order of the input-split sums.
 
-Under ZeRO stage 3 the port's gather unit gathers the ``kernel`` leaf
-whole; gathering it a tile at a time is not done yet (ROADMAP).
+Under ZeRO stage 3 the kernel is gathered a tile at a time, as the TPU
+layer's scan materialises one tile's gathered copy at a time:
+``zero/stage3.partition_module`` leaves the leaf in its unit (the same flat
+slices) but sets ``zero3_tiles`` (a ``stage3.TileGather``), and the forward
+then gathers tile ``t``, applies it and lets it go before tile ``t + 1``;
+the backward gathers each tile again and reduce-scatters its gradient.
+``gather_tiles = False`` on a layer gathers its kernel whole with the rest
+of its unit instead.
 """
 
 from __future__ import annotations
@@ -24,10 +30,15 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .stage3 import tile_matmul
+
 
 class TiledLinear(nn.Module):
     """y = x @ W + b with W stored as [in_splits * out_splits, in/p,
     out/q] tiles, applied one at a time."""
+
+    gather_tiles = True           # ZeRO-3: gather the kernel tile by tile
+    zero3_tiles = None            # set by stage 3's partition_module
 
     def __init__(self, in_features: int, out_features: int,
                  in_splits: int = 1, out_splits: int = 1, bias: bool = True,
@@ -74,10 +85,14 @@ class TiledLinear(nn.Module):
         dtype = self.dtype or x.dtype
         ti, to = self.in_features // p, self.out_features // q
         xs = x.to(dtype).reshape(x.shape[:-1] + (p, ti))
+        tiles = self.zero3_tiles
         outs = [None] * q
         for t in range(p * q):
             i, j = divmod(t, q)
-            part = xs[..., i, :] @ self.kernel[t].to(dtype)
+            if tiles is not None:
+                part = tile_matmul(xs[..., i, :], tiles, t, dtype)
+            else:
+                part = xs[..., i, :] @ self.kernel[t].to(dtype)
             outs[j] = part if outs[j] is None else outs[j] + part
         y = torch.cat(outs, dim=-1)
         if self.bias is not None:

@@ -18,8 +18,9 @@ process, against the JAX package's.
     another order); ``eval_batch``; a checkpoint loaded by a fresh engine
     whose next steps equal the continued ones;
   * ``GPipeSpmdEngine`` at pp 1 against JAX's;
-  * the refusals: ZeRO-3, stochastic rounding, LAMB, clipping, pp x tp /
-    pp x sp, ``mpu``, and the dense engine's two pipeline refusals.
+  * the refusals: ZeRO-3, stochastic rounding, LAMB, clipping, pp x tp x
+    sp / pp x tp x ep / pp x sp x ep, ``mpu``, and the dense engine's two
+    pipeline refusals.
 
 The multi-rank cases are in ``tests/test_torch_pipe_ranks.py``.
 """
@@ -347,9 +348,11 @@ def test_refusals():
              ValueError, "Adam, AdamW or SGD")
     _refused(dict(CONFIG, gradient_clipping=1.0), ValueError,
              "does not clip")
-    for axis in ("tp", "sp"):
-        _refused(dict(CONFIG, mesh={axis: 2}), NotImplementedError,
-                 f"pp x {axis}.*ROADMAP A9")
+    # tp and sp inside a stage are ported; two model-parallel axes at once
+    # are not (the dense model refuses tp x sp, MoE at tp and MoE with sp)
+    for a, b in (("tp", "sp"), ("tp", "ep"), ("sp", "ep")):
+        _refused(dict(CONFIG, mesh={a: 2, b: 2}), NotImplementedError,
+                 f"pp x {a} x {b}.*ROADMAP A9")
     _refused(dict(CONFIG, mesh={"pp": 3}), ValueError, "mesh pp=3")
     pm = ppipe.gpt_pipe_module(_port_cfg(), 2, partition_method="uniform")
     with pytest.raises(ValueError, match="stores it and never reads it"):

@@ -22,7 +22,15 @@ case (``tests/torch_pipe_helpers.py``):
     the dense loss, the eval loss, ``params_tree`` close to JAX's,
     global-norm clipping on, and a checkpoint resumed equal to the
     continuation;
-  * pp x tp and pp x sp meshes raise naming ROADMAP A9.
+  * 3D parallelism against the JAX engine at the same mesh
+    (``tests/test_pipe_engine.py:452-508``; f32, losses within rtol 2e-4,
+    whole masters within 3e-4): pp 2 x tp 2 (each stage's qkv, MLP and
+    vocab leaves held as tp shards), pp 1 x tp 2 (every stage in each of
+    two processes over one tp group), pp 2 x sp 2 with Ulysses and with the
+    ring; a pp 2 x tp 2 checkpoint resumed by fresh engines equal to the
+    continuation, and loaded whole by a pp 1 engine at tp 1;
+  * what stays refused: an MoE model at tp, a model without
+    ``sequence_parallel`` at sp, a block-sparse layout under Ulysses.
 """
 
 import jax
@@ -43,11 +51,15 @@ from torch_test_threads import one_torch_thread  # noqa: F401
 from deepspeed_tpu_torch.convert import (jax_params_to_state_dict,
                                          pipe_params_to_state_dict)
 from deepspeed_tpu_torch.models import gpt as pgpt
+from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
 
 TINY = dict(vocab_size=64, max_seq_len=16, num_layers=2, num_heads=2,
             d_model=32, d_ff=64)
 MOE = dict(TINY, moe=True, num_experts=4, moe_top_k=1,
            moe_capacity_factor=2.0)
+# the JAX package's pp x tp and pp x sp tests' GPTs
+TP = dict(TINY, num_heads=4, attention_impl="xla")
+SP = dict(TINY, attention_impl="xla", sequence_parallel=True)
 GPIPE = dict(num_layers=4, num_heads=2, d_model=32, d_ff=64,
              vocab_size=128, max_seq_len=16)
 CONFIG = {"train_micro_batch_size_per_gpu": 4,
@@ -71,15 +83,19 @@ def _batches(micros):
     return iter([(m, m) for m in micros])
 
 
-def _jax_pipe(cfg_kw, config, steps, micros):
-    """The JAX 1F1B engine at pp 2 (shared mode): its converted initial
-    state, its losses, its final masters and skipped steps."""
+def _jax_pipe(cfg_kw, config, steps, micros, mesh=None):
+    """The JAX 1F1B engine at pp 2 (shared mode, or ``mesh``'s stage
+    sub-meshes): its converted initial state, its losses, its final masters
+    and skipped steps."""
+    if mesh is not None:
+        from deepspeed_tpu.parallel import mesh as jmesh
+        jmesh.reset_global_mesh()
     jcfg = jgpt.GPTConfig(**cfg_kw, dtype=jnp.float32,
                           param_dtype=jnp.float32, scan_layers=False,
                           remat=False)
     je, *_ = ds.initialize(
         model=jpipe.gpt_pipe_module(jcfg, 2, partition_method="uniform"),
-        config=dict(config, mesh={"dp": 1}))
+        config=dict(config, mesh=mesh or {"dp": 1}))
     je.eval_batch(_batches(micros[:1]))
     pm = pipe_module(cfg_kw, 2)
 
@@ -131,6 +147,14 @@ def refs():
         "gpipe": _jax_gpipe(1, 0.0, gp, STEPS),
         "gpipe_clip": _jax_gpipe(1, 0.05, gp, STEPS),
         "gpipe_dp2": _jax_gpipe(2, 0.0, gp, STEPS),
+        # the JAX package's own 3D meshes (dp 2: micro 2 a dp rank)
+        "tp": _jax_pipe(TP, dict(CONFIG, train_micro_batch_size_per_gpu=2),
+                        STEPS, micros, mesh={"dp": 2, "pp": 2, "tp": 2}),
+        **{f"sp_{impl}": _jax_pipe(
+            dict(SP, cp_impl=impl),
+            dict(CONFIG, train_micro_batch_size_per_gpu=2), STEPS, micros,
+            mesh={"dp": 2, "pp": 2, "sp": 2})
+           for impl in ("ulysses", "ring")},
     }
 
 
@@ -158,9 +182,25 @@ def two(refs, tmp_path_factory):
                      steps=5),
         "fp16": _pipe(dict(FP16, mesh={"pp": 2}), m, refs["fp16"]["init"],
                       steps=6),
+        "tp_pp1": _pipe(dict(CONFIG, mesh={"pp": 1, "tp": 2}), m,
+                        refs["tp"]["init"], cfg_kw=TP),
+        # the same models at tp 1 / sp 1, for the global grad norms
+        "tp_1": _pipe(pp2, m, refs["tp"]["init"], cfg_kw=TP),
+        **{f"sp_{impl}_1": _pipe(pp2, m, refs[f"sp_{impl}"]["init"],
+                                 cfg_kw=dict(SP, cp_impl=impl))
+           for impl in ("ulysses", "ring")},
         "refusals": ("pipe_refusals", dict(
+            cfg_kw=MOE, num_stages=2, config=CONFIG,
+            meshes={"moe_tp": {"pp": 1, "tp": 2}})),
+        "refusals_sp": ("pipe_refusals", dict(
             cfg_kw=TINY, num_stages=2, config=CONFIG,
-            meshes={"tp": {"pp": 1, "tp": 2}, "sp": {"pp": 1, "sp": 2}})),
+            meshes={"sp": {"pp": 1, "sp": 2}})),
+        "refusals_sparse": ("pipe_refusals", dict(
+            cfg_kw=dict(SP, attention_impl="sparse",
+                        sparse_attention=BigBirdSparsityConfig(
+                            num_heads=2, block=8)),
+            num_stages=2, config=CONFIG, meshes={"sparse": {"pp": 1,
+                                                            "sp": 2}})),
         "gpipe": _gpipe(refs["gpipe"], gp, 1, remat=True,
                         save_dir=str(d / "g"), resume_steps=2),
         "gpipe_clip": _gpipe(refs["gpipe_clip"], gp, 1, clip=0.05),
@@ -170,7 +210,12 @@ def two(refs, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def four(refs):
+def tp_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("tp")
+
+
+@pytest.fixture(scope="module")
+def four(refs, tp_dir):
     m, gp = refs["micros"], refs["gpipe_micros"]
     calls = {f"zero{z}": _pipe(dict(CONFIG, train_micro_batch_size_per_gpu=2,
                                     zero_optimization={"stage": z},
@@ -184,6 +229,14 @@ def four(refs):
                                   mesh={"pp": 1, "dp": 2, "ep": 2}), m,
                              refs["moe"]["init"], cfg_kw=MOE)
     calls["gpipe_dp2"] = _gpipe(refs["gpipe_dp2"], gp, 2)
+    calls["tp"] = _pipe(dict(CONFIG, mesh={"pp": 2, "tp": 2}), m,
+                        refs["tp"]["init"], cfg_kw=TP,
+                        save_dir=str(tp_dir),
+                        resume_steps=2)
+    for impl in ("ulysses", "ring"):
+        calls[f"sp_{impl}"] = _pipe(dict(CONFIG, mesh={"pp": 2, "sp": 2}), m,
+                                    refs[f"sp_{impl}"]["init"],
+                                    cfg_kw=dict(SP, cp_impl=impl))
     return helpers.run_ranks("torch_pipe_helpers:cases", 4, timeout=300.0,
                              calls=calls)
 
@@ -193,7 +246,7 @@ def _masters_close(ranks, want, name, atol=3e-4):
     for r in ranks:
         got.update(r[name]["master"])
     assert set(got) == set(want)
-    d = TINY["d_model"]
+    d = TINY["d_model"]      # the d_model of every config here
     for k, v in want.items():
         g, w = got[k].copy(), v.copy()
         if k.endswith("attn.qkv.bias"):
@@ -243,10 +296,95 @@ def test_pp2_checkpoint_resume(two):
 
 
 def test_pp_tp_and_pp_sp_refused(two):
-    for axis in ("tp", "sp"):
-        got = two[0]["refusals"][axis]
-        assert got.startswith("NotImplementedError") and \
-            f"pp x {axis}" in got and "ROADMAP A9" in got, got
+    """tp and sp inside a stage are ported; what the dense model refuses
+    stays refused: an MoE model at tp, and at sp a model without
+    ``sequence_parallel`` or with a block-sparse layout under Ulysses."""
+    got = two[0]["refusals"]["moe_tp"]
+    assert got.startswith("NotImplementedError") and \
+        "MoE model at tp" in got and "ROADMAP A9" in got, got
+    got = two[0]["refusals_sp"]["sp"]
+    assert got.startswith("ValueError") and "sequence_parallel=True" in got
+    got = two[0]["refusals_sparse"]["sparse"]
+    assert got.startswith("NotImplementedError") and \
+        "block-sparse attention over an sp group" in got and \
+        "ROADMAP A9" in got, got
+
+
+@pytest.mark.parametrize("case,world", [("tp", 4), ("tp_pp1", 2),
+                                        ("sp_ulysses", 4), ("sp_ring", 4)])
+def test_3d_matches_jax(refs, two, four, case, world):
+    """pp 2 x tp 2, pp 1 x tp 2 and pp 2 x sp 2 (both cp_impls) against
+    the JAX engine at its 3D mesh: losses equal on every rank and within
+    rtol 2e-4, whole masters within 3e-4, every rank at its degrees; the
+    global grad norms (each tp shard and each replicated leaf once) within
+    rtol 2e-4 of the same model's at pp 2 alone."""
+    ranks = four if world == 4 else two
+    ref = refs[case.replace("_pp1", "")]
+    axis = case[:2]
+    assert [r[case][axis] for r in ranks] == [2] * world
+    if case == "tp_pp1":
+        assert [r[case]["local"] for r in ranks] == [[0, 1]] * 2
+    else:
+        assert [r[case]["stage"] for r in ranks] == [0, 0, 1, 1]
+    losses = _same_on_every_rank(ranks, case)
+    np.testing.assert_allclose(losses, ref["losses"], rtol=2e-4)
+    _masters_close(ranks, ref["final"], case)
+    assert losses[-1] < losses[0]
+    alone = case.replace("_pp1", "") + "_1"
+    np.testing.assert_allclose(_same_on_every_rank(ranks, case, "norms"),
+                               _same_on_every_rank(two, alone, "norms"),
+                               rtol=2e-4)
+
+
+def test_pp2_tp2_holds_tp_shards(refs, four):
+    """Each rank holds its tp shard of every block's qkv (a third of each
+    of q, k and v: 3 x d/2 rows), MLP (up by rows, down by columns) and of
+    the tied table (vocab rows); LayerNorms and row biases stay whole; the
+    gathered masters are whole. Uniform parts: [embed, 2 blocks] and
+    [final norm, head]."""
+    d, ff, v = TP["d_model"], TP["d_ff"], TP["vocab_size"]
+    assert [r["tp"]["stage"] for r in four] == [0, 0, 1, 1]
+    for r in four:
+        shapes = r["tp"]["shapes"]
+        tied = "0" if r["tp"]["stage"] == 0 else "4"
+        assert shapes[f"{tied}.wte.weight"] == (v // 2, d)
+        assert r["tp"]["master"][f"{tied}.wte.weight"].shape == (v, d)
+        blocks = sorted({k.partition(".")[0] for k in shapes
+                         if ".attn." in k})
+        assert blocks == (["1", "2"] if tied == "0" else [])
+        for blk in blocks:
+            assert shapes[f"{blk}.attn.qkv.weight"] == (3 * d // 2, d)
+            assert shapes[f"{blk}.attn.qkv.bias"] == (3 * d // 2,)
+            assert shapes[f"{blk}.attn.out_proj.weight"] == (d, d // 2)
+            assert shapes[f"{blk}.attn.out_proj.bias"] == (d,)
+            assert shapes[f"{blk}.mlp.up_proj.weight"] == (ff // 2, d)
+            assert shapes[f"{blk}.mlp.down_proj.weight"] == (d, ff // 2)
+            assert shapes[f"{blk}.ln_1.weight"] == (d,)
+            assert r["tp"]["master"][f"{blk}.attn.qkv.weight"].shape == \
+                (3 * d, d)
+
+
+def test_pp2_tp2_checkpoint_resume(four):
+    for r in four:
+        assert r["tp"]["resumed_tag"] == "t"
+        assert r["tp"]["resumed"] == r["tp"]["cont"]
+
+
+def test_pp2_tp2_checkpoint_loads_at_tp1(four, tp_dir):
+    """The pp 2 x tp 2 checkpoint holds whole leaves: an engine at pp 1 x
+    tp 1 in this process loads it and holds the saved masters."""
+    from torch_pipe_helpers import pipe_engine
+    engine = pipe_engine(TP, 2, dict(CONFIG, mesh={"pp": 1}))
+    assert engine.mp_world_size == 1
+    tag, _ = engine.load_checkpoint(str(tp_dir))
+    assert tag == "t"
+    want = {}
+    for r in four:
+        want.update(r["tp"]["master"])
+    got = {k: v.numpy() for k, v in engine.state_dict().items()}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("zero", [0, 1, 2])

@@ -567,6 +567,57 @@ def moe_two_ranks(rank, world, inference, refusals):
             "refusals": moe_refusals(rank, world, **refusals)}
 
 
+def tiled_zero3(rank, world, state, x, w, splits, lr, gather_tiles):
+    """One SGD step of ZeRO-3 over a one-layer ``TiledLinear`` model (the
+    loss: the sum of its output weighted by ``w``), the rank's rows of the
+    global batch ``x``. Returns the loss, the whole fp32 weights after the
+    step, and the kernel's tile gathers (count, bytes, most alive at once,
+    in the forward and over the step)."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledLinear
+    from torch import nn
+    d_in, d_out = state["layer.kernel"].shape[1] * splits[0], \
+        state["layer.bias"].shape[0]
+
+    class Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layer = TiledLinear(d_in, d_out, *splits)
+            self.layer.gather_tiles = gather_tiles
+
+        def forward(self, inputs):
+            return self.layer(inputs)
+
+    model = Model()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    wt = torch.from_numpy(w)
+    n = x.shape[0] // world
+
+    def loss_fn(out, batch):
+        return (out * wt[rank * n:(rank + 1) * n]).sum()
+    engine, *_ = dst.initialize(
+        model=model, loss_fn=loss_fn, device="cpu", config={
+            "train_micro_batch_size_per_gpu": n,
+            "gradient_accumulation_steps": 1,
+            "zero_optimization": {"stage": 3,
+                                  "stage3_param_persistence_threshold": 0},
+            "optimizer": {"type": "SGD", "params": {"lr": lr}}})
+    tiles = engine.compute_module.inner.layer.zero3_tiles
+    out = {"tiled": tiles is not None}
+    if tiles is not None:
+        engine.compute_module(torch.from_numpy(x[rank * n:(rank + 1) * n]))
+        out["forward"] = (tiles.gathers, tiles.gather_bytes, tiles.max_live)
+        tiles.gathers = tiles.gather_bytes = tiles.max_live = 0
+    loss = engine.train_batch(iter([{"input_ids": x}]))
+    if tiles is not None:
+        out["step"] = (tiles.gathers, tiles.gather_bytes, tiles.max_live)
+    out["loss"] = float(loss)
+    out["state"] = engine.consolidated_fp32_state_dict()
+    out["comm_bytes"] = dict(engine.comm_bytes)
+    return out
+
+
 if __name__ == "__main__":
     a = sys.argv[1:]
     _child(a[0], int(a[1]), int(a[2]), int(a[3]), a[4])

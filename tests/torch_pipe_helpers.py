@@ -45,7 +45,8 @@ def pipe_train(rank, world, cfg_kw, num_stages, config, micros, steps,
                state=None, save_dir=None, resume_steps=0):
     """The 1F1B engine trained ``steps`` steps on ``micros`` (every step
     the same M micro-batches). Returns the losses (every rank), the skipped
-    steps, the local stages' final masters and, with ``save_dir``, the
+    steps, the shapes this rank holds (tp shards), the local stages' final
+    masters (whole) and, with ``save_dir``, the
     losses of ``resume_steps`` more steps run on, and of a fresh engine
     that loaded the checkpoint saved after ``steps``."""
     engine = pipe_engine(cfg_kw, num_stages, config, state)
@@ -56,7 +57,11 @@ def pipe_train(rank, world, cfg_kw, num_stages, config, micros, steps,
     out = {"losses": losses, "norms": norms,
            "skipped": engine.skipped_steps,
            "stage": engine.stage_id, "local": engine.local_stages,
-           "dp": engine.dp_world_size, "ep": engine.ep_world_size}
+           "dp": engine.dp_world_size, "ep": engine.ep_world_size,
+           "tp": engine.mp_world_size, "sp": engine.sp_world_size,
+           "shapes": {n: tuple(p.shape) for s in engine.local_stages
+                      for n, p in zip(engine._names[s],
+                                      engine._master[s])}}
     if save_dir is not None:
         engine.save_checkpoint(save_dir, tag="t")
     out["master"] = _numpy(engine.state_dict())
